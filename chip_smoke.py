@@ -1,0 +1,468 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py [--seed 0] [--steps 8]
+
+1. builds every CUDA kernel of `src/repro_torch/kernels/csrc` with nvcc;
+2. holds each kernel against its plain PyTorch version on the card at
+   small shapes (a duplicate-heavy tie case for top-k included), and
+   requires two runs to give the same bits;
+3. drives the main path at the scale of SNAP soc-LiveJournal1 (an SBM
+   with n = 4,847,571 nodes, s = 68,993,773 edges, K = 16, 10% labeled):
+   `Embedder(backend="cuda").fit`, then two `EmbeddingShard`s
+   (`RowPartition(n, 2)`, backend "cuda") serving `--steps` steps of one
+   200-edge delta through `apply_delta` and one 64-node top-k read
+   (k = 10) through `topk_candidates` + `merge_topk`.  Kernel launch
+   counts are zeroed just before and read just after;
+4. holds each kernel against its plain version again at the main path's
+   shapes and times kernel, plain version and one PyTorch library call
+   with CUDA events;
+5. self-checks: the shards' Z equals a fresh fit on the updated graph,
+   and the fused answers equal the plain scan's on the same Zn.
+
+Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+and last ``{"ok": true, "device": {...}}``.  Any failed check raises and
+the script exits non-zero.  Without a card, or without the repository's
+`src/repro_torch` beside it, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
+FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: {msg}", file=sys.stderr)
+    sys.exit(2)
+
+
+def topk_equivalent(idx_a, val_a, idx_b, val_b, atol=1e-5):
+    """Tie-tolerant top-k agreement (the test suite's `topk_equivalent`):
+    scores match everywhere; ids match wherever the slot is separated
+    from both neighbours by more than atol."""
+    val_a, val_b = np.asarray(val_a), np.asarray(val_b)
+    idx_a, idx_b = np.asarray(idx_a), np.asarray(idx_b)
+    np.testing.assert_allclose(val_a, val_b, atol=atol)
+    with np.errstate(invalid="ignore"):
+        gap = (val_a[:, :-1] - val_a[:, 1:]) > atol
+    no_tie = np.ones(idx_a.shape, bool)
+    no_tie[:, 1:] &= gap
+    no_tie[:, :-1] &= gap
+    no_tie[:, -1] = False
+    np.testing.assert_array_equal(idx_a[no_tie], idx_b[no_tie])
+
+
+class Timer:
+    """Milliseconds per call from CUDA events over `reps` calls, after
+    `warm` calls that are not timed."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __call__(self, fn, reps: int, warm: int = 1) -> float:
+        torch = self.torch
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps
+
+
+def bound_ms(nbytes: float, flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def same(a, b) -> bool:
+    return bool((a == b).all().item()) and a.shape == b.shape
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--n", type=int, default=4_847_571)
+    ap.add_argument("--s", type=int, default=68_993_773)
+    args = ap.parse_args()
+
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail("src/repro_torch not found beside this script; run it from "
+             "the repository root")
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs a "
+             "CUDA card")
+    sys.path.insert(0, str(ROOT / "src"))
+    # plain versions that use matrix products stay in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.core.gee import edge_contributions
+    from repro_torch.core.ref_python import gee_numpy
+    from repro_torch.encoder import Embedder, EncoderConfig
+    from repro_torch.encoder.plan import owned_contributions
+    from repro_torch.graph import Graph, RowPartition, make_labels, sbm
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import gee_scatter as GS
+    from repro_torch.kernels import query_fused as QF
+    from repro_torch.kernels.ops import pack_edges
+    from repro_torch.serving import EmbeddingShard
+    from repro_torch.serving import queries as Q
+
+    dev = torch.device("cuda")
+    timer = Timer(torch)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+
+    # -- 1. build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    names = _build.build_all()
+    print(f"built {names} in {time.perf_counter() - t0:.1f} s")
+    for name, log in _build.ptxas_log.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas[{name}]: {line.strip()}")
+
+    # -- 2. small shapes: each kernel against its plain version -----------
+    rng = np.random.default_rng(args.seed)
+
+    def check_scatter(rows, cls, val, counts, T, tile_n, kdim, what):
+        Z1 = GS.gee_scatter(rows, cls, val, counts, num_tiles=T,
+                            tile_n=tile_n, kdim=kdim)
+        Z2 = GS.gee_scatter(rows, cls, val, counts, num_tiles=T,
+                            tile_n=tile_n, kdim=kdim)
+        Zp = GS.gee_scatter_plain(rows, cls, val, counts, num_tiles=T,
+                                  tile_n=tile_n, kdim=kdim)
+        torch.cuda.synchronize()
+        if not same(Z1, Z2):
+            raise AssertionError(f"gee_scatter {what}: runs differ")
+        err = (Z1 - Zp).abs().max().item() if Z1.numel() else 0.0
+        if not torch.allclose(Z1, Zp, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"gee_scatter {what}: max|err| {err}")
+        return err
+
+    def check_topk(Zr, q, qn, k, off, excl, norm, what):
+        kw = dict(k=k, row_offset=off, exclude_self=excl, normalize=norm)
+        a = QF.topk_fused(Zr, q, qn, **kw)
+        b = QF.topk_fused(Zr, q, qn, **kw)
+        p = QF.topk_fused_plain(Zr, q, qn, **kw)
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            if not same(x, y):
+                raise AssertionError(f"topk_fused {what}: runs differ")
+        for x, y in zip(a, p):          # exact: same arithmetic, same ties
+            if not same(x, y):
+                raise AssertionError(f"topk_fused {what}: differs from "
+                                     "its plain version")
+        fin = torch.isfinite(a[0])
+        return (a[0][fin] - p[0][fin]).abs().max().item() if fin.any() \
+            else 0.0
+
+    def check_delta(Z, rows, cls, val, what):
+        a = QF.gee_delta_renorm(Z, rows, cls, val)
+        b = QF.gee_delta_renorm(Z, rows, cls, val)
+        p = QF.gee_delta_renorm_plain(Z, rows, cls, val)
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            if not same(x, y):
+                raise AssertionError(f"gee_delta_renorm {what}: runs "
+                                     "differ")
+        if not torch.allclose(a[0], p[0], rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"gee_delta_renorm {what}: Z_new off")
+        if not torch.allclose(a[1], p[1], rtol=0, atol=1e-6):
+            raise AssertionError(f"gee_delta_renorm {what}: Zn off")
+        # the kernel's Zn is exactly normalize_rows of its own Z_new
+        if not same(a[1], QF.normalize_rows(a[0])):
+            raise AssertionError(f"gee_delta_renorm {what}: Zn is not "
+                                 "normalize_rows(Z_new) bit for bit")
+        return max((a[0] - p[0]).abs().max().item(),
+                   (a[1] - p[1]).abs().max().item()) if Z.numel() else 0.0
+
+    # scatter: random, one tile, skewed, tail tile
+    for n_s, s_s, K_s, tile_n, eb in ((300, 3000, 5, 64, 128),
+                                      (50, 900, 8, 64, 32),
+                                      (1000, 20000, 16, 256, 512)):
+        dst = torch.as_tensor((rng.zipf(1.5, 2 * s_s) % n_s).astype(
+            np.int64), device=dev)
+        cls = torch.as_tensor(rng.integers(0, K_s, 2 * s_s), device=dev)
+        val = torch.as_tensor(rng.random(2 * s_s, dtype=np.float32),
+                              device=dev)
+        rows, clsb, valb, T, counts = pack_edges(dst, cls, val, n_s,
+                                                 tile_n, eb)
+        check_scatter(rows, clsb, valb, counts, T, tile_n, K_s,
+                      f"small n={n_s}")
+    # an Embedder on the card against the host oracle
+    g_small, _ = sbm(2000, 6, 30000, seed=args.seed + 1)
+    Y_small = make_labels(2000, 6, 0.3, np.random.default_rng(args.seed))
+    Z_small = Embedder(EncoderConfig(K=6, tile_n=64, edge_block=128),
+                       backend="cuda").fit(g_small, Y_small).transform()
+    ref_small = gee_numpy(g_small.u, g_small.v, g_small.w, Y_small, 6, 2000)
+    if not np.allclose(Z_small, ref_small, atol=1e-5):
+        raise AssertionError("cuda Embedder off the numpy oracle")
+    # top-k: duplicate-heavy rows (ties everywhere), slices, k > m
+    base = rng.normal(size=(40, 6)).astype(np.float32)
+    Zd = torch.as_tensor(np.repeat(base, 4, axis=0), device=dev)
+    Znd = QF.normalize_rows(Zd)
+    qn = torch.as_tensor(rng.integers(0, 160, 12).astype(np.int32),
+                         device=dev)
+    qd = Znd[qn.long()].contiguous()
+    for p in (1, 2, 4):
+        bounds = np.linspace(0, 160, p + 1).astype(int)
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            for norm in (False, True):
+                src = (Zd if norm else Znd)[lo:hi].contiguous()
+                check_topk(src, qd, qn, 9, int(lo), True, norm,
+                           f"ties p={p} [{lo},{hi}) norm={norm}")
+    check_topk(Znd, qd, qn, 9, 0, False, False, "exclude_self off")
+    check_topk(Znd[:3].contiguous(), qd, qn, 8, 0, True, False, "k > m")
+    # delta: insert and delete
+    Zs = torch.as_tensor(rng.random((300, 7), dtype=np.float32), device=dev)
+    r = np.sort(rng.integers(0, 300, 500)).astype(np.int32)
+    c = rng.integers(0, 7, 500).astype(np.int32)
+    v = rng.random(500, dtype=np.float32)
+    for sign in (1.0, -1.0):
+        check_delta(Zs, torch.as_tensor(r, device=dev),
+                    torch.as_tensor(c, device=dev),
+                    torch.as_tensor(sign * v, device=dev),
+                    f"small sign={sign}")
+    print("small-shape kernel checks: ok")
+
+    # -- 3. main path at LiveJournal scale ---------------------------------
+    n, s, K, k, nq = args.n, args.s, 16, 10, 64
+    t0 = time.perf_counter()
+    g, truth = sbm(n, K, s, seed=args.seed)
+    Y = make_labels(n, K, 0.10, np.random.default_rng(args.seed + 1),
+                    true_labels=truth)
+    t_data = time.perf_counter() - t0
+    part = RowPartition(n, 2)
+    step_rng = np.random.default_rng(args.seed + 2)
+    deltas = [Graph(step_rng.integers(0, n, 200).astype(np.int32),
+                    step_rng.integers(0, n, 200).astype(np.int32),
+                    np.ones(200, np.float32), n) for _ in range(args.steps)]
+    queries = [step_rng.integers(0, n, nq).astype(np.int32)
+               for _ in range(args.steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    emb = Embedder(EncoderConfig(K=K), backend="cuda").fit(g, Y)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shards = [EmbeddingShard(i, lo, hi, K=K, n=n, backend="cuda")
+              for i, (lo, hi) in enumerate(part.slices())]
+    for sh in shards:
+        sh.build(g, Y)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    answers, step_ms = [], []
+    for d, nodes in zip(deltas, queries):
+        t0 = time.perf_counter()
+        for i, sub in part.route_graph(d):
+            shards[i].apply_delta(sub)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rows = torch.empty((nq, K), dtype=torch.float32, device=dev)
+        for i, idx in part.route_nodes(nodes):
+            rows[torch.as_tensor(idx, device=dev)] = shards[i].rows(
+                nodes[idx])
+        q = Q.normalize_rows(rows)
+        parts = [sh.topk_candidates(q, nodes, k=k) for sh in shards]
+        merged = Q.merge_topk([p_[0] for p_ in parts],
+                              [p_[1] for p_ in parts], k=k)
+        t2 = time.perf_counter()
+        answers.append((q, nodes, merged))
+        step_ms.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3))
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"main path: data {t_data:.1f} s, fit {t_fit:.2f} s, shard "
+          f"builds {t_build:.2f} s, peak device memory {peak_gib:.2f} GiB")
+    print("steps (delta ms, top-k ms): "
+          + ", ".join(f"({a:.2f}, {b:.2f})" for a, b in step_ms))
+    print(f"launches on the main path: {launches}")
+    for name, cnt in launches.items():
+        if cnt == 0:
+            raise AssertionError(f"kernel {name} was never launched on "
+                                 "the main path")
+    Z_fit = emb.Z_
+    if tuple(Z_fit.shape) != (n, K) or not bool(torch.isfinite(Z_fit).all()):
+        raise AssertionError("fitted Z has the wrong shape or non-finite "
+                             "values")
+
+    # -- 5. self-checks ----------------------------------------------------
+    # (1) the shards' Z equals a fresh fit on the updated graph
+    upd = Graph(np.concatenate([g.u] + [d.u for d in deltas]),
+                np.concatenate([g.v] + [d.v for d in deltas]),
+                np.concatenate([g.w] + [d.w for d in deltas]), n)
+    rebuild = Embedder(EncoderConfig(K=K), backend="torch").fit(upd, Y).Z_
+    z_err = 0.0
+    for sh in shards:
+        ref = rebuild[sh.lo:sh.hi]
+        z_err = max(z_err, (sh.Z_owned - ref).abs().max().item())
+        if not torch.allclose(sh.Z_owned, ref, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"shard {sh.shard_id}: max|Z_delta - "
+                                 f"Z_rebuild| = {z_err}")
+    del rebuild
+    print(f"self-check 1: max|Z_delta - Z_rebuild| = {z_err:.3e} "
+          "(rtol 1e-5, atol 1e-6)")
+    # (2) fused answers equal the plain scan's on the same Zn (the last
+    # step's Zn: earlier steps' Zn were replaced by later deltas)
+    q, nodes, merged = answers[-1]
+    plain = [Q.topk_cosine_q(sh._Zn, q, nodes, k=k, row_offset=sh.lo)
+             for sh in shards]
+    pm = Q.merge_topk([p_[0] for p_ in plain], [p_[1] for p_ in plain],
+                      k=k)
+    topk_equivalent(merged[0], merged[1], pm[0], pm[1])
+    bit_equal = bool(np.array_equal(merged[0], pm[0])
+                     and np.array_equal(merged[1], pm[1]))
+    if not bit_equal:
+        raise AssertionError("fused and plain top-k differ in bits")
+    if not np.isfinite(merged[1]).all() or merged[0].min() < 0:
+        raise AssertionError("top-k answer holds unfilled slots")
+    print(f"self-check 2: fused top-k == plain scan on the same Zn "
+          f"(topk_equivalent, bit-equal={bit_equal})")
+
+    # -- 4. kernels at the main path's shapes ------------------------------
+    results = []
+    # gee_scatter: the full fit's packed buffers
+    d_ = emb._plan.data
+    srcf = d_["src"].reshape(-1)
+    Ys = emb._Yj.index_select(0, srcf)
+    cls = torch.clamp_min(Ys, 0).to(torch.int32).reshape(d_["rows"].shape)
+    val = torch.where(Ys >= 0, emb.Wv_.index_select(0, srcf)
+                      * d_["w"].reshape(-1),
+                      torch.zeros((), device=dev)).reshape(d_["rows"].shape)
+    del Ys, srcf
+    T, cfg = d_["T"], emb.config
+    err = check_scatter(d_["rows"], cls, val, d_["counts"], T, cfg.tile_n,
+                        K, "real")
+
+    def run_scatter():
+        GS.gee_scatter(d_["rows"], cls, val, d_["counts"], num_tiles=T,
+                       tile_n=cfg.tile_n, kdim=K)
+
+    def run_scatter_plain():
+        GS.gee_scatter_plain(d_["rows"], cls, val, d_["counts"],
+                             num_tiles=T, tile_n=cfg.tile_n, kdim=K)
+
+    u_t = torch.as_tensor(g.u, device=dev)
+    v_t = torch.as_tensor(g.v, device=dev)
+    w_t = torch.as_tensor(g.w, device=dev)
+    dst_l, cls_l, val_l = edge_contributions(u_t, v_t, w_t, emb._Yj,
+                                             emb.Wv_)
+    del u_t, v_t, w_t
+
+    def run_scatter_lib():
+        torch.zeros((n, K), device=dev).index_put_((dst_l, cls_l), val_l,
+                                                   accumulate=True)
+
+    real = int(d_["counts"].sum().item())
+    nbytes = real * 12 + T * 4 + T * cfg.tile_n * K * 4
+    b, by = bound_ms(nbytes, real)
+    results.append(dict(
+        name="gee_scatter", route="cuda",
+        source="src/repro_torch/kernels/csrc/gee_scatter.cu",
+        replaces="src/repro/kernels/gee_scatter.py:84",
+        launches=launches["gee_scatter"], max_abs_err=err,
+        ms=timer(run_scatter, 10), plain_ms=timer(run_scatter_plain, 3),
+        bound_ms=b, bound_by=by, library_ms=timer(run_scatter_lib, 3),
+        shape=f"T={T} BPT={d_['rows'].shape[1]} EB={d_['rows'].shape[2]} "
+              f"real={real} K={K}"))
+    del cls, val, dst_l, cls_l, val_l
+
+    # topk_fused: shard 0's cached Zn, the last step's queries
+    sh = shards[0]
+    Zn0 = sh._Zn
+    qn = torch.as_tensor(nodes, device=dev)
+    qc = q.contiguous()
+    err = check_topk(Zn0, qc, qn, k, sh.lo, True, False, "real")
+    check_topk(sh.Z_owned, qc, qn, k, sh.lo, True, True, "real normalize")
+    m = Zn0.shape[0]
+    b, by = bound_ms(m * K * 4 + nq * K * 4 + nq * 4 + nq * k * 8,
+                     2.0 * nq * m * K)
+    results.append(dict(
+        name="topk_fused", route="cuda",
+        source="src/repro_torch/kernels/csrc/query_fused.cu",
+        replaces="src/repro/kernels/query_fused.py:88",
+        launches=launches["topk_fused"], max_abs_err=err,
+        ms=timer(lambda: QF.topk_fused(Zn0, qc, qn, k=k, row_offset=sh.lo),
+                 10),
+        plain_ms=timer(lambda: QF.topk_fused_plain(Zn0, qc, qn, k=k,
+                                                   row_offset=sh.lo), 2),
+        bound_ms=b, bound_by=by,
+        library_ms=timer(lambda: torch.topk(qc @ Zn0.T, k, dim=1), 3),
+        shape=f"m={m} nq={nq} k={k} K={K}"))
+
+    # gee_delta_renorm: shard 0's Z and a fresh 200-edge delta
+    d = Graph(step_rng.integers(0, n, 200).astype(np.int32),
+              step_rng.integers(0, n, 200).astype(np.int32),
+              np.ones(200, np.float32), n)
+    rows, src, w = owned_contributions(d, d.w, sh.lo, sh.hi)
+    Ysrc = sh.embedder.labels_[src]
+    clsv = np.maximum(Ysrc, 0).astype(np.int32)
+    valv = np.where(Ysrc >= 0, sh.embedder._Wv_host[src] * w,
+                    np.float32(0)).astype(np.float32)
+    order = np.argsort(rows, kind="stable")
+    r_t = torch.as_tensor(rows[order], device=dev)
+    c_t = torch.as_tensor(clsv[order], device=dev)
+    v_t = torch.as_tensor(valv[order], device=dev)
+    Z0 = sh.Z_owned
+    err = check_delta(Z0, r_t, c_t, v_t, "real")
+
+    def run_delta_lib():
+        Zx = Z0.clone().index_put_((r_t.long(), c_t.long()), v_t,
+                                   accumulate=True)
+        torch.nn.functional.normalize(Zx, dim=1, eps=1e-9)
+
+    nl = Z0.shape[0]
+    b, by = bound_ms(3 * nl * K * 4 + r_t.shape[0] * 12, r_t.shape[0])
+    results.append(dict(
+        name="gee_delta_renorm", route="cuda",
+        source="src/repro_torch/kernels/csrc/query_fused.cu",
+        replaces="src/repro/kernels/query_fused.py:166",
+        launches=launches["gee_delta_renorm"], max_abs_err=err,
+        ms=timer(lambda: QF.gee_delta_renorm(Z0, r_t, c_t, v_t), 10),
+        plain_ms=timer(lambda: QF.gee_delta_renorm_plain(Z0, r_t, c_t,
+                                                         v_t), 3),
+        bound_ms=b, bound_by=by, library_ms=timer(run_delta_lib, 3),
+        shape=f"n_local={nl} m={r_t.shape[0]} K={K}"))
+
+    for r_ in results:
+        print(f"{r_['name']}: {r_['shape']}: kernel {r_['ms']:.4f} ms, "
+              f"bound {r_['bound_ms']:.4f} ms ({r_['bound_by']}), plain "
+              f"{r_['plain_ms']:.4f} ms, library {r_['library_ms']:.4f} ms, "
+              f"launches {r_['launches']}, max|err| {r_['max_abs_err']:.3e}")
+    print(json.dumps({"kernels": [{k_: v_ for k_, v_ in r_.items()
+                                   if k_ != "shape"} for r_ in results]}))
+    print(f"card: {smi}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,16 @@
+"""repro_torch — the GEE embed -> delta -> top-k path in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A port of the JAX package `repro`, module for module and name for name
+(`repro_torch.encoder.Embedder` is `repro.encoder.Embedder`'s
+counterpart).  It imports torch and numpy only, never jax and nothing
+of `repro`: what it needs from there it keeps as its own copy.
+
+Entry points take an explicit `device` and default to "cuda"; asking
+for the default without a card raises instead of quietly running on
+the CPU.  On CPU tensors every kernel wrapper runs its plain PyTorch
+version; on CUDA tensors it launches its kernel or raises.
+
+    from repro_torch.encoder import Embedder, EncoderConfig
+    emb = Embedder(EncoderConfig(K=16), backend="cuda").fit(graph, Y)
+"""

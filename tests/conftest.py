@@ -13,6 +13,9 @@ def pytest_configure(config):
         "markers", "slow: long-running (subprocess compile / "
         "crash-recovery / fuzz) tests — excluded from the CI fast "
         "lane (`make test-fast`), run by the slow lane")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (repro_torch kernels); "
+        "skips without one")
     # Hermetic tests: the encoder's PERSISTENT plan-cache tier would
     # otherwise write to the user's real cache dir and make identity-
     # tier counter assertions order-dependent.  Tests that exercise the

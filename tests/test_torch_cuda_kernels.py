@@ -1,0 +1,99 @@
+"""The CUDA kernels on the card: each against its plain version, and
+bit-equal from run to run.
+
+Run on a machine with a card:
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_kernels.py
+Without one every test here skips (the check runs inside the fixture, so
+every pytest worker collects the same tests)."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import gee_scatter as GS
+from repro_torch.kernels import query_fused as QF
+from repro_torch.kernels.ops import pack_edges
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    # plain versions with matrix products stay in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _same(a, b):
+    return a.shape == b.shape and bool((a == b).all())
+
+
+@pytest.mark.parametrize("n,m,K,tile_n,eb", [(300, 6000, 5, 64, 128),
+                                             (50, 900, 8, 64, 32),
+                                             (5000, 100000, 16, 256, 512)])
+def test_gee_scatter(dev, rng, n, m, K, tile_n, eb):
+    dst = torch.as_tensor((rng.zipf(1.5, m) % n).astype(np.int64), device=dev)
+    cls = torch.as_tensor(rng.integers(0, K, m), device=dev)
+    val = torch.as_tensor(rng.random(m, dtype=np.float32) / 64, device=dev)
+    rows, clsb, valb, T, counts = pack_edges(dst, cls, val, n, tile_n, eb)
+    before = _build.launches["gee_scatter"]
+    a = GS.gee_scatter(rows, clsb, valb, counts, num_tiles=T, tile_n=tile_n,
+                       kdim=K)
+    b = GS.gee_scatter(rows, clsb, valb, counts, num_tiles=T, tile_n=tile_n,
+                       kdim=K)
+    p = GS.gee_scatter_plain(rows, clsb, valb, num_tiles=T, tile_n=tile_n,
+                             kdim=K)
+    assert _build.launches["gee_scatter"] == before + 2
+    assert _same(a, b)
+    torch.testing.assert_close(a, p, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("exclude_self", [True, False])
+@pytest.mark.parametrize("m,k", [(160, 9), (3, 8), (70000, 10)])
+def test_topk_fused(dev, rng, normalize, exclude_self, m, k):
+    K = 6
+    base = rng.normal(size=(max(m // 4, 1), K)).astype(np.float32)
+    Z = torch.as_tensor(np.repeat(base, 4, axis=0)[:m], device=dev)
+    Zn = QF.normalize_rows(Z)
+    qn = torch.as_tensor(rng.integers(0, m, 12).astype(np.int32), device=dev)
+    q = Zn[qn.long()].contiguous()
+    rows = Z if normalize else Zn
+    kw = dict(k=k, row_offset=1000, exclude_self=exclude_self,
+              normalize=normalize)
+    a = QF.topk_fused(rows, q, qn + 1000, **kw)
+    b = QF.topk_fused(rows, q, qn + 1000, **kw)
+    p = QF.topk_fused_plain(rows, q, qn + 1000, **kw)
+    for x, y, z in zip(a, b, p):
+        assert _same(x, y)              # run to run
+        assert _same(x, z)              # same arithmetic, same tie order
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_gee_delta_renorm(dev, rng, sign):
+    n, K, m = 3000, 16, 400
+    Z = torch.as_tensor(rng.random((n, K), dtype=np.float32), device=dev)
+    r = torch.as_tensor(np.sort(rng.integers(0, n, m)).astype(np.int32),
+                        device=dev)
+    c = torch.as_tensor(rng.integers(0, K, m).astype(np.int32), device=dev)
+    v = torch.as_tensor(sign * rng.random(m, dtype=np.float32), device=dev)
+    a = QF.gee_delta_renorm(Z, r, c, v)
+    b = QF.gee_delta_renorm(Z, r, c, v)
+    p = QF.gee_delta_renorm_plain(Z, r, c, v)
+    assert _same(a[0], b[0]) and _same(a[1], b[1])
+    torch.testing.assert_close(a[0], p[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(a[1], p[1], rtol=0, atol=1e-6)
+    assert _same(a[1], QF.normalize_rows(a[0]))
+
+
+def test_wrappers_refuse_bad_inputs(dev):
+    z = torch.zeros((8, 4), device=dev)
+    qn = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        QF.topk_fused(z.double(), z[:2].double(), qn, k=2)
+    with pytest.raises(ValueError, match="k <="):
+        QF.topk_fused(z, z[:2].contiguous(), qn, k=QF.KMAX + 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        QF.gee_delta_renorm(z.t(), qn, qn, qn.float())
