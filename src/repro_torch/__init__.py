@@ -1,4 +1,5 @@
-"""repro_torch — the GEE embed -> delta -> top-k path in PyTorch, with
+"""repro_torch — the GEE embed -> delta -> top-k path and the LM serve
+path (prefill + greedy decode, dense decoder) in PyTorch, with
 hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of the JAX package `repro`, module for module and name for name
@@ -13,4 +14,10 @@ version; on CUDA tensors it launches its kernel or raises.
 
     from repro_torch.encoder import Embedder, EncoderConfig
     emb = Embedder(EncoderConfig(K=16), backend="cuda").fit(graph, Y)
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+    cfg = get_config("yi-6b")
+    tokens = generate(cfg, M.init_params(cfg, 0), prompts, 16)
 """

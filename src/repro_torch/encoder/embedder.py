@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core.gee import (gee_apply_delta, gee_apply_delta_owned,
                                   kmeans_refine_round, make_w)
+from repro_torch.device import resolve_device
 from repro_torch.encoder.backends import Backend, get_backend, resolve_auto
 from repro_torch.encoder.config import EncoderConfig
 from repro_torch.encoder.plan import Plan, owned_contributions
@@ -29,18 +30,6 @@ from repro_torch.graph.edges import Graph
 
 class NotFittedError(RuntimeError):
     pass
-
-
-def resolve_device(device: Union[str, torch.device]) -> torch.device:
-    """The device an entry point runs on; a CUDA device without a card
-    raises (nothing falls back to the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} requested but torch.cuda.is_available() is "
-            "False; pass device='cpu' to run the plain versions on the "
-            "CPU")
-    return device
 
 
 class Embedder:

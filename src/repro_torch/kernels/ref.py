@@ -1,4 +1,4 @@
-"""Plain PyTorch oracles for the GEE kernels (the allclose ground truth)."""
+"""Plain PyTorch oracles for every kernel (the allclose ground truth)."""
 from __future__ import annotations
 
 import torch
@@ -17,3 +17,19 @@ def gee_ref(u, v, w, Y, n: int, K: int) -> torch.Tensor:
     Wv = make_w(Y, K)
     dst, cls, val = edge_contributions(u, v, w.to(torch.float32), Y, Wv)
     return gee_scatter_ref(dst, cls, val, n, K)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """q: (B, H, S, D); k, v: (B, KV, S, D) with KV | H (GQA)."""
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    qg = q.reshape(B, KV, G, S, D).to(torch.float32)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg,
+                     k.to(torch.float32)) * (D ** -0.5)
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
+    return o.reshape(B, H, S, D).to(q.dtype)

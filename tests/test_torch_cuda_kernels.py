@@ -9,10 +9,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import gee_scatter as GS
 from repro_torch.kernels import query_fused as QF
 from repro_torch.kernels.ops import pack_edges
+from repro_torch.models import model as TM
 
 pytestmark = pytest.mark.cuda
 
@@ -97,3 +100,53 @@ def test_wrappers_refuse_bad_inputs(dev):
         QF.topk_fused(z, z[:2].contiguous(), qn, k=QF.KMAX + 1)
     with pytest.raises(ValueError, match="contiguous"):
         QF.gee_delta_renorm(z.t(), qn, qn, qn.float())
+
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,S,D", [
+    (1, 2, 2, 64, 16), (2, 4, 2, 128, 32), (1, 8, 1, 128, 16),
+    (2, 4, 2, 100, 64), (1, 4, 4, 1, 32), (1, 8, 2, 200, 128)])
+def test_flash_attention(dev, rng, dtype, B, H, KV, S, D):
+    q, k, v = (torch.as_tensor(rng.normal(size=(B, h, S, D)).astype(
+        np.float32), device=dev).to(dtype) for h in (H, KV, KV))
+    before = _build.launches["flash_attention"]
+    a = FA.flash_attention(q, k, v)
+    b = FA.flash_attention(q, k, v)
+    p = FA.flash_attention_plain(q, k, v)
+    assert _build.launches["flash_attention"] == before + 2
+    assert a.dtype == dtype and _same(a, b)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(a.float(), p.float(), atol=tol, rtol=tol)
+
+
+def test_flash_wrapper_refuses_bad_inputs(dev):
+    q = torch.zeros((1, 4, 64, 32), device=dev)
+    with pytest.raises(ValueError, match="64 x 64"):
+        FA.flash_attention(q, q, q, bq=32)
+    with pytest.raises(TypeError):
+        FA.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="head dim"):
+        x = torch.zeros((1, 4, 64, 48), device=dev)
+        FA.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        x = torch.zeros((1, 64, 4, 32), device=dev).transpose(1, 2)
+        FA.flash_attention(x, x, x)
+
+
+def test_prefill_runs_the_kernel_once_per_layer(dev):
+    """Reduced yi-6b on the card: prefill's self-attention is the kernel
+    in every layer, and its logits equal the dense path's (float32)."""
+    cfg = get_config("yi-6b").reduced()
+    params = TM.init_params(cfg, 0, device=dev)
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    _build.reset_launches()
+    with torch.inference_mode():
+        pl, _ = TM.prefill(cfg, params, {"tokens": toks})
+        assert _build.launches["flash_attention"] == cfg.n_layers
+        full, _ = TM.forward_logits(cfg, params, toks, impl="full")
+    torch.testing.assert_close(pl, TM._mask_padded_vocab(cfg, full[:, -1]),
+                               atol=1e-3, rtol=0)

@@ -1,0 +1,103 @@
+"""repro_torch.kernels.flash_attention on the CPU (its plain version)
+against the JAX package's Pallas kernel in interpret mode and its
+oracle `ref.flash_attention_ref`.
+
+Inputs are drawn with numpy and cast to each package's dtype (bfloat16
+rounds the same float32 values to nearest even on both sides).
+Tolerances: 2e-5 at float32 and 2e-2 at bfloat16, as the JAX suite's
+kernel test (`tests/test_kernels.py`)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as JO
+from repro.kernels import ref as JRef
+from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ref as TRef
+from repro_torch.models.attention import attn_flash
+
+DT = {"float32": (jnp.float32, torch.float32, 2e-5),
+      "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _inputs(rng, B, H, KV, S, D):
+    return (rng.normal(size=(B, H, S, D)).astype(np.float32),
+            rng.normal(size=(B, KV, S, D)).astype(np.float32),
+            rng.normal(size=(B, KV, S, D)).astype(np.float32))
+
+
+def _both(arrs, dtype):
+    jdt, tdt, _ = DT[dtype]
+    return ([jnp.asarray(a, jdt) for a in arrs],
+            [torch.as_tensor(a).to(tdt) for a in arrs])
+
+
+def _close(t, j, tol):
+    np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,H,KV,S,D", [
+    (1, 2, 2, 64, 16),      # MHA
+    (2, 4, 2, 128, 32),     # GQA 2:1
+    (1, 8, 1, 128, 16),     # MQA
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matches_pallas_kernel_and_oracle(rng, B, H, KV, S, D, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(rng, B, H, KV, S, D), dtype)
+    before = dict(_build.launches)
+    o = FA.flash_attention(tq, tk, tv)
+    assert _build.launches == before          # plain version: no launch
+    assert o.dtype == tq.dtype and o.shape == (B, H, S, D)
+    tol = DT[dtype][2]
+    _close(o, JO.flash_attention(jq, jk, jv, bq=32, bk=32), tol)
+    _close(o, JRef.flash_attention_ref(jq, jk, jv), tol)
+
+
+@pytest.mark.parametrize("bq,bk", [(16, 64), (64, 16), (128, 128)])
+def test_block_shape_sweep(rng, bq, bk):
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(rng, 1, 4, 2, 128, 32),
+                                       "float32")
+    o = FA.flash_attention(tq, tk, tv, bq=bq, bk=bk)
+    _close(o, JO.flash_attention(jq, jk, jv, bq=bq, bk=bk), 2e-5)
+
+
+@pytest.mark.parametrize("S", [1, 33, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ragged_sequence_matches_oracle(rng, S, dtype):
+    """Any S (the Pallas kernel needs tiles that divide S; its oracle and
+    the CUDA kernel do not)."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(rng, 2, 4, 2, S, 64), dtype)
+    _close(FA.flash_attention(tq, tk, tv),
+           JRef.flash_attention_ref(jq, jk, jv), DT[dtype][2])
+
+
+def test_plain_version_is_the_oracle(rng):
+    q, k, v = (torch.as_tensor(a) for a in _inputs(rng, 1, 4, 1, 48, 16))
+    assert torch.equal(FA.flash_attention_plain(q, k, v),
+                       TRef.flash_attention_ref(q, k, v))
+
+
+def test_matches_model_chunked_attention(rng):
+    """The kernel's layout (B, H, S, D) and the model's (B, S, H, D):
+    transposed, the wrapper equals the model's chunked online softmax."""
+    B, H, KV, S, D = 2, 4, 2, 128, 16
+    q, k, v = (torch.as_tensor(a) for a in _inputs(rng, B, H, KV, S, D))
+    pos = torch.arange(S)
+    o_model = attn_flash(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), pos, pos, causal=True,
+                         q_chunk=32, kv_chunk=32)
+    o_kernel = FA.flash_attention(q, k, v).transpose(1, 2)
+    torch.testing.assert_close(o_model, o_kernel, atol=2e-5, rtol=0)
+
+
+def test_wrapper_refuses_bad_shapes():
+    q = torch.zeros((1, 4, 8, 16))
+    with pytest.raises(ValueError, match="must divide"):
+        FA.flash_attention(q, torch.zeros((1, 3, 8, 16)),
+                           torch.zeros((1, 3, 8, 16)))
+    with pytest.raises(ValueError, match="B, KV, S, D"):
+        FA.flash_attention(q, torch.zeros((1, 2, 9, 16)),
+                           torch.zeros((1, 2, 9, 16)))
