@@ -4,11 +4,15 @@
                           [--lm-prompt 2048] [--lm-gen 16] [--lm-layers 32]
 
 1. builds every CUDA kernel of `src/repro_torch/kernels/csrc` with nvcc;
+   It counts the HGMMA (wgmma) instructions in the flash library's SASS
+   where the toolkit has `cuobjdump` (none fails the run) and requires
+   ptxas to report no spills in the bfloat16 flash body;
 2. holds each kernel against its plain PyTorch version on the card at
    small shapes (a duplicate-heavy tie case for top-k included; for
    flash attention the JAX suite's MHA/GQA/MQA cases in float32 and
-   bfloat16, ragged S and D = 128), and requires two runs to give the
-   same bits;
+   bfloat16, ragged S, every D of the tensor-core body, yi's heads at
+   S = 2049 and the prefill's shape at S = 2047), and requires two runs
+   to give the same bits;
 3. drives the GEE path at the scale of SNAP soc-LiveJournal1 (an SBM
    with n = 4,847,571 nodes, s = 68,993,773 edges, K = 16, 10% labeled):
    `Embedder(backend="cuda").fit`, then two `EmbeddingShard`s
@@ -47,6 +51,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -138,6 +143,32 @@ def kernel_times(prof):
             sorted(agg.items(), key=lambda kv: -kv[1][0]))
 
 
+def ptxas_spills(log: str) -> dict:
+    """{function: spill bytes stored + loaded} from `nvcc -Xptxas -v`;
+    functions that ptxas did not report (already built) are absent."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1].strip()
+        elif fn and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out[fn] = nums[1] + nums[2]   # stack frame, stores, loads
+            fn = None
+    return out
+
+
+def count_hgmma(lib):
+    """HGMMA instructions in a library's SASS, or None without
+    `cuobjdump`."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(exe).exists():
+        return None
+    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
+
+
 def same(a, b) -> bool:
     return bool((a == b).all().item()) and a.shape == b.shape
 
@@ -202,6 +233,24 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas[{name}]: {line.strip()}")
+    if "flash_attention" in _build.ptxas_log:     # built in this run
+        bf16 = {f: n for f, n in ptxas_spills(
+            _build.ptxas_log["flash_attention"]).items()
+            if "flash_fwd_bf16_kernel" in f}
+        if len(bf16) != 4 or any(bf16.values()):
+            raise AssertionError(f"ptxas spill bytes of the bfloat16 flash "
+                                 f"bodies (one per D expected, all 0): "
+                                 f"{bf16}")
+        print("ptxas: the 4 bfloat16 flash bodies spill 0 bytes")
+    hgmma = count_hgmma(_build.library_path("flash_attention"))
+    if hgmma is None:
+        print("cuobjdump not found: HGMMA count of the flash library not "
+              "checked")
+    else:
+        print(f"flash library SASS: {hgmma} HGMMA instructions")
+        if hgmma == 0:
+            raise AssertionError("the flash library has no HGMMA (wgmma) "
+                                 "instruction")
 
     # -- 2. small shapes: each kernel against its plain version -----------
     rng = np.random.default_rng(args.seed)
@@ -322,16 +371,24 @@ def main() -> int:
                     torch.as_tensor(c, device=dev),
                     torch.as_tensor(sign * v, device=dev),
                     f"small sign={sign}")
-    # flash attention: the JAX suite's cases, ragged S, D = 128
-    for B_, H_, KV_, S_, D_ in ((1, 2, 2, 64, 16), (2, 4, 2, 128, 32),
-                                (1, 8, 1, 128, 16), (2, 4, 2, 100, 64),
-                                (1, 4, 4, 1, 32), (1, 8, 2, 200, 128),
-                                (1, 32, 4, 130, 128)):
-        for dt in (torch.float32, torch.bfloat16):
-            qkv = [torch.as_tensor(rng.normal(size=(B_, h_, S_, D_)).astype(
-                np.float32), device=dev).to(dt) for h_ in (H_, KV_, KV_)]
-            check_flash(*qkv, f"B={B_} H={H_} KV={KV_} S={S_} D={D_} {dt}")
-    print("small-shape kernel checks: ok")
+    # flash attention: the JAX suite's cases, ragged S, D = 128; bfloat16
+    # only: yi's heads one row past a 128-row tile, and the prefill's shape
+    # with a ragged last tile
+    lm = get_config("yi-6b")
+    flash_cases = [(c_, dt) for c_ in (
+        (1, 2, 2, 64, 16), (2, 4, 2, 128, 32), (1, 8, 1, 128, 16),
+        (2, 4, 2, 100, 64), (1, 4, 4, 1, 32), (1, 8, 2, 200, 128),
+        (1, 32, 4, 130, 128)) for dt in (torch.float32, torch.bfloat16)]
+    flash_cases += [((1, lm.n_heads, lm.n_kv_heads, 2049, lm.head_dim),
+                     torch.bfloat16),
+                    ((args.lm_batch, lm.n_heads, lm.n_kv_heads,
+                      args.lm_prompt - 1, lm.head_dim), torch.bfloat16)]
+    for (B_, H_, KV_, S_, D_), dt in flash_cases:
+        qkv = [torch.as_tensor(rng.normal(size=(B_, h_, S_, D_)).astype(
+            np.float32), device=dev).to(dt) for h_ in (H_, KV_, KV_)]
+        check_flash(*qkv, f"B={B_} H={H_} KV={KV_} S={S_} D={D_} {dt}")
+        del qkv
+    print(f"small-shape kernel checks: ok ({len(flash_cases)} flash cases)")
 
     def gee_path():
         """Phases 3-5 (GEE); returns the three kernels' rows.  Its
@@ -711,14 +768,25 @@ def main() -> int:
         flops = 4.0 * D * B * H * S * (S + 1) / 2    # causal pairs x 4 D
         nbytes = 2 * (2 * B * H * S * D + 2 * B * KV * S * D)
         b, by = bound_ms(nbytes, flops, BF16_TC_FLOPS)
+
+        def run_kernel():
+            return FA.flash_attention(q, k, v)
+
+        # kernel and library call in turns: kernel, library, library, kernel
+        ms1, lib1 = timer(run_kernel, 20), timer(run_sdpa, 20)
+        lib2, ms2 = timer(run_sdpa, 20), timer(run_kernel, 20)
+        ms = (ms1 + ms2) / 2
+        print(f"flash_attention at the prefill's shape: kernel {ms1:.4f} / "
+              f"{ms2:.4f} ms, library {lib1:.4f} / {lib2:.4f} ms")
         return dict(
             name="flash_attention", route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:72",
             launches=launches["flash_attention"], max_abs_err=err,
-            ms=timer(lambda: FA.flash_attention(q, k, v), 10),
-            plain_ms=timer(lambda: FA.flash_attention_plain(q, k, v), 3),
-            bound_ms=b, bound_by=by, library_ms=timer(run_sdpa, 10),
+            ms=ms, plain_ms=timer(lambda: FA.flash_attention_plain(q, k, v),
+                                  3),
+            bound_ms=b, bound_by=by, library_ms=(lib1 + lib2) / 2,
+            tflops=flops / ms / 1e9, bound_share=b / ms,
             shape=f"B={B} H={H} KV={KV} S={S} D={D} bf16")
 
     results = gee_path()
@@ -727,10 +795,13 @@ def main() -> int:
     results.append(lm_path())
 
     for r_ in results:
+        rate = (f", {r_['tflops']:.1f} TFLOP/s, {r_['bound_share']:.3f} of "
+                "the bound") if "tflops" in r_ else ""
         print(f"{r_['name']}: {r_['shape']}: kernel {r_['ms']:.4f} ms, "
               f"bound {r_['bound_ms']:.4f} ms ({r_['bound_by']}), plain "
               f"{r_['plain_ms']:.4f} ms, library {r_['library_ms']:.4f} ms, "
-              f"launches {r_['launches']}, max|err| {r_['max_abs_err']:.3e}")
+              f"launches {r_['launches']}, max|err| {r_['max_abs_err']:.3e}"
+              f"{rate}")
     print(json.dumps({"kernels": [{k_: v_ for k_, v_ in r_.items()
                                    if k_ != "shape"} for r_ in results]}))
     print(f"card: {smi}")

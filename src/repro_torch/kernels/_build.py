@@ -58,14 +58,15 @@ def _nvcc() -> str:
                        "CUDA_HOME/bin): the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
     return BUILD_DIR / f"{name}-{_digest()}.so"
 
 
 def _start(name: str):
     """Start nvcc for one source into a temporary file; returns
     (process, temporary path, final path) or None if already built."""
-    out = _target(name)
+    out = library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -115,7 +116,7 @@ def load(name: str) -> ctypes.CDLL:
             st = _start(name)
             if st is not None:
                 _finish(name, st)
-            lib = ctypes.CDLL(str(_target(name)))
+            lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib
 

@@ -10,7 +10,10 @@ no window), where the reference runs the kernel's jnp twin `attn_flash`.
 On CPU tensors `flash_attention` runs `flash_attention_plain` (the
 reference's dense oracle, `kernels/ref.py`); on CUDA tensors it launches
 the kernel or raises.  The kernel takes float32 or bfloat16, D in
-{16, 32, 64, 128} and any S (a ragged last tile is masked).
+{16, 32, 64, 128} and any S (a ragged last tile is masked).  Its two
+bodies pick their own tiles: bfloat16 runs both products on the tensor
+cores (wgmma, TMA-fed) in 128 x 128 tiles, float32 runs on the CUDA cores
+in 64 x 64 tiles.
 """
 from __future__ import annotations
 
@@ -19,20 +22,20 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 
-BQ = 64                  # query rows per block (csrc/flash_attention.cu)
-BK = 64                  # keys per KV tile
+#: (query rows per block, keys per KV tile) of each body
+#: (csrc/flash_attention.cu)
+TILES = {torch.float32: (64, 64), torch.bfloat16: (128, 128)}
 HEAD_DIMS = (16, 32, 64, 128)
-DTYPES = (torch.float32, torch.bfloat16)
-MAX_GRID_Y = 65_535      # B * H blocks along the grid's y dimension
+MAX_GRID_Y = 65_535      # blocks along a grid's y dimension
 
-__all__ = ["flash_attention", "flash_attention_plain", "BQ", "BK"]
+__all__ = ["flash_attention", "flash_attention_plain", "TILES"]
 
 
-def flash_attention(q, k, v, *, bq: int = BQ, bk: int = BK) -> torch.Tensor:
+def flash_attention(q, k, v, *, bq=None, bk=None) -> torch.Tensor:
     """Causal self-attention. q: (B,H,S,D); k,v: (B,KV,S,D). Returns
-    (B,H,S,D) in q's dtype.  `bq`, `bk` are the tile sizes; the kernel is
-    built for 64 x 64 and refuses others (the plain version has no
-    tiles)."""
+    (B,H,S,D) in q's dtype.  `bq`, `bk` name tile sizes: None means the
+    kernel's own (`TILES`), and the kernel refuses any other value (the
+    plain version has no tiles and ignores them)."""
     B, H, S, D = q.shape
     KV = k.shape[1]
     if tuple(k.shape) != (B, KV, S, D) or tuple(v.shape) != tuple(k.shape):
@@ -45,16 +48,22 @@ def flash_attention(q, k, v, *, bq: int = BQ, bk: int = BK) -> torch.Tensor:
         return flash_attention_plain(q, k, v)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {dev}")
-    if (bq, bk) != (BQ, BK):
-        raise ValueError(f"the kernel is built for {BQ} x {BK} tiles, not "
-                         f"bq={bq}, bk={bk}")
-    if q.dtype not in DTYPES:
+    if q.dtype not in TILES:
         raise TypeError(f"q has dtype {q.dtype}; the kernel takes "
-                        f"{DTYPES}")
+                        f"{tuple(TILES)}")
+    if (bq, bk) != (None, None):
+        tq, tk = TILES[q.dtype]
+        raise ValueError(f"the kernel uses its own {tq} x {tk} tiles at "
+                         f"{q.dtype}: pass bq=None, bk=None, not bq={bq}, "
+                         f"bk={bk}")
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
-    if B * H > MAX_GRID_Y:
-        raise ValueError(f"B * H = {B * H} > {MAX_GRID_Y}")
+    # the grid's y dimension: B * H (float32 body) or the query tiles
+    # (bfloat16 body)
+    grid_y = B * H if q.dtype == torch.float32 else -(-S // TILES[q.dtype][0])
+    if grid_y > MAX_GRID_Y:
+        raise ValueError(f"{grid_y} blocks along the grid's y dimension > "
+                         f"{MAX_GRID_Y}")
     _build.require("q", q, q.dtype, (B, H, S, D), dev)
     _build.require("k", k, q.dtype, (B, KV, S, D), dev)
     _build.require("v", v, q.dtype, (B, KV, S, D), dev)

@@ -108,7 +108,11 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,KV,S,D", [
     (1, 2, 2, 64, 16), (2, 4, 2, 128, 32), (1, 8, 1, 128, 16),
-    (2, 4, 2, 100, 64), (1, 4, 4, 1, 32), (1, 8, 2, 200, 128)])
+    (2, 4, 2, 100, 64), (1, 4, 4, 1, 32), (1, 8, 2, 200, 128),
+    # the 128-row tiles of the bfloat16 body: yi's heads one row past a
+    # tile, ragged S, S = 1 with MQA, and every swizzle width
+    (1, 32, 4, 2049, 128), (2, 8, 8, 127, 64), (1, 4, 1, 1, 16),
+    (1, 16, 2, 384, 32)])
 def test_flash_attention(dev, rng, dtype, B, H, KV, S, D):
     q, k, v = (torch.as_tensor(rng.normal(size=(B, h, S, D)).astype(
         np.float32), device=dev).to(dtype) for h in (H, KV, KV))
@@ -126,6 +130,10 @@ def test_flash_wrapper_refuses_bad_inputs(dev):
     q = torch.zeros((1, 4, 64, 32), device=dev)
     with pytest.raises(ValueError, match="64 x 64"):
         FA.flash_attention(q, q, q, bq=32)
+    qb = q.bfloat16()
+    for tiles in (dict(bq=128), dict(bk=128), dict(bq=128, bk=128)):
+        with pytest.raises(ValueError, match="128 x 128"):
+            FA.flash_attention(qb, qb, qb, **tiles)
     with pytest.raises(TypeError):
         FA.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="head dim"):

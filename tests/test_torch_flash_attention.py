@@ -74,6 +74,47 @@ def test_ragged_sequence_matches_oracle(rng, S, dtype):
            JRef.flash_attention_ref(jq, jk, jv), DT[dtype][2])
 
 
+def _emulate_bf16_body(q, k, v, bk=128):
+    """The CUDA kernel's bfloat16 arithmetic in plain float32: online
+    softmax over 128-key tiles, P rounded to bfloat16 before P.V, the
+    denominator summed from the unrounded P."""
+    B, H, S, D = q.shape
+    G = H // k.shape[1]
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(G, dim=1) for x in (k, v))
+    m = torch.full((B, H, S), -1e30)
+    l = torch.zeros((B, H, S))
+    acc = torch.zeros((B, H, S, D))
+    qpos = torch.arange(S)[:, None]
+    for k0 in range(0, S, bk):
+        kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kt) * D ** -0.5
+        kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        s = s.masked_fill(kpos > qpos, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(), vt)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,H,KV,S,D", [(1, 8, 1, 256, 128),
+                                        (1, 4, 2, 130, 64)])
+def test_bf16_body_arithmetic_within_tolerance(rng, B, H, KV, S, D):
+    """Rounding P to bfloat16 before P.V (the tensor-core product) keeps
+    the kernel within the 2e-2 bfloat16 tolerance of the JAX oracle."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(rng, B, H, KV, S, D),
+                                       "bfloat16")
+    got = _emulate_bf16_body(tq, tk, tv).float().numpy()
+    want = np.asarray(JRef.flash_attention_ref(jq, jk, jv), np.float32)
+    err = float(np.abs(got - want).max())
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=2e-2,
+                               err_msg=f"max|emulation - oracle| = {err:.3e}")
+
+
 def test_plain_version_is_the_oracle(rng):
     q, k, v = (torch.as_tensor(a) for a in _inputs(rng, 1, 4, 1, 48, 16))
     assert torch.equal(FA.flash_attention_plain(q, k, v),
