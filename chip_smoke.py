@@ -8,7 +8,8 @@
    where the toolkit has `cuobjdump` (none fails the run) and requires
    ptxas to report no spills in the bfloat16 flash body;
 2. holds each kernel against its plain PyTorch version on the card at
-   small shapes (a duplicate-heavy tie case for top-k included; for
+   small shapes (duplicate-heavy tie cases for top-k included, one at
+   K = 16 whose ties straddle the select pass's tiles and blocks; for
    flash attention the JAX suite's MHA/GQA/MQA cases in float32 and
    bfloat16, ragged S, every D of the tensor-core body, yi's heads at
    S = 2049 and the prefill's shape at S = 2047), and requires two runs
@@ -22,7 +23,8 @@
    counts are zeroed just before and read just after;
 4. holds each kernel against its plain version again at the main path's
    shapes and times kernel, plain version and one PyTorch library call
-   with CUDA events;
+   with CUDA events (for top-k also its select and merge passes, each
+   launched on its own);
 5. self-checks: the shards' Z equals a fresh fit on the updated graph,
    and the fused answers equal the plain scan's on the same Zn;
 6. frees the GEE path's tensors and drives the LM serve path: yi-6b at
@@ -62,6 +64,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+# FP32 instructions a second: 67e12 counts an FMA as two operations
+FP32_INSTR = FP32_FLOPS / 2
 # H100 SXM dense bf16 on the tensor cores.  Attention on bf16 inputs is
 # two matrix products per tile, work the card does at this rate (the
 # library call below does): the least time for it is against this peak,
@@ -107,13 +111,19 @@ class Timer:
     def __init__(self, torch):
         self.torch = torch
 
-    def __call__(self, fn, reps: int, warm: int = 1) -> float:
+    def __call__(self, fn, reps: int, warm: int = 1,
+                 queue_ahead: bool = False) -> float:
+        """queue_ahead: hold the stream in a spin kernel while the host
+        enqueues the calls, so that a launch shorter than its host-side
+        set-up is timed on the device alone."""
         torch = self.torch
         for _ in range(warm):
             fn()
         torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if queue_ahead:
+            torch.cuda._sleep(100_000_000)        # tens of ms of spin
         a.record()
         for _ in range(reps):
             fn()
@@ -231,7 +241,8 @@ def main() -> int:
     print(f"built {names} in {time.perf_counter() - t0:.1f} s")
     for name, log in _build.ptxas_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 print(f"ptxas[{name}]: {line.strip()}")
     if "flash_attention" in _build.ptxas_log:     # built in this run
         bf16 = {f: n for f, n in ptxas_spills(
@@ -361,6 +372,18 @@ def main() -> int:
                            f"ties p={p} [{lo},{hi}) norm={norm}")
     check_topk(Znd, qd, qn, 9, 0, False, False, "exclude_self off")
     check_topk(Znd[:3].contiguous(), qd, qn, 8, 0, True, False, "k > m")
+    # K = 16 (the register body): runs of 7 equal rows, so exact ties
+    # straddle the 1,024-row tiles and the blocks' tile ranges
+    base16 = rng.normal(size=(600_000 // 7 + 1, 16)).astype(np.float32)
+    Zt = torch.as_tensor(np.repeat(base16, 7, axis=0)[:600_000], device=dev)
+    qn16 = torch.as_tensor(np.concatenate([
+        np.arange(1020, 1030), rng.integers(0, 600_000, 54)]).astype(
+            np.int32), device=dev)
+    qt = QF.normalize_rows(Zt)[qn16.long()].contiguous()
+    for norm in (False, True):
+        src = Zt if norm else QF.normalize_rows(Zt)
+        check_topk(src, qt, qn16 + 5000, 10, 5000, True, norm,
+                   f"K=16 ties across tiles norm={norm}")
     # delta: insert and delete
     Zs = torch.as_tensor(rng.random((300, 7), dtype=np.float32), device=dev)
     r = np.sort(rng.integers(0, 300, 500)).astype(np.int32)
@@ -548,18 +571,33 @@ def main() -> int:
         m = Zn0.shape[0]
         b, by = bound_ms(m * K * 4 + nq * K * 4 + nq * 4 + nq * k * 8,
                          2.0 * nq * m * K)
+
+        def run_select():
+            return QF._topk_select(Zn0, qc, qn, None, k=k, row_offset=sh.lo,
+                                   exclude_self=True, eps=QF.EPS)
+
+        cand = run_select()
+        ms = timer(lambda: QF.topk_fused(Zn0, qc, qn, k=k, row_offset=sh.lo),
+                   20, queue_ahead=True)
         results.append(dict(
             name="topk_fused", route="cuda",
             source="src/repro_torch/kernels/csrc/query_fused.cu",
             replaces="src/repro/kernels/query_fused.py:88",
-            launches=launches["topk_fused"], max_abs_err=err,
-            ms=timer(lambda: QF.topk_fused(Zn0, qc, qn, k=k, row_offset=sh.lo),
-                     10),
+            launches=launches["topk_fused"], max_abs_err=err, ms=ms,
             plain_ms=timer(lambda: QF.topk_fused_plain(Zn0, qc, qn, k=k,
                                                        row_offset=sh.lo), 2),
             bound_ms=b, bound_by=by,
             library_ms=timer(lambda: torch.topk(qc @ Zn0.T, k, dim=1), 3),
-            shape=f"m={m} nq={nq} k={k} K={K}"))
+            # each pass on its own, through the launchers the wrapper calls
+            select_ms=timer(run_select, 20, queue_ahead=True),
+            merge_ms=timer(lambda: QF._topk_merge(*cand, k=k), 20,
+                           queue_ahead=True),
+            bound_share=b / ms,
+            # one FMUL and one FADD per term (no FFMA: common.cuh)
+            issue_floor_ms=2.0 * nq * m * K / FP32_INSTR * 1e3,
+            shape=f"m={m} nq={nq} k={k} K={K} select grid "
+                  f"{cand[0].shape[1]} blocks"))
+        del cand
 
         # gee_delta_renorm: shard 0's Z and a fresh 200-edge delta
         d = Graph(step_rng.integers(0, n, 200).astype(np.int32),
@@ -630,7 +668,7 @@ def main() -> int:
                 yk, (k, v), _ = T.attn_block_train(cfg, p, x, pos,
                                                    impl="flash")
                 yf, _, _ = T.attn_block_train(cfg, p, x, pos, impl="full")
-                c = A.init_kv_cache(cfg, B, S + 1, x.dtype, dev)
+                c = A.init_kv_cache(cfg, B, S + 1, x.dtype, device=dev)
                 A.fill_kv_cache(cfg, c, k, v)
                 yd, _, _ = T.attn_block_decode(cfg, p, xd, S, c)
                 y1, _, _ = T.attn_block_train(
@@ -797,6 +835,10 @@ def main() -> int:
     for r_ in results:
         rate = (f", {r_['tflops']:.1f} TFLOP/s, {r_['bound_share']:.3f} of "
                 "the bound") if "tflops" in r_ else ""
+        if "select_ms" in r_:
+            rate = (f", select {r_['select_ms']:.4f} ms + merge "
+                    f"{r_['merge_ms']:.4f} ms, {r_['bound_share']:.3f} of "
+                    f"the bound, issue floor {r_['issue_floor_ms']:.4f} ms")
         print(f"{r_['name']}: {r_['shape']}: kernel {r_['ms']:.4f} ms, "
               f"bound {r_['bound_ms']:.4f} ms ({r_['bound_by']}), plain "
               f"{r_['plain_ms']:.4f} ms, library {r_['library_ms']:.4f} ms, "

@@ -5,6 +5,12 @@ The port of `repro.kernels.query_fused` (``csrc/query_fused.cu``):
 ``topk_fused``
     optional row-normalize (emitting Zn) + cosine scores + top-k over a
     shard's candidate rows, ordered by (-score, ascending global id).
+    Two launches: a select pass, in which each block walks a contiguous
+    range of row tiles and keeps per query only the rows that beat its
+    running k-th best, then writes its k candidates per query; and a
+    merge pass, one block per query, over the blocks' candidates.  The
+    select grid comes from the card's occupancy (`topk_select_grid`);
+    the answer does not depend on it.
 ``gee_delta_renorm``
     Z_new = Z + delta contributions, Zn = normalize_rows(Z_new), for the
     whole owned slice, with Z read once.
@@ -23,13 +29,15 @@ launches its kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
 
 EPS = 1e-9        # normalize_rows' clamp
 KMAX = 64         # largest k the top-k kernel takes (csrc/query_fused.cu)
-K_TOPK_MAX = 256  # widest rows the top-k kernel stages
+K_TOPK_MAX = 256  # widest rows the top-k kernel takes
 K_DELTA_MAX = 128  # widest rows the delta kernel stages
 
 
@@ -103,16 +111,58 @@ def topk_fused_plain(Z_rows, q, qnodes, *, k: int, row_offset: int = 0,
     return (vals, idxs, Zn) if normalize else (vals, idxs)
 
 
-def _chunk_rows(K: int) -> int:
-    """Rows per block of the top-k kernel: as many as fit 64 KiB of
-    shared memory, a multiple of 32, between 32 and 1024."""
-    return max(32, min(1024, (16384 // K) // 32 * 32))
+def _topk_select(Z_rows, q, qnodes, zn, *, k: int, row_offset: int,
+                 exclude_self: bool, eps: float):
+    """The select pass alone: every block's top-k per query, as
+    (cand_s, cand_i) of shape (nq, grid, k); Zn written into `zn` when it
+    is not None.  No launch count (`topk_fused` counts its call)."""
+    dev = Z_rows.device
+    m, K = Z_rows.shape
+    nq = q.shape[0]
+    grid = ctypes.c_int(0)
+    err = _build.function("query_fused", "topk_select_grid",
+                          [_build.P, _build.I, _build.I, _build.I,
+                           _build.P])(
+        Z_rows.data_ptr(), m, K, k, ctypes.byref(grid))
+    _build.check("query_fused", err)
+    cand_s = torch.empty((nq, grid.value, k), dtype=torch.float32,
+                         device=dev)
+    cand_i = torch.empty((nq, grid.value, k), dtype=torch.int32, device=dev)
+    if grid.value > 0:
+        # the blocks' shared thresholds, one 64-bit key a query; 0: none
+        gkey = torch.zeros(nq, dtype=torch.int64, device=dev)
+        fn = _build.function("query_fused", "topk_select_launch",
+                             [_build.P] * 7 + [_build.I] * 7
+                             + [_build.F, _build.P])
+        err = fn(Z_rows.data_ptr(), q.data_ptr(), qnodes.data_ptr(),
+                 None if zn is None else zn.data_ptr(), cand_s.data_ptr(),
+                 cand_i.data_ptr(), gkey.data_ptr(), m, K, nq, k,
+                 grid.value, int(row_offset), int(exclude_self), eps,
+                 _build.stream_of(dev))
+        _build.check("query_fused", err)
+    return cand_s, cand_i
+
+
+def _topk_merge(cand_s, cand_i, *, k: int):
+    """The merge pass alone: each query's top-k of its grid x k
+    candidates, as (vals, idxs) of shape (nq, k)."""
+    nq, grid = cand_s.shape[:2]
+    dev = cand_s.device
+    vals = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    idxs = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    fn = _build.function("query_fused", "topk_merge_launch",
+                         [_build.P] * 4 + [_build.I] * 3 + [_build.P])
+    err = fn(cand_s.data_ptr(), cand_i.data_ptr(), vals.data_ptr(),
+             idxs.data_ptr(), grid, nq, k, _build.stream_of(dev))
+    _build.check("query_fused", err)
+    return vals, idxs
 
 
 def topk_fused(Z_rows, q, qnodes, *, k: int, row_offset: int = 0,
                exclude_self: bool = True, normalize: bool = False,
                eps: float = EPS):
-    """Normalize (optionally) + cosine score + top-k in one kernel call.
+    """Normalize (optionally) + cosine score + top-k on the card: a
+    select pass and a merge pass (``csrc/query_fused.cu``).
 
     Z_rows (m, K) float32: candidate rows at global ids [row_offset,
     row_offset + m), RAW when normalize=True, unit-norm otherwise.
@@ -139,24 +189,13 @@ def topk_fused(Z_rows, q, qnodes, *, k: int, row_offset: int = 0,
     _build.require("Z_rows", Z_rows, torch.float32, (m, K), dev)
     _build.require("q", q, torch.float32, (nq, K), dev)
     _build.require("qnodes", qnodes, torch.int32, (nq,), dev)
-    chunk = _chunk_rows(K)
-    nchunks = -(-m // chunk)
-    vals = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    idxs = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    cand_v = torch.empty((nchunks, nq, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((nchunks, nq, k), dtype=torch.int32, device=dev)
     zn = (torch.empty((m, K), dtype=torch.float32, device=dev)
           if normalize else None)
-    fn = _build.function("query_fused", "topk_fused_launch",
-                         [_build.P] * 8 + [_build.I] * 7
-                         + [_build.F, _build.P])
     with torch.cuda.device(dev):
-        err = fn(Z_rows.data_ptr(), q.data_ptr(), qnodes.data_ptr(),
-                 zn.data_ptr() if normalize else None,
-                 cand_v.data_ptr(), cand_i.data_ptr(), vals.data_ptr(),
-                 idxs.data_ptr(), m, K, nq, k, chunk, int(row_offset),
-                 int(exclude_self), eps, _build.stream_of(dev))
-    _build.check("query_fused", err)
+        cand = _topk_select(Z_rows, q, qnodes, zn, k=k,
+                            row_offset=row_offset,
+                            exclude_self=exclude_self, eps=eps)
+        vals, idxs = _topk_merge(*cand, k=k)
     _build.launches["topk_fused"] += 1
     return (vals, idxs, zn) if normalize else (vals, idxs)
 

@@ -201,7 +201,7 @@ def cache_window(cfg, S):
     return min(S, cfg.swa_window) if cfg.swa_window else S
 
 
-def init_kv_cache(cfg, batch: int, max_len: int, dtype, device="cpu"):
+def init_kv_cache(cfg, batch: int, max_len: int, dtype, *, device):
     """(k, v) cache; SWA archs allocate only the window ring-buffer."""
     shape = (batch, cache_window(cfg, max_len), cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),

@@ -149,8 +149,8 @@ def _unflatten(pairs):
     return out
 
 
-def init_from_specs(tree, gen: torch.Generator, default_dtype="float32",
-                    device="cpu") -> ParamTree:
+def init_from_specs(tree, gen: torch.Generator, default_dtype="float32", *,
+                    device) -> ParamTree:
     """Materialize a spec tree on `device`, drawing from `gen` (a
     generator on that device) leaf by leaf in sorted key order.  The same
     distributions as the reference; not its bits (`torch.Generator` is

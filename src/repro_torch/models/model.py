@@ -64,7 +64,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     without a card raises)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    return init_from_specs(param_specs(cfg), gen, cfg.param_dtype, device)
+    return init_from_specs(param_specs(cfg), gen, cfg.param_dtype,
+                           device=device)
 
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:

@@ -53,25 +53,83 @@ def test_gee_scatter(dev, rng, n, m, K, tile_n, eb):
     torch.testing.assert_close(a, p, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("normalize", [False, True])
-@pytest.mark.parametrize("exclude_self", [True, False])
-@pytest.mark.parametrize("m,k", [(160, 9), (3, 8), (70000, 10)])
-def test_topk_fused(dev, rng, normalize, exclude_self, m, k):
-    K = 6
-    base = rng.normal(size=(max(m // 4, 1), K)).astype(np.float32)
-    Z = torch.as_tensor(np.repeat(base, 4, axis=0)[:m], device=dev)
-    Zn = QF.normalize_rows(Z)
-    qn = torch.as_tensor(rng.integers(0, m, 12).astype(np.int32), device=dev)
-    q = Zn[qn.long()].contiguous()
-    rows = Z if normalize else Zn
-    kw = dict(k=k, row_offset=1000, exclude_self=exclude_self,
-              normalize=normalize)
-    a = QF.topk_fused(rows, q, qn + 1000, **kw)
-    b = QF.topk_fused(rows, q, qn + 1000, **kw)
-    p = QF.topk_fused_plain(rows, q, qn + 1000, **kw)
+def _check_topk(rows, q, qn, **kw):
+    """Two kernel runs and the plain version: the same bits."""
+    before = _build.launches["topk_fused"]
+    a = QF.topk_fused(rows, q, qn, **kw)
+    b = QF.topk_fused(rows, q, qn, **kw)
+    p = QF.topk_fused_plain(rows, q, qn, **kw)
+    assert _build.launches["topk_fused"] == before + 2
+    assert len(a) == len(p)
     for x, y, z in zip(a, b, p):
         assert _same(x, y)              # run to run
         assert _same(x, z)              # same arithmetic, same tie order
+
+
+# (K, m, nq, k, run): rows come in runs of `run` equal rows, so exact
+# score ties straddle the select pass's tiles (1,024 rows at K = 16) and
+# its blocks' tile ranges.  K in {8, 16, 32} takes the register body,
+# other K the shared-memory body.
+TOPK_SHAPES = [
+    (6, 160, 12, 9, 4), (6, 3, 12, 8, 4), (6, 70000, 12, 10, 4),
+    (16, 70001, 64, 10, 7),      # ragged last tile
+    (16, 1, 1, 1, 1),            # one row
+    (16, 200, 65, 64, 3),        # fewer rows than blocks; two query groups
+    (16, 300000, 200, 10, 7),    # blocks walk several tiles; four groups
+    (8, 70001, 64, 64, 7), (8, 50, 65, 1, 2), (32, 100003, 64, 10, 7),
+    (33, 5000, 64, 10, 7), (256, 3000, 65, 64, 5), (256, 1, 1, 10, 1)]
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("exclude_self", [True, False])
+@pytest.mark.parametrize("K,m,nq,k,run", TOPK_SHAPES)
+def test_topk_fused(dev, rng, normalize, exclude_self, K, m, nq, k, run):
+    base = rng.normal(size=(-(-m // run), K)).astype(np.float32)
+    Z = torch.as_tensor(np.repeat(base, run, axis=0)[:m], device=dev)
+    Zn = QF.normalize_rows(Z)
+    qn = torch.as_tensor(rng.integers(0, m, nq).astype(np.int32), device=dev)
+    q = Zn[qn.long()].contiguous()
+    _check_topk(Z if normalize else Zn, q, qn + 1000, k=k, row_offset=1000,
+                exclude_self=exclude_self, normalize=normalize)
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("exclude_self", [True, False])
+@pytest.mark.parametrize("k", [1, 10, 64])
+def test_topk_fused_own_row_at_kth_place(dev, rng, normalize, exclude_self,
+                                         k):
+    """k - 1 copies of the query's row just below its id, across a tile
+    boundary: the copies tie with it and win on id, so its own row is the
+    k-th best (exclude_self off) or the first one left out (on)."""
+    m, K, self_ = 5000, 16, 1024 + 5
+    Z = rng.normal(size=(m, K)).astype(np.float32)
+    Z[self_ - (k - 1):self_] = Z[self_]
+    Z = torch.as_tensor(Z, device=dev)
+    Zn = QF.normalize_rows(Z)
+    qn = torch.as_tensor(np.r_[self_, rng.integers(0, m, 7)].astype(
+        np.int32), device=dev)
+    q = Zn[qn.long()].contiguous()
+    _check_topk(Z if normalize else Zn, q, qn, k=k,
+                exclude_self=exclude_self, normalize=normalize)
+    idxs = QF.topk_fused(Zn, q, qn, k=k, exclude_self=exclude_self)[1]
+    if not exclude_self:
+        assert int(idxs[0, k - 1]) == self_
+
+
+@pytest.mark.parametrize("K", [16, 6])
+def test_topk_fused_unaligned_rows(dev, rng, K):
+    """Rows that do not start on 16 bytes take the shared-memory body:
+    the same answer."""
+    m = 5000
+    flat = torch.as_tensor(rng.normal(size=m * K + 1).astype(np.float32),
+                           device=dev)
+    Z = flat[1:].view(m, K)
+    assert Z.data_ptr() % 16 != 0 and Z.is_contiguous()
+    Zn = QF.normalize_rows(Z)
+    qn = torch.as_tensor(rng.integers(0, m, 64).astype(np.int32), device=dev)
+    q = Zn[qn.long()].contiguous()
+    for normalize in (False, True):
+        _check_topk(Z, q, qn, k=10, normalize=normalize)
 
 
 @pytest.mark.parametrize("sign", [1.0, -1.0])
