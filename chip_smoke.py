@@ -8,7 +8,10 @@
    where the toolkit has `cuobjdump` (none fails the run) and requires
    ptxas to report no spills in the bfloat16 flash body;
 2. holds each kernel against its plain PyTorch version on the card at
-   small shapes (duplicate-heavy tie cases for top-k included, one at
+   small shapes (for gee_scatter also K = 256, one row holding 50,000
+   contributions and rows whose donors mostly share a class, each
+   bit-equal to a serial float32 sum in packed order; duplicate-heavy tie
+   cases for top-k included, one at
    K = 16 whose ties straddle the select pass's tiles and blocks; for
    flash attention the JAX suite's MHA/GQA/MQA cases in float32 and
    bfloat16, ragged S, every D of the tensor-core body, yi's heads at
@@ -24,10 +27,16 @@
 4. holds each kernel against its plain version again at the main path's
    shapes and times kernel, plain version and one PyTorch library call
    with CUDA events (for top-k also its select and merge passes, each
-   launched on its own);
+   launched on its own; for gee_scatter also the kernel with every node
+   labelled, as in a refine round, and one whole `CudaBackend.embed`);
 5. self-checks: the shards' Z equals a fresh fit on the updated graph,
    and the fused answers equal the plain scan's on the same Zn;
-6. frees the GEE path's tensors and drives the LM serve path: yi-6b at
+5b. frees the GEE path's tensors and fits a skewed graph with
+   LiveJournal's degree spread (`powerlaw(n, s, alpha=0.5)`: largest
+   degree about 15,700, 10% labelled) on the cuda backend, held to the
+   torch backend's fit; prints the plan's device bytes, the kernel's
+   time and share of its bound, and peak device memory;
+6. frees the skew phase's tensors and drives the LM serve path: yi-6b at
    full width (d_model 4096, 32 layers, GQA 32/4, float32 weights drawn
    on the card from --seed, bfloat16 compute) through
    `repro_torch.launch.serve.generate`: one prefill of --lm-batch
@@ -214,7 +223,9 @@ def main() -> int:
     from repro_torch.encoder import Embedder, EncoderConfig
     from repro_torch.encoder.plan import owned_contributions
     from repro_torch.configs import get_config
+    from repro_torch.core.gee import make_w
     from repro_torch.graph import Graph, RowPartition, make_labels, sbm
+    from repro_torch.graph.generators import powerlaw
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import gee_scatter as GS
@@ -266,19 +277,30 @@ def main() -> int:
     # -- 2. small shapes: each kernel against its plain version -----------
     rng = np.random.default_rng(args.seed)
 
-    def check_scatter(rows, cls, val, counts, T, tile_n, kdim, what):
-        Z1 = GS.gee_scatter(rows, cls, val, counts, num_tiles=T,
-                            tile_n=tile_n, kdim=kdim)
-        Z2 = GS.gee_scatter(rows, cls, val, counts, num_tiles=T,
-                            tile_n=tile_n, kdim=kdim)
-        Zp = GS.gee_scatter_plain(rows, cls, val, counts, num_tiles=T,
-                                  tile_n=tile_n, kdim=kdim)
+    def check_scatter(row_ptr, cls, val, T, tile_n, kdim, what,
+                      serial=False):
+        """Kernel twice (the same bits), against the plain version at rtol
+        1e-5 / atol 1e-6; with `serial`, also bit-equal to a float32 sum
+        in packed order on the host (the kernel's order of additions)."""
+        kw = dict(num_tiles=T, tile_n=tile_n, kdim=kdim)
+        Z1 = GS.gee_scatter(row_ptr, cls, val, **kw)
+        Z2 = GS.gee_scatter(row_ptr, cls, val, **kw)
+        Zp = GS.gee_scatter_plain(row_ptr, cls, val, **kw)
         torch.cuda.synchronize()
         if not same(Z1, Z2):
             raise AssertionError(f"gee_scatter {what}: runs differ")
         err = (Z1 - Zp).abs().max().item() if Z1.numel() else 0.0
         if not torch.allclose(Z1, Zp, rtol=1e-5, atol=1e-6):
             raise AssertionError(f"gee_scatter {what}: max|err| {err}")
+        if serial:
+            rp = row_ptr.cpu().numpy()
+            Zs = np.zeros((rp.shape[0] - 1, kdim), np.float32)
+            np.add.at(Zs, (np.repeat(np.arange(rp.shape[0] - 1),
+                                     np.diff(rp)), cls.cpu().numpy()),
+                      val.cpu().numpy())
+            if not np.array_equal(Z1.cpu().numpy(), Zs):
+                raise AssertionError(f"gee_scatter {what}: not the serial "
+                                     "sum's bits")
         return err
 
     def check_topk(Zr, q, qn, k, off, excl, norm, what):
@@ -335,23 +357,36 @@ def main() -> int:
             raise AssertionError(f"flash_attention {what}: max|err| {err}")
         return err
 
-    # scatter: random, one tile, skewed, tail tile
-    for n_s, s_s, K_s, tile_n, eb in ((300, 3000, 5, 64, 128),
-                                      (50, 900, 8, 64, 32),
-                                      (1000, 20000, 16, 256, 512)):
-        dst = torch.as_tensor((rng.zipf(1.5, 2 * s_s) % n_s).astype(
-            np.int64), device=dev)
-        cls = torch.as_tensor(rng.integers(0, K_s, 2 * s_s), device=dev)
-        val = torch.as_tensor(rng.random(2 * s_s, dtype=np.float32),
-                              device=dev)
-        rows, clsb, valb, T, counts = pack_edges(dst, cls, val, n_s,
-                                                 tile_n, eb)
-        check_scatter(rows, clsb, valb, counts, T, tile_n, K_s,
-                      f"small n={n_s}")
+    # scatter: skewed rows, one tile, tail tile, K = 256 (row sub-ranges),
+    # one row holding 50,000 contributions; last, every donor labelled and
+    # 90 % of each row's in one class (large groups, as in a refine round)
+    for n_s, s_s, K_s, tile_n, giant, homophilous in (
+            (300, 3000, 5, 64, 0, False), (50, 900, 8, 64, 0, False),
+            (1000, 20000, 16, 256, 0, False),
+            (3000, 20000, 256, 256, 0, False),
+            (2000, 5000, 16, 256, 50_000, False),
+            (3000, 100_000, 16, 256, 0, True)):
+        dst = rng.permutation(np.concatenate([rng.zipf(1.5, 2 * s_s) % n_s,
+                                              np.full(giant, n_s // 3)]))
+        m_s = dst.shape[0]
+        cls = rng.integers(0, K_s, m_s)
+        val = rng.random(m_s, dtype=np.float32)
+        if homophilous:
+            cls = np.where(rng.random(m_s) < 0.9, dst % K_s, cls)
+            val += np.float32(1e-3)
+        else:
+            val[rng.random(m_s) < 0.5] = 0
+        dst = torch.as_tensor(dst.astype(np.int64), device=dev)
+        cls = torch.as_tensor(cls, device=dev)
+        row_ptr, clsb, valb, T = pack_edges(
+            dst, cls, torch.as_tensor(val, device=dev), n_s, tile_n)
+        check_scatter(row_ptr, clsb, valb, T, tile_n, K_s,
+                      f"small n={n_s} K={K_s} giant={giant} "
+                      f"homophilous={homophilous}", serial=True)
     # an Embedder on the card against the host oracle
     g_small, _ = sbm(2000, 6, 30000, seed=args.seed + 1)
     Y_small = make_labels(2000, 6, 0.3, np.random.default_rng(args.seed))
-    Z_small = Embedder(EncoderConfig(K=6, tile_n=64, edge_block=128),
+    Z_small = Embedder(EncoderConfig(K=6, tile_n=64),
                        backend="cuda").fit(g_small, Y_small).transform()
     ref_small = gee_numpy(g_small.u, g_small.v, g_small.w, Y_small, 6, 2000)
     if not np.allclose(Z_small, ref_small, atol=1e-5):
@@ -516,25 +551,19 @@ def main() -> int:
         # -- 4. kernels at the main path's shapes ------------------------------
         results = []
         # gee_scatter: the full fit's packed buffers
-        d_ = emb._plan.data
-        srcf = d_["src"].reshape(-1)
-        Ys = emb._Yj.index_select(0, srcf)
-        cls = torch.clamp_min(Ys, 0).to(torch.int32).reshape(d_["rows"].shape)
-        val = torch.where(Ys >= 0, emb.Wv_.index_select(0, srcf)
-                          * d_["w"].reshape(-1),
-                          torch.zeros((), device=dev)).reshape(d_["rows"].shape)
-        del Ys, srcf
-        T, cfg = d_["T"], emb.config
-        err = check_scatter(d_["rows"], cls, val, d_["counts"], T, cfg.tile_n,
-                            K, "real")
-
-        def run_scatter():
-            GS.gee_scatter(d_["rows"], cls, val, d_["counts"], num_tiles=T,
-                           tile_n=cfg.tile_n, kdim=K)
-
-        def run_scatter_plain():
-            GS.gee_scatter_plain(d_["rows"], cls, val, d_["counts"],
-                                 num_tiles=T, tile_n=cfg.tile_n, kdim=K)
+        plan, be, cfg = emb._plan, emb.backend, emb.config
+        T, row_ptr = plan.data["T"], plan.data["row_ptr"]
+        kw = dict(num_tiles=T, tile_n=cfg.tile_n, kdim=K)
+        cls, val = be.resolve(plan, emb._Yj, emb.Wv_)
+        err = check_scatter(row_ptr, cls, val, T, cfg.tile_n, K, "real")
+        # every node labelled, as in a refine round (Y = the SBM's truth)
+        Y_all = torch.as_tensor(truth, device=dev)
+        cls_a, val_a = be.resolve(plan, Y_all, make_w(Y_all, K))
+        check_scatter(row_ptr, cls_a, val_a, T, cfg.tile_n, K,
+                      "all labelled")
+        ms_all = timer(lambda: GS.gee_scatter(row_ptr, cls_a, val_a, **kw),
+                       20)
+        del cls_a, val_a
 
         u_t = torch.as_tensor(g.u, device=dev)
         v_t = torch.as_tensor(g.v, device=dev)
@@ -547,18 +576,26 @@ def main() -> int:
             torch.zeros((n, K), device=dev).index_put_((dst_l, cls_l), val_l,
                                                        accumulate=True)
 
-        real = int(d_["counts"].sum().item())
-        nbytes = real * 12 + T * 4 + T * cfg.tile_n * K * 4
-        b, by = bound_ms(nbytes, real)
+        S = cls.numel()
+        nnz = int((val != 0).sum().item())
+        z_bytes = T * cfg.tile_n * K * 4
+        # class + value per contribution, one offset per row, Z once; the
+        # padded layout's count also read a 4-byte row per contribution
+        b, by = bound_ms(8 * S + 8 * row_ptr.numel() + z_bytes, nnz)
+        b12 = bound_ms(12 * S + 4 * T + z_bytes, nnz)[0]
+        ms = timer(lambda: GS.gee_scatter(row_ptr, cls, val, **kw), 20)
         results.append(dict(
             name="gee_scatter", route="cuda",
             source="src/repro_torch/kernels/csrc/gee_scatter.cu",
             replaces="src/repro/kernels/gee_scatter.py:84",
-            launches=launches["gee_scatter"], max_abs_err=err,
-            ms=timer(run_scatter, 10), plain_ms=timer(run_scatter_plain, 3),
+            launches=launches["gee_scatter"], max_abs_err=err, ms=ms,
+            plain_ms=timer(lambda: GS.gee_scatter_plain(row_ptr, cls, val,
+                                                        **kw), 3),
             bound_ms=b, bound_by=by, library_ms=timer(run_scatter_lib, 3),
-            shape=f"T={T} BPT={d_['rows'].shape[1]} EB={d_['rows'].shape[2]} "
-                  f"real={real} K={K}"))
+            bound_share=b / ms, bound_share_12b=b12 / ms,
+            ms_all_labelled=ms_all,
+            embed_ms=timer(lambda: be.embed(plan, emb._Yj, emb.Wv_), 10),
+            shape=f"T={T} S={S} nonzero={nnz} K={K}"))
         del cls, val, dst_l, cls_l, val_l
 
         # topk_fused: shard 0's cached Zn, the last step's queries
@@ -633,6 +670,61 @@ def main() -> int:
             bound_ms=b, bound_by=by, library_ms=timer(run_delta_lib, 3),
             shape=f"n_local={nl} m={r_t.shape[0]} K={K}"))
         return results
+
+    def skew_path():
+        """Phase 5b: a graph with LiveJournal's degree spread on the cuda
+        backend, held to the torch backend; returns the scatter kernel's
+        time and share of its bound there.  Its tensors are freed when it
+        returns."""
+        n, s, K = args.n, args.s, 16
+        t0 = time.perf_counter()
+        g = powerlaw(n, s, alpha=0.5, seed=args.seed + 3)
+        Y = make_labels(n, K, 0.10, np.random.default_rng(args.seed + 4))
+        t_data = time.perf_counter() - t0
+        deg = np.bincount(g.u, minlength=n) + np.bincount(g.v, minlength=n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        emb = Embedder(EncoderConfig(K=K), backend="cuda").fit(g, Y)
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        launches = dict(_build.launches)
+        print(f"launches on the skew path: {launches}")
+        if launches["gee_scatter"] != 1:
+            raise AssertionError("the skew fit did not launch gee_scatter "
+                                 "once")
+        plan, cfg = emb._plan, emb.config
+        T, row_ptr, tile_n = plan.data["T"], plan.data["row_ptr"], cfg.tile_n
+        plan_bytes = sum(x.numel() * x.element_size()
+                         for x in plan.data.values() if torch.is_tensor(x))
+        largest = int((row_ptr[tile_n::tile_n]
+                       - row_ptr[:-1:tile_n]).max().item())
+        # the padded packing: every tile padded to the largest, 12 bytes a
+        # slot
+        padded = T * -(-largest // 512) * 512 * 12
+        ref = Embedder(EncoderConfig(K=K), backend="torch").fit(g, Y).Z_
+        z_err = (emb.Z_ - ref).abs().max().item()
+        if not torch.allclose(emb.Z_, ref, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"skew phase: max|Z_cuda - Z_torch| = "
+                                 f"{z_err}")
+        del ref
+        cls, val = emb.backend.resolve(plan, emb._Yj, emb.Wv_)
+        kw = dict(num_tiles=T, tile_n=tile_n, kdim=K)
+        ms = timer(lambda: GS.gee_scatter(row_ptr, cls, val, **kw), 20)
+        S = cls.numel()
+        b = bound_ms(8 * S + 8 * row_ptr.numel() + T * tile_n * K * 4,
+                     int((val != 0).sum().item()))[0]
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        print(f"skew phase: powerlaw n={n} s={s} alpha=0.5, max degree "
+              f"{int(deg.max())}, largest tile {largest} contributions; "
+              f"data {t_data:.1f} s, cuda fit {t_fit:.2f} s; plan "
+              f"{plan_bytes / 2**30:.3f} GiB on the device (padded to the "
+              f"largest tile it would be {padded / 2**30:.1f} GiB); "
+              f"max|Z_cuda - Z_torch| = {z_err:.3e} (rtol 1e-5, atol 1e-6); "
+              f"gee_scatter {ms:.4f} ms, bound {b:.4f} ms, {b / ms:.3f} of "
+              f"it; peak device memory {peak_gib:.2f} GiB")
+        return dict(skew_ms=ms, skew_bound_share=b / ms)
 
     def lm_self_check(cfg, params, prompts, first):
         """Kernel path against the dense plain path, layer by layer on the
@@ -830,11 +922,20 @@ def main() -> int:
     results = gee_path()
     gc.collect()
     torch.cuda.empty_cache()
+    results[0].update(skew_path())
+    gc.collect()
+    torch.cuda.empty_cache()
     results.append(lm_path())
 
     for r_ in results:
         rate = (f", {r_['tflops']:.1f} TFLOP/s, {r_['bound_share']:.3f} of "
                 "the bound") if "tflops" in r_ else ""
+        if "ms_all_labelled" in r_:
+            rate = (f", {r_['bound_share']:.3f} of the bound "
+                    f"({r_['bound_share_12b']:.3f} of the 12-byte one), all "
+                    f"labelled {r_['ms_all_labelled']:.4f} ms, embed "
+                    f"{r_['embed_ms']:.4f} ms, skew {r_['skew_ms']:.4f} ms "
+                    f"({r_['skew_bound_share']:.3f} of its bound)")
         if "select_ms" in r_:
             rate = (f", select {r_['select_ms']:.4f} ms + merge "
                     f"{r_['merge_ms']:.4f} ms, {r_['bound_share']:.3f} of "

@@ -8,8 +8,9 @@ the scatter runs:
   torch       `core.gee` scatter-add with `index_put_` on the
               Embedder's device (the `xla` analog).
   cuda        the scatter kernel (`kernels.gee_scatter`, the `pallas`
-              analog): contributions packed ONCE at plan time by
-              destination with their *source node*, so label changes
+              analog): contributions sorted ONCE at plan time by
+              destination row (one offset per row, no padding) with
+              their *source node*, so label changes
               re-resolve class and value on the device and never
               re-pack.  On a CPU device it runs the kernel's plain
               version.
@@ -146,37 +147,42 @@ class TorchBackend(Backend):
 class CudaBackend(Backend):
     """The destination-tiled scatter kernel.
 
-    The plan packs (tile-local row, source node, weight), all
-    label-free, on the device; each embed resolves class and value
-    there from the current (Y, Wv) and launches `gee_scatter`.  Padded
-    slots carry w = 0.  Under a row partition the owned contributions
-    feed the same packing over the local rows [0, hi - lo)."""
+    The plan sorts the (destination, source node, weight) contributions,
+    all label-free, by destination row on the device (`pack_edges`):
+    one int64 offset per row (`row_ptr`) and flat `src` and `w` buffers
+    of exactly S slots, no padding.  Each embed resolves class and value
+    per slot from the current (Y, Wv) and launches `gee_scatter`.  Under
+    a row partition the owned contributions feed the same packing over
+    the local rows [0, hi - lo)."""
 
     def prepare(self, p, graph, device):
         from repro_torch.kernels.ops import pack_edges
         cfg = p.config
         dst, src, w = _contributions(graph, cfg, p.w_eff)
-        rows, srcb, wb, T, counts = pack_edges(
+        row_ptr, srcb, wb, T = pack_edges(
             torch.as_tensor(dst, device=device),
             torch.as_tensor(src, device=device),
-            torch.as_tensor(w, device=device),
-            p.n_local, cfg.tile_n, cfg.edge_block)
-        p.data = {"rows": rows, "src": srcb, "w": wb, "T": T,
-                  "counts": counts}
+            torch.as_tensor(w, device=device), p.n_local, cfg.tile_n)
+        p.data = {"row_ptr": row_ptr, "src": srcb, "w": wb, "T": T}
+
+    @staticmethod
+    def resolve(plan, Yj, Wv) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(class int32, value float32) per packed slot under the labels
+        Yj: an unlabelled donor gives class 0 and value 0."""
+        src = plan.data["src"]
+        Ys = Yj.index_select(0, src)
+        cls = torch.clamp_min(Ys, 0).to(torch.int32)
+        val = torch.where(Ys >= 0, Wv.index_select(0, src) * plan.data["w"],
+                          torch.zeros((), dtype=torch.float32,
+                                      device=Yj.device))
+        return cls, val
 
     def embed(self, plan, Yj, Wv):
         from repro_torch.kernels.gee_scatter import gee_scatter
         d, cfg = plan.data, plan.config
-        shape = d["rows"].shape
-        src = d["src"].reshape(-1)
-        Ys = Yj.index_select(0, src)
-        cls = torch.clamp_min(Ys, 0).to(torch.int32).reshape(shape)
-        val = torch.where(Ys >= 0,
-                          Wv.index_select(0, src) * d["w"].reshape(-1),
-                          torch.zeros((), dtype=torch.float32,
-                                      device=Yj.device)).reshape(shape)
-        Z = gee_scatter(d["rows"], cls, val, d["counts"],
-                        num_tiles=d["T"], tile_n=cfg.tile_n, kdim=cfg.K)
+        cls, val = self.resolve(plan, Yj, Wv)
+        Z = gee_scatter(d["row_ptr"], cls, val, num_tiles=d["T"],
+                        tile_n=cfg.tile_n, kdim=cfg.K)
         return Z[:plan.n_local], {"tiles": d["T"]}
 
 

@@ -35,7 +35,10 @@ class EncoderConfig:
 
     Backend tuning (never change Z):
       backend     registry name or "auto" (resolved at plan time).
-      tile_n, edge_block   the scatter kernel's tile and packing granule.
+      tile_n      the scatter kernel's tile (rows per thread block).
+      edge_block  the reference's packing granule, kept so the fields
+                  mirror the reference's; the cuda backend's row-offset
+                  layout has no blocks and ignores it.
       chunk_size           streaming chunk length.
     """
 
@@ -47,7 +50,7 @@ class EncoderConfig:
     # refinement
     refine_iters: int = 10
     kmeans_iters: int = 3
-    # cuda kernel geometry
+    # cuda kernel geometry (edge_block: ignored, see above)
     tile_n: int = 256
     edge_block: int = 512
     # streaming

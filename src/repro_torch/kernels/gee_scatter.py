@@ -1,12 +1,14 @@
-"""GEE edge scatter: packed contributions -> Z, one tile per block.
+"""GEE edge scatter: row-sorted contributions -> Z, one tile per block.
 
-The port of `repro.kernels.gee_scatter.gee_scatter_pallas`.  The kernel
-(``csrc/gee_scatter.cu``) keeps each destination tile of Z in shared
-memory and adds the tile's contributions in packed order, with no
-atomics: Z has the same bits on every run.  It relies on the packing of
-`repro_torch.kernels.ops.pack_edges`: contributions sorted by
-destination row inside each tile, and `counts[t]` real entries at the
-start of tile t's slot range.
+The port of `repro.kernels.gee_scatter.gee_scatter_pallas`.  It takes
+the flat layout of `repro_torch.kernels.ops.pack_edges`: the
+contributions sorted stably by destination row, row r's at
+``[row_ptr[r], row_ptr[r + 1])`` of `cls` and `val`, with no padding.
+The kernel (``csrc/gee_scatter.cu``) gives each tile of `tile_n` rows
+to one block of 8 warps; each warp owns whole rows, so there are no
+atomics, and every (row, class) sum is taken in packed order: Z has the
+same bits on every run.  A tile whose Z rows do not fit in shared
+memory is processed in sub-tiles (`subtile`), so any K is taken.
 
 On CPU tensors `gee_scatter` runs `gee_scatter_plain`; on CUDA tensors
 it launches the kernel or raises.
@@ -18,55 +20,68 @@ import torch
 from repro_torch.kernels import _build
 
 TILE_N = 256          # Z rows per tile (one thread block each)
-EDGE_BLOCK = 512      # packing granule: slots per tile are a multiple
-SMEM_LIMIT = 232_448  # shared memory one block may use on sm_90
-THREADS = 256         # threads per block, as in csrc/gee_scatter.cu
+Z_FLOATS = 16_384     # most Z entries a block holds in shared memory
+RP_ROWS = 2_048       # most rows a block holds offsets for at once
 
 
-def gee_scatter_plain(rows, cls, val, counts=None, *, num_tiles: int,
-                      tile_n: int, kdim: int) -> torch.Tensor:
-    """Plain PyTorch version: one scatter-add over every packed slot
-    (padding slots carry val 0 and add nothing).  Returns
-    Z (num_tiles * tile_n, kdim) float32."""
-    base = torch.arange(num_tiles, device=rows.device) * tile_n
-    grow = (rows.long() + base[:, None, None]).reshape(-1)
-    Z = torch.zeros((num_tiles * tile_n, kdim), dtype=torch.float32,
-                    device=rows.device)
-    return Z.index_put_((grow, cls.reshape(-1).long()),
-                        val.reshape(-1).to(torch.float32), accumulate=True)
+def subtile(tile_n: int, kdim: int) -> tuple:
+    """(rows, columns) of the Z sub-tile one pass of a block holds: the
+    whole tile where it fits, else row sub-ranges, and for a K wider than
+    `Z_FLOATS` column ranges too (each column range reads its rows'
+    contributions again)."""
+    cols = min(kdim, Z_FLOATS)
+    return min(tile_n, Z_FLOATS // cols, RP_ROWS), cols
 
 
-def gee_scatter(rows, cls, val, counts, *, num_tiles: int, tile_n: int,
+def gee_scatter_plain(row_ptr, cls, val, *, num_tiles: int, tile_n: int,
+                      kdim: int) -> torch.Tensor:
+    """Plain PyTorch version: one `index_put_` over the rows expanded
+    from `row_ptr`.  Returns Z (num_tiles * tile_n, kdim) float32."""
+    nrows = num_tiles * tile_n
+    rows = torch.repeat_interleave(
+        torch.arange(nrows, device=row_ptr.device), row_ptr.diff())
+    Z = torch.zeros((nrows, kdim), dtype=torch.float32,
+                    device=row_ptr.device)
+    return Z.index_put_((rows, cls.long()), val.to(torch.float32),
+                        accumulate=True)
+
+
+def gee_scatter(row_ptr, cls, val, *, num_tiles: int, tile_n: int,
                 kdim: int) -> torch.Tensor:
-    """rows (tile-local), cls: int32 (T, BPT, EB); val: float32 (T, BPT,
-    EB); counts: int32 (T,) real entries per tile (see
-    `ops.pack_edges`).  Returns Z (num_tiles * tile_n, kdim) float32."""
-    T, BPT, EB = rows.shape
-    if T != num_tiles:
-        raise ValueError(f"rows has {T} tiles, num_tiles={num_tiles}")
-    dev = rows.device
+    """row_ptr: int64 (num_tiles * tile_n + 1,), non-decreasing from 0 to
+    S; cls int32, val float32: (S,), row r's contributions at
+    [row_ptr[r], row_ptr[r + 1]) (see `ops.pack_edges`).  Returns
+    Z (num_tiles * tile_n, kdim) float32."""
+    if tile_n < 1 or kdim < 1:
+        raise ValueError(f"tile_n ({tile_n}) and kdim ({kdim}) must be >= 1")
+    nrows = num_tiles * tile_n
+    if row_ptr.shape != (nrows + 1,):
+        raise ValueError(f"row_ptr has shape {tuple(row_ptr.shape)}, "
+                         f"expected ({nrows + 1},) for {num_tiles} tiles")
+    dev = row_ptr.device
     if dev.type == "cpu":
-        return gee_scatter_plain(rows, cls, val, counts,
-                                 num_tiles=num_tiles, tile_n=tile_n,
-                                 kdim=kdim)
+        return gee_scatter_plain(row_ptr, cls, val, num_tiles=num_tiles,
+                                 tile_n=tile_n, kdim=kdim)
     if dev.type != "cuda":
         raise ValueError(f"gee_scatter runs on cpu or cuda, not {dev}")
-    for what, t, dt in (("rows", rows, torch.int32),
-                        ("cls", cls, torch.int32),
-                        ("val", val, torch.float32)):
-        _build.require(what, t, dt, (T, BPT, EB), dev)
-    _build.require("counts", counts, torch.int32, (T,), dev)
-    if 4 * tile_n * kdim + 12 * THREADS > SMEM_LIMIT:
-        raise ValueError(f"a {tile_n} x {kdim} tile does not fit in "
-                         "shared memory")
-    Z = torch.empty((T * tile_n, kdim), dtype=torch.float32, device=dev)
+    S = cls.shape[0] if cls.dim() == 1 else -1
+    _build.require("row_ptr", row_ptr, torch.int64, (nrows + 1,), dev)
+    _build.require("cls", cls, torch.int32, (S,), dev)
+    _build.require("val", val, torch.float32, (S,), dev)
+    if cls.data_ptr() % 16 or val.data_ptr() % 16:
+        raise ValueError("cls and val must start on 16 bytes (the kernel "
+                         "copies them 16 bytes at a time)")
+    Z = torch.empty((nrows, kdim), dtype=torch.float32, device=dev)
+    if nrows == 0:
+        return Z
+    sub_rows, sub_cols = subtile(tile_n, kdim)
     fn = _build.function("gee_scatter", "gee_scatter_launch",
-                         [_build.P] * 5 + [_build.I, _build.L, _build.I,
-                                           _build.I, _build.P])
+                         [_build.P] * 4 + [_build.I] * 5
+                         + [_build.L, _build.P])
     with torch.cuda.device(dev):
-        err = fn(rows.data_ptr(), cls.data_ptr(), val.data_ptr(),
-                 counts.data_ptr(), Z.data_ptr(), T, BPT * EB, tile_n,
-                 kdim, _build.stream_of(dev))
+        err = fn(row_ptr.data_ptr(), cls.data_ptr(), val.data_ptr(),
+                 Z.data_ptr(), num_tiles, tile_n, kdim, sub_rows, sub_cols,
+                 S, _build.stream_of(dev))
     _build.check("gee_scatter", err)
     _build.launches["gee_scatter"] += 1
     return Z

@@ -33,24 +33,81 @@ def _same(a, b):
     return a.shape == b.shape and bool((a == b).all())
 
 
-@pytest.mark.parametrize("n,m,K,tile_n,eb", [(300, 6000, 5, 64, 128),
-                                             (50, 900, 8, 64, 32),
-                                             (5000, 100000, 16, 256, 512)])
-def test_gee_scatter(dev, rng, n, m, K, tile_n, eb):
-    dst = torch.as_tensor((rng.zipf(1.5, m) % n).astype(np.int64), device=dev)
-    cls = torch.as_tensor(rng.integers(0, K, m), device=dev)
-    val = torch.as_tensor(rng.random(m, dtype=np.float32) / 64, device=dev)
-    rows, clsb, valb, T, counts = pack_edges(dst, cls, val, n, tile_n, eb)
+def _serial_sum(row_ptr, cls, val, kdim):
+    """float32 sum of each (row, class) in packed order, on the host: the
+    kernel's order of additions, so its exact bits."""
+    rp = row_ptr.cpu().numpy()
+    rows = np.repeat(np.arange(rp.shape[0] - 1), np.diff(rp))
+    Z = np.zeros((rp.shape[0] - 1, kdim), np.float32)
+    np.add.at(Z, (rows, cls.cpu().numpy()), val.cpu().numpy())
+    return Z
+
+
+# (n, m, K, tile_n, giant): skewed rows; one tile; K = 256 (row
+# sub-ranges); one row holding `giant` contributions
+@pytest.mark.parametrize("n,m,K,tile_n,giant", [
+    (300, 6000, 5, 64, 0), (50, 900, 8, 64, 0), (5000, 100000, 16, 256, 0),
+    (3000, 40000, 256, 256, 0), (2000, 10000, 16, 256, 50_000)])
+def test_gee_scatter(dev, rng, n, m, K, tile_n, giant):
+    dst = np.concatenate([rng.zipf(1.5, m) % n, np.full(giant, n // 3)])
+    dst = torch.as_tensor(rng.permutation(dst).astype(np.int64), device=dev)
+    cls = torch.as_tensor(rng.integers(0, K, m + giant), device=dev)
+    val = rng.random(m + giant, dtype=np.float32) / 64
+    val[rng.random(m + giant) < 0.5] = 0
+    val = torch.as_tensor(val, device=dev)
+    row_ptr, clsb, valb, T = pack_edges(dst, cls, val, n, tile_n)
     before = _build.launches["gee_scatter"]
-    a = GS.gee_scatter(rows, clsb, valb, counts, num_tiles=T, tile_n=tile_n,
+    a = GS.gee_scatter(row_ptr, clsb, valb, num_tiles=T, tile_n=tile_n,
                        kdim=K)
-    b = GS.gee_scatter(rows, clsb, valb, counts, num_tiles=T, tile_n=tile_n,
+    b = GS.gee_scatter(row_ptr, clsb, valb, num_tiles=T, tile_n=tile_n,
                        kdim=K)
-    p = GS.gee_scatter_plain(rows, clsb, valb, num_tiles=T, tile_n=tile_n,
-                             kdim=K)
+    p = GS.gee_scatter_plain(row_ptr, clsb, valb, num_tiles=T,
+                             tile_n=tile_n, kdim=K)
     assert _build.launches["gee_scatter"] == before + 2
     assert _same(a, b)
     torch.testing.assert_close(a, p, rtol=1e-5, atol=1e-6)
+    assert np.array_equal(a.cpu().numpy(),
+                          _serial_sum(row_ptr, clsb, valb, K))
+
+
+def test_gee_scatter_large_groups(dev, rng):
+    """Every donor labelled and 90 % of a row's donors in one class (a
+    refine round on an SBM): dense batches with large groups take the
+    fold from registers; the same bits as the serial sum."""
+    n, m, K, tile_n = 3000, 200_000, 16, 256
+    dst = rng.integers(0, n, m)
+    cls = np.where(rng.random(m) < 0.9, dst % K, rng.integers(0, K, m))
+    val = rng.random(m, dtype=np.float32) / 64 + np.float32(1e-3)
+    row_ptr, clsb, valb, T = pack_edges(
+        *(torch.as_tensor(a, device=dev) for a in (dst, cls, val)), n,
+        tile_n)
+    kw = dict(num_tiles=T, tile_n=tile_n, kdim=K)
+    a = GS.gee_scatter(row_ptr, clsb, valb, **kw)
+    assert _same(a, GS.gee_scatter(row_ptr, clsb, valb, **kw))
+    torch.testing.assert_close(
+        a, GS.gee_scatter_plain(row_ptr, clsb, valb, **kw), rtol=1e-5,
+        atol=1e-6)
+    assert np.array_equal(a.cpu().numpy(),
+                          _serial_sum(row_ptr, clsb, valb, K))
+
+
+@pytest.mark.parametrize("z_floats", [1024, 100])
+def test_gee_scatter_sub_tiles(dev, rng, monkeypatch, z_floats):
+    """A smaller shared-memory budget forces row sub-ranges (1024: 4 rows
+    a pass at K = 256) and column ranges (100: three passes over each
+    row's contributions): the same bits as the whole tile."""
+    n, m, K, tile_n = 700, 30000, 256, 64
+    dst = torch.as_tensor(rng.integers(0, n, m), device=dev)
+    cls = torch.as_tensor(rng.integers(0, K, m), device=dev)
+    val = torch.as_tensor(rng.random(m, dtype=np.float32), device=dev)
+    row_ptr, clsb, valb, T = pack_edges(dst, cls, val, n, tile_n)
+    kw = dict(num_tiles=T, tile_n=tile_n, kdim=K)
+    whole = GS.gee_scatter(row_ptr, clsb, valb, **kw)
+    monkeypatch.setattr(GS, "Z_FLOATS", z_floats)
+    assert GS.subtile(tile_n, K)[0] < tile_n
+    assert _same(GS.gee_scatter(row_ptr, clsb, valb, **kw), whole)
+    assert np.array_equal(whole.cpu().numpy(),
+                          _serial_sum(row_ptr, clsb, valb, K))
 
 
 def _check_topk(rows, q, qn, **kw):
@@ -158,6 +215,14 @@ def test_wrappers_refuse_bad_inputs(dev):
         QF.topk_fused(z, z[:2].contiguous(), qn, k=QF.KMAX + 1)
     with pytest.raises(ValueError, match="contiguous"):
         QF.gee_delta_renorm(z.t(), qn, qn, qn.float())
+    row_ptr = torch.tensor([0, 1, 2, 3, 4], device=dev)
+    c = torch.zeros(5, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16 bytes"):
+        GS.gee_scatter(row_ptr, c[1:], c[1:].float(), num_tiles=1,
+                       tile_n=4, kdim=2)
+    with pytest.raises(TypeError):
+        GS.gee_scatter(row_ptr.int(), c[:4], c[:4].float(), num_tiles=1,
+                       tile_n=4, kdim=2)
 
 
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}

@@ -45,6 +45,15 @@ PACK_CASES = {
 }
 
 
+def _tile_triples(row_ptr, cls, val, t, tile_n):
+    """Sorted (tile-local row, class, value) of tile t of a flat pack."""
+    rp = row_ptr.numpy()[t * tile_n:(t + 1) * tile_n + 1]
+    rows = np.repeat(np.arange(tile_n), np.diff(rp))
+    lo, hi = rp[0], rp[-1]
+    return sorted(zip(rows.tolist(), cls.numpy()[lo:hi].tolist(),
+                      val.numpy()[lo:hi].tolist()))
+
+
 class TestPackEdges:
     @pytest.mark.parametrize("case", sorted(PACK_CASES))
     def test_tiles_hold_reference_multisets(self, rng, case):
@@ -52,52 +61,75 @@ class TestPackEdges:
         dst, cls, val = _contribs(rng, n, 0, 6, dst=dst)
         tile_n, eb = 64, 128
         jr, jc, jv, jT = JO.pack_edges(dst, cls, val, n, tile_n, eb)
-        tr, tc, tv, tT, counts = TO.pack_edges(_t(dst), _t(cls), _t(val), n,
-                                               tile_n, eb)
+        row_ptr, tc, tv, tT = TO.pack_edges(_t(dst), _t(cls), _t(val), n,
+                                            tile_n)
+        S = dst.shape[0]
         assert tT == jT
-        assert tr.dtype == tc.dtype == counts.dtype == torch.int32
+        assert row_ptr.dtype == torch.int64 and tc.dtype == torch.int32
         assert tv.dtype == torch.float32
-        tr, tc, tv = (x.reshape(tT, -1).numpy() for x in (tr, tc, tv))
+        assert row_ptr.shape == (tT * tile_n + 1,)
+        assert tc.shape == tv.shape == (S,)
+        assert int(row_ptr[0]) == 0 and int(row_ptr[-1]) == S
+        assert bool((row_ptr.diff() >= 0).all())
         jr, jc, jv = (x.reshape(jT, -1) for x in (jr, jc, jv))
-        counts = counts.numpy()
-        assert counts.sum() == dst.shape[0]
         for t in range(tT):
-            c = counts[t]
             real = jv[t] != 0            # test values are never 0
-            assert real.sum() == c
-            ref = sorted(zip(jr[t][real], jc[t][real], jv[t][real]))
-            got = sorted(zip(tr[t][:c], tc[t][:c], tv[t][:c]))
-            assert ref == got
-            # rows never decrease inside a tile (padding included), and
-            # padding adds nothing
-            assert np.all(np.diff(tr[t]) >= 0)
-            assert not tv[t][c:].any()
+            ref = sorted(zip(jr[t][real].tolist(), jc[t][real].tolist(),
+                             jv[t][real].tolist()))
+            assert _tile_triples(row_ptr, tc, tv, t, tile_n) == ref
 
     def test_stable_within_row(self, rng):
         """Contributions of one row keep their input order."""
         dst = np.array([3, 1, 3, 3, 1], np.int32)
         val = np.arange(1, 6, dtype=np.float32)
-        _, _, tv, _, _ = TO.pack_edges(_t(dst), _t(np.zeros(5, np.int32)),
-                                       _t(val), 8, 8, 8)
-        assert tv.reshape(-1)[:5].tolist() == [2.0, 5.0, 1.0, 3.0, 4.0]
+        row_ptr, _, tv, _ = TO.pack_edges(_t(dst), _t(np.zeros(5, np.int32)),
+                                          _t(val), 8, 8)
+        assert tv.tolist() == [2.0, 5.0, 1.0, 3.0, 4.0]
+        assert row_ptr.tolist() == [0, 0, 2, 2, 5, 5, 5, 5, 5]
+
+    def test_buffers_hold_s_slots(self, rng):
+        """One row with 10,000 contributions among 1,000 tiles: the
+        buffers hold S slots, where the reference's packing pads every
+        tile to the largest one."""
+        tile_n, T = 4, 1000
+        n = tile_n * T
+        dst = np.concatenate([np.full(10_000, 7),
+                              rng.integers(0, n, 3000)]).astype(np.int32)
+        dst, cls, val = _contribs(rng, n, 0, 6, dst=dst)
+        row_ptr, tc, tv, tT = TO.pack_edges(_t(dst), _t(cls), _t(val), n,
+                                            tile_n)
+        S = dst.shape[0]
+        assert tT == T and tc.numel() == tv.numel() == S
+        assert row_ptr.numel() == T * tile_n + 1
+        assert int(row_ptr[8] - row_ptr[7]) >= 10_000
+        jr, jc, jv, _ = JO.pack_edges(dst, cls, val, n, tile_n, 128)
+        assert jr.size >= T * 10_000          # the padded layout's size
+        jr, jc, jv = (x.reshape(T, -1) for x in (jr, jc, jv))
+        for t in (0, 1, 500, T - 1):
+            real = jv[t] != 0
+            ref = sorted(zip(jr[t][real].tolist(), jc[t][real].tolist(),
+                             jv[t][real].tolist()))
+            assert _tile_triples(row_ptr, tc, tv, t, tile_n) == ref
 
 
 class TestGeeScatter:
     @pytest.mark.parametrize("case", sorted(PACK_CASES))
-    @pytest.mark.parametrize("K", [3, 8])
+    @pytest.mark.parametrize("K", [3, 8, 256])
     def test_plain_matches_pallas(self, rng, case, K):
         dst, n = PACK_CASES[case](rng)
         dst, cls, val = _contribs(rng, n, 0, K, dst=dst)
-        tile_n, eb = 64, 128
+        # K = 256: a narrow tile keeps the interpreted one-hot product quick
+        tile_n, eb = (64, 128) if K < 256 else (16, 128)
         jr, jc, jv, jT = JO.pack_edges(dst, cls, val, n, tile_n, eb)
         kdim = JO._round_up(K, 8)
         zj = np.asarray(gee_scatter_pallas(
             jnp.asarray(jr), jnp.asarray(jc), jnp.asarray(jv), num_tiles=jT,
             tile_n=tile_n, kdim=kdim, interpret=True))[:n, :K]
-        packed = TO.pack_edges(_t(dst), _t(cls), _t(val), n, tile_n, eb)
+        row_ptr, tc, tv, T = TO.pack_edges(_t(dst), _t(cls), _t(val), n,
+                                           tile_n)
         before = dict(_build.launches)
-        zt = gee_scatter(*packed[:3], packed[4], num_tiles=packed[3],
-                         tile_n=tile_n, kdim=K)[:n]
+        zt = gee_scatter(row_ptr, tc, tv, num_tiles=T, tile_n=tile_n,
+                         kdim=K)[:n]
         assert _build.launches == before     # plain versions never count
         np.testing.assert_allclose(zt.numpy(), zj, atol=1e-5)
         np.testing.assert_allclose(
@@ -113,23 +145,24 @@ class TestGeeScatter:
             np.int32)
         zj = np.asarray(JO.gee_pallas(u, v, w, Y, K=K, n=n, tile_n=64,
                                       edge_block=128, interpret=True))
-        zt = TO.gee_cuda(_t(u), _t(v), _t(w), _t(Y), K=K, n=n, tile_n=64,
-                         edge_block=128)
+        zt = TO.gee_cuda(_t(u), _t(v), _t(w), _t(Y), K=K, n=n, tile_n=64)
         np.testing.assert_allclose(zt.numpy(), zj, atol=1e-5)
         np.testing.assert_allclose(
             zt.numpy(), TRef.gee_ref(_t(u), _t(v), _t(w), _t(Y), n,
                                      K).numpy(), atol=1e-5)
 
     def test_guards(self):
-        rows = torch.zeros((2, 1, 4), dtype=torch.int32)
+        row_ptr = torch.zeros(9, dtype=torch.int64)
+        e = torch.zeros(0, dtype=torch.int32)
         with pytest.raises(ValueError, match="tiles"):
-            gee_scatter(rows, rows, rows.float(), None, num_tiles=3,
-                        tile_n=4, kdim=2)
+            gee_scatter(row_ptr, e, e.float(), num_tiles=3, tile_n=4, kdim=2)
         with pytest.raises(ValueError, match="cpu or cuda"):
-            gee_scatter(rows.to("meta"), rows, rows.float(), None,
-                        num_tiles=2, tile_n=4, kdim=2)
-        z = gee_scatter_plain(rows, rows, rows.float(), num_tiles=2,
-                              tile_n=4, kdim=2)
+            gee_scatter(row_ptr.to("meta"), e, e.float(), num_tiles=2,
+                        tile_n=4, kdim=2)
+        with pytest.raises(ValueError, match=">= 1"):
+            gee_scatter(row_ptr, e, e.float(), num_tiles=2, tile_n=4, kdim=0)
+        z = gee_scatter_plain(row_ptr, e, e.float(), num_tiles=2, tile_n=4,
+                              kdim=2)
         assert z.shape == (8, 2) and not z.any()
 
 
