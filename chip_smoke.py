@@ -16,7 +16,9 @@
    flash attention the JAX suite's MHA/GQA/MQA cases in float32 and
    bfloat16, ragged S, every D of the tensor-core body, yi's heads at
    S = 2049 and the prefill's shape at S = 2047), and requires two runs
-   to give the same bits;
+   to give the same bits; and the widths outside the main path's bodies:
+   gee_delta_renorm at K = 200, topk_fused at K = 300 and at k = 100,
+   flash attention at D = 96 (zero-padded to 128);
 3. drives the GEE path at the scale of SNAP soc-LiveJournal1 (an SBM
    with n = 4,847,571 nodes, s = 68,993,773 edges, K = 16, 10% labeled):
    `Embedder(backend="cuda").fit`, then two `EmbeddingShard`s
@@ -28,9 +30,24 @@
    shapes and times kernel, plain version and one PyTorch library call
    with CUDA events (for top-k also its select and merge passes, each
    launched on its own; for gee_scatter also the kernel with every node
-   labelled, as in a refine round, and one whole `CudaBackend.embed`);
+   labelled, as in a refine round, and one whole `CudaBackend.embed`;
+   and the general bodies at one wide shape each: top-k with k = 100 on
+   shard 0's rows, top-k at K = 300 and the delta kernel at K = 200 on
+   262,144 random rows);
 5. self-checks: the shards' Z equals a fresh fit on the updated graph,
    and the fused answers equal the plain scan's on the same Zn;
+5a. the durable serving engine on the same graph (`ServingEngine`,
+   2 shards, backend "cuda", a data directory in the temporary
+   directory): generation 0 (compaction, snapshot, shard builds), then
+   `start()` with a `MicroBatcher` and 8 ticks of the serving CLI's
+   mix (eight 64-node reads of every kind, top-k with k = 10; a 200-edge
+   insert; from tick 3 a deletion of an earlier insert; label reveals of
+   n / 100 + 1 nodes at ticks 3 and 6), a check of the live Z against a
+   torch-backend fit of the store's edges, `checkpoint()`, close and
+   `ServingEngine.open`: the same (version, epoch, fingerprint), Z and
+   held-back top-k answers.  Launch counts are zeroed just before; all
+   three GEE kernels must run.  Prints each step's time, each tick's
+   write and read latencies and peak device memory;
 5b. frees the GEE path's tensors and fits a skewed graph with
    LiveJournal's degree spread (`powerlaw(n, s, alpha=0.5)`: largest
    degree about 15,700, 10% labelled) on the cuda backend, held to the
@@ -429,6 +446,26 @@ def main() -> int:
                     torch.as_tensor(c, device=dev),
                     torch.as_tensor(sign * v, device=dev),
                     f"small sign={sign}")
+    # the widths outside the main path's bodies: the delta kernel's rows
+    # in device memory (K > 128), top-k's general path (K > 256, k > 64)
+    Zw = torch.as_tensor(rng.random((700, 200), dtype=np.float32),
+                         device=dev)
+    rw = np.sort(rng.integers(0, 700, 600)).astype(np.int32)
+    check_delta(Zw, torch.as_tensor(rw, device=dev),
+                torch.as_tensor(rng.integers(0, 4, 600).astype(np.int32),
+                                device=dev),
+                torch.as_tensor(rng.random(600, dtype=np.float32),
+                                device=dev), "K=200")
+    for Kw, mw, kw_ in ((300, 5000, 10), (16, 20000, 100), (300, 40, 100)):
+        Zw = torch.as_tensor(np.repeat(rng.normal(size=(mw // 2, Kw)).astype(
+            np.float32), 2, axis=0), device=dev)
+        qnw = torch.as_tensor(rng.integers(0, mw, 64).astype(np.int32),
+                              device=dev)
+        qw = QF.normalize_rows(Zw)[qnw.long()].contiguous()
+        for norm in (False, True):
+            src = Zw if norm else QF.normalize_rows(Zw)
+            check_topk(src, qw, qnw, kw_, 0, True, norm,
+                       f"K={Kw} m={mw} k={kw_} norm={norm}")
     # flash attention: the JAX suite's cases, ragged S, D = 128; bfloat16
     # only: yi's heads one row past a 128-row tile, and the prefill's shape
     # with a ragged last tile
@@ -436,7 +473,8 @@ def main() -> int:
     flash_cases = [(c_, dt) for c_ in (
         (1, 2, 2, 64, 16), (2, 4, 2, 128, 32), (1, 8, 1, 128, 16),
         (2, 4, 2, 100, 64), (1, 4, 4, 1, 32), (1, 8, 2, 200, 128),
-        (1, 32, 4, 130, 128)) for dt in (torch.float32, torch.bfloat16)]
+        (1, 32, 4, 130, 128), (1, 8, 2, 200, 96))
+        for dt in (torch.float32, torch.bfloat16)]
     flash_cases += [((1, lm.n_heads, lm.n_kv_heads, 2049, lm.head_dim),
                      torch.bfloat16),
                     ((args.lm_batch, lm.n_heads, lm.n_kv_heads,
@@ -635,6 +673,28 @@ def main() -> int:
             shape=f"m={m} nq={nq} k={k} K={K} select grid "
                   f"{cand[0].shape[1]} blocks"))
         del cand
+        # the general path at one wide shape each: k = 100 on shard 0's
+        # rows, and K = 300 on 262,144 random unit rows (k = 10)
+        wide = {}
+        check_topk(Zn0, qc, qn, 100, sh.lo, True, False, "real k=100")
+        wide["wide_k100_ms"] = timer(lambda: QF.topk_fused(
+            Zn0, qc, qn, k=100, row_offset=sh.lo), 5)
+        wide["wide_k100_bound_ms"] = bound_ms(
+            m * K * 4 + nq * K * 4 + nq * 4 + nq * 100 * 8,
+            2.0 * nq * m * K)[0]
+        gen_ = torch.Generator(device=dev).manual_seed(args.seed)
+        Zw = QF.normalize_rows(torch.randn((1 << 18, 300), generator=gen_,
+                                           device=dev))
+        qnw = torch.arange(0, 1 << 18, 4096, dtype=torch.int32, device=dev)
+        qw = Zw[qnw.long()].contiguous()
+        check_topk(Zw, qw, qnw, k, 0, True, False, "K=300 m=262144")
+        wide["wide_K300_ms"] = timer(lambda: QF.topk_fused(Zw, qw, qnw, k=k),
+                                     5)
+        wide["wide_K300_bound_ms"] = bound_ms(
+            Zw.numel() * 4 + qw.numel() * 4 + nq * 4 + nq * k * 8,
+            2.0 * nq * Zw.numel())[0]
+        results[-1].update(wide)
+        del Zw, qw
 
         # gee_delta_renorm: shard 0's Z and a fresh 200-edge delta
         d = Graph(step_rng.integers(0, n, 200).astype(np.int32),
@@ -669,7 +729,193 @@ def main() -> int:
                                                              v_t), 3),
             bound_ms=b, bound_by=by, library_ms=timer(run_delta_lib, 3),
             shape=f"n_local={nl} m={r_t.shape[0]} K={K}"))
-        return results
+        # the rows-in-device-memory body at K = 200 on 262,144 rows, with
+        # the same delta's contributions
+        Zw = torch.rand((1 << 18, 200), generator=gen_, device=dev)
+        keep = r_t < Zw.shape[0]
+        rw_, cw_, vw_ = r_t[keep], c_t[keep] % 200, v_t[keep]
+        check_delta(Zw, rw_, cw_, vw_, "K=200 n_local=262144")
+        results[-1].update(
+            wide_K200_ms=timer(lambda: QF.gee_delta_renorm(Zw, rw_, cw_, vw_),
+                               10),
+            wide_K200_bound_ms=bound_ms(3 * Zw.numel() * 4
+                                        + rw_.shape[0] * 12,
+                                        rw_.shape[0])[0])
+        del Zw
+        return results, (g, truth, Y)
+
+    def engine_path(g, truth, Y):
+        """Phase 5a: the durable serving engine at LiveJournal scale on
+        the main path's graph; returns its phase times for the summary.
+        Its tensors and its data directory are gone when it returns."""
+        import tempfile
+        from repro_torch import obs
+        from repro_torch.serving import GraphStore, MicroBatcher, ServingEngine
+
+        n, K, k, nq = g.n, 16, 10, 64
+        times = {}
+
+        class TimedStore(GraphStore):
+            """The engine's store, timing its compactions and
+            snapshots (the engine's own spans cover the rebuilds)."""
+
+            def compact(self):
+                busy = bool(self.edge_log) or not self._coalesced
+                t0 = time.perf_counter()
+                out = super().compact()
+                if busy:          # not the snapshot's no-op compaction
+                    times.setdefault("compact_s", []).append(
+                        time.perf_counter() - t0)
+                return out
+
+            def snapshot(self, prefix):
+                t0 = time.perf_counter()
+                super().snapshot(prefix)
+                times.setdefault("snapshot_s", []).append(
+                    time.perf_counter() - t0)
+
+        def rebuild_s():
+            return obs.registry().hist_summary(
+                "repro_serving_rebuild_seconds")["sum"]
+
+        obs.configure(enabled=True)
+        obs.reset()
+        tick_rng = np.random.default_rng(args.seed + 5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        with tempfile.TemporaryDirectory(prefix="engine-") as tmp:
+            data_dir = str(Path(tmp) / "deployment")
+            t0 = time.perf_counter()
+            store = TimedStore(g, Y, K)
+            t_store = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            engine = ServingEngine(store, num_shards=2, backend="cuda",
+                                   data_dir=data_dir, device="cuda")
+            torch.cuda.synchronize()
+            t_boot = time.perf_counter() - t0
+            snap_bytes = sum(f.stat().st_size
+                             for f in Path(data_dir).iterdir())
+            print(f"engine build: store (hash of {g.s:,} edges) "
+                  f"{t_store:.2f} s; generation 0 {t_boot:.2f} s = "
+                  f"compaction {times['compact_s'][0]:.2f} s + shard "
+                  f"builds {rebuild_s():.2f} s + snapshot "
+                  f"{times['snapshot_s'][0]:.2f} s ({snap_bytes / 2**20:.0f}"
+                  f" MiB on disk) + routing and shard fingerprints "
+                  f"{t_boot - times['compact_s'][0] - rebuild_s() - times['snapshot_s'][0]:.2f} s")
+            batcher = engine.start(MicroBatcher(engine, topk=k))
+            inserted, tick_ms = [], []
+            for tick in range(8):
+                tickets = []
+                for _ in range(8):
+                    kind = str(tick_rng.choice(["embed", "predict", "topk"]))
+                    tickets.append(batcher.submit(
+                        kind, tick_rng.integers(0, n, nq)))
+                u = tick_rng.integers(0, n, 200).astype(np.int32)
+                v = tick_rng.integers(0, n, 200).astype(np.int32)
+                w = tick_rng.random(200).astype(np.float32) + 0.5
+                tickets.append(batcher.submit("insert", (u, v, w)))
+                inserted.append((u, v, w))
+                if tick >= 2:
+                    tickets.append(batcher.submit("delete", inserted.pop(0)))
+                if tick in (2, 5):
+                    nodes = tick_rng.integers(0, n, n // 100 + 1)
+                    tickets.append(batcher.submit("labels",
+                                                  (nodes, truth[nodes])))
+                for t_ in tickets:
+                    t_.result(timeout=600)
+                by_kind = {}
+                for t_ in tickets:
+                    by_kind.setdefault(t_.kind, []).append(t_.latency * 1e3)
+                tick_ms.append({k_: max(v_) for k_, v_ in by_kind.items()})
+                print(f"engine tick {tick}: version {engine.version} epoch "
+                      f"{engine.epoch}; ticket latency ms (max per kind): "
+                      + ", ".join(f"{k_} {v_:.2f}" for k_, v_ in
+                                  sorted(tick_ms[-1].items())))
+            engine.stop()
+            if engine.loop_error is not None:
+                raise AssertionError(f"engine flush loop failed: "
+                                     f"{engine.loop_error!r}")
+            for kind, row in batcher.stats().items():
+                print(f"engine batcher {kind}: requests {row['requests']}, "
+                      f"batches {row['batches']}, mean batch "
+                      f"{row['mean_batch']:.1f}, mean latency "
+                      f"{row['mean_latency_ms']:.2f} ms, "
+                      f"{row['items_per_s']:,.0f} items/s")
+            # the live Z (delta-maintained) against a fresh fit
+            live = store.edges()
+            fresh = Embedder(EncoderConfig(K=K), backend="torch").fit(
+                live, engine.Y_epoch).Z_
+            z_err = 0.0
+            for sh in engine.shards:
+                ref = fresh[sh.lo:sh.hi]
+                z_err = max(z_err, (sh.Z_owned - ref).abs().max().item())
+                if not torch.allclose(sh.Z_owned, ref, rtol=1e-5, atol=1e-6):
+                    raise AssertionError(f"engine shard {sh.shard_id}: "
+                                         f"max|Z_live - Z_fit| = {z_err}")
+            del fresh, live
+            print(f"engine self-check: max|Z_live - Z_fit(store.edges(), "
+                  f"Y_epoch)| = {z_err:.3e} (rtol 1e-5, atol 1e-6)")
+            r0 = rebuild_s()
+            t0 = time.perf_counter()
+            info = engine.checkpoint()
+            torch.cuda.synchronize()
+            t_ckpt = time.perf_counter() - t0
+            print(f"engine checkpoint: {t_ckpt:.2f} s = compaction "
+                  f"{times['compact_s'][-1]:.2f} s ({info['edges_before']:,}"
+                  f" -> {info['edges_after']:,} edges) + shard builds "
+                  f"{rebuild_s() - r0:.2f} s + snapshot "
+                  f"{times['snapshot_s'][-1]:.2f} s; generation "
+                  f"{info['generation']}")
+            held = tick_rng.integers(0, n, nq).astype(np.int32)
+            pre = engine.query_topk(held, k=k)
+            triple = (engine.version, engine.epoch, engine.fingerprint())
+            Z_live = [sh.Z_owned.clone() for sh in engine.shards]
+            engine.close()
+            del engine, store
+            gc.collect()
+            r0 = rebuild_s()
+            t0 = time.perf_counter()
+            rec = ServingEngine.open(data_dir, backend="cuda", device="cuda")
+            torch.cuda.synchronize()
+            t_open = time.perf_counter() - t0
+            rtriple = (rec.version, rec.epoch, rec.fingerprint())
+            dz = max((sh.Z_owned - z).abs().max().item()
+                     for sh, z in zip(rec.shards, Z_live))
+            post = rec.query_topk(held, k=k)
+            launches = dict(_build.launches)
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            print(f"engine reopen: {t_open:.2f} s (shard builds "
+                  f"{rebuild_s() - r0:.2f} s); {rtriple[:2]} vs live "
+                  f"{triple[:2]}, fingerprint equal "
+                  f"{rtriple[2] == triple[2]}; max|dZ| = {dz:.3e}; held-back "
+                  f"top-k bit-equal "
+                  f"{np.array_equal(pre[0], post[0]) and np.array_equal(pre[1], post[1])}")
+            print(f"launches in the engine phase: {launches}; peak device "
+                  f"memory {peak_gib:.2f} GiB")
+            if rtriple != triple:
+                raise AssertionError(f"reopened engine {rtriple} != live "
+                                     f"{triple}")
+            for sh, z in zip(rec.shards, Z_live):
+                if not torch.allclose(sh.Z_owned, z, rtol=1e-5, atol=1e-6):
+                    raise AssertionError("reopened Z differs from the live "
+                                         f"one: max|dZ| = {dz}")
+            if not (np.array_equal(pre[0], post[0])
+                    and np.array_equal(pre[1], post[1])):
+                raise AssertionError("held-back top-k answers differ after "
+                                     "the reopen")
+            if rec.loop_error is not None:
+                raise AssertionError(f"loop_error: {rec.loop_error!r}")
+            for name in ("gee_scatter", "gee_delta_renorm", "topk_fused"):
+                if launches[name] == 0:
+                    raise AssertionError(f"kernel {name} was never launched "
+                                         "in the engine phase")
+            rec.close()
+            del rec, Z_live
+        gc.collect()
+        torch.cuda.empty_cache()
+        return dict(tick_ms=tick_ms, checkpoint_s=t_ckpt, reopen_s=t_open,
+                    peak_gib=peak_gib)
 
     def skew_path():
         """Phase 5b: a graph with LiveJournal's degree spread on the cuda
@@ -919,9 +1165,12 @@ def main() -> int:
             tflops=flops / ms / 1e9, bound_share=b / ms,
             shape=f"B={B} H={H} KV={KV} S={S} D={D} bf16")
 
-    results = gee_path()
+    results, main_graph = gee_path()
     gc.collect()
     torch.cuda.empty_cache()
+    engine_path(*main_graph)
+    del main_graph
+    gc.collect()
     results[0].update(skew_path())
     gc.collect()
     torch.cuda.empty_cache()
@@ -939,7 +1188,15 @@ def main() -> int:
         if "select_ms" in r_:
             rate = (f", select {r_['select_ms']:.4f} ms + merge "
                     f"{r_['merge_ms']:.4f} ms, {r_['bound_share']:.3f} of "
-                    f"the bound, issue floor {r_['issue_floor_ms']:.4f} ms")
+                    f"the bound, issue floor {r_['issue_floor_ms']:.4f} ms; "
+                    f"general path: k = 100 {r_['wide_k100_ms']:.4f} ms "
+                    f"(bound {r_['wide_k100_bound_ms']:.4f}), K = 300 "
+                    f"{r_['wide_K300_ms']:.4f} ms (bound "
+                    f"{r_['wide_K300_bound_ms']:.4f})")
+        if "wide_K200_ms" in r_:
+            rate = (f", rows in device memory at K = 200: "
+                    f"{r_['wide_K200_ms']:.4f} ms (bound "
+                    f"{r_['wide_K200_bound_ms']:.4f})")
         print(f"{r_['name']}: {r_['shape']}: kernel {r_['ms']:.4f} ms, "
               f"bound {r_['bound_ms']:.4f} ms ({r_['bound_by']}), plain "
               f"{r_['plain_ms']:.4f} ms, library {r_['library_ms']:.4f} ms, "

@@ -26,6 +26,7 @@ from repro_torch.encoder.backends import Backend, get_backend, resolve_auto
 from repro_torch.encoder.config import EncoderConfig
 from repro_torch.encoder.plan import Plan, owned_contributions
 from repro_torch.graph.edges import Graph
+from repro_torch.graph.sources import as_graph
 
 
 class NotFittedError(RuntimeError):
@@ -71,9 +72,11 @@ class Embedder:
                 self.backend = get_backend(name)
         return self.backend
 
-    def plan(self, graph: Graph) -> Plan:
-        """Build (or reuse) the label-free preprocessing for `graph`.
-        A plan matches iff it was built against the very same arrays."""
+    def plan(self, graph) -> Plan:
+        """Build (or reuse) the label-free preprocessing for `graph` (a
+        Graph or a GraphSource).  A plan matches iff it was built
+        against the very same arrays."""
+        graph = as_graph(graph)
         backend = self._resolve_backend(graph)
         rp = self.config.row_partition
         if rp is not None and rp[1] > graph.n:
@@ -95,8 +98,9 @@ class Embedder:
 
     # -- fitting -----------------------------------------------------------
 
-    def fit(self, graph: Graph, Y) -> "Embedder":
-        """Embed `graph` under labels `Y` (int, -1 = unknown)."""
+    def fit(self, graph, Y) -> "Embedder":
+        """Embed `graph` (a Graph or a GraphSource) under labels `Y`
+        (int, -1 = unknown)."""
         return self._embed(self.plan(graph), Y)
 
     def refit(self, Y=None) -> "Embedder":

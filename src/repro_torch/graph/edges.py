@@ -5,16 +5,78 @@ destination, weight); undirected graphs are two symmetric directed
 edges; unweighted graphs have unit weights.  Labels use
 {-1 = unknown, 0..K-1}.
 
-The port's own copy of `repro.graph.edges` (the content-fingerprint
-helpers wait for the plan cache).  Host numpy on purpose: the same seed
-gives the same arrays in both packages.
+The port's own copy of `repro.graph.edges`.  Host numpy on purpose:
+the same seed gives the same arrays in both packages, and the content
+fingerprints below are the reference's hex digests.  The hash is
+xxh3-128 where `xxhash` imports and blake2b (16 bytes) otherwise, so a
+digest is comparable only between processes of one installation.
 """
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+
+try:                                   # fast path where available
+    import xxhash
+
+    def _new_hash():
+        return xxhash.xxh3_128()
+except ImportError:                    # stdlib fallback, same interface
+    def _new_hash():
+        return hashlib.blake2b(digest_size=16)
+
+_COLUMN_DTYPES = (np.int32, np.int32, np.float32)
+
+
+def _hash_edges(h, u, v, w) -> None:
+    """Feed (u, v, w) into hasher `h` in canonical dtypes, so two graphs
+    with equal content but different array dtypes or layout agree."""
+    for arr, dt in zip((u, v, w), _COLUMN_DTYPES):
+        h.update(np.ascontiguousarray(arr, dt).data)
+
+
+class FingerprintAccumulator:
+    """Streaming edge fingerprint: feed (u, v, w) batches in
+    order, read `digest()` at the end.  One hasher per column, combined
+    at digest time, so the value depends only on the content streamed,
+    never on how it was chunked."""
+
+    def __init__(self, n: int):
+        self._n = int(n)
+        self._cols = (_new_hash(), _new_hash(), _new_hash())
+
+    def update(self, u, v, w) -> "FingerprintAccumulator":
+        for h, arr, dt in zip(self._cols, (u, v, w), _COLUMN_DTYPES):
+            h.update(np.ascontiguousarray(arr, dt).data)
+        return self
+
+    def digest(self) -> str:
+        h = _new_hash()
+        h.update(np.int64(self._n).tobytes())
+        for col in self._cols:
+            h.update(col.digest())
+        return h.hexdigest()
+
+
+def edge_fingerprint(n: int, u, v, w) -> str:
+    """Content fingerprint of an edge list: a hash over (n, u, v, w),
+    O(s) over the raw bytes.  Order-sensitive by design (plan layouts
+    depend on edge order)."""
+    return FingerprintAccumulator(n).update(u, v, w).digest()
+
+
+def extend_fingerprint(fp: str, u, v, w) -> str:
+    """Chain an appended edge batch onto a fingerprint:
+    fp' = H(fp || u || v || w), O(batch).  Differs from
+    `edge_fingerprint` of the concatenated arrays; every process that
+    replays the same base and deltas reaches the same value."""
+    h = _new_hash()
+    h.update(bytes.fromhex(fp))
+    _hash_edges(h, u, v, w)
+    return h.hexdigest()
 
 
 @dataclass
@@ -28,6 +90,18 @@ class Graph:
     @property
     def s(self) -> int:
         return int(self.u.shape[0])
+
+    def fingerprint(self) -> str:
+        """Content fingerprint (`edge_fingerprint`), computed once and
+        cached on the instance.  Sources that already know it (the
+        serving store's chained one, a generator call's hash) stamp
+        `_fp` beforehand so that no rehash is forced.  Assumes the
+        arrays are not changed in place afterwards."""
+        fp = getattr(self, "_fp", None)
+        if fp is None:
+            fp = edge_fingerprint(self.n, self.u, self.v, self.w)
+            self._fp = fp
+        return fp
 
     def validate(self) -> None:
         if not self.u.shape == self.v.shape == self.w.shape:

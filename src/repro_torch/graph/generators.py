@@ -9,6 +9,13 @@ import numpy as np
 
 from repro_torch.graph.edges import Graph
 
+#: Bumped whenever a generator's SAMPLING changes.  `SyntheticSource`
+#: fingerprints a generator call instead of its arrays, sound only while
+#: equal (kind, params) give equal output; this version and the numpy
+#: release are folded into that fingerprint.  The same value as the
+#: reference's: the draws are the same.
+GENERATORS_VERSION = 1
+
 
 def erdos_renyi(n: int, s: int, seed: int = 0, weighted: bool = False
                 ) -> Graph:

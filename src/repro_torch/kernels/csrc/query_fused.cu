@@ -47,6 +47,19 @@
 //   (row, query), half the exact one.  A row is read once per query group,
 //   each shared load of q feeds R rows, and the top-k bookkeeping is one
 //   compare per (row, query).
+//   Wide rows and long lists: the bodies above serve k <= 64 and K <= 256
+//   (their lists, buffers and query group live in shared memory).  Any
+//   other (K, k) takes the general path, which the launchers pick by
+//   shape: every warp is a selector of its own for one query (blockIdx.x)
+//   over a contiguous range of rows, a lane per row, scoring exactly from
+//   device memory (row_dot of common.cuh, so the same bits) and keeping
+//   its sorted list of k in its candidate slot in device memory; rows are
+//   normalized first by a kernel of their own when normalize=True.  The
+//   merge of k > 64 lists is one warp per query over its selectors'
+//   candidates, the list again in device memory (merge_batch_any places a
+//   batch by rank for lists of any length).  No shared thresholds and no
+//   prefilter: a simple path, bound by the 2 nq m K exact-score
+//   instructions and by reading the rows once per query.
 //   Exact: every score that is kept is the fixed-order K-term dot of
 //   common.cuh, so it has the same bits whichever block, tile or body
 //   computes it and the same bits as the plain version.  The order (score
@@ -71,7 +84,11 @@
 //   slice (mostly padding); here the delta comes as one short list sorted
 //   by local row.  Each block stages 256 rows of Z in shared memory, each
 //   thread binary-searches its row's run in the list and adds it in list
-//   order, then the block writes Z_new and Zn once, coalesced.
+//   order, then the block writes Z_new and Zn once, coalesced.  Rows wider
+//   than DELTA_SMEM_K do not fit 256 to a block in shared memory: there the
+//   block copies its rows to Z_new first and each thread adds into and
+//   takes the norm of its row in device memory, in the same order, so
+//   Z_new and Zn have the same bits at every K.
 #include <cstdint>
 
 #include "common.cuh"
@@ -83,7 +100,15 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int GROUP = 64;      // queries per group (blockIdx.y)
 constexpr int CAP = 2 * KMAX;  // survivor slots per query and pass
+constexpr int KSMEM_MAX = 256; // widest rows of the shared-memory body
+constexpr int GEN_WARPS = THREADS / 32;  // selectors a block, general path
+constexpr int DELTA_SMEM_K = 128;  // widest rows the delta body stages
 constexpr unsigned FULL = 0xffffffffu;
+
+// The select bodies above the general path take k <= KMAX, K <= KSMEM_MAX.
+__host__ __device__ __forceinline__ bool general_path(int K, int k) {
+  return k > KMAX || K > KSMEM_MAX;
+}
 
 __device__ __forceinline__ bool better(float sa, int ia, float sb, int ib) {
   return sa > sb || (sa == sb && ia < ib);
@@ -626,6 +651,168 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// merge_batch for lists of any length k, in shared or device memory;
+// called by a whole warp.  The list entries move down by the count of
+// candidates better than them, 32 at a time from the end of the list, so
+// that no entry is overwritten before it is read; then the candidates go
+// to their ranks.  The same selection as merge_batch.
+__device__ void merge_batch_any(float* ls, int* li, int k, float s, int i,
+                                bool v) {
+  const int lane = threadIdx.x & 31;
+  v = v && better(s, i, ls[k - 1], li[k - 1]);
+  if (!__any_sync(FULL, v)) return;
+  int rank = 0;
+  for (int t = 0; t < k; ++t) {
+    const float es = ls[t];
+    const int ei = li[t];
+    rank += better(es, ei, s, i);
+    v = v && ei != i;
+  }
+  const unsigned cand = __ballot_sync(FULL, v);
+  for (int b = (k - 1) & ~31; b >= 0; b -= 32) {
+    const int t = b + lane;
+    const bool h = t < k;
+    const float e = h ? ls[t] : 0.f;
+    const int f = h ? li[t] : 0;
+    int p = t;
+    for (unsigned c = cand; c != 0; c &= c - 1) {
+      const int src = __ffs(c) - 1;
+      const float os = __shfl_sync(FULL, s, src);
+      const int oi = __shfl_sync(FULL, i, src);
+      p += better(os, oi, e, f);
+    }
+    __syncwarp();
+    if (h && p < k) {
+      ls[p] = e;
+      li[p] = f;
+    }
+    __syncwarp();
+  }
+  for (unsigned c = cand; c != 0; c &= c - 1) {
+    const int src = __ffs(c) - 1;
+    const float os = __shfl_sync(FULL, s, src);
+    const int oi = __shfl_sync(FULL, i, src);
+    rank += better(os, oi, s, i);
+  }
+  if (v && rank < k) {
+    ls[rank] = s;
+    li[rank] = i;
+  }
+  __syncwarp();
+}
+
+// Zn = normalize_rows(Z), a thread a row (the general path's normalize).
+__global__ void __launch_bounds__(THREADS)
+    normalize_rows_kernel(const float* __restrict__ Z, float* __restrict__ zn,
+                          int m, int K, float eps) {
+  const int r = blockIdx.x * THREADS + threadIdx.x;
+  if (r >= m) return;
+  const float* z = Z + (size_t)r * K;
+  const float d = row_norm_denom(z, K, eps);
+  float* o = zn + (size_t)r * K;
+  for (int c = 0; c < K; ++c) o[c] = __fdiv_rn(z[c], d);
+}
+
+// General select pass: warp w of block (j, y) is selector y GEN_WARPS + w
+// of query j, over rows [x m / nsel, (x + 1) m / nsel); its sorted list of
+// k is its slot of cand, (query, selector, slot).
+__global__ void __launch_bounds__(THREADS)
+    topk_select_general_kernel(const float* __restrict__ Zn,
+                               const float* __restrict__ q,
+                               const int* __restrict__ qnodes,
+                               float* cand_s, int* cand_i, int m, int K,
+                               int k, int nsel, int row_offset,
+                               int exclude_self) {
+  const int j = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int x = blockIdx.y * GEN_WARPS + (threadIdx.x >> 5);
+  float* ls = cand_s + ((size_t)j * nsel + x) * k;
+  int* li = cand_i + ((size_t)j * nsel + x) * k;
+  for (int t = lane; t < k; t += 32) {
+    ls[t] = -CUDART_INF_F;
+    li[t] = INT_MAX;
+  }
+  __syncwarp();
+  const int r_lo = (int)((long long)x * m / nsel);
+  const int r_hi = (int)((long long)(x + 1) * m / nsel);
+  const float* qj = q + (size_t)j * K;
+  const int self = exclude_self ? qnodes[j] : -1;
+  for (int b = r_lo; b < r_hi; b += 32) {
+    const int r = b + lane;
+    bool v = r < r_hi;
+    float s = 0.f;
+    int id = 0;
+    if (v) {
+      id = row_offset + r;
+      s = row_dot(qj, Zn + (size_t)r * K, K);
+      v = id != self;
+    }
+    merge_batch_any(ls, li, k, s, id, v);
+  }
+}
+
+// General merge pass (k > KMAX): one warp per query, its list in out.
+__global__ void __launch_bounds__(32)
+    topk_merge_general_kernel(const float* __restrict__ cand_s,
+                              const int* __restrict__ cand_i, float* out_s,
+                              int* out_i, int nb, int k) {
+  const int j = blockIdx.x, lane = threadIdx.x;
+  const size_t total = (size_t)nb * k;
+  const float* cs = cand_s + (size_t)j * total;
+  const int* ci = cand_i + (size_t)j * total;
+  float* ls = out_s + (size_t)j * k;
+  int* li = out_i + (size_t)j * k;
+  for (int t = lane; t < k; t += 32) {
+    ls[t] = -CUDART_INF_F;
+    li[t] = INT_MAX;
+  }
+  __syncwarp();
+  for (size_t b = 0; b < total; b += 32) {
+    const size_t e = b + lane;
+    const bool v = e < total;
+    merge_batch_any(ls, li, k, v ? cs[e] : 0.f, v ? ci[e] : 0, v);
+  }
+  for (int t = lane; t < k; t += 32)
+    if (li[t] == INT_MAX || !isfinite(ls[t])) li[t] = -1;
+}
+
+// Rows wider than DELTA_SMEM_K: the block's rows are copied to Z_new, then
+// each thread adds its row's run and takes its norm there, in the staged
+// body's order.
+__global__ void delta_renorm_wide_kernel(const float* __restrict__ Z,
+                                         const int* __restrict__ rows,
+                                         const int* __restrict__ cls,
+                                         const float* __restrict__ val,
+                                         int m, float* Znew,
+                                         float* __restrict__ Zn, int n_local,
+                                         int K, float eps) {
+  __shared__ float dn[THREADS];
+  const int r0 = blockIdx.x * THREADS;
+  const int nr = min(THREADS, n_local - r0);
+  const size_t tot = (size_t)nr * K;
+  const float* src = Z + (size_t)r0 * K;
+  float* o1 = Znew + (size_t)r0 * K;
+  for (size_t e = threadIdx.x; e < tot; e += THREADS) o1[e] = src[e];
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t < nr) {
+    const int r = r0 + t;
+    int lo = 0, hi = m;                  // first contribution with row >= r
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (rows[mid] < r) lo = mid + 1; else hi = mid;
+    }
+    float* z = o1 + (size_t)t * K;
+    for (int j = lo; j < m && rows[j] == r; ++j)
+      z[cls[j]] = __fadd_rn(z[cls[j]], val[j]);
+    dn[t] = row_norm_denom(z, K, eps);
+  }
+  __syncthreads();
+  float* o2 = Zn + (size_t)r0 * K;
+  for (size_t e = threadIdx.x; e < tot; e += THREADS)
+    o2[e] = __fdiv_rn(o1[e], dn[e / K]);
+}
+
 __global__ void delta_renorm_kernel(const float* __restrict__ Z,
                                     const int* __restrict__ rows,
                                     const int* __restrict__ cls,
@@ -705,24 +892,34 @@ SelectPlan select_plan(const float* Z, int K, int k) {
 
 }  // namespace
 
-// Blocks along x of the select pass for m rows: as many as fit on the
-// card at once (occupancy API), at most one per tile; 0 for no rows.  The
-// wrapper sizes the candidate scratch (nq x grid x k) from it.
-extern "C" int topk_select_grid(const float* Z, int m, int K, int k,
+// Candidate lists per query of the select pass for m rows, 0 for no rows;
+// the wrapper sizes the candidate scratch (nq x grid x k) from it.  The
+// bodies for k <= KMAX, K <= KSMEM_MAX: blocks along x, as many as fit on
+// the card at once (occupancy API), at most one per tile.  The general
+// path: selectors (warps), GEN_WARPS a block, about four blocks an SM in
+// all over the nq queries, and at least 1,024 rows a block.
+extern "C" int topk_select_grid(const float* Z, int m, int K, int k, int nq,
                                 int* grid) {
   *grid = 0;
   if (m <= 0) return 0;
-  const SelectPlan p = select_plan(Z, K, k);
-  int err = set_smem(p.fn, p.smem);
-  if (err) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  err = (int)cudaGetDevice(&dev);
+  int dev = 0, sms = 0;
+  int err = (int)cudaGetDevice(&dev);
   if (!err)
     err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                       dev);
-  if (!err)
-    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, p.fn, THREADS, p.smem);
+  if (err) return err;
+  if (general_path(K, k)) {
+    const int want = (4 * sms + max(nq, 1) - 1) / max(nq, 1);
+    const int most = (m + GEN_WARPS * 1024 - 1) / (GEN_WARPS * 1024);
+    *grid = GEN_WARPS * max(1, min(want, min(most, 65535)));
+    return 0;
+  }
+  const SelectPlan p = select_plan(Z, K, k);
+  err = set_smem(p.fn, p.smem);
+  if (err) return err;
+  int per_sm = 0;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, p.fn, THREADS, p.smem);
   if (err) return err;
   const int tiles = (m + p.tile - 1) / p.tile;
   *grid = max(1, min(tiles, sms * max(per_sm, 1)));
@@ -738,6 +935,19 @@ extern "C" int topk_select_launch(const float* Z, const float* q,
                                   unsigned long long* gkey, int m, int K,
                                   int nq, int k, int grid, int row_offset,
                                   int exclude_self, float eps, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (general_path(K, k)) {
+    if (zn != nullptr) {
+      normalize_rows_kernel<<<(m + THREADS - 1) / THREADS, THREADS, 0, st>>>(
+          Z, zn, m, K, eps);
+      Z = zn;
+    }
+    if (nq > 0)
+      topk_select_general_kernel<<<dim3(nq, grid / GEN_WARPS), THREADS, 0,
+                                   st>>>(Z, q, qnodes, cand_s, cand_i, m, K,
+                                         k, grid, row_offset, exclude_self);
+    return (int)cudaGetLastError();
+  }
   SelectPlan p = select_plan(Z, K, k);
   int err = set_smem(p.fn, p.smem);
   if (err) return err;
@@ -745,8 +955,7 @@ extern "C" int topk_select_launch(const float* Z, const float* q,
   void* args[] = {&Z,      &q,  &qnodes, &zn, &cand_s, &cand_i,
                   &gkey,   &m,  &K,      &nq, &k,      &p.tile,
                   &row_offset, &exclude_self, &eps};
-  err = (int)cudaLaunchKernel(p.fn, blocks, dim3(THREADS), args, p.smem,
-                              static_cast<cudaStream_t>(stream));
+  err = (int)cudaLaunchKernel(p.fn, blocks, dim3(THREADS), args, p.smem, st);
   if (err) return err;
   return (int)cudaGetLastError();
 }
@@ -757,8 +966,13 @@ extern "C" int topk_merge_launch(const float* cand_s, const int* cand_i,
                                  float* out_s, int* out_i, int grid, int nq,
                                  int k, void* stream) {
   if (nq == 0) return 0;
-  topk_merge_kernel<<<nq, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      cand_s, cand_i, out_s, out_i, grid, k);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k > KMAX)
+    topk_merge_general_kernel<<<nq, 32, 0, st>>>(cand_s, cand_i, out_s,
+                                                  out_i, grid, k);
+  else
+    topk_merge_kernel<<<nq, THREADS, 0, st>>>(cand_s, cand_i, out_s, out_i,
+                                              grid, k);
   return (int)cudaGetLastError();
 }
 
@@ -767,12 +981,19 @@ extern "C" int delta_renorm_launch(const float* Z, const int* rows,
                                    float* Znew, float* Zn, int n_local, int K,
                                    float eps, void* stream) {
   if (n_local == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K > DELTA_SMEM_K) {
+    delta_renorm_wide_kernel<<<(n_local + THREADS - 1) / THREADS, THREADS, 0,
+                               st>>>(Z, rows, cls, val, m, Znew, Zn, n_local,
+                                     K, eps);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = sizeof(float) * ((size_t)THREADS * odd_stride(K) +
                                        THREADS);
   int err = set_smem((const void*)delta_renorm_kernel, smem);
   if (err) return err;
   delta_renorm_kernel<<<(n_local + THREADS - 1) / THREADS, THREADS, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+                        st>>>(
       Z, rows, cls, val, m, Znew, Zn, n_local, K, eps);
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,11 @@ no window), where the reference runs the kernel's jnp twin `attn_flash`.
 On CPU tensors `flash_attention` runs `flash_attention_plain` (the
 reference's dense oracle, `kernels/ref.py`); on CUDA tensors it launches
 the kernel or raises.  The kernel takes float32 or bfloat16, D in
-{16, 32, 64, 128} and any S (a ragged last tile is masked).  Its two
+{16, 32, 64, 128} and any S (a ragged last tile is masked).  A head dim
+below 128 outside that set is zero-padded on the last axis to the next
+one and launched with the real D ** -0.5 as its scale: the zero columns
+add exact zeros to every score and give zero output columns, which are
+sliced off, so the answer is the unpadded one.  D > 128 raises.  Its two
 bodies pick their own tiles: bfloat16 runs both products on the tensor
 cores (wgmma, TMA-fed) in 128 x 128 tiles, float32 runs on the CUDA cores
 in 64 x 64 tiles.
@@ -56,8 +60,10 @@ def flash_attention(q, k, v, *, bq=None, bk=None) -> torch.Tensor:
         raise ValueError(f"the kernel uses its own {tq} x {tk} tiles at "
                          f"{q.dtype}: pass bq=None, bk=None, not bq={bq}, "
                          f"bk={bk}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if not 1 <= D <= HEAD_DIMS[-1]:
+        raise ValueError(f"head dim {D} outside [1, {HEAD_DIMS[-1]}]: the "
+                         f"kernel's bodies take D in {HEAD_DIMS}, and a "
+                         "smaller D is padded to the next of them")
     # the grid's y dimension: B * H (float32 body) or the query tiles
     # (bfloat16 body)
     grid_y = B * H if q.dtype == torch.float32 else -(-S // TILES[q.dtype][0])
@@ -67,14 +73,17 @@ def flash_attention(q, k, v, *, bq=None, bk=None) -> torch.Tensor:
     _build.require("q", q, q.dtype, (B, H, S, D), dev)
     _build.require("k", k, q.dtype, (B, KV, S, D), dev)
     _build.require("v", v, q.dtype, (B, KV, S, D), dev)
+    Dp = next(d for d in HEAD_DIMS if d >= D)
+    if Dp != D:         # zero columns: exact zeros in every score
+        q, k, v = (torch.nn.functional.pad(x, (0, Dp - D)) for x in (q, k, v))
     o = torch.empty_like(q)
     fn = _build.function("flash_attention", "flash_attention_launch",
                          [_build.P] * 4 + [_build.I] * 6
                          + [_build.F, _build.P])
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 B, H, KV, S, D, int(q.dtype == torch.bfloat16), D ** -0.5,
+                 B, H, KV, S, Dp, int(q.dtype == torch.bfloat16), D ** -0.5,
                  _build.stream_of(dev))
     _build.check("flash_attention", err)
     _build.launches["flash_attention"] += 1
-    return o
+    return o if Dp == D else o[..., :D].contiguous()

@@ -15,6 +15,14 @@ The port of `repro.kernels.query_fused` (``csrc/query_fused.cu``):
     Z_new = Z + delta contributions, Zn = normalize_rows(Z_new), for the
     whole owned slice, with Z read once.
 
+Both take any width.  The select bodies that the main path runs hold
+their lists, buffers and query group in shared memory, for k <= 64 and
+K <= 256; any other (K, k) takes a general path that scores rows from
+device memory and keeps its lists there, chosen by the launchers from
+the shape.  The delta kernel stages 256 rows in shared memory for
+K <= 128 and works on its rows in device memory above that.  The answer
+has the same bits either way.
+
 **One arithmetic for norms and scores.**  `normalize_rows` and
 `row_scores` spell out a fixed-order elementwise loop over the K
 columns (``((x0*x0 + x1*x1) + ...)``, each product and sum rounded on
@@ -36,18 +44,20 @@ import torch
 from repro_torch.kernels import _build
 
 EPS = 1e-9        # normalize_rows' clamp
-KMAX = 64         # largest k the top-k kernel takes (csrc/query_fused.cu)
-K_TOPK_MAX = 256  # widest rows the top-k kernel takes
-K_DELTA_MAX = 128  # widest rows the delta kernel stages
 
 
 def normalize_rows(X: torch.Tensor, eps: float = EPS) -> torch.Tensor:
     """X / max(||X||_2, eps) row-wise, the norm summed over the K columns
-    in order (the kernels' arithmetic, see the module docstring)."""
+    in order (the kernels' arithmetic, see the module docstring).  The
+    square root is taken in float64 and rounded once to float32, which
+    is the correctly rounded float32 root (53 >= 2 x 24 + 2 bits), as
+    the kernels' `__fsqrt_rn`: the host's float32 `torch.sqrt` is not
+    always correctly rounded, the card's is."""
     ss = X[..., 0] * X[..., 0]
     for c in range(1, X.shape[-1]):
         ss = ss + X[..., c] * X[..., c]
-    return X / torch.sqrt(ss).clamp_min(eps)[..., None]
+    norm = torch.sqrt(ss.to(torch.float64)).to(X.dtype)
+    return X / norm.clamp_min(eps)[..., None]
 
 
 def row_scores(q: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
@@ -113,17 +123,17 @@ def topk_fused_plain(Z_rows, q, qnodes, *, k: int, row_offset: int = 0,
 
 def _topk_select(Z_rows, q, qnodes, zn, *, k: int, row_offset: int,
                  exclude_self: bool, eps: float):
-    """The select pass alone: every block's top-k per query, as
-    (cand_s, cand_i) of shape (nq, grid, k); Zn written into `zn` when it
-    is not None.  No launch count (`topk_fused` counts its call)."""
+    """The select pass alone: every candidate list's top-k per query
+    (one list a block, or a warp on the general path), as (cand_s, cand_i)
+    of shape (nq, grid, k); Zn written into `zn` when it is not None.  No
+    launch count (`topk_fused` counts its call)."""
     dev = Z_rows.device
     m, K = Z_rows.shape
     nq = q.shape[0]
     grid = ctypes.c_int(0)
     err = _build.function("query_fused", "topk_select_grid",
-                          [_build.P, _build.I, _build.I, _build.I,
-                           _build.P])(
-        Z_rows.data_ptr(), m, K, k, ctypes.byref(grid))
+                          [_build.P] + [_build.I] * 4 + [_build.P])(
+        Z_rows.data_ptr(), m, K, k, nq, ctypes.byref(grid))
     _build.check("query_fused", err)
     cand_s = torch.empty((nq, grid.value, k), dtype=torch.float32,
                          device=dev)
@@ -168,8 +178,10 @@ def topk_fused(Z_rows, q, qnodes, *, k: int, row_offset: int = 0,
     row_offset + m), RAW when normalize=True, unit-norm otherwise.
     q (nq, K) float32 unit-norm queries; qnodes (nq,) int32 global ids
     for self-exclusion.  Returns (vals (nq, k) float32, idxs (nq, k)
-    int32), plus Zn (m, K) when normalize=True; unfilled slots are
-    already clamped to idx -1 / score -inf."""
+    int32), plus Zn (m, K) when normalize=True; unfilled slots (k beyond
+    the candidates) are already clamped to idx -1 / score -inf."""
+    if k < 1:
+        raise ValueError(f"topk_fused takes k >= 1, got {k}")
     dev = Z_rows.device
     if dev.type == "cpu":
         return topk_fused_plain(Z_rows, q, qnodes, k=k,
@@ -180,10 +192,6 @@ def topk_fused(Z_rows, q, qnodes, *, k: int, row_offset: int = 0,
         raise ValueError(f"topk_fused runs on cpu or cuda, not {dev}")
     m, K = Z_rows.shape
     nq = q.shape[0]
-    if not 1 <= k <= KMAX:
-        raise ValueError(f"topk_fused takes 1 <= k <= {KMAX}, got {k}")
-    if K > K_TOPK_MAX:
-        raise ValueError(f"topk_fused takes K <= {K_TOPK_MAX}, got {K}")
     if row_offset + m > 2**31 - 1:
         raise ValueError("global row ids must fit in int32")
     _build.require("Z_rows", Z_rows, torch.float32, (m, K), dev)
@@ -222,9 +230,6 @@ def gee_delta_renorm(Z, rows, cls, val, *, eps: float = EPS):
         raise ValueError(f"gee_delta_renorm runs on cpu or cuda, not {dev}")
     n_local, K = Z.shape
     m = rows.shape[0]
-    if K > K_DELTA_MAX:
-        raise ValueError(f"gee_delta_renorm takes K <= {K_DELTA_MAX}, "
-                         f"got {K}")
     _build.require("Z", Z, torch.float32, (n_local, K), dev)
     _build.require("rows", rows, torch.int32, (m,), dev)
     _build.require("cls", cls, torch.int32, (m,), dev)

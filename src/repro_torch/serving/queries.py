@@ -12,6 +12,8 @@ its merge need):
 * ``merge_topk``       — merge per-shard candidate lists.
 * ``class_sums`` / ``predict_rows`` — centroid statistics and
   prediction.
+* ``gather_embeddings``, ``class_centroids``, ``predict_labels`` and
+  ``topk_cosine`` — the same over a whole Z.
 
 **Tie-breaking contract.**  Every top-k orders candidates by
 ``(-score, ascending global id)``.  The blocked scan gets it from a
@@ -33,9 +35,15 @@ import torch
 from repro_torch.kernels.query_fused import (normalize_rows, topk_block,
                                              topk_fused, topk_scan)
 
-__all__ = ["normalize_rows", "class_sums", "predict_rows", "topk_block",
-           "topk_cosine_q", "topk_cosine_ids", "topk_cosine_fused",
-           "topk_cosine_fused_norm", "merge_topk"]
+__all__ = ["normalize_rows", "gather_embeddings", "class_sums",
+           "class_centroids", "predict_rows", "predict_labels",
+           "topk_block", "topk_cosine", "topk_cosine_q", "topk_cosine_ids",
+           "topk_cosine_fused", "topk_cosine_fused_norm", "merge_topk"]
+
+
+def gather_embeddings(Z: torch.Tensor, nodes) -> torch.Tensor:
+    """Z rows for a node batch."""
+    return Z[torch.as_tensor(np.asarray(nodes), device=Z.device).long()]
 
 
 def class_sums(Z_rows: torch.Tensor, Y_rows: torch.Tensor, *, K: int):
@@ -49,11 +57,26 @@ def class_sums(Z_rows: torch.Tensor, Y_rows: torch.Tensor, *, K: int):
     return onehot.T @ Z_rows, onehot.sum(0)
 
 
+def class_centroids(Z: torch.Tensor, Y, *, K: int) -> torch.Tensor:
+    """Mean embedding of each class's labelled nodes (K, K); the one copy
+    of the masking is `class_sums`, so the sharded merge (sum the
+    partials, divide once) gives the same answer."""
+    sums, counts = class_sums(Z, torch.as_tensor(np.asarray(Y),
+                                                 device=Z.device), K=K)
+    return sums / torch.clamp_min(counts[:, None], 1.0)
+
+
 def predict_rows(rows: torch.Tensor, centroids: torch.Tensor):
     """Label = argmax cosine(row, centroid_k) (first maximum).  Returns
     (pred int32, score)."""
     sims = normalize_rows(rows) @ normalize_rows(centroids).T
     return torch.argmax(sims, 1).to(torch.int32), torch.max(sims, 1).values
+
+
+def predict_labels(Z: torch.Tensor, centroids: torch.Tensor, nodes):
+    """Label = argmax cosine(Z[node], centroid_k).  Returns (pred,
+    score)."""
+    return predict_rows(gather_embeddings(Z, nodes), centroids)
 
 
 def _as_rows(x, like: torch.Tensor) -> torch.Tensor:
@@ -135,3 +158,14 @@ def merge_topk(idx_parts, val_parts, *, k: int):
     i = torch.take_along_dim(i, order, 1)[:, :k]
     i = torch.where(torch.isfinite(v), i, torch.full_like(i, -1))
     return i.numpy(), v.numpy()
+
+
+def topk_cosine(Z, nodes, *, k: int = 10, block_rows: int = 1 << 14,
+                exclude_self: bool = True, pre_normalized: bool = False):
+    """Top-k cosine neighbours of Z[nodes] over all rows of Z (pass
+    pre_normalized=True when the rows are unit-norm already).  Returns
+    (indices (q, k) int32, scores (q, k) float32) as numpy."""
+    nodes = np.asarray(nodes, np.int32)
+    Zn = Z if pre_normalized else normalize_rows(Z)
+    return topk_cosine_q(Zn, gather_embeddings(Zn, nodes), nodes, k=k,
+                         block_rows=block_rows, exclude_self=exclude_self)

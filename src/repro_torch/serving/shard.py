@@ -1,7 +1,8 @@
 """EmbeddingShard: one worker owning a contiguous slice of Z rows.
 
 The port of `repro.serving.shard.EmbeddingShard` (the IVF index over a
-shard waits for its own slice).  Shard i is the single writer and
+shard waits for its own slice, and the persistent plan cache for the
+encoder's: `plan_cache` takes None only).  Shard i is the single writer and
 reader of rows [lo, hi).  Every edge incident to an owned row is in the
 shard's routed sub-multiset, so its slice is exact in isolation, and an
 edge delta touches only the shards owning its endpoints.
@@ -21,6 +22,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.encoder import Embedder, EncoderConfig
 from repro_torch.graph.edges import Graph
 from repro_torch.serving import queries as Q
@@ -31,8 +33,12 @@ class EmbeddingShard:
 
     def __init__(self, shard_id: int, lo: int, hi: int, *, K: int,
                  n: Optional[int] = None, chunk_size: int = 1 << 20,
-                 backend: str = "streaming",
+                 backend: str = "streaming", plan_cache: None = None,
                  device: Union[str, torch.device] = "cuda"):
+        if plan_cache is not None:
+            raise NotImplementedError(
+                "the persistent plan cache (encoder/plan_cache.py) is not "
+                "ported yet (ROADMAP queue A.4): pass plan_cache=None")
         self.shard_id = int(shard_id)
         self.lo, self.hi = int(lo), int(hi)
         #: owned-rows mode: the Embedder accumulates ONLY [lo, hi)
@@ -53,10 +59,15 @@ class EmbeddingShard:
 
     # -- write path --------------------------------------------------------
 
-    def build(self, graph: Graph, Y: np.ndarray) -> None:
-        """(Re)fit on the routed sub-multiset under GLOBAL labels `Y`."""
-        self.embedder.fit(graph, Y)
+    def build(self, graph_or_source, Y: np.ndarray) -> None:
+        """(Re)fit on the routed sub-multiset (a Graph or a GraphSource)
+        under GLOBAL labels `Y`."""
+        self.embedder.fit(graph_or_source, Y)
         self._Zn = None
+        if obs.enabled():
+            # per-shard accumulator bytes shrink ~ n/p as shards are added
+            obs.gauge("repro_serving_shard_accumulator_bytes",
+                      self.accumulator_nbytes, shard=str(self.shard_id))
 
     def apply_delta(self, sub: Graph) -> None:
         """Fold a routed edge sub-batch into Z (exact by linearity).
@@ -126,3 +137,11 @@ class EmbeddingShard:
                                        row_offset=self.lo)
         return Q.topk_cosine_q(self.normalized(), q, qnodes, k=k,
                                block_rows=block_rows, row_offset=self.lo)
+
+    @property
+    def plan_stats(self) -> dict:
+        """Plan builds and hits; the disk tier's keys stay 0 until the
+        persistent plan cache is ported."""
+        return {"built": self.embedder.plan_stats["built"],
+                "hits": self.embedder.plan_stats["hits"],
+                "disk_hits": 0, "disk_stores": 0}

@@ -206,13 +206,61 @@ def test_gee_delta_renorm(dev, rng, sign):
     assert _same(a[1], QF.normalize_rows(a[0]))
 
 
+@pytest.mark.parametrize("K", [129, 200, 512])
+def test_gee_delta_renorm_wide(dev, rng, K):
+    """K > 128 works on its rows in device memory: Z_new and Zn have the
+    plain version's bits (run on the host, where `index_put_` adds in
+    list order)."""
+    n, m = 700, 600
+    Z = torch.as_tensor(rng.random((n, K), dtype=np.float32), device=dev)
+    r = np.sort(rng.integers(0, n, m)).astype(np.int32)
+    c = rng.integers(0, 4, m).astype(np.int32)     # repeated (row, class)
+    v = rng.random(m, dtype=np.float32) - np.float32(0.5)
+    args = [torch.as_tensor(x, device=dev) for x in (r, c, v)]
+    before = _build.launches["gee_delta_renorm"]
+    a = QF.gee_delta_renorm(Z, *args)
+    b = QF.gee_delta_renorm(Z, *args)
+    assert _build.launches["gee_delta_renorm"] == before + 2
+    p = QF.gee_delta_renorm_plain(Z.cpu(), *(x.cpu() for x in args))
+    for x, y, z in zip(a, b, p):
+        assert _same(x, y)
+        assert _same(x.cpu(), z)
+
+
+# the general select path: K > 256 or k > 64 (any other shape is the
+# register or shared-memory body), k beyond the candidates included
+TOPK_WIDE_SHAPES = [
+    (257, 3000, 65, 10, 3), (300, 5000, 64, 10, 7), (512, 2000, 3, 64, 2),
+    (16, 70001, 64, 65, 7), (16, 5000, 64, 100, 3), (8, 3000, 5, 256, 4),
+    (300, 1500, 64, 100, 5), (16, 40, 7, 100, 2), (300, 3, 4, 70, 1),
+    (300, 3, 4, 8, 1)]
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("exclude_self", [True, False])
+@pytest.mark.parametrize("K,m,nq,k,run", TOPK_WIDE_SHAPES)
+def test_topk_fused_wide(dev, rng, normalize, exclude_self, K, m, nq, k,
+                         run):
+    base = rng.normal(size=(-(-m // run), K)).astype(np.float32)
+    Z = torch.as_tensor(np.repeat(base, run, axis=0)[:m], device=dev)
+    Zn = QF.normalize_rows(Z)
+    qn = torch.as_tensor(rng.integers(0, m, nq).astype(np.int32), device=dev)
+    q = Zn[qn.long()].contiguous()
+    _check_topk(Z if normalize else Zn, q, qn + 1000, k=k, row_offset=1000,
+                exclude_self=exclude_self, normalize=normalize)
+    if k > m:
+        vals, idxs = QF.topk_fused(Zn, q, qn, k=k)
+        assert bool((idxs[:, m:] == -1).all())
+        assert bool(torch.isneginf(vals[:, m:]).all())
+
+
 def test_wrappers_refuse_bad_inputs(dev):
     z = torch.zeros((8, 4), device=dev)
     qn = torch.zeros(2, dtype=torch.int32, device=dev)
     with pytest.raises(TypeError):
         QF.topk_fused(z.double(), z[:2].double(), qn, k=2)
-    with pytest.raises(ValueError, match="k <="):
-        QF.topk_fused(z, z[:2].contiguous(), qn, k=QF.KMAX + 1)
+    with pytest.raises(ValueError, match="k >= 1"):
+        QF.topk_fused(z, z[:2].contiguous(), qn, k=0)
     with pytest.raises(ValueError, match="contiguous"):
         QF.gee_delta_renorm(z.t(), qn, qn, qn.float())
     row_ptr = torch.tensor([0, 1, 2, 3, 4], device=dev)
@@ -235,7 +283,10 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     # the 128-row tiles of the bfloat16 body: yi's heads one row past a
     # tile, ragged S, S = 1 with MQA, and every swizzle width
     (1, 32, 4, 2049, 128), (2, 8, 8, 127, 64), (1, 4, 1, 1, 16),
-    (1, 16, 2, 384, 32)])
+    (1, 16, 2, 384, 32),
+    # head dims outside the bodies' set, zero-padded to the next one
+    (1, 4, 2, 100, 48), (2, 8, 2, 130, 80), (1, 4, 4, 64, 96),
+    (1, 8, 1, 257, 120)])
 def test_flash_attention(dev, rng, dtype, B, H, KV, S, D):
     q, k, v = (torch.as_tensor(rng.normal(size=(B, h, S, D)).astype(
         np.float32), device=dev).to(dtype) for h in (H, KV, KV))
@@ -260,7 +311,7 @@ def test_flash_wrapper_refuses_bad_inputs(dev):
     with pytest.raises(TypeError):
         FA.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="head dim"):
-        x = torch.zeros((1, 4, 64, 48), device=dev)
+        x = torch.zeros((1, 4, 64, 160), device=dev)
         FA.flash_attention(x, x, x)
     with pytest.raises(ValueError, match="contiguous"):
         x = torch.zeros((1, 64, 4, 32), device=dev).transpose(1, 2)
