@@ -18,7 +18,8 @@
    S = 2049 and the prefill's shape at S = 2047), and requires two runs
    to give the same bits; and the widths outside the main path's bodies:
    gee_delta_renorm at K = 200, topk_fused at K = 300 and at k = 100,
-   flash attention at D = 96 (zero-padded to 128);
+   flash attention at D = 96 (zero-padded to 128) and at D = 160 and
+   256 in both dtypes (the wide body for D > 128);
 3. drives the GEE path at the scale of SNAP soc-LiveJournal1 (an SBM
    with n = 4,847,571 nodes, s = 68,993,773 edges, K = 16, 10% labeled):
    `Embedder(backend="cuda").fit`, then two `EmbeddingShard`s
@@ -36,6 +37,12 @@
    262,144 random rows);
 5. self-checks: the shards' Z equals a fresh fit on the updated graph,
    and the fused answers equal the plain scan's on the same Zn;
+5'. the plan cache and refinement on the same graph: a cuda fit with a
+   persistent plan cache in a temporary directory (a miss, then the
+   entry's store), a second `Embedder` on the graph (a disk hit, Z
+   bit-equal to the miss's), then `Embedder.refine` (10 rounds, one
+   `gee_scatter` launch per round plus the final embed).  Prints miss,
+   store and hit seconds, the entry's bytes and seconds per round;
 5a. the durable serving engine on the same graph (`ServingEngine`,
    2 shards, backend "cuda", a data directory in the temporary
    directory): generation 0 (compaction, snapshot, shard builds), then
@@ -43,11 +50,17 @@
    mix (eight 64-node reads of every kind, top-k with k = 10; a 200-edge
    insert; from tick 3 a deletion of an earlier insert; label reveals of
    n / 100 + 1 nodes at ticks 3 and 6), a check of the live Z against a
-   torch-backend fit of the store's edges, `checkpoint()`, close and
-   `ServingEngine.open`: the same (version, epoch, fingerprint), Z and
-   held-back top-k answers.  Launch counts are zeroed just before; all
-   three GEE kernels must run.  Prints each step's time, each tick's
-   write and read latencies and peak device memory;
+   torch-backend fit of the store's edges; then the IVF index:
+   `enable_index()` (build seconds), ivf at nprobe = K bit-equal to the
+   exact read, nprobe = 2's recall@10 and ms per 64-query read beside
+   the exact read's, three 200-edge deltas with the index maintained
+   (`update_index` ms and rows moved); `checkpoint()`, close and
+   `ServingEngine.open`: the same (version, epoch, fingerprint), Z,
+   held-back top-k answers, index centroids, cell sizes and nprobe = 2
+   answers; last two more reopens with a persistent plan cache (a miss
+   that stores the shards' plans, then a hit).  Launch counts are zeroed
+   just before; all three GEE kernels must run.  Prints each step's
+   time, each tick's write and read latencies and peak device memory;
 5b. frees the GEE path's tensors and fits a skewed graph with
    LiveJournal's degree spread (`powerlaw(n, s, alpha=0.5)`: largest
    degree about 15,700, 10% labelled) on the cuda backend, held to the
@@ -79,6 +92,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -231,6 +245,9 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: this smoke run needs a "
              "CUDA card")
     sys.path.insert(0, str(ROOT / "src"))
+    # the persistent plan cache is off unless a phase names its own
+    # directory (the default one lives under HOME)
+    os.environ["REPRO_PLAN_CACHE"] = "off"
     # plain versions that use matrix products stay in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -473,7 +490,9 @@ def main() -> int:
     flash_cases = [(c_, dt) for c_ in (
         (1, 2, 2, 64, 16), (2, 4, 2, 128, 32), (1, 8, 1, 128, 16),
         (2, 4, 2, 100, 64), (1, 4, 4, 1, 32), (1, 8, 2, 200, 128),
-        (1, 32, 4, 130, 128), (1, 8, 2, 200, 96))
+        (1, 32, 4, 130, 128), (1, 8, 2, 200, 96),
+        # the wide body (D > 128): ragged S and a ragged last D chunk
+        (1, 4, 2, 100, 160), (2, 8, 2, 130, 256))
         for dt in (torch.float32, torch.bfloat16)]
     flash_cases += [((1, lm.n_heads, lm.n_kv_heads, 2049, lm.head_dim),
                      torch.bfloat16),
@@ -744,6 +763,83 @@ def main() -> int:
         del Zw
         return results, (g, truth, Y)
 
+    def plan_cache_path(g, Y):
+        """Phase 5': the persistent plan cache and refinement on the main
+        graph.  Its tensors and its cache directory are gone when it
+        returns; returns its times for the summary."""
+        import tempfile
+        from repro_torch.encoder.plan_cache import PlanDiskCache
+
+        K = 16
+        store_s = []
+
+        class TimedCache(PlanDiskCache):
+            def store(self, meta, host):
+                t0 = time.perf_counter()
+                ok = super().store(meta, host)
+                store_s.append(time.perf_counter() - t0)
+                return ok
+
+        with tempfile.TemporaryDirectory(prefix="plans-") as tmp:
+            cache = TimedCache(tmp)
+            _build.reset_launches()
+            fits = []
+            for _ in range(2):               # a miss, then a disk hit
+                t0 = time.perf_counter()
+                e = Embedder(EncoderConfig(K=K), backend="cuda",
+                             plan_cache=cache).fit(g, Y)
+                torch.cuda.synchronize()
+                fits.append((time.perf_counter() - t0, e))
+            launches = dict(_build.launches)
+            (t_miss, miss), (t_hit, hit) = fits
+            [entry] = cache.entries()
+            entry_bytes = entry.stat().st_size
+            print(f"plan cache: miss fit {t_miss:.2f} s (store "
+                  f"{store_s[0]:.2f} s, entry {entry_bytes / 2**30:.3f} GiB "
+                  f"on disk), hit fit {t_hit:.2f} s; stats "
+                  f"{miss.plan_stats} / {hit.plan_stats}; Z bit-equal "
+                  f"{same(miss.Z_, hit.Z_)}; launches {launches}")
+            if (miss.plan_stats["disk_stores"] != 1
+                    or hit.plan_stats != {"built": 0, "hits": 0,
+                                          "disk_hits": 1, "disk_stores": 0}):
+                raise AssertionError("plan cache: expected one store, then "
+                                     "one disk hit")
+            if not same(miss.Z_, hit.Z_):
+                raise AssertionError("plan cache: the hit's Z differs from "
+                                     "the miss's")
+            if launches["gee_scatter"] != 2:
+                raise AssertionError("plan cache: gee_scatter not launched "
+                                     "once per fit")
+            del miss, fits
+            # refinement on the hit's plan: one embed per round + a last
+            iters = hit.config.refine_iters
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            hit.refine(seed=args.seed)
+            torch.cuda.synchronize()
+            t_refine = time.perf_counter() - t0
+            r_launches = dict(_build.launches)
+            labels = hit.labels_
+            print(f"refine: {iters} rounds in {t_refine:.3f} s "
+                  f"({t_refine / iters * 1e3:.1f} ms per round); launches "
+                  f"{r_launches}; labels changed "
+                  f"{int((labels != Y).sum()):,} of {g.n:,}")
+            if r_launches["gee_scatter"] != iters + 1:
+                raise AssertionError(f"refine launched gee_scatter "
+                                     f"{r_launches['gee_scatter']} times, "
+                                     f"expected {iters + 1}")
+            if (not np.array_equal(labels[Y >= 0], Y[Y >= 0])
+                    or labels.min() < 0 or labels.max() >= K
+                    or not bool(torch.isfinite(hit.Z_).all())):
+                raise AssertionError("refine: supervised labels moved, or "
+                                     "labels / Z out of range")
+            del hit
+        gc.collect()
+        torch.cuda.empty_cache()
+        return dict(miss_s=t_miss, store_s=store_s[0], hit_s=t_hit,
+                    entry_bytes=entry_bytes, refine_s=t_refine)
+
     def engine_path(g, truth, Y):
         """Phase 5a: the durable serving engine at LiveJournal scale on
         the main path's graph; returns its phase times for the summary.
@@ -856,6 +952,7 @@ def main() -> int:
             del fresh, live
             print(f"engine self-check: max|Z_live - Z_fit(store.edges(), "
                   f"Y_epoch)| = {z_err:.3e} (rtol 1e-5, atol 1e-6)")
+            ivf = ivf_phase(engine, tick_rng)
             r0 = rebuild_s()
             t0 = time.perf_counter()
             info = engine.checkpoint()
@@ -869,6 +966,9 @@ def main() -> int:
                   f"{info['generation']}")
             held = tick_rng.integers(0, n, nq).astype(np.int32)
             pre = engine.query_topk(held, k=k)
+            pre_ivf = engine.query_topk(held, k=k, mode="ivf", nprobe=2)
+            cells = [sh.index.cell_sizes() for sh in engine.shards]
+            cent = engine._index_centroids.copy()
             triple = (engine.version, engine.epoch, engine.fingerprint())
             Z_live = [sh.Z_owned.clone() for sh in engine.shards]
             engine.close()
@@ -883,6 +983,7 @@ def main() -> int:
             dz = max((sh.Z_owned - z).abs().max().item()
                      for sh, z in zip(rec.shards, Z_live))
             post = rec.query_topk(held, k=k)
+            post_ivf = rec.query_topk(held, k=k, mode="ivf", nprobe=2)
             launches = dict(_build.launches)
             peak_gib = torch.cuda.max_memory_allocated() / 2**30
             print(f"engine reopen: {t_open:.2f} s (shard builds "
@@ -904,6 +1005,18 @@ def main() -> int:
                     and np.array_equal(pre[1], post[1])):
                 raise AssertionError("held-back top-k answers differ after "
                                      "the reopen")
+            index_kept = (
+                rec.index_mode == "ivf"
+                and np.array_equal(rec._index_centroids, cent)
+                and all(np.array_equal(c, sh.index.cell_sizes())
+                        for c, sh in zip(cells, rec.shards))
+                and np.array_equal(pre_ivf[0], post_ivf[0])
+                and np.array_equal(pre_ivf[1], post_ivf[1]))
+            print(f"engine reopen: index restored (same centroids, cell "
+                  f"sizes and nprobe = 2 answers) {index_kept}")
+            if not index_kept:
+                raise AssertionError("the reopen did not restore the IVF "
+                                     "index")
             if rec.loop_error is not None:
                 raise AssertionError(f"loop_error: {rec.loop_error!r}")
             for name in ("gee_scatter", "gee_delta_renorm", "topk_fused"):
@@ -912,10 +1025,127 @@ def main() -> int:
                                          "in the engine phase")
             rec.close()
             del rec, Z_live
+            gc.collect()
+            # two more reopens with the shards' plans in a persistent
+            # cache: a miss that stores them, then a hit
+            cache_dir = str(Path(tmp) / "plans")
+            opens = []
+            for _ in range(2):
+                r0 = rebuild_s()
+                t0 = time.perf_counter()
+                rec = ServingEngine.open(data_dir, backend="cuda",
+                                         device="cuda", plan_cache=cache_dir)
+                torch.cuda.synchronize()
+                t_ = time.perf_counter() - t0
+                plan = rec.stats()["plan_stats"]
+                Zs = [sh.Z_owned.clone() for sh in rec.shards]
+                opens.append((t_, rebuild_s() - r0, plan, Zs))
+                rec.close()
+                del rec
+                gc.collect()
+            (t_miss, b_miss, p_miss, Z_miss), (t_hit, b_hit, p_hit,
+                                               Z_hit) = opens
+            cache_bytes = sum(f.stat().st_size
+                              for f in Path(cache_dir).iterdir())
+            print(f"engine reopen with the plan cache: miss {t_miss:.2f} s "
+                  f"(shard builds {b_miss:.2f} s, {p_miss}), hit "
+                  f"{t_hit:.2f} s (shard builds {b_hit:.2f} s, {p_hit}); "
+                  f"{cache_bytes / 2**30:.3f} GiB on disk; Z bit-equal "
+                  f"{all(same(a, b) for a, b in zip(Z_miss, Z_hit))}")
+            if p_miss["disk_stores"] != 2 or p_hit["disk_hits"] != 2:
+                raise AssertionError("engine reopen: expected 2 stores, then "
+                                     "2 disk hits")
+            if not all(same(a, b) for a, b in zip(Z_miss, Z_hit)):
+                raise AssertionError("engine reopen: the cache hit's Z "
+                                     "differs")
+            del opens, Z_miss, Z_hit
         gc.collect()
         torch.cuda.empty_cache()
         return dict(tick_ms=tick_ms, checkpoint_s=t_ckpt, reopen_s=t_open,
-                    peak_gib=peak_gib)
+                    peak_gib=peak_gib, ivf=ivf,
+                    reopen_cache_s=(t_miss, t_hit))
+
+    def ivf_phase(engine, tick_rng):
+        """The IVF index on the engine at LiveJournal scale: build time,
+        ivf at nprobe = K bit-equal to exact, recall@10 and read time at
+        nprobe = 2 beside the exact read's, and index maintenance under
+        200-edge deltas.  Leaves the index on."""
+        from repro_torch import obs
+        n, K, k, nq = engine.n, engine.store.K, 10, 64
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.enable_index()
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        cells = [sh.index.cell_sizes() for sh in engine.shards]
+        print(f"ivf build: {t_build:.2f} s; rows per cell, shard 0: "
+              f"{cells[0].tolist()}")
+        reads = [tick_rng.integers(0, n, nq).astype(np.int32)
+                 for _ in range(6)]
+        exact = [engine.query_topk(r, k=k) for r in reads]
+        full = [engine.query_topk(r, k=k, mode="ivf", nprobe=K)
+                for r in reads]
+        bit_equal = all(np.array_equal(a[0], b[0])
+                        and np.array_equal(a[1], b[1])
+                        for a, b in zip(exact, full))
+        print(f"ivf nprobe = K = {K}: bit-equal to the exact read "
+              f"{bit_equal}")
+        if not bit_equal:
+            raise AssertionError("ivf at nprobe = K differs from the exact "
+                                 "read")
+        probe2 = [engine.query_topk(r, k=k, mode="ivf", nprobe=2)
+                  for r in reads]
+        recall = float(np.mean([
+            len(set(a.tolist()) & set(b.tolist())) / k
+            for e, p in zip(exact, probe2) for a, b in zip(e[0], p[0])]))
+
+        def read_ms(**kw):
+            out = []
+            for r in reads:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine.query_topk(r, k=k, **kw)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        ex_ms = read_ms()
+        iv_ms = read_ms(mode="ivf", nprobe=2)
+        scanned = obs.registry().counter_value(
+            "repro_index_rows_scanned_total")
+        queries = obs.registry().counter_value("repro_index_queries_total")
+        print(f"ivf nprobe = 2: recall@10 {recall:.4f}; ms per {nq}-query "
+              f"read (6 reads, cells cached after the first): ivf "
+              + ", ".join(f"{x:.2f}" for x in iv_ms) + "; exact "
+              + ", ".join(f"{x:.2f}" for x in ex_ms)
+              + f"; rows scanned per query over the phase "
+              f"{scanned / max(queries * nq, 1):,.0f} of {n:,}")
+        upd = []
+        for _ in range(3):
+            u = tick_rng.integers(0, n, 200).astype(np.int32)
+            v = tick_rng.integers(0, n, 200).astype(np.int32)
+            moved0 = engine._index_moved
+            h0 = obs.registry().hist_summary("repro_index_update_seconds")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.apply_edge_delta(u, v, np.ones(200, np.float32))
+            torch.cuda.synchronize()
+            t_ = time.perf_counter() - t0
+            h1 = obs.registry().hist_summary("repro_index_update_seconds")
+            upd.append(((h1["sum"] - h0["sum"]) * 1e3, t_ * 1e3,
+                        engine._index_moved - moved0))
+        print("ivf maintenance per 200-edge delta (update_index ms over "
+              "both shards, whole delta ms, rows moved): "
+              + ", ".join(f"({a:.2f}, {b:.2f}, {c})" for a, b, c in upd))
+        after = [engine.query_topk(r, k=k) for r in reads[:2]]
+        again = [engine.query_topk(r, k=k, mode="ivf", nprobe=K)
+                 for r in reads[:2]]
+        if not all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                   for a, b in zip(after, again)):
+            raise AssertionError("ivf at nprobe = K differs from exact "
+                                 "after the deltas")
+        return dict(build_s=t_build, recall=recall, ivf_ms=iv_ms,
+                    exact_ms=ex_ms, update=upd)
 
     def skew_path():
         """Phase 5b: a graph with LiveJournal's degree spread on the cuda
@@ -1154,13 +1384,38 @@ def main() -> int:
         ms = (ms1 + ms2) / 2
         print(f"flash_attention at the prefill's shape: kernel {ms1:.4f} / "
               f"{ms2:.4f} ms, library {lib1:.4f} / {lib2:.4f} ms")
-        return dict(
+        plain_ms = timer(lambda: FA.flash_attention_plain(q, k, v), 3)
+        del q, k, v
+        # the wide body (D > 128) at one shape: yi's batch and GQA group,
+        # 8 query heads, S = 2048, D = 256, bfloat16
+        Dw, Hw, KVw = 256, 8, 2
+        qw, kw_, vw = (torch.randn((B, h_, S, Dw), generator=gen_,
+                                   device=dev, dtype=torch.bfloat16)
+                       for h_ in (Hw, KVw, KVw))
+        check_flash(qw, kw_, vw, "wide body D=256")
+        flops_w = 4.0 * Dw * B * Hw * S * (S + 1) / 2
+        wide = dict(
+            wide_D256_ms=timer(lambda: FA.flash_attention(qw, kw_, vw), 5),
+            wide_D256_bound_ms=bound_ms(
+                2 * (2 * B * Hw * S * Dw + 2 * B * KVw * S * Dw), flops_w,
+                BF16_TC_FLOPS)[0],
+            wide_D256_plain_ms=timer(
+                lambda: FA.flash_attention_plain(qw, kw_, vw), 2),
+            wide_D256_library_ms=timer(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qw, kw_, vw, is_causal=True, enable_gqa=True), 5))
+        print(f"flash_attention wide body at B={B} H={Hw} KV={KVw} S={S} "
+              f"D={Dw} bf16: kernel {wide['wide_D256_ms']:.4f} ms, bound "
+              f"{wide['wide_D256_bound_ms']:.4f} ms, plain "
+              f"{wide['wide_D256_plain_ms']:.4f} ms, library "
+              f"{wide['wide_D256_library_ms']:.4f} ms")
+        del qw, kw_, vw
+        return dict(**wide,
             name="flash_attention", route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:72",
             launches=launches["flash_attention"], max_abs_err=err,
-            ms=ms, plain_ms=timer(lambda: FA.flash_attention_plain(q, k, v),
-                                  3),
+            ms=ms, plain_ms=plain_ms,
             bound_ms=b, bound_by=by, library_ms=(lib1 + lib2) / 2,
             tflops=flops / ms / 1e9, bound_share=b / ms,
             shape=f"B={B} H={H} KV={KV} S={S} D={D} bf16")
@@ -1168,6 +1423,7 @@ def main() -> int:
     results, main_graph = gee_path()
     gc.collect()
     torch.cuda.empty_cache()
+    plan_cache_path(main_graph[0], main_graph[2])
     engine_path(*main_graph)
     del main_graph
     gc.collect()
@@ -1178,7 +1434,9 @@ def main() -> int:
 
     for r_ in results:
         rate = (f", {r_['tflops']:.1f} TFLOP/s, {r_['bound_share']:.3f} of "
-                "the bound") if "tflops" in r_ else ""
+                f"the bound; wide body D = 256: {r_['wide_D256_ms']:.4f} ms "
+                f"(bound {r_['wide_D256_bound_ms']:.4f})"
+                ) if "tflops" in r_ else ""
         if "ms_all_labelled" in r_:
             rate = (f", {r_['bound_share']:.3f} of the bound "
                     f"({r_['bound_share_12b']:.3f} of the 12-byte one), all "

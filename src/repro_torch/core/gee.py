@@ -2,9 +2,12 @@
 
 The port of `repro.core.gee`.  Label convention: Y in {-1 = unknown,
 0..K-1}.  The paper's serial edge loop with atomic ``writeAdd`` is a
-vectorized scatter-add: jnp's ``.at[].add`` becomes
-``index_put_(accumulate=True)``.  Every function works on tensors of
-any one device; the caller places them.
+vectorized scatter-add: jnp's ``.at[].add``.  On the CPU it is
+`add_in_order` (numpy's serial ``np.add.at``), which adds the
+contributions to each entry in list order, so Z has the same bits on
+every run and thread count (PyTorch's ``index_put_(accumulate=True)`` on
+the CPU does not); on a card it is ``index_put_(accumulate=True)``.  Every function works on tensors of any
+one device; the caller places them.
 
 Variants:
   * ``gee``            — one-pass embedding (weighted, directed;
@@ -14,13 +17,70 @@ Variants:
                           chunked accumulate (Z is linear in the edges)
   * ``*_owned``        — the same over pre-bucketed owned-destination
                           contributions (a row partition's slice)
-  * ``kmeans_refine_round`` — one round of unsupervised refinement
+  * ``kmeans_refine_round`` / ``gee_refine`` — unsupervised refinement
+  * ``gee_dense_oracle`` — the O(n^2) dense form, a tiny-graph oracle
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
+
+
+def add_in_order(flat: torch.Tensor, idx, val) -> torch.Tensor:
+    """flat[idx[i]] += val[i] for i = 0, 1, ... in turn, in place: each
+    entry gets its own contributions in list order, a serial float32 sum
+    starting from the entry's value, the same bits on every run and
+    thread count.  On the CPU this is numpy's unbuffered ``np.add.at``
+    on the tensor's memory; on a card `_add_by_rank`.  Returns `flat`."""
+    if flat.device.type == "cpu":
+        np.add.at(flat.numpy(), idx.long().numpy(),
+                  val.to(flat.dtype).numpy())
+        return flat
+    return _add_by_rank(flat, idx, val)
+
+
+def _add_by_rank(flat: torch.Tensor, idx, val) -> torch.Tensor:
+    """`add_in_order` with tensor ops on any device: a stable sort of
+    `idx` gives each contribution its rank within its entry's run, and
+    the ranks are added one after another with `index_add_`, which then
+    holds no index twice (one step per rank: as many as the longest
+    run)."""
+    idx = idx.long()
+    val = val.to(flat.dtype)
+    m = idx.shape[0]
+    if m == 0:
+        return flat
+    order = torch.sort(idx, stable=True).indices
+    ks = idx[order]
+    pos = torch.arange(m, device=idx.device)
+    first = torch.ones(m, dtype=torch.bool, device=idx.device)
+    first[1:] = ks[1:] != ks[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    by_rank = order[torch.sort(rank, stable=True).indices]
+    start = 0
+    for c in torch.bincount(rank).tolist():
+        sel = by_rank[start:start + c]
+        flat.index_add_(0, idx[sel], val[sel])
+        start += c
+    return flat
+
+
+def scatter_add_ordered(Z: torch.Tensor, rows, cls, val) -> torch.Tensor:
+    """Z[rows, cls] += val in list order (`add_in_order`), in place on a
+    contiguous (n, K) Z.  Returns Z."""
+    add_in_order(Z.view(-1), rows.long() * Z.shape[1] + cls.long(), val)
+    return Z
+
+
+def _add(flat: torch.Tensor, idx, val) -> torch.Tensor:
+    """flat[idx] += val (duplicates accumulate), in place: in list order
+    on the CPU, the library scatter on a card."""
+    if flat.device.type == "cpu":
+        return add_in_order(flat, idx, val)
+    return flat.index_put_((idx.long(),), val.to(flat.dtype),
+                           accumulate=True)
 
 
 def make_w(Y: torch.Tensor, K: int) -> torch.Tensor:
@@ -29,9 +89,8 @@ def make_w(Y: torch.Tensor, K: int) -> torch.Tensor:
     float32 math as in `repro.core.gee.make_w` (counts summed in
     float32, one IEEE division), so Wv is bit-equal to the reference."""
     labeled = Y >= 0
-    counts = torch.zeros(K, dtype=torch.float32, device=Y.device)
-    counts.index_put_((torch.where(labeled, Y, 0).long(),),
-                      labeled.to(torch.float32), accumulate=True)
+    counts = _add(torch.zeros(K, dtype=torch.float32, device=Y.device),
+                  torch.where(labeled, Y, 0), labeled.to(torch.float32))
     inv = torch.where(counts > 0, 1.0 / torch.clamp_min(counts, 1.0),
                       torch.zeros_like(counts))
     return torch.where(labeled, inv[torch.clamp_min(Y, 0).long()],
@@ -55,8 +114,10 @@ def edge_contributions(u, v, w, Y, Wv):
 
 
 def _scatter(Z: torch.Tensor, rows, cls, val) -> torch.Tensor:
-    """Z[rows, cls] += val, in place (duplicates accumulate)."""
-    return Z.index_put_((rows.long(), cls.long()), val, accumulate=True)
+    """Z[rows, cls] += val, in place (duplicates accumulate; in list
+    order on the CPU)."""
+    _add(Z.view(-1), rows.long() * Z.shape[1] + cls.long(), val)
+    return Z
 
 
 def gee(u, v, w, Y, *, K: int, n: int, laplacian: bool = False,
@@ -70,8 +131,7 @@ def gee(u, v, w, Y, *, K: int, n: int, laplacian: bool = False,
     if laplacian:
         if deg is None:
             deg = torch.zeros(n, dtype=torch.float32, device=w.device)
-            deg.index_put_((u.long(),), w, accumulate=True)
-            deg.index_put_((v.long(),), w, accumulate=True)
+            _add(deg, torch.cat([u.long(), v.long()]), torch.cat([w, w]))
         scale = torch.rsqrt(torch.clamp_min(deg, 1.0))
         w = w * scale[u.long()] * scale[v.long()]
     if Wv is None:
@@ -81,12 +141,28 @@ def gee(u, v, w, Y, *, K: int, n: int, laplacian: bool = False,
     return _scatter(Z, dst, cls, val)
 
 
+def gee_dense_oracle(u, v, w, Y, K: int, n: int) -> torch.Tensor:
+    """O(n^2) dense formulation Z = A @ Wmat, a tiny-graph test oracle:
+    Wmat is the paper's (n, K) one-hot projection matrix and A the
+    adjacency symmetrized as Algorithm 1's two updates imply."""
+    u, v = u.long(), v.long()
+    w = w.to(torch.float32)
+    A = torch.zeros(n * n, dtype=torch.float32, device=w.device)
+    _add(A, torch.cat([u * n + v, v * n + u]), torch.cat([w, w]))
+    Wv = make_w(Y, K)
+    labeled = (Y >= 0).to(torch.float32)
+    onehot = torch.nn.functional.one_hot(
+        torch.clamp_min(Y, 0).long(), K).to(torch.float32)
+    return A.view(n, n) @ (onehot * (labeled * Wv)[:, None])
+
+
 def gee_apply_delta(Z, u, v, w, Y, Wv, *, K: int, sign: float = 1.0):
     """Fold an edge batch into Z: insertions (sign=+1) and deletions
     (sign=-1) in O(batch), exact by linearity.  Wv must be the weights
     Z was built with.  Returns a new tensor; Z is left as it was."""
     dst, cls, val = edge_contributions(u, v, w.to(torch.float32), Y, Wv)
-    return _scatter(Z.clone(), dst, cls, sign * val)
+    return _scatter(Z.clone(memory_format=torch.contiguous_format), dst,
+                    cls, sign * val)
 
 
 def gee_streaming(chunks, Y, *, K: int, n: int,
@@ -137,7 +213,8 @@ def gee_apply_delta_owned(Z, rows, src, w, Y, Wv, *, K: int,
     """Fold owned-destination contributions into an (n_local, K) slice.
     Padded slots carry w = 0 and are no-ops.  Returns a new tensor."""
     cls, val = owned_edge_contributions(src, w.to(torch.float32), Y, Wv)
-    return _scatter(Z.clone(), rows, cls, sign * val)
+    return _scatter(Z.clone(memory_format=torch.contiguous_format), rows,
+                    cls, sign * val)
 
 
 def gee_streaming_owned(chunks, Y, *, K: int, n_local: int,
@@ -187,3 +264,22 @@ def kmeans_refine_round(Z, labels, Y0, K: int, kmeans_iters: int):
         assign = _kmeans_assign(Zn, centers)
         centers = _kmeans_update(Zn, assign, K)
     return torch.where(Y0 >= 0, Y0.to(torch.int32), assign)
+
+
+def gee_refine(u, v, w, Y0, generator: torch.Generator, *, K: int, n: int,
+               iters: int = 10, kmeans_iters: int = 3):
+    """Iterative GEE clustering: embed with the current labels, k-means
+    in the K-dim embedding, reassign, repeat.  Y0 may be all unknown
+    (-1); unknowns bootstrap from a random assignment drawn from
+    `generator` (other bits than the reference's `jax.random`).  Each
+    round embeds through `kernels.ops.gee_cuda`: the scatter kernel on
+    a card, its plain version on the CPU.  Returns (Z, labels)."""
+    from repro_torch.kernels.ops import gee_cuda
+    rand = torch.randint(0, K, (n,), generator=generator,
+                         dtype=torch.int32, device=generator.device)
+    Y0 = Y0.to(torch.int32)
+    labels = torch.where(Y0 >= 0, Y0, rand.to(Y0.device))
+    for _ in range(iters):
+        Z = gee_cuda(u, v, w, labels, K=K, n=n)
+        labels = kmeans_refine_round(Z, labels, Y0, K, kmeans_iters)
+    return gee_cuda(u, v, w, labels, K=K, n=n), labels

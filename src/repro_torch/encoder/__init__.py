@@ -4,7 +4,10 @@
     emb = Embedder(EncoderConfig(K=5), device="cpu").fit(graph, Y)
 
 Backends: numpy, torch, cuda, streaming, or "auto" (resolved at plan
-time from (n, s, device kind, device count) via `AUTO_POLICY`).
+time from (n, s, device kind, device count) via `AUTO_POLICY`).  The
+persistent plan cache (`plan_cache.PlanDiskCache`, REPRO_PLAN_CACHE to
+relocate or disable) lets a fresh process skip a known graph's host
+planning.
 """
 from repro_torch.encoder.backends import (AUTO_POLICY, Backend, get_backend,
                                           list_backends, register_backend,
@@ -12,7 +15,9 @@ from repro_torch.encoder.backends import (AUTO_POLICY, Backend, get_backend,
 from repro_torch.encoder.config import EncoderConfig
 from repro_torch.encoder.embedder import Embedder, NotFittedError
 from repro_torch.encoder.plan import Plan
+from repro_torch.encoder.plan_cache import PlanDiskCache, default_cache
 
 __all__ = ["AUTO_POLICY", "Backend", "Embedder", "EncoderConfig",
-           "NotFittedError", "Plan", "get_backend", "list_backends",
-           "register_backend", "resolve_auto"]
+           "NotFittedError", "Plan", "PlanDiskCache", "default_cache",
+           "get_backend", "list_backends", "register_backend",
+           "resolve_auto"]

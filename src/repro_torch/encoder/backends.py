@@ -19,7 +19,9 @@ the scatter runs:
 The names differ from the reference's on purpose, so the two packages'
 strategies are never confused.  Every backend supports
 `EncoderConfig.row_partition` (an (n_local, K) accumulator over the
-contributions bucketed by owned destination).
+contributions bucketed by owned destination).  Each builds its plan in
+two halves, `plan_host` (what the persistent plan cache stores) and
+`plan_finalize` (the uploads), as the reference's do.
 """
 from __future__ import annotations
 
@@ -70,21 +72,60 @@ def _contributions(graph: Graph, config: EncoderConfig,
 
 class Backend:
     """One execution strategy: label-free `plan`, label-dependent
-    `embed`."""
+    `embed`.
+
+    A plan is built in two halves, as in the reference:
+
+      plan_host      the expensive label-free artifacts (numpy arrays and
+                     scalars), which the persistent plan cache stores;
+      plan_finalize  the cheap per-process half: uploads to the device,
+                     chunk views.
+
+    A cache hit hands `plan` the stored host dict and skips `plan_host`.
+    """
 
     name: str = "?"
+    #: bump when the plan_host layout changes: older disk entries then
+    #: read as misses, never as wrong plans
+    plan_version: int = 1
+    #: whether plan_host's output may be persisted across processes
+    persistable: bool = True
 
-    def prepare(self, plan: Plan, graph: Graph,
-                device: torch.device) -> None:
-        """Fill plan.data: the backend's label-free artifacts."""
+    def cache_context(self) -> str:
+        """Runtime context baked into the persistent-cache key."""
+        return ""
+
+    def plan_host(self, graph: Graph, config: EncoderConfig,
+                  w_eff: np.ndarray, device: torch.device) -> Dict:
+        """The backend's label-free host artifacts ("w_eff" is added by
+        `plan` where it is one)."""
+        return {}
+
+    def plan_finalize(self, plan: Plan, graph: Graph,
+                      device: torch.device) -> None:
+        """Fill plan.data from (graph, plan.host): the uploads."""
         raise NotImplementedError
 
     def plan(self, graph: Graph, config: EncoderConfig,
-             device: torch.device) -> Plan:
-        w_eff = effective_weights(graph, config)
+             device: torch.device, host: Optional[Dict] = None) -> Plan:
+        """Build the plan; `host` (from the persistent cache) skips the
+        expensive half.  Unscaled, w_eff IS graph.w and is not stored;
+        partitioned plans fold it into their owned contributions."""
+        built = host is None
+        if built:
+            w_eff = effective_weights(graph, config)
+            keep_w = config.laplacian and config.row_partition is None
+            host = {**({"w_eff": w_eff} if keep_w else {}),
+                    **self.plan_host(graph, config, w_eff, device)}
+        if config.row_partition is not None:
+            w_eff = graph.w
+        elif not built:
+            w_eff = (host["w_eff"] if "w_eff" in host
+                     else effective_weights(graph, config))
         p = Plan(backend=self.name, config=config, n=graph.n, s=graph.s,
-                 w_eff=w_eff, **Plan.anchors(graph))
-        self.prepare(p, graph, device)
+                 w_eff=np.asarray(w_eff, np.float32), host=host,
+                 **Plan.anchors(graph))
+        self.plan_finalize(p, graph, device)
         return p
 
     def embed(self, plan: Plan, Yj: torch.Tensor, Wv: torch.Tensor
@@ -93,15 +134,40 @@ class Backend:
         raise NotImplementedError
 
 
+def _owned_plan_host(graph: Graph, config: EncoderConfig,
+                     w_eff: np.ndarray) -> Dict:
+    """Host half of a partitioned plan: contributions bucketed by owned
+    destination, rows remapped to [0, n_local)."""
+    rows, src, w = owned_contributions(graph, w_eff, *config.row_partition)
+    return {"o_rows": rows, "o_src": src, "o_w": w}
+
+
+def _owned(p: Plan) -> tuple:
+    h = p.host
+    return (np.asarray(h["o_rows"], np.int32),
+            np.asarray(h["o_src"], np.int32),
+            np.asarray(h["o_w"], np.float32))
+
+
+class _OwnedHostBackend(Backend):
+    """A backend whose only host artifact is the partitioned plan's
+    owned contributions."""
+
+    def plan_host(self, graph, config, w_eff, device):
+        if config.row_partition is None:
+            return {}
+        return _owned_plan_host(graph, config, w_eff)
+
+
 @register_backend("numpy")
-class NumpyBackend(Backend):
+class NumpyBackend(_OwnedHostBackend):
     """`ref_python.gee_numpy` on the host; Z is moved to the device."""
 
-    def prepare(self, p, graph, device):
+    def plan_finalize(self, p, graph, device):
         if p.config.row_partition is None:
             p.data = {"u": np.asarray(graph.u), "v": np.asarray(graph.v)}
         else:
-            rows, src, w = _contributions(graph, p.config, p.w_eff)
+            rows, src, w = _owned(p)
             p.data = {"rows": rows, "src": src, "w": w}
 
     def embed(self, plan, Yj, Wv):
@@ -119,17 +185,17 @@ class NumpyBackend(Backend):
 
 
 @register_backend("torch")
-class TorchBackend(Backend):
+class TorchBackend(_OwnedHostBackend):
     """`core.gee` scatter-add on the device, with the Embedder-owned
     Wv; under a row partition `core.gee.gee_owned`."""
 
-    def prepare(self, p, graph, device):
+    def plan_finalize(self, p, graph, device):
         if p.config.row_partition is None:
             p.data = {"u": torch.as_tensor(graph.u, device=device),
                       "v": torch.as_tensor(graph.v, device=device),
                       "w": torch.as_tensor(p.w_eff, device=device)}
         else:
-            rows, src, w = _contributions(graph, p.config, p.w_eff)
+            rows, src, w = _owned(p)
             p.data = {"rows": torch.as_tensor(rows, device=device),
                       "src": torch.as_tensor(src, device=device),
                       "w": torch.as_tensor(w, device=device)}
@@ -147,23 +213,35 @@ class TorchBackend(Backend):
 class CudaBackend(Backend):
     """The destination-tiled scatter kernel.
 
-    The plan sorts the (destination, source node, weight) contributions,
-    all label-free, by destination row on the device (`pack_edges`):
-    one int64 offset per row (`row_ptr`) and flat `src` and `w` buffers
-    of exactly S slots, no padding.  Each embed resolves class and value
-    per slot from the current (Y, Wv) and launches `gee_scatter`.  Under
-    a row partition the owned contributions feed the same packing over
-    the local rows [0, hi - lo)."""
+    The host half is the row-offset layout of the (destination, source
+    node, weight) contributions, all label-free (`pack_edges`): one
+    int64 offset per row (`row_ptr`) and flat `src` and `w_packed`
+    buffers of exactly S slots.  They are sorted on the plan's device
+    and stay there as tensors (the cache copies them to the host when
+    it stores them; a hit uploads them again), so a plan that is not
+    stored never crosses the host link twice.  Each embed resolves
+    class and value per slot from the current (Y, Wv) and launches
+    `gee_scatter`.  Under a row partition the owned contributions feed
+    the same packing over the local rows [0, hi - lo)."""
 
-    def prepare(self, p, graph, device):
+    def plan_host(self, graph, config, w_eff, device):
         from repro_torch.kernels.ops import pack_edges
-        cfg = p.config
-        dst, src, w = _contributions(graph, cfg, p.w_eff)
+        dst, src, w = _contributions(graph, config, w_eff)
+        n_rows = (graph.n if config.row_partition is None
+                  else config.row_partition[1] - config.row_partition[0])
         row_ptr, srcb, wb, T = pack_edges(
             torch.as_tensor(dst, device=device),
             torch.as_tensor(src, device=device),
-            torch.as_tensor(w, device=device), p.n_local, cfg.tile_n)
-        p.data = {"row_ptr": row_ptr, "src": srcb, "w": wb, "T": T}
+            torch.as_tensor(w, device=device), n_rows, config.tile_n)
+        return {"row_ptr": row_ptr, "src": srcb, "w_packed": wb,
+                "T": np.int64(T)}
+
+    def plan_finalize(self, p, graph, device):
+        h = p.host
+        p.data = {"row_ptr": torch.as_tensor(h["row_ptr"], device=device),
+                  "src": torch.as_tensor(h["src"], device=device),
+                  "w": torch.as_tensor(h["w_packed"], device=device),
+                  "T": int(h["T"])}
 
     @staticmethod
     def resolve(plan, Yj, Wv) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -187,19 +265,20 @@ class CudaBackend(Backend):
 
 
 @register_backend("streaming")
-class StreamingBackend(Backend):
+class StreamingBackend(_OwnedHostBackend):
     """Accumulate over bucket-padded host chunks: each chunk is moved to
     the device, folded into Z and released, so only O(chunk) edge data
     plus Z lives there.  Under a row partition the chunks are owned
-    (row, src, w) triples and Z is (n_local, K)."""
+    (row, src, w) triples and Z is (n_local, K); those bucketed triples
+    are the persisted host half, the chunking is per process."""
 
-    def prepare(self, p, graph, device):
+    def plan_finalize(self, p, graph, device):
         from repro_torch.graph.edges import chunk_edges
         if p.config.row_partition is None:
             cols = (np.asarray(graph.u, np.int32),
                     np.asarray(graph.v, np.int32), p.w_eff)
         else:
-            cols = _contributions(graph, p.config, p.w_eff)
+            cols = _owned(p)
         # tails pad with (0, 0, 0.0): w = 0 is a no-op for any labeling
         p.data = {"chunks": list(chunk_edges(*cols, p.config.chunk_size))}
 

@@ -6,11 +6,19 @@
     emb.partial_fit(delta_graph)          # O(batch) exact update
     emb.refit(Y_new)                      # reuse the plan
 
-The port of `repro.encoder.Embedder` (telemetry, the persistent plan
-cache and `to_features` are not ported yet).  The Embedder lives on one
+The port of `repro.encoder.Embedder`.  The Embedder lives on one
 explicit device, "cuda" by default; it refuses to be built for a card
 that is not there.  It owns the projection weights Wv: `make_w(Y, K)`
 is computed at fit time and used by every later `partial_fit`.
+
+`plan` is a two-tier cache, as the reference's: tier 1 matches the very
+same edge arrays in O(1); tier 2 (`plan_cache`: "auto", a directory, a
+`PlanDiskCache`, or None) is the persistent cache keyed on the graph's
+content fingerprint, so a fresh process skips the plan's host half.
+Telemetry carries the reference's names: the spans ``encoder.plan``,
+``encoder.fit`` and ``encoder.refine`` and the ``repro_encoder_*``
+series (plan-cache events, plan, fit, refine, partial-fit and transform
+seconds, fit edges/s, delta edges).
 """
 from __future__ import annotations
 
@@ -19,18 +27,32 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.gee import (gee_apply_delta, gee_apply_delta_owned,
                                   kmeans_refine_round, make_w)
 from repro_torch.device import resolve_device
 from repro_torch.encoder.backends import Backend, get_backend, resolve_auto
 from repro_torch.encoder.config import EncoderConfig
 from repro_torch.encoder.plan import Plan, owned_contributions
+from repro_torch.encoder.plan_cache import PlanDiskCache, resolve_cache
 from repro_torch.graph.edges import Graph
 from repro_torch.graph.sources import as_graph
 
 
 class NotFittedError(RuntimeError):
     pass
+
+
+def _host_arrays(host: dict) -> dict:
+    """A plan's host half as numpy, for the disk (the cuda backend's
+    arrays are tensors on the device they were sorted on)."""
+    return {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+            for k, v in host.items()}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class Embedder:
@@ -44,7 +66,8 @@ class Embedder:
 
     def __init__(self, config: EncoderConfig, *,
                  backend: Optional[str] = None,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 plan_cache: Union[str, PlanDiskCache, None] = "auto"):
         self.config = config
         self.device = resolve_device(device)
         spec = backend if backend is not None else config.backend
@@ -52,6 +75,7 @@ class Embedder:
         #: resolved Backend; None until the first plan() when spec="auto"
         self.backend: Optional[Backend] = (
             None if spec == "auto" else get_backend(spec))
+        self.plan_cache: Optional[PlanDiskCache] = resolve_cache(plan_cache)
         self._plan: Optional[Plan] = None
         self._deltas_applied = 0       # partial_fits since the last embed
         self._Yj = self._Yfit = None
@@ -60,7 +84,17 @@ class Embedder:
         self.labels_: Optional[np.ndarray] = None
         self.Wv_: Optional[torch.Tensor] = None
         self.last_info_: dict = {}
-        self.plan_stats = {"built": 0, "hits": 0}
+        self.plan_stats = {"built": 0, "hits": 0,
+                           "disk_hits": 0, "disk_stores": 0}
+
+    def _bump_plan_stat(self, key: str) -> None:
+        """plan_stats increment, mirrored into
+        ``repro_encoder_plan_cache_total{event=...}``."""
+        self.plan_stats[key] += 1
+        obs.counter("repro_encoder_plan_cache_total",
+                    event={"hits": "tier1_hit", "built": "built",
+                           "disk_hits": "disk_hit",
+                           "disk_stores": "disk_store"}[key])
 
     # -- planning ----------------------------------------------------------
 
@@ -74,8 +108,14 @@ class Embedder:
 
     def plan(self, graph) -> Plan:
         """Build (or reuse) the label-free preprocessing for `graph` (a
-        Graph or a GraphSource).  A plan matches iff it was built
-        against the very same arrays."""
+        Graph or a GraphSource).
+
+        Tier 1: the plan matches iff it was built against the very same
+        arrays.  Tier 2: on a tier-1 miss the graph's fingerprint, the
+        resolved backend and the config key a persistent entry holding
+        the plan's host half; a hit skips `plan_host` and only uploads.
+        Stale or corrupt entries are rebuilt; `plan_cache=None` (or
+        REPRO_PLAN_CACHE=off) turns the tier off."""
         graph = as_graph(graph)
         backend = self._resolve_backend(graph)
         rp = self.config.row_partition
@@ -84,7 +124,7 @@ class Embedder:
                              f"n={graph.n}")
         if self._plan is not None and self._plan.matches(
                 graph, backend.name, self.config):
-            self.plan_stats["hits"] += 1
+            self._bump_plan_stat("hits")
             return self._plan
         graph.validate()
         # fitted state belonged to the old plan's graph
@@ -92,8 +132,30 @@ class Embedder:
         self._Yj = self._Yfit = self._Wv_host = None
         self._deltas_applied = 0
         self.last_info_ = {}
-        self._plan = backend.plan(graph, self.config, self.device)
-        self.plan_stats["built"] += 1
+        with obs.span("encoder.plan", backend=backend.name, n=graph.n,
+                      s=graph.s) as sp:
+            meta = host = None
+            cache = self.plan_cache if backend.persistable else None
+            if cache is not None:
+                meta = cache.describe(graph.fingerprint(), backend,
+                                      self.config)
+                host = cache.load(meta)
+            if host is not None:
+                self._bump_plan_stat("disk_hits")
+                self._plan = backend.plan(graph, self.config, self.device,
+                                          host=host)
+                source = "disk"
+            else:
+                self._plan = backend.plan(graph, self.config, self.device)
+                self._bump_plan_stat("built")
+                if meta is not None and cache.store(
+                        meta, _host_arrays(self._plan.host)):
+                    self._bump_plan_stat("disk_stores")
+                source = "built"
+            sp.set(source=source)
+        if obs.enabled():
+            obs.observe("repro_encoder_plan_seconds", sp.duration,
+                        backend=backend.name, source=source)
         return self._plan
 
     # -- fitting -----------------------------------------------------------
@@ -111,7 +173,7 @@ class Embedder:
             raise NotFittedError("refit() requires a fitted state (fit() "
                                  "first)")
         self._check_no_pending_deltas("refit")
-        self.plan_stats["hits"] += 1
+        self._bump_plan_stat("hits")
         return self._embed(self._plan, self.labels_ if Y is None else Y)
 
     def _check_no_pending_deltas(self, what: str) -> None:
@@ -136,11 +198,20 @@ class Embedder:
         self._Yfit = self._Yj      # supervised set: pinned by refine()
 
     def _embed(self, plan: Plan, Y) -> "Embedder":
-        self._set_labels(self._check_labels(plan, Y))
-        self.Wv_ = make_w(self._Yj, self.config.K)
-        self._Wv_host = self.Wv_.cpu().numpy()
-        self.Z_, self.last_info_ = self.backend.embed(plan, self._Yj,
-                                                      self.Wv_)
+        Y = self._check_labels(plan, Y)
+        name = self.backend.name
+        with obs.span("encoder.fit", metric="repro_encoder_fit_seconds",
+                      mlabels={"backend": name}, backend=name, n=plan.n,
+                      s=plan.s) as sp:
+            self._set_labels(Y)
+            self.Wv_ = make_w(self._Yj, self.config.K)
+            self._Wv_host = self.Wv_.cpu().numpy()
+            self.Z_, self.last_info_ = self.backend.embed(plan, self._Yj,
+                                                          self.Wv_)
+            sp.fence(self.Z_)       # bill the device work to the fit
+        if obs.enabled() and plan.s and sp.duration > 0:
+            obs.gauge("repro_encoder_fit_edges_per_s",
+                      plan.s / sp.duration, backend=name)
         self._deltas_applied = 0
         return self
 
@@ -185,6 +256,7 @@ class Embedder:
         self._check_delta(delta, "partial_fit")
         if delta.s == 0:
             return self
+        t0 = obs.tick()
         dev, K = self.device, self.config.K
         rp = self.config.row_partition
         if rp is not None:
@@ -203,6 +275,7 @@ class Embedder:
                 torch.as_tensor(delta.w, device=dev), self._Yj, self.Wv_,
                 K=K, sign=sign)
         self._deltas_applied += 1
+        self._record_partial_fit(t0, delta.s)
         return self
 
     def partial_fit_norm(self, delta: Graph, *, sign: float = 1.0
@@ -215,6 +288,7 @@ class Embedder:
         kernel as one short list sorted by local row."""
         self._check_delta(delta, "partial_fit_norm")
         from repro_torch.kernels.query_fused import gee_delta_renorm
+        t0 = obs.tick()
         rp = self.config.row_partition
         if delta.s == 0:
             rows = src = np.zeros(0, np.int32)
@@ -238,7 +312,18 @@ class Embedder:
             torch.as_tensor(val[order], device=dev))
         if rows.shape[0]:
             self._deltas_applied += 1
+        self._record_partial_fit(t0, delta.s)
         return Zn
+
+    def _record_partial_fit(self, t0: float, s: int) -> None:
+        """Registry metrics for one applied delta (obs on only: the
+        device is synchronized so the latency is real)."""
+        if not obs.enabled():
+            return
+        _sync(self.device)
+        obs.observe("repro_encoder_partial_fit_seconds", obs.tock(t0),
+                    backend=self.backend.name)
+        obs.counter("repro_encoder_delta_edges_total", s)
 
     # -- refinement --------------------------------------------------------
 
@@ -247,28 +332,34 @@ class Embedder:
         `config.refine_iters` rounds) through the configured backend and
         the cached plan.  Labels supervised at fit time stay pinned;
         unknowns bootstrap from a `torch.Generator` seeded with `seed`
-        (other bits than the reference's `jax.random`)."""
+        (other bits than the reference's `jax.random`).  One
+        ``encoder.refine`` span."""
         if self._plan is None or self._Yfit is None:
             raise NotFittedError("refine() before fit()")
         self._require_full_rows("refine")
         self._check_no_pending_deltas("refine")
         cfg = self.config
         gen = torch.Generator().manual_seed(int(seed))
-        rand = torch.randint(0, cfg.K, (self._plan.n,), generator=gen,
-                             dtype=torch.int32).to(self.device)
-        Y0 = self._Yfit
-        labels = torch.where(Y0 >= 0, Y0, rand)
-        for _ in range(cfg.refine_iters):
-            Z, _ = self.backend.embed(self._plan, labels,
-                                      make_w(labels, cfg.K))
-            labels = kmeans_refine_round(Z, labels, Y0, cfg.K,
-                                         cfg.kmeans_iters)
-        self.labels_ = labels.cpu().numpy()
-        self._Yj = labels
-        self.Wv_ = make_w(labels, cfg.K)
-        self._Wv_host = self.Wv_.cpu().numpy()
-        self.Z_, self.last_info_ = self.backend.embed(self._plan, labels,
-                                                      self.Wv_)
+        with obs.span("encoder.refine",
+                      metric="repro_encoder_refine_seconds",
+                      backend=self.backend.name,
+                      iters=cfg.refine_iters) as sp:
+            rand = torch.randint(0, cfg.K, (self._plan.n,), generator=gen,
+                                 dtype=torch.int32).to(self.device)
+            Y0 = self._Yfit
+            labels = torch.where(Y0 >= 0, Y0, rand)
+            for _ in range(cfg.refine_iters):
+                Z, _ = self.backend.embed(self._plan, labels,
+                                          make_w(labels, cfg.K))
+                labels = kmeans_refine_round(Z, labels, Y0, cfg.K,
+                                             cfg.kmeans_iters)
+            self.labels_ = labels.cpu().numpy()
+            self._Yj = labels
+            self.Wv_ = make_w(labels, cfg.K)
+            self._Wv_host = self.Wv_.cpu().numpy()
+            self.Z_, self.last_info_ = self.backend.embed(
+                self._plan, labels, self.Wv_)
+            sp.fence(self.Z_)
         return self
 
     # -- queries -----------------------------------------------------------
@@ -303,10 +394,44 @@ class Embedder:
     def transform(self, nodes=None) -> np.ndarray:
         """Z rows for `nodes` (all fitted rows if None), in
         config.dtype, as numpy.  Node ids are always GLOBAL."""
+        t0 = obs.tick()
         Z = self._rows(nodes)
-        return Z.to(getattr(torch, self.config.dtype)).cpu().numpy()
+        out = Z.to(getattr(torch, self.config.dtype)).cpu().numpy()
+        if obs.enabled():
+            obs.observe("repro_encoder_transform_seconds", obs.tock(t0))
+        return out
 
     def predict(self, nodes=None) -> np.ndarray:
         """argmax-Z class prediction (the first maximum, as jnp.argmax)."""
         return torch.argmax(self._rows(nodes), dim=1).to(
             torch.int32).cpu().numpy()
+
+    def to_features(self, d_model: int, *,
+                    generator: Optional[torch.Generator] = None,
+                    blend: float = 0.5) -> np.ndarray:
+        """Project the fitted Z into an (n, d_model) feature table, the
+        GEE -> LM bridge (embedding-table initialization).
+
+        Rows of Z are unit-normalized, rotated K -> d_model by a fixed
+        random near-isometry and blended with scaled Gaussian noise: the
+        scale of a 1/sqrt(d) init, with nodes that GEE places together
+        given similar rows.  ``blend`` in [0, 1]: 1 = pure structure,
+        0 = pure noise.  The rotation, then the noise, are drawn from
+        `generator` (default: a CPU `torch.Generator` seeded with 0;
+        other bits than the reference's `jax.random`)."""
+        if self.Z_ is None:
+            raise NotFittedError("to_features() before fit()")
+        self._require_full_rows("to_features")
+        gen = (generator if generator is not None
+               else torch.Generator().manual_seed(0))
+        K, n = self.config.K, self.n_
+        R = torch.randn((K, d_model), generator=gen, device=gen.device,
+                        dtype=torch.float32).to(self.device) / np.sqrt(K)
+        noise = torch.randn((n, d_model), generator=gen, device=gen.device,
+                            dtype=torch.float32).to(self.device)
+        Z = self.Z_ / torch.clamp_min(
+            torch.linalg.vector_norm(self.Z_, dim=1, keepdim=True), 1e-9)
+        scale = 1.0 / np.sqrt(d_model)
+        table = scale * (blend * (Z @ R) * np.sqrt(d_model)
+                         + (1 - blend) * noise)
+        return table.to(torch.float32).cpu().numpy()

@@ -7,6 +7,12 @@ packing, chunking, placement) and **embed** (resolve classes and values
 from the current labels and scatter).  Labels change every refinement
 round and serving epoch, the edges do not, so a plan is reused across
 `fit`/`refit` on the same arrays (matched by identity).
+
+The plan splits once more (`Backend.plan_host` / `plan_finalize`): the
+host half is the expensive label-free preprocessing, which the
+persistent plan cache (`encoder.plan_cache`) stores keyed on the graph's
+content fingerprint; the finalize half (uploads, chunk views) runs in
+every process.
 """
 from __future__ import annotations
 
@@ -61,6 +67,9 @@ class Plan:
     s: int
     w_eff: np.ndarray                   # laplacian-scaled edge weights
     data: Dict[str, Any] = field(default_factory=dict)
+    #: the persistable host half (`Backend.plan_host`); carries "w_eff"
+    #: only where Laplacian scaling makes it an artifact of its own
+    host: Dict[str, Any] = field(default_factory=dict)
     # identity anchors for O(1) matching
     _u: Optional[np.ndarray] = None
     _v: Optional[np.ndarray] = None

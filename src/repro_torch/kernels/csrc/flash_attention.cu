@@ -17,7 +17,9 @@
 // 2 B H S^2 D; at bf16 that is bounded by the tensor cores (989 TFLOP/s),
 // against a few hundred MB of q, k, v and out.
 //
-// flash_attention_launch picks one of two bodies by dtype.
+// flash_attention_launch picks one of two bodies by dtype, for D in
+// {16, 32, 64, 128}; flash_attention_wide_launch runs a third, simple body
+// for any D > 128 (widebody, below).
 //
 // bfloat16 (bf16body): both products on the tensor cores.  One block per
 // (batch x head, 128-row query tile), the heaviest tiles first; along the
@@ -59,6 +61,19 @@
 // (fmaf); P goes through shared memory to the P.V product, where each
 // thread owns output columns tx + 16 c.  Rows and keys past S (a ragged
 // last tile) are zero-filled and masked.
+//
+// any D > 128, float32 or bfloat16 (widebody): CUDA cores, float32
+// arithmetic, no tensor cores; correctness first, not speed.  One block
+// of 256 threads per (batch x head, 16-row query tile), the heaviest
+// tiles first.  For each 32-key tile: the scores take the dot over D in
+// chunks of 128 columns staged in shared memory (fmaf in column order,
+// each thread two (row, key) pairs); a warp per two rows runs the online
+// softmax (max and sum over the 32 keys by xor shuffles); then the
+// P.V update runs chunk by chunk over D, each thread owning eight
+// (row, column) accumulators of a chunk, kept in a float32 workspace in
+// device memory (B, H, S, D) that the caller allocates, since a row's D
+// accumulators need not fit in registers.  The last pass writes
+// acc / max(l, 1e-30) in q's type.  No atomics: the same bits every run.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cstdint>
@@ -778,6 +793,157 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace bf16body
 
+namespace widebody {
+
+constexpr int BQ = 16;          // query rows per block
+constexpr int BK = 32;          // keys per KV tile (one per lane)
+constexpr int DC = 128;         // head-dim columns staged at a time
+constexpr int THREADS = 256;
+constexpr float NEG = -1e30f;   // the reference's mask value
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st(float* p, float x) { *p = x; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ acc, int H, int KV, int S, int D,
+                      float scale) {
+  __shared__ float Qs[BQ * DC];
+  __shared__ float KVs[BK * (DC + 1)];    // a K chunk, then a V chunk
+  __shared__ float Ps[BQ * (BK + 1)];     // scores, then probabilities
+  __shared__ float ms[BQ], ls[BQ], as[BQ];
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int kvh = b * KV + h / (H / KV);
+  const T* qp = q + (size_t)bh * S * D;
+  const T* kp = k + (size_t)kvh * S * D;
+  const T* vp = v + (size_t)kvh * S * D;
+  T* op = o + (size_t)bh * S * D;
+  float* ap = acc + (size_t)bh * S * D;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int rows = min(BQ, S - q0);       // query rows of this tile
+
+  if (tid < BQ) {
+    ms[tid] = NEG;
+    ls[tid] = 0.f;
+  }
+  for (size_t e = tid; e < (size_t)rows * D; e += THREADS)
+    ap[(size_t)q0 * D + e] = 0.f;
+
+  const int kv_end = min(S, q0 + BQ);     // causal: later keys never read
+  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+    // scores: two (row, key) pairs a thread, the dot in column order
+    float s[2] = {0.f, 0.f};
+    for (int d0 = 0; d0 < D; d0 += DC) {
+      const int dc = min(DC, D - d0);
+      __syncthreads();                    // Qs, KVs, Ps free
+      for (int e = tid; e < BQ * dc; e += THREADS) {
+        const int r = e / dc, c = e % dc;
+        Qs[r * DC + c] =
+            r < rows ? ld(qp + (size_t)(q0 + r) * D + d0 + c) : 0.f;
+      }
+      for (int e = tid; e < BK * dc; e += THREADS) {
+        const int r = e / dc, c = e % dc;
+        KVs[r * (DC + 1) + c] =
+            k0 + r < S ? ld(kp + (size_t)(k0 + r) * D + d0 + c) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int pr = tid + t * THREADS;
+        const int i = pr / BK, j = pr % BK;
+        float x = s[t];
+        for (int c = 0; c < dc; ++c)
+          x = fmaf(Qs[i * DC + c], KVs[j * (DC + 1) + c], x);
+        s[t] = x;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int pr = tid + t * THREADS;
+      const int i = pr / BK, j = pr % BK;
+      const int kpos = k0 + j;
+      Ps[i * (BK + 1) + j] =
+          (kpos <= q0 + i && kpos < S) ? s[t] * scale : NEG;
+    }
+    __syncthreads();
+    // online softmax: warp w owns rows 2w and 2w + 1, lane j key j
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int i = warp * 2 + rr;
+      const float x = Ps[i * (BK + 1) + lane];
+      float mt = x;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+      const float m_old = ms[i];
+      const float m_new = fmaxf(m_old, mt);
+      const float p = expf(x - m_new);
+      float rs = p;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      Ps[i * (BK + 1) + lane] = p;
+      __syncwarp();
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        as[i] = alpha;
+        ls[i] = ls[i] * alpha + rs;
+        ms[i] = m_new;
+      }
+    }
+    // acc = acc * alpha + P V, a chunk of D at a time
+    for (int d0 = 0; d0 < D; d0 += DC) {
+      const int dc = min(DC, D - d0);
+      __syncthreads();                    // Ps, as ready; KVs free
+      for (int e = tid; e < BK * dc; e += THREADS) {
+        const int r = e / dc, c = e % dc;
+        KVs[r * (DC + 1) + c] =
+            k0 + r < S ? ld(vp + (size_t)(k0 + r) * D + d0 + c) : 0.f;
+      }
+      __syncthreads();
+      for (int e = tid; e < rows * dc; e += THREADS) {
+        const int i = e / dc, c = e % dc;
+        float* a = ap + (size_t)(q0 + i) * D + d0 + c;
+        float x = *a * as[i];
+        for (int j = 0; j < BK; ++j)
+          x = fmaf(Ps[i * (BK + 1) + j], KVs[j * (DC + 1) + c], x);
+        *a = x;
+      }
+    }
+  }
+  __syncthreads();
+  for (size_t e = tid; e < (size_t)rows * D; e += THREADS) {
+    const size_t g = (size_t)q0 * D + e;
+    st(op + g, ap[g] / fmaxf(ls[e / D], 1e-30f));
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* o,
+           float* ws, int B, int H, int KV, int S, int D, float scale,
+           cudaStream_t stream) {
+  const dim3 grid((S + BQ - 1) / BQ, B * H);
+  flash_fwd_wide_kernel<T><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), ws, H, KV, S, D,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace widebody
+
 }  // namespace
 
 // q, o: (B, H, S, D); k, v: (B, KV, S, D); all contiguous, float32
@@ -811,4 +977,23 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                           st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The body for any D > 128: q, o (B, H, S, D); k, v (B, KV, S, D);
+// ws a float32 workspace of B * H * S * D; all contiguous, float32
+// (is_bf16 = 0) or bfloat16 (is_bf16 = 1).  The caller checks KV | H and
+// B * H <= 65535.
+extern "C" int flash_attention_wide_launch(const void* q, const void* k,
+                                           const void* v, void* o,
+                                           void* ws, int B, int H, int KV,
+                                           int S, int D, int is_bf16,
+                                           float scale, void* stream) {
+  if (B == 0 || H == 0 || S == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* acc = static_cast<float*>(ws);
+  if (is_bf16)
+    return widebody::launch<__nv_bfloat16>(q, k, v, o, acc, B, H, KV, S, D,
+                                           scale, st);
+  return widebody::launch<float>(q, k, v, o, acc, B, H, KV, S, D, scale,
+                                 st);
 }

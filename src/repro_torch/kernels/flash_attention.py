@@ -9,15 +9,19 @@ no window), where the reference runs the kernel's jnp twin `attn_flash`.
 
 On CPU tensors `flash_attention` runs `flash_attention_plain` (the
 reference's dense oracle, `kernels/ref.py`); on CUDA tensors it launches
-the kernel or raises.  The kernel takes float32 or bfloat16, D in
-{16, 32, 64, 128} and any S (a ragged last tile is masked).  A head dim
-below 128 outside that set is zero-padded on the last axis to the next
-one and launched with the real D ** -0.5 as its scale: the zero columns
-add exact zeros to every score and give zero output columns, which are
-sliced off, so the answer is the unpadded one.  D > 128 raises.  Its two
-bodies pick their own tiles: bfloat16 runs both products on the tensor
-cores (wgmma, TMA-fed) in 128 x 128 tiles, float32 runs on the CUDA cores
-in 64 x 64 tiles.
+the kernel or raises.  The kernel takes float32 or bfloat16, any head
+dim and any S (a ragged last tile is masked).  Its two main bodies take
+D in {16, 32, 64, 128}; a head dim below 128 outside that set is
+zero-padded on the last axis to the next one and launched with the real
+D ** -0.5 as its scale: the zero columns add exact zeros to every score
+and give zero output columns, which are sliced off, so the answer is the
+unpadded one.  The two bodies pick their own tiles: bfloat16 runs both
+products on the tensor cores (wgmma, TMA-fed) in 128 x 128 tiles,
+float32 runs on the CUDA cores in 64 x 64 tiles.  A head dim above 128
+runs a third, simple body in either dtype (``flash_attention_wide_launch``:
+CUDA cores, float32 arithmetic, 16-row query tiles, 32-key tiles, D in
+chunks of 128, the accumulators in a float32 workspace the wrapper
+allocates); it is written for correctness, not speed.
 """
 from __future__ import annotations
 
@@ -60,19 +64,21 @@ def flash_attention(q, k, v, *, bq=None, bk=None) -> torch.Tensor:
         raise ValueError(f"the kernel uses its own {tq} x {tk} tiles at "
                          f"{q.dtype}: pass bq=None, bk=None, not bq={bq}, "
                          f"bk={bk}")
-    if not 1 <= D <= HEAD_DIMS[-1]:
-        raise ValueError(f"head dim {D} outside [1, {HEAD_DIMS[-1]}]: the "
-                         f"kernel's bodies take D in {HEAD_DIMS}, and a "
-                         "smaller D is padded to the next of them")
-    # the grid's y dimension: B * H (float32 body) or the query tiles
-    # (bfloat16 body)
-    grid_y = B * H if q.dtype == torch.float32 else -(-S // TILES[q.dtype][0])
+    if D < 1:
+        raise ValueError(f"head dim {D} < 1")
+    wide = D > HEAD_DIMS[-1]
+    # the grid's y dimension: B * H (float32 and wide bodies) or the
+    # query tiles (bfloat16 body)
+    grid_y = (B * H if wide or q.dtype == torch.float32
+              else -(-S // TILES[q.dtype][0]))
     if grid_y > MAX_GRID_Y:
         raise ValueError(f"{grid_y} blocks along the grid's y dimension > "
                          f"{MAX_GRID_Y}")
     _build.require("q", q, q.dtype, (B, H, S, D), dev)
     _build.require("k", k, q.dtype, (B, KV, S, D), dev)
     _build.require("v", v, q.dtype, (B, KV, S, D), dev)
+    if wide:
+        return _flash_wide(q, k, v)
     Dp = next(d for d in HEAD_DIMS if d >= D)
     if Dp != D:         # zero columns: exact zeros in every score
         q, k, v = (torch.nn.functional.pad(x, (0, Dp - D)) for x in (q, k, v))
@@ -87,3 +93,22 @@ def flash_attention(q, k, v, *, bq=None, bk=None) -> torch.Tensor:
     _build.check("flash_attention", err)
     _build.launches["flash_attention"] += 1
     return o if Dp == D else o[..., :D].contiguous()
+
+
+def _flash_wide(q, k, v) -> torch.Tensor:
+    """The body for D > 128 (inputs checked by `flash_attention`)."""
+    B, H, S, D = q.shape
+    dev = q.device
+    o = torch.empty_like(q)
+    ws = torch.empty((B, H, S, D), dtype=torch.float32, device=dev)
+    fn = _build.function("flash_attention", "flash_attention_wide_launch",
+                         [_build.P] * 5 + [_build.I] * 6
+                         + [_build.F, _build.P])
+    with torch.cuda.device(dev):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 ws.data_ptr(), B, H, k.shape[1], S, D,
+                 int(q.dtype == torch.bfloat16), D ** -0.5,
+                 _build.stream_of(dev))
+    _build.check("flash_attention", err)
+    _build.launches["flash_attention"] += 1
+    return o

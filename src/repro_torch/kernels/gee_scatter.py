@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.gee import scatter_add_ordered
 from repro_torch.kernels import _build
 
 TILE_N = 256          # Z rows per tile (one thread block each)
@@ -35,15 +36,17 @@ def subtile(tile_n: int, kdim: int) -> tuple:
 
 def gee_scatter_plain(row_ptr, cls, val, *, num_tiles: int, tile_n: int,
                       kdim: int) -> torch.Tensor:
-    """Plain PyTorch version: one `index_put_` over the rows expanded
-    from `row_ptr`.  Returns Z (num_tiles * tile_n, kdim) float32."""
+    """Plain PyTorch version: the rows expanded from `row_ptr`, each
+    (row, class) summed serially in packed order
+    (`core.gee.scatter_add_ordered`), which is the kernel's order: the
+    same bits as the kernel, on every run.  Returns Z (num_tiles *
+    tile_n, kdim) float32."""
     nrows = num_tiles * tile_n
     rows = torch.repeat_interleave(
         torch.arange(nrows, device=row_ptr.device), row_ptr.diff())
     Z = torch.zeros((nrows, kdim), dtype=torch.float32,
                     device=row_ptr.device)
-    return Z.index_put_((rows, cls.long()), val.to(torch.float32),
-                        accumulate=True)
+    return scatter_add_ordered(Z, rows, cls, val)
 
 
 def gee_scatter(row_ptr, cls, val, *, num_tiles: int, tile_n: int,

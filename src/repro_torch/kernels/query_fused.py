@@ -41,6 +41,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.gee import scatter_add_ordered
 from repro_torch.kernels import _build
 
 EPS = 1e-9        # normalize_rows' clamp
@@ -209,9 +210,10 @@ def topk_fused(Z_rows, q, qnodes, *, k: int, row_offset: int = 0,
 
 
 def gee_delta_renorm_plain(Z, rows, cls, val, *, eps: float = EPS):
-    """Plain PyTorch version of `gee_delta_renorm`."""
-    Z_new = Z.clone().index_put_((rows.long(), cls.long()),
-                                 val.to(torch.float32), accumulate=True)
+    """Plain PyTorch version of `gee_delta_renorm`: each entry of Z plus
+    its contributions in list order, as the kernel adds them (the same
+    bits)."""
+    Z_new = scatter_add_ordered(Z.contiguous().clone(), rows, cls, val)
     return Z_new, normalize_rows(Z_new, eps)
 
 

@@ -3,14 +3,15 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.gee import edge_contributions, make_w
+from repro_torch.core.gee import (edge_contributions, make_w,
+                                  scatter_add_ordered)
 
 
 def gee_scatter_ref(dst, cls, val, n: int, K: int) -> torch.Tensor:
-    """Segment-sum oracle for the gee_scatter kernel."""
+    """Segment-sum oracle for the gee_scatter kernel (each entry summed
+    in list order)."""
     Z = torch.zeros((n, K), dtype=torch.float32, device=dst.device)
-    return Z.index_put_((dst.long(), cls.long()), val.to(torch.float32),
-                        accumulate=True)
+    return scatter_add_ordered(Z, dst, cls, val)
 
 
 def gee_ref(u, v, w, Y, n: int, K: int) -> torch.Tensor:

@@ -15,8 +15,8 @@ reference's metric and span names:
   work is billed to the span that launched it.
 * **export surfaces** — ``snapshot()`` (flat dict, the engine's
   ``stats()`` substrate) and ``render_prometheus()`` (text exposition
-  format).  The reference's ``python -m repro.obs`` CLI is not ported
-  yet.
+  format), and ``python -m repro_torch.obs`` (`__main__.py`: a demo
+  deployment's registry, or the replay of a JSONL span file).
 
 Enable/disable: **on by default**; ``REPRO_OBS=off`` (or ``0/none/
 disable(d)``) turns the whole layer into true no-ops — module-level

@@ -17,19 +17,25 @@ The port of `repro.serving.engine.ServingEngine`.  A deployment of
 * an **asynchronous flush and checkpoint loop**: `start()` runs a
   background consumer that drains a `MicroBatcher` and rolls a
   checkpoint (snapshot + log rotation) when the log outgrows
-  `checkpoint_bytes`.
+  `checkpoint_bytes`;
+* an optional **IVF index** (`repro_torch.index`): every shard keeps
+  inverted lists of its rows by nearest class centroid, delta-maintained
+  under centroids the engine fixes and re-quantizes past `index_churn`;
+  ``query_topk(mode="ivf", nprobe=...)`` scores only the probed cells
+  and, at ``nprobe = K``, answers as the exact scan bit for bit.
 
 The data directory is the reference's, file for file (`MANIFEST`,
 `snap-{gen}.edges.npz`, `.meta.npz`, `.engine.json`, `wal-{gen}.log`,
-format 1), so a directory written by either package opens in the
-other.  The engine lives on one explicit `device` ("cuda" by default);
-with ``backend="cuda"`` its shards build through `gee_scatter`, fold
-deltas through `gee_delta_renorm` and answer top-k through `topk_fused`.
-Not ported yet, and refused with NotImplementedError: the IVF index
-(``index="ivf"``, ``mode="ivf"``; ROADMAP queue A.3), the socket
-transport and read replicas (``transport="socket"``, ``shard_addrs``,
-``replicas``, ``replica_addrs``; A.7) and the persistent plan cache
-(``plan_cache`` other than None; A.4).
+format 1, the WAL's INDEX records and the index in ``.engine.json``
+included), so a directory written by either package opens in the other.
+The engine lives on one explicit `device` ("cuda" by default); with
+``backend="cuda"`` its shards build through `gee_scatter`, fold deltas
+through `gee_delta_renorm` and answer top-k through `topk_fused`.  Each
+shard's plan goes through the persistent plan cache (`plan_cache`,
+"auto" by default as in the reference).  Not ported yet, and refused
+with NotImplementedError: the socket transport and read replicas
+(``transport="socket"``, ``shard_addrs``, ``replicas``,
+``replica_addrs``; ROADMAP queue A.7).
 
 Threads: the flush loop launches kernels from its own thread.  It runs
 under the engine's device and the stream that was current on that
@@ -52,10 +58,12 @@ import torch
 
 from repro_torch import obs
 from repro_torch.device import resolve_device
+from repro_torch.encoder.plan_cache import PlanDiskCache
 from repro_torch.graph.edges import (Graph, edge_fingerprint,
                                      extend_fingerprint)
 from repro_torch.graph.partition import RowPartition
 from repro_torch.graph.sources import StoreSource
+from repro_torch.kernels.query_fused import row_scores
 from repro_torch.obs.health import DEGRADED, SERVING, STARTING, HealthTracker
 from repro_torch.serving import queries as Q
 from repro_torch.serving import wal as W
@@ -66,8 +74,6 @@ from repro_torch.serving.wal import WriteAheadLog
 _MANIFEST = "MANIFEST"
 _FORMAT = 1
 
-_NO_INDEX = ("the IVF index (index/ivf.py) is not ported yet "
-             "(ROADMAP queue A.3)")
 _NO_TRANSPORT = ("the socket transport and read replicas (transport/) "
                  "are not ported yet (ROADMAP queue A.7)")
 
@@ -95,14 +101,14 @@ class ServingEngine:
     Construct fresh over a `GraphStore` (pass ``data_dir`` to make it
     durable: the engine snapshots generation 0 and opens a WAL), or
     recover an existing deployment with :meth:`open`.  The signature is
-    the reference's: `index_churn`, `nprobe` and `rpc_timeout_s` belong
-    to the unported index and transport and are not used.
+    the reference's: `rpc_timeout_s` belongs to the unported transport
+    and is not used.
     """
 
     def __init__(self, store: GraphStore, *, data_dir: Optional[str] = None,
                  num_shards: int = 1, rebuild_churn: float = 0.05,
                  chunk_size: int = 1 << 20, backend: str = "streaming",
-                 plan_cache: None = None,
+                 plan_cache: Union[str, PlanDiskCache, None] = "auto",
                  fsync: bool = False, degraded_append_s: float = 0.5,
                  index: Optional[str] = None, index_churn: float = 0.25,
                  nprobe: Optional[int] = None,
@@ -121,8 +127,6 @@ class ServingEngine:
         if transport not in ("local", "socket"):
             raise ValueError(f"unknown transport {transport!r} "
                              "('local' or 'socket')")
-        if index is not None:
-            raise NotImplementedError(_NO_INDEX)
         if (transport != "local" or shard_addrs or replicas
                 or replica_addrs):
             raise NotImplementedError(_NO_TRANSPORT)
@@ -159,6 +163,19 @@ class ServingEngine:
         self._shard_fps: list = []       # guarded by: _mu
         self._routed_for_build = None    # guarded by: _mu
         self._centroids = None           # guarded by: _mu
+        #: IVF index state: the engine owns the shared quantizer
+        #: centroids (fixed between builds, which is what makes delta
+        #: maintenance equal a rebuild) and the churn-gated
+        #: re-quantization, mirroring `rebuild_churn`
+        self.index_mode: Optional[str] = None        # guarded by: _mu
+        self.index_churn = float(index_churn)
+        self.nprobe = int(nprobe) if nprobe is not None else None
+        # guarded by: _mu
+        self._index_centroids: Optional[np.ndarray] = None
+        # row-normalized quantizer on the device — guarded by: _mu
+        self._index_cn: Optional[torch.Tensor] = None
+        self._index_moved = 0   # rows that changed cell; guarded by: _mu
+        self.requantizes = 0
         self._mu = threading.RLock()
         self._loop_thread: Optional[threading.Thread] = None
         self._loop_stop: Optional[threading.Event] = None
@@ -169,6 +186,8 @@ class ServingEngine:
         if data_dir is None:
             self._reset_shard_fps()
             self._rebuild()
+            if index is not None:
+                self.enable_index()
         else:
             self.data_dir = str(data_dir)
             os.makedirs(self.data_dir, exist_ok=True)
@@ -180,6 +199,8 @@ class ServingEngine:
             self.store.compact()
             self._reset_shard_fps()
             self._rebuild()
+            if index is not None:
+                self.enable_index()      # generation 0 carries it
             self._write_generation(0)
         self._health.to(SERVING)        # boot complete: starting -> serving
 
@@ -189,7 +210,7 @@ class ServingEngine:
     def open(cls, data_dir: str, *, num_shards: Optional[int] = None,
              rebuild_churn: Optional[float] = None,
              chunk_size: int = 1 << 20, backend: str = "streaming",
-             plan_cache: None = None,
+             plan_cache: Union[str, PlanDiskCache, None] = "auto",
              fsync: bool = False,
              degraded_append_s: float = 0.5,
              transport: str = "local",
@@ -215,9 +236,6 @@ class ServingEngine:
             prefix = os.path.join(data_dir, f"snap-{gen}")
             with open(prefix + ".engine.json") as f:
                 emeta = json.load(f)
-            if emeta.get("index") is not None:
-                raise NotImplementedError(
-                    f"{data_dir} carries an IVF index: {_NO_INDEX}")
             store = GraphStore.load(prefix)
             eng = cls(store,
                       num_shards=(num_shards if num_shards is not None
@@ -242,6 +260,16 @@ class ServingEngine:
             eng.checkpoints = int(emeta.get("checkpoints", 0))
             eng.Y_epoch = store.Y.copy()  # a snapshot always post-rebuild
             eng._reset_shard_fps()
+            imeta = emeta.get("index")
+            if imeta is not None:        # the snapshot carried an index
+                eng.index_mode = imeta["mode"]
+                eng.index_churn = float(imeta["churn"])
+                eng.nprobe = (int(imeta["nprobe"])
+                              if imeta["nprobe"] is not None else None)
+                eng.requantizes = int(imeta.get("requantizes", 0))
+                eng._index_centroids = np.asarray(
+                    imeta["centroids"], np.float32).reshape(
+                        store.K, store.K)
             eng.wal = WriteAheadLog(
                 os.path.join(data_dir, f"wal-{gen}.log"), fsync=fsync,
                 group_commit_ms=group_commit_ms,
@@ -252,6 +280,11 @@ class ServingEngine:
                 replayed += 1
             eng.version = store.version
             eng._embed_epoch()
+            if eng.index_mode is not None:
+                # memberships are a function of (Z, centroids): rebuilt
+                # under the replayed quantizer they answer as the crashed
+                # process did (the churn counter restarts at 0)
+                eng._build_index(eng._index_centroids, record=False)
             sp.set(generation=gen, wal_records=replayed)
             sp.fence([s.Z_owned for s in eng.shards])
         if obs.enabled():
@@ -287,8 +320,12 @@ class ServingEngine:
         elif rec.kind == W.REBUILD:
             self._advance_epoch()
         elif rec.kind == W.INDEX:
-            raise NotImplementedError(
-                f"the log holds an IVF quantization record: {_NO_INDEX}")
+            # a live (re-)quantization: restore the exact quantizer; the
+            # index itself is built once after the replay
+            K = self.store.K
+            self._index_centroids = np.asarray(
+                rec.a, np.float32).reshape(K, K).copy()
+            self.index_mode = "ivf"
 
     def _advance_epoch(self) -> None:
         """Epoch bookkeeping shared by live rebuilds and replay."""
@@ -346,17 +383,57 @@ class ServingEngine:
 
     # holds: _mu
     def _rebuild(self) -> None:
-        """Full re-embed under the store's current labels; new epoch."""
+        """Full re-embed under the store's current labels; new epoch.  A
+        rewritten Z invalidates every cell assignment, so an enabled
+        index re-quantizes under fresh centroids."""
         self._advance_epoch()
         self._embed_epoch()
         self.version = self.store.version
+        if self.index_mode is not None:
+            self._requantize()
 
     # holds: _mu
     def _invalidate_query_cache(self) -> None:
         self._centroids = None
 
+    # -- IVF index (repro_torch.index) ------------------------------------
+
     def enable_index(self) -> None:
-        raise NotImplementedError(_NO_INDEX)
+        """Turn on IVF serving: quantize every shard's owned rows under
+        the current global class centroids.  Idempotent."""
+        with self._mu:
+            if self.index_mode is None:
+                self.index_mode = "ivf"
+                self._build_index()
+
+    # holds: _mu
+    def _build_index(self, centroids=None, *, record: bool = True) -> None:
+        """(Re)quantize all shards under `centroids` (default: the epoch's
+        class centroids).  On a durable engine the quantizer goes to the
+        WAL (record=False in recovery, where it came from the log or the
+        snapshot).  One ``index.build`` span."""
+        if centroids is None:
+            centroids = self.centroids().cpu().numpy()
+        centroids = np.array(centroids, np.float32)
+        with obs.span("index.build", shards=self.partition.p,
+                      epoch=self.epoch):
+            for shard in self.shards:
+                shard.build_index(centroids)
+        self._index_centroids = centroids
+        self._index_cn = Q.normalize_rows(
+            torch.as_tensor(centroids, device=self.device))
+        self._index_moved = 0
+        if record and self.wal is not None:
+            self.wal.append_index(self.store.version, centroids)
+
+    # holds: _mu
+    def _requantize(self) -> None:
+        """Fresh centroids and a full re-assign: the churn-gated way out
+        of accumulated delta drift, and forced after any epoch
+        rebuild."""
+        self._build_index()
+        self.requantizes += 1
+        obs.counter("repro_index_requantizes_total")
 
     # -- durability --------------------------------------------------------
 
@@ -374,6 +451,14 @@ class ServingEngine:
             "checkpoints": self.checkpoints,
             "num_shards": self.partition.p,
             "rebuild_churn": self.rebuild_churn}
+        if self.index_mode is not None:
+            # the quantizer is the index's durable state: memberships
+            # are a function of (Z, centroids), both replayable
+            emeta["index"] = {
+                "mode": self.index_mode, "churn": self.index_churn,
+                "nprobe": self.nprobe,
+                "requantizes": self.requantizes,
+                "centroids": self._index_centroids.ravel().tolist()}
         _atomic_write_json(prefix + ".engine.json", emeta)
         if self.wal is not None:
             self.wal.close()
@@ -454,8 +539,20 @@ class ServingEngine:
                         self._shard_fps[i] = extend_fingerprint(
                             self._shard_fps[i], su, sv, sw)
                     self.shards[i].apply_delta(Graph(su, sv, sw, self.n))
+                    if self.index_mode is not None:
+                        # re-assign exactly the owned rows this batch
+                        # rewrote (O(batch))
+                        lo, hi = self.partition.slice(i)
+                        pts = np.concatenate([su, sv])
+                        own = np.unique(pts[(pts >= lo) & (pts < hi)])
+                        self._index_moved += \
+                            self.shards[i].update_index(own)
                     fanout += 1
                 self._invalidate_query_cache()
+                if (self.index_mode is not None
+                        and self._index_moved
+                        > self.index_churn * self.n):
+                    self._requantize()
             self.version = version
             self.deltas_applied += 1
             if obs.enabled():
@@ -633,19 +730,25 @@ class ServingEngine:
                    block_rows: int = 1 << 14, mode: str = "exact",
                    nprobe: Optional[int] = None):
         """Top-k cosine neighbours: gather and normalize the query rows,
-        score them against every shard's owned rows (global-id-stamped),
-        merge the per-shard lists.  Ties order by (-score, ascending
-        id), so the answer has the same bits for every shard count.
-        Returns (indices (q, k) int32, scores (q, k) float32)."""
+        score them against candidate rows (global-id-stamped), merge the
+        per-shard lists.  Ties order by (-score, ascending id), so the
+        answer has the same bits for every shard count.
+
+        ``mode="exact"`` scans every owned row; ``mode="ivf"`` scores
+        only the `nprobe` cells nearest each query through the shards'
+        IVF indexes (built on the first ivf query if the engine was made
+        without ``index="ivf"``), and equals the exact answer bit for
+        bit at ``nprobe = K``.  Returns (indices (q, k) int32, scores
+        (q, k) float32)."""
         if mode not in ("exact", "ivf"):
             raise ValueError(f"unknown topk mode {mode!r} "
                              "('exact' or 'ivf')")
-        if mode == "ivf":
-            raise NotImplementedError(_NO_INDEX)
         nodes = np.atleast_1d(np.asarray(nodes, np.int32))
         t0 = obs.tick()
         with self._mu:
             self._check_nodes(nodes)
+            if mode == "ivf" and self.index_mode is None:
+                self.enable_index()
             if self.partition.p == 1:
                 # gather from the cached normalized slice
                 q = self.shards[0].normalized()[torch.as_tensor(
@@ -653,9 +756,16 @@ class ServingEngine:
             else:
                 q = Q.normalize_rows(self._gather_rows(nodes))
             ts = obs.tick()
-            parts = [s.topk_candidates(q, nodes, k=k,
-                                       block_rows=block_rows)
-                     for s in self.shards]
+            if mode == "ivf":
+                probe = self._probe_cells(q, nprobe)
+                parts = [s.index_topk(q, nodes, probe, k=k,
+                                      block_rows=block_rows)
+                         for s in self.shards]
+                scanned = sum(p[2] for p in parts)
+            else:
+                parts = [s.topk_candidates(q, nodes, k=k,
+                                           block_rows=block_rows)
+                         for s in self.shards]
             if obs.enabled():
                 obs.observe("repro_serving_query_scatter_seconds",
                             obs.tock(ts), shards=self.partition.p)
@@ -664,8 +774,33 @@ class ServingEngine:
             else:
                 out = Q.merge_topk([p[0] for p in parts],
                                    [p[1] for p in parts], k=k)
-        self._record_query("topk", t0, nodes.shape[0])
+            if mode == "ivf" and obs.enabled():
+                obs.observe("repro_index_topk_seconds", obs.tock(ts))
+                obs.counter("repro_index_queries_total")
+                obs.counter("repro_index_rows_scanned_total", scanned)
+                obs.observe("repro_index_scan_fraction",
+                            scanned / max(nodes.shape[0] * self.n, 1))
+        self._record_query("topk" if mode == "exact" else "topk_ivf",
+                           t0, nodes.shape[0])
         return out
+
+    # holds: _mu — only called from the locked region of query_topk
+    def _probe_cells(self, q: torch.Tensor,
+                     nprobe: Optional[int]) -> np.ndarray:
+        """The `nprobe` quantizer cells nearest each query (nq, nprobe)
+        int32, shared by all shards.  Scores are the fixed-order
+        `row_scores`; ties go to the lower cell (a stable sort).  nprobe
+        defaults to the engine's, else `DEFAULT_NPROBE`, and is clamped
+        to [1, K]."""
+        from repro_torch.index import DEFAULT_NPROBE
+        if nprobe is None:
+            nprobe = self.nprobe
+        if nprobe is None:
+            nprobe = DEFAULT_NPROBE
+        nprobe = max(1, min(int(nprobe), self.store.K))
+        sims = row_scores(q, self._index_cn).cpu().numpy()
+        return np.argsort(-sims, axis=1, kind="stable")[:, :nprobe] \
+            .astype(np.int32)
 
     def _record_query(self, kind: str, t0: float, batch: int) -> None:
         """One histogram + counter pair per read, labelled by kind."""
@@ -801,6 +936,20 @@ class ServingEngine:
                    "health": self.health()}
             if self.loop_error is not None:
                 out["loop_error"] = repr(self.loop_error)
+            if self.index_mode is not None:
+                from repro_torch.index import DEFAULT_NPROBE
+                out["index"] = {
+                    "mode": self.index_mode,
+                    "nprobe": (self.nprobe if self.nprobe is not None
+                               else DEFAULT_NPROBE),
+                    "churn_threshold": self.index_churn,
+                    "moved_rows": self._index_moved,
+                    "moved_fraction": self._index_moved / max(self.n, 1),
+                    "requantizes": self.requantizes,
+                    # per-shard rows per cell (sums to n)
+                    "cell_sizes": [s.index.cell_sizes().tolist()
+                                   for s in self.shards
+                                   if s.index is not None]}
             if self.data_dir is not None:
                 out["durability"] = {
                     "generation": self.generation,

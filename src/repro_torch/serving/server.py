@@ -18,11 +18,14 @@ Periodic compaction (a checkpoint with `--data-dir`) starts a new epoch.
 `--data-dir` makes the engine durable (WAL + snapshots) and finishes
 with a recovery self-check: reopen the deployment from disk and verify
 the exact `(version, epoch, fingerprint)` plus Z, and a held-back top-k
-answer, against the live engine.
+answer, against the live engine.  `--index ivf [--nprobe N]` serves
+top-k through the delta-maintained IVF index (`repro_torch.index`) and
+adds two self-checks: ivf at nprobe = K equals the exact scan bit for
+bit, and (durable runs) recovery restores the same quantizer and the
+same ivf answers.
 
-Not ported yet (they raise NotImplementedError): `--index ivf`
-(ROADMAP queue A.3), and `--transport socket`, `--connect`,
-`--replicas` and `--serve-shard` (A.7).
+Not ported yet (they raise NotImplementedError): `--transport socket`,
+`--connect`, `--replicas` and `--serve-shard` (ROADMAP queue A.7).
 
 Printed at the end: per-kind throughput and latency, the version and
 epoch counters, and a self-check that the delta-maintained Z matches a
@@ -80,10 +83,11 @@ def main(argv=None):
     ap.add_argument("--rebuild-churn", type=float, default=0.05)
     ap.add_argument("--topk", type=int, default=10)
     ap.add_argument("--index", choices=["ivf"], default=None,
-                    help="serve top-k through the IVF index (not ported "
-                         "yet: raises)")
+                    help="serve top-k through the delta-maintained IVF "
+                         "index (repro_torch.index) instead of full scans")
     ap.add_argument("--nprobe", type=int, default=None,
-                    help="IVF cells probed per query")
+                    help="IVF cells probed per query (default: "
+                         "repro_torch.index.DEFAULT_NPROBE)")
     ap.add_argument("--index-churn", type=float, default=0.25,
                     help="re-quantize the index past this moved-rows "
                          "fraction")
@@ -148,7 +152,9 @@ def main(argv=None):
                            group_commit_ms=args.group_commit_ms,
                            group_commit_bytes=args.group_commit_bytes,
                            device=device)
-    batcher = MicroBatcher(engine, topk=args.topk)
+    batcher = MicroBatcher(engine, topk=args.topk,
+                           topk_mode=args.index or "exact",
+                           topk_nprobe=args.nprobe)
     if not args.sync_flush:
         engine.start(batcher)
     print(f"[serve-gee] n={args.n} K={args.k} edges={args.edges:,} "
@@ -204,13 +210,35 @@ def main(argv=None):
     print(f"[serve-gee] self-check max|Z_delta - Z_rebuild| = {err:.2e}")
     if not err < 1e-3:
         raise AssertionError("delta-maintained Z diverged from rebuild")
+    if args.index:
+        # probing every cell must reproduce the exact scan bit for bit
+        nodes = rng.integers(0, args.n, size=64).astype(np.int32)
+        ei, ev = engine.query_topk(nodes, k=args.topk, mode="exact")
+        ii, iv = engine.query_topk(nodes, k=args.topk, mode="ivf",
+                                   nprobe=args.k)
+        if not (np.array_equal(ei, ii) and np.array_equal(ev, iv)):
+            raise AssertionError("ivf@nprobe=K diverged from the exact "
+                                 "scan")
+        istats = engine.stats()["index"]
+        print(f"[serve-gee] index: nprobe={istats['nprobe']} "
+              f"requantizes={istats['requantizes']} "
+              f"moved={istats['moved_rows']} "
+              f"(ivf@nprobe=K == exact ✓)")
     if args.obs_dump:
         print(f"[serve-gee] health: {engine.health()}")
+        if engine.index_mode is not None:
+            for sid, cells in enumerate(
+                    engine.stats()["index"]["cell_sizes"]):
+                print(f"[serve-gee] index occupancy shard {sid}: "
+                      f"{cells} (rows/cell)")
         print(obs.render_prometheus(), end="")
 
     if args.data_dir:
         qnodes = rng.integers(0, args.n, size=64).astype(np.int32)
         pre = engine.query_topk(qnodes, k=args.topk)
+        pre_ivf = (engine.query_topk(qnodes, k=args.topk, mode="ivf",
+                                     nprobe=args.nprobe)
+                   if args.index else None)
         triple = (engine.version, engine.epoch, engine.fingerprint())
         Z_live = engine.Z.clone()
         engine.close()
@@ -233,6 +261,18 @@ def main(argv=None):
             raise AssertionError("recovered deployment's top-k diverged "
                                  "from pre-crash")
         print("[serve-gee] recovery: reconnected top-k identical ✓")
+        if args.index:
+            if (recovered.index_mode != engine.index_mode
+                    or not np.array_equal(recovered._index_centroids,
+                                          engine._index_centroids)):
+                raise AssertionError("recovered index quantizer diverged")
+            post_ivf = recovered.query_topk(qnodes, k=args.topk,
+                                            mode="ivf", nprobe=args.nprobe)
+            if not (np.array_equal(pre_ivf[0], post_ivf[0])
+                    and np.allclose(pre_ivf[1], post_ivf[1], atol=1e-4)):
+                raise AssertionError("reconnected deployment's ivf top-k "
+                                     "diverged")
+            print("[serve-gee] recovery: index quantizer restored ✓")
         recovered.close()
     else:
         engine.close()

@@ -24,6 +24,7 @@ from typing import Union
 
 import torch
 
+from repro_torch.encoder.plan_cache import PlanDiskCache
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.store import GraphStore
 
@@ -40,7 +41,7 @@ class EmbeddingService(ServingEngine):
 
     def __init__(self, store: GraphStore, *, rebuild_churn: float = 0.05,
                  chunk_size: int = 1 << 20, backend: str = "streaming",
-                 plan_cache=None,
+                 plan_cache: Union[str, PlanDiskCache, None] = "auto",
                  device: Union[str, torch.device] = "cuda"):
         warnings.warn(
             "EmbeddingService is deprecated: construct "

@@ -1,9 +1,7 @@
 """EmbeddingShard: one worker owning a contiguous slice of Z rows.
 
-The port of `repro.serving.shard.EmbeddingShard` (the IVF index over a
-shard waits for its own slice, and the persistent plan cache for the
-encoder's: `plan_cache` takes None only).  Shard i is the single writer and
-reader of rows [lo, hi).  Every edge incident to an owned row is in the
+The port of `repro.serving.shard.EmbeddingShard`.  Shard i is the single
+writer and reader of rows [lo, hi).  Every edge incident to an owned row is in the
 shard's routed sub-multiset, so its slice is exact in isolation, and an
 edge delta touches only the shards owning its endpoints.
 
@@ -14,6 +12,13 @@ Embedder.  With ``backend="cuda"`` the shard folds deltas through the
 `gee_delta_renorm` kernel and answers top-k through `topk_fused`; the
 other backends use `partial_fit` and the blocked scan.  On the same Z
 the answers are bit-identical either way.
+
+Each shard's Embedder takes the persistent plan cache (`plan_cache`,
+"auto" by default: `encoder.plan_cache.default_cache()`), keyed by the
+routed sub-multiset's chained fingerprint, so a recovered engine or an
+epoch rebuild off unchanged content loads its plan from disk.  An
+optional IVF index (`repro_torch.index`) covers the owned slice; the
+engine owns its centroids and its re-quantization.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.encoder import Embedder, EncoderConfig
+from repro_torch.encoder.plan_cache import PlanDiskCache
 from repro_torch.graph.edges import Graph
 from repro_torch.serving import queries as Q
 
@@ -33,12 +39,9 @@ class EmbeddingShard:
 
     def __init__(self, shard_id: int, lo: int, hi: int, *, K: int,
                  n: Optional[int] = None, chunk_size: int = 1 << 20,
-                 backend: str = "streaming", plan_cache: None = None,
+                 backend: str = "streaming",
+                 plan_cache: Union[str, PlanDiskCache, None] = "auto",
                  device: Union[str, torch.device] = "cuda"):
-        if plan_cache is not None:
-            raise NotImplementedError(
-                "the persistent plan cache (encoder/plan_cache.py) is not "
-                "ported yet (ROADMAP queue A.4): pass plan_cache=None")
         self.shard_id = int(shard_id)
         self.lo, self.hi = int(lo), int(hi)
         #: owned-rows mode: the Embedder accumulates ONLY [lo, hi)
@@ -48,10 +51,12 @@ class EmbeddingShard:
             EncoderConfig(K=int(K), chunk_size=int(chunk_size),
                           row_partition=((self.lo, self.hi)
                                          if self.owned_only else None)),
-            backend=backend, device=device)
+            backend=backend, plan_cache=plan_cache, device=device)
         #: cuda shards use the fused kernels for writes and reads
         self._fused = (backend == "cuda")
         self._Zn: Optional[torch.Tensor] = None
+        #: the IVF index over the owned slice, or None (`build_index`)
+        self._index = None
 
     @property
     def device(self) -> torch.device:
@@ -138,10 +143,37 @@ class EmbeddingShard:
         return Q.topk_cosine_q(self.normalized(), q, qnodes, k=k,
                                block_rows=block_rows, row_offset=self.lo)
 
+    # -- IVF index over the owned slice (repro_torch.index) --------------
+
+    @property
+    def index(self):
+        """The shard's `IVFIndex`, or None when indexing is off."""
+        return self._index
+
+    def build_index(self, centroids) -> None:
+        """(Re)quantize the owned slice under the engine's shared
+        `centroids`, creating the index on first use."""
+        from repro_torch.index import IVFIndex
+        if self._index is None:
+            self._index = IVFIndex(K=self.embedder.config.K,
+                                   row_offset=self.lo)
+        self._index.build(self.normalized(), centroids)
+
+    def update_index(self, touched_global: np.ndarray) -> int:
+        """Re-assign the owned GLOBAL rows an edge batch rewrote; returns
+        the rows that changed cell."""
+        if self._index is None:
+            return 0
+        local = np.asarray(touched_global, np.int64) - self.lo
+        return self._index.update_rows(self.normalized(), local)
+
+    def index_topk(self, q, qnodes, probe, *, k: int,
+                   block_rows: int = 1 << 14):
+        """This shard's candidates in the probed cells, as
+        `topk_candidates`, plus the count of rows scanned."""
+        return self._index.topk(self.normalized(), q, qnodes, probe, k=k,
+                                block_rows=block_rows)
+
     @property
     def plan_stats(self) -> dict:
-        """Plan builds and hits; the disk tier's keys stay 0 until the
-        persistent plan cache is ported."""
-        return {"built": self.embedder.plan_stats["built"],
-                "hits": self.embedder.plan_stats["hits"],
-                "disk_hits": 0, "disk_stores": 0}
+        return self.embedder.plan_stats

@@ -286,7 +286,10 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     (1, 16, 2, 384, 32),
     # head dims outside the bodies' set, zero-padded to the next one
     (1, 4, 2, 100, 48), (2, 8, 2, 130, 80), (1, 4, 4, 64, 96),
-    (1, 8, 1, 257, 120)])
+    (1, 8, 1, 257, 120),
+    # head dims above 128: the wide body (D in chunks of 128, ragged S)
+    (1, 4, 2, 100, 160), (2, 4, 1, 130, 256), (1, 2, 2, 33, 200),
+    (1, 8, 8, 1, 384)])
 def test_flash_attention(dev, rng, dtype, B, H, KV, S, D):
     q, k, v = (torch.as_tensor(rng.normal(size=(B, h, S, D)).astype(
         np.float32), device=dev).to(dtype) for h in (H, KV, KV))
@@ -311,7 +314,7 @@ def test_flash_wrapper_refuses_bad_inputs(dev):
     with pytest.raises(TypeError):
         FA.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="head dim"):
-        x = torch.zeros((1, 4, 64, 160), device=dev)
+        x = torch.zeros((1, 4, 64, 0), device=dev)
         FA.flash_attention(x, x, x)
     with pytest.raises(ValueError, match="contiguous"):
         x = torch.zeros((1, 64, 4, 32), device=dev).transpose(1, 2)
@@ -332,3 +335,53 @@ def test_prefill_runs_the_kernel_once_per_layer(dev):
         full, _ = TM.forward_logits(cfg, params, toks, impl="full")
     torch.testing.assert_close(pl, TM._mask_padded_vocab(cfg, full[:, -1]),
                                atol=1e-3, rtol=0)
+
+
+def test_plain_scatter_has_the_kernels_bits(dev, rng):
+    """The plain version adds in packed order on the card too
+    (`core.gee._add_by_rank`): the kernel's bits exactly."""
+    n, m, K = 3000, 60000, 8
+    dst = torch.as_tensor(rng.zipf(1.5, m) % n, device=dev)
+    cls = torch.as_tensor(rng.integers(0, K, m), device=dev)
+    val = torch.as_tensor(rng.random(m, dtype=np.float32), device=dev)
+    row_ptr, clsb, valb, T = pack_edges(dst, cls, val, n, 256)
+    kw = dict(num_tiles=T, tile_n=256, kdim=K)
+    assert _same(GS.gee_scatter(row_ptr, clsb, valb, **kw),
+                 GS.gee_scatter_plain(row_ptr, clsb, valb, **kw))
+
+
+@pytest.mark.parametrize("p", [1, 2])
+def test_ivf_nprobe_K_equals_exact_on_the_card(dev, rng, p):
+    """The engine on the card (backend cuda): ivf at nprobe = K gives the
+    exact scan's bits, before and after a delta."""
+    from repro_torch.graph import make_labels, sbm
+    from repro_torch.serving import GraphStore, ServingEngine
+    g, truth = sbm(3000, 6, 40_000, seed=1)
+    Y = make_labels(3000, 6, 0.2, np.random.default_rng(0),
+                    true_labels=truth)
+    eng = ServingEngine(GraphStore(g, Y, 6), num_shards=p, backend="cuda",
+                        plan_cache=None, index="ivf", device=dev)
+    nodes = rng.integers(0, 3000, 64).astype(np.int32)
+    for _ in range(2):
+        ex = eng.query_topk(nodes, k=10)
+        iv = eng.query_topk(nodes, k=10, mode="ivf", nprobe=6)
+        assert np.array_equal(ex[0], iv[0]) and np.array_equal(ex[1], iv[1])
+        eng.apply_edge_delta(rng.integers(0, 3000, 200).astype(np.int32),
+                             rng.integers(0, 3000, 200).astype(np.int32),
+                             np.ones(200, np.float32))
+
+
+def test_plan_cache_hit_on_the_card(dev, tmp_path):
+    """A cuda-backend plan stored from the card and loaded back gives
+    the same Z bits."""
+    from repro_torch.encoder import Embedder, EncoderConfig
+    from repro_torch.graph import make_labels, sbm
+    g, truth = sbm(5000, 8, 60_000, seed=2)
+    Y = make_labels(5000, 8, 0.1, np.random.default_rng(0),
+                    true_labels=truth)
+    a = Embedder(EncoderConfig(K=8), backend="cuda", device=dev,
+                 plan_cache=tmp_path).fit(g, Y)
+    b = Embedder(EncoderConfig(K=8), backend="cuda", device=dev,
+                 plan_cache=tmp_path).fit(g, Y)
+    assert a.plan_stats["disk_stores"] == 1 and b.plan_stats["disk_hits"] == 1
+    assert _same(a.Z_, b.Z_)

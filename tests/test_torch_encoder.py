@@ -72,7 +72,8 @@ class TestFit:
         Y2 = make_labels(g.n, 5, 0.5, np.random.default_rng(9))
         t.refit(Y2)
         j.fit(_jg(g), Y2)
-        assert t.plan_stats == {"built": 1, "hits": 1}
+        assert t.plan_stats == {"built": 1, "hits": 1, "disk_hits": 0,
+                            "disk_stores": 0}
         np.testing.assert_allclose(t.transform(), j.transform(), atol=1e-5)
         nodes = np.arange(0, g.n, 3)
         assert np.array_equal(t.predict(nodes), j.predict(nodes))

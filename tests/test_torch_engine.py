@@ -310,10 +310,9 @@ def test_embedding_service_is_the_one_shard_engine(rng):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(index="ivf"), "A.3"), (dict(transport="socket"), "A.7"),
+    (dict(transport="socket"), "A.7"),
     (dict(shard_addrs=["localhost:1"]), "A.7"), (dict(replicas=1), "A.7"),
-    (dict(replica_addrs=["localhost:1"]), "A.7"),
-    (dict(plan_cache="auto"), "A.4")])
+    (dict(replica_addrs=["localhost:1"]), "A.7")])
 def test_unported_options_raise(kwargs, match):
     g, Y, _ = _data(8)
     with pytest.raises(NotImplementedError, match=match):
@@ -327,12 +326,14 @@ def test_unported_paths_raise(tmp_path):
     with pytest.raises(ValueError, match="unknown transport"):
         _port(g, Y, 8, transport="carrier-pigeon")
     eng = _port(g, Y, 8, num_shards=2, data_dir=str(tmp_path / "p"))
-    with pytest.raises(NotImplementedError, match="A.3"):
-        eng.query_topk([1, 2], mode="ivf")
+    # the ivf query answers (building the index on first use)
+    idx, val = eng.query_topk([1, 2], mode="ivf")
+    assert idx.shape == (2, 10) and eng.index_mode == "ivf"
     with pytest.raises(ValueError, match="unknown topk mode"):
         eng.query_topk([1, 2], mode="approx")
-    with pytest.raises(NotImplementedError, match="A.3"):
-        eng.enable_index()
+    eng.enable_index()                        # idempotent: builds once
+    assert all(s.index is not None and s.index.builds == 1
+               for s in eng.shards)
     with pytest.raises(IndexError):
         eng.query_embed([N])
     with pytest.raises(ValueError):
@@ -341,12 +342,15 @@ def test_unported_paths_raise(tmp_path):
     eng.close()
     with pytest.raises(RuntimeError, match="durable"):
         _port(g, Y, 8).checkpoint()
-    # a reference deployment that carries an IVF index
+    # a reference deployment that carries an IVF index opens, index on
     ref = _ref(g, Y, 8, num_shards=2, data_dir=str(tmp_path / "r"),
                index="ivf")
+    cent = np.asarray(ref._index_centroids)
     ref.close()
-    with pytest.raises(NotImplementedError, match="A.3"):
-        ServingEngine.open(str(tmp_path / "r"), device="cpu")
+    rec = ServingEngine.open(str(tmp_path / "r"), device="cpu")
+    assert rec.index_mode == "ivf"
+    assert np.array_equal(rec._index_centroids, cent)
+    rec.close()
 
 
 def test_concurrent_submitters_lose_no_write():

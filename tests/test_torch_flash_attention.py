@@ -142,3 +142,67 @@ def test_wrapper_refuses_bad_shapes():
     with pytest.raises(ValueError, match="B, KV, S, D"):
         FA.flash_attention(q, torch.zeros((1, 2, 9, 16)),
                            torch.zeros((1, 2, 9, 16)))
+
+
+@pytest.mark.parametrize("D", [160, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_head_dims_match_pallas_kernel(rng, D, dtype):
+    """Head dims above 128 (the kernel's wide body on the card): the
+    plain version against the reference kernel in interpret mode and its
+    oracle."""
+    B, H, KV, S = 1, 4, 2, 96
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(rng, B, H, KV, S, D), dtype)
+    o = FA.flash_attention(tq, tk, tv)
+    assert o.dtype == tq.dtype and o.shape == (B, H, S, D)
+    tol = DT[dtype][2]
+    _close(o, JO.flash_attention(jq, jk, jv, bq=32, bk=32), tol)
+    _close(o, JRef.flash_attention_ref(jq, jk, jv), tol)
+
+
+def _emulate_wide_body(q, k, v, *, bq=16, bk=32, dc=128):
+    """The wide body's arithmetic on the host (`csrc/flash_attention.cu`,
+    widebody): float32 throughout, 16-row query tiles over 32-key tiles
+    up to the tile's last row, scores as a dot over D in chunks of 128,
+    the online softmax, acc = acc * alpha + P V chunk by chunk, the
+    output rounded once to q's dtype."""
+    B, H, S, D = q.shape
+    G = H // k.shape[1]
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    kf, vf = (x.repeat_interleave(G, 1) for x in (kf, vf))
+    out = torch.empty((B, H, S, D))
+    for q0 in range(0, S, bq):
+        rows = min(bq, S - q0)
+        qt = qf[:, :, q0:q0 + rows]
+        m = torch.full((B, H, rows), -1e30)
+        l = torch.zeros((B, H, rows))
+        acc = torch.zeros((B, H, rows, D))
+        for k0 in range(0, min(S, q0 + bq), bk):
+            kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+            s = torch.zeros((B, H, rows, kt.shape[2]))
+            for d0 in range(0, D, dc):
+                s = s + torch.einsum("bhqd,bhkd->bhqk", qt[..., d0:d0 + dc],
+                                     kt[..., d0:d0 + dc])
+            s = s * D ** -0.5
+            qpos = torch.arange(q0, q0 + rows)[:, None]
+            kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            s = s.masked_fill(kpos > qpos, -1e30)
+            m_new = torch.maximum(m, s.max(-1).values)
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd",
+                                                        p, vt)
+            m = m_new
+        out[:, :, q0:q0 + rows] = acc / l.clamp_min(1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("S,D", [(70, 160), (33, 256), (16, 200)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_body_arithmetic_matches_oracle(rng, S, D, dtype):
+    """The wide body's tiling (ragged query and key tiles, D split into
+    chunks of 128 with a ragged last chunk) stays within the suite's
+    tolerance of the JAX oracle."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(rng, 2, 4, 2, S, D), dtype)
+    got = _emulate_wide_body(tq, tk, tv)
+    _close(got, JRef.flash_attention_ref(jq, jk, jv), DT[dtype][2])

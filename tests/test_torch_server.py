@@ -47,8 +47,7 @@ def test_volatile_sync_flush_run_with_obs_dump():
     assert "[serve-gee] health: {'state': 'serving'" in out
 
 
-@pytest.mark.parametrize("flag", [["--index", "ivf"],
-                                  ["--transport", "socket"],
+@pytest.mark.parametrize("flag", [["--transport", "socket"],
                                   ["--serve-shard", "localhost:1"]])
 def test_unported_flags_raise(flag):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -72,3 +71,17 @@ def test_default_device_needs_a_card():
          "--edges", "3000"], env=env, capture_output=True, text=True,
         timeout=120, cwd=ROOT)
     assert res.returncode != 0 and "is_available() is False" in res.stderr
+
+
+def test_durable_ivf_run(tmp_path):
+    """`--index ivf`: top-k through the IVF index, ivf at nprobe = K
+    equal to the exact scan, and a recovery that restores the
+    quantizer and the ivf answers."""
+    out = _run("--device", "cpu", "--n", "800", "--edges", "12000",
+               "--steps", "4", "--shards", "2", "--index", "ivf",
+               "--nprobe", "3", "--compact-every", "2", "--obs-dump",
+               "--data-dir", str(tmp_path / "dep"))
+    assert "ivf@nprobe=K == exact ✓" in out
+    assert "index quantizer restored ✓" in out
+    assert "index occupancy shard 1:" in out
+    assert "repro_index_queries_total" in out
