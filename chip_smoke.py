@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py [--seed 0] [--steps 8] [--lm-batch 4]
                           [--lm-prompt 2048] [--lm-gen 16] [--lm-layers 32]
+                          [--fam-layers N]
 
 1. builds every CUDA kernel of `src/repro_torch/kernels/csrc` with nvcc;
    It counts the HGMMA (wgmma) instructions in the flash library's SASS
@@ -79,7 +80,22 @@
    prefill and in the first decode step, and `prefill`'s and
    `decode_step`'s logits against that run's (see LM_REL_TOL); then the
    flash kernel is held against its plain version and timed at the
-   prefill's shape.
+   prefill's shape;
+7. the LM families (`FAMILIES`): each of the other nine archs of the
+   registry at full width, its weights drawn from --seed, through
+   `generate` at --lm-batch prompts of --lm-prompt tokens (whisper also
+   gets n_frames random frame embeddings): qwen2-moe-a2.7b at full
+   depth with --lm-gen tokens (this phase's main path), the others with
+   FAMILY_GEN (8) tokens, qwen1.5-110b and grok-1-314b at the depth that fits
+   one card.  Launch counts are zeroed just before each arch's run and
+   read just after: flash attention runs once per causal
+   self-attention in prefill (zamba2: once per group; whisper: the
+   decoder's layers; xLSTM: never).  One prefill and one decode step
+   run under torch.profiler (device busy time, idle share).  Then the
+   self-check of `family_self_check`, block by block on the same input,
+   by the rule of step 6; last, the kernel at the families' other head
+   dims (D = 64 for whisper and zamba2, D = 120 for danube) against its
+   plain version, timed beside SDPA.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises and
@@ -121,6 +137,18 @@ BF16_TC_FLOPS = 989e12
 # is nearly a hard max, so one flipped rounding grows layer by layer and
 # two correct paths drift apart over 32 layers, at float32 too.
 LM_REL_TOL = 2e-2
+# Phase 7, the other LM families at full width: (arch, layers run; None:
+# all).  A depth is cut only where the weights do not fit one
+# 80 GB card: qwen1.5-110b holds about 2.5 GiB a layer and 4.6 GiB of
+# embeddings in bfloat16 (207 GiB in all), grok-1-314b about 9.2 GiB a
+# layer (590 GiB).  FAMILY_MAIN is this phase's full-depth main path,
+# generating --lm-gen tokens; the others generate FAMILY_GEN.
+FAMILIES = (("qwen2-moe-a2.7b", None), ("yi-9b", None),
+            ("h2o-danube-3-4b", None), ("chameleon-34b", None),
+            ("qwen1.5-110b", 20), ("grok-1-314b", 6), ("zamba2-1.2b", None),
+            ("whisper-medium", None), ("xlstm-1.3b", None))
+FAMILY_MAIN = "qwen2-moe-a2.7b"
+FAMILY_GEN = 8
 
 
 def fail(msg: str) -> None:
@@ -235,6 +263,9 @@ def main() -> int:
     ap.add_argument("--lm-layers", type=int, default=32,
                     help="cut yi-6b's depth (32) only if the time limit "
                          "forces it")
+    ap.add_argument("--fam-layers", type=int, default=None,
+                    help="cut every family's depth to at most this many "
+                         "layers (a short check run; default: FAMILIES)")
     args = ap.parse_args()
 
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1420,6 +1451,300 @@ def main() -> int:
             tflops=flops / ms / 1e9, bound_share=b / ms,
             shape=f"B={B} H={H} KV={KV} S={S} D={D} bf16")
 
+    def cut_depth(cfg, n):
+        """cfg at full width with at most n layers (a whole group for
+        zamba2 and xLSTM, n decoder and n encoder layers for whisper)."""
+        if n is None or n >= cfg.n_layers:
+            return cfg
+        if cfg.is_encdec:
+            return dataclasses.replace(cfg, n_layers=n, enc_layers=n,
+                                       dec_layers=n)
+        step = (cfg.xlstm.slstm_every if cfg.xlstm is not None
+                else cfg.attn_every or 1)
+        return dataclasses.replace(cfg, n_layers=max(step, n // step * step))
+
+    def expected_flash(cfg, S):
+        """Flash launches of one prefill: one per causal self-attention
+        (none for xLSTM, the shared block once per zamba2 group, the
+        decoder's layers for whisper, none where a window masks)."""
+        if cfg.xlstm is not None:
+            return 0
+        if cfg.is_encdec:
+            return cfg.dec_layers
+        if cfg.ssm is not None:
+            return cfg.n_layers // cfg.attn_every
+        if cfg.swa_window and S > cfg.swa_window:
+            return 0
+        return cfg.n_layers
+
+    def family_self_check(cfg, params, prompts, first, frames):
+        """Phase 7's self-check, block by block on the same input
+        (teacher-forced), by lm_self_check's rule (LM_REL_TOL x
+        max|reference|):
+        * each causal self-attention sublayer (norm, attention, output
+          projection, residual) with the kernel against the dense
+          `attn_full` path in prefill, and its decode form (cache from
+          the kernel path) against the dense sublayer over the S + 1
+          tokens at position S.  The rest of the block (whisper's
+          cross-attention, the MLP or MoE FFN) then runs once, on the
+          kernel path's output: MoE routing is discontinuous, so two
+          paths within rounding may route a token differently;
+        * each recurrent block (Mamba2, mLSTM, sLSTM) continued by one
+          decode step from its prefill state, against the block over
+          the S + 1 tokens at position S;
+        * `prefill`'s and `decode_step`'s logits against the logits of
+          the layer-by-layer run's last activations.
+        The free-running gap to `forward_logits(impl="full")` on the
+        S + 1 tokens is printed, not held, for every family: with random
+        weights each stack magnifies rounding layer by layer (see
+        LM_REL_TOL), xLSTM's too (its mLSTM divides by a normalizer that
+        can be near zero).  On an NVIDIA H100 at bf16 xLSTM's prefill
+        logits, the same code on the same first S tokens, differ from
+        forward_logits' by 0.49 of max|logit|: the products' blocking
+        differs between S and S + 1 rows.
+        Returns the worst relative error of all held checks."""
+        from repro_torch.models import attention as A
+        from repro_torch.models import transformer as T
+        from repro_torch.models.layers import embed_tokens, take
+
+        B, S = prompts.shape
+        worst = {}
+
+        def note(what, got, ref):
+            err = (got.float() - ref.float()).abs().max().item()
+            r_ = err / max(ref.float().abs().max().item(), 1e-30)
+            worst[what] = max(worst.get(what, 0.0), r_)
+
+        pos, pos1 = (torch.arange(n_, device=dev) for n_ in (S, S + 1))
+        posd = torch.full((1,), S, device=dev)
+
+        def attn_layer(p, x, xd, enc_kv=None):
+            yk, (k, v) = T.self_attn_train(cfg, p, x, pos, impl="flash")
+            yf, _ = T.self_attn_train(cfg, p, x, pos, impl="full")
+            note("prefill attention", yk, yf)
+            del yf
+            c = A.init_kv_cache(cfg, B, S + 1, x.dtype, device=dev)
+            A.fill_kv_cache(cfg, c, k, v)
+            yd, _ = T.self_attn_decode(cfg, p, xd, S, c)
+            y1, _ = T.self_attn_train(cfg, p, torch.cat([x, xd[:, None]], 1),
+                                      pos1, impl="full")
+            note("decode attention", yd, y1[:, S])
+            del y1, c, k, v
+            x, _ = T.block_tail(cfg, p, yk, pos, enc_kv=enc_kv)
+            xd, _ = T.block_tail(cfg, p, yd[:, None], posd, enc_kv=enc_kv)
+            return x, xd[:, 0]
+
+        def recurrent_layer(fn, p, x, xd):
+            y, st = fn(cfg, p, x, None)
+            yd, _ = fn(cfg, p, xd[:, None], st)
+            y1, _ = fn(cfg, p, torch.cat([x, xd[:, None]], 1), None)
+            note("decode recurrent", yd[:, 0], y1[:, S])
+            return y, yd[:, 0]
+
+        with torch.inference_mode():
+            batch = {"tokens": prompts}
+            if cfg.is_encdec:
+                batch["frames"] = frames
+            pl, cache = M.prefill(cfg, params, batch, max_len=S + 1)
+            dl, _ = M.decode_step(cfg, params, first, S, cache)
+            del cache
+            x = embed_tokens(cfg, params["embed"], prompts,
+                             pos if cfg.learned_pos else None)
+            xd = embed_tokens(cfg, params["embed"], first[:, None],
+                              posd[None].expand(B, 1) if cfg.learned_pos
+                              else None)[:, 0]
+            st = params["stack"] if "stack" in params else None
+            if cfg.is_encdec:
+                enc = T.whisper_encode(cfg, params, frames)
+                for i in range(cfg.dec_layers):
+                    p = take(params["dec"], i)
+                    x, xd = attn_layer(p, x, xd, T.encoder_kv(p, enc))
+                del enc
+            elif cfg.xlstm is not None:
+                for i in range(T.depth(st)):
+                    g = take(st, i)
+                    for j in range(T.depth(g["mlstm"])):
+                        x, xd = recurrent_layer(T.mlstm_block,
+                                                take(g["mlstm"], j), x, xd)
+                    x, xd = recurrent_layer(T.slstm_block, g["slstm"], x, xd)
+            elif cfg.ssm is not None:
+                x0, xd0 = x, xd
+                for i in range(T.depth(st["groups"])):
+                    g = take(st["groups"], i)
+                    for j in range(T.depth(g["mamba"])):
+                        x, xd = recurrent_layer(T.mamba_block,
+                                                take(g["mamba"], j), x, xd)
+                    h, hd = attn_layer(st["shared_attn"],
+                                       T._zamba_shared_in(cfg, st, x, x0),
+                                       T._zamba_shared_in(cfg, st, xd, xd0))
+                    x, xd = x + h, xd + hd
+                if "tail" in st:
+                    for j in range(T.depth(st["tail"])):
+                        x, xd = recurrent_layer(T.mamba_block,
+                                                take(st["tail"], j), x, xd)
+            else:
+                for i in range(T.depth(st)):
+                    x, xd = attn_layer(take(st, i), x, xd)
+            refs = [M._mask_padded_vocab(cfg, M._logits(
+                cfg, params, y[:, None])[:, 0]) for y in (x[:, -1], xd)]
+            del x, xd
+            full, _ = M.forward_logits(
+                cfg, params, torch.cat([prompts, first[:, None]], 1),
+                frames=frames, impl="full")
+            V = cfg.vocab
+            free = [(pl[:, :V], full[:, S - 1, :V]),
+                    (dl[:, :V], full[:, S, :V])]
+            del full
+        for what, got, ref in (("prefill logits", pl, refs[0]),
+                               ("decode logits", dl, refs[1])):
+            got, ref = got[:, :V].float(), ref[:, :V].float()
+            note(what, got, ref)
+            top2 = ref.topk(2, dim=-1).values
+            decided = (top2[:, 0] - top2[:, 1]) > LM_REL_TOL * \
+                ref.abs().max()
+            if not bool((got.argmax(-1) == ref.argmax(-1))[decided].all()):
+                raise AssertionError(f"{cfg.name}: {what}: top-1 differs "
+                                     "from the layer-by-layer run's")
+        gaps = [(got.float() - ref.float()).abs().max().item()
+                / max(ref.float().abs().max().item(), 1e-30)
+                for got, ref in free]
+        bad = {k_: v_ for k_, v_ in worst.items() if not v_ <= LM_REL_TOL}
+        print(f"  self-check {cfg.name} (batch {B}): " + ", ".join(
+            f"{k_} {v_:.3e}" for k_, v_ in worst.items())
+            + f"; tol {LM_REL_TOL}; free-running gap to forward_logits"
+            f"(impl='full') / max|logit|: prefill {gaps[0]:.3e}, decode "
+            f"{gaps[1]:.3e} (printed, not held)")
+        if bad:
+            raise AssertionError(f"{cfg.name} self-check off: {bad}")
+        return max(worst.values())
+
+    def families_path():
+        """Phase 7 (the other LM families' serve path).  Returns the
+        flash row's additions: launches by arch, and the kernel at the
+        D = 64 and D = 120 prefill shapes."""
+        from torch.profiler import ProfilerActivity, profile
+        by_arch = {}
+        for arch, depth in FAMILIES:
+            cfg0 = get_config(arch)
+            limit = [n_ for n_ in (depth, args.fam_layers) if n_ is not None]
+            cfg = cut_depth(cfg0, min(limit) if limit else None)
+            cut = (f"depth CUT to {cfg.n_layers} of {cfg0.n_layers} layers"
+                   if cfg.n_layers != cfg0.n_layers else
+                   f"full depth, {cfg.n_layers} layers")
+            B, S = args.lm_batch, args.lm_prompt
+            G = args.lm_gen if arch == FAMILY_MAIN else FAMILY_GEN
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params = M.init_params(cfg, args.seed, device=dev)
+            torch.cuda.synchronize()
+            t_init = time.perf_counter() - t0
+            rs = np.random.default_rng(args.seed + 5)
+            prompts = torch.as_tensor(rs.integers(0, cfg.vocab, (B, S)),
+                                      device=dev)
+            frames = None
+            if cfg.is_encdec:
+                frames = torch.as_tensor(rs.normal(0, 1, (
+                    B, cfg.n_frames, cfg.d_model)).astype(np.float32),
+                    device=dev)
+            generate(cfg, params, prompts, 2, frames=frames)   # warm-up
+            _build.reset_launches()
+            t = {}
+            toks = generate(cfg, params, prompts, G, frames=frames,
+                            timings=t)
+            launches = dict(_build.launches)
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            want = expected_flash(cfg, S)
+            if launches["flash_attention"] != want:
+                raise AssertionError(f"{arch}: flash_attention launched "
+                                     f"{launches['flash_attention']} times "
+                                     f"in prefill + decode, expected {want}")
+            if any(n_ for k_, n_ in launches.items()
+                   if k_ != "flash_attention"):
+                raise AssertionError(f"{arch}: a GEE kernel ran")
+            if (tuple(toks.shape) != (B, G) or int(toks.min()) < 0
+                    or int(toks.max()) >= cfg.vocab):
+                raise AssertionError(f"{arch}: generated tokens off")
+            by_arch[arch] = launches["flash_attention"]
+            # device activity only: xLSTM's prefill launches ~10^5 kernels
+            acts = [ProfilerActivity.CUDA]
+            batch = {"tokens": prompts}
+            if frames is not None:
+                batch["frames"] = frames
+            with torch.inference_mode():
+                with profile(activities=acts) as prof_p:
+                    _, cache = M.prefill(cfg, params, batch, max_len=S + 2)
+                    torch.cuda.synchronize()
+                with profile(activities=acts) as prof_d:
+                    M.decode_step(cfg, params, toks[:, 0], S, cache)
+                    torch.cuda.synchronize()
+                del cache
+            dec_ms = t["decode_s"] * 1e3 / max(G - 1, 1)
+            idle = []
+            for prof, wall in ((prof_p, t["prefill_s"] * 1e3),
+                               (prof_d, dec_ms)):
+                busy, n_dev, top = kernel_times(prof)
+                idle.append(1 - busy / wall)
+                what = "prefill" if prof is prof_p else "decode step"
+                print(f"  profile {arch} {what}: device busy {busy:.1f} ms "
+                      f"in {n_dev} kernels and copies; by kernel: "
+                      + "; ".join(
+                          f"{n_[:48]} {ms_:.2f} ms x{c_}"
+                          for n_, (ms_, c_) in top[:5]))
+            del prof_p, prof_d
+            # the dense scores of the self-check's attention at this batch
+            # (float32 (B, H, S + 1, S + 1); up to about four alive at once):
+            # chameleon-34b's at batch 4 do not fit beside its weights
+            H = cfg.n_heads if cfg.xlstm is None else 0
+            need = 4 * 4 * B * H * (S + 1) ** 2 + 4 * 2**30
+            torch.cuda.empty_cache()
+            nb = B if need < torch.cuda.mem_get_info()[0] else 1
+            err = family_self_check(
+                cfg, params, prompts[:nb], toks[:nb, 0],
+                None if frames is None else frames[:nb])
+            print(f"family {arch}: {cut}, {cfg.param_count():,} params "
+                  f"({cfg.param_dtype}, compute {cfg.compute_dtype}); init "
+                  f"{t_init:.2f} s; prefill B={B} S={S}: "
+                  f"{t['prefill_s'] * 1e3:.1f} ms; decode {G - 1} steps: "
+                  f"{dec_ms:.2f} ms per step; device idle share prefill "
+                  f"{idle[0]:.3f}, decode {idle[1]:.3f}; flash launches "
+                  f"{launches['flash_attention']} (expected {want}); peak "
+                  f"{peak_gib:.2f} GiB; self-check max rel err {err:.3e}")
+            del params, prompts, frames, toks
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # the kernel at the families' other head dims, prefill shapes
+        out = dict(launches_by_arch=by_arch)
+        B, S = args.lm_batch, args.lm_prompt
+        gen_ = torch.Generator(device=dev).manual_seed(args.seed + 7)
+        for tag, arch in (("whisper_D64", "whisper-medium"),
+                          ("zamba2_D64", "zamba2-1.2b"),
+                          ("danube_D120", "h2o-danube-3-4b")):
+            c_ = get_config(arch)
+            H, KV, D = c_.n_heads, c_.n_kv_heads, c_.head_dim
+            q, k, v = (torch.randn((B, h_, S, D), generator=gen_, device=dev,
+                                   dtype=torch.bfloat16)
+                       for h_ in (H, KV, KV))
+            e_ = check_flash(q, k, v, f"{arch} prefill shape")
+            flops = 4.0 * D * B * H * S * (S + 1) / 2
+            nbytes = 2 * (2 * B * H * S * D + 2 * B * KV * S * D)
+            out[f"{tag}_ms"] = timer(lambda: FA.flash_attention(q, k, v), 20)
+            out[f"{tag}_bound_ms"] = bound_ms(nbytes, flops,
+                                              BF16_TC_FLOPS)[0]
+            out[f"{tag}_plain_ms"] = timer(
+                lambda: FA.flash_attention_plain(q, k, v), 2)
+            out[f"{tag}_library_ms"] = timer(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), 20)
+            print(f"flash_attention at {arch}'s prefill shape B={B} H={H} "
+                  f"KV={KV} S={S} D={D} bf16: kernel {out[tag + '_ms']:.4f}"
+                  f" ms, bound {out[tag + '_bound_ms']:.4f} ms, plain "
+                  f"{out[tag + '_plain_ms']:.4f} ms, library "
+                  f"{out[tag + '_library_ms']:.4f} ms, max|err| {e_:.3e}")
+            del q, k, v
+        return out
+
     results, main_graph = gee_path()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1431,6 +1756,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     results.append(lm_path())
+    gc.collect()
+    torch.cuda.empty_cache()
+    fam = families_path()
+    fam["launches_by_arch"] = {"yi-6b": results[-1]["launches"],
+                               **fam["launches_by_arch"]}
+    results[-1].update(fam)
 
     for r_ in results:
         rate = (f", {r_['tflops']:.1f} TFLOP/s, {r_['bound_share']:.3f} of "

@@ -1,8 +1,7 @@
 """Architecture registry: ``get_config("<arch-id>")`` / ``--arch <id>``.
 
-Lists only the architectures the port can run.  Any other id of the
-reference's registry raises `NotImplementedError` (not ported yet); an
-id neither package knows raises `KeyError`.
+The reference's registry, in its order: every arch it runs, the port
+runs.  An unknown id raises `KeyError`.
 """
 from __future__ import annotations
 
@@ -13,14 +12,19 @@ from repro_torch.configs.base import (  # noqa: F401
     GraphSpec, ModelConfig, MoEConfig, SSMConfig, ShapeSpec, XLSTMConfig,
 )
 
-# arch-id -> module, for the archs the port runs
+# arch-id -> module (exact ids from the assignment)
 _REGISTRY: dict[str, str] = {
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
+    "yi-9b": "repro_torch.configs.yi_9b",
     "yi-6b": "repro_torch.configs.yi_6b",
+    "h2o-danube-3-4b": "repro_torch.configs.h2o_danube_3_4b",
+    "qwen1.5-110b": "repro_torch.configs.qwen1_5_110b",
+    "chameleon-34b": "repro_torch.configs.chameleon_34b",
+    "whisper-medium": "repro_torch.configs.whisper_medium",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
+    "grok-1-314b": "repro_torch.configs.grok_1_314b",
 }
-# the reference's other arch ids, still to port
-_NOT_PORTED = ("xlstm-1.3b", "yi-9b", "h2o-danube-3-4b", "qwen1.5-110b",
-               "chameleon-34b", "whisper-medium", "zamba2-1.2b",
-               "qwen2-moe-a2.7b", "grok-1-314b")
 
 
 def list_archs() -> list[str]:
@@ -28,9 +32,6 @@ def list_archs() -> list[str]:
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(f"arch {arch!r} is not ported yet; "
-                                  f"ported: {list_archs()}")
     if arch not in _REGISTRY:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_REGISTRY)}")
     return importlib.import_module(_REGISTRY[arch]).CONFIG

@@ -1,9 +1,13 @@
 """Batched LM serving driver: prefill + greedy decode.
 
 The port of `repro.launch.serve`: the batch of prompts is prefilled once,
-then decoded greedily token by token with the shared KV cache.  Weights
-are random, drawn on the device from ``--seed``.  On a card the prefill's
-self-attention runs the hand-written flash-attention kernel.
+then decoded greedily token by token with the shared decode cache (KV
+caches, SSM / xLSTM states).  Weights are random, drawn on the device
+from ``--seed``; the encoder-decoder (whisper) also gets random frame
+embeddings (B, n_frames, d_model) from the seed, as the reference draws
+them.  On a card the prefill's causal self-attention runs the
+hand-written flash-attention kernel.  ``--arch`` takes every id of
+`repro_torch.configs.list_archs()`.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
         --reduced --device cpu
@@ -28,18 +32,22 @@ def _sync(device: torch.device) -> None:
 
 
 def generate(cfg, params, prompts: torch.Tensor, gen: int, *,
+             frames: Optional[torch.Tensor] = None,
              timings: Optional[Dict[str, float]] = None) -> torch.Tensor:
     """Greedy continuation of `prompts` (B, S) int on the params' device:
-    one prefill, then gen - 1 decode steps.  Returns (B, gen) int64
-    tokens.  With `timings`, records ``prefill_s`` and ``decode_s``
-    (host clock, the device synchronized)."""
+    one prefill, then gen - 1 decode steps.  `frames`: the encoder's
+    input (B, n_frames, d_model) for an encoder-decoder.  Returns
+    (B, gen) int64 tokens.  With `timings`, records ``prefill_s`` and
+    ``decode_s`` (host clock, the device synchronized)."""
     S = prompts.shape[1]
     dev = prompts.device
+    batch = {"tokens": prompts}
+    if cfg.is_encdec:
+        batch["frames"] = frames
     with torch.inference_mode():
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache = M.prefill(cfg, params, {"tokens": prompts},
-                                  max_len=S + gen)
+        logits, cache = M.prefill(cfg, params, batch, max_len=S + gen)
         toks = logits.argmax(-1)
         _sync(dev)
         t1 = time.perf_counter()
@@ -57,7 +65,8 @@ def generate(cfg, params, prompts: torch.Tensor, gen: int, *,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="any id of repro_torch.configs.list_archs()")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -74,11 +83,16 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     B, S, G = args.batch, args.prompt_len, args.gen
     prompts = rng.integers(0, cfg.vocab, size=(B, S)).astype(np.int32)
+    frames = None
+    if cfg.is_encdec:
+        frames = torch.as_tensor(rng.normal(
+            0, 1, (B, cfg.n_frames, cfg.d_model)).astype(np.float32),
+            device=device)
     params = M.init_params(cfg, args.seed, device=device)
 
     t: Dict[str, float] = {}
     gen = generate(cfg, params, torch.as_tensor(prompts, device=device), G,
-                   timings=t)
+                   frames=frames, timings=t)
     gen = gen.cpu().numpy()
     t_prefill, t_decode = t["prefill_s"], t["decode_s"]
     print(f"[serve] arch={cfg.name} batch={B} prompt={S} gen={G} "

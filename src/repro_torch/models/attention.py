@@ -1,14 +1,16 @@
 """Attention layers: GQA, sliding-window, chunked-flash, decode paths.
 
 The port of `repro.models.attention`, with the reference's one math in
-two plain implementations and one kernel:
+three plain implementations and one kernel:
   * full   — dense mask, O(S^2) memory. Small seq / encoder / cross.
   * flash  — chunked online softmax, O(S * chunk) memory.  On CUDA
-             tensors, causal self-attention without a window goes to the
-             hand-written kernel (`repro_torch.kernels.flash_attention`,
-             the reference's "TPU twin") at every S; on the CPU, and for
-             a window, the plain path the reference runs.
-  * triangular — not ported yet.
+             tensors, causal self-attention goes to the hand-written
+             kernel (`repro_torch.kernels.flash_attention`, the
+             reference's "TPU twin") at every S, unless a window masks
+             something (S > swa_window, `flash_kernel_takes`); on the
+             CPU, and for such a window, the plain path the reference
+             runs.
+  * triangular — the lower-triangular block loop (plain on any device).
 
 Decode: plain cache attention (one-token query vs. a (B, S, KV, Dh)
 cache, ring buffer for a window).  The reference's sequence-sharded
@@ -98,7 +100,7 @@ def _gqa_weighted(pweights, v):
     return out.reshape(B, Sq, KV * G, v.shape[-1])
 
 
-def _mask(q_pos, kv_pos, causal: bool, window: int):
+def _mask(q_pos, kv_pos, causal: bool, window: int, kv_len=None):
     """(Sq, Skv) boolean mask (True = attend)."""
     m = torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool,
                    device=q_pos.device)
@@ -106,6 +108,8 @@ def _mask(q_pos, kv_pos, causal: bool, window: int):
         m &= kv_pos[None, :] <= q_pos[:, None]
     if window:
         m &= kv_pos[None, :] > q_pos[:, None] - window
+    if kv_len is not None:
+        m &= kv_pos[None, :] < kv_len
     return m
 
 
@@ -171,14 +175,57 @@ def attn_flash(q, k, v, q_pos, kv_pos, *, causal, window=0, scale=None,
     return torch.cat(outs, dim=1)
 
 
+def attn_triangular(q, k, v, q_pos, kv_pos, *, window=0, scale=None,
+                    chunk=2048):
+    """FLOP-optimal causal attention: the lower-triangular block loop.  Q
+    chunk i runs online softmax over KV chunks 0..i only (and, with a
+    window, not those entirely left of it), so upper-triangular blocks
+    are never computed.  Requires Sq == Skv (self-attention)."""
+    scale = scale or q.shape[-1] ** -0.5
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"chunk {chunk} must divide the sequence {S}")
+    G = H // KV
+    f32 = dict(dtype=torch.float32, device=q.device)
+    outs = []
+    for i in range(S // chunk):
+        qs = slice(i * chunk, (i + 1) * chunk)
+        qb, qp = q[:, qs], q_pos[qs]
+        carry = (torch.full((B, KV, G, chunk), _NEG, **f32),
+                 torch.zeros((B, KV, G, chunk), **f32),
+                 torch.zeros((B, KV, G, chunk, Dh), **f32))
+        lo = 0
+        if window:  # blocks entirely left of the window are all-masked
+            lo = max(0, (i * chunk - window) // chunk)
+        for j in range(lo, i + 1):
+            ks = slice(j * chunk, (j + 1) * chunk)
+            # off-diagonal in-window blocks need no mask at all
+            need_mask = (j == i) or (window and (i * chunk - window
+                                                 < (j + 1) * chunk))
+            carry = _online_block(qb, k[:, ks], v[:, ks], qp, kv_pos[ks],
+                                  carry, causal=(j == i),
+                                  window=window if need_mask else 0,
+                                  scale=scale)
+        outs.append(_finish(qb, carry[1], carry[2]))
+    return torch.cat(outs, dim=1)
+
+
+def flash_kernel_takes(cfg, S: int) -> bool:
+    """Whether the kernel computes causal self-attention over positions
+    0..S-1 under `cfg`'s window: always without one, and with one when
+    S <= window (then kv_pos > q_pos - window holds for every causal
+    pair, since q_pos - window <= S - 1 - window < 0 <= kv_pos)."""
+    return not cfg.swa_window or S <= cfg.swa_window
+
+
 def self_attention(cfg, q, k, v, q_pos, kv_pos, *, impl="flash"):
     """Causal self-attention over positions 0..S-1 (prefill)."""
     window = cfg.swa_window
-    if impl == "triangular":
-        raise NotImplementedError("impl='triangular' is not ported yet")
-    if impl not in ("full", "flash"):
+    if impl not in ("full", "flash", "triangular"):
         raise ValueError(f"unknown attention impl {impl!r}")
-    if impl == "flash" and q.is_cuda and not window:
+    if impl == "flash" and q.is_cuda and flash_kernel_takes(cfg, q.shape[1]):
         # the kernel's layout is (B, H, S, Dh)
         o = flash_attention(q.transpose(1, 2).contiguous(),
                             k.transpose(1, 2).contiguous(),
@@ -188,6 +235,9 @@ def self_attention(cfg, q, k, v, q_pos, kv_pos, *, impl="flash"):
             or q.shape[1] % cfg.attn_chunk != 0):
         # small or chunk-indivisible sequences: dense-mask path
         return attn_full(q, k, v, q_pos, kv_pos, causal=True, window=window)
+    if impl == "triangular":
+        return attn_triangular(q, k, v, q_pos, kv_pos, window=window,
+                               chunk=cfg.attn_chunk)
     return attn_flash(q, k, v, q_pos, kv_pos, causal=True, window=window,
                       q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk)
 
@@ -276,3 +326,15 @@ def _decode_scores(cfg, q, kc, vc, valid):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, vc.to(torch.float32))
     return o.reshape(B, H, Dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (enc-dec)
+# ---------------------------------------------------------------------------
+
+
+def cross_attention(cfg, q, enc_k, enc_v):
+    """q: (B,Sq,H,Dh) vs. precomputed encoder k/v (B,F,KV,Dh). Non-causal."""
+    q_pos = torch.arange(q.shape[1], device=q.device)
+    kv_pos = torch.arange(enc_k.shape[1], device=q.device)
+    return attn_full(q, enc_k, enc_v, q_pos, kv_pos, causal=False)

@@ -36,7 +36,7 @@ def dtype_of(name) -> torch.dtype:
 class ParamSpec:
     shape: tuple
     logical: tuple               # logical axis name per dim (or None)
-    init: str = "normal"         # normal | zeros | ones | pos
+    init: str = "normal"   # normal | zeros | ones | mamba_a | dt_bias | pos
     dtype: Any = None            # None -> config param_dtype
     fan_in: int = 0              # 0 -> last-but-one dim (normal init scale)
 
@@ -117,6 +117,35 @@ def take(tree, i: int) -> Dict[str, Any]:
             else tree[k][i] for k in tree.keys()}
 
 
+# float32 elements drawn at a time for a leaf stored in another dtype:
+# a 34 B-parameter bfloat16 model has 17 B-element leaves, whose float32
+# draw in one piece would not fit beside the model on an 80 GB card
+_DRAW_CHUNK = 1 << 26
+
+
+def _draw(spec: ParamSpec, gen: torch.Generator,
+          w: torch.Tensor) -> torch.Tensor:
+    """Fill the float32 tensor `w` by `spec`'s random init rule."""
+    if spec.init == "pos":
+        # sinusoidal-ish small init for learned positions
+        return w.normal_(0.0, 0.02, generator=gen)
+    if spec.init == "mamba_a":
+        # A_log init: log of uniform [1, 16] (mamba2 convention)
+        return w.uniform_(1.0, 16.0, generator=gen).log_()
+    if spec.init == "dt_bias":
+        # softplus^-1 of dt ~ uniform[1e-3, 1e-1]
+        return w.uniform_(1e-3, 1e-1, generator=gen).expm1_().log_()
+    if spec.init != "normal":
+        raise ValueError(f"unknown init {spec.init!r}")
+    # truncated-normal, 1/sqrt(fan_in)
+    fan_in = spec.fan_in
+    if fan_in == 0:
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+    scale = 1.0 / math.sqrt(max(fan_in, 1))
+    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return w.mul_(scale)
+
+
 def _init_leaf(spec: ParamSpec, gen: torch.Generator, default_dtype,
                device) -> torch.Tensor:
     dtype = dtype_of(spec.dtype or default_dtype)
@@ -124,19 +153,28 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, default_dtype,
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
-    w = torch.empty(spec.shape, dtype=torch.float32, device=device)
-    if spec.init == "pos":
-        # sinusoidal-ish small init for learned positions
-        return w.normal_(0.0, 0.02, generator=gen).to(dtype)
-    if spec.init != "normal":       # mamba_a, dt_bias: the SSM family
-        raise NotImplementedError(f"init {spec.init!r} is not ported yet")
-    # truncated-normal, 1/sqrt(fan_in)
-    fan_in = spec.fan_in
-    if fan_in == 0:
-        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
-    scale = 1.0 / math.sqrt(max(fan_in, 1))
-    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return w.mul_(scale).to(dtype)
+    if dtype == torch.float32:
+        return _draw(spec, gen, torch.empty(
+            spec.shape, dtype=torch.float32, device=device))
+    # drawn in float32 and rounded, a chunk of the flat leaf at a time
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for lo in range(0, flat.numel(), _DRAW_CHUNK):
+        hi = min(lo + _DRAW_CHUNK, flat.numel())
+        flat[lo:hi] = _draw(spec, gen, torch.empty(
+            hi - lo, dtype=torch.float32, device=device))
+    return out
+
+
+def zeros_from_specs(specs, *, device):
+    """A nested dict of zero tensors from a nested dict of ParamSpecs (a
+    cache's), each in its spec's dtype; None stays None."""
+    if specs is None:
+        return None
+    if is_spec(specs):
+        return torch.zeros(specs.shape, dtype=dtype_of(specs.dtype),
+                           device=device)
+    return {k: zeros_from_specs(v, device=device) for k, v in specs.items()}
 
 
 def _unflatten(pairs):

@@ -337,6 +337,52 @@ def test_prefill_runs_the_kernel_once_per_layer(dev):
                                atol=1e-3, rtol=0)
 
 
+def test_danube_prefill_attention_runs_the_kernel(dev, rng):
+    """h2o-danube-3-4b's heads (32 / 8, D = 120, window 4096) at S =
+    2048: the window masks nothing, so self-attention launches the
+    kernel, and it equals the plain windowed path (bfloat16 tolerance)."""
+    from repro_torch.models import attention as A
+    cfg = get_config("h2o-danube-3-4b")
+    S = 2048
+    assert A.flash_kernel_takes(cfg, S)
+    q, k, v = (torch.as_tensor(rng.normal(size=(1, S, h, cfg.head_dim))
+                               .astype(np.float32), device=dev).bfloat16()
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    pos = torch.arange(S, device=dev)
+    before = _build.launches["flash_attention"]
+    o = A.self_attention(cfg, q, k, v, pos, pos, impl="flash")
+    assert _build.launches["flash_attention"] == before + 1
+    p = A.attn_flash(q, k, v, pos, pos, causal=True, window=cfg.swa_window,
+                     q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk)
+    assert _build.launches["flash_attention"] == before + 1
+    torch.testing.assert_close(o.float(), p.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("arch,launches", [
+    ("qwen2-moe-a2.7b", 4), ("zamba2-1.2b", 2), ("whisper-medium", 2)])
+def test_family_prefill_runs_the_kernel(dev, arch, launches):
+    """Reduced MoE, zamba2 (the shared block, once per group) and whisper
+    (the decoder's causal self-attention) on the card: prefill launches
+    the kernel where the family has causal self-attention, and its logits
+    equal the dense path's (float32)."""
+    cfg = get_config(arch).reduced()
+    params = TM.init_params(cfg, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=dev, generator=gen)
+    batch = {"tokens": toks}
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn((2, cfg.n_frames, cfg.d_model),
+                                      device=dev, generator=gen)
+    _build.reset_launches()
+    with torch.inference_mode():
+        pl, _ = TM.prefill(cfg, params, batch)
+        assert _build.launches["flash_attention"] == launches
+        full, _ = TM.forward_logits(cfg, params, toks,
+                                    frames=batch.get("frames"), impl="full")
+    torch.testing.assert_close(pl, TM._mask_padded_vocab(cfg, full[:, -1]),
+                               atol=1e-3, rtol=0)
+
+
 def test_plain_scatter_has_the_kernels_bits(dev, rng):
     """The plain version adds in packed order on the card too
     (`core.gee._add_by_rank`): the kernel's bits exactly."""

@@ -99,5 +99,8 @@ def test_main_defaults_to_cuda():
 
 
 def test_main_refuses_unported_arch():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        serve.main(["--arch", "yi-9b", "--reduced", "--device", "cpu"])
+    """Every id of the reference's registry is ported; an id neither
+    package knows raises."""
+    with pytest.raises(KeyError, match="unknown arch"):
+        serve.main(["--arch", "no-such-arch", "--reduced", "--device",
+                    "cpu"])

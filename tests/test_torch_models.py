@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as j_get_config
+from repro.configs import list_archs as j_list_archs
 from repro.models import attention as JA
 from repro.models import layers as JL
 from repro.models import model as JM
@@ -52,42 +53,35 @@ def _close(t, j, atol, rtol=0):
 
 
 def test_registry_lists_only_ported_archs():
-    assert list_archs() == ["yi-6b"]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("grok-1-314b")
+    """The port runs every arch of the reference's registry, in order."""
+    assert list_archs() == j_list_archs()
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("reduced", [False, True])
-def test_config_fields_equal_reference(reduced):
-    t, j = get_config("yi-6b"), j_get_config("yi-6b")
+# (arch, reduced) for every arch; yi-6b's cases keep their ids
+ARCH_CASES = [pytest.param(a, r, id=str(r) if a == "yi-6b" else f"{a}-{r}")
+              for a in j_list_archs() for r in (False, True)]
+
+
+@pytest.mark.parametrize("arch,reduced", ARCH_CASES)
+def test_config_fields_equal_reference(arch, reduced):
+    t, j = get_config(arch), j_get_config(arch)
     if reduced:
         t, j = t.reduced(), j.reduced()
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert t.padded_vocab == j.padded_vocab
 
 
-@pytest.mark.parametrize("reduced", [False, True])
-def test_param_count_equals_reference(reduced):
-    t, j = get_config("yi-6b"), j_get_config("yi-6b")
+@pytest.mark.parametrize("arch,reduced", ARCH_CASES)
+def test_param_count_equals_reference(arch, reduced):
+    t, j = get_config(arch), j_get_config(arch)
     if reduced:
         t, j = t.reduced(), j.reduced()
     assert t.param_count() == j.param_count()
-    if not reduced:
+    assert t.active_param_count() == j.active_param_count()
+    if arch == "yi-6b" and not reduced:
         assert 6.0e9 < t.param_count() < 6.1e9
-
-
-def test_other_families_raise():
-    cfg = dataclasses.replace(get_config("yi-6b").reduced(),
-                              moe=j_get_config("qwen2-moe-a2.7b").moe)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TM.param_specs(cfg)
-    with pytest.raises(NotImplementedError, match="triangular"):
-        q = torch.zeros((1, 64, 4, 16))
-        TA.self_attention(get_config("yi-6b").reduced(), q, q, q,
-                          torch.arange(64), torch.arange(64),
-                          impl="triangular")
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +153,69 @@ def test_attn_flash(rng, window):
     _close(TA.attn_flash(_t(q), _t(k), _t(v), _t(pos), _t(pos), **kw),
            JA.attn_flash(q, k, v, jnp.asarray(pos), jnp.asarray(pos), **kw),
            1e-5)
+
+
+@pytest.mark.parametrize("window", [0, 24, 40])
+def test_attn_triangular(rng, window):
+    """The lower-triangular block loop, with and without a window (24 <
+    chunk 32: left-of-window blocks skipped; 40: a window spanning two
+    chunks)."""
+    q, k, v = _qkv(rng, S=96)
+    pos = np.arange(96)
+    _close(TA.attn_triangular(_t(q), _t(k), _t(v), _t(pos), _t(pos),
+                              window=window, chunk=32),
+           JA.attn_triangular(q, k, v, jnp.asarray(pos), jnp.asarray(pos),
+                              window=window, chunk=32), 1e-5)
+
+
+@pytest.mark.parametrize("variant", ["mqa", "swa"])
+def test_self_attention_triangular_impl(rng, variant):
+    kw = VARIANTS[variant]
+    tcfg = dataclasses.replace(get_config("yi-6b").reduced(), **kw)
+    jcfg = dataclasses.replace(j_get_config("yi-6b").reduced(), **kw)
+    q, k, v = _qkv(rng)
+    pos = np.arange(64)
+    _close(TA.self_attention(tcfg, _t(q), _t(k), _t(v), _t(pos), _t(pos),
+                             impl="triangular"),
+           JA.self_attention(jcfg, q, k, v, jnp.asarray(pos),
+                             jnp.asarray(pos), impl="triangular"), 1e-5)
+
+
+@pytest.mark.parametrize("causal,window,kv_len", [
+    (True, 0, None), (False, 0, 5), (True, 3, 7), (False, 4, 0)])
+def test_mask(causal, window, kv_len):
+    qp, kp = np.arange(2, 11), np.arange(12)
+    assert np.array_equal(
+        TA._mask(_t(qp), _t(kp), causal, window, kv_len).numpy(),
+        np.asarray(JA._mask(jnp.asarray(qp), jnp.asarray(kp), causal,
+                            window, kv_len)))
+
+
+def test_cross_attention(rng):
+    cfg = get_config("whisper-medium").reduced()
+    q = rng.normal(size=(2, 7, 4, 16)).astype(np.float32)
+    ek, ev = (rng.normal(size=(2, 11, 4, 16)).astype(np.float32)
+              for _ in range(2))
+    _close(TA.cross_attention(cfg, _t(q), _t(ek), _t(ev)),
+           JA.cross_attention(j_get_config("whisper-medium").reduced(), q,
+                              ek, ev), 1e-5)
+
+
+@pytest.mark.parametrize("window,S,takes", [
+    (0, 2048, True), (0, 1, True), (4096, 2048, True), (4096, 4096, True),
+    (4096, 4097, False), (32, 64, False), (32, 32, True)])
+def test_flash_kernel_takes_unless_the_window_masks(window, S, takes):
+    """The kernel computes the windowed function wherever the window
+    masks nothing (S <= window): the dense windowed mask is then the
+    causal one."""
+    cfg = dataclasses.replace(get_config("yi-6b"), swa_window=window)
+    assert TA.flash_kernel_takes(cfg, S) is takes
+    n = min(S, 48)
+    pos = torch.arange(n)
+    masks_nothing = torch.equal(TA._mask(pos, pos, True, window),
+                                TA._mask(pos, pos, True, 0))
+    if n == S:
+        assert masks_nothing is takes
 
 
 # ---------------------------------------------------------------------------
