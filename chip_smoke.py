@@ -35,7 +35,8 @@
    labelled, as in a refine round, and one whole `CudaBackend.embed`;
    and the general bodies at one wide shape each: top-k with k = 100 on
    shard 0's rows, top-k at K = 300 and the delta kernel at K = 200 on
-   262,144 random rows);
+   262,144 random rows; each of these shapes, and the skew graph's
+   scatter, also beside its library call);
 5. self-checks: the shards' Z equals a fresh fit on the updated graph,
    and the fused answers equal the plain scan's on the same Zn;
 5'. the plan cache and refinement on the same graph: a cuda fit with a
@@ -67,6 +68,26 @@
    degree about 15,700, 10% labelled) on the cuda backend, held to the
    torch backend's fit; prints the plan's device bytes, the kernel's
    time and share of its bound, and peak device memory;
+5c. the multi-process deployment on phase 5a's graph
+   (`repro_torch.transport`): a durable `ServingEngine` with
+   ``transport="socket"`` (4 shard worker processes: at 2 shards a build
+   frame would exceed the codec's 512 MiB `MAX_FRAME`) and one WAL-tail
+   replica worker, all on the card, against a non-durable in-process
+   4-shard engine on the same compacted edges; --steps ticks of a 64-node
+   top-k read, a 200-edge insert and another read through a
+   `MicroBatcher` on each (reads try the replica first, pinned to the
+   version, and fall back to the owners).  Every answer, every worker's
+   Z slice and top-k candidates are bit-equal to the in-process
+   engine's; the caught-up replica's pinned reads equal the owner's;
+   every worker's `ping` reports a cuda device and launches of the
+   three GEE kernels.  Then a shard worker killed before a write (which
+   fails loudly after its WAL append), `ServingEngine.open` with fresh
+   workers (the in-process engine's (version, epoch, fingerprint), Z
+   within rtol 1e-5, top-k under `topk_equivalent`) and a
+   `checkpoint()` of the reopened deployment.  Prints spawn + handshake,
+   build (with frame bytes), bootstrap, ticket, reopen and checkpoint
+   seconds, the replica's share of reads, and each process's device
+   memory (the workers' pings; nvidia-smi's compute-apps list);
 6. frees the skew phase's tensors and drives the LM serve path: yi-6b at
    full width (d_model 4096, 32 layers, GQA 32/4, float32 weights drawn
    on the card from --seed, bfloat16 compute) through
@@ -86,8 +107,8 @@
    `generate` at --lm-batch prompts of --lm-prompt tokens (whisper also
    gets n_frames random frame embeddings): qwen2-moe-a2.7b at full
    depth with --lm-gen tokens (this phase's main path), the others with
-   FAMILY_GEN (8) tokens, qwen1.5-110b and grok-1-314b at the depth that fits
-   one card.  Launch counts are zeroed just before each arch's run and
+   FAMILY_GEN (8) tokens at 12 layers at most (grok-1-314b 6, xLSTM one
+   group of 8).  Launch counts are zeroed just before each arch's run and
    read just after: flash attention runs once per causal
    self-attention in prefill (zamba2: once per group; whisper: the
    decoder's layers; xLSTM: never).  One prefill and one decode step
@@ -97,7 +118,8 @@
    dims (D = 64 for whisper and zamba2, D = 120 for danube) against its
    plain version, timed beside SDPA.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+Prints each phase's wall seconds, the card's name and power limit, a
+``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises and
 the script exits non-zero.  Without a card, or without the repository's
 `src/repro_torch` beside it, it exits non-zero and prints no result.
@@ -138,15 +160,15 @@ BF16_TC_FLOPS = 989e12
 # two correct paths drift apart over 32 layers, at float32 too.
 LM_REL_TOL = 2e-2
 # Phase 7, the other LM families at full width: (arch, layers run; None:
-# all).  A depth is cut only where the weights do not fit one
-# 80 GB card: qwen1.5-110b holds about 2.5 GiB a layer and 4.6 GiB of
-# embeddings in bfloat16 (207 GiB in all), grok-1-314b about 9.2 GiB a
-# layer (590 GiB).  FAMILY_MAIN is this phase's full-depth main path,
-# generating --lm-gen tokens; the others generate FAMILY_GEN.
-FAMILIES = (("qwen2-moe-a2.7b", None), ("yi-9b", None),
-            ("h2o-danube-3-4b", None), ("chameleon-34b", None),
-            ("qwen1.5-110b", 20), ("grok-1-314b", 6), ("zamba2-1.2b", None),
-            ("whisper-medium", None), ("xlstm-1.3b", None))
+# all).  FAMILY_MAIN is this phase's full-depth main path, generating
+# --lm-gen tokens; the others generate FAMILY_GEN at no more than 12
+# layers (a whole group for xLSTM: 8), so that the whole run stays near
+# ten minutes beside phase 5c.  grok-1-314b runs 6: about 9.2 GiB a layer
+# of bfloat16 weights (590 GiB in all) on one 80 GB card.
+FAMILIES = (("qwen2-moe-a2.7b", None), ("yi-9b", 12),
+            ("h2o-danube-3-4b", 12), ("chameleon-34b", 12),
+            ("qwen1.5-110b", 12), ("grok-1-314b", 6), ("zamba2-1.2b", 12),
+            ("whisper-medium", 12), ("xlstm-1.3b", 12))
 FAMILY_MAIN = "qwen2-moe-a2.7b"
 FAMILY_GEN = 8
 
@@ -312,6 +334,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
 
     # -- 1. build ---------------------------------------------------------
+    t_start = time.perf_counter()
     t0 = time.perf_counter()
     names = _build.build_all()
     print(f"built {names} in {time.perf_counter() - t0:.1f} s")
@@ -651,18 +674,25 @@ def main() -> int:
                       "all labelled")
         ms_all = timer(lambda: GS.gee_scatter(row_ptr, cls_a, val_a, **kw),
                        20)
+        b_all = bound_ms(8 * cls_a.numel() + 8 * row_ptr.numel()
+                         + T * cfg.tile_n * K * 4,
+                         int((val_a != 0).sum().item()))[0]
         del cls_a, val_a
 
         u_t = torch.as_tensor(g.u, device=dev)
         v_t = torch.as_tensor(g.v, device=dev)
         w_t = torch.as_tensor(g.w, device=dev)
+
+        def scatter_lib(dst_, cls_, val_):
+            return lambda: torch.zeros((n, K), device=dev).index_put_(
+                (dst_, cls_), val_, accumulate=True)
+
+        lib_all = timer(scatter_lib(*edge_contributions(
+            u_t, v_t, w_t, Y_all, make_w(Y_all, K))), 3)
         dst_l, cls_l, val_l = edge_contributions(u_t, v_t, w_t, emb._Yj,
                                                  emb.Wv_)
         del u_t, v_t, w_t
-
-        def run_scatter_lib():
-            torch.zeros((n, K), device=dev).index_put_((dst_l, cls_l), val_l,
-                                                       accumulate=True)
+        run_scatter_lib = scatter_lib(dst_l, cls_l, val_l)
 
         S = cls.numel()
         nnz = int((val != 0).sum().item())
@@ -681,7 +711,8 @@ def main() -> int:
                                                         **kw), 3),
             bound_ms=b, bound_by=by, library_ms=timer(run_scatter_lib, 3),
             bound_share=b / ms, bound_share_12b=b12 / ms,
-            ms_all_labelled=ms_all,
+            ms_all_labelled=ms_all, all_labelled_bound_ms=b_all,
+            all_labelled_library_ms=lib_all,
             embed_ms=timer(lambda: be.embed(plan, emb._Yj, emb.Wv_), 10),
             shape=f"T={T} S={S} nonzero={nnz} K={K}"))
         del cls, val, dst_l, cls_l, val_l
@@ -732,6 +763,8 @@ def main() -> int:
         wide["wide_k100_bound_ms"] = bound_ms(
             m * K * 4 + nq * K * 4 + nq * 4 + nq * 100 * 8,
             2.0 * nq * m * K)[0]
+        wide["wide_k100_library_ms"] = timer(
+            lambda: torch.topk(qc @ Zn0.T, 100, dim=1), 3)
         gen_ = torch.Generator(device=dev).manual_seed(args.seed)
         Zw = QF.normalize_rows(torch.randn((1 << 18, 300), generator=gen_,
                                            device=dev))
@@ -743,6 +776,8 @@ def main() -> int:
         wide["wide_K300_bound_ms"] = bound_ms(
             Zw.numel() * 4 + qw.numel() * 4 + nq * 4 + nq * k * 8,
             2.0 * nq * Zw.numel())[0]
+        wide["wide_K300_library_ms"] = timer(
+            lambda: torch.topk(qw @ Zw.T, k, dim=1), 3)
         results[-1].update(wide)
         del Zw, qw
 
@@ -785,7 +820,14 @@ def main() -> int:
         keep = r_t < Zw.shape[0]
         rw_, cw_, vw_ = r_t[keep], c_t[keep] % 200, v_t[keep]
         check_delta(Zw, rw_, cw_, vw_, "K=200 n_local=262144")
+
+        def run_delta_lib_wide():
+            Zx = Zw.clone().index_put_((rw_.long(), cw_.long()), vw_,
+                                       accumulate=True)
+            torch.nn.functional.normalize(Zx, dim=1, eps=1e-9)
+
         results[-1].update(
+            wide_K200_library_ms=timer(run_delta_lib_wide, 3),
             wide_K200_ms=timer(lambda: QF.gee_delta_renorm(Zw, rw_, cw_, vw_),
                                10),
             wide_K200_bound_ms=bound_ms(3 * Zw.numel() * 4
@@ -1223,6 +1265,12 @@ def main() -> int:
         b = bound_ms(8 * S + 8 * row_ptr.numel() + T * tile_n * K * 4,
                      int((val != 0).sum().item()))[0]
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        dst_l, cls_l, val_l = edge_contributions(
+            *(torch.as_tensor(a, device=dev) for a in (g.u, g.v, g.w)),
+            emb._Yj, emb.Wv_)
+        lib = timer(lambda: torch.zeros((n, K), device=dev).index_put_(
+            (dst_l, cls_l), val_l, accumulate=True), 3)
+        del dst_l, cls_l, val_l
         print(f"skew phase: powerlaw n={n} s={s} alpha=0.5, max degree "
               f"{int(deg.max())}, largest tile {largest} contributions; "
               f"data {t_data:.1f} s, cuda fit {t_fit:.2f} s; plan "
@@ -1230,8 +1278,314 @@ def main() -> int:
               f"largest tile it would be {padded / 2**30:.1f} GiB); "
               f"max|Z_cuda - Z_torch| = {z_err:.3e} (rtol 1e-5, atol 1e-6); "
               f"gee_scatter {ms:.4f} ms, bound {b:.4f} ms, {b / ms:.3f} of "
-              f"it; peak device memory {peak_gib:.2f} GiB")
-        return dict(skew_ms=ms, skew_bound_share=b / ms)
+              f"it, library (index_put_) {lib:.4f} ms; peak device memory "
+              f"{peak_gib:.2f} GiB")
+        return dict(skew_ms=ms, skew_bound_share=b / ms, skew_library_ms=lib)
+
+    def compute_apps():
+        """{pid: device MiB} of every process on the card
+        (`nvidia-smi --query-compute-apps`)."""
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True).stdout
+        apps = {}
+        for line in out.splitlines():
+            parts = [x.strip() for x in line.split(",")]
+            if len(parts) == 2 and parts[0].isdigit() and parts[1].isdigit():
+                apps[int(parts[0])] = int(parts[1])
+        return apps
+
+    def socket_path(g, truth, Y):
+        """Phase 5c: the multi-process deployment at LiveJournal scale on
+        the main path's graph.  A durable socket `ServingEngine` (4 shard
+        workers, 1 WAL-tail replica) against a non-durable in-process
+        engine on the same compacted store, through the same ticks; a
+        shard worker killed mid-batch, a reopen with fresh workers and its
+        checkpoint.  Every worker is shut down in a `finally`."""
+        import tempfile
+        from repro_torch import obs
+        from repro_torch.graph.edges import Graph as G_
+        from repro_torch.serving import GraphStore, MicroBatcher, ServingEngine
+        from repro_torch.transport import MAX_FRAME, TransportError
+        from repro_torch.transport import remote as R
+
+        n, K, k, nq, P = g.n, 16, 10, 64, 4
+        # the build RPC carries a shard's routed sub-multiset (12 bytes an
+        # edge) and the labels (4 bytes a node) in one frame
+        mid = n // 2
+        half = int(((g.u < mid) | (g.v < mid)).sum())
+        frame2 = 12 * half + 4 * n
+        print(f"socket deployment: frame reckoning on the generated edges, "
+              f"a build frame at 2 shards holds {half:,} edges, "
+              f"{frame2 / 2**20:,.0f} MiB (MAX_FRAME "
+              f"{MAX_FRAME / 2**20:.0f} MiB, over it: "
+              f"{frame2 > MAX_FRAME}): {P} shard workers")
+        builds = []
+        real_build = R.RemoteShard.build
+
+        def timed_build(self, graph_or_source, Y_):
+            t0 = time.perf_counter()
+            real_build(self, graph_or_source, Y_)
+            builds.append((self.shard_id, graph_or_source.s,
+                           time.perf_counter() - t0))
+
+        R.RemoteShard.build = timed_build
+        apps_peak = {}
+        mem = {}
+
+        def sample_apps():
+            for pid, mib in compute_apps().items():
+                apps_peak[pid] = max(apps_peak.get(pid, 0), mib)
+
+        def note_memory(engine):
+            """Each worker's own peak and reserved device bytes (ping)."""
+            pings = [(f"shard {s.shard_id}", s.ping()) for s in engine.shards]
+            pings += [("replica", r_.ping()) for r_ in engine._replicas]
+            for role, pg in pings:
+                dm = pg["device_memory"]
+                if dm is None:               # not on a card: checked below
+                    continue
+                old = mem.get(role, (0, 0))
+                mem[role] = (max(old[0], dm["max_allocated"]),
+                             max(old[1], dm["reserved"]))
+            return pings
+
+        obs.configure(enabled=True)
+        obs.reset()
+        tick_rng = np.random.default_rng(args.seed + 9)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sock = oracle = rec = None
+        tmp = tempfile.mkdtemp(prefix="socket-")
+        try:
+            data_dir = str(Path(tmp) / "deployment")
+            store = GraphStore(g, Y, K)
+            t0 = time.perf_counter()
+            sock = ServingEngine(store, data_dir=data_dir, num_shards=P,
+                                 backend="cuda", transport="socket",
+                                 replicas=1, device="cuda")
+            t_boot = time.perf_counter() - t0
+            rep_proc = sock._replica_procs[0]
+            print(f"socket boot: {t_boot:.2f} s (compaction, {P} shard "
+                  f"builds, snapshot, replica spawn + bootstrap); spawn + "
+                  f"handshake s per shard worker "
+                  + ", ".join(f"{s.proc.ready_s:.2f}" for s in sock.shards)
+                  + f"; replica spawn + bootstrap + handshake "
+                  f"{rep_proc.ready_s:.2f} s")
+            print("socket shard builds (shard, edges, frame MiB, s): "
+                  + ", ".join(f"({i}, {s_:,}, {(12 * s_ + 4 * n) / 2**20:,.0f}"
+                              f", {t_:.2f})" for i, s_, t_ in builds))
+            if max(12 * s_ + 4 * n for _, s_, _ in builds) > MAX_FRAME:
+                raise AssertionError("a build frame exceeds MAX_FRAME")
+            sample_apps()
+            # the in-process oracle: the same compacted edges, fingerprint
+            # and labels, so the same (version, epoch, fingerprint) and Z
+            base = store.base
+            og = G_(base.u.copy(), base.v.copy(), base.w.copy(), n)
+            og._fp = base.fingerprint()
+            t0 = time.perf_counter()
+            oracle = ServingEngine(GraphStore(og, Y.copy(), K), num_shards=P,
+                                   backend="cuda", device="cuda")
+            torch.cuda.synchronize()
+            print(f"in-process oracle: {P} shard builds "
+                  f"{time.perf_counter() - t0:.2f} s")
+            del og
+            if ((sock.version, sock.epoch, sock.fingerprint())
+                    != (oracle.version, oracle.epoch, oracle.fingerprint())):
+                raise AssertionError("socket and in-process engines start "
+                                     "from different states")
+            bats = [e.start(MicroBatcher(e, topk=k)) for e in (sock, oracle)]
+            tick_ms, answers = [], []
+            for tick in range(args.steps):
+                reads = [tick_rng.integers(0, n, nq) for _ in range(2)]
+                u = tick_rng.integers(0, n, 200).astype(np.int32)
+                v = tick_rng.integers(0, n, 200).astype(np.int32)
+                w = tick_rng.random(200).astype(np.float32) + 0.5
+                row = []
+                for bat in bats:
+                    ts = [bat.submit("topk", reads[0]),
+                          bat.submit("insert", (u, v, w)),
+                          bat.submit("topk", reads[1])]
+                    for t_ in ts:
+                        t_.result(timeout=600)
+                    row.append(ts)
+                answers.append([[t_.result() for t_ in (ts[0], ts[2])]
+                                for ts in row])
+                tick_ms.append([max(t_.latency for t_ in ts if t_.kind == kd)
+                                * 1e3 for ts in row
+                                for kd in ("insert", "topk")])
+                print(f"socket tick {tick}: ticket latency ms socket / "
+                      f"in-process: insert {tick_ms[-1][0]:.2f} / "
+                      f"{tick_ms[-1][2]:.2f}, top-k {tick_ms[-1][1]:.2f} / "
+                      f"{tick_ms[-1][3]:.2f}")
+            for e in (sock, oracle):
+                e.stop()
+                if e.loop_error is not None:
+                    raise AssertionError(f"flush loop failed: "
+                                         f"{e.loop_error!r}")
+            sample_apps()
+            served = {o: obs.registry().counter_value(
+                "repro_transport_replica_reads_total", method="topk",
+                outcome=o) for o in ("ok", "lag", "dead")}
+            events = [r_.get("last_event") for r_ in
+                      sock.health().get("replicas", [])]
+            print(f"socket reads: replica served {served['ok']:.0f}, fell "
+                  f"back to the owners on lag {served['lag']:.0f}, on a "
+                  f"dead replica {served['dead']:.0f} (of "
+                  f"{2 * args.steps}); last replica event {events}")
+            same_answers = all(
+                np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                for (sa, oa) in answers for a, b in zip(sa, oa))
+            z_equal = [bool(torch.equal(a.Z_owned, b.Z_owned))
+                       for a, b in zip(sock.shards, oracle.shards)]
+            # each worker's own candidates against the in-process shard's
+            held = tick_rng.integers(0, n, nq).astype(np.int32)
+            q = Q.normalize_rows(torch.as_tensor(oracle.query_embed(held),
+                                                 device=dev))
+            cand_equal = []
+            for a, b in zip(sock.shards, oracle.shards):
+                ca = a.topk_candidates(q, held, k=k)
+                cb = b.topk_candidates(q, held, k=k)
+                cand_equal.append(bool(np.array_equal(ca[0], cb[0])
+                                       and np.array_equal(ca[1], cb[1])))
+            print(f"socket == in-process: every top-k answer bit-equal "
+                  f"{same_answers}; z_owned bit-equal per worker {z_equal}; "
+                  f"topk_candidates bit-equal per worker {cand_equal}")
+            if not (same_answers and all(z_equal) and all(cand_equal)):
+                raise AssertionError("the socket deployment differs from the "
+                                     "in-process engine")
+            # the replica, caught up, answers as the owner at the pinned
+            # version
+            rep = sock._replicas[0]
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 300:
+                st = rep.status()
+                if st["version"] == sock.version:
+                    break
+                time.sleep(0.05)
+            ri, rv = rep.topk(held, k=k, min_version=sock.version)
+            oi, ov = oracle.query_topk(held, k=k)
+            re_ = rep.embed(held, min_version=sock.version)
+            rep_equal = bool(np.array_equal(ri, oi) and np.array_equal(rv, ov)
+                             and np.array_equal(re_, oracle.query_embed(held)))
+            print(f"replica at version {st['version']} (caught up in "
+                  f"{time.perf_counter() - t0:.2f} s, {st['records_applied']} "
+                  f"records applied): pinned top-k and embed bit-equal to the "
+                  f"owner's {rep_equal}")
+            if not rep_equal:
+                raise AssertionError("the replica's pinned read differs from "
+                                     "the owner's")
+            pings = [pg for _, pg in note_memory(sock)]
+            for pg in pings:
+                print(f"worker ping: {pg['role']} "
+                      f"{pg.get('shard_id', '')} pid {pg['pid']} device "
+                      f"{pg['device']} backend {pg['backend']} launches "
+                      f"{pg['launches']}")
+                if not pg["device"].startswith("cuda"):
+                    raise AssertionError(f"a worker is not on the card: {pg}")
+                for name in ("gee_scatter", "gee_delta_renorm", "topk_fused"):
+                    if pg["launches"][name] == 0:
+                        raise AssertionError(f"{name} never launched in "
+                                             f"{pg['role']} {pg['pid']}")
+            # kill a shard worker mid-batch: the write fails loudly after
+            # its WAL append, and a reopen recovers it
+            u = tick_rng.integers(0, n, 200).astype(np.int32)
+            v = tick_rng.integers(0, n, 200).astype(np.int32)
+            w = tick_rng.random(200).astype(np.float32) + 0.5
+            sock.shards[1].proc.kill()
+            try:
+                sock.apply_edge_delta(u, v, w)
+            except TransportError as e:
+                print(f"killed shard worker 1: the write failed loudly "
+                      f"({type(e).__name__}: {e})")
+            else:
+                raise AssertionError("a write to a dead shard worker "
+                                     "succeeded")
+            oracle.apply_edge_delta(u, v, w)
+            records = sock.wal.records_appended
+            procs = list(sock._shard_procs) + list(sock._replica_procs)
+            sock.close()
+            sock = None
+            codes = [p_.proc.returncode for p_ in procs]
+            print(f"first deployment closed: worker exit codes {codes} "
+                  f"(shard worker 1 killed)")
+            if codes != [0, -9] + [0] * (len(codes) - 2):
+                raise AssertionError(f"a worker did not exit cleanly: "
+                                     f"{codes}")
+            n_builds = len(builds)
+            t0 = time.perf_counter()
+            rec = ServingEngine.open(data_dir, transport="socket",
+                                     backend="cuda", device="cuda")
+            t_open = time.perf_counter() - t0
+            print("socket reopen: spawn + handshake s per shard worker "
+                  + ", ".join(f"{s.proc.ready_s:.2f}" for s in rec.shards)
+                  + "; shard builds (shard, edges, s) "
+                  + ", ".join(f"({i}, {s_:,}, {t_:.2f})"
+                              for i, s_, t_ in builds[n_builds:]))
+            note_memory(rec)
+            sample_apps()
+            rtriple = (rec.version, rec.epoch, rec.fingerprint())
+            otriple = (oracle.version, oracle.epoch, oracle.fingerprint())
+            dz = max((a.Z_owned - b.Z_owned).abs().max().item()
+                     for a, b in zip(rec.shards, oracle.shards))
+            ri, rv = rec.query_topk(held, k=k)
+            oi, ov = oracle.query_topk(held, k=k)
+            topk_equivalent(ri, rv, oi, ov)
+            print(f"socket reopen: {t_open:.2f} s ({records} WAL records "
+                  f"this generation, the torn write included); {rtriple[:2]} "
+                  f"vs in-process {otriple[:2]}, fingerprint equal "
+                  f"{rtriple[2] == otriple[2]}; max|dZ| = {dz:.3e}; held "
+                  f"top-k topk_equivalent, bit-equal "
+                  f"{bool(np.array_equal(ri, oi) and np.array_equal(rv, ov))}")
+            if rtriple != otriple:
+                raise AssertionError(f"reopened {rtriple} != in-process "
+                                     f"{otriple}")
+            for a, b in zip(rec.shards, oracle.shards):
+                if not torch.allclose(a.Z_owned, b.Z_owned, rtol=1e-5,
+                                      atol=1e-6):
+                    raise AssertionError(f"reopened Z differs: {dz}")
+            # a checkpoint of the reopened deployment: compaction, 4 socket
+            # builds, snapshot, a rotated WAL
+            t0 = time.perf_counter()
+            info = rec.checkpoint()
+            t_ckpt = time.perf_counter() - t0
+            print(f"socket checkpoint (the reopened deployment): "
+                  f"{t_ckpt:.2f} s (generation {info['generation']}, "
+                  f"{info['edges_before']:,} -> {info['edges_after']:,} "
+                  f"edges)")
+            note_memory(rec)
+            sample_apps()
+            mem["router"] = (torch.cuda.max_memory_allocated(),
+                             torch.cuda.memory_reserved())
+            print("socket phase device memory per process, torch peak "
+                  "allocated / reserved GiB: " + ", ".join(
+                      f"{role} {a / 2**30:.2f} / {b / 2**30:.2f}"
+                      for role, (a, b) in mem.items())
+                  + "; nvidia-smi --query-compute-apps peak MiB by pid: "
+                  + ", ".join(f"{pid} {mib}"
+                              for pid, mib in sorted(apps_peak.items())))
+            procs = list(rec._shard_procs)
+            rec.close()
+            rec = None
+            codes = [p_.proc.returncode for p_ in procs]
+            print(f"reopened deployment closed: worker exit codes {codes}")
+            if any(codes):
+                raise AssertionError(f"a worker did not exit cleanly: "
+                                     f"{codes}")
+            return dict(boot_s=t_boot, checkpoint_s=t_ckpt, reopen_s=t_open,
+                        replica_ready_s=rep_proc.ready_s, tick_ms=tick_ms,
+                        replica_reads=served, builds=builds)
+        finally:
+            R.RemoteShard.build = real_build
+            for e in (sock, rec):
+                if e is not None:
+                    e.close()
+            if oracle is not None:
+                oracle.close()
+            shutil.rmtree(tmp, ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
 
     def lm_self_check(cfg, params, prompts, first):
         """Kernel path against the dense plain path, layer by layer on the
@@ -1635,6 +1989,7 @@ def main() -> int:
             G = args.lm_gen if arch == FAMILY_MAIN else FAMILY_GEN
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            t_arch = time.perf_counter()
             t0 = time.perf_counter()
             params = M.init_params(cfg, args.seed, device=dev)
             torch.cuda.synchronize()
@@ -1709,7 +2064,8 @@ def main() -> int:
                   f"{dec_ms:.2f} ms per step; device idle share prefill "
                   f"{idle[0]:.3f}, decode {idle[1]:.3f}; flash launches "
                   f"{launches['flash_attention']} (expected {want}); peak "
-                  f"{peak_gib:.2f} GiB; self-check max rel err {err:.3e}")
+                  f"{peak_gib:.2f} GiB; self-check max rel err {err:.3e}; "
+                  f"wall {time.perf_counter() - t_arch:.1f} s")
             del params, prompts, frames, toks
             gc.collect()
             torch.cuda.empty_cache()
@@ -1745,20 +2101,32 @@ def main() -> int:
             del q, k, v
         return out
 
-    results, main_graph = gee_path()
+    walls = {"build + small shapes": time.perf_counter() - t_start}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    results, main_graph = timed("GEE path", gee_path)
     gc.collect()
     torch.cuda.empty_cache()
-    plan_cache_path(main_graph[0], main_graph[2])
-    engine_path(*main_graph)
+    timed("plan cache", plan_cache_path, main_graph[0], main_graph[2])
+    timed("engine", engine_path, *main_graph)
+    gc.collect()
+    results[0].update(timed("skew", skew_path))
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("socket deployment", socket_path, *main_graph)
     del main_graph
     gc.collect()
-    results[0].update(skew_path())
+    results.append(timed("yi-6b", lm_path))
     gc.collect()
     torch.cuda.empty_cache()
-    results.append(lm_path())
-    gc.collect()
-    torch.cuda.empty_cache()
-    fam = families_path()
+    fam = timed("families", families_path)
+    print("phase wall seconds: " + ", ".join(f"{k_} {v_:.1f}"
+                                             for k_, v_ in walls.items()))
     fam["launches_by_arch"] = {"yi-6b": results[-1]["launches"],
                                **fam["launches_by_arch"]}
     results[-1].update(fam)
@@ -1771,21 +2139,27 @@ def main() -> int:
         if "ms_all_labelled" in r_:
             rate = (f", {r_['bound_share']:.3f} of the bound "
                     f"({r_['bound_share_12b']:.3f} of the 12-byte one), all "
-                    f"labelled {r_['ms_all_labelled']:.4f} ms, embed "
+                    f"labelled {r_['ms_all_labelled']:.4f} ms (bound "
+                    f"{r_['all_labelled_bound_ms']:.4f}, library "
+                    f"{r_['all_labelled_library_ms']:.4f}), embed "
                     f"{r_['embed_ms']:.4f} ms, skew {r_['skew_ms']:.4f} ms "
-                    f"({r_['skew_bound_share']:.3f} of its bound)")
+                    f"({r_['skew_bound_share']:.3f} of its bound, library "
+                    f"{r_['skew_library_ms']:.4f})")
         if "select_ms" in r_:
             rate = (f", select {r_['select_ms']:.4f} ms + merge "
                     f"{r_['merge_ms']:.4f} ms, {r_['bound_share']:.3f} of "
                     f"the bound, issue floor {r_['issue_floor_ms']:.4f} ms; "
                     f"general path: k = 100 {r_['wide_k100_ms']:.4f} ms "
-                    f"(bound {r_['wide_k100_bound_ms']:.4f}), K = 300 "
+                    f"(bound {r_['wide_k100_bound_ms']:.4f}, library "
+                    f"{r_['wide_k100_library_ms']:.4f}), K = 300 "
                     f"{r_['wide_K300_ms']:.4f} ms (bound "
-                    f"{r_['wide_K300_bound_ms']:.4f})")
+                    f"{r_['wide_K300_bound_ms']:.4f}, library "
+                    f"{r_['wide_K300_library_ms']:.4f})")
         if "wide_K200_ms" in r_:
             rate = (f", rows in device memory at K = 200: "
                     f"{r_['wide_K200_ms']:.4f} ms (bound "
-                    f"{r_['wide_K200_bound_ms']:.4f})")
+                    f"{r_['wide_K200_bound_ms']:.4f}, library "
+                    f"{r_['wide_K200_library_ms']:.4f})")
         print(f"{r_['name']}: {r_['shape']}: kernel {r_['ms']:.4f} ms, "
               f"bound {r_['bound_ms']:.4f} ms ({r_['bound_by']}), plain "
               f"{r_['plain_ms']:.4f} ms, library {r_['library_ms']:.4f} ms, "

@@ -22,7 +22,14 @@ The port of `repro.serving.engine.ServingEngine`.  A deployment of
   inverted lists of its rows by nearest class centroid, delta-maintained
   under centroids the engine fixes and re-quantizes past `index_churn`;
   ``query_topk(mode="ivf", nprobe=...)`` scores only the probed cells
-  and, at ``nprobe = K``, answers as the exact scan bit for bit.
+  and, at ``nprobe = K``, answers as the exact scan bit for bit;
+* an optional **multi-process deployment** (`repro_torch.transport`):
+  ``transport="socket"`` runs each shard in a worker process (spawned,
+  or reached through ``shard_addrs``) behind `RemoteShard`, which is
+  call-compatible with `EmbeddingShard`, so the routing above is
+  transport-blind; ``replicas=N`` / ``replica_addrs`` add WAL-tail read
+  replicas that serve version-pinned reads, with a fall back to the
+  owner on lag or on a dead replica (``health()`` reports it).
 
 The data directory is the reference's, file for file (`MANIFEST`,
 `snap-{gen}.edges.npz`, `.meta.npz`, `.engine.json`, `wal-{gen}.log`,
@@ -32,10 +39,9 @@ The engine lives on one explicit `device` ("cuda" by default); with
 ``backend="cuda"`` its shards build through `gee_scatter`, fold deltas
 through `gee_delta_renorm` and answer top-k through `topk_fused`.  Each
 shard's plan goes through the persistent plan cache (`plan_cache`,
-"auto" by default as in the reference).  Not ported yet, and refused
-with NotImplementedError: the socket transport and read replicas
-(``transport="socket"``, ``shard_addrs``, ``replicas``,
-``replica_addrs``; ROADMAP queue A.7).
+"auto" by default as in the reference).  Spawned workers run on the
+engine's device: a worker's answers cross the wire as numpy and land
+here, where the engine merges them.
 
 Threads: the flush loop launches kernels from its own thread.  It runs
 under the engine's device and the stream that was current on that
@@ -74,10 +80,6 @@ from repro_torch.serving.wal import WriteAheadLog
 _MANIFEST = "MANIFEST"
 _FORMAT = 1
 
-_NO_TRANSPORT = ("the socket transport and read replicas (transport/) "
-                 "are not ported yet (ROADMAP queue A.7)")
-
-
 def _atomic_write_json(path: str, obj: dict) -> None:
     tmp = path + f".tmp{os.getpid()}"
     with open(tmp, "w") as f:
@@ -100,9 +102,7 @@ class ServingEngine:
 
     Construct fresh over a `GraphStore` (pass ``data_dir`` to make it
     durable: the engine snapshots generation 0 and opens a WAL), or
-    recover an existing deployment with :meth:`open`.  The signature is
-    the reference's: `rpc_timeout_s` belongs to the unported transport
-    and is not used.
+    recover an existing deployment with :meth:`open`.
     """
 
     def __init__(self, store: GraphStore, *, data_dir: Optional[str] = None,
@@ -127,9 +127,11 @@ class ServingEngine:
         if transport not in ("local", "socket"):
             raise ValueError(f"unknown transport {transport!r} "
                              "('local' or 'socket')")
-        if (transport != "local" or shard_addrs or replicas
-                or replica_addrs):
-            raise NotImplementedError(_NO_TRANSPORT)
+        if transport == "local" and shard_addrs:
+            raise ValueError("shard_addrs requires transport='socket'")
+        if (replicas or replica_addrs) and data_dir is None and _boot:
+            raise ValueError("read replicas tail the WAL: construct "
+                             "with data_dir=... (durable) first")
         self.device = _engine_device(device)
         self.store = store
         self.source = StoreSource(store)
@@ -143,14 +145,68 @@ class ServingEngine:
         self.degraded_append_s = float(degraded_append_s)
         self._health = HealthTracker("serving")
         self.partition = RowPartition(store.n, num_shards)
-        # n=store.n makes every proper sub-range shard an owned-rows
-        # Embedder: its accumulator is (n/p, K), not (n, K)
-        self.shards = [
-            EmbeddingShard(i, *self.partition.slice(i), K=store.K,
-                           n=store.n, chunk_size=chunk_size,
-                           backend=backend, plan_cache=plan_cache,
-                           device=self.device)
-            for i in range(num_shards)]
+        self.transport = transport
+        self.rpc_timeout_s = float(rpc_timeout_s)
+        #: spawned worker processes the engine owns (close() reaps)
+        self._shard_procs: list = []
+        self._replica_procs: list = []
+        #: RemoteReplica clients reads fan out across (round-robin)
+        self._replicas: list = []
+        self._replica_rr = 0             # guarded by: _replica_mu
+        #: per-replica last fallback reason (health() surfaces these)
+        self._replica_events: dict = {}  # guarded by: _replica_mu
+        #: serializes replica round-robin + event state so reads can fan
+        #: out WITHOUT the engine lock; ordering: _mu may be held when
+        #: taking _replica_mu (health()), never the reverse
+        self._replica_mu = threading.Lock()
+        if transport == "local":
+            # n=store.n makes every proper sub-range shard an owned-rows
+            # Embedder: its accumulator is (n/p, K), not (n, K)
+            self.shards = [
+                EmbeddingShard(i, *self.partition.slice(i), K=store.K,
+                               n=store.n, chunk_size=chunk_size,
+                               backend=backend, plan_cache=plan_cache,
+                               device=self.device)
+                for i in range(num_shards)]
+        else:
+            # same partition, same call surface, one process boundary
+            # away: everything below this point is transport-blind
+            from repro_torch.transport.remote import RemoteShard
+            if shard_addrs is not None:
+                if len(shard_addrs) != num_shards:
+                    raise ValueError(
+                        f"{len(shard_addrs)} shard_addrs for "
+                        f"{num_shards} shards")
+                self.shards = [
+                    RemoteShard(a, i, *self.partition.slice(i),
+                                timeout_s=self.rpc_timeout_s,
+                                device=self.device)
+                    for i, a in enumerate(shard_addrs)]
+            else:
+                from repro_torch.transport.procs import spawn_shard_worker
+                procs = [spawn_shard_worker(
+                    i, *self.partition.slice(i), K=store.K, n=store.n,
+                    chunk_size=chunk_size, backend=backend,
+                    plan_cache=plan_cache, device=str(self.device),
+                    wait=False)
+                    for i in range(num_shards)]
+                self.shards = []
+                try:
+                    for i, proc in enumerate(procs):  # one import
+                        proc.handshake()              # latency, not N
+                        self._shard_procs.append(proc)
+                        self.shards.append(RemoteShard(
+                            proc.addr, i, *self.partition.slice(i),
+                            timeout_s=self.rpc_timeout_s, proc=proc,
+                            device=self.device))
+                except BaseException:    # reap every child we started
+                    for proc in procs:
+                        proc.kill()
+                    raise
+        self._pending_replicas = (replicas, replica_addrs)
+        self._chunk_size = chunk_size
+        self._backend = backend
+        self._plan_cache = plan_cache
         self.epoch = 0
         self.rebuilds = 0
         self.deltas_applied = 0
@@ -183,26 +239,39 @@ class ServingEngine:
         self.loop_error: Optional[BaseException] = None  # guarded by: _mu
         if not _boot:
             return                      # open() finishes construction
+        try:
+            self._boot_fresh(data_dir, index)
+        except BaseException:           # no worker outlives a failed boot
+            self.close()
+            raise
+        self._health.to(SERVING)        # boot complete: starting -> serving
+
+    # holds: _mu — the boot path runs before the engine is shared
+    def _boot_fresh(self, data_dir: Optional[str],
+                    index: Optional[str]) -> None:
+        """Build generation 0: the shards' Z, the index when asked for,
+        and on a durable engine the snapshot, the WAL and the
+        replicas."""
         if data_dir is None:
             self._reset_shard_fps()
             self._rebuild()
             if index is not None:
                 self.enable_index()
-        else:
-            self.data_dir = str(data_dir)
-            os.makedirs(self.data_dir, exist_ok=True)
-            if os.path.exists(os.path.join(self.data_dir, _MANIFEST)):
-                raise FileExistsError(
-                    f"{self.data_dir} already holds a deployment; "
-                    "recover it with ServingEngine.open()")
-            # fold the log so generation 0's snapshot IS the live state
-            self.store.compact()
-            self._reset_shard_fps()
-            self._rebuild()
-            if index is not None:
-                self.enable_index()      # generation 0 carries it
-            self._write_generation(0)
-        self._health.to(SERVING)        # boot complete: starting -> serving
+            return
+        self.data_dir = str(data_dir)
+        os.makedirs(self.data_dir, exist_ok=True)
+        if os.path.exists(os.path.join(self.data_dir, _MANIFEST)):
+            raise FileExistsError(
+                f"{self.data_dir} already holds a deployment; "
+                "recover it with ServingEngine.open()")
+        # fold the log so generation 0's snapshot IS the live state
+        self.store.compact()
+        self._reset_shard_fps()
+        self._rebuild()
+        if index is not None:
+            self.enable_index()          # generation 0 carries it
+        self._write_generation(0)
+        self._start_replicas()           # they bootstrap from gen 0
 
     # -- recovery ----------------------------------------------------------
 
@@ -252,41 +321,14 @@ class ServingEngine:
                       group_commit_ms=group_commit_ms,
                       group_commit_bytes=group_commit_bytes,
                       device=device, _boot=False)
-            eng.data_dir = data_dir
-            eng.generation = gen
-            eng.epoch = int(emeta["epoch"])
-            eng.rebuilds = int(emeta["rebuilds"])
-            eng.deltas_applied = int(emeta["deltas_applied"])
-            eng.checkpoints = int(emeta.get("checkpoints", 0))
-            eng.Y_epoch = store.Y.copy()  # a snapshot always post-rebuild
-            eng._reset_shard_fps()
-            imeta = emeta.get("index")
-            if imeta is not None:        # the snapshot carried an index
-                eng.index_mode = imeta["mode"]
-                eng.index_churn = float(imeta["churn"])
-                eng.nprobe = (int(imeta["nprobe"])
-                              if imeta["nprobe"] is not None else None)
-                eng.requantizes = int(imeta.get("requantizes", 0))
-                eng._index_centroids = np.asarray(
-                    imeta["centroids"], np.float32).reshape(
-                        store.K, store.K)
-            eng.wal = WriteAheadLog(
-                os.path.join(data_dir, f"wal-{gen}.log"), fsync=fsync,
-                group_commit_ms=group_commit_ms,
-                group_commit_bytes=group_commit_bytes)
-            replayed = 0
-            for rec in eng.wal.open():   # replay; Z built once, after
-                eng._replay(rec)
-                replayed += 1
-            eng.version = store.version
-            eng._embed_epoch()
-            if eng.index_mode is not None:
-                # memberships are a function of (Z, centroids): rebuilt
-                # under the replayed quantizer they answer as the crashed
-                # process did (the churn counter restarts at 0)
-                eng._build_index(eng._index_centroids, record=False)
+            try:
+                replayed = eng._recover(data_dir, gen, emeta)
+                eng._start_replicas()    # bootstrap from the recovered gen
+            except BaseException:        # no worker outlives a failed open
+                eng.close()
+                raise
             sp.set(generation=gen, wal_records=replayed)
-            sp.fence([s.Z_owned for s in eng.shards])
+            sp.fence(eng._local_z())
         if obs.enabled():
             obs.observe("repro_serving_recovery_seconds",
                         time.perf_counter() - t0)
@@ -294,6 +336,46 @@ class ServingEngine:
                         replayed)
         eng._health.to(SERVING)          # recovery complete
         return eng
+
+    # holds: _mu — recovery runs before the engine is shared
+    def _recover(self, data_dir: str, gen: int, emeta: dict) -> int:
+        """`open`'s body on the engine it constructed: restore the
+        snapshot's counters and index, replay the WAL, build Z once.
+        Returns the records replayed."""
+        store = self.store
+        self.data_dir = data_dir
+        self.generation = gen
+        self.epoch = int(emeta["epoch"])
+        self.rebuilds = int(emeta["rebuilds"])
+        self.deltas_applied = int(emeta["deltas_applied"])
+        self.checkpoints = int(emeta.get("checkpoints", 0))
+        self.Y_epoch = store.Y.copy()    # a snapshot always post-rebuild
+        self._reset_shard_fps()
+        imeta = emeta.get("index")
+        if imeta is not None:            # the snapshot carried an index
+            self.index_mode = imeta["mode"]
+            self.index_churn = float(imeta["churn"])
+            self.nprobe = (int(imeta["nprobe"])
+                           if imeta["nprobe"] is not None else None)
+            self.requantizes = int(imeta.get("requantizes", 0))
+            self._index_centroids = np.asarray(
+                imeta["centroids"], np.float32).reshape(store.K, store.K)
+        self.wal = WriteAheadLog(
+            os.path.join(data_dir, f"wal-{gen}.log"), fsync=self.fsync,
+            group_commit_ms=self.group_commit_ms,
+            group_commit_bytes=self.group_commit_bytes)
+        replayed = 0
+        for rec in self.wal.open():      # replay; Z built once, after
+            self._replay(rec)
+            replayed += 1
+        self.version = store.version
+        self._embed_epoch()
+        if self.index_mode is not None:
+            # memberships are a function of (Z, centroids): rebuilt under
+            # the replayed quantizer they answer as the crashed process
+            # did (the churn counter restarts at 0)
+            self._build_index(self._index_centroids, record=False)
+        return replayed
 
     # holds: _mu — recovery runs before the engine is shared
     def _replay(self, rec: W.WalRecord) -> None:
@@ -378,8 +460,14 @@ class ServingEngine:
                                     np.zeros(0, np.float32), self.n)
                     sub._fp = self._shard_fps[i]   # chained: never rehashed
                     shard.build(sub, self.Y_epoch)
-            sp.fence([s.Z_owned for s in self.shards])
+            sp.fence(self._local_z())
         self._invalidate_query_cache()
+
+    def _local_z(self) -> list:
+        """The in-process shards' Z slices, for a span's fence (a shard
+        worker synchronizes its device before a build's call returns)."""
+        return [s.Z_owned for s in self.shards
+                if isinstance(s, EmbeddingShard)]
 
     # holds: _mu
     def _rebuild(self) -> None:
@@ -488,6 +576,76 @@ class ServingEngine:
             return self.wal.sync()
         return 0
 
+    # -- read replicas (transport.replica workers tailing our WAL) ---------
+
+    def _start_replicas(self) -> None:
+        """Spawn (or connect to) the replica workers recorded at
+        construction.  Called once the data_dir holds a generation the
+        replicas can bootstrap from (after the gen-0 snapshot on boot,
+        after replay on recovery)."""
+        replicas, replica_addrs = self._pending_replicas
+        self._pending_replicas = (0, None)
+        if not replicas and not replica_addrs:
+            return
+        from repro_torch.transport.remote import RemoteReplica
+        if replica_addrs is not None:
+            self._replicas = [
+                RemoteReplica(a, timeout_s=self.rpc_timeout_s)
+                for a in replica_addrs]
+            return
+        from repro_torch.transport.procs import spawn_replica_worker
+        procs = [spawn_replica_worker(
+            self.data_dir, chunk_size=self._chunk_size,
+            backend=self._backend, plan_cache=self._plan_cache,
+            device=str(self.device), wait=False)
+            for _ in range(int(replicas))]
+        try:
+            for proc in procs:
+                proc.handshake()
+                self._replica_procs.append(proc)
+                self._replicas.append(RemoteReplica(
+                    proc.addr, timeout_s=self.rpc_timeout_s, proc=proc))
+        except BaseException:            # reap every child we started
+            for proc in procs:
+                proc.kill()
+            raise
+
+    def _replica_read(self, method: str, nodes: np.ndarray, **kwargs):
+        """Try one replica (round-robin) for a read, pinned to the
+        router's current version.  Returns the answer, or None to fall
+        back to the owner: lag (the replica has not applied the pinned
+        version, or lacks the quantizer) and transport faults (a dead
+        replica) both degrade to owner reads instead of failing the
+        request; the reason lands in `_replica_events` for health().
+        Any other remote exception (e.g. IndexError for bad node ids)
+        propagates: it is the answer, not a fault."""
+        from repro_torch.transport.errors import (ReplicaLagError,
+                                                  TransportError)
+        with self._replica_mu:
+            i = self._replica_rr % len(self._replicas)
+            self._replica_rr += 1
+            rep = self._replicas[i]
+        try:
+            # repro: allow(lock-discipline) — unlocked version read is a pin, not state: staleness only widens the lag window the fallback already handles
+            out = getattr(rep, method)(nodes, min_version=self.version,
+                                       **kwargs)
+        except ReplicaLagError as e:
+            with self._replica_mu:
+                self._replica_events[i] = f"lag: {e}"
+            outcome = "lag"
+        except TransportError as e:
+            with self._replica_mu:
+                self._replica_events[i] = f"unreachable: {e}"
+            outcome = "dead"
+        else:
+            with self._replica_mu:
+                self._replica_events[i] = None
+            outcome = "ok"
+        if obs.enabled():
+            obs.counter("repro_transport_replica_reads_total",
+                        method=method, outcome=outcome)
+        return out if outcome == "ok" else None
+
     def checkpoint(self) -> dict:
         """Durable compaction: fold the log into the base, rebuild (new
         epoch), snapshot the result as a new generation, and rotate the
@@ -509,10 +667,35 @@ class ServingEngine:
             return info
 
     def close(self) -> None:
-        """Stop the flush loop (if running) and close the WAL."""
+        """Stop the flush loop (if running), close the WAL, and tear down
+        any transport: spawned shard and replica workers are shut down
+        over RPC and reaped; workers reached through `shard_addrs` /
+        `replica_addrs` only have their connections closed (they belong
+        to whoever launched them; `shutdown_workers()` stops those
+        too)."""
         self.stop()
         if self.wal is not None:
             self.wal.close()
+        self._close_workers(everyone=False)
+
+    def shutdown_workers(self) -> None:
+        """Ask every REMOTE worker, externally launched ones included,
+        to exit, then close: the explicit teardown of a `shard_addrs`
+        deployment."""
+        self._close_workers(everyone=True)
+
+    def _close_workers(self, *, everyone: bool) -> None:
+        """Close every transport client; spawned workers (every remote
+        worker with `everyone`) are shut down over RPC and reaped."""
+        for rep in self._replicas:
+            rep.close(shutdown=everyone or rep.proc is not None)
+        self._replicas = []
+        for shard in self.shards:
+            close = getattr(shard, "close", None)
+            if callable(close):
+                close(shutdown=everyone or shard.proc is not None)
+        self._shard_procs = []
+        self._replica_procs = []
 
     # -- writes ------------------------------------------------------------
 
@@ -685,6 +868,11 @@ class ServingEngine:
         back in request order."""
         nodes = np.atleast_1d(np.asarray(nodes, np.int32))
         t0 = obs.tick()
+        if self._replicas:
+            out = self._replica_read("embed", nodes)
+            if out is not None:
+                self._record_query("embed", t0, nodes.shape[0])
+                return out
         with self._mu:
             self._check_nodes(nodes)
             out = self._gather_rows(nodes).cpu().numpy()
@@ -718,6 +906,11 @@ class ServingEngine:
         against the merged centroids.  Returns (pred, score) as numpy."""
         nodes = np.atleast_1d(np.asarray(nodes, np.int32))
         t0 = obs.tick()
+        if self._replicas:
+            out = self._replica_read("predict", nodes)
+            if out is not None:
+                self._record_query("predict", t0, nodes.shape[0])
+                return out
         with self._mu:
             self._check_nodes(nodes)
             pred, score = Q.predict_rows(self._gather_rows(nodes),
@@ -745,6 +938,15 @@ class ServingEngine:
                              "('exact' or 'ivf')")
         nodes = np.atleast_1d(np.asarray(nodes, np.int32))
         t0 = obs.tick()
+        if self._replicas:
+            out = self._replica_read("topk", nodes, k=k,
+                                     block_rows=block_rows, mode=mode,
+                                     nprobe=nprobe)
+            if out is not None:
+                self._record_query(
+                    "topk" if mode == "exact" else "topk_ivf",
+                    t0, nodes.shape[0])
+                return out
         with self._mu:
             self._check_nodes(nodes)
             if mode == "ivf" and self.index_mode is None:
@@ -906,11 +1108,33 @@ class ServingEngine:
                     "wal append "
                     f"{self.wal.last_append_seconds * 1e3:.1f}ms > "
                     f"{self.degraded_append_s * 1e3:.1f}ms")
+            with self._replica_mu:       # ordering: _mu -> _replica_mu
+                events = dict(self._replica_events)
+            replicas = []
+            for i, rep in enumerate(self._replicas):
+                row = {"replica": i, "addr": rep.address,
+                       "last_event": events.get(i)}
+                try:
+                    st = rep.status(timeout_s=min(
+                        2.0, self.rpc_timeout_s))
+                    row.update(
+                        version=st["version"],
+                        lag=self.version - int(st["version"]),
+                        generation=st["generation"],
+                        records_applied=st["records_applied"],
+                        tail_error=st["tail_error"])
+                except Exception as e:   # a dead replica degrades; it
+                    row["error"] = repr(e)   # must never fail health()
+                    reasons.append(f"replica {i} unreachable")
+                replicas.append(row)
             if reasons:
                 self._health.to(DEGRADED, reason="; ".join(reasons))
             elif self._health.state != STARTING:
                 self._health.to(SERVING)
-            return self._health.as_dict()
+            out = self._health.as_dict()
+            if replicas:
+                out["replicas"] = replicas
+            return out
 
     def stats(self) -> dict:
         """Introspection snapshot, read under the engine lock so that the
@@ -962,6 +1186,13 @@ class ServingEngine:
                     "fsync_seconds": self.wal.fsync_seconds_total,
                     "appends_per_fsync": self.wal.appends_per_fsync,
                     "pending_appends": self.wal.pending_appends}
+            if self.transport != "local" or self._replicas:
+                out["transport"] = {
+                    "mode": self.transport,
+                    "shard_addrs": [getattr(s, "address", "in-process")
+                                    for s in self.shards],
+                    "replica_addrs": [r.address
+                                      for r in self._replicas]}
             if obs.enabled():
                 out["metrics"] = obs.snapshot(prefix="repro_serving")
             return out

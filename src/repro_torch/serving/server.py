@@ -24,8 +24,27 @@ adds two self-checks: ivf at nprobe = K equals the exact scan bit for
 bit, and (durable runs) recovery restores the same quantizer and the
 same ivf answers.
 
-Not ported yet (they raise NotImplementedError): `--transport socket`,
-`--connect`, `--replicas` and `--serve-shard` (ROADMAP queue A.7).
+Multi-process deployment (`repro_torch.transport`):
+
+* `--serve-shard HOST:PORT --shard-id I` turns THIS process into shard
+  worker I of the workload's row partition (`RowPartition(n, shards)`)
+  on `--device` and serves until shut down: the manual way to stand up
+  workers that a router later `--connect`s to;
+* `--transport socket` spawns the shard workers as subprocesses (on the
+  router's device); `--connect addr0,addr1,...` connects to externally
+  launched ones instead (the shard count follows the address list);
+* `--replicas N` (durable runs) adds WAL-tail read replicas that serve
+  version-pinned reads, with a fall back to the owner on lag;
+* `--fsync` + `--group-commit-ms/--group-commit-bytes` batch the WAL's
+  power-loss barriers (group commit);
+* `--shutdown-workers` tears down remote workers at exit, `--connect`ed
+  ones included.
+
+With `--data-dir`, socket deployments extend the recovery self-check to
+a full reconnect (the router closes and reopens from disk against fresh,
+or surviving `--connect`, workers) and to a twin: an in-process engine
+recovered from the same snapshot and WAL must answer bit for bit as the
+socket deployment does (``socket deployment == in-process ✓``).
 
 Printed at the end: per-kind throughput and latency, the version and
 epoch counters, and a self-check that the delta-maintained Z matches a
@@ -98,15 +117,17 @@ def main(argv=None):
     ap.add_argument("--transport", choices=["local", "socket"],
                     default="local",
                     help="'socket' runs each shard in its own worker "
-                         "process (not ported yet: raises)")
+                         "process (spawned unless --connect)")
     ap.add_argument("--connect", default=None, metavar="ADDR,ADDR,...",
-                    help="connect to external shard workers (not ported "
-                         "yet: raises)")
+                    help="connect to externally-launched shard workers "
+                         "instead of spawning (implies socket; shard "
+                         "count follows the list)")
     ap.add_argument("--replicas", type=int, default=0,
-                    help="WAL-tail read replica workers (not ported yet: "
-                         "raises)")
+                    help="WAL-tail read replica workers (needs "
+                         "--data-dir)")
     ap.add_argument("--serve-shard", default=None, metavar="HOST:PORT",
-                    help="be a shard worker (not ported yet: raises)")
+                    help="be shard worker --shard-id of this "
+                         "workload's row partition and serve forever")
     ap.add_argument("--shard-id", type=int, default=0,
                     help="which shard --serve-shard hosts")
     ap.add_argument("--fsync", action="store_true",
@@ -117,23 +138,33 @@ def main(argv=None):
     ap.add_argument("--group-commit-bytes", type=int, default=None,
                     help="batch WAL fsync barriers: bytes per group")
     ap.add_argument("--shutdown-workers", action="store_true",
-                    help="shut down remote workers at exit (no remote "
-                         "workers without the transport)")
+                    help="shut down remote workers at exit, including "
+                         "--connect'ed ones")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default: the kernels) or cpu (the "
                          "streaming backend's plain torch)")
     args = ap.parse_args(argv)
 
+    device = resolve_device(args.device)
+    backend = "cuda" if device.type == "cuda" else "streaming"
     if args.serve_shard is not None:
-        raise NotImplementedError(
-            "--serve-shard: shard worker processes (transport/) are not "
-            "ported yet (ROADMAP queue A.7)")
+        # become worker `--shard-id` of the (n, shards) row partition:
+        # the router's partition math, so `--connect` lines up
+        from repro_torch.graph.partition import RowPartition
+        from repro_torch.transport import worker as transport_worker
+        lo, hi = RowPartition(args.n, args.shards).slice(args.shard_id)
+        return transport_worker.main([
+            "--role", "shard", "--addr", args.serve_shard,
+            "--shard-id", str(args.shard_id), "--lo", str(lo),
+            "--hi", str(hi), "--classes", str(args.k),
+            "--nodes", str(args.n), "--backend", backend,
+            "--device", str(device)])
     shard_addrs = ([a for a in args.connect.split(",") if a]
                    if args.connect else None)
     transport = ("socket" if (shard_addrs or
                               args.transport == "socket") else "local")
-    device = resolve_device(args.device)
-    backend = "cuda" if device.type == "cuda" else "streaming"
+    if shard_addrs:
+        args.shards = len(shard_addrs)
 
     rng = np.random.default_rng(args.seed)
     g, truth = sbm(args.n, args.k, args.edges, p_in=0.85, seed=args.seed)
@@ -160,7 +191,11 @@ def main(argv=None):
     print(f"[serve-gee] n={args.n} K={args.k} edges={args.edges:,} "
           f"labeled={int((Y >= 0).sum())} shards={args.shards} "
           f"durable={bool(args.data_dir)} transport={transport} "
-          f"device={device} backend={backend}")
+          f"device={device} backend={backend}"
+          + (f" replicas={args.replicas}" if args.replicas else ""))
+    if transport == "socket":
+        for row in engine.stats()["transport"]["shard_addrs"]:
+            print(f"[serve-gee] shard worker @ {row}")
 
     inserted: list[tuple] = []     # batches eligible for later deletion
     for step in range(args.steps):
@@ -234,6 +269,8 @@ def main(argv=None):
         print(obs.render_prometheus(), end="")
 
     if args.data_dir:
+        # everything captured BEFORE close: a socket engine's shards die
+        # with it, and the reconnected deployment must answer the same
         qnodes = rng.integers(0, args.n, size=64).astype(np.int32)
         pre = engine.query_topk(qnodes, k=args.topk)
         pre_ivf = (engine.query_topk(qnodes, k=args.topk, mode="ivf",
@@ -243,7 +280,8 @@ def main(argv=None):
         Z_live = engine.Z.clone()
         engine.close()
         recovered = ServingEngine.open(args.data_dir, backend=backend,
-                                       device=device)
+                                       device=device, transport=transport,
+                                       shard_addrs=shard_addrs)
         rtriple = (recovered.version, recovered.epoch,
                    recovered.fingerprint())
         dz = float((recovered.Z - Z_live).abs().max())
@@ -273,8 +311,31 @@ def main(argv=None):
                 raise AssertionError("reconnected deployment's ivf top-k "
                                      "diverged")
             print("[serve-gee] recovery: index quantizer restored ✓")
+        if transport == "socket":
+            # socket == in-process: an in-process twin recovered from the
+            # same snapshot and WAL must answer bit for bit
+            twin = ServingEngine.open(args.data_dir, backend=backend,
+                                      device=device)
+            ti, tv = twin.query_topk(qnodes, k=args.topk)
+            if not (np.array_equal(post[0], ti)
+                    and np.array_equal(post[1], tv)):
+                raise AssertionError("socket deployment diverged from its "
+                                     "in-process twin")
+            if args.index:
+                xi, xv = twin.query_topk(qnodes, k=args.topk, mode="ivf",
+                                         nprobe=args.nprobe)
+                if not (np.array_equal(post_ivf[0], xi)
+                        and np.array_equal(post_ivf[1], xv)):
+                    raise AssertionError("socket ivf top-k diverged from "
+                                         "the in-process twin")
+            twin.close()
+            print("[serve-gee] socket deployment == in-process ✓")
+        if args.shutdown_workers:
+            recovered.shutdown_workers()
         recovered.close()
     else:
+        if args.shutdown_workers:
+            engine.shutdown_workers()
         engine.close()
     return err
 

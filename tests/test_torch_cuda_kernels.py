@@ -431,3 +431,39 @@ def test_plan_cache_hit_on_the_card(dev, tmp_path):
                  plan_cache=tmp_path).fit(g, Y)
     assert a.plan_stats["disk_stores"] == 1 and b.plan_stats["disk_hits"] == 1
     assert _same(a.Z_, b.Z_)
+
+
+def test_socket_engine_workers_run_the_kernels_on_the_card(dev, rng,
+                                                           monkeypatch):
+    """A 2-worker socket engine on the card: each worker reports a cuda
+    device and launches of the three GEE kernels in `ping`, and the
+    engine's Z and answers equal the in-process cuda engine's bits."""
+    from repro_torch.graph import make_labels, sbm
+    from repro_torch.serving import GraphStore, ServingEngine
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    g, truth = sbm(3000, 6, 40_000, seed=4)
+    Y = make_labels(3000, 6, 0.2, np.random.default_rng(0),
+                    true_labels=truth)
+    local = ServingEngine(GraphStore(g, Y, 6), num_shards=2,
+                          backend="cuda", plan_cache=None, device=dev)
+    sock = ServingEngine(GraphStore(g, Y, 6), num_shards=2, backend="cuda",
+                         plan_cache=None, device=dev, transport="socket")
+    try:
+        nodes = rng.integers(0, 3000, 64).astype(np.int32)
+        for _ in range(2):
+            a, b = (e.query_topk(nodes, k=10) for e in (local, sock))
+            assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+            d = (rng.integers(0, 3000, 200).astype(np.int32),
+                 rng.integers(0, 3000, 200).astype(np.int32),
+                 np.ones(200, np.float32))
+            for e in (local, sock):
+                e.apply_edge_delta(*d)
+        assert _same(local.Z, sock.Z)
+        for s in sock.shards:
+            ping = s.ping()
+            assert ping["device"].startswith("cuda")
+            for name in ("gee_scatter", "gee_delta_renorm", "topk_fused"):
+                assert ping["launches"][name] > 0, (ping, name)
+    finally:
+        sock.close()
+        local.close()

@@ -309,14 +309,70 @@ def test_embedding_service_is_the_one_shard_engine(rng):
         _port(g, Y, 8, num_shards=2).embedder
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(transport="socket"), "A.7"),
-    (dict(shard_addrs=["localhost:1"]), "A.7"), (dict(replicas=1), "A.7"),
-    (dict(replica_addrs=["localhost:1"]), "A.7")])
-def test_unported_options_raise(kwargs, match):
+@pytest.mark.parametrize("option", ["transport", "shard_addrs", "replicas",
+                                    "replica_addrs"])
+def test_transport_options_work(tmp_path, rng, monkeypatch, option):
+    """Each deployment option of the transport serves the in-process
+    engine's answers bit for bit: spawned socket shards, shards reached
+    through `shard_addrs`, spawned WAL-tail replicas and a replica
+    reached through `replica_addrs` (workers on the CPU)."""
+    from repro_torch.transport import (spawn_replica_worker,
+                                       spawn_shard_worker)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     g, Y, _ = _data(8)
-    with pytest.raises(NotImplementedError, match=match):
-        _port(g, Y, 8, num_shards=2, **kwargs)
+    durable = option in ("replicas", "replica_addrs")
+    # a durable boot compacts the store: the twin boots the same way
+    local = _port(g, Y, 8, num_shards=2, plan_cache=None,
+                  data_dir=(str(tmp_path / "twin") if durable else None))
+    external, kw = [], {}
+    if option == "transport":
+        kw = dict(transport="socket")
+    elif option == "shard_addrs":
+        external = [spawn_shard_worker(i, *local.partition.slice(i), K=8,
+                                       n=N, backend="cuda", plan_cache=None,
+                                       device="cpu", timeout_s=60)
+                    for i in range(2)]
+        kw = dict(transport="socket", shard_addrs=[w.addr for w in external])
+    elif option == "replicas":
+        kw = dict(data_dir=str(tmp_path / "d"), replicas=1)
+    else:
+        _port(g, Y, 8, num_shards=2, plan_cache=None,
+              data_dir=str(tmp_path / "d")).close()
+        external = [spawn_replica_worker(str(tmp_path / "d"),
+                                         backend="cuda", plan_cache=None,
+                                         device="cpu", timeout_s=60)]
+    eng = None
+    try:
+        if option == "replica_addrs":
+            eng = ServingEngine.open(str(tmp_path / "d"), backend="cuda",
+                                     plan_cache=None, device="cpu",
+                                     replica_addrs=[external[0].addr])
+        else:
+            eng = _port(g, Y, 8, num_shards=2, plan_cache=None, **kw)
+        nodes = rng.integers(0, N, 40)
+        for _ in range(3):                # a replica may lag at first
+            (ei, ev), (li, lv) = (e.query_topk(nodes, k=7)
+                                  for e in (eng, local))
+            assert np.array_equal(ei, li) and np.array_equal(ev, lv)
+            assert np.array_equal(eng.query_embed(nodes),
+                                  local.query_embed(nodes))
+        assert torch.equal(eng.Z, local.Z)
+        transport = eng.stats()["transport"]
+        if option in ("transport", "shard_addrs"):
+            assert transport["mode"] == "socket"
+            assert all(s.ping()["device"] == "cpu" for s in eng.shards)
+        else:
+            assert len(transport["replica_addrs"]) == 1
+            assert eng.health()["replicas"][0]["addr"] == \
+                transport["replica_addrs"][0]
+    finally:
+        if eng is not None:
+            eng.shutdown_workers()
+            eng.close()
+        local.close()
+        for w in external:
+            w.stop(timeout_s=10)
+    assert not any(w.alive() for w in external)
 
 
 def test_unported_paths_raise(tmp_path):

@@ -44,6 +44,9 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     __import__(name)
+# the numpy-only modules too (the transport keeps its own copies)
+assert {{"repro_torch.transport." + m for m in ("errors", "framing", "rpc",
+        "procs", "worker", "remote", "replica")}} <= set(names), names
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m == "repro" or m.startswith(("repro.", "jax")))]
 assert not loaded, loaded

@@ -6,6 +6,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import pytest
@@ -47,16 +48,61 @@ def test_volatile_sync_flush_run_with_obs_dump():
     assert "[serve-gee] health: {'state': 'serving'" in out
 
 
-@pytest.mark.parametrize("flag", [["--transport", "socket"],
-                                  ["--serve-shard", "localhost:1"]])
-def test_unported_flags_raise(flag):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    res = subprocess.run(
+def _serve_shard(i, n, shards):
+    """`--serve-shard` worker i of (n, shards) on an ephemeral port;
+    returns the process and the address from its handshake line."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.serving.server", "--device",
-         "cpu", "--n", "300", "--edges", "3000", *flag], env=env,
-        capture_output=True, text=True, timeout=120, cwd=ROOT)
-    assert res.returncode != 0
-    assert "NotImplementedError" in res.stderr
+         "cpu", "--n", str(n), "--k", "4", "--shards", str(shards),
+         "--serve-shard", "127.0.0.1:0", "--shard-id", str(i)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, cwd=ROOT)
+    timer = threading.Timer(60, proc.kill)        # a bounded handshake
+    timer.start()
+    try:
+        line = proc.stdout.readline().decode()
+    finally:
+        timer.cancel()
+    m = re.match(r"LISTENING (\S+)", line)
+    if m is None:
+        proc.kill()
+        raise AssertionError(f"--serve-shard {i} did not listen: {line!r}")
+    return proc, m.group(1)
+
+
+@pytest.mark.parametrize("mode", ["transport-socket", "serve-shard-connect"])
+def test_transport_flags_work(tmp_path, monkeypatch, mode):
+    """`--transport socket` (spawned shard workers plus a WAL-tail
+    replica, group commit on) and `--serve-shard` workers that a router
+    `--connect`s to both end with the socket deployment answering as
+    its in-process twin; `--shutdown-workers` stops the workers."""
+    common = ["--device", "cpu", "--n", "400", "--k", "4", "--edges",
+              "3000", "--steps", "3", "--data-dir", str(tmp_path / "dep"),
+              "--sync-flush", "--shutdown-workers"]
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")    # spawned workers too
+    workers = []
+    try:
+        if mode == "transport-socket":
+            out = _run(*common, "--shards", "2", "--transport", "socket",
+                       "--replicas", "1", "--fsync", "--group-commit-ms",
+                       "20")
+            assert "transport=socket" in out and "replicas=1" in out
+        else:
+            workers = [_serve_shard(i, 400, 2) for i in range(2)]
+            out = _run(*common, "--connect",
+                       ",".join(addr for _, addr in workers))
+            assert "shards=2" in out
+            for proc, _ in workers:       # --shutdown-workers stopped them
+                assert proc.wait(timeout=30) == 0
+        assert out.count("[serve-gee] shard worker @ ") == 2
+        assert "recovery: reconnected top-k identical" in out
+        assert "socket deployment == in-process ✓" in out
+    finally:
+        for proc, _ in workers:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
 
 
 def test_default_device_needs_a_card():
