@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py [--seed 0] [--steps 8] [--lm-batch 4]
                           [--lm-prompt 2048] [--lm-gen 16] [--lm-layers 32]
-                          [--fam-layers N]
+                          [--fam-layers N] [--train-layers 12]
+                          [--train-steps 8]
 
 1. builds every CUDA kernel of `src/repro_torch/kernels/csrc` with nvcc;
    It counts the HGMMA (wgmma) instructions in the flash library's SASS
@@ -116,7 +117,42 @@
    self-check of `family_self_check`, block by block on the same input,
    by the rule of step 6; last, the kernel at the families' other head
    dims (D = 64 for whisper and zamba2, D = 120 for danube) against its
-   plain version, timed beside SDPA.
+   plain version, timed beside SDPA;
+8. the LM training path (`train_path`), at --lm-batch x --lm-prompt:
+   a. `FlashAttentionFunction` (the kernel's forward, a plain backward)
+      at yi-6b's attention shape against autograd of the plain attention:
+      output at the bfloat16 tolerance, dq, dk, dv within LM_REL_TOL x
+      max|plain|; forward + backward timed beside the plain version and
+      SDPA's;
+   b. gradient parity at yi-6b's width, 2 layers: one step's gradients
+      with the kernel's forward against those with the plain attention
+      (`impl="triangular"`, attn_flash's values), same params and batch.
+      At the reference's init wq, wk and wv must get a non-zero gradient
+      (the gap is printed beside the dense path's); with wq and wk at
+      1/sqrt(d_model) (`temper_attention`) every leaf must be within
+      LM_REL_TOL x max|g_plain|;
+   c. checkpoint and resume on that model: 4 AdamW steps, an atomic
+      checkpoint in a temporary directory, a restore into a fresh tree
+      (every leaf bit-equal), then steps 5-8 from both, losses within
+      RESUME_TOL;
+   d. the main path, `repro_torch.launch.train.run` (the trainer's loop):
+      yi-6b at full width, --train-layers of its 32 layers (float32
+      params and AdamW state need 16 B a parameter: 12 layers are 41.6
+      GB, 32 would be 97), remat on, bfloat16 compute, --train-steps
+      steps with --gee-embed-init, lr 3e-4 and the reference's cosine
+      schedule, from random weights with wq and wk at 1/sqrt(d_model)
+      (at the reference's init the gradient norm is about 3e10 and
+      clipping leaves the 1-D final norm's update under a float32 step).
+      Launch counts are zeroed just before and read just after: flash twice per layer per step (forward and remat), the
+      scatter kernel at least 7 times in the embedding init (fit + 6
+      refine rounds).  Every loss and grad norm finite, every leaf
+      changed.  One more step runs under torch.profiler (device idle
+      share);
+   e. every arch's reduced config with remat: two train steps on the
+      card against the same two on the CPU from the same weights (wq
+      and wk tempered),
+      losses within FAM_TRAIN_TOL; flash launched twice per causal
+      self-attention per step.
 
 Prints each phase's wall seconds, the card's name and power limit, a
 ``{"kernels": [...]}`` line,
@@ -269,8 +305,417 @@ def count_hgmma(lib):
     return sum("HGMMA" in line for line in sass.splitlines())
 
 
+def expected_flash(cfg, S):
+    """Flash launches of one prefill: one per causal self-attention
+    (none for xLSTM, the shared block once per zamba2 group, the
+    decoder's layers for whisper, none where a window masks)."""
+    if cfg.xlstm is not None:
+        return 0
+    if cfg.is_encdec:
+        return cfg.dec_layers
+    if cfg.ssm is not None:
+        return cfg.n_layers // cfg.attn_every
+    if cfg.swa_window and S > cfg.swa_window:
+        return 0
+    return cfg.n_layers
+
+
 def same(a, b) -> bool:
     return bool((a == b).all().item()) and a.shape == b.shape
+
+
+# Phase 8, the LM training path.  Where two paths' gradients or steps
+# are compared, every attention's wq and wk are first scaled from the
+# reference init's 1/sqrt(heads) to 1/sqrt(d_model) (`temper_attention`,
+# as the CPU tests do): under the reference's init attention scores
+# reach the thousands, so one rounding step in a layer's output moves the
+# next layer's scores by whole units and the gradients of two correct
+# paths apart by tens of percent (the smoke prints that gap beside the
+# one between two plain paths).  FAM_TRAIN_TOL holds each reduced
+# family's two train steps on the card against the same two on the CPU
+# (float32 both; the card's matrix products in full float32): the two
+# sides differ by summation order, at float32's rounding level in the
+# first step's forward (the CPU tests hold the packages to 1e-5 over
+# three steps), and the first AdamW step moves a weight by up to lr
+# whatever its gradient's size, so a gradient near zero whose sign
+# rounds differently moves its weight 2 lr apart; 1e-4 of the loss
+# leaves room for that.  RESUME_TOL holds the resumed run's
+# losses against the uninterrupted run's: the state is restored bit for
+# bit and the batches are the same, so only sums whose order varies
+# from run to run on the card (an index backward that adds rows with
+# atomics) could separate the two, by a few float32 steps an update.
+FAM_TRAIN_TOL = 1e-4
+RESUME_TOL = 1e-4
+
+
+def temper_attention(torch, params):
+    """Scale every attention's wq and wk ((..., d_model, heads,
+    head_dim), under an "attn" key) from 1/sqrt(heads) to
+    1/sqrt(d_model), in place."""
+    from repro_torch.training.trees import items
+    with torch.no_grad():
+        for path, t in items(params):
+            if (len(path) > 1 and "attn" in path[-2]
+                    and path[-1] in ("wq", "wk")):
+                t.mul_((t.shape[-2] / t.shape[-3]) ** 0.5)
+
+
+def _fingerprints(torch, params):
+    """(sum, sum of squares) in float64 of every leaf, to tell a leaf
+    that changed from one that did not without a copy of the model."""
+    from repro_torch.training.trees import items
+    return {path: torch.stack([t.detach().double().sum(),
+                               t.detach().double().square().sum()])
+            for path, t in items(params)}
+
+
+def train_path(torch, dev, args, timer, smi):
+    """Phase 8 (the LM training path); see the module docstring.  Returns
+    the additions to the flash and gee_scatter rows of the kernels
+    line."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as TR
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import (FlashAttentionFunction,
+                                              causal_plain)
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training.optimizer import AdamW, cosine_schedule
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.training.trees import build, flatten, items
+
+    B, S = args.lm_batch, args.lm_prompt
+    yi = get_config("yi-6b")
+    flash_add, scatter_add = {}, {}
+
+    def rel(got, ref):
+        err = (got.float() - ref.float()).abs().max().item()
+        return err, err / max(ref.float().abs().max().item(), 1e-30)
+
+    # -- 8a. FlashAttentionFunction at yi's shape: forward and gradients
+    H, KV, D, C = yi.n_heads, yi.n_kv_heads, yi.head_dim, yi.attn_chunk
+    gen_ = torch.Generator(device=dev).manual_seed(args.seed + 11)
+    q, k, v = (torch.randn((B, S, h_, D), generator=gen_, device=dev,
+                           dtype=torch.bfloat16) for h_ in (H, KV, KV))
+    w = torch.randn((B, S, H, D), generator=gen_, device=dev)
+
+    def fwd_bwd(fn):
+        ins = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = fn(*ins)
+        (o.float() * w).sum().backward()
+        return o.detach(), [t.grad for t in ins]
+
+    def fn_kernel(*t):
+        return FlashAttentionFunction.apply(*t, C)
+
+    def fn_plain(*t):
+        return causal_plain(*t, C)
+
+    def fn_library(*t):        # SDPA in its (B, H, S, D) layout
+        return torch.nn.functional.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in t), is_causal=True,
+            enable_gqa=True).transpose(1, 2)
+
+    _build.reset_launches()
+    o_k, g_k = fwd_bwd(fn_kernel)
+    n_fn = _build.launches["flash_attention"]
+    o_p, g_p = fwd_bwd(fn_plain)
+    if n_fn != 1:
+        raise AssertionError(f"FlashAttentionFunction launched the kernel "
+                             f"{n_fn} times, expected 1")
+    err_o = rel(o_k, o_p)
+    errs_g = [rel(a, b) for a, b in zip(g_k, g_p)]
+    print(f"FlashAttentionFunction at B={B} S={S} H={H} KV={KV} D={D} "
+          f"bf16: output max|diff| {err_o[0]:.3e} vs plain; dq, dk, dv "
+          f"max|diff| / max|plain| " + ", ".join(
+              f"{r_:.3e}" for _, r_ in errs_g)
+          + f" (bit-equal {[bool(torch.equal(a, b)) for a, b in zip(g_k, g_p)]})")
+    if not torch.allclose(o_k.float(), o_p.float(), rtol=2e-2, atol=2e-2):
+        raise AssertionError("FlashAttentionFunction output off")
+    if any(not r_ <= LM_REL_TOL for _, r_ in errs_g):
+        raise AssertionError("FlashAttentionFunction gradients off")
+    del o_k, o_p, g_k, g_p
+    flops = 4.0 * D * B * H * S * (S + 1) / 2       # causal pairs x 4 D
+    # forward, then the backward's recompute and its four products
+    flops_fb = 3.5 * flops
+    # bfloat16 bytes: q, k, v and dO read, o, dq, dk and dv written
+    nbytes = 2 * (5 * B * H * S * D + 6 * B * KV * S * D)
+    flash_add.update(
+        train_fn_ms=timer(lambda: fwd_bwd(fn_kernel), 3),
+        train_fn_plain_ms=timer(lambda: fwd_bwd(fn_plain), 3),
+        train_fn_library_ms=timer(lambda: fwd_bwd(fn_library), 5),
+        train_fn_bound_ms=bound_ms(nbytes, flops_fb, BF16_TC_FLOPS)[0])
+    print(f"FlashAttentionFunction forward + backward: "
+          f"{flash_add['train_fn_ms']:.3f} ms (the backward plain), plain "
+          f"{flash_add['train_fn_plain_ms']:.3f} ms, library (SDPA) "
+          f"{flash_add['train_fn_library_ms']:.3f} ms, bound "
+          f"{flash_add['train_fn_bound_ms']:.4f} ms")
+    del q, k, v, w
+
+    # -- 8b. gradient parity: the kernel's forward vs the plain one ------
+    cfg2 = dataclasses.replace(yi, n_layers=2)
+    p2 = M.init_params(cfg2, args.seed, device=dev)
+    p2.requires_grad_(True)
+    tok0 = SyntheticTokens(DataConfig(vocab=yi.vocab, seq_len=S,
+                                      global_batch=B, seed=args.seed))
+    batch = {"tokens": torch.as_tensor(tok0.batch(0), device=dev)}
+    paths, leaves = zip(*items(p2))
+
+    def grads(impl):
+        loss, _ = M.forward_train(cfg2, p2, batch, impl=impl)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    def gaps(ga, gb):
+        """(worst max|a - b| / max|b| over the leaves, its leaf)."""
+        return max((rel(a, b)[1], "/".join(p_))
+                   for p_, a, b in zip(paths, ga, gb))
+
+    # the reference's init: wq's fan-in is its head count, so attention
+    # scores reach the thousands and a bfloat16 step in a layer's output
+    # moves the next layer's scores by whole units; printed beside the
+    # gap between two plain paths (dense vs triangular), not held
+    _build.reset_launches()
+    loss_k, gk = grads("flash")
+    n_par = _build.launches["flash_attention"]
+    loss_t, gt = grads("triangular")        # attn_flash's values, plain
+    if n_par != 2 * cfg2.n_layers:
+        raise AssertionError(f"gradient parity: flash launched {n_par} "
+                             f"times, expected {2 * cfg2.n_layers} (remat)")
+    g_of = dict(zip(paths, gk))
+    zero = [n_ for n_ in ("wq", "wk", "wv")
+            if not g_of[("stack", "attn", n_)].abs().max().item() > 0]
+    if zero:
+        raise AssertionError(f"no gradient reached {zero}")
+    ref_gap = gaps(gk, gt)
+    del gk
+    loss_f, gf = grads("full")
+    plain_gap = gaps(gf, gt)
+    del gf, gt
+    print(f"gradient parity at the reference's init (printed, not held): "
+          f"loss kernel {loss_k:.6f}, triangular {loss_t:.6f}, dense "
+          f"{loss_f:.6f}; worst leaf kernel vs triangular "
+          f"{ref_gap[0]:.3e} ({ref_gap[1]}), dense vs triangular "
+          f"{plain_gap[0]:.3e} ({plain_gap[1]}); max|g| wq "
+          f"{g_of[('stack', 'attn', 'wq')].abs().max().item():.3e}, wk "
+          f"{g_of[('stack', 'attn', 'wk')].abs().max().item():.3e}, wv "
+          f"{g_of[('stack', 'attn', 'wv')].abs().max().item():.3e}")
+    del g_of
+    # held: wq and wk at 1/sqrt(d_model), scores of order one
+    temper_attention(torch, p2)
+    loss_k, gk = grads("flash")
+    loss_t, gt = grads("triangular")
+    worst = gaps(gk, gt)
+    print(f"gradient parity, yi-6b width, 2 layers, B={B} S={S}, wq and "
+          f"wk at 1/sqrt(d_model): loss kernel {loss_k:.6f} / plain "
+          f"{loss_t:.6f}; worst leaf {worst[1]} at {worst[0]:.3e} of "
+          f"max|g_plain| (tol {LM_REL_TOL}); flash launches {n_par}")
+    if not worst[0] <= LM_REL_TOL:
+        raise AssertionError(f"gradient parity: {worst[1]} off")
+    del gk, gt, leaves
+
+    # -- 8c. checkpoint and resume (2 layers at full width) --------------
+    targs = TR.parse_args(["--arch", "yi-6b", "--batch", str(B), "--seq",
+                           str(S), "--seed", str(args.seed)])
+    get_batch = TR.build_batch_fn(cfg2, targs, dev)
+    opt = AdamW(lr=3e-4, state_dtype=cfg2.state_dtype,
+                schedule=cosine_schedule(warmup=20, total=8))
+    step_fn = make_train_step(cfg2, opt)
+    st = opt.init(p2)
+    for s_ in range(4):
+        p2, st, _ = step_fn(p2, st, get_batch(s_))
+    with tempfile.TemporaryDirectory() as d_:
+        t0 = time.perf_counter()
+        CK.save_checkpoint(d_, 4, (p2, st))
+        save_s = time.perf_counter() - t0
+        nbytes_ck = sum(f_.stat().st_size for f_ in Path(d_).rglob("*")
+                        if f_.is_file())
+        t0 = time.perf_counter()
+        (rp, rst), rstep = CK.restore_checkpoint(d_, (p2, st))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    a_leaves, b_leaves = flatten((p2, st))[0], flatten((rp, rst))[0]
+    if rstep != 4 or rst.step != st.step or len(a_leaves) != len(b_leaves):
+        raise AssertionError("restored checkpoint: step or leaves off")
+    unequal = [i for i, (a, b) in enumerate(zip(a_leaves, b_leaves))
+               if not (a == b if not torch.is_tensor(a)
+                       else a.dtype == b.dtype and torch.equal(a, b))]
+    if unequal:
+        raise AssertionError(f"restored leaves not bit-equal: {unequal}")
+    del a_leaves, b_leaves
+    rp.requires_grad_(True)
+    straight, resumed = [], []
+    for s_ in range(4, 8):
+        p2, st, m_ = step_fn(p2, st, get_batch(s_))
+        straight.append(m_["loss"].item())
+    del p2, st
+    for s_ in range(4, 8):
+        rp, rst, m_ = step_fn(rp, rst, get_batch(s_))
+        resumed.append(m_["loss"].item())
+    del rp, rst
+    gap = max(abs(a - b) / abs(a) for a, b in zip(straight, resumed))
+    print(f"checkpoint at step 4 (2 layers, {nbytes_ck / 2**30:.2f} GiB): "
+          f"save {save_s:.1f} s, restore {restore_s:.1f} s, every leaf "
+          f"bit-equal; steps 5-8 resumed {resumed} vs uninterrupted "
+          f"{straight}: max rel gap {gap:.3e} (tol {RESUME_TOL}); step 5 "
+          f"bit-equal {resumed[0] == straight[0]}")
+    if not gap <= RESUME_TOL:
+        raise AssertionError("resumed run off the uninterrupted one")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 8d. the main path: `launch.train.run` at full width ------------
+    cfg = dataclasses.replace(yi, n_layers=args.train_layers)
+    steps = args.train_steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, args.seed, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    # the gradient norm at the reference's init (printed): clipping at 1
+    # would scale every update to about its inverse
+    params.requires_grad_(True)
+    loss, _ = M.forward_train(cfg, params, TR.build_batch_fn(
+        cfg, TR.parse_args(["--arch", "yi-6b", "--batch", str(B), "--seq",
+                            str(S), "--seed", str(args.seed)]), dev)(0))
+    ref_norm = torch.sqrt(sum(g_.float().square().sum() for g_ in
+                              torch.autograd.grad(loss, list(
+                                  params.parameters())))).item()
+    del loss
+    temper_attention(torch, params)
+    before = _fingerprints(torch, params)
+    targs = TR.parse_args([
+        "--arch", "yi-6b", "--steps", str(steps), "--batch", str(B),
+        "--seq", str(S), "--lr", "3e-4", "--gee-embed-init", "--seed",
+        str(args.seed), "--log-every", "1"])
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    hist = TR.run(cfg, params, targs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    params = hist["params"]
+    want = 2 * cfg.n_layers * steps
+    if launches["flash_attention"] != want:
+        raise AssertionError(f"train path: flash_attention launched "
+                             f"{launches['flash_attention']} times, "
+                             f"expected {want} (forward + remat, each "
+                             "layer, each step)")
+    if launches["gee_scatter"] < 6 + 1:
+        raise AssertionError(f"train path: gee_scatter launched "
+                             f"{launches['gee_scatter']} times in the "
+                             "embedding init, expected fit + 6 rounds")
+    if launches["topk_fused"] or launches["gee_delta_renorm"]:
+        raise AssertionError(f"train path: a serving kernel ran: {launches}")
+    bad = [i for i, (l_, g_) in enumerate(zip(hist["losses"],
+                                              hist["grad_norms"]))
+           if not (np.isfinite(l_) and np.isfinite(g_))]
+    if bad or len(hist["losses"]) != steps:
+        raise AssertionError(f"train path: steps {bad} not finite")
+    after = _fingerprints(torch, params)
+    same_ = ["/".join(p_) for p_ in before
+             if torch.equal(before[p_], after[p_])]
+    if same_:
+        raise AssertionError(f"train path: leaves unchanged: {same_}")
+    step_ms = [1e3 * s_ for s_ in hist["step_s"]]
+    steady = float(np.median(step_ms[1:])) if steps > 1 else step_ms[0]
+    # one more step under the profiler: device busy time, idle share
+    opt = AdamW(lr=3e-4, state_dtype=cfg.state_dtype,
+                schedule=cosine_schedule(warmup=20, total=steps))
+    step_fn = make_train_step(cfg, opt)
+    batch = TR.build_batch_fn(cfg, targs, dev)(steps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        params, _, _ = step_fn(params, hist["opt_state"], batch)
+        torch.cuda.synchronize()
+    busy, n_dev, top = kernel_times(prof)
+    idle = 1 - busy / steady
+    # the leaves with the largest gradients, at the trained params, and
+    # one AdamW update with them, timed alone
+    loss, _ = M.forward_train(cfg, params, batch)
+    paths_, leaves_ = zip(*items(params))
+    g_ = torch.autograd.grad(loss, leaves_)
+    norms = sorted(((x.float().norm().item(), "/".join(p_))
+                    for p_, x in zip(paths_, g_)), reverse=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.update(build(zip(paths_, g_)), hist["opt_state"], params)
+    torch.cuda.synchronize()
+    adamw_ms = (time.perf_counter() - t0) * 1e3
+    del loss, g_, leaves_
+    print(f"train path: yi-6b width, {cfg.n_layers} of 32 layers (depth "
+          f"CUT: float32 params + AdamW state at 16 B a parameter; wq, wk "
+          f"at 1/sqrt(d_model); the gradient norm at the reference's "
+          f"init, step 1: {ref_norm:.3e}), "
+          f"{cfg.param_count():,} params, remat {cfg.remat}, compute "
+          f"{cfg.compute_dtype}; B={B} S={S}, {steps} steps with "
+          f"--gee-embed-init, lr 3e-4, cosine schedule; init {t_init:.2f} "
+          f"s, set-up in run {run_s - sum(hist['step_s']):.2f} s")
+    print(f"train path: step ms {[round(x, 1) for x in step_ms]}; steady "
+          f"{steady:.1f} ms, {B * S / steady * 1e3:,.0f} tokens/s; losses "
+          f"{[round(x, 4) for x in hist['losses']]}; grad norms "
+          f"{[round(x, 3) for x in hist['grad_norms']]}; peak "
+          f"{peak_gib:.2f} GiB; launches {launches}; card {smi}")
+    print("train path: largest gradient norms after the run: " + ", ".join(
+        f"{n_} {v_:.3e}" for v_, n_ in norms[:4])
+        + f"; one AdamW update alone {adamw_ms:.1f} ms")
+    print(f"profile train step: device busy {busy:.1f} ms in {n_dev} "
+          f"kernels and copies, device idle share {idle:.3f}; by kernel: "
+          + "; ".join(f"{n_[:60]} {ms_:.1f} ms x{c_}"
+                      for n_, (ms_, c_) in top[:14]))
+    flash_add["train_launches"] = launches["flash_attention"]
+    scatter_add["train_launches"] = launches["gee_scatter"]
+    del params, hist, prof, before, after, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 8e. every family's reduced config: card vs CPU, two steps ------
+    by_arch = {}
+    worst = (0.0, "")
+    for arch in list_archs():
+        cfg = dataclasses.replace(get_config(arch).reduced(), remat=True)
+        src = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                         global_batch=2, seed=args.seed))
+        rs = np.random.default_rng(args.seed)
+        frames = (rs.normal(size=(2, cfg.n_frames, cfg.d_model)).astype(
+            np.float32) if cfg.is_encdec else None)
+        opt = AdamW(lr=1e-3)
+        losses = {}
+        for side in ("cpu", "cuda"):
+            p_ = M.init_params(cfg, args.seed, device="cpu").to(side)
+            temper_attention(torch, p_)
+            p_.requires_grad_(True)
+            st = opt.init(p_)
+            fn = make_train_step(cfg, opt)
+            _build.reset_launches()
+            losses[side] = []
+            for s_ in range(2):
+                b_ = {"tokens": torch.as_tensor(src.batch(s_), device=side)}
+                if frames is not None:
+                    b_["frames"] = torch.as_tensor(frames, device=side)
+                p_, st, m_ = fn(p_, st, b_)
+                losses[side].append(m_["loss"].item())
+            del p_, st
+        n_ = _build.launches["flash_attention"]
+        want = 2 * 2 * expected_flash(cfg, 64)
+        gap = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+        worst = max(worst, (gap, arch))
+        by_arch[arch] = n_
+        if n_ != want or not gap <= FAM_TRAIN_TOL:
+            raise AssertionError(f"{arch} reduced train steps: card "
+                                 f"{losses['cuda']} vs cpu {losses['cpu']}"
+                                 f", flash {n_} (expected {want})")
+    print(f"reduced families, 2 train steps with remat, card vs CPU from "
+          f"the same weights (wq, wk at 1/sqrt(d_model)): worst loss gap {worst[0]:.3e} ({worst[1]}; "
+          f"tol {FAM_TRAIN_TOL}); flash launches {by_arch}")
+    flash_add["train_launches_by_arch"] = by_arch
+    return flash_add, scatter_add
 
 
 def main() -> int:
@@ -288,6 +733,10 @@ def main() -> int:
     ap.add_argument("--fam-layers", type=int, default=None,
                     help="cut every family's depth to at most this many "
                          "layers (a short check run; default: FAMILIES)")
+    ap.add_argument("--train-layers", type=int, default=12,
+                    help="yi-6b layers in phase 8's training run (12 of "
+                         "32: what float32 AdamW training holds on 80 GB)")
+    ap.add_argument("--train-steps", type=int, default=8)
     args = ap.parse_args()
 
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1817,20 +2266,6 @@ def main() -> int:
                 else cfg.attn_every or 1)
         return dataclasses.replace(cfg, n_layers=max(step, n // step * step))
 
-    def expected_flash(cfg, S):
-        """Flash launches of one prefill: one per causal self-attention
-        (none for xLSTM, the shared block once per zamba2 group, the
-        decoder's layers for whisper, none where a window masks)."""
-        if cfg.xlstm is not None:
-            return 0
-        if cfg.is_encdec:
-            return cfg.dec_layers
-        if cfg.ssm is not None:
-            return cfg.n_layers // cfg.attn_every
-        if cfg.swa_window and S > cfg.swa_window:
-            return 0
-        return cfg.n_layers
-
     def family_self_check(cfg, params, prompts, first, frames):
         """Phase 7's self-check, block by block on the same input
         (teacher-forced), by lm_self_check's rule (LM_REL_TOL x
@@ -2125,11 +2560,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fam = timed("families", families_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_train, scatter_train = timed("training", train_path, torch, dev,
+                                       args, timer, smi)
     print("phase wall seconds: " + ", ".join(f"{k_} {v_:.1f}"
                                              for k_, v_ in walls.items()))
     fam["launches_by_arch"] = {"yi-6b": results[-1]["launches"],
                                **fam["launches_by_arch"]}
     results[-1].update(fam)
+    results[-1].update(flash_train)
+    results[0].update(scatter_train)
 
     for r_ in results:
         rate = (f", {r_['tflops']:.1f} TFLOP/s, {r_['bound_share']:.3f} of "
@@ -2165,6 +2606,16 @@ def main() -> int:
               f"{r_['plain_ms']:.4f} ms, library {r_['library_ms']:.4f} ms, "
               f"launches {r_['launches']}, max|err| {r_['max_abs_err']:.3e}"
               f"{rate}")
+        if "train_fn_ms" in r_:
+            print(f"  {r_['name']} in training (phase 8): launches "
+                  f"{r_['train_launches']}; forward + backward at yi's "
+                  f"shape {r_['train_fn_ms']:.3f} ms (bound "
+                  f"{r_['train_fn_bound_ms']:.4f}, plain "
+                  f"{r_['train_fn_plain_ms']:.3f}, library "
+                  f"{r_['train_fn_library_ms']:.3f})")
+        elif "train_launches" in r_:
+            print(f"  {r_['name']} in training (phase 8, the GEE embedding "
+                  f"init): launches {r_['train_launches']}")
     print(json.dumps({"kernels": [{k_: v_ for k_, v_ in r_.items()
                                    if k_ != "shape"} for r_ in results]}))
     print(f"card: {smi}")

@@ -1,6 +1,6 @@
-"""repro_torch — the GEE embed -> delta -> top-k path and the LM serve
-path (prefill + greedy decode, dense decoder) in PyTorch, with
-hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""repro_torch — the GEE embed -> delta -> top-k path, its serving
+engine, and the LM serve and training paths of every registry arch in
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of the JAX package `repro`, module for module and name for name
 (`repro_torch.encoder.Embedder` is `repro.encoder.Embedder`'s
@@ -20,4 +20,6 @@ version; on CUDA tensors it launches its kernel or raises.
     from repro_torch.models import model as M
     cfg = get_config("yi-6b")
     tokens = generate(cfg, M.init_params(cfg, 0), prompts, 16)
+
+    python -m repro_torch.launch.train --arch yi-6b --reduced --device cpu
 """

@@ -163,6 +163,15 @@ def require(what: str, t, dtype, shape, device) -> None:
         raise ValueError(f"{what} must be contiguous")
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise TypeError if an input requires grad: the kernel has no
+    backward, and its output (written through a raw pointer) would be
+    cut from the autograd graph without a word."""
+    if any(t.requires_grad for t in tensors):
+        raise TypeError(f"{name} has no gradient: its CUDA inputs must not "
+                        "require grad (detach them first)")
+
+
 def stream_of(device) -> int:
     """The raw cudaStream_t of PyTorch's current stream on `device`."""
     import torch

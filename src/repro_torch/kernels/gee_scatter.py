@@ -11,7 +11,8 @@ same bits on every run.  A tile whose Z rows do not fit in shared
 memory is processed in sub-tiles (`subtile`), so any K is taken.
 
 On CPU tensors `gee_scatter` runs `gee_scatter_plain`; on CUDA tensors
-it launches the kernel or raises.
+it launches the kernel or raises (a TypeError for values that require
+grad: the kernel has no backward).
 """
 from __future__ import annotations
 
@@ -68,6 +69,7 @@ def gee_scatter(row_ptr, cls, val, *, num_tiles: int, tile_n: int,
     if dev.type != "cuda":
         raise ValueError(f"gee_scatter runs on cpu or cuda, not {dev}")
     S = cls.shape[0] if cls.dim() == 1 else -1
+    _build.refuse_grad("gee_scatter", val)
     _build.require("row_ptr", row_ptr, torch.int64, (nrows + 1,), dev)
     _build.require("cls", cls, torch.int32, (S,), dev)
     _build.require("val", val, torch.float32, (S,), dev)

@@ -33,7 +33,8 @@ shard split: the kernels are held to their plain versions with
 `array_equal`, and sharded answers are bit-equal to single-slice ones.
 
 On CPU tensors each wrapper runs its plain version; on CUDA tensors it
-launches its kernel or raises.
+launches its kernel or raises (a TypeError for float inputs that require
+grad: neither kernel has a backward).
 """
 from __future__ import annotations
 
@@ -195,6 +196,7 @@ def topk_fused(Z_rows, q, qnodes, *, k: int, row_offset: int = 0,
     nq = q.shape[0]
     if row_offset + m > 2**31 - 1:
         raise ValueError("global row ids must fit in int32")
+    _build.refuse_grad("topk_fused", Z_rows, q)
     _build.require("Z_rows", Z_rows, torch.float32, (m, K), dev)
     _build.require("q", q, torch.float32, (nq, K), dev)
     _build.require("qnodes", qnodes, torch.int32, (nq,), dev)
@@ -232,6 +234,7 @@ def gee_delta_renorm(Z, rows, cls, val, *, eps: float = EPS):
         raise ValueError(f"gee_delta_renorm runs on cpu or cuda, not {dev}")
     n_local, K = Z.shape
     m = rows.shape[0]
+    _build.refuse_grad("gee_delta_renorm", Z, val)
     _build.require("Z", Z, torch.float32, (n_local, K), dev)
     _build.require("rows", rows, torch.int32, (m,), dev)
     _build.require("cls", cls, torch.int32, (m,), dev)

@@ -1,1 +1,2 @@
-"""Launch drivers: `serve` (LM prefill + greedy decode)."""
+"""Launch drivers: `serve` (LM prefill + greedy decode) and `train`
+(the LM training loop)."""

@@ -9,7 +9,10 @@ three plain implementations and one kernel:
              reference's "TPU twin") at every S, unless a window masks
              something (S > swa_window, `flash_kernel_takes`); on the
              CPU, and for such a window, the plain path the reference
-             runs.
+             runs.  Where q, k or v require grad the kernel runs under
+             `FlashAttentionFunction`: its forward is the kernel, its
+             backward plain autograd of the same attention (the
+             reference has no backward kernel either).
   * triangular — the lower-triangular block loop (plain on any device).
 
 Decode: plain cache attention (one-token query vs. a (B, S, KV, Dh)
@@ -220,17 +223,65 @@ def flash_kernel_takes(cfg, S: int) -> bool:
     return not cfg.swa_window or S <= cfg.swa_window
 
 
+def _flash_kernel(q, k, v):
+    """The kernel on (B, S, H, Dh) tensors; its layout is (B, H, S, Dh)."""
+    o = flash_attention(q.transpose(1, 2).contiguous(),
+                        k.transpose(1, 2).contiguous(),
+                        v.transpose(1, 2).contiguous())
+    return o.transpose(1, 2)
+
+
+def causal_plain(q, k, v, chunk: int):
+    """Causal self-attention over positions 0..S-1 without a window, by
+    the plain path: dense where S <= chunk or chunk does not divide S
+    (as `self_attention`), else the lower-triangular block loop, whose
+    values are `attn_flash`'s bit for bit (an all-masked block adds
+    exp(-1e30 - m) = 0 and rescales by exp(0) = 1) at half its work and
+    memory."""
+    S = q.shape[1]
+    pos = torch.arange(S, device=q.device)
+    if S <= chunk or S % chunk:
+        return attn_full(q, k, v, pos, pos, causal=True)
+    return attn_triangular(q, k, v, pos, pos, chunk=chunk)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Causal self-attention on (B, S, H, Dh) q and (B, S, KV, Dh) k, v
+    whose forward is the flash kernel (on CPU tensors its plain version)
+    and whose backward recomputes the same attention by `causal_plain`
+    under autograd, on detached copies of the saved q, k, v, and returns
+    the gradients of that recomputation.  Memory of the backward: one
+    layer's score blocks at a time (at yi-6b's B = 4, H = 32, KV = 4,
+    S = 2048, chunk 1024: three (4, 4, 8, 1024, 1024) float32 blocks of
+    512 MiB each and a few saved tensors per block)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, chunk: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.chunk = chunk
+        return _flash_kernel(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            out = causal_plain(*ins, ctx.chunk)
+            wrt = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wrt, grad_out))
+        return tuple(next(got) if n else None for n in need) + (None,)
+
+
 def self_attention(cfg, q, k, v, q_pos, kv_pos, *, impl="flash"):
-    """Causal self-attention over positions 0..S-1 (prefill)."""
+    """Causal self-attention over positions 0..S-1 (prefill, training)."""
     window = cfg.swa_window
     if impl not in ("full", "flash", "triangular"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if impl == "flash" and q.is_cuda and flash_kernel_takes(cfg, q.shape[1]):
-        # the kernel's layout is (B, H, S, Dh)
-        o = flash_attention(q.transpose(1, 2).contiguous(),
-                            k.transpose(1, 2).contiguous(),
-                            v.transpose(1, 2).contiguous())
-        return o.transpose(1, 2)
+        if any(t.requires_grad for t in (q, k, v)):
+            return FlashAttentionFunction.apply(q, k, v, cfg.attn_chunk)
+        return _flash_kernel(q, k, v)
     if (impl == "full" or q.shape[1] <= cfg.attn_chunk
             or q.shape[1] % cfg.attn_chunk != 0):
         # small or chunk-indivisible sequences: dense-mask path

@@ -85,13 +85,18 @@ def count_specs(tree) -> int:
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as an `nn.Module`: each dict becomes a
-    ParamTree, each tensor a Parameter without gradient (inference).
-    ``tree["attn"]["wq"]`` reads like the reference's pytree."""
+    ParamTree, each tensor a Parameter, created without gradient (serving
+    needs none); `tree.requires_grad_(True)` makes the tree trainable.
+    ``tree["attn"]["wq"]`` reads like the reference's pytree.  A layer's
+    view of a stacked leaf (`take`) passes its gradient into the stacked
+    Parameter."""
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
         for k, v in tree.items():
-            if isinstance(v, dict):
+            if isinstance(v, ParamTree):
+                self.add_module(k, v)
+            elif isinstance(v, dict):
                 self.add_module(k, ParamTree(v))
             else:
                 self.register_parameter(

@@ -6,15 +6,17 @@ zamba2, xLSTM, whisper):
     param_specs(cfg)             -> ParamSpec tree (shapes + logical axes)
     init_params(cfg, seed)       -> ParamTree on a device (random weights)
     forward_logits(cfg, p, tok)  -> (logits, aux), full sequence
+    forward_train(cfg, p, batch) -> (loss, metrics), differentiable
     prefill(cfg, p, batch)       -> (last-token logits, decode cache)
     decode_step(cfg, p, tok, pos, cache) -> (logits, cache)
     cache_specs / init_cache     -> decode cache (specs / real)
 
 Tokens are integer tensors on the params' device (whisper's `frames`
 too: (B, n_frames, d_model)); `pos` is a Python int.  A decode step
-writes the cache in place and returns it.  Run under
-`torch.inference_mode()`: nothing here needs gradients.  Training
-(`forward_train`, `cross_entropy`) is not ported yet.
+writes the cache in place and returns it.  Serving runs under
+`torch.inference_mode()`; training differentiates `forward_train` with
+autograd (`repro_torch.training.train_loop`) on a ParamTree made
+trainable with `requires_grad_(True)`.
 """
 from __future__ import annotations
 
@@ -101,7 +103,8 @@ def _mask_padded_vocab(cfg, logits):
 def _trunk_train(cfg, params, x, positions, impl):
     """Shared trunk: stacked blocks, train shape.  Returns (x, aux)."""
     if cfg.xlstm is not None:
-        x, _, aux = tfm.xlstm_stack_apply(cfg, params["stack"], x, None)
+        x, _, aux = tfm.xlstm_stack_apply(cfg, params["stack"], x, None,
+                                          collect=False)
     elif _is_zamba(cfg):
         x, _, aux = tfm.zamba_stack_train(cfg, params["stack"], x, positions,
                                           impl=impl, collect=False)
@@ -124,6 +127,35 @@ def forward_logits(cfg, params, tokens, frames=None, impl="flash"):
     else:
         x, aux = _trunk_train(cfg, params, x, positions, impl)
     return _logits(cfg, params, x), aux
+
+
+def cross_entropy(cfg, logits, targets):
+    """logits: (B, S, Vp) any float dtype; targets: (B, S) int.  Returns
+    (mean loss, logz (B, S)), both in float32; padded vocab ids are
+    masked to -1e30 first."""
+    logits = _mask_padded_vocab(cfg, logits.to(torch.float32))
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None].long())[..., 0]
+    return (logz - gold).mean(), logz
+
+
+def forward_train(cfg, params, batch, impl="flash", aux_weight=0.01,
+                  z_weight=0.0):
+    """Next-token LM loss.  batch: {"tokens": (B, S)[, "frames":
+    (B, F, D)]}.  Returns (total loss, metrics): the cross-entropy of
+    logits[:, :-1] against tokens[:, 1:], plus aux_weight x the MoE
+    load-balance loss and z_weight x mean(logz[:, :-1] ** 2); metrics
+    `loss` (the cross-entropy), `aux_loss` and `tokens` (B x (S - 1))."""
+    tokens = batch["tokens"]
+    logits, aux = forward_logits(cfg, params, tokens,
+                                 frames=batch.get("frames"), impl=impl)
+    loss, logz = cross_entropy(cfg, logits[:, :-1], tokens[:, 1:])
+    total = loss + aux_weight * aux
+    if z_weight:
+        total = total + z_weight * logz[:, :-1].square().mean()
+    metrics = {"loss": loss, "aux_loss": aux,
+               "tokens": tokens.shape[0] * (tokens.shape[1] - 1)}
+    return total, metrics
 
 
 # ---------------------------------------------------------------------------

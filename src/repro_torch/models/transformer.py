@@ -2,8 +2,10 @@
 
 The port of `repro.models.transformer`.  The reference scans over
 stacked layer params (``lax.scan``, optional remat); here a plain loop
-takes layer i's views of the same stacked tensors.  There is no remat:
-the port runs inference.
+takes layer i's views of the same stacked tensors.  Remat is the
+reference's too: with `cfg.remat` and grad enabled, each layer's body
+runs under `torch.utils.checkpoint` (non-reentrant), so its activations
+are recomputed in the backward pass instead of kept.
 
 Block contract (uniform across attn / moe / mamba / mlstm / slstm):
 
@@ -17,6 +19,7 @@ stacked one, in place, and returns the stacked cache.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -185,11 +188,17 @@ def depth(stacked) -> int:
 def scan_stack(cfg, body, x, stacked_params, stacked_cache=None):
     """Run body(x, p, c) -> (x, new_c, aux) over the layer dim, layer i
     reading views of the stacked params (and cache).  Returns (x,
-    stacked_cache, aux summed)."""
+    stacked_cache, aux summed).  With `cfg.remat` and grad enabled each
+    call of `body` is checkpointed (the reference's `_maybe_remat`)."""
+    remat = cfg.remat and torch.is_grad_enabled()
     aux = _zero(x)
     for i in range(depth(stacked_params)):
         c = None if stacked_cache is None else take(stacked_cache, i)
-        x, _, a = body(x, take(stacked_params, i), c)
+        p = take(stacked_params, i)
+        if remat:
+            x, _, a = checkpoint(body, x, p, c, use_reentrant=False)
+        else:
+            x, _, a = body(x, p, c)
         aux = aux + a
     return x, stacked_cache, aux
 
@@ -249,9 +258,22 @@ def xlstm_stack_specs(cfg):
     return stack_specs(group, g, "layers")
 
 
-def xlstm_stack_apply(cfg, params, x, state=None):
+def xlstm_stack_apply(cfg, params, x, state=None, *, collect=True):
     """Prefill (state None: zero states consumed, states returned) and
-    decode (state given, written in place).  Returns (x, state, aux)."""
+    decode (state given, written in place).  Returns (x, state, aux).
+    collect=False (training): every block starts from the zero state and
+    nothing is written, so autograd never sees a state changed in place;
+    the returned state is None."""
+    if not collect:
+        def group_fresh(x, p, _):
+            def inner(x, ip, _c):
+                return mlstm_block(cfg, ip, x)[0], None, _zero(x)
+
+            x, _, _ = scan_stack(cfg, inner, x, p["mlstm"])
+            return slstm_block(cfg, p["slstm"], x)[0], None, _zero(x)
+
+        x, _, _ = scan_stack(cfg, group_fresh, x, params)
+        return x, None, _zero(x)
     if state is None:
         state = xlstm_init_state(cfg, x.shape[0], device=x.device)
 

@@ -467,3 +467,87 @@ def test_socket_engine_workers_run_the_kernels_on_the_card(dev, rng,
     finally:
         sock.close()
         local.close()
+
+
+# ---------------------------------------------------------------------------
+# training: the kernel's forward under autograd
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 120, 128])
+def test_flash_function_gradients(dev, rng, dtype, D):
+    """`FlashAttentionFunction`: one kernel launch forward, the output
+    at the kernel's tolerance from the plain attention's, and dq, dk, dv
+    (its backward recomputes `causal_plain` on the saved inputs) equal to
+    autograd of `causal_plain` within 1e-6 of their largest entry, and
+    within the kernel's tolerance of autograd of the dense oracle."""
+    from repro_torch.models import attention as TA
+    B, H, KV, S, chunk = 2, 8, 2, 256, 64
+    arrs = [rng.normal(size=(B, S, h, D)).astype(np.float32)
+            for h in (H, KV, KV)]
+    w = torch.as_tensor(rng.normal(size=(B, S, H, D)).astype(np.float32),
+                        device=dev)
+
+    def run(fn):
+        ins = [torch.as_tensor(a, device=dev).to(dtype).requires_grad_()
+               for a in arrs]
+        o = fn(*ins)
+        (o.float() * w).sum().backward()
+        return o.detach(), [t.grad for t in ins]
+
+    before = _build.launches["flash_attention"]
+    ok, gk = run(lambda q, k, v: TA.FlashAttentionFunction.apply(
+        q, k, v, chunk))
+    assert _build.launches["flash_attention"] == before + 1
+    op, gp = run(lambda q, k, v: TA.causal_plain(q, k, v, chunk))
+    od, gd = run(lambda q, k, v: FA.flash_attention_plain(
+        *(x.transpose(1, 2) for x in (q, k, v))).transpose(1, 2))
+    tol = FLASH_TOL[dtype]
+    assert ok.dtype == dtype
+    torch.testing.assert_close(ok.float(), op.float(), atol=tol, rtol=tol)
+    for a, b, c in zip(gk, gp, gd):
+        assert a.dtype == dtype
+        top = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= 1e-6 * top
+        assert (a.float() - c.float()).abs().max().item() <= tol * top
+
+
+def test_training_reaches_every_attention_weight(dev):
+    """Reduced yi-6b trained on the card: the kernel runs in every layer
+    (no remat in the reduced config), the loss equals the dense path's,
+    and every attention weight gets a gradient."""
+    from repro_torch.training.trees import items
+    cfg = get_config("yi-6b").reduced()
+    params = TM.init_params(cfg, 0, device=dev)
+    params.requires_grad_(True)
+    toks = torch.randint(0, cfg.vocab, (2, 64), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    _build.reset_launches()
+    loss, _ = TM.forward_train(cfg, params, {"tokens": toks})
+    assert _build.launches["flash_attention"] == cfg.n_layers
+    paths, leaves = zip(*items(params))
+    grads = dict(zip(paths, torch.autograd.grad(loss, leaves)))
+    for name in ("wq", "wk", "wv", "wo"):
+        assert grads[("stack", "attn", name)].abs().max().item() > 0, name
+    with torch.no_grad():
+        full, _ = TM.forward_train(cfg, params, {"tokens": toks},
+                                   impl="full")
+    torch.testing.assert_close(loss, full, atol=1e-4, rtol=1e-5)
+
+
+def test_gee_wrappers_refuse_inputs_that_require_grad(dev):
+    """The GEE kernels have no backward: a float input that requires grad
+    raises instead of giving an output cut from the graph."""
+    z = torch.zeros((8, 4), device=dev, requires_grad=True)
+    q = torch.zeros((2, 4), device=dev)
+    qn = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="no gradient"):
+        QF.topk_fused(z, q, qn, k=2)
+    with pytest.raises(TypeError, match="no gradient"):
+        QF.gee_delta_renorm(z, qn, qn, qn.float())
+    row_ptr = torch.tensor([0, 1, 2, 3, 4], device=dev)
+    c = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="no gradient"):
+        GS.gee_scatter(row_ptr, c, c.float().requires_grad_(), num_tiles=1,
+                       tile_n=4, kdim=2)

@@ -47,6 +47,11 @@ for name in names:
 # the numpy-only modules too (the transport keeps its own copies)
 assert {{"repro_torch.transport." + m for m in ("errors", "framing", "rpc",
         "procs", "worker", "remote", "replica")}} <= set(names), names
+# the training path (the data pipeline is numpy-only: the port's copy)
+assert {{"repro_torch.training." + m for m in ("optimizer", "compression",
+        "train_loop", "checkpoint", "fault_tolerance", "trees")}} | {{
+        "repro_torch.data.pipeline", "repro_torch.launch.train"}} <= \
+    set(names), names
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m == "repro" or m.startswith(("repro.", "jax")))]
 assert not loaded, loaded
