@@ -89,6 +89,23 @@
    build (with frame bytes), bootstrap, ticket, reopen and checkpoint
    seconds, the replica's share of reads, and each process's device
    memory (the workers' pings; nvidia-smi's compute-apps list);
+5d. distributed GEE (`repro_torch.core.distributed`) on phase 3's graph
+   in a one-rank NCCL group (`edge_mesh("cuda")`; one card, and NCCL
+   puts no two ranks on one card): for each of the four modes an
+   `Embedder(backend="distributed:<mode>", mesh=...)` plans, fits and
+   refits, Z within atol 1e-5 of phase 3's cuda fit (the gee_scatter
+   kernel) and nothing dropped; then `gee_a2a_steady` from
+   `prebucket_host`'s buckets, the Laplacian through the ring against
+   the cuda backend's fit of the Laplacian-scaled weights, and the name
+   `backend="auto"` resolves to under the mesh.  Prints per mode plan
+   and fit seconds, refit ms and peak device memory; destroys its group;
+5e. the tuners (`repro_torch.launch.autotune`): `tune_scatter` over
+   tile_n at phase 3's shape (an Erdos-Renyi graph of the same n, s,
+   K = 16) and `tune_topk` over the select grid at phase 3's top-k
+   shape (shard 0's rows, 64 queries, k = 10); prints the tuned geometry
+   beside the default with each one's time and share of its bound, and
+   requires the scatter's byte model at tile_n = 256 to equal the
+   kernel table's bound bytes;
 6. frees the skew phase's tensors and drives the LM serve path: yi-6b at
    full width (d_model 4096, 32 layers, GQA 32/4, float32 weights drawn
    on the card from --seed, bfloat16 compute) through
@@ -176,15 +193,6 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
-FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
-# FP32 instructions a second: 67e12 counts an FMA as two operations
-FP32_INSTR = FP32_FLOPS / 2
-# H100 SXM dense bf16 on the tensor cores.  Attention on bf16 inputs is
-# two matrix products per tile, work the card does at this rate (the
-# library call below does): the least time for it is against this peak,
-# whatever arithmetic a given kernel uses.
-BF16_TC_FLOPS = 989e12
 # LM self-check tolerance: max|diff| <= LM_REL_TOL * max|reference|,
 # per layer on the same input (the bfloat16 tolerance of the JAX suite's
 # kernel test).  Both paths compute attention in float32 from the same
@@ -258,10 +266,18 @@ class Timer:
         return a.elapsed_time(b) / reps
 
 
-def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound_ms(nbytes: float, flops: float, tensor_cores: bool = False):
+    """(least ms for the work, "bytes" or "operations") from the port's
+    hardware model (`repro_torch.launch.roofline.bound_s`): fp32
+    operations outside the tensor cores, or with `tensor_cores` bf16 on
+    them.  Attention on bf16 inputs is two matrix products per tile, work
+    the card does at the tensor-core rate (the library call does): the
+    least time for it is against that peak, whatever arithmetic a given
+    kernel uses."""
+    from repro_torch.launch import roofline as RL
+    t, by = RL.bound_s(nbytes, flops,
+                       RL.PEAK_FLOPS if tensor_cores else RL.FP32_FLOPS)
+    return t * 1e3, by
 
 
 def kernel_times(prof):
@@ -449,7 +465,7 @@ def train_path(torch, dev, args, timer, smi):
         train_fn_ms=timer(lambda: fwd_bwd(fn_kernel), 3),
         train_fn_plain_ms=timer(lambda: fwd_bwd(fn_plain), 3),
         train_fn_library_ms=timer(lambda: fwd_bwd(fn_library), 5),
-        train_fn_bound_ms=bound_ms(nbytes, flops_fb, BF16_TC_FLOPS)[0])
+        train_fn_bound_ms=bound_ms(nbytes, flops_fb, tensor_cores=True)[0])
     print(f"FlashAttentionFunction forward + backward: "
           f"{flash_add['train_fn_ms']:.3f} ms (the backward plain), plain "
           f"{flash_add['train_fn_plain_ms']:.3f} ms, library (SDPA) "
@@ -718,6 +734,197 @@ def train_path(torch, dev, args, timer, smi):
     return flash_add, scatter_add
 
 
+def profile_refit(torch, emb, mode):
+    """One more refit of `emb` under torch.profiler: prints its wall
+    time, the device's busy time and idle share, the kernels that take
+    most of it and the host operations that take most of the host's
+    time; returns (wall ms, busy ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        emb.refit()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, n_dev, top = kernel_times(prof)
+    print(f"profile distributed:{mode} refit: wall {wall:.1f} ms under the "
+          f"profiler, device busy {busy:.1f} ms in {n_dev} kernels and "
+          f"copies, idle share {1 - busy / wall:.3f}; by kernel: "
+          + "; ".join(f"{n_[:48]} {ms_:.2f} ms x{c_}"
+                      for n_, (ms_, c_) in top[:6]))
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    print(f"profile distributed:{mode} refit, host self time by op: "
+          + "; ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.1f} ms "
+                      f"x{e.count}" for e in host[:8]))
+    return wall, busy
+
+
+def distributed_path(torch, dev, g, Y, Z_cuda):
+    """Phase 5d: distributed GEE (`repro_torch.core.distributed`) on
+    the main path's graph in a one-rank NCCL group, every mode held
+    to phase 3's cuda fit `Z_cuda` (numpy); returns its figures for
+    the summary.  Its tensors and its group are gone when it
+    returns."""
+    from repro_torch.core import distributed as D
+    from repro_torch.encoder import Embedder, EncoderConfig
+    from repro_torch.encoder.backends import resolve_auto
+    from repro_torch.graph import Graph
+
+    n, K = g.n, Z_cuda.shape[1]
+    Zc = torch.as_tensor(Z_cuda, device=dev)
+    mesh = D.edge_mesh(dev.type)
+    backend = str(torch.distributed.get_backend())
+    print(f"phase 5d: a {mesh.size()}-rank {backend} group")
+    if mesh.size() != 1 or ("nccl" if dev.type == "cuda"
+                            else "gloo") not in backend:
+        raise AssertionError("phase 5d: expected a one-rank NCCL group")
+    out = {}
+
+    def err(Z):
+        return (torch.as_tensor(Z, device=dev) - Zc).abs().max().item()
+
+    try:
+        for mode in ("replicated", "reduce_scatter", "a2a", "ring"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            emb = Embedder(EncoderConfig(K=K),
+                           backend=f"distributed:{mode}", device=dev,
+                           mesh=mesh)
+            t0 = time.perf_counter()
+            emb.plan(g)
+            torch.cuda.synchronize()
+            t_plan = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            emb.fit(g, Y)
+            torch.cuda.synchronize()
+            t_fit = time.perf_counter() - t0
+            e_fit, info = err(emb.Z_), dict(emb.last_info_)
+            t0 = time.perf_counter()
+            emb.refit()
+            torch.cuda.synchronize()
+            t_refit = time.perf_counter() - t0
+            e_refit = err(emb.Z_)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            cf = emb._plan.data["capacity_factor"]
+            print(f"distributed:{mode}: plan {t_plan:.2f} s (capacity "
+                  f"factor {cf:.4f}), fit {t_fit:.2f} s, refit "
+                  f"{t_refit * 1e3:.1f} ms, peak device memory "
+                  f"{peak:.2f} GiB; max|Z - Z_cuda| fit {e_fit:.3e}, "
+                  f"refit {e_refit:.3e}; dropped {info['dropped']}; "
+                  f"plan stats {emb.plan_stats}")
+            if (info["dropped"] or emb.last_info_["dropped"]
+                    or not e_fit <= 1e-5 or not e_refit <= 1e-5):
+                raise AssertionError(f"distributed:{mode} off the cuda "
+                                     f"fit or dropping")
+            out[mode] = dict(plan_s=t_plan, fit_s=t_fit,
+                             refit_ms=t_refit * 1e3, peak_gib=peak)
+            if mode == "reduce_scatter":
+                out["refit_profile"] = profile_refit(torch, emb, mode)
+            del emb
+            gc.collect()
+            torch.cuda.empty_cache()
+        # the steady-state a2a from host buckets
+        t0 = time.perf_counter()
+        b_dst, b_src, b_w, n_pad = D.prebucket_host(g, 1)
+        t_bucket = time.perf_counter() - t0
+        Y_pad = np.full(n_pad, -1, np.int32)
+        Y_pad[:n] = Y
+        slabs = [torch.as_tensor(a[0], device=dev)
+                 for a in (b_dst, b_src, b_w)]
+        del b_dst, b_src, b_w
+        Y_t = torch.as_tensor(Y_pad, device=dev)
+        D.gee_a2a_steady(*slabs, Y_t, K=K, n_pad=n_pad, mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Zs, dropped = D.gee_a2a_steady(*slabs, Y_t, K=K, n_pad=n_pad,
+                                       mesh=mesh)
+        torch.cuda.synchronize()
+        t_steady = time.perf_counter() - t0
+        e_steady = err(Zs[:n])
+        del slabs, Zs, Y_t
+        print(f"gee_a2a_steady: prebucket_host {t_bucket:.2f} s, embed "
+              f"{t_steady * 1e3:.1f} ms, max|Z - Z_cuda| "
+              f"{e_steady:.3e}")
+        if int(dropped) or not e_steady <= 1e-5:
+            raise AssertionError("gee_a2a_steady off the cuda fit")
+        # the Laplacian through the ring, against the cuda backend's fit
+        # of the Laplacian-scaled weights (`effective_weights`' float64
+        # math, its degrees summed on the card: the host's np.add.at
+        # over 2 s contributions takes tens of seconds)
+        del Zc
+        gc.collect()
+        torch.cuda.empty_cache()
+        u_t = torch.as_tensor(g.u, device=dev).long()
+        v_t = torch.as_tensor(g.v, device=dev).long()
+        w64 = torch.as_tensor(g.w, device=dev).double()
+        deg = torch.bincount(torch.cat([u_t, v_t]),
+                             weights=torch.cat([w64, w64]), minlength=n)
+        scale = 1.0 / torch.sqrt(torch.clamp_min(deg, 1.0))
+        w_eff = (w64 * scale[u_t] * scale[v_t]).float().cpu().numpy()
+        del u_t, v_t, w64, deg, scale
+        Zl_ref = Embedder(EncoderConfig(K=K), backend="cuda",
+                          device=dev).fit(Graph(g.u, g.v, w_eff, n), Y).Z_
+        del w_eff
+        t0 = time.perf_counter()
+        Zl, dl = D.gee_distributed(g, Y, K=K, mode="ring", mesh=mesh,
+                                   laplacian=True)
+        t_lap = time.perf_counter() - t0
+        e_lap = (torch.as_tensor(Zl, device=dev) - Zl_ref).abs().max(
+            ).item()
+        del Zl, Zl_ref
+        print(f"Laplacian through the ring: {t_lap:.2f} s, max|Z - "
+              f"Z_cuda(laplacian)| {e_lap:.3e}, dropped {dl}")
+        if dl or not e_lap <= 1e-5:
+            raise AssertionError("the Laplacian ring is off the cuda "
+                                 "backend's Laplacian fit")
+        auto = resolve_auto(n, g.s, mesh=mesh)
+        want = resolve_auto(n, g.s, device_kind=dev.type, device_count=1)
+        print(f"backend='auto' under the one-rank mesh: {auto}")
+        if auto != want:
+            raise AssertionError(f"auto under the mesh gave {auto}, "
+                                 f"expected {want}")
+        out.update(prebucket_s=t_bucket, steady_ms=t_steady * 1e3,
+                   laplacian_ring_s=t_lap, auto=auto)
+    finally:
+        D.destroy_local_group()
+    if torch.distributed.is_initialized():
+        raise AssertionError("phase 5d left a process group behind")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tune_path(torch, dev, n, s, m_topk, scatter_bound_bytes):
+    """Phase "tune": `launch.autotune` at the main path's shapes; the
+    tuned geometry beside the defaults.  Returns the figures."""
+    from repro_torch.launch import autotune as AT
+
+    sc = AT.tune_scatter(n, s, 16, iters=21, device=dev)
+    tk = AT.tune_topk(m_topk, 16, 64, 10, iters=21, device=dev)
+    out = {}
+    for what, r_ in (("gee_scatter tile_n", sc),
+                     ("topk_fused select grid (max_grid)", tk)):
+        b_, d_ = r_["best_point"], r_["default_point"]
+        print(f"tune {what}: best {b_['cfg']} {b_['seconds'] * 1e3:.4f} "
+              f"ms ({b_['bound_share']:.3f} of its {b_['bound_by']} "
+              f"bound {b_['bound_s'] * 1e3:.4f} ms), default "
+              f"{d_['cfg']} {d_['seconds'] * 1e3:.4f} ms "
+              f"({d_['bound_share']:.3f}); points "
+              + ", ".join(f"{list(c.values())[0]}: {t * 1e3:.4f}"
+                          for c, t in r_["trace"]))
+        out[what.split()[0]] = dict(best=b_, default=d_)
+    moved = sc["default_point"]["moved_bytes"]
+    print(f"tune: the scatter's byte model at tile_n = 256 moves "
+          f"{moved:,} bytes; the kernel table's bound counts "
+          f"{scatter_bound_bytes:,}")
+    if moved != scatter_bound_bytes:
+        raise AssertionError("the tuner's scatter byte model differs "
+                             "from the kernel table's bound")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -767,6 +974,7 @@ def main() -> int:
     from repro_torch.kernels import gee_scatter as GS
     from repro_torch.kernels import query_fused as QF
     from repro_torch.kernels.ops import pack_edges
+    from repro_torch.launch import roofline as RL
     from repro_torch.launch.serve import generate
     from repro_torch.models import model as M
     from repro_torch.serving import EmbeddingShard
@@ -1159,6 +1367,7 @@ def main() -> int:
             plain_ms=timer(lambda: GS.gee_scatter_plain(row_ptr, cls, val,
                                                         **kw), 3),
             bound_ms=b, bound_by=by, library_ms=timer(run_scatter_lib, 3),
+            bound_bytes=8 * S + 8 * row_ptr.numel() + z_bytes,
             bound_share=b / ms, bound_share_12b=b12 / ms,
             ms_all_labelled=ms_all, all_labelled_bound_ms=b_all,
             all_labelled_library_ms=lib_all,
@@ -1198,8 +1407,10 @@ def main() -> int:
             merge_ms=timer(lambda: QF._topk_merge(*cand, k=k), 20,
                            queue_ahead=True),
             bound_share=b / ms,
-            # one FMUL and one FADD per term (no FFMA: common.cuh)
-            issue_floor_ms=2.0 * nq * m * K / FP32_INSTR * 1e3,
+            # one FMUL and one FADD per term (no FFMA: common.cuh), at
+            # the fp32 rate's instructions a second (it counts an FMA as
+            # two operations)
+            issue_floor_ms=2.0 * nq * m * K / (RL.FP32_FLOPS / 2) * 1e3,
             shape=f"m={m} nq={nq} k={k} K={K} select grid "
                   f"{cand[0].shape[1]} blocks"))
         del cand
@@ -1283,7 +1494,7 @@ def main() -> int:
                                         + rw_.shape[0] * 12,
                                         rw_.shape[0])[0])
         del Zw
-        return results, (g, truth, Y)
+        return results, (g, truth, Y), Z_fit.cpu().numpy()
 
     def plan_cache_path(g, Y):
         """Phase 5': the persistent plan cache and refinement on the main
@@ -2207,7 +2418,7 @@ def main() -> int:
         print(f"library call max|err| vs plain: {lib_err.item():.3e}")
         flops = 4.0 * D * B * H * S * (S + 1) / 2    # causal pairs x 4 D
         nbytes = 2 * (2 * B * H * S * D + 2 * B * KV * S * D)
-        b, by = bound_ms(nbytes, flops, BF16_TC_FLOPS)
+        b, by = bound_ms(nbytes, flops, tensor_cores=True)
 
         def run_kernel():
             return FA.flash_attention(q, k, v)
@@ -2232,7 +2443,7 @@ def main() -> int:
             wide_D256_ms=timer(lambda: FA.flash_attention(qw, kw_, vw), 5),
             wide_D256_bound_ms=bound_ms(
                 2 * (2 * B * Hw * S * Dw + 2 * B * KVw * S * Dw), flops_w,
-                BF16_TC_FLOPS)[0],
+                tensor_cores=True)[0],
             wide_D256_plain_ms=timer(
                 lambda: FA.flash_attention_plain(qw, kw_, vw), 2),
             wide_D256_library_ms=timer(
@@ -2522,7 +2733,7 @@ def main() -> int:
             nbytes = 2 * (2 * B * H * S * D + 2 * B * KV * S * D)
             out[f"{tag}_ms"] = timer(lambda: FA.flash_attention(q, k, v), 20)
             out[f"{tag}_bound_ms"] = bound_ms(nbytes, flops,
-                                              BF16_TC_FLOPS)[0]
+                                              tensor_cores=True)[0]
             out[f"{tag}_plain_ms"] = timer(
                 lambda: FA.flash_attention_plain(q, k, v), 2)
             out[f"{tag}_library_ms"] = timer(
@@ -2544,7 +2755,7 @@ def main() -> int:
         walls[name] = time.perf_counter() - t0
         return out
 
-    results, main_graph = timed("GEE path", gee_path)
+    results, main_graph, Z_cuda = timed("GEE path", gee_path)
     gc.collect()
     torch.cuda.empty_cache()
     timed("plan cache", plan_cache_path, main_graph[0], main_graph[2])
@@ -2554,8 +2765,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     timed("socket deployment", socket_path, *main_graph)
-    del main_graph
+    timed("distributed GEE", distributed_path, torch, dev, main_graph[0],
+          main_graph[2], Z_cuda)
+    del main_graph, Z_cuda
     gc.collect()
+    lo, hi = RowPartition(args.n, 2).slice(0)
+    tuned = timed("tune", tune_path, torch, dev, args.n, args.s, hi - lo,
+                  results[0]["bound_bytes"])
+    for r_, key in ((results[0], "gee_scatter"), (results[1], "topk_fused")):
+        r_["tune"] = {which: {"cfg": pt["cfg"], "ms": pt["seconds"] * 1e3,
+                              "bound_share": pt["bound_share"]}
+                      for which, pt in tuned[key].items()}
     results.append(timed("yi-6b", lm_path))
     gc.collect()
     torch.cuda.empty_cache()

@@ -3,8 +3,9 @@
     from repro_torch.encoder import Embedder, EncoderConfig
     emb = Embedder(EncoderConfig(K=5), device="cpu").fit(graph, Y)
 
-Backends: numpy, torch, cuda, streaming, or "auto" (resolved at plan
-time from (n, s, device kind, device count) via `AUTO_POLICY`).  The
+Backends: numpy, torch, cuda, streaming, distributed:{replicated,
+reduce_scatter, a2a, ring}, or "auto" (resolved at plan time from (n,
+s, device kind, rank count) via `AUTO_POLICY`).  The
 persistent plan cache (`plan_cache.PlanDiskCache`, REPRO_PLAN_CACHE to
 relocate or disable) lets a fresh process skip a known graph's host
 planning.

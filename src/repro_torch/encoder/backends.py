@@ -15,13 +15,19 @@ the scatter runs:
               re-pack.  On a CPU device it runs the kernel's plain
               version.
   streaming   chunked accumulate: O(chunk) edge data on the device.
+  distributed:M   `core.distributed.gee_sharded` for M in {replicated,
+              reduce_scatter, a2a, ring}: collectives over the ranks
+              of a `torch.distributed` mesh (the reference's names);
+              the plan pads edges and rows to the mesh and measures the
+              exact zero-drop capacity factor once.
 
-The names differ from the reference's on purpose, so the two packages'
-strategies are never confused.  Every backend supports
-`EncoderConfig.row_partition` (an (n_local, K) accumulator over the
-contributions bucketed by owned destination).  Each builds its plan in
-two halves, `plan_host` (what the persistent plan cache stores) and
-`plan_finalize` (the uploads), as the reference's do.
+The single-device names differ from the reference's on purpose, so the
+two packages' strategies are never confused.  Every backend but the
+distributed ones supports `EncoderConfig.row_partition` (an
+(n_local, K) accumulator over the contributions bucketed by owned
+destination).  Each builds its plan in two halves, `plan_host` (what
+the persistent plan cache stores) and `plan_finalize` (the uploads),
+as the reference's do.
 """
 from __future__ import annotations
 
@@ -58,6 +64,14 @@ def list_backends() -> list[str]:
     return sorted(_REGISTRY)
 
 
+def partition_backends() -> list[str]:
+    """Registered backends with the owned-rows accumulate path
+    (`EncoderConfig.row_partition`): the suggestion list of the
+    plan-time rejection of a backend without one."""
+    return sorted(n for n, c in _REGISTRY.items()
+                  if c.supports_row_partition)
+
+
 def _contributions(graph: Graph, config: EncoderConfig,
                    w_eff: np.ndarray) -> tuple:
     """(dst rows, label-donor src, weight) per contribution: both
@@ -85,29 +99,38 @@ class Backend:
     """
 
     name: str = "?"
+    #: scatter-path backends reproduce the oracle to float tolerance;
+    #: the bucketed collective modes also depend on capacity padding
+    exact: bool = True
     #: bump when the plan_host layout changes: older disk entries then
     #: read as misses, never as wrong plans
     plan_version: int = 1
     #: whether plan_host's output may be persisted across processes
     persistable: bool = True
+    #: whether this backend has the owned-rows accumulate path
+    #: (`EncoderConfig.row_partition`)
+    supports_row_partition: bool = False
 
-    def cache_context(self) -> str:
-        """Runtime context baked into the persistent-cache key."""
+    def cache_context(self, *, mesh=None) -> str:
+        """Runtime context baked into the persistent-cache key (the
+        distributed backends' rank count)."""
         return ""
 
     def plan_host(self, graph: Graph, config: EncoderConfig,
-                  w_eff: np.ndarray, device: torch.device) -> Dict:
+                  w_eff: np.ndarray, device: torch.device, *,
+                  mesh=None) -> Dict:
         """The backend's label-free host artifacts ("w_eff" is added by
         `plan` where it is one)."""
         return {}
 
     def plan_finalize(self, plan: Plan, graph: Graph,
-                      device: torch.device) -> None:
+                      device: torch.device, *, mesh=None) -> None:
         """Fill plan.data from (graph, plan.host): the uploads."""
         raise NotImplementedError
 
     def plan(self, graph: Graph, config: EncoderConfig,
-             device: torch.device, host: Optional[Dict] = None) -> Plan:
+             device: torch.device, host: Optional[Dict] = None, *,
+             mesh=None) -> Plan:
         """Build the plan; `host` (from the persistent cache) skips the
         expensive half.  Unscaled, w_eff IS graph.w and is not stored;
         partitioned plans fold it into their owned contributions."""
@@ -116,7 +139,8 @@ class Backend:
             w_eff = effective_weights(graph, config)
             keep_w = config.laplacian and config.row_partition is None
             host = {**({"w_eff": w_eff} if keep_w else {}),
-                    **self.plan_host(graph, config, w_eff, device)}
+                    **self.plan_host(graph, config, w_eff, device,
+                                     mesh=mesh)}
         if config.row_partition is not None:
             w_eff = graph.w
         elif not built:
@@ -125,7 +149,7 @@ class Backend:
         p = Plan(backend=self.name, config=config, n=graph.n, s=graph.s,
                  w_eff=np.asarray(w_eff, np.float32), host=host,
                  **Plan.anchors(graph))
-        self.plan_finalize(p, graph, device)
+        self.plan_finalize(p, graph, device, mesh=mesh)
         return p
 
     def embed(self, plan: Plan, Yj: torch.Tensor, Wv: torch.Tensor
@@ -153,7 +177,9 @@ class _OwnedHostBackend(Backend):
     """A backend whose only host artifact is the partitioned plan's
     owned contributions."""
 
-    def plan_host(self, graph, config, w_eff, device):
+    supports_row_partition = True
+
+    def plan_host(self, graph, config, w_eff, device, *, mesh=None):
         if config.row_partition is None:
             return {}
         return _owned_plan_host(graph, config, w_eff)
@@ -163,7 +189,7 @@ class _OwnedHostBackend(Backend):
 class NumpyBackend(_OwnedHostBackend):
     """`ref_python.gee_numpy` on the host; Z is moved to the device."""
 
-    def plan_finalize(self, p, graph, device):
+    def plan_finalize(self, p, graph, device, *, mesh=None):
         if p.config.row_partition is None:
             p.data = {"u": np.asarray(graph.u), "v": np.asarray(graph.v)}
         else:
@@ -189,7 +215,7 @@ class TorchBackend(_OwnedHostBackend):
     """`core.gee` scatter-add on the device, with the Embedder-owned
     Wv; under a row partition `core.gee.gee_owned`."""
 
-    def plan_finalize(self, p, graph, device):
+    def plan_finalize(self, p, graph, device, *, mesh=None):
         if p.config.row_partition is None:
             p.data = {"u": torch.as_tensor(graph.u, device=device),
                       "v": torch.as_tensor(graph.v, device=device),
@@ -224,7 +250,9 @@ class CudaBackend(Backend):
     `gee_scatter`.  Under a row partition the owned contributions feed
     the same packing over the local rows [0, hi - lo)."""
 
-    def plan_host(self, graph, config, w_eff, device):
+    supports_row_partition = True
+
+    def plan_host(self, graph, config, w_eff, device, *, mesh=None):
         from repro_torch.kernels.ops import pack_edges
         dst, src, w = _contributions(graph, config, w_eff)
         n_rows = (graph.n if config.row_partition is None
@@ -236,7 +264,7 @@ class CudaBackend(Backend):
         return {"row_ptr": row_ptr, "src": srcb, "w_packed": wb,
                 "T": np.int64(T)}
 
-    def plan_finalize(self, p, graph, device):
+    def plan_finalize(self, p, graph, device, *, mesh=None):
         h = p.host
         p.data = {"row_ptr": torch.as_tensor(h["row_ptr"], device=device),
                   "src": torch.as_tensor(h["src"], device=device),
@@ -272,7 +300,7 @@ class StreamingBackend(_OwnedHostBackend):
     (row, src, w) triples and Z is (n_local, K); those bucketed triples
     are the persisted host half, the chunking is per process."""
 
-    def plan_finalize(self, p, graph, device):
+    def plan_finalize(self, p, graph, device, *, mesh=None):
         from repro_torch.graph.edges import chunk_edges
         if p.config.row_partition is None:
             cols = (np.asarray(graph.u, np.int32),
@@ -297,6 +325,76 @@ class StreamingBackend(_OwnedHostBackend):
         return Z, {"chunks": len(plan.data["chunks"])}
 
 
+class DistributedBackend(Backend):
+    """Collectives over the ranks of an edge mesh (`core.distributed`).
+
+    The plan measures, for the bucketed modes, the exact zero-drop
+    capacity factor from the owner histogram (an O(s) host pass done
+    once, not per fit); it depends on the rank count, so that count is
+    in the cache key (`cache_context`).  `plan_finalize` pads the edges
+    and rows to the mesh and keeps this rank's slice of the edges on its
+    device.  `embed` returns the full Z on every rank (the row-sharded
+    modes all-gather), so `transform` and `predict` keep global node
+    ids.  Without a mesh the plan takes `edge_mesh(device)`."""
+
+    mode = "ring"
+    exact = False          # the bucketed modes depend on capacity padding
+
+    @staticmethod
+    def _mesh(mesh, device):
+        from repro_torch.core.distributed import edge_mesh
+        return mesh if mesh is not None else edge_mesh(device)
+
+    def cache_context(self, *, mesh=None) -> str:
+        from repro_torch.core.distributed import world_size
+        return f"nd={world_size(mesh)}"
+
+    def plan_host(self, graph, config, w_eff, device, *, mesh=None):
+        from repro_torch.core.distributed import (exact_capacity_factor,
+                                                  world_size)
+        cf = config.capacity_factor
+        if cf is None and self.mode in ("a2a", "ring"):
+            cf = exact_capacity_factor(graph, world_size(mesh))
+        return {"capacity_factor": cf if cf is not None else 2.0}
+
+    def plan_finalize(self, p, graph, device, *, mesh=None):
+        from repro_torch.core.distributed import edge_slice, pad_rows
+        mesh = self._mesh(mesh, device)
+        nd = mesh.size()
+        g = Graph(np.asarray(graph.u), np.asarray(graph.v), p.w_eff,
+                  graph.n)
+        u, v, w = edge_slice(g, nd, mesh.get_local_rank())
+        p.data = {"mesh": mesh, "n_pad": pad_rows(graph.n, nd),
+                  "capacity_factor": float(p.host["capacity_factor"]),
+                  "u": torch.as_tensor(u, device=device),
+                  "v": torch.as_tensor(v, device=device),
+                  "w": torch.as_tensor(w, device=device)}
+
+    def embed(self, plan, Yj, Wv):
+        from repro_torch.core.distributed import gather_rows, gee_sharded
+        d, cfg = plan.data, plan.config
+        Y_pad = torch.cat([Yj.to(torch.int32), torch.full(
+            (d["n_pad"] - plan.n,), -1, dtype=torch.int32,
+            device=Yj.device)])
+        Z, dropped = gee_sharded(
+            d["u"], d["v"], d["w"], Y_pad, K=cfg.K, n=d["n_pad"],
+            mesh=d["mesh"], mode=self.mode,
+            capacity_factor=d["capacity_factor"])
+        if self.mode != "replicated":
+            Z = gather_rows(Z, d["mesh"])
+        return Z[:plan.n], {"dropped": int(dropped)}
+
+
+for _mode in ("replicated", "reduce_scatter", "a2a", "ring"):
+    # replicated / reduce_scatter are scatter + collective paths (float
+    # tolerance); a2a / ring bucket with capacity padding
+    register_backend(f"distributed:{_mode}")(
+        type(f"Distributed{_mode.title().replace('_', '')}Backend",
+             (DistributedBackend,),
+             {"mode": _mode,
+              "exact": _mode in ("replicated", "reduce_scatter")}))
+
+
 # -- backend="auto": the plan-time selection policy -------------------------
 
 #: edge count past which one device should stream chunks instead of
@@ -306,8 +404,6 @@ AUTO_STREAMING_EDGES = 32_000_000
 
 
 def _rule_multi_device(n, s, device_kind, device_count):
-    # the collective backends are not ported yet: this names the
-    # reference's choice, and get_backend then refuses it loudly
     return "distributed:reduce_scatter" if device_count > 1 else None
 
 
@@ -328,14 +424,18 @@ AUTO_POLICY: List[Tuple[str, Callable]] = [
 ]
 
 
-def resolve_auto(n: int, s: int, *, device_kind: str,
-                 device_count: Optional[int] = None) -> str:
+def resolve_auto(n: int, s: int, *, device_kind: Optional[str] = None,
+                 device_count: Optional[int] = None, mesh=None) -> str:
     """Resolve `backend="auto"` for a graph of (n, s) on a device kind
-    ("cuda" or "cpu"); device_count defaults to the visible cards (1 on
-    the CPU)."""
+    ("cuda" or "cpu"; default: the mesh's, else "cuda").  device_count
+    defaults to the ranks of `mesh`, else of the initialized default
+    process group, else 1: an SPMD program's devices are its ranks, not
+    the cards a process can see."""
+    from repro_torch.core.distributed import world_size
+    if device_kind is None:
+        device_kind = mesh.device_type if mesh is not None else "cuda"
     if device_count is None:
-        device_count = (torch.cuda.device_count()
-                        if device_kind == "cuda" else 1)
+        device_count = world_size(mesh)
     for _, rule in AUTO_POLICY:
         name = rule(n, s, device_kind, device_count)
         if name is not None:

@@ -2,8 +2,7 @@
 knobs that never change the answer.
 
 The port of `repro.encoder.config.EncoderConfig`.  The Pallas
-`interpret` switch and the distributed `capacity_factor` have no
-meaning in the port yet and are left out.
+`interpret` switch has no meaning in the port and is left out.
 """
 from __future__ import annotations
 
@@ -40,6 +39,9 @@ class EncoderConfig:
                   mirror the reference's; the cuda backend's row-offset
                   layout has no blocks and ignores it.
       chunk_size           streaming chunk length.
+      capacity_factor      the distributed modes' bucket padding; None
+                  measures the exact zero-drop factor from the owner
+                  histogram (cached in the plan).
     """
 
     K: int
@@ -55,6 +57,8 @@ class EncoderConfig:
     edge_block: int = 512
     # streaming
     chunk_size: int = 1 << 20
+    # distributed
+    capacity_factor: Optional[float] = None
 
     def __post_init__(self) -> None:
         if self.K < 1:

@@ -8,8 +8,10 @@
 
 The port of `repro.encoder.Embedder`.  The Embedder lives on one
 explicit device, "cuda" by default; it refuses to be built for a card
-that is not there.  It owns the projection weights Wv: `make_w(Y, K)`
-is computed at fit time and used by every later `partial_fit`.
+that is not there.  The distributed backends run over `mesh` (an
+`edge_mesh` of the same device type; by default a one-rank mesh).  It
+owns the projection weights Wv: `make_w(Y, K)` is computed at fit time
+and used by every later `partial_fit`.
 
 `plan` is a two-tier cache, as the reference's: tier 1 matches the very
 same edge arrays in O(1); tier 2 (`plan_cache`: "auto", a directory, a
@@ -31,7 +33,8 @@ from repro_torch import obs
 from repro_torch.core.gee import (gee_apply_delta, gee_apply_delta_owned,
                                   kmeans_refine_round, make_w)
 from repro_torch.device import resolve_device
-from repro_torch.encoder.backends import Backend, get_backend, resolve_auto
+from repro_torch.encoder.backends import (Backend, get_backend,
+                                          partition_backends, resolve_auto)
 from repro_torch.encoder.config import EncoderConfig
 from repro_torch.encoder.plan import Plan, owned_contributions
 from repro_torch.encoder.plan_cache import PlanDiskCache, resolve_cache
@@ -66,10 +69,14 @@ class Embedder:
 
     def __init__(self, config: EncoderConfig, *,
                  backend: Optional[str] = None,
-                 device: Union[str, torch.device] = "cuda",
+                 device: Union[str, torch.device] = "cuda", mesh=None,
                  plan_cache: Union[str, PlanDiskCache, None] = "auto"):
         self.config = config
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"mesh of {mesh.device_type} ranks for an "
+                             f"Embedder on {self.device}")
+        self.mesh = mesh
         spec = backend if backend is not None else config.backend
         self._backend_spec = spec
         #: resolved Backend; None until the first plan() when spec="auto"
@@ -101,7 +108,8 @@ class Embedder:
     def _resolve_backend(self, graph: Graph) -> Backend:
         if self._backend_spec == "auto":
             name = resolve_auto(graph.n, graph.s,
-                                device_kind=self.device.type)
+                                device_kind=self.device.type,
+                                mesh=self.mesh)
             if self.backend is None or self.backend.name != name:
                 self.backend = get_backend(name)
         return self.backend
@@ -119,9 +127,17 @@ class Embedder:
         graph = as_graph(graph)
         backend = self._resolve_backend(graph)
         rp = self.config.row_partition
-        if rp is not None and rp[1] > graph.n:
-            raise ValueError(f"row_partition {rp} exceeds graph "
-                             f"n={graph.n}")
+        if rp is not None:
+            if not backend.supports_row_partition:
+                raise ValueError(
+                    f"backend {backend.name!r} has no owned-rows "
+                    "accumulate path (row_partition): the distributed:* "
+                    "modes shard across the mesh's ranks instead; use "
+                    "one of the partition-aware backends: "
+                    f"{', '.join(partition_backends())}")
+            if rp[1] > graph.n:
+                raise ValueError(f"row_partition {rp} exceeds graph "
+                                 f"n={graph.n}")
         if self._plan is not None and self._plan.matches(
                 graph, backend.name, self.config):
             self._bump_plan_stat("hits")
@@ -138,15 +154,16 @@ class Embedder:
             cache = self.plan_cache if backend.persistable else None
             if cache is not None:
                 meta = cache.describe(graph.fingerprint(), backend,
-                                      self.config)
+                                      self.config, mesh=self.mesh)
                 host = cache.load(meta)
             if host is not None:
                 self._bump_plan_stat("disk_hits")
                 self._plan = backend.plan(graph, self.config, self.device,
-                                          host=host)
+                                          host=host, mesh=self.mesh)
                 source = "disk"
             else:
-                self._plan = backend.plan(graph, self.config, self.device)
+                self._plan = backend.plan(graph, self.config, self.device,
+                                          mesh=self.mesh)
                 self._bump_plan_stat("built")
                 if meta is not None and cache.store(
                         meta, _host_arrays(self._plan.host)):

@@ -86,7 +86,8 @@ class PlanDiskCache:
 
     # -- keying -----------------------------------------------------------
 
-    def describe(self, fingerprint: str, backend, config) -> Dict[str, Any]:
+    def describe(self, fingerprint: str, backend, config, *,
+                 mesh=None) -> Dict[str, Any]:
         """The full metadata a cached entry must match to be served."""
         return {"format": FORMAT_VERSION,
                 "package": PACKAGE,
@@ -94,7 +95,7 @@ class PlanDiskCache:
                 "backend": backend.name,
                 "plan_version": backend.plan_version,
                 "config": config_token(config),
-                "context": backend.cache_context()}
+                "context": backend.cache_context(mesh=mesh)}
 
     @staticmethod
     def key(meta: Dict[str, Any]) -> str:

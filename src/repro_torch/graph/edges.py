@@ -113,12 +113,42 @@ class Graph:
                 raise ValueError(f"{name} holds node ids outside "
                                  f"[0, {self.n})")
 
+    def symmetrize(self) -> "Graph":
+        """Undirected -> two symmetric directed edges."""
+        return Graph(np.concatenate([self.u, self.v]),
+                     np.concatenate([self.v, self.u]),
+                     np.concatenate([self.w, self.w]), self.n)
+
     def degrees(self) -> np.ndarray:
         """Weighted out+in degree (the Laplacian normalizer)."""
         d = np.zeros(self.n, np.float64)
         np.add.at(d, self.u, self.w)
         np.add.at(d, self.v, self.w)
         return d.astype(np.float32)
+
+    def permuted(self, rng: np.random.Generator) -> "Graph":
+        """Random edge order (load balance for static sharding)."""
+        p = rng.permutation(self.s)
+        return Graph(self.u[p], self.v[p], self.w[p], self.n)
+
+    def pad_to(self, s_pad: int) -> "Graph":
+        """Pad to s_pad edges with zero-weight self-loops of node 0.
+
+        The pad edges carry w = 0 exactly, so `n`, `degrees()`, the
+        Laplacian degrees and Z under any labeling are unchanged."""
+        extra = s_pad - self.s
+        if extra < 0:
+            raise ValueError(f"cannot pad {self.s} edges down to {s_pad}")
+        if extra == 0:
+            return self
+        if self.n < 1:
+            raise ValueError("cannot pad a graph with no nodes")
+        z = np.zeros(extra, np.int32)
+        return Graph(np.concatenate([np.asarray(self.u, np.int32), z]),
+                     np.concatenate([np.asarray(self.v, np.int32), z]),
+                     np.concatenate([np.asarray(self.w, np.float32),
+                                     np.zeros(extra, np.float32)]),
+                     self.n)
 
 
 def bucket_size(size: int, floor: int = 256) -> int:

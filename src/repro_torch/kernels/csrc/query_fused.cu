@@ -897,9 +897,11 @@ SelectPlan select_plan(const float* Z, int K, int k) {
 // bodies for k <= KMAX, K <= KSMEM_MAX: blocks along x, as many as fit on
 // the card at once (occupancy API), at most one per tile.  The general
 // path: selectors (warps), GEN_WARPS a block, about four blocks an SM in
-// all over the nq queries, and at least 1,024 rows a block.
+// all over the nq queries, and at least 1,024 rows a block.  max_grid > 0
+// caps the grid (on the general path at whole blocks, at least one); 0
+// leaves it as chosen.  The answer has the same bits for any grid.
 extern "C" int topk_select_grid(const float* Z, int m, int K, int k, int nq,
-                                int* grid) {
+                                int max_grid, int* grid) {
   *grid = 0;
   if (m <= 0) return 0;
   int dev = 0, sms = 0;
@@ -911,7 +913,9 @@ extern "C" int topk_select_grid(const float* Z, int m, int K, int k, int nq,
   if (general_path(K, k)) {
     const int want = (4 * sms + max(nq, 1) - 1) / max(nq, 1);
     const int most = (m + GEN_WARPS * 1024 - 1) / (GEN_WARPS * 1024);
-    *grid = GEN_WARPS * max(1, min(want, min(most, 65535)));
+    int blocks = max(1, min(want, min(most, 65535)));
+    if (max_grid > 0) blocks = max(1, min(blocks, max_grid / GEN_WARPS));
+    *grid = GEN_WARPS * blocks;
     return 0;
   }
   const SelectPlan p = select_plan(Z, K, k);
@@ -923,6 +927,7 @@ extern "C" int topk_select_grid(const float* Z, int m, int K, int k, int nq,
   if (err) return err;
   const int tiles = (m + p.tile - 1) / p.tile;
   *grid = max(1, min(tiles, sms * max(per_sm, 1)));
+  if (max_grid > 0) *grid = min(*grid, max_grid);
   return 0;
 }
 

@@ -9,8 +9,9 @@ The port of `repro.kernels.query_fused` (``csrc/query_fused.cu``):
     range of row tiles and keeps per query only the rows that beat its
     running k-th best, then writes its k candidates per query; and a
     merge pass, one block per query, over the blocks' candidates.  The
-    select grid comes from the card's occupancy (`topk_select_grid`);
-    the answer does not depend on it.
+    select grid comes from the card's occupancy (`topk_select_grid`),
+    or no more than the caller's `max_grid`; the answer does not depend
+    on it.
 ``gee_delta_renorm``
     Z_new = Z + delta contributions, Zn = normalize_rows(Z_new), for the
     whole owned slice, with Z read once.
@@ -39,6 +40,7 @@ grad: neither kernel has a backward).
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -124,18 +126,20 @@ def topk_fused_plain(Z_rows, q, qnodes, *, k: int, row_offset: int = 0,
 
 
 def _topk_select(Z_rows, q, qnodes, zn, *, k: int, row_offset: int,
-                 exclude_self: bool, eps: float):
+                 exclude_self: bool, eps: float,
+                 max_grid: Optional[int] = None):
     """The select pass alone: every candidate list's top-k per query
     (one list a block, or a warp on the general path), as (cand_s, cand_i)
-    of shape (nq, grid, k); Zn written into `zn` when it is not None.  No
-    launch count (`topk_fused` counts its call)."""
+    of shape (nq, grid, k); Zn written into `zn` when it is not None.
+    The grid is the occupancy's choice, capped at `max_grid` when given.
+    No launch count (`topk_fused` counts its call)."""
     dev = Z_rows.device
     m, K = Z_rows.shape
     nq = q.shape[0]
     grid = ctypes.c_int(0)
     err = _build.function("query_fused", "topk_select_grid",
-                          [_build.P] + [_build.I] * 4 + [_build.P])(
-        Z_rows.data_ptr(), m, K, k, nq, ctypes.byref(grid))
+                          [_build.P] + [_build.I] * 5 + [_build.P])(
+        Z_rows.data_ptr(), m, K, k, nq, max_grid or 0, ctypes.byref(grid))
     _build.check("query_fused", err)
     cand_s = torch.empty((nq, grid.value, k), dtype=torch.float32,
                          device=dev)
@@ -172,7 +176,7 @@ def _topk_merge(cand_s, cand_i, *, k: int):
 
 def topk_fused(Z_rows, q, qnodes, *, k: int, row_offset: int = 0,
                exclude_self: bool = True, normalize: bool = False,
-               eps: float = EPS):
+               eps: float = EPS, max_grid: Optional[int] = None):
     """Normalize (optionally) + cosine score + top-k on the card: a
     select pass and a merge pass (``csrc/query_fused.cu``).
 
@@ -181,9 +185,13 @@ def topk_fused(Z_rows, q, qnodes, *, k: int, row_offset: int = 0,
     q (nq, K) float32 unit-norm queries; qnodes (nq,) int32 global ids
     for self-exclusion.  Returns (vals (nq, k) float32, idxs (nq, k)
     int32), plus Zn (m, K) when normalize=True; unfilled slots (k beyond
-    the candidates) are already clamped to idx -1 / score -inf."""
+    the candidates) are already clamped to idx -1 / score -inf.
+    max_grid caps the select pass's grid (the tuner's knob; None: the
+    occupancy's choice); the answer has the same bits for any value."""
     if k < 1:
         raise ValueError(f"topk_fused takes k >= 1, got {k}")
+    if max_grid is not None and max_grid < 1:
+        raise ValueError(f"max_grid must be >= 1 or None, got {max_grid}")
     dev = Z_rows.device
     if dev.type == "cpu":
         return topk_fused_plain(Z_rows, q, qnodes, k=k,
@@ -205,7 +213,8 @@ def topk_fused(Z_rows, q, qnodes, *, k: int, row_offset: int = 0,
     with torch.cuda.device(dev):
         cand = _topk_select(Z_rows, q, qnodes, zn, k=k,
                             row_offset=row_offset,
-                            exclude_self=exclude_self, eps=eps)
+                            exclude_self=exclude_self, eps=eps,
+                            max_grid=max_grid)
         vals, idxs = _topk_merge(*cand, k=k)
     _build.launches["topk_fused"] += 1
     return (vals, idxs, zn) if normalize else (vals, idxs)

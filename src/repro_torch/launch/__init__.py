@@ -1,2 +1,3 @@
-"""Launch drivers: `serve` (LM prefill + greedy decode) and `train`
-(the LM training loop)."""
+"""Launch drivers: `serve` (LM prefill + greedy decode), `train` (the LM
+training loop), and the kernel tuning tools: `roofline` (the H100's
+hardware model), `autotune` and `hillclimb` (its CLI)."""

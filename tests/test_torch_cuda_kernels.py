@@ -551,3 +551,46 @@ def test_gee_wrappers_refuse_inputs_that_require_grad(dev):
     with pytest.raises(TypeError, match="no gradient"):
         GS.gee_scatter(row_ptr, c, c.float().requires_grad_(), num_tiles=1,
                        tile_n=4, kdim=2)
+
+
+@pytest.mark.parametrize("K,k", [(16, 10), (6, 3), (300, 10), (16, 100)])
+def test_topk_select_grid_cap_keeps_the_bits(dev, rng, K, k):
+    """Every cap on the select pass's grid (the tuner's knob) gives the
+    uncapped answer bit for bit, on the fast bodies and the general
+    path (K > 256 or k > 64)."""
+    m = 40_000
+    Zn = QF.normalize_rows(torch.as_tensor(
+        rng.normal(size=(m, K)).astype(np.float32), device=dev))
+    qn = torch.as_tensor(rng.integers(0, m, 32).astype(np.int32), device=dev)
+    q = Zn[qn.long()].contiguous()
+    ref = QF.topk_fused(Zn, q, qn, k=k)
+    plain = QF.topk_fused_plain(Zn, q, qn, k=k)
+    assert all(_same(a, b) for a, b in zip(ref, plain))
+    for cap in (1, 2, 3, 7, 32, 64, 100, 1000, 1 << 20):
+        got = QF.topk_fused(Zn, q, qn, k=k, max_grid=cap)
+        assert all(_same(a, b) for a, b in zip(got, ref)), cap
+
+
+@pytest.mark.parametrize("mode", ["replicated", "reduce_scatter", "a2a",
+                                  "ring"])
+def test_one_rank_nccl_gee_distributed_equals_the_cuda_fit(dev, rng, mode):
+    """A one-rank NCCL group on the card: every mode's Z within 1e-5 of
+    the cuda backend's (the gee_scatter kernel), nothing dropped."""
+    from repro_torch.core import distributed as D
+    from repro_torch.encoder import Embedder, EncoderConfig
+    from repro_torch.graph import erdos_renyi, make_labels
+    g = erdos_renyi(20_000, 300_000, seed=5, weighted=True)
+    Y = make_labels(g.n, 16, 0.1, np.random.default_rng(5))
+    ref = Embedder(EncoderConfig(K=16), backend="cuda",
+                   plan_cache=None).fit(g, Y).transform()
+    mesh = D.edge_mesh("cuda")
+    try:
+        Z, dropped = D.gee_distributed(g, Y, K=16, mode=mode, mesh=mesh)
+        emb = Embedder(EncoderConfig(K=16), backend=f"distributed:{mode}",
+                       mesh=mesh, plan_cache=None).fit(g, Y)
+        assert emb.last_info_ == {"dropped": 0}
+        np.testing.assert_allclose(emb.transform(), ref, atol=1e-5)
+    finally:
+        D.destroy_local_group()
+    assert dropped == 0
+    np.testing.assert_allclose(Z, ref, atol=1e-5)

@@ -209,9 +209,19 @@ class TestBackendPolicy:
                  device_count=1) == "streaming"
         assert r(100, 1000, device_kind="cuda",
                  device_count=2) == "distributed:reduce_scatter"
+        assert r(100, 1000, device_kind="cpu",
+                 device_count=4) == "distributed:reduce_scatter"
+        # the name the multi-rank rule gives is a backend (a 2-rank world
+        # fits through it in tests/test_torch_distributed.py)
+        be = TB.get_backend("distributed:reduce_scatter")
+        assert be.mode == "reduce_scatter" and be.exact
+        assert not be.supports_row_partition
+        assert TB.list_backends() == [
+            "cuda", "distributed:a2a", "distributed:reduce_scatter",
+            "distributed:replicated", "distributed:ring", "numpy",
+            "streaming", "torch"]
         with pytest.raises(KeyError, match="unknown backend"):
-            TB.get_backend("distributed:reduce_scatter")
-        assert TB.list_backends() == ["cuda", "numpy", "streaming", "torch"]
+            TB.get_backend("distributed:tree")
 
     def test_auto_embedder_on_cpu(self):
         g, Y = _data()
