@@ -169,7 +169,36 @@
       card against the same two on the CPU from the same weights (wq
       and wk tempered),
       losses within FAM_TRAIN_TOL; flash launched twice per causal
-      self-attention per step.
+      self-attention per step;
+9. the sharded paths and the dry run (`shard_path`, budget 150 s):
+   a. a one-rank NCCL group and a (data=1, model=1) `DeviceMesh`: yi-6b
+      at full width, 2 layers, remat, bfloat16 compute, wq and wk
+      tempered, --lm-batch x --lm-prompt tokens: two steps of
+      `jit_train_step` (params, m, v and batch as DTensors) against two
+      of `make_train_step` from the same weights.  Losses and every leaf
+      bit-equal (one rank: the same kernels in the same order; a gap
+      within 1e-6 of max|leaf| is printed and passes).  Flash launches
+      are zeroed before and read after the sharded steps: 2 x 2 x 2
+      (forward and remat, each layer, each step), the kernel run on each
+      rank's local heads under DTensor;
+   b. the same mesh and model under `use_sharding`: prefill of --lm-batch
+      prompts of --lm-prompt tokens and 8 greedy tokens with DTensor
+      params and a DTensor cache, against `generate` unsharded on the
+      same params.  Yi has `decode_seq_shard`, so every decode step's
+      attention takes `_decode_attn_seq_sharded` (counted); prefill
+      launches flash once per layer.  The same tokens, and each decode
+      attention output within LM_REL_TOL x max|output| of the
+      unsharded one;
+   c. the dry run against the card: `launch.dryrun.run_cell` on a
+      one-rank fake mesh at phase 8's configuration (yi-6b width,
+      --train-layers layers, --lm-batch x --lm-prompt).  Its argument
+      bytes (params, m, v, batch) must equal what the card holds for
+      them, exactly; its argument + temporary bytes are printed beside
+      phase 8's measured peak, its roofline step beside phase 8's step;
+   d. the production dry run on the host: `run_cell("yi-6b",
+      "train_4k")` on the 256-rank fake mesh and `run_gee` for the four
+      modes at Friendster scale, each `[dryrun]` line with its host
+      seconds.
 
 Prints each phase's wall seconds, the card's name and power limit, a
 ``{"kernels": [...]}`` line,
@@ -387,8 +416,9 @@ def _fingerprints(torch, params):
 
 def train_path(torch, dev, args, timer, smi):
     """Phase 8 (the LM training path); see the module docstring.  Returns
-    the additions to the flash and gee_scatter rows of the kernels
-    line."""
+    the additions to the flash and gee_scatter rows of the kernels line,
+    and the main run's steady step ms and peak device bytes (for phase
+    9c)."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -686,6 +716,7 @@ def train_path(torch, dev, args, timer, smi):
                       for n_, (ms_, c_) in top[:14]))
     flash_add["train_launches"] = launches["flash_attention"]
     scatter_add["train_launches"] = launches["gee_scatter"]
+    measured = {"step_ms": steady, "peak_bytes": peak_gib * 2**30}
     del params, hist, prof, before, after, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -731,7 +762,268 @@ def train_path(torch, dev, args, timer, smi):
           f"the same weights (wq, wk at 1/sqrt(d_model)): worst loss gap {worst[0]:.3e} ({worst[1]}; "
           f"tol {FAM_TRAIN_TOL}); flash launches {by_arch}")
     flash_add["train_launches_by_arch"] = by_arch
-    return flash_add, scatter_add
+    return flash_add, scatter_add, measured
+
+
+def shard_path(torch, dev, args, smi, phase8):
+    """Phase 9 (the sharded train step and serve path, the dry run); see
+    the module docstring.  `phase8`: the main training run's steady step
+    ms and peak bytes.  Returns the flash row's additions."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import train as TR
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import ParamTree
+    from repro_torch.sharding import (make_rules, spec_tree_shardings,
+                                      use_sharding)
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_loop import (jit_train_step,
+                                                 make_train_step,
+                                                 place_batch, place_tree)
+    from repro_torch.training.trees import build, items
+
+    B, S, G = args.lm_batch, args.lm_prompt, FAMILY_GEN
+    on_card = dev.type == "cuda"
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=2)
+    out = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def full(x):
+        return x.full_tensor() if isinstance(x, DTensor) else x
+
+    if dist.is_initialized():
+        raise AssertionError("phase 9: a process group is already up")
+    kw = ({"device_id": torch.device("cuda", torch.cuda.current_device())}
+          if on_card else {})
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1,
+                            **kw)
+    try:
+        mesh = DeviceMesh(dev.type, [[0]], mesh_dim_names=("data", "model"))
+        rules = make_rules(mesh)
+        base = M.init_params(cfg, args.seed, device=dev)
+        temper_attention(torch, base)
+
+        def clone(grad):
+            p_ = ParamTree(build((k, v.detach().clone())
+                                 for k, v in items(base)))
+            return p_.requires_grad_(grad)
+
+        # -- 9a. jit_train_step against make_train_step, two steps -----
+        t0 = time.perf_counter()
+        gen_ = torch.Generator(device=dev).manual_seed(args.seed + 21)
+        batches = [{"tokens": torch.randint(
+            0, cfg.vocab, (B, S), generator=gen_, device=dev,
+            dtype=torch.int32)} for _ in range(2)]
+        opt = AdamW(lr=3e-4)
+        ref = clone(True)
+        st = opt.init(ref)
+        step = make_train_step(cfg, opt)
+        ref_losses = []
+        for b_ in batches:
+            ref, st, m_ = step(ref, st, b_)
+            ref_losses.append(m_["loss"].item())
+        del st
+        sp = clone(True)
+        ss = opt.init(sp)
+        jstep = jit_train_step(cfg, opt, mesh, rules)
+        sync()
+        _build.reset_launches()
+        t1 = time.perf_counter()
+        sh_losses = []
+        for b_ in batches:
+            sp, ss, m_ = jstep(sp, ss, b_)
+            sh_losses.append(full(m_["loss"]).item())
+        sync()
+        sharded_s = time.perf_counter() - t1
+        n_train = _build.launches["flash_attention"]
+        want = 2 * 2 * cfg.n_layers if on_card else 0
+        if n_train != want:
+            raise AssertionError(f"9a: flash launched {n_train} times in "
+                                 f"the sharded steps, expected {want}")
+        if not all(isinstance(t, DTensor) for _, t in items(sp)):
+            raise AssertionError("9a: the sharded step's params are not "
+                                 "DTensors")
+        worst, unequal = 0.0, 0
+        for (path, a), (_, b) in zip(items(ref), items(sp)):
+            b = full(b)
+            if not torch.equal(a, b):
+                unequal += 1
+                worst = max(worst, (a.float() - b.float()).abs().max().item()
+                            / max(a.float().abs().max().item(), 1e-30))
+        same_loss = ref_losses == sh_losses
+        print(f"9a sharded train step: yi-6b width, {cfg.n_layers} layers, "
+              f"remat, B={B} S={S}, mesh (data=1, model=1) on a one-rank "
+              f"{dist.get_backend()} group: losses sharded {sh_losses} vs "
+              f"unsharded {ref_losses} (equal: {same_loss}); leaves "
+              f"bit-equal {len(list(items(ref))) - unequal} of "
+              f"{len(list(items(ref)))}, worst gap {worst:.3e} of "
+              f"max|leaf|; flash launches {n_train} (expected {want}); "
+              f"two sharded steps {sharded_s * 1e3:.1f} ms; wall "
+              f"{time.perf_counter() - t0:.1f} s")
+        gap = max(abs(a - b) / abs(a) for a, b in zip(ref_losses,
+                                                      sh_losses))
+        if worst > 1e-6 or gap > 1e-6:
+            raise AssertionError(f"9a: sharded step off the unsharded one "
+                                 f"(leaf gap {worst:.3e}, loss gap "
+                                 f"{gap:.3e}; tol 1e-6)")
+        out["shard_train_launches"] = n_train
+        del ref, sp, ss, batches
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # -- 9b. the serve path under use_sharding --------------------
+        t0 = time.perf_counter()
+        params = clone(False)
+        prompts = torch.randint(0, cfg.vocab, (B, S), generator=gen_,
+                                device=dev)
+        seen, seq_calls = [], [0]
+        orig_decode, orig_seq = A.decode_attention, A._decode_attn_seq_sharded
+
+        def recording(*a, **k):
+            o_, c_ = orig_decode(*a, **k)
+            seen.append(full(o_).float().clone())
+            return o_, c_
+
+        def counting(*a, **k):
+            seq_calls[0] += 1
+            return orig_seq(*a, **k)
+
+        A.decode_attention, A._decode_attn_seq_sharded = recording, counting
+        try:
+            want_toks = generate(cfg, params, prompts, G)
+            plain_att = list(seen)
+            seen.clear()
+            placed = place_tree(params, spec_tree_shardings(
+                rules, M.param_specs(cfg)), mesh)
+            sync()
+            _build.reset_launches()
+            t1 = time.perf_counter()
+            # no_grad: a DTensor view cannot be taken in inference mode
+            with torch.no_grad(), use_sharding(mesh, rules), \
+                    implicit_replication():
+                logits, cache = M.prefill(cfg, placed, place_batch(
+                    {"tokens": prompts}, mesh, rules), max_len=S + G)
+                n_prefill = _build.launches["flash_attention"]
+                toks = full(logits).argmax(-1)
+                got = [toks]
+                for i in range(G - 1):
+                    token = place_batch({"token": toks}, mesh, rules)
+                    logits, cache = M.decode_step(cfg, placed,
+                                                  token["token"], S + i,
+                                                  cache)
+                    toks = full(logits).argmax(-1)
+                    got.append(toks)
+            sync()
+            serve_s = time.perf_counter() - t1
+        finally:
+            A.decode_attention, A._decode_attn_seq_sharded = (
+                orig_decode, orig_seq)
+        got_toks = torch.stack(got, 1)
+        n_decode = _build.launches["flash_attention"] - n_prefill
+        want_prefill = cfg.n_layers if on_card else 0
+        att_gap = max((a - b).abs().max().item()
+                      / max(a.abs().max().item(), 1e-30)
+                      for a, b in zip(plain_att, seen))
+        print(f"9b sharded serve: yi-6b width, {cfg.n_layers} layers, B={B}"
+              f" prompt {S}, {G} greedy tokens under use_sharding: tokens "
+              f"equal to the unsharded path's "
+              f"{bool(torch.equal(got_toks, want_toks))}; seq-sharded "
+              f"decode attention calls {seq_calls[0]} (expected "
+              f"{cfg.n_layers * (G - 1)}); decode attention outputs "
+              f"{len(seen)}, worst gap {att_gap:.3e} of max|output| (tol "
+              f"{LM_REL_TOL}); flash launches prefill {n_prefill} "
+              f"(expected {want_prefill}), decode {n_decode}; "
+              f"{serve_s * 1e3:.1f} ms; wall {time.perf_counter() - t0:.1f} s")
+        if not torch.equal(got_toks, want_toks):
+            raise AssertionError(f"9b: sharded tokens {got_toks.tolist()} "
+                                 f"!= unsharded {want_toks.tolist()}")
+        if seq_calls[0] != cfg.n_layers * (G - 1) or \
+                len(seen) != len(plain_att) or not att_gap <= LM_REL_TOL:
+            raise AssertionError("9b: the seq-sharded decode did not run "
+                                 "in every layer and step, or its outputs "
+                                 "are off the unsharded ones")
+        if n_prefill != want_prefill or n_decode:
+            raise AssertionError(f"9b: flash launched {n_prefill} times in "
+                                 f"prefill (expected {want_prefill}) and "
+                                 f"{n_decode} in decode (expected 0)")
+        out["shard_serve_launches"] = n_prefill
+        del base, params, placed, cache, logits, seen, plain_att
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- 9c. the dry run against the card: phase 8's configuration -----
+    t0 = time.perf_counter()
+    cfg8 = dataclasses.replace(get_config("yi-6b"),
+                               n_layers=args.train_layers)
+    shape8 = ShapeSpec("phase8", S, B, "train")
+    rec = DR.run_cell("yi-6b", "train_4k", cfg_override=cfg8,
+                      shape_override=shape8, mesh_shape=(1, 1), probe=False,
+                      save=False)
+    dist.destroy_process_group()
+    t_dry = time.perf_counter() - t0
+    params = M.init_params(cfg8, args.seed, device=dev)
+    st = AdamW(state_dtype=cfg8.state_dtype).init(params)
+    batch = TR.build_batch_fn(cfg8, TR.parse_args([
+        "--arch", "yi-6b", "--batch", str(B), "--seq", str(S), "--seed",
+        str(args.seed)]), dev)(0)
+    held = sum(t.numel() * t.element_size() for tree in
+               (params, st.m, st.v, batch) for _, t in items(tree))
+    del params, st, batch
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    pred = rec["arg_bytes"] + rec["temp_bytes"]
+    ratio = phase8["step_ms"] / (rec["step_s"] * 1e3)
+    print(f"9c dry run at phase 8's configuration (yi-6b width, "
+          f"{cfg8.n_layers} layers, B={B} S={S}, one rank): argument bytes "
+          f"predicted {rec['arg_bytes']:,} vs held on the card {held:,} "
+          f"(equal: {rec['arg_bytes'] == held}); predicted argument + "
+          f"temporary {pred / 2**30:.2f} GiB vs phase 8's measured peak "
+          f"{phase8['peak_bytes'] / 2**30:.2f} GiB; roofline step "
+          f"{rec['step_s'] * 1e3:.1f} ms ({rec['dominant']}: compute "
+          f"{rec['compute_s'] * 1e3:.1f}, memory {rec['memory_s'] * 1e3:.1f},"
+          f" collective {rec['collective_s'] * 1e3:.1f}) vs phase 8's step "
+          f"{phase8['step_ms']:.1f} ms: measured / predicted {ratio:.2f}; "
+          f"trace {rec['compile_s']:.1f} s, wall "
+          f"{time.perf_counter() - t0:.1f} s (dry run {t_dry:.1f}); card "
+          f"{smi}")
+    if rec["arg_bytes"] != held:
+        raise AssertionError("9c: the dry run's argument bytes differ from "
+                             "what the card holds")
+
+    # -- 9d. the production dry run, on the host -----------------------
+    t0 = time.perf_counter()
+    try:
+        cell = DR.run_cell("yi-6b", "train_4k", save=False)
+        print(f"9d run_cell yi-6b train_4k on {cell['chips']} ranks: "
+              f"{time.perf_counter() - t0:.1f} s host (trace "
+              f"{cell['compile_s']:.1f} s, probes {cell['probe_s']:.1f} s); "
+              f"flops/dev {cell['flops_per_device']:.4e} (probe "
+              f"{cell['probe']['flops']:.4e})")
+        for mode in DR.GEE_MODES:
+            t1 = time.perf_counter()
+            DR.run_gee(mode=mode, save=False)
+            print(f"9d run_gee {mode}: {time.perf_counter() - t1:.1f} s host")
+    finally:
+        dist.destroy_process_group()
+    print(f"9d wall {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def profile_refit(torch, emb, mode):
@@ -2782,8 +3074,12 @@ def main() -> int:
     fam = timed("families", families_path)
     gc.collect()
     torch.cuda.empty_cache()
-    flash_train, scatter_train = timed("training", train_path, torch, dev,
-                                       args, timer, smi)
+    flash_train, scatter_train, phase8 = timed(
+        "training", train_path, torch, dev, args, timer, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_train.update(timed("sharding and dry run", shard_path, torch, dev,
+                             args, smi, phase8))
     print("phase wall seconds: " + ", ".join(f"{k_} {v_:.1f}"
                                              for k_, v_ in walls.items()))
     fam["launches_by_arch"] = {"yi-6b": results[-1]["launches"],
@@ -2836,6 +3132,11 @@ def main() -> int:
         elif "train_launches" in r_:
             print(f"  {r_['name']} in training (phase 8, the GEE embedding "
                   f"init): launches {r_['train_launches']}")
+        if "shard_train_launches" in r_:
+            print(f"  {r_['name']} on local heads under DTensor (phase 9): "
+                  f"launches {r_['shard_train_launches']} in two sharded "
+                  f"train steps, {r_['shard_serve_launches']} in the "
+                  f"sharded prefill")
     print(json.dumps({"kernels": [{k_: v_ for k_, v_ in r_.items()
                                    if k_ != "shape"} for r_ in results]}))
     print(f"card: {smi}")

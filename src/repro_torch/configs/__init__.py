@@ -41,3 +41,13 @@ def get_shape(name: str) -> ShapeSpec:
     if name not in SHAPES:
         raise KeyError(f"unknown shape {name!r}; known: {sorted(SHAPES)}")
     return SHAPES[name]
+
+
+def all_cells() -> list[tuple[str, str]]:
+    """All (arch, shape) dry-run cells, including inapplicable-marked ones."""
+    cells = []
+    for arch in _REGISTRY:
+        cfg = get_config(arch)
+        for shape in cfg.shapes():
+            cells.append((arch, shape.name))
+    return cells

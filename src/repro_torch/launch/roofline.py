@@ -8,10 +8,19 @@ card's power limit.
 
 Conventions, as in the reference:
   * compute_term_s = flops / PEAK_FLOPS, memory_term_s = bytes / HBM_BW,
-    collective_term_s = wire bytes / ICI_BW, all per device;
+    collective_term_s = wire bytes / ICI_BW, all per device (one rank's
+    local ops, as the dry run's `costs.Recorder` counts them);
+  * collective bytes: for every all-gather / all-reduce / reduce-scatter
+    / all-to-all / collective-permute the RESULT's per-rank bytes;
+    all-reduce weighs 2x (ring send + recv), reduce-scatter its result x
+    (group size - 1), the others 1x: a structural lower bound;
   * MODEL_FLOPS = 6 N D for training (forward + backward), 2 N D forward
     only, with D the global tokens of the step and N the (active)
     parameter count.
+
+One ICI_BW for every collective: NVLink's 900 GB/s inside one 8-card
+HGX node.  A 16-wide model axis spans two such nodes, whose link is
+slower; the term does not model that.
 
 `bound_s` is the least time for one kernel's work: the larger of its
 bytes (each input read once, each output written once) over HBM_BW and
@@ -19,14 +28,14 @@ its operations over the peak of their type (FP32_FLOPS outside the
 tensor cores, PEAK_FLOPS for bf16 on them).  `chip_smoke.py` and
 `launch.autotune` take every bound from it.
 
-The reference's `parse_collectives` and `build` read XLA's HLO and
-compiled executables; their counterparts come with the dry run.
+`parse_collectives` and `build` read the dry run's record (the
+reference's read XLA's HLO and compiled executable).
 """
 from __future__ import annotations
 
 import re
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Iterable, Tuple
 
 #: dense bf16 / fp16 on the tensor cores, FLOP/s
 PEAK_FLOPS = 989e12
@@ -59,6 +68,32 @@ def shape_bytes(shape_str: str) -> int:
                 n *= int(d)
         total += n * _DTYPE_BYTES[dt]
     return total
+
+
+_COLL_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+_WIRE_WEIGHT = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0,
+                "all-to-all": 1.0, "collective-permute": 1.0}
+
+
+def parse_collectives(trace: Iterable[dict]) -> Dict[str, dict]:
+    """Per collective kind: {'count', 'bytes', 'wire_bytes'} (per rank),
+    from the dry run's recorded collectives ({"kind", "bytes", "group"}
+    each: `costs.Recorder.collectives`).
+
+    reduce-scatter's RESULT is the scattered shard (input / P), so its
+    wire cost is result_bytes x (group_size - 1)."""
+    out = {k: {"count": 0, "bytes": 0, "wire_bytes": 0.0}
+           for k in _COLL_KINDS}
+    for c in trace:
+        kind, b = c["kind"], int(c["bytes"])
+        w = b * _WIRE_WEIGHT[kind]
+        if kind == "reduce-scatter":
+            w = b * max(int(c.get("group", 2)) - 1, 1)
+        out[kind]["count"] += 1
+        out[kind]["bytes"] += b
+        out[kind]["wire_bytes"] += w
+    return out
 
 
 def bound_s(nbytes: float, flops: float, peak: float = FP32_FLOPS
@@ -144,3 +179,23 @@ def model_flops(cfg, shape) -> float:
     if shape.kind == "prefill":
         return 2.0 * n * shape.tokens
     return 2.0 * n * shape.global_batch        # decode: one token per seq
+
+
+def build(arch: str, shape, mesh_name: str, chips: int, record: dict,
+          cfg=None) -> Roofline:
+    """A Roofline from a dry-run record: its per-rank `flops` and
+    `bytes`, its `collectives` trace and its `memory_analysis` bytes."""
+    colls = parse_collectives(record["collectives"])
+    wire = sum(c["wire_bytes"] for c in colls.values())
+    ma = record["memory_analysis"]
+    mf = model_flops(cfg, shape) if cfg is not None else 0.0
+    return Roofline(
+        arch=arch, shape=shape.name if hasattr(shape, "name") else shape,
+        mesh=mesh_name, chips=chips,
+        flops_per_device=float(record["flops"]),
+        bytes_per_device=float(record["bytes"]),
+        collective_bytes=wire, collectives=colls,
+        model_flops_global=mf,
+        arg_bytes=ma.get("argument_size_in_bytes", 0),
+        temp_bytes=ma.get("temp_size_in_bytes", 0),
+        out_bytes=ma.get("output_size_in_bytes", 0))

@@ -16,8 +16,18 @@ three plain implementations and one kernel:
   * triangular — the lower-triangular block loop (plain on any device).
 
 Decode: plain cache attention (one-token query vs. a (B, S, KV, Dh)
-cache, ring buffer for a window).  The reference's sequence-sharded
-flash-decoding needs several cards and is not ported yet.
+cache, ring buffer for a window), or, for an arch with
+`decode_seq_shard` under a mesh with a model axis, the reference's
+sequence-sharded flash-decoding: each model-axis rank holds a chunk of
+the cache, takes a partial softmax over it, and the partials merge by
+log-sum-exp with `all_reduce` MAX and SUM over the model dim's group.
+
+Under `use_sharding` q, k and v are DTensors.  Causal self-attention
+then runs on each rank's local heads (`_on_local_heads`): its q heads
+and the KV heads those read (global head g reads KV head g // (H // KV)),
+also where `kv_heads` fell back to replicated while `heads` shards
+(yi-6b's 32 / 4 heads on a 16-wide model axis: 2 query heads and all 4
+KV heads a rank).  The kernel and the plain paths see plain tensors.
 
 JAX returns new caches; the port writes the cache tensors in place (a
 decode step would otherwise copy every layer's cache) and returns them.
@@ -25,10 +35,14 @@ decode step would otherwise copy every layer's cache) and returns them.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import (ParamSpec, apply_rope,
-                                       head_norm_specs, rms_norm)
+from repro_torch.models.layers import (ParamSpec, apply_rope, ashard,
+                                       batch_local, head_norm_specs,
+                                       local_range, relaid, rms_norm,
+                                       sharded_only)
 
 _NEG = -1e30
 
@@ -56,12 +70,30 @@ def attn_specs(cfg, cross: bool = False):
     return sp
 
 
+def _project(x, w):
+    """x (B, S, D) @ w (D, n, hd) -> (B, S, n, hd).  For a DTensor x
+    whose weight's heads fell back to replicated (yi-6b's 4 KV heads on
+    a 16-wide model axis), each rank projects its batch rows onto all n
+    heads: DTensor would otherwise be free to cut the flat (n * hd)
+    product into pieces that are not whole heads, which it cannot then
+    split into (n, hd).  Sharded heads take the flat product, whose cut
+    then falls on whole heads (DTensor's einsum gathers them)."""
+    if not isinstance(x, DTensor):
+        return torch.einsum("bsd,dhk->bshk", x, w)
+    if Shard(1) not in w.placements:
+        return batch_local(
+            lambda a, b: torch.einsum("bsd,dhk->bshk", a, b), (x,), (w,))
+    # the heads' cut carries through the flat product and its split
+    D, n, hd = w.shape
+    return (x @ w.reshape(D, n * hd)).unflatten(-1, (n, hd))
+
+
 def project_qkv(cfg, p, x, positions, rope: bool = True):
     """x: (B, S, D) -> q (B,S,H,Dh), k,v (B,S,KV,Dh)."""
     cdt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cdt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cdt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cdt))
+    q = _project(x, p["wq"].to(cdt))
+    k = _project(x, p["wk"].to(cdt))
+    v = _project(x, p["wv"].to(cdt))
     if cfg.qkv_bias:
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
@@ -72,13 +104,21 @@ def project_qkv(cfg, p, x, positions, rope: bool = True):
     if rope and cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = ashard(q, "batch", "seq", "heads", None)
+    k = ashard(k, "batch", "seq", "kv_heads", None)
+    v = ashard(v, "batch", "seq", "kv_heads", None)
     return q, k, v
 
 
 def out_proj(cfg, p, attn_out):
-    """attn_out: (B, S, H, Dh) -> (B, S, D)."""
-    return torch.einsum("bshk,hkd->bsd", attn_out,
-                        p["wo"].to(attn_out.dtype))
+    """attn_out: (B, S, H, Dh) -> (B, S, D).  A DTensor takes the flat
+    product, (B, S, H * Dh) @ (H * Dh, D), which keeps the heads' cut
+    (DTensor's einsum gathers the heads first)."""
+    wo = p["wo"].to(attn_out.dtype)
+    if isinstance(attn_out, DTensor):
+        H, Dh, D = wo.shape
+        return attn_out.flatten(2) @ wo.reshape(H * Dh, D)
+    return torch.einsum("bshk,hkd->bsd", attn_out, wo)
 
 
 # ---------------------------------------------------------------------------
@@ -273,11 +313,69 @@ class FlashAttentionFunction(torch.autograd.Function):
         return tuple(next(got) if n else None for n in need) + (None,)
 
 
+# ---------------------------------------------------------------------------
+# DTensor q, k, v: attention on each rank's local heads
+# ---------------------------------------------------------------------------
+
+
+def local_kv_heads(q_heads: range, H: int, KV: int):
+    """What of the KV heads the global query heads `q_heads` read: a
+    slice of KV heads where the local heads split evenly over a run of
+    them (GQA with a local group), else an index per local head."""
+    G = H // KV
+    idx = [h // G for h in q_heads]
+    lo, hi = idx[0], idx[-1] + 1
+    per = len(idx) // (hi - lo)
+    if idx == [lo + i // per for i in range(len(idx))]:
+        return slice(lo, hi)
+    return idx
+
+
+def _on_local_heads(fn, q, k, v):
+    """fn(q, k, v) on plain tensors, run on this rank's heads of DTensor
+    q (B, S, H, Dh), k and v (B, S, KV, Dh).  k and v follow q's batch
+    sharding; they keep their heads sharded only where q's heads are
+    sharded over the same mesh dims (then a rank's KV heads are exactly
+    those its query heads read), else every rank gathers all KV heads
+    and takes those its query heads read.  Returns a DTensor laid out as
+    q (with only its batch and heads dims sharded)."""
+    q, k, v = (sharded_only(x, (0, 2)) for x in (q, k, v))
+    mesh = q.device_mesh
+
+    def head_dims(x):
+        return [m for m, pl in enumerate(x.placements) if pl == Shard(2)]
+
+    same = head_dims(k) == head_dims(q) == head_dims(v)
+    want, grad = [], []
+    for pq in q.placements:
+        if pq == Shard(0) or (pq == Shard(2) and same):
+            want.append(pq)
+            grad.append(pq)
+        else:
+            want.append(Replicate())
+            # a KV head read on several ranks gets its gradient summed
+            grad.append(Partial() if pq == Shard(2) else Replicate())
+    k, v = (relaid(x, mesh, want) for x in (k, v))
+    ql = q.to_local()
+    kl = k.to_local(grad_placements=grad)
+    vl = v.to_local(grad_placements=grad)
+    if not same:
+        sel = local_kv_heads(local_range(q, 2), q.shape[2], k.shape[2])
+        kl, vl = kl[:, :, sel], vl[:, :, sel]
+    return DTensor.from_local(fn(ql, kl, vl), mesh, q.placements,
+                              run_check=False)
+
+
 def self_attention(cfg, q, k, v, q_pos, kv_pos, *, impl="flash"):
-    """Causal self-attention over positions 0..S-1 (prefill, training)."""
+    """Causal self-attention over positions 0..S-1 (prefill, training).
+    DTensor q, k, v run on each rank's local heads."""
     window = cfg.swa_window
     if impl not in ("full", "flash", "triangular"):
         raise ValueError(f"unknown attention impl {impl!r}")
+    if isinstance(q, DTensor):
+        return _on_local_heads(
+            lambda a, b, c: self_attention(cfg, a, b, c, q_pos, kv_pos,
+                                           impl=impl), q, k, v)
     if impl == "flash" and q.is_cuda and flash_kernel_takes(cfg, q.shape[1]):
         if any(t.requires_grad for t in (q, k, v)):
             return FlashAttentionFunction.apply(q, k, v, cfg.attn_chunk)
@@ -320,6 +418,23 @@ def kv_cache_specs(cfg, batch: int, max_len: int, dtype):
     return {"k": sp, "v": sp}
 
 
+def write_seq(dst, x, start: int) -> None:
+    """dst[:, start:start + x.shape[1]] = x, in place.  For a DTensor
+    cache each rank writes the positions its piece holds (its batch rows
+    and, where the cache is sequence-sharded, its chunk of the
+    sequence)."""
+    if not isinstance(dst, DTensor):
+        dst[:, start:start + x.shape[1]] = x
+        return
+    x = relaid(x, dst.device_mesh, [Replicate() if pl == Shard(1) else pl
+                                     for pl in dst.placements])
+    held = local_range(dst, 1)
+    lo, hi = max(start, held.start), min(start + x.shape[1], held.stop)
+    if lo < hi:
+        dst.to_local()[:, lo - held.start:hi - held.start] = \
+            x.to_local()[:, lo - start:hi - start]
+
+
 def fill_kv_cache(cfg, cache, k, v, start: int = 0):
     """Write prefill k/v (B, S, KV, Dh) into the cache, in place."""
     S = k.shape[1]
@@ -329,18 +444,25 @@ def fill_kv_cache(cfg, cache, k, v, start: int = 0):
             # last W positions; slot p % W. (S - W) % W == 0 when W | S.
             if (S - W) % W and S != W:
                 raise ValueError(f"window {W} must divide prompt {S}")
-            cache["k"].copy_(k[:, -W:])
-            cache["v"].copy_(v[:, -W:])
-            return cache
-    cache["k"][:, start:start + S] = k
-    cache["v"][:, start:start + S] = v
+            k, v, start = k[:, -W:], v[:, -W:], 0
+    write_seq(cache["k"], k, start)
+    write_seq(cache["v"], v, start)
     return cache
 
 
-def decode_attention(cfg, cache, q, new_k, new_v, pos: int):
+def decode_attention(cfg, cache, q, new_k, new_v, pos: int, mesh=None):
     """One-token decode. q: (B,H,Dh), new_k/new_v: (B,KV,Dh), pos: int.
 
-    Returns (attn_out (B,H,Dh), cache) with the cache written in place."""
+    Returns (attn_out (B,H,Dh), cache) with the cache written in place.
+    Dispatches to the sequence-sharded flash-decoding path when the arch
+    is configured for it and a mesh with a model axis is active (its
+    cache a DTensor)."""
+    if (_seq_sharded(cfg) and mesh is not None
+            and "model" in (mesh.mesh_dim_names or ())
+            and isinstance(cache["k"], DTensor)
+            and cache["k"].shape[1] % mesh["model"].size() == 0):
+        return _decode_attn_seq_sharded(cfg, mesh, cache, q, new_k, new_v,
+                                        pos)
     return _decode_attn_local(cfg, cache, q, new_k, new_v, pos)
 
 
@@ -353,15 +475,21 @@ def _write_slot(cfg, pos, S):
 def _decode_attn_local(cfg, cache, q, new_k, new_v, pos):
     B, S, KV, Dh = cache["k"].shape
     slot = _write_slot(cfg, pos, S)
-    cache["k"][:, slot] = new_k
-    cache["v"][:, slot] = new_v
+    write_seq(cache["k"], new_k[:, None], slot)
+    write_seq(cache["v"], new_v[:, None], slot)
     slots = torch.arange(S, device=q.device)
     if cfg.swa_window:
         # ring buffer: slot s holds global position pos - ((pos - s) mod S)
         valid = pos - torch.remainder(pos - slots, S) >= 0
     else:
         valid = slots <= pos
-    out = _decode_scores(cfg, q, cache["k"], cache["v"], valid)
+    if isinstance(q, DTensor):
+        # each rank its batch rows, all heads and the whole cache
+        out = batch_local(lambda a, b, c: _decode_scores(cfg, a, b, c,
+                                                         valid),
+                          (q, cache["k"], cache["v"]))
+    else:
+        out = _decode_scores(cfg, q, cache["k"], cache["v"], valid)
     return out, cache
 
 
@@ -377,6 +505,49 @@ def _decode_scores(cfg, q, kc, vc, valid):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, vc.to(torch.float32))
     return o.reshape(B, H, Dh).to(q.dtype)
+
+
+def _decode_attn_seq_sharded(cfg, mesh, cache, q, new_k, new_v, pos: int):
+    """Flash-decoding: the cache (DTensors) sharded over its sequence on
+    the model axis; every rank writes the new k/v if it holds position
+    `pos`, computes a partial softmax over its chunk, and the partials
+    are merged by log-sum-exp: `all_reduce` MAX of the running maxima,
+    then SUM of the rescaled denominators and outputs, over the model
+    dim's group (the reference's pmax and psum).  q, new_k, new_v: (B,
+    H|KV, Dh), DTensors or plain tensors the same on every rank.  Returns
+    (out (B, H, Dh) DTensor, batch rows as the cache, heads whole)."""
+    kc_d, vc_d = cache["k"], cache["v"]
+    rows = [pl if pl == Shard(0) else Replicate() for pl in kc_d.placements]
+    ql, nk, nv = (relaid(x, mesh, rows).to_local() for x in (q, new_k,
+                                                             new_v))
+    kc, vc = kc_d.to_local(), vc_d.to_local()
+    held = local_range(kc_d, 1)
+    if pos in held:
+        kc[:, pos - held.start] = nk
+        vc[:, pos - held.start] = nv
+    B, S_loc, KV, Dh = kc.shape
+    H = ql.shape[1]
+    G = H // KV
+    valid = torch.arange(held.start, held.stop, device=kc.device) <= pos
+    qg = ql.reshape(B, KV, G, Dh).to(torch.float32)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, kc.to(torch.float32)) * \
+        Dh ** -0.5
+    s = s.masked_fill(~valid[None, None, None], _NEG)
+    m_l = s.amax(-1)
+    pexp = torch.exp(s - m_l[..., None])
+    l_l = pexp.sum(-1)
+    o_l = torch.einsum("bkgs,bskd->bkgd", pexp, vc.to(torch.float32))
+    group = mesh.get_group("model")
+    m_g = m_l.clone()
+    dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
+    corr = torch.exp(m_l - m_g)
+    l_g = l_l * corr
+    o_g = o_l * corr[..., None]
+    dist.all_reduce(l_g, group=group)
+    dist.all_reduce(o_g, group=group)
+    o = o_g / torch.clamp(l_g, min=1e-30)[..., None]
+    out = o.reshape(B, H, Dh).to(ql.dtype)
+    return DTensor.from_local(out, mesh, rows, run_check=False), cache
 
 
 # ---------------------------------------------------------------------------

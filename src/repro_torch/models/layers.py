@@ -4,20 +4,23 @@ The port of `repro.models.layers`.  Every parameter is declared as a
 ParamSpec (shape, logical axis names, init rule); `init_from_specs`
 materializes a spec tree on one device as a `ParamTree`, the
 `nn.Module` that holds a model's parameters under the reference's keys
-(``params["stack"]["attn"]["wq"]``).  The logical axis names are kept
-for parity with the reference; the port runs on one card, so nothing
-reads them and the reference's activation-sharding hook (`ashard`) has
-no counterpart.
+(``params["stack"]["attn"]["wq"]``); `abstract_from_specs` gives meta
+tensors of the same shapes and dtypes, for the dry run.  The logical
+axis names feed `repro_torch.sharding`: under `use_sharding`, `ashard`
+redistributes a DTensor activation to its rule's placements (the
+reference's sharding constraint); with no sharder set it is the
+identity, so every single-card path is unchanged.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -49,7 +52,9 @@ def is_spec(x) -> bool:
 
 
 def tree_map_specs(fn: Callable[[ParamSpec], Any], tree):
-    """Apply `fn` to every ParamSpec of a nested dict."""
+    """Apply `fn` to every ParamSpec of a nested dict (None stays None)."""
+    if tree is None:
+        return None
     if is_spec(tree):
         return fn(tree)
     return {k: tree_map_specs(fn, v) for k, v in tree.items()}
@@ -57,7 +62,10 @@ def tree_map_specs(fn: Callable[[ParamSpec], Any], tree):
 
 def spec_leaves(tree, prefix=()):
     """(key path, spec) for every leaf, keys in sorted order (the order of
-    `jax.tree_util.tree_flatten` over the reference's dicts)."""
+    `jax.tree_util.tree_flatten` over the reference's dicts; None holds
+    no leaf)."""
+    if tree is None:
+        return
     if is_spec(tree):
         yield prefix, tree
         return
@@ -76,6 +84,122 @@ def stack_specs(tree, n: int, axis_name: str = "layers"):
 
 def count_specs(tree) -> int:
     return int(sum(math.prod(s.shape) for _, s in spec_leaves(tree)))
+
+
+def abstract_from_specs(tree, default_dtype="float32"):
+    """Meta tensors of each spec's shape and dtype (no allocation: the
+    full 314B configs are described from specs alone)."""
+    return tree_map_specs(
+        lambda s: torch.empty(s.shape, dtype=dtype_of(s.dtype
+                                                      or default_dtype),
+                              device="meta"), tree)
+
+
+def logical_axes_tree(tree):
+    return tree_map_specs(lambda s: s.logical, tree)
+
+
+# ---------------------------------------------------------------------------
+# Activation sharding hook (set by repro_torch.sharding.use_sharding)
+# ---------------------------------------------------------------------------
+
+_ACT_SHARDER: Optional[Callable] = None
+_SPEC_ZEROS: Optional[Callable] = None
+
+
+def set_activation_sharder(fn: Optional[Callable],
+                           spec_zeros: Optional[Callable] = None) -> None:
+    """fn(x, logical_axes) -> x laid out by the rules; spec_zeros(spec,
+    device) -> the zero tensor of a cache spec, laid out (None clears
+    both)."""
+    global _ACT_SHARDER, _SPEC_ZEROS
+    _ACT_SHARDER, _SPEC_ZEROS = fn, spec_zeros
+
+
+def ashard(x, *logical_axes):
+    """Lay activation x out by its logical axes (identity with no sharder
+    set, and for a tensor that is not a DTensor)."""
+    if _ACT_SHARDER is None:
+        return x
+    return _ACT_SHARDER(x, logical_axes)
+
+
+def local_range(x, dim: int) -> range:
+    """The global indices of `dim` that this rank holds of DTensor x
+    (mesh dims that shard it cut it in mesh-dim order, first major)."""
+    n, lo = x.shape[dim], 0
+    for mdim, pl in enumerate(x.placements):
+        if pl == Shard(dim):
+            size = x.device_mesh.size(mdim)
+            n //= size
+            lo = lo * size + x.device_mesh.get_local_rank(mdim)
+    return range(lo * n, (lo + 1) * n)
+
+
+def relaid(x, mesh, placements):
+    """x as a DTensor laid out by `placements`; a plain x is the whole
+    tensor, the same on every rank."""
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    if list(x.placements) == list(placements):
+        return x
+    return x.redistribute(mesh, placements)
+
+
+def sharded_only(x, dims):
+    """DTensor x with only `dims` left sharded: any other sharded dim,
+    and a pending sum, is gathered."""
+    return relaid(x, x.device_mesh, [
+        Replicate() if isinstance(pl, Partial) or (
+            isinstance(pl, Shard) and pl.dim not in dims) else pl
+        for pl in x.placements])
+
+
+#: mesh dims over which weights are FSDP-sharded (the data axes)
+FSDP_DIMS = ("pod", "data")
+
+
+def fsdp_gathered(t):
+    """A DTensor weight with its FSDP shards gathered (the data-axis mesh
+    dims made Replicate; the model axis keeps its tensor-parallel cut):
+    ZeRO-3's just-in-time all-gather, whose backward is the gradient's
+    reduce-scatter.  A plain tensor passes through."""
+    if not isinstance(t, DTensor):
+        return t
+    names = t.device_mesh.mesh_dim_names or ()
+    return relaid(t, t.device_mesh, [
+        Replicate() if n in FSDP_DIMS else pl
+        for n, pl in zip(names, t.placements)])
+
+
+def gather_fsdp(tree):
+    """`fsdp_gathered` over a layer's nested dict of params."""
+    return {k: gather_fsdp(v) if isinstance(v, dict) else fsdp_gathered(v)
+            for k, v in tree.items()}
+
+
+def batch_local(fn, acts, weights=()):
+    """fn(*acts, *weights) on plain tensors, for a region that is
+    independent across batch rows (MoE routing, a recurrence): every
+    activation keeps only its batch dim (0) sharded, laid out as the
+    first; every weight is gathered whole, and its gradient sums over
+    the ranks that hold different batch rows.  Returns fn's tensor (or
+    each of its tuple of tensors) as a DTensor laid out as the first
+    activation (a DTensor); a plain activation is the whole tensor, the
+    same on every rank."""
+    first = sharded_only(acts[0], (0,))
+    mesh, pls = first.device_mesh, list(first.placements)
+    rep = [Replicate()] * len(pls)
+    acts = [first] + [relaid(a, mesh, pls) for a in acts[1:]]
+    grad = [Partial() if pl == Shard(0) else Replicate() for pl in pls]
+    ws = [w.redistribute(mesh, rep).to_local(grad_placements=grad)
+          for w in weights]
+    out = fn(*(a.to_local() for a in acts), *ws)
+    if isinstance(out, tuple):
+        return tuple(DTensor.from_local(o, mesh, pls, run_check=False)
+                     for o in out)
+    return DTensor.from_local(out, mesh, pls, run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -173,10 +297,14 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, default_dtype,
 
 def zeros_from_specs(specs, *, device):
     """A nested dict of zero tensors from a nested dict of ParamSpecs (a
-    cache's), each in its spec's dtype; None stays None."""
+    cache's), each in its spec's dtype; None stays None.  Under
+    `use_sharding` each is a DTensor laid out by the weight rules (the
+    reference's cache shardings)."""
     if specs is None:
         return None
     if is_spec(specs):
+        if _SPEC_ZEROS is not None:
+            return _SPEC_ZEROS(specs, device)
         return torch.zeros(specs.shape, dtype=dtype_of(specs.dtype),
                            device=device)
     return {k: zeros_from_specs(v, device=device) for k, v in specs.items()}
@@ -294,9 +422,11 @@ def apply_mlp(cfg, p, x):
     if cfg.act == "swiglu":
         g = x @ p["w_gate"].to(cdt)
         u = x @ p["w_up"].to(cdt)
-        return (F.silu(g) * u) @ p["w_down"].to(cdt)
+        h = ashard(F.silu(g) * u, "batch", "seq", "mlp")
+        return h @ p["w_down"].to(cdt)
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(x @ p["w_up"].to(cdt) + p["b_up"].to(cdt), approximate="tanh")
+    h = ashard(h, "batch", "seq", "mlp")
     return h @ p["w_down"].to(cdt) + p["b_down"].to(cdt)
 
 
@@ -314,11 +444,48 @@ def embed_specs(cfg):
     return sp
 
 
+def lookup(table, ids):
+    """table[ids]: rows of an embedding table.  For a DTensor table its
+    FSDP shards are gathered, and where its rows (the vocab) are cut over
+    the model axis each rank looks up the ids that fall in its rows (the
+    others read 0) and the pieces sum over those ranks: a `Partial`
+    result, whose backward scatters into each rank's own rows (DTensor's
+    own indexing would gather the whole table)."""
+    if not isinstance(table, DTensor):
+        return table[ids.long()]
+    table = fsdp_gathered(table)
+    mesh = table.device_mesh
+    held = ids.placements if isinstance(ids, DTensor) else \
+        [Replicate()] * mesh.ndim
+    # the ids' batch rows stay cut, except over the vocab's mesh dims
+    ids = relaid(ids, mesh, [
+        pl if pl == Shard(0) and tp != Shard(0) else Replicate()
+        for pl, tp in zip(held, table.placements)])
+    out_pl, grad_pl = [], []
+    for ip, tp in zip(ids.placements, table.placements):
+        out_pl.append(Partial() if tp == Shard(0) else ip)
+        grad_pl.append(tp if tp == Shard(0) else
+                       Partial() if ip == Shard(0) else Replicate())
+    local = table.to_local(grad_placements=grad_pl)
+    idx = ids.to_local().long()
+    if Shard(0) in table.placements:
+        rows = local_range(table, 0)
+        idx = idx - rows.start
+        hit = (idx >= 0) & (idx < len(rows))
+        out = local[idx.clamp(0, len(rows) - 1)]
+        out = torch.where(hit[..., None], out,
+                          torch.zeros((), dtype=out.dtype,
+                                      device=out.device))
+    else:
+        out = local[idx]
+    return DTensor.from_local(out, mesh, out_pl, run_check=False)
+
+
 def embed_tokens(cfg, p, tokens, positions=None):
-    x = p["tokens"][tokens.long()].to(dtype_of(cfg.compute_dtype))
+    x = lookup(p["tokens"], tokens).to(dtype_of(cfg.compute_dtype))
     if "positions" in p and positions is not None:
-        pos_emb = p["positions"][torch.clamp(
-            positions.long(), max=p["positions"].shape[0] - 1)]
+        pos_emb = lookup(p["positions"], torch.clamp(
+            positions.long(), max=p["positions"].shape[0] - 1))
         x = x + pos_emb.to(x.dtype)
     return x
 
@@ -329,4 +496,4 @@ def unembed_specs(cfg):
 
 
 def unembed(cfg, p, x):
-    return x @ p["w"].to(x.dtype)
+    return ashard(x @ p["w"].to(x.dtype), "batch", "seq", "vocab")

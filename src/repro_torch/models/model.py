@@ -10,6 +10,9 @@ zamba2, xLSTM, whisper):
     prefill(cfg, p, batch)       -> (last-token logits, decode cache)
     decode_step(cfg, p, tok, pos, cache) -> (logits, cache)
     cache_specs / init_cache     -> decode cache (specs / real)
+    abstract_params / abstract_cache / input_specs
+                                 -> meta tensors for the dry run
+    logical_axes(cfg)            -> the logical axis names of each param
 
 Tokens are integer tensors on the params' device (whisper's `frames`
 too: (B, n_frames, d_model)); `pos` is a Python int.  A decode step
@@ -23,16 +26,20 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import (ParamTree, apply_norm, count_specs,
+from repro_torch.models.layers import (ParamTree, abstract_from_specs,
+                                       apply_norm, ashard, count_specs,
                                        dtype_of, embed_specs, embed_tokens,
-                                       init_from_specs, norm_specs,
-                                       stack_specs, unembed, unembed_specs,
-                                       zeros_from_specs)
+                                       init_from_specs, local_range,
+                                       logical_axes_tree, norm_specs, relaid,
+                                       sharded_only, stack_specs, unembed,
+                                       unembed_specs, zeros_from_specs)
+from repro_torch.sharding.rules import relayout
 
 
 # ---------------------------------------------------------------------------
@@ -70,6 +77,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     gen = torch.Generator(device=device).manual_seed(seed)
     return init_from_specs(param_specs(cfg), gen, cfg.param_dtype,
                            device=device)
+
+
+def abstract_params(cfg: ModelConfig):
+    """The params as meta tensors (shapes and dtypes, no allocation)."""
+    return abstract_from_specs(param_specs(cfg), cfg.param_dtype)
+
+
+def logical_axes(cfg: ModelConfig):
+    return logical_axes_tree(param_specs(cfg))
 
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
@@ -120,6 +136,7 @@ def forward_logits(cfg, params, tokens, frames=None, impl="flash"):
     positions = torch.arange(S, device=tokens.device)
     x = embed_tokens(cfg, params["embed"], tokens,
                      positions if cfg.learned_pos else None)
+    x = ashard(x, "batch", "seq", "embed")
     if cfg.is_encdec:
         enc_out = tfm.whisper_encode(cfg, params, frames)
         x, _, aux = tfm.whisper_decode_train(cfg, params, enc_out, x,
@@ -133,10 +150,45 @@ def cross_entropy(cfg, logits, targets):
     """logits: (B, S, Vp) any float dtype; targets: (B, S) int.  Returns
     (mean loss, logz (B, S)), both in float32; padded vocab ids are
     masked to -1e30 first."""
+    if isinstance(logits, DTensor):
+        # its gradient comes back in its own layout: DTensor's backward
+        # of the vocab-parallel log-sum-exp would cut it over the
+        # sequence, and the unembedding's backward would then gather the
+        # vocab on every model rank
+        logits = relayout(logits, logits.placements)
     logits = _mask_padded_vocab(cfg, logits.to(torch.float32))
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets[..., None].long())[..., 0]
-    return (logz - gold).mean(), logz
+    logz = _logsumexp(logits)
+    return (logz - _gold(logits, targets)).mean(), logz
+
+
+def _logsumexp(logits):
+    """logsumexp over the last dim.  For DTensor logits whose vocab is
+    sharded: max and sum over each rank's slice, reduced over the ranks
+    (DTensor's `logsumexp` would gather the whole vocab first)."""
+    if not (isinstance(logits, DTensor)
+            and Shard(logits.ndim - 1) in logits.placements):
+        return torch.logsumexp(logits, dim=-1)
+    m = logits.detach().amax(-1, keepdim=True)
+    return (logits - m).exp().sum(-1).log() + m[..., 0]
+
+
+def _gold(logits, targets):
+    """logits[b, s, targets[b, s]].  For DTensor logits with the vocab
+    sharded, each rank picks the targets that fall in its vocab slice
+    and the pieces sum over the ranks (a `Partial` result)."""
+    if not isinstance(logits, DTensor):
+        return logits.gather(-1, targets[..., None].long())[..., 0]
+    logits = sharded_only(logits, (0, 2))
+    targets = relaid(targets, logits.device_mesh, [
+        pl if pl == Shard(0) else Replicate() for pl in logits.placements])
+    vocab = local_range(logits, 2)
+    local = logits.to_local()
+    t = targets.to_local().long() - vocab.start
+    hit = (t >= 0) & (t < len(vocab))
+    g = local.gather(-1, t.clamp(0, len(vocab) - 1)[..., None])[..., 0]
+    g = torch.where(hit, g, torch.zeros((), dtype=g.dtype, device=g.device))
+    out = [Partial() if pl == Shard(2) else pl for pl in logits.placements]
+    return DTensor.from_local(g, logits.device_mesh, out, run_check=False)
 
 
 def forward_train(cfg, params, batch, impl="flash", aux_weight=0.01,
@@ -174,6 +226,7 @@ def prefill(cfg, params, batch, impl="flash", max_len=None):
     positions = torch.arange(S, device=tokens.device)
     x = embed_tokens(cfg, params["embed"], tokens,
                      positions if cfg.learned_pos else None)
+    x = ashard(x, "batch", "seq", "embed")
     if cfg.is_encdec:
         enc_out = tfm.whisper_encode(cfg, params, batch["frames"])
         x, cache, _ = tfm.whisper_decode_train(cfg, params, enc_out, x,
@@ -239,3 +292,32 @@ def init_cache(cfg, batch: int, max_len: int, *, device="cuda"):
     """Zero-initialized decode cache (for decode-from-scratch tests)."""
     return zeros_from_specs(cache_specs(cfg, batch, max_len),
                             device=resolve_device(device))
+
+
+def abstract_cache(cfg, batch: int, max_len: int):
+    return abstract_from_specs(cache_specs(cfg, batch, max_len))
+
+
+# ---------------------------------------------------------------------------
+# Dry-run input specs
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, shape) -> Dict[str, Any]:
+    """Meta-tensor stand-ins for every model input of this cell: tokens
+    (and whisper's frames) for train and prefill; for decode one new
+    token, its position (an int32 scalar) and a cache of size S."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+
+    def meta(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        out = {"tokens": meta((B, S), i32)}
+        if cfg.is_encdec:
+            out["frames"] = meta((B, cfg.n_frames, cfg.d_model),
+                                 dtype_of(cfg.compute_dtype))
+        return out
+    return {"token": meta((B,), i32), "pos": meta((), i32),
+            "cache": abstract_cache(cfg, B, S)}

@@ -24,8 +24,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models.layers import ParamSpec
+from repro_torch.models.layers import ParamSpec, ashard, batch_local
 
 
 def moe_specs(cfg):
@@ -134,8 +135,18 @@ def apply_moe(cfg, p, x):
     m = cfg.moe
     cdt = x.dtype
     router_logits = x @ p["router"].to(cdt)
-    routed = _route(x, router_logits, p["w_gate"], p["w_up"], p["w_down"],
-                    m.top_k, m.capacity_factor)[0]
+    weights = (p["w_gate"], p["w_up"], p["w_down"])
+    if isinstance(x, DTensor):
+        # routing has data-dependent indexing that DTensor has no rule
+        # for: each rank routes its batch rows, the experts gathered
+        routed = batch_local(
+            lambda xs, ls, *w: _route(xs, ls, *w, m.top_k,
+                                      m.capacity_factor)[0],
+            (x, router_logits), weights)
+    else:
+        routed = _route(x, router_logits, *weights, m.top_k,
+                        m.capacity_factor)[0]
+    routed = ashard(routed, "batch", "seq", "embed")
     if m.num_shared:
         sh = p["shared"]
         h = F.silu(x @ sh["w_gate"].to(cdt)) * (x @ sh["w_up"].to(cdt))
@@ -150,8 +161,12 @@ def aux_load_balance_loss(cfg, p, x):
     m = cfg.moe
     logits = x @ p["router"].to(x.dtype)
     probs = torch.softmax(logits.float(), dim=-1)
-    _, idx = _top_k(probs, m.top_k)
-    hard = F.one_hot(idx, m.num_experts).sum(-2).float()      # (B,S,E)
+    def hard_of(pr):
+        _, idx = _top_k(pr, m.top_k)
+        return F.one_hot(idx, m.num_experts).sum(-2).float()  # (B,S,E)
+
+    hard = (batch_local(hard_of, (probs,)) if isinstance(probs, DTensor)
+            else hard_of(probs))
     frac_tokens = hard.mean((0, 1)) / m.top_k
     frac_probs = probs.mean((0, 1))
     return m.num_experts * torch.sum(frac_tokens * frac_probs)

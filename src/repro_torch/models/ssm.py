@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ParamSpec, dtype_of, rms_norm
+from repro_torch.models.layers import ParamSpec, ashard, dtype_of, rms_norm
 
 
 def ssm_dims(cfg):
@@ -167,6 +167,7 @@ def apply_ssm(cfg, p, x, state=None):
     y = y + xs.to(f32) * p["D"].to(f32)[:, None]
     y = y.reshape(*y.shape[:2], d_inner).to(cdt)
     y = rms_norm(y * F.silu(z), p["norm_scale"])
+    y = ashard(y, "batch", "seq", "mlp")
     out = y @ p["w_out"].to(cdt)
     return out, {"conv": new_conv, "ssm": S_final}
 

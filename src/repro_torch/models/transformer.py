@@ -19,6 +19,7 @@ stacked one, in place, and returns the stacked cache.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
@@ -26,8 +27,24 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (ParamSpec, apply_mlp, apply_norm,
-                                       dtype_of, mlp_specs, norm_specs,
+                                       ashard, dtype_of, gather_fsdp,
+                                       mlp_specs, norm_specs, relaid,
                                        stack_specs, take, zeros_from_specs)
+
+# ---------------------------------------------------------------------------
+# current mesh hook (set by repro_torch.sharding.use_sharding)
+# ---------------------------------------------------------------------------
+
+_CURRENT_MESH = None
+
+
+def set_current_mesh(mesh) -> None:
+    global _CURRENT_MESH
+    _CURRENT_MESH = mesh
+
+
+def current_mesh():
+    return _CURRENT_MESH
 
 
 def _zero(x):
@@ -35,12 +52,27 @@ def _zero(x):
 
 
 def _write(dst, src):
-    """Copy a nested dict of tensors into `dst`'s views, in place."""
+    """Copy a nested dict of tensors into `dst`'s views, in place (a
+    DTensor view: each rank its own piece, the source laid out as it)."""
     for k, v in src.items():
         if isinstance(v, dict):
             _write(dst[k], v)
+        elif isinstance(dst[k], DTensor):
+            d = dst[k]
+            d.to_local().copy_(relaid(v, d.device_mesh,
+                                      d.placements).to_local())
         else:
             dst[k].copy_(v)
+
+
+def residual(x):
+    """The residual stream x (B, [S,] D) laid out by its rule: batch
+    rows sharded, features whole.  A sublayer whose last product
+    contracts a model-sharded dim leaves a pending sum (`Partial`) that
+    this resolves once, before the next norm, where DTensor would
+    otherwise carry it into the next products and replicate their
+    weights over the model axis to keep it.  The identity off a mesh."""
+    return ashard(x, "batch", *([None] * (x.ndim - 2)), "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -91,7 +123,7 @@ def self_attn_train(cfg, p, x, positions, *, impl="flash", causal=True):
         o = attn.self_attention(cfg, q, k, v, positions, positions, impl=impl)
     else:
         o = attn.attn_full(q, k, v, positions, positions, causal=False)
-    return x + attn.out_proj(cfg, p["attn"], o), (k, v)
+    return residual(x + attn.out_proj(cfg, p["attn"], o)), (k, v)
 
 
 def self_attn_decode(cfg, p, x, pos: int, cache):
@@ -101,8 +133,9 @@ def self_attn_decode(cfg, p, x, pos: int, cache):
     pos_arr = torch.full((1,), pos, device=x.device)
     q, k, v = attn.project_qkv(cfg, p["attn"], h, pos_arr)
     o, cache = attn.decode_attention(cfg, cache, q[:, 0], k[:, 0], v[:, 0],
-                                     pos)
-    return x + attn.out_proj(cfg, p["attn"], o[:, None])[:, 0], cache
+                                     pos, mesh=current_mesh())
+    return residual(x + attn.out_proj(cfg, p["attn"], o[:, None])[:, 0]), \
+        cache
 
 
 def block_tail(cfg, p, x, positions, *, enc_kv=None):
@@ -113,7 +146,7 @@ def block_tail(cfg, p, x, positions, *, enc_kv=None):
         h = apply_norm(cfg, p["lnx"], x)
         qx, _, _ = attn.project_qkv(cfg, p["xattn"], h, positions, rope=False)
         ox = attn.cross_attention(cfg, qx, enc_kv["k"], enc_kv["v"])
-        x = x + attn.out_proj(cfg, p["xattn"], ox)
+        x = residual(x + attn.out_proj(cfg, p["xattn"], ox))
     return _ffn(cfg, p, x)
 
 
@@ -123,7 +156,7 @@ def attn_block_train(cfg, p, x, positions, *, impl="flash", causal=True,
     x, kv = self_attn_train(cfg, p, x, positions, impl=impl, causal=causal)
     x, aux = block_tail(cfg, p, x, positions, enc_kv=None if enc_out is None
                         else encoder_kv(p, enc_out))
-    return x, kv, aux
+    return ashard(x, "batch", "seq", "embed"), kv, aux
 
 
 def attn_block_decode(cfg, p, x, pos: int, cache, *, cross_kv=None):
@@ -192,13 +225,20 @@ def scan_stack(cfg, body, x, stacked_params, stacked_cache=None):
     call of `body` is checkpointed (the reference's `_maybe_remat`)."""
     remat = cfg.remat and torch.is_grad_enabled()
     aux = _zero(x)
+
+    def layer(x, p, c):
+        # a DTensor layer's FSDP shards are gathered inside the body, so
+        # remat gathers them again instead of keeping them
+        x, c, a = body(x, gather_fsdp(p), c)
+        return residual(x), c, a
+
     for i in range(depth(stacked_params)):
         c = None if stacked_cache is None else take(stacked_cache, i)
         p = take(stacked_params, i)
         if remat:
-            x, _, a = checkpoint(body, x, p, c, use_reentrant=False)
+            x, _, a = checkpoint(layer, x, p, c, use_reentrant=False)
         else:
-            x, _, a = body(x, p, c)
+            x, _, a = layer(x, p, c)
         aux = aux + a
     return x, stacked_cache, aux
 
@@ -302,17 +342,13 @@ def xlstm_state_specs(cfg, batch):
 
 def xlstm_init_state(cfg, batch, *, device):
     """The states prefill starts from: every mLSTM's m at -1e30, the rest
-    zero (`init_cache`'s zeros differ from it in m)."""
-    g, m = xlstm_group_layout(cfg)
-
-    def rep(t, n):
-        return {k: rep(v, n) if isinstance(v, dict)
-                else v.expand((n,) + v.shape).clone() for k, v in t.items()}
-
-    group = {"mlstm": rep(xlstm_mod.init_mlstm_state(cfg, batch,
-                                                     device=device), m),
-             "slstm": xlstm_mod.init_slstm_state(cfg, batch, device=device)}
-    return rep(group, g)
+    zero (`init_cache`'s zeros differ from it in m).  Under
+    `use_sharding` the states are DTensors, as `init_cache`'s."""
+    state = zeros_from_specs(xlstm_state_specs(cfg, batch), device=device)
+    m = state["mlstm"]["m"]
+    with torch.no_grad():
+        (m.to_local() if isinstance(m, DTensor) else m).fill_(xlstm_mod._NEG)
+    return state
 
 
 # ----- zamba2 hybrid stack --------------------------------------------------

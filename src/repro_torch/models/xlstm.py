@@ -19,8 +19,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models.layers import ParamSpec, rms_norm
+from repro_torch.models.layers import (ParamSpec, ashard, batch_local,
+                                       rms_norm)
 
 _NEG = -1e30
 
@@ -141,17 +143,37 @@ def apply_mlstm(cfg, p, x, state=None):
     f32 = torch.float32
     up = x @ p["w_up"].to(cdt)
     xin, z = torch.chunk(up, 2, dim=-1)
-    xh = xin.reshape(*xin.shape[:2], H, Dv)      # per-head stream
-    q = torch.einsum("bthe,hed->bthd", xh, p["wq"].to(cdt))
-    k = torch.einsum("bthe,hed->bthd", xh, p["wk"].to(cdt))
-    v = torch.einsum("bthe,hed->bthd", xh, p["wv"].to(cdt))
+    xin = ashard(xin, "batch", "seq", "mlp")
     gates = (xin @ p["w_if"].to(cdt) + p["b_if"].to(cdt)).to(f32)
-    logi, logf_raw = torch.chunk(gates, 2, dim=-1)               # (B,T,H)
-    logf = F.logsigmoid(logf_raw)
+    names = ("C", "n", "m")
 
-    h, new_state = _mlstm_chunked(q.to(f32), k.to(f32), v.to(f32), logi,
-                                  logf, cfg.xlstm.mlstm_chunk, state)
-    h = h.reshape(*h.shape[:2], d_inner).to(cdt)
+    def cell(xin, gates, *rest):
+        """The heads: projections and the chunked cell.  rest: the state
+        (if any), then wq, wk, wv."""
+        st, (wq, wk, wv) = rest[:-3], rest[-3:]
+        xh = xin.reshape(*xin.shape[:2], H, Dv)      # per-head stream
+        q = torch.einsum("bthe,hed->bthd", xh, wq.to(cdt))
+        k = torch.einsum("bthe,hed->bthd", xh, wk.to(cdt))
+        v = torch.einsum("bthe,hed->bthd", xh, wv.to(cdt))
+        logi, logf_raw = torch.chunk(gates, 2, dim=-1)           # (B,T,H)
+        h, new = _mlstm_chunked(q.to(f32), k.to(f32), v.to(f32), logi,
+                                F.logsigmoid(logf_raw),
+                                cfg.xlstm.mlstm_chunk,
+                                dict(zip(names, st)) if st else None)
+        # heads merged here, on local tensors: a DTensor's gradient could
+        # come back cut where the heads cannot be split out again
+        h = h.reshape(*h.shape[:2], d_inner).to(cdt)
+        return (h,) + tuple(new[n] for n in names)
+
+    st = () if state is None else tuple(state[n] for n in names)
+    w = (p["wq"], p["wk"], p["wv"])
+    if isinstance(xin, DTensor):
+        # H heads need not divide the model axis (xlstm-1.3b: 4 on 16):
+        # each rank runs its batch rows through all heads
+        h, *new = batch_local(cell, (xin, gates, *st), w)
+    else:
+        h, *new = cell(xin, gates, *st, *w)
+    new_state = dict(zip(names, new))
     h = rms_gate(h, z, p["norm_scale"])
     return h @ p["w_down"].to(cdt), new_state
 
@@ -221,6 +243,19 @@ def _slstm_cell(p, xg, state):
     return (c_new, n_new, m_new, h_new)
 
 
+def slstm_scan(xg_all, carry, r_h, bias):
+    """The sLSTM recurrence over time.  xg_all: (B, T, H, 4Dh) float32
+    gate pre-activations; carry: (c, n, m, h), each (B, H, Dh) float32.
+    Returns (h of every step (B, T, H, Dh), c, n, m, h)."""
+    pc = {"r_h": r_h, "bias": bias}
+    carry = tuple(carry)
+    hs = []
+    for t in range(xg_all.shape[1]):
+        carry = _slstm_cell(pc, xg_all[:, t], carry)
+        hs.append(carry[3])
+    return (torch.stack(hs, dim=1),) + carry
+
+
 def apply_slstm(cfg, p, x, state=None):
     """sLSTM block: sequential loop over time. x: (B,T,D)."""
     B, T, D = x.shape
@@ -229,15 +264,19 @@ def apply_slstm(cfg, p, x, state=None):
     xg_all = torch.einsum("btd,dhg->bthg", x, p["w_x"].to(cdt)).to(f32)
     if state is None:
         state = init_slstm_state(cfg, B, device=x.device)
-    carry = tuple(state[k].to(f32) for k in ("c", "n", "m", "h"))
+    carry = [state[k].to(f32) for k in ("c", "n", "m", "h")]
     # the recurrent weights cast once, not once a step
-    pc = {"r_h": p["r_h"].to(f32), "bias": p["bias"].to(f32)}
-    hs = []
-    for t in range(T):
-        carry = _slstm_cell(pc, xg_all[:, t], carry)
-        hs.append(carry[3])
-    c, n, m, h = carry
-    out = torch.stack(hs, dim=1).reshape(B, T, D).to(cdt)
+    r_h, bias = p["r_h"].to(f32), p["bias"].to(f32)
+    def run(xg, c, n, m, h, r_h, bias):
+        hs, *st = slstm_scan(xg, (c, n, m, h), r_h, bias)
+        return (hs.reshape(xg.shape[0], T, D).to(cdt), *st)
+
+    if isinstance(xg_all, DTensor):
+        # the recurrence is independent across batch rows: each rank
+        # runs its rows on plain tensors
+        out, c, n, m, h = batch_local(run, (xg_all, *carry), (r_h, bias))
+    else:
+        out, c, n, m, h = run(xg_all, *carry, r_h, bias)
     out = rms_norm(out, p["norm_scale"])
     out = out @ p["w_down"].to(cdt)
     return out, {"c": c, "n": n, "m": m, "h": h}

@@ -1,18 +1,19 @@
 """Fault tolerance for long runs: the port of
-`repro.training.fault_tolerance` for one process.
+`repro.training.fault_tolerance`.
 
 1. Crash recovery: atomic checkpoints + `restore_checkpoint`
    (checkpoint.py); the trainer saves params + optimizer state every
    `--ckpt-every` steps and resumes from LATEST on restart.
-2. Straggler detection: `StragglerMonitor` tracks per-step wall times;
+2. Elastic re-mesh: `ElasticMeshManager` rebuilds the (data, model)
+   `DeviceMesh` over the surviving ranks and rebuilds the step.
+   Checkpoints are stored unsharded and placements derive from (mesh,
+   logical rules), so restoring onto another rank count is
+   `make_rules(new_mesh)`.
+3. Straggler detection: `StragglerMonitor` tracks per-step wall times;
    a step over `deadline_factor` x the trailing median is logged and
    counted (hook `on_straggler`).
-3. Heartbeats: `Heartbeat` files under the run dir let a supervisor
+4. Heartbeats: `Heartbeat` files under the run dir let a supervisor
    detect a dead host by mtime.
-
-The reference's `ElasticMeshManager` rebuilds a `jax` device mesh; the
-port has no mesh yet (it comes with `torch.distributed`), so only
-`simulate_failure`, the test hook that drops devices, is here.
 """
 from __future__ import annotations
 
@@ -23,6 +24,9 @@ import statistics
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
+
+import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 
 class Heartbeat:
@@ -75,6 +79,40 @@ class StragglerMonitor:
                     self.on_straggler(step, dt, med)
         self.times.append(dt)
         return is_straggler
+
+
+class ElasticMeshManager:
+    """Rebuild mesh/rules/step when the healthy rank set changes.
+
+    The model axis is preserved (weights must still fit), the data axis
+    shrinks to what the surviving ranks support.  `healthy_devices` are
+    global ranks of the default process group; `device_type` the mesh's
+    ("cuda" or "cpu").  Every rank of the default group calls `remesh`
+    with the same list (building a mesh creates its groups on every
+    rank); a rank outside the new mesh gets it back all the same and
+    takes no part in its collectives."""
+
+    def __init__(self, build_step: Callable, model_axis_size: int,
+                 device_type: str = "cuda"):
+        self.build_step = build_step
+        self.model_axis = model_axis_size
+        self.device_type = device_type
+        self.generation = 0
+
+    def remesh(self, healthy_devices) -> tuple:
+        n = len(healthy_devices)
+        model = self.model_axis
+        if n < model:
+            raise ValueError(f"{n} ranks cannot hold a model axis of "
+                             f"{model}")
+        data = n // model
+        usable = list(healthy_devices)[:data * model]
+        mesh = DeviceMesh(self.device_type,
+                          torch.tensor(usable).view(data, model),
+                          mesh_dim_names=("data", "model"))
+        self.generation += 1
+        step = self.build_step(mesh)
+        return mesh, step, self.generation
 
 
 def simulate_failure(devices, kill: int):

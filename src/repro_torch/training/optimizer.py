@@ -50,13 +50,28 @@ class AdamW:
     schedule: Optional[Callable] = None     # step -> lr multiplier
 
     def init(self, params) -> AdamWState:
+        """Zero moments laid out as the params (a DTensor param's moments
+        are DTensors with its placements)."""
         dt = dtype_of(self.state_dtype)
 
         def zeros(p):
-            return torch.zeros(p.shape, dtype=dt, device=p.device)
+            return torch.zeros_like(p, dtype=dt,
+                                    memory_format=torch.contiguous_format)
 
         return AdamWState(0, tree_map(zeros, params),
                           tree_map(zeros, params))
+
+    def init_abstract(self, abstract_params) -> AdamWState:
+        """The state of `init` as meta tensors (the dry run's stand-ins),
+        step an int32 scalar as the reference's."""
+        dt = dtype_of(self.state_dtype)
+
+        def zeros(p):
+            return torch.empty(p.shape, dtype=dt, device="meta")
+
+        return AdamWState(torch.empty((), dtype=torch.int32, device="meta"),
+                          tree_map(zeros, abstract_params),
+                          tree_map(zeros, abstract_params))
 
     def update(self, grads, state: AdamWState, params):
         """Writes params, m and v in place; returns (params,

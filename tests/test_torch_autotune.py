@@ -174,8 +174,14 @@ def test_hillclimb_cli_on_the_cpu():
     lst = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.hillclimb", "--list"],
         env=env, capture_output=True, text=True, timeout=120)
-    assert lst.stdout.split() == ["gee-scatter-tune", "gee-topk-tune"]
+    # the reference's variant names, read without importing its module
+    # (importing it sets XLA_FLAGS for this process)
+    import ast
+    tree = ast.parse((ROOT / "src/repro/launch/hillclimb.py").read_text())
+    table = next(n.value for n in tree.body if isinstance(n, ast.Assign)
+                 and n.targets[0].id == "VARIANTS")
+    assert lst.stdout.split() == [k.value for k in table.keys]
     bad = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.hillclimb", "gee-ring"],
+        [sys.executable, "-m", "repro_torch.launch.hillclimb", "gee-nope"],
         env=env, capture_output=True, text=True, timeout=120)
     assert bad.returncode == 2 and "unknown variant" in bad.stderr

@@ -594,3 +594,40 @@ def test_one_rank_nccl_gee_distributed_equals_the_cuda_fit(dev, rng, mode):
         D.destroy_local_group()
     assert dropped == 0
     np.testing.assert_allclose(Z, ref, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# sharded attention: the kernel on one model rank's local heads
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,model", [(32, 4, 16), (12, 3, 2), (8, 8, 4),
+                                        (32, 4, 4)])
+def test_flash_on_local_heads(dev, rng, dtype, H, KV, model):
+    """What `attention._on_local_heads` hands the kernel on each model
+    rank: its query heads and the KV heads they read
+    (`local_kv_heads`).  yi-6b's 32 / 4 heads on 16 ranks: 2 query heads
+    and their one KV head (local group 2); 12 / 3 on 2: an index per
+    head (group 1); 8 / 8 and 32 / 4 on 4: whole groups.  The kernel
+    equals its plain version on the same heads, and the whole
+    attention's slice, at the kernel's tolerance."""
+    from repro_torch.models import attention as TA
+    B, S, D, chunk = 1, 257, 128, 64
+    q, k, v = (torch.as_tensor(rng.normal(size=(B, S, h, D)).astype(
+        np.float32), device=dev).to(dtype) for h in (H, KV, KV))
+    whole = TA.causal_plain(q, k, v, chunk)
+    per = H // model
+    tol = FLASH_TOL[dtype]
+    before = _build.launches["flash_attention"]
+    for r in range(model):
+        heads = range(r * per, (r + 1) * per)
+        sel = TA.local_kv_heads(heads, H, KV)
+        ql, kl, vl = q[:, :, r * per:(r + 1) * per], k[:, :, sel], \
+            v[:, :, sel]
+        got = TA._flash_kernel(ql, kl, vl)
+        torch.testing.assert_close(got.float(), TA.causal_plain(
+            ql, kl, vl, chunk).float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(got.float(), whole[:, :, heads].float(),
+                                   atol=tol, rtol=tol)
+    assert _build.launches["flash_attention"] == before + model

@@ -52,6 +52,10 @@ assert {{"repro_torch.training." + m for m in ("optimizer", "compression",
         "train_loop", "checkpoint", "fault_tolerance", "trees")}} | {{
         "repro_torch.data.pipeline", "repro_torch.launch.train"}} <= \
     set(names), names
+# the sharding rules and the dry run
+assert {{"repro_torch.sharding", "repro_torch.sharding.rules"}} | {{
+        "repro_torch.launch." + m for m in ("mesh", "analytic", "costs",
+        "dryrun", "report", "roofline", "hillclimb")}} <= set(names), names
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m == "repro" or m.startswith(("repro.", "jax")))]
 assert not loaded, loaded
