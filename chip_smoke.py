@@ -8,7 +8,8 @@
 1. builds every CUDA kernel of `src/repro_torch/kernels/csrc` with nvcc;
    It counts the HGMMA (wgmma) instructions in the flash library's SASS
    where the toolkit has `cuobjdump` (none fails the run) and requires
-   ptxas to report no spills in the bfloat16 flash body;
+   ptxas to report no spills in the bfloat16 flash bodies (the forward
+   and the backward's two passes);
 2. holds each kernel against its plain PyTorch version on the card at
    small shapes (for gee_scatter also K = 256, one row holding 50,000
    contributions and rows whose donors mostly share a class, each
@@ -21,7 +22,13 @@
    to give the same bits; and the widths outside the main path's bodies:
    gee_delta_renorm at K = 200, topk_fused at K = 300 and at k = 100,
    flash attention at D = 96 (zero-padded to 128) and at D = 160 and
-   256 in both dtypes (the wide body for D > 128);
+   256 in both dtypes (the wide body for D > 128).  At every flash case
+   the forward with lse (`flash_attention_fwd`: the same output bits,
+   lse within 1e-5 of the dense oracle's) and the backward
+   (`flash_attention_bwd`, twice: the same bits) against its plain
+   version on the same (o, lse) and a random dO, at the forward's
+   tolerance; D = 160 and 256 take the backward's CUDA-core body in
+   both dtypes;
 3. drives the GEE path at the scale of SNAP soc-LiveJournal1 (an SBM
    with n = 4,847,571 nodes, s = 68,993,773 edges, K = 16, 10% labeled):
    `Embedder(backend="cuda").fit`, then two `EmbeddingShard`s
@@ -136,11 +143,21 @@
    dims (D = 64 for whisper and zamba2, D = 120 for danube) against its
    plain version, timed beside SDPA;
 8. the LM training path (`train_path`), at --lm-batch x --lm-prompt:
-   a. `FlashAttentionFunction` (the kernel's forward, a plain backward)
-      at yi-6b's attention shape against autograd of the plain attention:
-      output at the bfloat16 tolerance, dq, dk, dv within LM_REL_TOL x
-      max|plain|; forward + backward timed beside the plain version and
-      SDPA's;
+   a. `FlashAttentionFunction` (the forward kernel and the backward
+      kernel) at yi-6b's attention shape against autograd of the plain
+      attention: one launch of each kernel and no call of `causal_plain`,
+      output at the bfloat16 tolerance, dq, dk, dv each element within
+      GRAD_TOL and in the Frobenius norm within GRAD_FRO_TOL (the median
+      |gradient| printed beside them); forward + backward timed beside
+      the plain version and SDPA's.  Then the backward alone from the
+      forward kernel's (o, lse): against `flash_attention_bwd_plain` by
+      the same two limits, SDPA's backward read the same way (it must
+      pass too), faults made from the kernel's gradients (dq zero from
+      row 256 on, dk's and dv's last key tile zero, each gradient 2 %
+      too large) that must fail, two runs bit-equal; timed beside its
+      plain version and SDPA's backward (one autograd call on a retained
+      graph), with its bound (five products) and the floor of the seven
+      it does;
    b. gradient parity at yi-6b's width, 2 layers: one step's gradients
       with the kernel's forward against those with the plain attention
       (`impl="triangular"`, attn_flash's values), same params and batch.
@@ -160,7 +177,9 @@
       schedule, from random weights with wq and wk at 1/sqrt(d_model)
       (at the reference's init the gradient norm is about 3e10 and
       clipping leaves the 1-D final norm's update under a float32 step).
-      Launch counts are zeroed just before and read just after: flash twice per layer per step (forward and remat), the
+      Launch counts are zeroed just before and read just after: flash
+      twice per layer per step (forward and remat), its backward once
+      per layer per step, the
       scatter kernel at least 7 times in the embedding init (fit + 6
       refine rounds).  Every loss and grad norm finite, every leaf
       changed.  One more step runs under torch.profiler (device idle
@@ -169,7 +188,7 @@
       card against the same two on the CPU from the same weights (wq
       and wk tempered),
       losses within FAM_TRAIN_TOL; flash launched twice per causal
-      self-attention per step;
+      self-attention per step, its backward once (the float32 body);
 9. the sharded paths and the dry run (`shard_path`, budget 150 s):
    a. a one-rank NCCL group and a (data=1, model=1) `DeviceMesh`: yi-6b
       at full width, 2 layers, remat, bfloat16 compute, wq and wk
@@ -179,8 +198,8 @@
       bit-equal (one rank: the same kernels in the same order; a gap
       within 1e-6 of max|leaf| is printed and passes).  Flash launches
       are zeroed before and read after the sharded steps: 2 x 2 x 2
-      (forward and remat, each layer, each step), the kernel run on each
-      rank's local heads under DTensor;
+      (forward and remat, each layer, each step) and 2 x 2 backward, the
+      kernels run on each rank's local heads under DTensor;
    b. the same mesh and model under `use_sharding`: prefill of --lm-batch
       prompts of --lm-prompt tokens and 8 greedy tokens with DTensor
       params and a DTensor cache, against `generate` unsharded on the
@@ -232,6 +251,21 @@ ROOT = Path(__file__).resolve().parent
 # is nearly a hard max, so one flipped rounding grows layer by layer and
 # two correct paths drift apart over 32 layers, at float32 too.
 LM_REL_TOL = 2e-2
+# Phase 8a's gradients at yi-6b's attention shape (bfloat16 dq, dk, dv
+# of one attention call): each element within GRAD_TOL (atol and rtol) of
+# the plain version's, and the whole gradient within GRAD_FRO_TOL of it
+# in the Frobenius norm.  A gradient sums up to 16,384 terms whose
+# factors P and dS are rounded to bfloat16, so an element near zero is
+# off by the rounding of the largest terms: SDPA's own backward misses an
+# elementwise 2e-2 on one element of 4.2M there.  The norm reading is
+# what rounding leaves everywhere, about 3e-3 for the kernel and for
+# SDPA; a gradient 2 % too large, or one key tile of dv left out, reads
+# about 2e-2, which an elementwise limit does not see.  Phase 8a prints
+# both readings for the kernel and for SDPA's backward, with the median
+# |gradient| beside GRAD_TOL, and shows that the check refuses such
+# faults.
+GRAD_TOL = 3e-2
+GRAD_FRO_TOL = 1e-2
 # Phase 7, the other LM families at full width: (arch, layers run; None:
 # all).  FAMILY_MAIN is this phase's full-depth main path, generating
 # --lm-gen tokens; the others generate FAMILY_GEN at no more than 12
@@ -365,6 +399,30 @@ def expected_flash(cfg, S):
     return cfg.n_layers
 
 
+def grad_gap(got, ref):
+    """(max|err|, the largest share of the elementwise limit GRAD_TOL x
+    (1 + |ref|), ||err|| / ||ref|| in the Frobenius norm, median|ref|) of
+    a gradient against its plain version."""
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    return (err.max().item(), (err / (GRAD_TOL * (1 + r.abs()))).max().item(),
+            (err.norm() / r.norm()).item(), r.abs().median().item())
+
+
+def grad_ok(gap) -> bool:
+    """Whether a `grad_gap` reading is inside both limits (NaN is not)."""
+    return gap[1] <= 1 and gap[2] <= GRAD_FRO_TOL
+
+
+def show_gaps(gaps) -> str:
+    """dq, dk, dv readings of `grad_gap`, for a line of output."""
+    return "; ".join(
+        f"{n_} max|err| {e_:.3e}, {s_:.3f} of the elementwise limit, "
+        f"{f_:.3e} in the norm, median|plain| {m_:.3e}"
+        for n_, (e_, s_, f_, m_) in zip(("dq", "dk", "dv"), gaps)) + (
+        f" (atol = rtol = {GRAD_TOL}, norm {GRAD_FRO_TOL})")
+
+
 def same(a, b) -> bool:
     return bool((a == b).all().item()) and a.shape == b.shape
 
@@ -417,8 +475,8 @@ def _fingerprints(torch, params):
 def train_path(torch, dev, args, timer, smi):
     """Phase 8 (the LM training path); see the module docstring.  Returns
     the additions to the flash and gee_scatter rows of the kernels line,
-    and the main run's steady step ms and peak device bytes (for phase
-    9c)."""
+    the backward kernel's row, and the main run's steady step ms and peak
+    device bytes (for phase 9c)."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -426,7 +484,9 @@ def train_path(torch, dev, args, timer, smi):
     from repro_torch.configs import get_config, list_archs
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import train as TR
+    from repro_torch.models import attention as A
     from repro_torch.models import model as M
     from repro_torch.models.attention import (FlashAttentionFunction,
                                               causal_plain)
@@ -457,7 +517,7 @@ def train_path(torch, dev, args, timer, smi):
         return o.detach(), [t.grad for t in ins]
 
     def fn_kernel(*t):
-        return FlashAttentionFunction.apply(*t, C)
+        return FlashAttentionFunction.apply(*t)
 
     def fn_plain(*t):
         return causal_plain(*t, C)
@@ -467,24 +527,37 @@ def train_path(torch, dev, args, timer, smi):
             *(x.transpose(1, 2) for x in t), is_causal=True,
             enable_gqa=True).transpose(1, 2)
 
+    # the kernel's path must never reach the plain recompute
+    plain_calls = []
+
+    def counted_plain(*a, **k):
+        plain_calls.append(1)
+        return causal_plain(*a, **k)
+
+    A.causal_plain = counted_plain
     _build.reset_launches()
-    o_k, g_k = fwd_bwd(fn_kernel)
-    n_fn = _build.launches["flash_attention"]
+    try:
+        o_k, g_k = fwd_bwd(fn_kernel)
+    finally:
+        A.causal_plain = causal_plain
+    n_fn = (_build.launches["flash_attention"],
+            _build.launches["flash_attention_bwd"])
     o_p, g_p = fwd_bwd(fn_plain)
-    if n_fn != 1:
-        raise AssertionError(f"FlashAttentionFunction launched the kernel "
-                             f"{n_fn} times, expected 1")
+    if n_fn != (1, 1) or plain_calls:
+        raise AssertionError(f"FlashAttentionFunction launched the forward "
+                             f"and backward kernels {n_fn} times, expected "
+                             f"(1, 1), and called causal_plain "
+                             f"{len(plain_calls)} times, expected 0")
     err_o = rel(o_k, o_p)
-    errs_g = [rel(a, b) for a, b in zip(g_k, g_p)]
+    gaps = [grad_gap(a, b) for a, b in zip(g_k, g_p)]
     print(f"FlashAttentionFunction at B={B} S={S} H={H} KV={KV} D={D} "
-          f"bf16: output max|diff| {err_o[0]:.3e} vs plain; dq, dk, dv "
-          f"max|diff| / max|plain| " + ", ".join(
-              f"{r_:.3e}" for _, r_ in errs_g)
-          + f" (bit-equal {[bool(torch.equal(a, b)) for a, b in zip(g_k, g_p)]})")
+          f"bf16: output max|diff| {err_o[0]:.3e} vs plain; gradients vs "
+          f"autograd of the plain attention: " + show_gaps(gaps))
     if not torch.allclose(o_k.float(), o_p.float(), rtol=2e-2, atol=2e-2):
         raise AssertionError("FlashAttentionFunction output off")
-    if any(not r_ <= LM_REL_TOL for _, r_ in errs_g):
-        raise AssertionError("FlashAttentionFunction gradients off")
+    if not all(grad_ok(g_) for g_ in gaps):
+        raise AssertionError(f"FlashAttentionFunction gradients off: "
+                             f"{show_gaps(gaps)}")
     del o_k, o_p, g_k, g_p
     flops = 4.0 * D * B * H * S * (S + 1) / 2       # causal pairs x 4 D
     # forward, then the backward's recompute and its four products
@@ -492,16 +565,93 @@ def train_path(torch, dev, args, timer, smi):
     # bfloat16 bytes: q, k, v and dO read, o, dq, dk and dv written
     nbytes = 2 * (5 * B * H * S * D + 6 * B * KV * S * D)
     flash_add.update(
-        train_fn_ms=timer(lambda: fwd_bwd(fn_kernel), 3),
+        train_fn_ms=timer(lambda: fwd_bwd(fn_kernel), 5),
         train_fn_plain_ms=timer(lambda: fwd_bwd(fn_plain), 3),
         train_fn_library_ms=timer(lambda: fwd_bwd(fn_library), 5),
         train_fn_bound_ms=bound_ms(nbytes, flops_fb, tensor_cores=True)[0])
     print(f"FlashAttentionFunction forward + backward: "
-          f"{flash_add['train_fn_ms']:.3f} ms (the backward plain), plain "
+          f"{flash_add['train_fn_ms']:.3f} ms (both kernels), plain "
           f"{flash_add['train_fn_plain_ms']:.3f} ms, library (SDPA) "
           f"{flash_add['train_fn_library_ms']:.3f} ms, bound "
           f"{flash_add['train_fn_bound_ms']:.4f} ms")
-    del q, k, v, w
+    # the backward alone, in its (B, H, S, D) layout, from the forward
+    # kernel's (o, lse): against its plain version on the same inputs,
+    # two runs bit-equal, timed beside SDPA's backward (one autograd
+    # call on a retained SDPA graph)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    dot = w.to(torch.bfloat16).transpose(1, 2).contiguous()
+    o_t, lse_t = FA.flash_attention_fwd(qt, kt, vt)
+    g1 = FA.flash_attention_bwd(qt, kt, vt, o_t, lse_t, dot)
+    g2 = FA.flash_attention_bwd(qt, kt, vt, o_t, lse_t, dot)
+    gpl = FA.flash_attention_bwd_plain(qt, kt, vt, o_t, lse_t, dot)
+    if not all(same(a, b) for a, b in zip(g1, g2)):
+        raise AssertionError("flash_attention_bwd at yi's shape: runs differ")
+    # held by grad_gap's two limits; SDPA's backward on the same inputs
+    # is read the same way, and faults made from the kernel's own
+    # gradients must fail the check
+    gaps = [grad_gap(a, b) for a, b in zip(g1, gpl)]
+    bwd_err = max(g_[0] for g_ in gaps)
+    if not all(grad_ok(g_) for g_ in gaps):
+        raise AssertionError(f"flash_attention_bwd at yi's shape vs its "
+                             f"plain version: {show_gaps(gaps)}")
+    lib_in = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        *lib_in, is_causal=True, enable_gqa=True)
+    gaps_lib = [grad_gap(a, b) for a, b in zip(
+        torch.autograd.grad(lib_out, lib_in, dot, retain_graph=True), gpl)]
+    dq1, dk1, dv1 = g1
+    last_tile = torch.arange(S - FA.TILES[torch.bfloat16][1], S, device=dev)
+    faults = {"dq from row 256 on zero": (0, dq1.index_fill(
+                  2, torch.arange(256, S, device=dev), 0)),
+              "dq x 1.02": (0, (dq1.float() * 1.02).to(dq1.dtype)),
+              "dk's last key tile zero": (1, dk1.index_fill(2, last_tile, 0)),
+              "dk x 1.02": (1, (dk1.float() * 1.02).to(dk1.dtype)),
+              "dv's last key tile zero": (2, dv1.index_fill(2, last_tile, 0)),
+              "dv x 1.02": (2, (dv1.float() * 1.02).to(dv1.dtype))}
+    passed = [n_ for n_, (i_, x_) in faults.items()
+              if grad_ok(grad_gap(x_, gpl[i_]))]
+    print(f"flash_attention_bwd at yi's shape: kernel vs plain "
+          f"{show_gaps(gaps)}; SDPA's backward vs plain "
+          f"{show_gaps(gaps_lib)}; faults refused "
+          f"{len(faults) - len(passed)} of {len(faults)}")
+    if passed or not all(grad_ok(g_) for g_ in gaps_lib):
+        raise AssertionError(f"the gradient check at yi's shape: faults "
+                             f"that pass it {passed}; SDPA's backward "
+                             f"{show_gaps(gaps_lib)}")
+    del g1, g2, gpl, dq1, dk1, dv1, faults, last_tile
+    # the least work: five products over the causal pairs (S, dP, dv, dk,
+    # dq); the kernel does seven (S and dP in both passes)
+    flops_b = 2.5 * flops
+    # bfloat16 q, o, dO, k, v read and dq, dk, dv written; lse read
+    nbytes_b = 2 * (4 * B * H * S * D + 4 * B * KV * S * D) + 4 * B * H * S
+    bound_b, by_b = bound_ms(nbytes_b, flops_b, tensor_cores=True)
+    bwd_row = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/models/attention.py:163",
+        replaces_note=("no TPU kernel: the reference differentiates "
+                       "attn_flash with XLA; its Pallas kernel "
+                       "(src/repro/kernels/flash_attention.py:72) is "
+                       "forward only"),
+        shape=f"B={B} H={H} KV={KV} S={S} D={D} bf16",
+        max_abs_err=bwd_err,
+        ms=timer(lambda: FA.flash_attention_bwd(qt, kt, vt, o_t, lse_t,
+                                                dot), 10),
+        plain_ms=timer(lambda: FA.flash_attention_bwd_plain(
+            qt, kt, vt, o_t, lse_t, dot), 2),
+        library_ms=timer(lambda: torch.autograd.grad(
+            lib_out, lib_in, dot, retain_graph=True), 10),
+        bound_ms=bound_b, bound_by=by_b)
+    floor7 = bound_ms(nbytes_b, 3.5 * flops, tensor_cores=True)[0]
+    tflops_b = flops_b / (bwd_row["ms"] * 1e-3) / 1e12
+    print(f"flash_attention_bwd alone at B={B} H={H} KV={KV} S={S} D={D} "
+          f"bf16: {bwd_row['ms']:.4f} ms ({tflops_b:.1f} TFLOP/s "
+          f"of the five products), bound {bound_b:.4f} ms ({by_b}, five "
+          f"products), the seven products it does "
+          f"{floor7:.4f} ms; plain {bwd_row['plain_ms']:.3f} "
+          f"ms, library (SDPA's backward) {bwd_row['library_ms']:.4f} ms; "
+          f"two runs bit-equal")
+    del q, k, v, w, qt, kt, vt, dot, o_t, lse_t, lib_in, lib_out
 
     # -- 8b. gradient parity: the kernel's forward vs the plain one ------
     cfg2 = dataclasses.replace(yi, n_layers=2)
@@ -528,10 +678,13 @@ def train_path(torch, dev, args, timer, smi):
     _build.reset_launches()
     loss_k, gk = grads("flash")
     n_par = _build.launches["flash_attention"]
+    n_par_bwd = _build.launches["flash_attention_bwd"]
     loss_t, gt = grads("triangular")        # attn_flash's values, plain
-    if n_par != 2 * cfg2.n_layers:
+    if (n_par, n_par_bwd) != (2 * cfg2.n_layers, cfg2.n_layers):
         raise AssertionError(f"gradient parity: flash launched {n_par} "
-                             f"times, expected {2 * cfg2.n_layers} (remat)")
+                             f"times forward, {n_par_bwd} backward, "
+                             f"expected {2 * cfg2.n_layers} (remat) and "
+                             f"{cfg2.n_layers}")
     g_of = dict(zip(paths, gk))
     zero = [n_ for n_ in ("wq", "wk", "wv")
             if not g_of[("stack", "attn", n_)].abs().max().item() > 0]
@@ -559,7 +712,8 @@ def train_path(torch, dev, args, timer, smi):
     print(f"gradient parity, yi-6b width, 2 layers, B={B} S={S}, wq and "
           f"wk at 1/sqrt(d_model): loss kernel {loss_k:.6f} / plain "
           f"{loss_t:.6f}; worst leaf {worst[1]} at {worst[0]:.3e} of "
-          f"max|g_plain| (tol {LM_REL_TOL}); flash launches {n_par}")
+          f"max|g_plain| (tol {LM_REL_TOL}); flash launches {n_par}, "
+          f"backward {n_par_bwd}")
     if not worst[0] <= LM_REL_TOL:
         raise AssertionError(f"gradient parity: {worst[1]} off")
     del gk, gt, leaves
@@ -653,6 +807,11 @@ def train_path(torch, dev, args, timer, smi):
                              f"{launches['flash_attention']} times, "
                              f"expected {want} (forward + remat, each "
                              "layer, each step)")
+    if launches["flash_attention_bwd"] != cfg.n_layers * steps:
+        raise AssertionError(f"train path: flash_attention_bwd launched "
+                             f"{launches['flash_attention_bwd']} times, "
+                             f"expected {cfg.n_layers * steps} (each layer, "
+                             "each step)")
     if launches["gee_scatter"] < 6 + 1:
         raise AssertionError(f"train path: gee_scatter launched "
                              f"{launches['gee_scatter']} times in the "
@@ -715,6 +874,7 @@ def train_path(torch, dev, args, timer, smi):
           + "; ".join(f"{n_[:60]} {ms_:.1f} ms x{c_}"
                       for n_, (ms_, c_) in top[:14]))
     flash_add["train_launches"] = launches["flash_attention"]
+    bwd_row["launches"] = launches["flash_attention_bwd"]
     scatter_add["train_launches"] = launches["gee_scatter"]
     measured = {"step_ms": steady, "peak_bytes": peak_gib * 2**30}
     del params, hist, prof, before, after, batch
@@ -722,7 +882,7 @@ def train_path(torch, dev, args, timer, smi):
     torch.cuda.empty_cache()
 
     # -- 8e. every family's reduced config: card vs CPU, two steps ------
-    by_arch = {}
+    by_arch, bwd_by_arch = {}, {}
     worst = (0.0, "")
     for arch in list_archs():
         cfg = dataclasses.replace(get_config(arch).reduced(), remat=True)
@@ -749,20 +909,25 @@ def train_path(torch, dev, args, timer, smi):
                 losses[side].append(m_["loss"].item())
             del p_, st
         n_ = _build.launches["flash_attention"]
+        n_b = _build.launches["flash_attention_bwd"]
         want = 2 * 2 * expected_flash(cfg, 64)
         gap = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
                                                       losses["cpu"]))
         worst = max(worst, (gap, arch))
         by_arch[arch] = n_
-        if n_ != want or not gap <= FAM_TRAIN_TOL:
+        bwd_by_arch[arch] = n_b
+        if n_ != want or n_b != want // 2 or not gap <= FAM_TRAIN_TOL:
             raise AssertionError(f"{arch} reduced train steps: card "
                                  f"{losses['cuda']} vs cpu {losses['cpu']}"
-                                 f", flash {n_} (expected {want})")
+                                 f", flash {n_} (expected {want}), "
+                                 f"backward {n_b} (expected {want // 2})")
     print(f"reduced families, 2 train steps with remat, card vs CPU from "
           f"the same weights (wq, wk at 1/sqrt(d_model)): worst loss gap {worst[0]:.3e} ({worst[1]}; "
-          f"tol {FAM_TRAIN_TOL}); flash launches {by_arch}")
+          f"tol {FAM_TRAIN_TOL}); flash launches {by_arch}; backward "
+          f"{bwd_by_arch}")
     flash_add["train_launches_by_arch"] = by_arch
-    return flash_add, scatter_add, measured
+    bwd_row["launches_by_arch"] = bwd_by_arch
+    return flash_add, scatter_add, bwd_row, measured
 
 
 def shard_path(torch, dev, args, smi, phase8):
@@ -848,10 +1013,13 @@ def shard_path(torch, dev, args, smi, phase8):
         sync()
         sharded_s = time.perf_counter() - t1
         n_train = _build.launches["flash_attention"]
+        n_train_bwd = _build.launches["flash_attention_bwd"]
         want = 2 * 2 * cfg.n_layers if on_card else 0
-        if n_train != want:
-            raise AssertionError(f"9a: flash launched {n_train} times in "
-                                 f"the sharded steps, expected {want}")
+        if (n_train, n_train_bwd) != (want, want // 2):
+            raise AssertionError(f"9a: flash launched {n_train} times "
+                                 f"forward, {n_train_bwd} backward in the "
+                                 f"sharded steps, expected {want} and "
+                                 f"{want // 2}")
         if not all(isinstance(t, DTensor) for _, t in items(sp)):
             raise AssertionError("9a: the sharded step's params are not "
                                  "DTensors")
@@ -869,7 +1037,8 @@ def shard_path(torch, dev, args, smi, phase8):
               f"unsharded {ref_losses} (equal: {same_loss}); leaves "
               f"bit-equal {len(list(items(ref))) - unequal} of "
               f"{len(list(items(ref)))}, worst gap {worst:.3e} of "
-              f"max|leaf|; flash launches {n_train} (expected {want}); "
+              f"max|leaf|; flash launches {n_train} (expected {want}), "
+              f"backward {n_train_bwd}; "
               f"two sharded steps {sharded_s * 1e3:.1f} ms; wall "
               f"{time.perf_counter() - t0:.1f} s")
         gap = max(abs(a - b) / abs(a) for a, b in zip(ref_losses,
@@ -879,6 +1048,7 @@ def shard_path(torch, dev, args, smi, phase8):
                                  f"(leaf gap {worst:.3e}, loss gap "
                                  f"{gap:.3e}; tol 1e-6)")
         out["shard_train_launches"] = n_train
+        out["shard_train_bwd_launches"] = n_train_bwd
         del ref, sp, ss, batches
         gc.collect()
         if on_card:
@@ -1295,12 +1465,15 @@ def main() -> int:
     if "flash_attention" in _build.ptxas_log:     # built in this run
         bf16 = {f: n for f, n in ptxas_spills(
             _build.ptxas_log["flash_attention"]).items()
-            if "flash_fwd_bf16_kernel" in f}
-        if len(bf16) != 4 or any(bf16.values()):
+            if any(k_ in f for k_ in ("flash_fwd_bf16_kernel",
+                                      "flash_bwd_kv_kernel",
+                                      "flash_bwd_q_kernel"))}
+        if len(bf16) != 12 or any(bf16.values()):
             raise AssertionError(f"ptxas spill bytes of the bfloat16 flash "
-                                 f"bodies (one per D expected, all 0): "
-                                 f"{bf16}")
-        print("ptxas: the 4 bfloat16 flash bodies spill 0 bytes")
+                                 f"bodies (forward, dk/dv and dq passes, "
+                                 f"one per D expected, all 0): {bf16}")
+        print("ptxas: the 12 bfloat16 flash bodies (forward, backward's "
+              "dk/dv and dq passes) spill 0 bytes")
     hgmma = count_hgmma(_build.library_path("flash_attention"))
     if hgmma is None:
         print("cuobjdump not found: HGMMA count of the flash library not "
@@ -1393,6 +1566,35 @@ def main() -> int:
         if not torch.allclose(a.float(), p.float(), rtol=tol, atol=tol):
             raise AssertionError(f"flash_attention {what}: max|err| {err}")
         return err
+
+    def check_flash_bwd(q, k, v, what):
+        """The forward with lse (the same output bits, lse within 1e-5 of
+        the dense oracle's), then the backward twice (the same bits)
+        against its plain version on the same (o, lse) and a random dO,
+        at the forward's tolerance (atol and rtol)."""
+        o, lse = FA.flash_attention_fwd(q, k, v)
+        _, plse = FA.flash_attention_plain(q, k, v, return_lse=True)
+        do = torch.as_tensor(rng.normal(size=tuple(q.shape)).astype(
+            np.float32), device=dev).to(q.dtype)
+        a = FA.flash_attention_bwd(q, k, v, o, lse, do)
+        b = FA.flash_attention_bwd(q, k, v, o, lse, do)
+        p = FA.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        if not same(o, FA.flash_attention(q, k, v)):
+            raise AssertionError(f"flash_attention_fwd {what}: output "
+                                 "differs from flash_attention's")
+        if not torch.allclose(lse, plse, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"flash_attention_fwd {what}: lse max|err| "
+                                 f"{(lse - plse).abs().max().item()}")
+        tol = 2e-2 if q.dtype == torch.bfloat16 else 2e-5
+        for n_, x, y, z in zip(("dq", "dk", "dv"), a, b, p):
+            if not same(x, y) or x.dtype != q.dtype:
+                raise AssertionError(f"flash_attention_bwd {what}: {n_} "
+                                     "runs differ or dtype off")
+            if not torch.allclose(x.float(), z.float(), rtol=tol, atol=tol):
+                raise AssertionError(
+                    f"flash_attention_bwd {what}: {n_} max|err| "
+                    f"{(x.float() - z.float()).abs().max().item()}")
 
     # scatter: skewed rows, one tile, tail tile, K = 256 (row sub-ranges),
     # one row holding 50,000 contributions; last, every donor labelled and
@@ -1505,8 +1707,10 @@ def main() -> int:
         qkv = [torch.as_tensor(rng.normal(size=(B_, h_, S_, D_)).astype(
             np.float32), device=dev).to(dt) for h_ in (H_, KV_, KV_)]
         check_flash(*qkv, f"B={B_} H={H_} KV={KV_} S={S_} D={D_} {dt}")
+        check_flash_bwd(*qkv, f"B={B_} H={H_} KV={KV_} S={S_} D={D_} {dt}")
         del qkv
-    print(f"small-shape kernel checks: ok ({len(flash_cases)} flash cases)")
+    print(f"small-shape kernel checks: ok ({len(flash_cases)} flash cases, "
+          f"each forward and backward)")
 
     def gee_path():
         """Phases 3-5 (GEE); returns the three kernels' rows.  Its
@@ -3074,12 +3278,14 @@ def main() -> int:
     fam = timed("families", families_path)
     gc.collect()
     torch.cuda.empty_cache()
-    flash_train, scatter_train, phase8 = timed(
+    flash_train, scatter_train, bwd_row, phase8 = timed(
         "training", train_path, torch, dev, args, timer, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    flash_train.update(timed("sharding and dry run", shard_path, torch, dev,
-                             args, smi, phase8))
+    shard = timed("sharding and dry run", shard_path, torch, dev, args, smi,
+                  phase8)
+    bwd_row["shard_train_launches"] = shard.pop("shard_train_bwd_launches")
+    flash_train.update(shard)
     print("phase wall seconds: " + ", ".join(f"{k_} {v_:.1f}"
                                              for k_, v_ in walls.items()))
     fam["launches_by_arch"] = {"yi-6b": results[-1]["launches"],
@@ -3087,6 +3293,7 @@ def main() -> int:
     results[-1].update(fam)
     results[-1].update(flash_train)
     results[0].update(scatter_train)
+    results.append(bwd_row)
 
     for r_ in results:
         rate = (f", {r_['tflops']:.1f} TFLOP/s, {r_['bound_share']:.3f} of "
@@ -3132,7 +3339,10 @@ def main() -> int:
         elif "train_launches" in r_:
             print(f"  {r_['name']} in training (phase 8, the GEE embedding "
                   f"init): launches {r_['train_launches']}")
-        if "shard_train_launches" in r_:
+        if r_["name"] == "flash_attention_bwd":
+            print(f"  {r_['name']}: launches by reduced arch {r_['launches_by_arch']}; {r_['shard_train_launches']}"
+                  f" in two sharded train steps (phase 9)")
+        elif "shard_train_launches" in r_:
             print(f"  {r_['name']} on local heads under DTensor (phase 9): "
                   f"launches {r_['shard_train_launches']} in two sharded "
                   f"train steps, {r_['shard_serve_launches']} in the "

@@ -181,7 +181,8 @@ def stream_of(device) -> int:
 #: launches per kernel wrapper: each wrapper adds one where it launches
 #: its kernel, and nowhere else (its plain version does not count)
 launches: Dict[str, int] = {"gee_scatter": 0, "topk_fused": 0,
-                            "gee_delta_renorm": 0, "flash_attention": 0}
+                            "gee_delta_renorm": 0, "flash_attention": 0,
+                            "flash_attention_bwd": 0}
 
 
 def reset_launches() -> None:

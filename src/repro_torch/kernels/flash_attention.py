@@ -1,13 +1,13 @@
-"""Causal GQA flash-attention forward.
+"""Causal GQA flash attention: the forward and its backward.
 
-The port of `repro.kernels.flash_attention.flash_attention`
+The forward is the port of `repro.kernels.flash_attention.flash_attention`
 (``csrc/flash_attention.cu``).  Layout as in the reference: q
 (B, H, S, D), k and v (B, KV, S, D) with KV | H; query head h reads KV
 head h // (H // KV).  The model reaches it through
 `repro_torch.models.attention.self_attention` (``impl="flash"``, causal,
 no window), where the reference runs the kernel's jnp twin `attn_flash`.
 
-On CPU tensors `flash_attention` runs `flash_attention_plain` (the
+On CPU tensors each wrapper runs its plain version (the forward the
 reference's dense oracle, `kernels/ref.py`); on CUDA tensors it launches
 the kernel or raises.  The kernel takes float32 or bfloat16, any head
 dim and any S (a ragged last tile is masked).  Its two main bodies take
@@ -22,6 +22,18 @@ runs a third, simple body in either dtype (``flash_attention_wide_launch``:
 CUDA cores, float32 arithmetic, 16-row query tiles, 32-key tiles, D in
 chunks of 128, the accumulators in a float32 workspace the wrapper
 allocates); it is written for correctness, not speed.
+`flash_attention_fwd` is the same forward that also returns each row's
+log-sum-exp.
+
+`flash_attention_bwd` is the gradient of that forward from (q, k, v, o,
+lse, dO); it has no TPU counterpart (the reference differentiates
+`attn_flash` with XLA).  bfloat16 at D in {16, 32, 64, 128} runs every
+product on the tensor cores (other D <= 128 zero-padded as the forward,
+the gradients sliced back: the zero columns change no score and give zero
+gradient columns); float32 at any D and bfloat16 at D > 128 run a simple
+CUDA-core body.  Each gradient is summed in one fixed order (no atomics),
+so two runs give the same bits.  Its launches count under
+``flash_attention_bwd``.
 """
 from __future__ import annotations
 
@@ -35,15 +47,15 @@ from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 TILES = {torch.float32: (64, 64), torch.bfloat16: (128, 128)}
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GRID_Y = 65_535      # blocks along a grid's y dimension
+BWD_ROWS = 16            # query rows per block of the backward's dq pass
+                         # (simple body; the tensor-core body takes 128)
 
-__all__ = ["flash_attention", "flash_attention_plain", "TILES"]
+__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
+           "flash_attention_bwd", "flash_attention_bwd_plain", "TILES"]
 
 
-def flash_attention(q, k, v, *, bq=None, bk=None) -> torch.Tensor:
-    """Causal self-attention. q: (B,H,S,D); k,v: (B,KV,S,D). Returns
-    (B,H,S,D) in q's dtype.  `bq`, `bk` name tile sizes: None means the
-    kernel's own (`TILES`), and the kernel refuses any other value (the
-    plain version has no tiles and ignores them)."""
+def _shapes(q, k, v):
+    """(B, H, KV, S, D), after checking k and v against q."""
     B, H, S, D = q.shape
     KV = k.shape[1]
     if tuple(k.shape) != (B, KV, S, D) or tuple(v.shape) != tuple(k.shape):
@@ -51,21 +63,58 @@ def flash_attention(q, k, v, *, bq=None, bk=None) -> torch.Tensor:
                          f"be (B, KV, S, D) = ({B}, KV, {S}, {D})")
     if KV == 0 or H % KV:
         raise ValueError(f"KV = {KV} kv heads must divide H = {H}")
-    dev = q.device
-    if dev.type == "cpu":
-        return flash_attention_plain(q, k, v)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not {dev}")
+    return B, H, KV, S, D
+
+
+def _on_card(name, q):
+    """Raise unless q is a CUDA tensor the kernels take."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
     if q.dtype not in TILES:
         raise TypeError(f"q has dtype {q.dtype}; the kernel takes "
                         f"{tuple(TILES)}")
+    if q.shape[-1] < 1:
+        raise ValueError(f"head dim {q.shape[-1]} < 1")
+
+
+def _pad(D):
+    """The tensor-core head dim a head dim <= 128 is padded to."""
+    return next(d for d in HEAD_DIMS if d >= D)
+
+
+def flash_attention(q, k, v, *, bq=None, bk=None) -> torch.Tensor:
+    """Causal self-attention. q: (B,H,S,D); k,v: (B,KV,S,D). Returns
+    (B,H,S,D) in q's dtype.  `bq`, `bk` name tile sizes: None means the
+    kernel's own (`TILES`), and the kernel refuses any other value (the
+    plain version has no tiles and ignores them)."""
+    _shapes(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    _on_card("flash_attention", q)
     if (bq, bk) != (None, None):
         tq, tk = TILES[q.dtype]
         raise ValueError(f"the kernel uses its own {tq} x {tk} tiles at "
                          f"{q.dtype}: pass bq=None, bk=None, not bq={bq}, "
                          f"bk={bk}")
-    if D < 1:
-        raise ValueError(f"head dim {D} < 1")
+    return _forward(q, k, v, with_lse=False)[0]
+
+
+def flash_attention_fwd(q, k, v):
+    """The forward of `flash_attention` that also returns each row's
+    natural log-sum-exp: (out (B, H, S, D) in q's dtype, lse (B, H, S)
+    float32), the inputs of `flash_attention_bwd`.  One launch, counted
+    under ``flash_attention``."""
+    _shapes(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, return_lse=True)
+    _on_card("flash_attention_fwd", q)
+    return _forward(q, k, v, with_lse=True)
+
+
+def _forward(q, k, v, *, with_lse):
+    """Check and launch the forward on CUDA tensors; (out, lse or None)."""
+    B, H, KV, S, D = _shapes(q, k, v)
+    dev = q.device
     wide = D > HEAD_DIMS[-1]
     # the grid's y dimension: B * H (float32 and wide bodies) or the
     # query tiles (bfloat16 body)
@@ -77,38 +126,112 @@ def flash_attention(q, k, v, *, bq=None, bk=None) -> torch.Tensor:
     _build.require("q", q, q.dtype, (B, H, S, D), dev)
     _build.require("k", k, q.dtype, (B, KV, S, D), dev)
     _build.require("v", v, q.dtype, (B, KV, S, D), dev)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
+           if with_lse else None)
+    lse_ptr = lse.data_ptr() if with_lse else None
+    bf16 = int(q.dtype == torch.bfloat16)
     if wide:
-        return _flash_wide(q, k, v)
-    Dp = next(d for d in HEAD_DIMS if d >= D)
+        o = torch.empty_like(q)
+        ws = torch.empty((B, H, S, D), dtype=torch.float32, device=dev)
+        fn = _build.function("flash_attention", "flash_attention_wide_launch",
+                             [_build.P] * 6 + [_build.I] * 6
+                             + [_build.F, _build.P])
+        with torch.cuda.device(dev):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     ws.data_ptr(), lse_ptr, B, H, KV, S, D, bf16,
+                     D ** -0.5, _build.stream_of(dev))
+        _build.check("flash_attention", err)
+        _build.launches["flash_attention"] += 1
+        return o, lse
+    Dp = _pad(D)
     if Dp != D:         # zero columns: exact zeros in every score
         q, k, v = (torch.nn.functional.pad(x, (0, Dp - D)) for x in (q, k, v))
     o = torch.empty_like(q)
     fn = _build.function("flash_attention", "flash_attention_launch",
-                         [_build.P] * 4 + [_build.I] * 6
-                         + [_build.F, _build.P])
-    with torch.cuda.device(dev):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 B, H, KV, S, Dp, int(q.dtype == torch.bfloat16), D ** -0.5,
-                 _build.stream_of(dev))
-    _build.check("flash_attention", err)
-    _build.launches["flash_attention"] += 1
-    return o if Dp == D else o[..., :D].contiguous()
-
-
-def _flash_wide(q, k, v) -> torch.Tensor:
-    """The body for D > 128 (inputs checked by `flash_attention`)."""
-    B, H, S, D = q.shape
-    dev = q.device
-    o = torch.empty_like(q)
-    ws = torch.empty((B, H, S, D), dtype=torch.float32, device=dev)
-    fn = _build.function("flash_attention", "flash_attention_wide_launch",
                          [_build.P] * 5 + [_build.I] * 6
                          + [_build.F, _build.P])
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 ws.data_ptr(), B, H, k.shape[1], S, D,
-                 int(q.dtype == torch.bfloat16), D ** -0.5,
+                 lse_ptr, B, H, KV, S, Dp, bf16, D ** -0.5,
                  _build.stream_of(dev))
     _build.check("flash_attention", err)
     _build.launches["flash_attention"] += 1
-    return o
+    return (o if Dp == D else o[..., :D].contiguous()), lse
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do):
+    """dq, dk, dv of causal GQA attention by dense float32 math, from the
+    forward's o and lse (P = exp(s D^-0.5 - lse)); each in its input's
+    dtype.  O(S^2) memory: for tests and the smoke's comparisons."""
+    B, H, KV, S, D = _shapes(q, k, v)
+    G = H // KV
+    f32 = torch.float32
+    scale = D ** -0.5
+    qg = q.reshape(B, KV, G, S, D).to(f32)
+    dog = do.reshape(B, KV, G, S, D).to(f32)
+    kf, vf = k.to(f32), v.to(f32)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, kf) * scale
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    p = torch.exp(s.masked_fill(~mask, -1e30) - lse.reshape(B, KV, G, S, 1))
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dog)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dog, vf)
+    delta = (dog * o.reshape(B, KV, G, S, D).to(f32)).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qg) * scale
+    return (dq.reshape(B, H, S, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_attention_bwd(q, k, v, o, lse, do):
+    """Gradients (dq (B, H, S, D), dk, dv (B, KV, S, D), in q's dtype) of
+    causal attention with output o and log-sum-exp lse
+    (`flash_attention_fwd`'s) under the cotangent do (B, H, S, D).  CPU
+    tensors run `flash_attention_bwd_plain`; CUDA tensors launch the
+    kernel (one count under ``flash_attention_bwd``) or raise."""
+    B, H, KV, S, D = _shapes(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != (B, H, S, D):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{(B, H, S, D)}")
+    if tuple(lse.shape) != (B, H, S):
+        raise ValueError(f"lse has shape {tuple(lse.shape)}, expected "
+                         f"{(B, H, S)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do)
+    _on_card("flash_attention_bwd", q)
+    dev = q.device
+    if -(-S // BWD_ROWS) > MAX_GRID_Y:
+        raise ValueError(f"S = {S}: {-(-S // BWD_ROWS)} blocks along the "
+                         f"grid's y dimension > {MAX_GRID_Y}")
+    for name, t in (("q", q), ("o", o), ("do", do)):
+        _build.require(name, t, q.dtype, (B, H, S, D), dev)
+    _build.require("k", k, q.dtype, (B, KV, S, D), dev)
+    _build.require("v", v, q.dtype, (B, KV, S, D), dev)
+    _build.require("lse", lse, torch.float32, (B, H, S), dev)
+    bf16 = q.dtype == torch.bfloat16
+    Dp = _pad(D) if bf16 and D <= HEAD_DIMS[-1] else D
+    if Dp != D:         # zero columns: no score changes, zero gradients
+        q, k, v, o, do = (torch.nn.functional.pad(x, (0, Dp - D))
+                          for x in (q, k, v, o, do))
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    ws = (torch.empty(((B * H + 2 * B * KV) * S * Dp,), dtype=torch.float32,
+                      device=dev)
+          if bf16 and Dp not in HEAD_DIMS else None)
+    fn = _build.function("flash_attention", "flash_attention_bwd_launch",
+                         [_build.P] * 11 + [_build.I] * 6
+                         + [_build.F, _build.P])
+    with torch.cuda.device(dev):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), delta.data_ptr(),
+                 None if ws is None else ws.data_ptr(), B, H, KV, S, Dp,
+                 int(bf16), D ** -0.5, _build.stream_of(dev))
+    _build.check("flash_attention", err)
+    _build.launches["flash_attention_bwd"] += 1
+    if Dp != D:
+        dq, dk, dv = (x[..., :D].contiguous() for x in (dq, dk, dv))
+    return dq, dk, dv

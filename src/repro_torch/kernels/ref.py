@@ -20,8 +20,11 @@ def gee_ref(u, v, w, Y, n: int, K: int) -> torch.Tensor:
     return gee_scatter_ref(dst, cls, val, n, K)
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True) -> torch.Tensor:
-    """q: (B, H, S, D); k, v: (B, KV, S, D) with KV | H (GQA)."""
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        return_lse: bool = False):
+    """q: (B, H, S, D); k, v: (B, KV, S, D) with KV | H (GQA).  With
+    `return_lse`, (out, lse): lse (B, H, S) float32 is each row's natural
+    log-sum-exp of its scaled, masked scores (the backward's input)."""
     B, H, S, D = q.shape
     KV = k.shape[1]
     G = H // KV
@@ -33,4 +36,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True) -> torch.Tensor:
         s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
-    return o.reshape(B, H, S, D).to(q.dtype)
+    o = o.reshape(B, H, S, D).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(B, H, S)
+    return o

@@ -10,9 +10,10 @@ three plain implementations and one kernel:
              something (S > swa_window, `flash_kernel_takes`); on the
              CPU, and for such a window, the plain path the reference
              runs.  Where q, k or v require grad the kernel runs under
-             `FlashAttentionFunction`: its forward is the kernel, its
-             backward plain autograd of the same attention (the
-             reference has no backward kernel either).
+             `FlashAttentionFunction`: its forward is the kernel (with
+             each row's log-sum-exp), its backward the hand-written
+             backward kernel (the reference differentiates `attn_flash`
+             with XLA); on CPU tensors both run their plain versions.
   * triangular — the lower-triangular block loop (plain on any device).
 
 Decode: plain cache attention (one-token query vs. a (B, S, KV, Dh)
@@ -38,7 +39,9 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_fwd)
 from repro_torch.models.layers import (ParamSpec, apply_rope, ashard,
                                        batch_local, head_norm_specs,
                                        local_range, relaid, rms_norm,
@@ -277,7 +280,8 @@ def causal_plain(q, k, v, chunk: int):
     (as `self_attention`), else the lower-triangular block loop, whose
     values are `attn_flash`'s bit for bit (an all-masked block adds
     exp(-1e30 - m) = 0 and rescales by exp(0) = 1) at half its work and
-    memory."""
+    memory.  The plain path that tests hold `FlashAttentionFunction`
+    against; nothing on the card's path calls it."""
     S = q.shape[1]
     pos = torch.arange(S, device=q.device)
     if S <= chunk or S % chunk:
@@ -286,31 +290,30 @@ def causal_plain(q, k, v, chunk: int):
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """Causal self-attention on (B, S, H, Dh) q and (B, S, KV, Dh) k, v
-    whose forward is the flash kernel (on CPU tensors its plain version)
-    and whose backward recomputes the same attention by `causal_plain`
-    under autograd, on detached copies of the saved q, k, v, and returns
-    the gradients of that recomputation.  Memory of the backward: one
-    layer's score blocks at a time (at yi-6b's B = 4, H = 32, KV = 4,
-    S = 2048, chunk 1024: three (4, 4, 8, 1024, 1024) float32 blocks of
-    512 MiB each and a few saved tensors per block)."""
+    """Causal self-attention on (B, S, H, Dh) q and (B, S, KV, Dh) k, v.
+    The forward is `flash_attention_fwd` on the (B, H, S, Dh) layout,
+    which saves q, k, v, the output and each row's log-sum-exp; the
+    backward is `flash_attention_bwd` on them (one launch a call on the
+    card; on CPU tensors both run their plain versions, the dense
+    oracle and dense float32 gradients).  Under remat the forward runs
+    again inside the checkpoint and the backward reads the recomputed
+    output and log-sum-exp."""
 
     @staticmethod
-    def forward(ctx, q, k, v, chunk: int):
-        ctx.save_for_backward(q, k, v)
-        ctx.chunk = chunk
-        return _flash_kernel(q, k, v)
+    def forward(ctx, q, k, v):
+        q, k, v = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        o, lse = flash_attention_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o.transpose(1, 2)
 
     @staticmethod
     def backward(ctx, grad_out):
-        saved = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
+        grads = flash_attention_bwd(q, k, v, o, lse,
+                                    grad_out.transpose(1, 2).contiguous())
         need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
-            out = causal_plain(*ins, ctx.chunk)
-            wrt = [t for t in ins if t.requires_grad]
-            got = iter(torch.autograd.grad(out, wrt, grad_out))
-        return tuple(next(got) if n else None for n in need) + (None,)
+        return tuple(g.transpose(1, 2) if n else None
+                     for g, n in zip(grads, need))
 
 
 # ---------------------------------------------------------------------------
@@ -378,7 +381,7 @@ def self_attention(cfg, q, k, v, q_pos, kv_pos, *, impl="flash"):
                                            impl=impl), q, k, v)
     if impl == "flash" and q.is_cuda and flash_kernel_takes(cfg, q.shape[1]):
         if any(t.requires_grad for t in (q, k, v)):
-            return FlashAttentionFunction.apply(q, k, v, cfg.attn_chunk)
+            return FlashAttentionFunction.apply(q, k, v)
         return _flash_kernel(q, k, v)
     if (impl == "full" or q.shape[1] <= cfg.attn_chunk
             or q.shape[1] % cfg.attn_chunk != 0):

@@ -303,6 +303,65 @@ def test_flash_attention(dev, rng, dtype, B, H, KV, S, D):
     torch.testing.assert_close(a.float(), p.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,S,D", [
+    (1, 2, 2, 64, 16), (1, 4, 4, 1, 32), (1, 32, 4, 130, 128),
+    (2, 8, 2, 130, 256)])
+def test_flash_attention_fwd_lse(dev, rng, dtype, B, H, KV, S, D):
+    """The forward with lse: the same output bits as without, one launch,
+    and each row's log-sum-exp within 1e-5 of the dense oracle's."""
+    q, k, v = (torch.as_tensor(rng.normal(size=(B, h, S, D)).astype(
+        np.float32), device=dev).to(dtype) for h in (H, KV, KV))
+    before = _build.launches["flash_attention"]
+    o, lse = FA.flash_attention_fwd(q, k, v)
+    assert _build.launches["flash_attention"] == before + 1
+    assert _same(o, FA.flash_attention(q, k, v))
+    _, plse = FA.flash_attention_plain(q, k, v, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
+    torch.testing.assert_close(lse, plse, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 120, 128, 160])
+@pytest.mark.parametrize("B,H,KV,S", [
+    (1, 4, 4, 1), (2, 8, 2, 100), (1, 8, 1, 257), (1, 32, 4, 130)])
+def test_flash_attention_bwd(dev, rng, dtype, D, B, H, KV, S):
+    """The backward kernel against `flash_attention_bwd_plain` given the
+    same (o, lse), at FLASH_TOL; two runs give the same bits; one count
+    under ``flash_attention_bwd`` a call and none under the forward's."""
+    q, k, v = (torch.as_tensor(rng.normal(size=(B, h, S, D)).astype(
+        np.float32), device=dev).to(dtype) for h in (H, KV, KV))
+    do = torch.as_tensor(rng.normal(size=(B, H, S, D)).astype(np.float32),
+                         device=dev).to(dtype)
+    o, lse = FA.flash_attention_fwd(q, k, v)
+    before = dict(_build.launches)
+    a = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    b = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    assert _build.launches["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 2
+    assert _build.launches["flash_attention"] == before["flash_attention"]
+    p = FA.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    tol = FLASH_TOL[dtype]
+    for x, y, z in zip(a, b, p):
+        assert x.dtype == dtype and x.shape == z.shape and _same(x, y)
+        torch.testing.assert_close(x.float(), z.float(), atol=tol, rtol=tol)
+
+
+def test_flash_bwd_refuses_bad_inputs(dev):
+    q = torch.zeros((1, 4, 64, 32), device=dev)
+    lse = torch.zeros((1, 4, 64), device=dev)
+    with pytest.raises(TypeError):
+        x = q.half()
+        FA.flash_attention_bwd(x, x, x, x, lse, x)
+    with pytest.raises(TypeError, match="lse"):
+        FA.flash_attention_bwd(q, q, q, q, lse.double(), q)
+    with pytest.raises(TypeError, match="do"):
+        FA.flash_attention_bwd(q, q, q, q, lse, q.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        x = torch.zeros((1, 64, 4, 32), device=dev).transpose(1, 2)
+        FA.flash_attention_bwd(q, q, q, q, lse, x)
+
+
 def test_flash_wrapper_refuses_bad_inputs(dev):
     q = torch.zeros((1, 4, 64, 32), device=dev)
     with pytest.raises(ValueError, match="64 x 64"):
@@ -477,11 +536,12 @@ def test_socket_engine_workers_run_the_kernels_on_the_card(dev, rng,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 120, 128])
 def test_flash_function_gradients(dev, rng, dtype, D):
-    """`FlashAttentionFunction`: one kernel launch forward, the output
-    at the kernel's tolerance from the plain attention's, and dq, dk, dv
-    (its backward recomputes `causal_plain` on the saved inputs) equal to
-    autograd of `causal_plain` within 1e-6 of their largest entry, and
-    within the kernel's tolerance of autograd of the dense oracle."""
+    """`FlashAttentionFunction`: one forward and one backward kernel
+    launch, the output at the kernel's tolerance from the plain
+    attention's, and dq, dk, dv (its backward is the backward kernel)
+    within the kernel's tolerance of their largest entry from
+    `flash_attention_bwd_plain` on the kernel's (o, lse), and from
+    autograd of the dense oracle."""
     from repro_torch.models import attention as TA
     B, H, KV, S, chunk = 2, 8, 2, 256, 64
     arrs = [rng.normal(size=(B, S, h, D)).astype(np.float32)
@@ -496,11 +556,20 @@ def test_flash_function_gradients(dev, rng, dtype, D):
         (o.float() * w).sum().backward()
         return o.detach(), [t.grad for t in ins]
 
-    before = _build.launches["flash_attention"]
+    before = dict(_build.launches)
     ok, gk = run(lambda q, k, v: TA.FlashAttentionFunction.apply(
-        q, k, v, chunk))
-    assert _build.launches["flash_attention"] == before + 1
-    op, gp = run(lambda q, k, v: TA.causal_plain(q, k, v, chunk))
+        q, k, v))
+    assert _build.launches["flash_attention"] == \
+        before["flash_attention"] + 1
+    assert _build.launches["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    op, _ = run(lambda q, k, v: TA.causal_plain(q, k, v, chunk))
+    qt, kt, vt = (torch.as_tensor(a, device=dev).to(dtype).transpose(
+        1, 2).contiguous() for a in arrs)
+    o, lse = FA.flash_attention_fwd(qt, kt, vt)
+    dot = w.to(dtype).transpose(1, 2).contiguous()
+    gp = [g.transpose(1, 2) for g in FA.flash_attention_bwd_plain(
+        qt, kt, vt, o, lse, dot)]
     od, gd = run(lambda q, k, v: FA.flash_attention_plain(
         *(x.transpose(1, 2) for x in (q, k, v))).transpose(1, 2))
     tol = FLASH_TOL[dtype]
@@ -509,7 +578,7 @@ def test_flash_function_gradients(dev, rng, dtype, D):
     for a, b, c in zip(gk, gp, gd):
         assert a.dtype == dtype
         top = b.float().abs().max().item()
-        assert (a.float() - b.float()).abs().max().item() <= 1e-6 * top
+        assert (a.float() - b.float()).abs().max().item() <= tol * top
         assert (a.float() - c.float()).abs().max().item() <= tol * top
 
 

@@ -233,7 +233,7 @@ def test_flash_function_backward_matches_attn_flash(rng, S_, chunk, H, KV,
     c = chunk if S_ % chunk == 0 else S_
     pos = torch.arange(S_)
     ok, gk = run(lambda q, k, v: TA.FlashAttentionFunction.apply(
-        q, k, v, chunk))
+        q, k, v))
     of, gf = run(lambda q, k, v: TA.attn_flash(
         q, k, v, pos, pos, causal=True, q_chunk=c, kv_chunk=c))
     assert ok.dtype == dtype
@@ -248,7 +248,7 @@ def test_flash_function_grads_only_where_asked(rng):
     q, k, v = (torch.as_tensor(rng.normal(size=(1, 32, h, 8)).astype(
         np.float32)) for h in (2, 1, 1))
     q.requires_grad_()
-    o = TA.FlashAttentionFunction.apply(q, k, v, 16)
+    o = TA.FlashAttentionFunction.apply(q, k, v)
     o.sum().backward()
     assert q.grad is not None and k.grad is None and v.grad is None
     q2 = q.detach().clone().requires_grad_()
