@@ -9,7 +9,7 @@
    It counts the HGMMA (wgmma) instructions in the flash library's SASS
    where the toolkit has `cuobjdump` (none fails the run) and requires
    ptxas to report no spills in the bfloat16 flash bodies (the forward
-   and the backward's two passes);
+   and the backward's persistent pass, one each per D);
 2. holds each kernel against its plain PyTorch version on the card at
    small shapes (for gee_scatter also K = 256, one row holding 50,000
    contributions and rows whose donors mostly share a class, each
@@ -154,10 +154,16 @@
       the same two limits, SDPA's backward read the same way (it must
       pass too), faults made from the kernel's gradients (dq zero from
       row 256 on, dk's and dv's last key tile zero, each gradient 2 %
-      too large) that must fail, two runs bit-equal; timed beside its
-      plain version and SDPA's backward (one autograd call on a retained
-      graph), with its bound (five products) and the floor of the seven
-      it does;
+      too large) that must fail, two runs bit-equal; the same checks on
+      the (B, H, S, D) views of the model's (B, S, H, D) tensors, which
+      must also give the contiguous copies' bits; timed beside its plain
+      version and SDPA's backward (one autograd call on a retained
+      graph), with its TFLOP/s over the five products and its share of
+      their bound.  Last, a torch.profiler trace of one
+      `FlashAttentionFunction` forward + backward on leaves that require
+      grad: no copy (`aten::copy_`, `contiguous`, `clone`, a copy kernel)
+      may run, and the device time is split by kernel against the host's
+      wall time;
    b. gradient parity at yi-6b's width, 2 layers: one step's gradients
       with the kernel's forward against those with the plain attention
       (`impl="triangular"`, attn_flash's values), same params and batch.
@@ -350,12 +356,31 @@ def kernel_times(prof):
     from torch.autograd import DeviceType
     agg = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # (a profiler schedule's step marker also lands on the device)
+        if (e.device_type == DeviceType.CUDA
+                and not e.name.startswith("ProfilerStep")):
             ms, n = agg.get(e.name, (0.0, 0))
             agg[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     return (sum(ms for ms, _ in agg.values()),
             sum(n for _, n in agg.values()),
             sorted(agg.items(), key=lambda kv: -kv[1][0]))
+
+
+def profiled(torch, fn, activities):
+    """(the profile of one call of fn, its host wall ms): a first call
+    under the profiler warms it up and is not recorded (the profiler
+    misses the first kernels of a session)."""
+    from torch.profiler import profile, schedule
+    with profile(activities=activities, acc_events=True,
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    return prof, wall
 
 
 def ptxas_spills(log: str) -> dict:
@@ -527,6 +552,24 @@ def train_path(torch, dev, args, timer, smi):
             *(x.transpose(1, 2) for x in t), is_causal=True,
             enable_gqa=True).transpose(1, 2)
 
+    class Copying(torch.autograd.Function):
+        """`FlashAttentionFunction` with the layout copies it made before
+        the kernels read the model's layout in place (contiguous (B, H,
+        S, D) copies of q, k, v and dO, gradients handed back as
+        transposed views): timed beside it, to price the copies."""
+
+        @staticmethod
+        def forward(ctx, *t):
+            t = [x.transpose(1, 2).contiguous() for x in t]
+            o_, lse_ = FA.flash_attention_fwd(*t)
+            ctx.save_for_backward(*t, o_, lse_)
+            return o_.transpose(1, 2)
+
+        @staticmethod
+        def backward(ctx, g_):
+            return tuple(x.transpose(1, 2) for x in FA.flash_attention_bwd(
+                *ctx.saved_tensors, g_.transpose(1, 2).contiguous()))
+
     # the kernel's path must never reach the plain recompute
     plain_calls = []
 
@@ -568,16 +611,31 @@ def train_path(torch, dev, args, timer, smi):
         train_fn_ms=timer(lambda: fwd_bwd(fn_kernel), 5),
         train_fn_plain_ms=timer(lambda: fwd_bwd(fn_plain), 3),
         train_fn_library_ms=timer(lambda: fwd_bwd(fn_library), 5),
+        train_fn_copying_ms=timer(lambda: fwd_bwd(Copying.apply), 5),
         train_fn_bound_ms=bound_ms(nbytes, flops_fb, tensor_cores=True)[0])
-    print(f"FlashAttentionFunction forward + backward: "
-          f"{flash_add['train_fn_ms']:.3f} ms (both kernels), plain "
+    print(f"FlashAttentionFunction forward + backward (the timed call: "
+          f"forward, (o.float() * w).sum(), backward): "
+          f"{flash_add['train_fn_ms']:.3f} ms (both kernels, the model's "
+          f"layout read in place), with the layout copies "
+          f"{flash_add['train_fn_copying_ms']:.3f} ms, plain "
           f"{flash_add['train_fn_plain_ms']:.3f} ms, library (SDPA) "
           f"{flash_add['train_fn_library_ms']:.3f} ms, bound "
           f"{flash_add['train_fn_bound_ms']:.4f} ms")
+    # where the timed call's time goes, in place and with the copies
+    for name_, fn_ in (("in place", fn_kernel),
+                       ("with the layout copies", Copying.apply)):
+        prof_, wall_ = profiled(torch, lambda: fwd_bwd(fn_),
+                                [ProfilerActivity.CUDA])
+        busy_, n_k_, top_ = kernel_times(prof_)
+        print(f"profile of the timed call, {name_}: {wall_:.3f} ms host "
+              f"wall, {busy_:.3f} ms device in {n_k_} kernels: " + "; ".join(
+                  f"{n_[:56]} {ms_:.4f} ms x{c_}" for n_, (ms_, c_) in top_))
+        del prof_
     # the backward alone, in its (B, H, S, D) layout, from the forward
     # kernel's (o, lse): against its plain version on the same inputs,
     # two runs bit-equal, timed beside SDPA's backward (one autograd
-    # call on a retained SDPA graph)
+    # call on a retained SDPA graph); then the same on the views of the
+    # model's (B, S, H, D) tensors, read in place
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     dot = w.to(torch.bfloat16).transpose(1, 2).contiguous()
     o_t, lse_t = FA.flash_attention_fwd(qt, kt, vt)
@@ -586,6 +644,26 @@ def train_path(torch, dev, args, timer, smi):
     gpl = FA.flash_attention_bwd_plain(qt, kt, vt, o_t, lse_t, dot)
     if not all(same(a, b) for a, b in zip(g1, g2)):
         raise AssertionError("flash_attention_bwd at yi's shape: runs differ")
+    w_bf = w.to(torch.bfloat16)
+    views = [x.transpose(1, 2) for x in (q, k, v, w_bf)]
+    o_v, lse_v = FA.flash_attention_fwd(*views[:3])
+    gv1 = FA.flash_attention_bwd(*views[:3], o_v, lse_v, views[3])
+    gv2 = FA.flash_attention_bwd(*views[:3], o_v, lse_v, views[3])
+    gaps_v = [grad_gap(a, b) for a, b in zip(gv1, gpl)]
+    if not (same(o_v, o_t) and same(lse_v, lse_t)
+            and all(same(a, b) and same(a, c)
+                    for a, b, c in zip(gv1, gv2, g1))
+            and all(x.transpose(1, 2).is_contiguous() for x in (o_v, *gv1))
+            and all(grad_ok(g_) for g_ in gaps_v)):
+        raise AssertionError(f"flash attention on the model's (B, S, H, D) "
+                             f"layout: outputs not bit-equal to the "
+                             f"contiguous copies', or not in that layout, "
+                             f"or {show_gaps(gaps_v)}")
+    print(f"flash attention on the (B, H, S, D) views of the model's (B, S, "
+          f"H, D) tensors, read in place: o, lse, dq, dk, dv bit-equal to the "
+          f"contiguous copies' and between two runs, written in (B, S, H, D) "
+          f"memory; vs plain {show_gaps(gaps_v)}")
+    del gv1, gv2, o_v, lse_v, views
     # held by grad_gap's two limits; SDPA's backward on the same inputs
     # is read the same way, and faults made from the kernel's own
     # gradients must fail the check
@@ -619,8 +697,8 @@ def train_path(torch, dev, args, timer, smi):
                              f"that pass it {passed}; SDPA's backward "
                              f"{show_gaps(gaps_lib)}")
     del g1, g2, gpl, dq1, dk1, dv1, faults, last_tile
-    # the least work: five products over the causal pairs (S, dP, dv, dk,
-    # dq); the kernel does seven (S and dP in both passes)
+    # the least work, which the kernel does: five products over the
+    # causal pairs (S, dP, dv, dk, dq)
     flops_b = 2.5 * flops
     # bfloat16 q, o, dO, k, v read and dq, dk, dv written; lse read
     nbytes_b = 2 * (4 * B * H * S * D + 4 * B * KV * S * D) + 4 * B * H * S
@@ -642,16 +720,50 @@ def train_path(torch, dev, args, timer, smi):
         library_ms=timer(lambda: torch.autograd.grad(
             lib_out, lib_in, dot, retain_graph=True), 10),
         bound_ms=bound_b, bound_by=by_b)
-    floor7 = bound_ms(nbytes_b, 3.5 * flops, tensor_cores=True)[0]
     tflops_b = flops_b / (bwd_row["ms"] * 1e-3) / 1e12
+    bwd_row.update(five_product_tflops=tflops_b,
+                   bound_share=bound_b / bwd_row["ms"])
     print(f"flash_attention_bwd alone at B={B} H={H} KV={KV} S={S} D={D} "
-          f"bf16: {bwd_row['ms']:.4f} ms ({tflops_b:.1f} TFLOP/s "
-          f"of the five products), bound {bound_b:.4f} ms ({by_b}, five "
-          f"products), the seven products it does "
-          f"{floor7:.4f} ms; plain {bwd_row['plain_ms']:.3f} "
-          f"ms, library (SDPA's backward) {bwd_row['library_ms']:.4f} ms; "
-          f"two runs bit-equal")
-    del q, k, v, w, qt, kt, vt, dot, o_t, lse_t, lib_in, lib_out
+          f"bf16: {bwd_row['ms']:.4f} ms ({tflops_b:.1f} TFLOP/s over the "
+          f"five products it does), bound {bound_b:.4f} ms ({by_b}; "
+          f"{bwd_row['bound_share']:.3f} of it reached); plain "
+          f"{bwd_row['plain_ms']:.3f} ms, library (SDPA's backward) "
+          f"{bwd_row['library_ms']:.4f} ms; two runs bit-equal")
+    del qt, kt, vt, dot, o_t, lse_t, lib_in, lib_out
+
+    # FlashAttentionFunction's forward + backward under torch.profiler, on
+    # leaves that require grad and a contiguous (B, S, H, D) cotangent: no
+    # layout copy may run, and the device time splits by kernel
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    fn_do = w_bf.contiguous()
+
+    def fn_fwd_bwd():
+        for t in ins:
+            t.grad = None
+        torch.autograd.backward(FlashAttentionFunction.apply(*ins), fn_do)
+
+    prof_fn, fn_wall = profiled(
+        torch, fn_fwd_bwd, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    busy_fn, n_fn_k, top_fn = kernel_times(prof_fn)
+    copies = sorted({e.name for e in prof_fn.events()
+                     if e.name in ("aten::copy_", "aten::contiguous",
+                                   "aten::clone")}
+                    | {n_ for n_, _ in top_fn
+                       if "copy" in n_.lower() or "Memcpy" in n_})
+    grads_ok = all(t.grad is not None and t.grad.is_contiguous()
+                   for t in ins)
+    print(f"FlashAttentionFunction forward + backward under the profiler: "
+          f"{fn_wall:.3f} ms host wall, {busy_fn:.3f} ms device in "
+          f"{n_fn_k} kernels: " + "; ".join(
+              f"{n_[:48]} {ms_:.4f} ms x{c_}" for n_, (ms_, c_) in top_fn)
+          + f"; copies {copies or 'none'}; gradients in the leaves' "
+          f"(B, S, H, D) layout {grads_ok}")
+    if copies or not grads_ok:
+        raise AssertionError(f"FlashAttentionFunction made a layout copy: "
+                             f"{copies}, or its gradients are not in the "
+                             f"leaves' layout ({grads_ok})")
+    flash_add.update(train_fn_device_ms=busy_fn)
+    del ins, fn_do, prof_fn, q, k, v, w, w_bf
 
     # -- 8b. gradient parity: the kernel's forward vs the plain one ------
     cfg2 = dataclasses.replace(yi, n_layers=2)
@@ -1466,14 +1578,13 @@ def main() -> int:
         bf16 = {f: n for f, n in ptxas_spills(
             _build.ptxas_log["flash_attention"]).items()
             if any(k_ in f for k_ in ("flash_fwd_bf16_kernel",
-                                      "flash_bwd_kv_kernel",
-                                      "flash_bwd_q_kernel"))}
-        if len(bf16) != 12 or any(bf16.values()):
+                                      "flash_bwd_kernel"))}
+        if len(bf16) != 8 or any(bf16.values()):
             raise AssertionError(f"ptxas spill bytes of the bfloat16 flash "
-                                 f"bodies (forward, dk/dv and dq passes, "
-                                 f"one per D expected, all 0): {bf16}")
-        print("ptxas: the 12 bfloat16 flash bodies (forward, backward's "
-              "dk/dv and dq passes) spill 0 bytes")
+                                 f"bodies (forward and backward, one per D "
+                                 f"expected, all 0): {bf16}")
+        print("ptxas: the 8 bfloat16 flash bodies (forward, backward) "
+              "spill 0 bytes")
     hgmma = count_hgmma(_build.library_path("flash_attention"))
     if hgmma is None:
         print("cuobjdump not found: HGMMA count of the flash library not "
@@ -3332,7 +3443,8 @@ def main() -> int:
         if "train_fn_ms" in r_:
             print(f"  {r_['name']} in training (phase 8): launches "
                   f"{r_['train_launches']}; forward + backward at yi's "
-                  f"shape {r_['train_fn_ms']:.3f} ms (bound "
+                  f"shape {r_['train_fn_ms']:.3f} ms (with the layout "
+                  f"copies {r_['train_fn_copying_ms']:.3f}, bound "
                   f"{r_['train_fn_bound_ms']:.4f}, plain "
                   f"{r_['train_fn_plain_ms']:.3f}, library "
                   f"{r_['train_fn_library_ms']:.3f})")
@@ -3340,8 +3452,11 @@ def main() -> int:
             print(f"  {r_['name']} in training (phase 8, the GEE embedding "
                   f"init): launches {r_['train_launches']}")
         if r_["name"] == "flash_attention_bwd":
-            print(f"  {r_['name']}: launches by reduced arch {r_['launches_by_arch']}; {r_['shard_train_launches']}"
-                  f" in two sharded train steps (phase 9)")
+            print(f"  {r_['name']}: {r_['five_product_tflops']:.1f} TFLOP/s "
+                  f"over its five products, {r_['bound_share']:.3f} of the "
+                  f"bound; launches by reduced arch {r_['launches_by_arch']}; "
+                  f"{r_['shard_train_launches']} in two sharded train steps "
+                  f"(phase 9)")
         elif "shard_train_launches" in r_:
             print(f"  {r_['name']} on local heads under DTensor (phase 9): "
                   f"launches {r_['shard_train_launches']} in two sharded "

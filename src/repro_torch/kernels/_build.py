@@ -148,10 +148,13 @@ def check(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")
 
 
-def require(what: str, t, dtype, shape, device) -> None:
+def require(what: str, t, dtype, shape, device, *, align: int = 0) -> None:
     """Raise unless `t` is a contiguous `dtype` tensor of `shape` on
     `device` (a kernel reads raw pointers: nothing may be converted
-    silently)."""
+    silently).  With `align` (a kernel that takes the strides and reads
+    the tensor in place), the last axis contiguous and the start and every
+    other stride a positive multiple of `align` bytes instead; a dim of
+    size 1 may have any stride."""
     if t.device != device:
         raise ValueError(f"{what} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -159,8 +162,18 @@ def require(what: str, t, dtype, shape, device) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
+    if not align:
+        if not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+        return
+    nb = t.element_size()
+    rows = [st for n, st in zip(t.shape[:-1], t.stride()[:-1]) if n > 1]
+    if (t.data_ptr() % align or (t.shape[-1] > 1 and t.stride(-1) != 1)
+            or any(st <= 0 or st * nb % align for st in rows)):
+        raise ValueError(f"{what} has strides {tuple(t.stride())}: the "
+                         "kernel reads a contiguous last axis, with its start "
+                         f"and every other stride a multiple of {align} "
+                         "bytes")
 
 
 def refuse_grad(name: str, *tensors) -> None:

@@ -28,7 +28,7 @@
 // warpgroups:
 //   - a producer warp (warpgroup 0, 40 registers after setmaxnreg) loads
 //     the Q tile once and then each 128-row K and V tile with TMA
-//     (cp.async.bulk.tensor, 3-D maps over (D, S, B x heads), so rows past
+//     (cp.async.bulk.tensor, 4-D maps over (D, heads, S, B), so rows past
 //     S in a ragged last tile are zero-filled inside their own head) into
 //     a ring of STAGES slots, each tile completing on an mbarrier;
 //   - two consumer warpgroups (232 registers) own 64 query rows each.
@@ -79,6 +79,16 @@
 // log), the input of the backward; with a null lse pointer (every serving
 // call) nothing else changes.
 //
+// Layout.  Every body reads q, k, v (and the backward o and dO) in
+// place: the last axis contiguous, the batch, head and sequence strides
+// any multiples of 16 bytes, passed by the caller (the model's (B, S, H,
+// D) tensors seen as (B, H, S, D) views); o, dq, dk and dv are written
+// through strides the caller passes too.  lse and Delta are contiguous
+// float32 (B, H, S).  The bfloat16 bodies reach the inputs through 4-D
+// TMA maps over (D, heads, S, B) with boxes {AW, 1, rows, 1}, so a tile
+// lands in shared memory with the same bytes and swizzle as from a
+// contiguous array.
+//
 // The backward (flash_attention_bwd_launch) has no TPU counterpart: the
 // reference differentiates its jnp twin attn_flash
 // (repro/models/attention.py) with XLA, and its Pallas kernel is forward
@@ -88,41 +98,62 @@
 //   Delta = rowsum(dO o), dP = dO V^T, dS = P (dP - Delta),
 //   dv = sum over the group of P^T dO, dq = D^-0.5 dS K,
 //   dk = D^-0.5 sum over the group of dS^T Q.
-// What bounds it on the H100: operations, as the forward.  The least work
-// is FA2's five products (S, dP, dv, dk, dq) over the causal pairs; this
-// design does seven (S and dP twice, once in each pass), 1.4 x that, so
-// that every gradient is summed by one thread in one fixed order: no
-// atomics, the same bits on every run (a sharded step is held bit-equal
-// to the unsharded one).  Three launches on the stream:
-//   - the Delta pass, one warp a row;
-//   - the dk/dv pass: one block per (batch x KV head, key tile);
-//   - the dq pass: one block per (batch x head, query tile).
+// What bounds it on the H100: operations, as the forward: FA2's five
+// products (S, dP, dv, dk, dq) over the causal pairs.  Every gradient is
+// summed in one order fixed by the shape, so two runs give the same bits
+// (a sharded step is held bit-equal to the unsharded one).  Two launches
+// on the stream: the Delta pass (one warp a row; it also zeroes the
+// counters below), then the main pass.
 //
-// bfloat16, D in {16, 32, 64, 128} (bf16bwd): every product on the tensor
-// cores with wgmma, through the forward's helpers (TMA maps, swizzled
-// tiles, shared-memory descriptors, A fragments from registers).  Each
-// pass has the forward's three warpgroups: a producer warp feeding a
-// two-slot ring (TMA for the tiles; in the dk/dv pass the warp's lanes
-// also copy each tile's lse and Delta with cp.async, arriving on the same
-// mbarrier), and two consumer warpgroups of 64 rows each.
-//   dk/dv pass, 128 keys a block, K and V loaded once: for each of the
-//   G = H / KV query heads of the group in order, for each 64-query tile
-//   from the diagonal to S, S^T = K Q^T and dP^T = V dO^T (wgmma m64n64,
-//   both operands in shared memory), then P^T and dS^T in registers,
-//   rounded to bfloat16 as the A fragments of dv += P^T dO and
-//   dk += dS^T Q (wgmma m64nD, the Q and dO tiles as MN-major B).  dk and
-//   dv stay in float32 registers and are written once.
-//   dq pass, 128 queries a block, Q and dO loaded once: for each 64-key
-//   tile up to the diagonal, S = Q K^T and dP = dO V^T (m64n64), then dS
-//   in registers as the A fragment of dq += dS K (m64nD, K as MN-major B).
-// Both passes mask only where a tile crosses the diagonal or S.
+// bfloat16, D in {16, 32, 64, 128} (bf16bwd): the five products on the
+// tensor cores with wgmma, through the forward's helpers (TMA maps,
+// swizzled tiles, shared-memory descriptors, A fragments from registers).
+// One persistent block per SM takes work items, (batch x KV head, 128-key
+// tile), from a list fixed by the shape, in list order (an atomic counter
+// hands them out, so an item is only ever taken by a running block).
+// Three roles:
+//   - a producer warp loads the item's K and V once and streams the
+//     64-query steps' Q and dO tiles (TMA) and lse and Delta (cp.async by
+//     its lanes, arriving on the same mbarrier) through a two-slot ring;
+//   - two consumer warpgroups own 64 keys each.  A step (one query head
+//     of the group, one 64-query tile) computes S^T = K Q^T and
+//     dP^T = V dO^T (m64n64, both operands in shared memory), P^T and dS^T
+//     in registers, rounded to bfloat16 as the A fragments of
+//     dv += P^T dO and dk += dS^T Q (m64nD, Q and dO as MN-major B); dS^T
+//     also goes to shared memory, and once both consumers' halves are in,
+//     dq's share for the step's 64 queries is dS K over the 128 keys (dS
+//     the MN-major A operand from shared memory, K the MN-major B; at
+//     D = 128 the consumers split its columns, below that they take the
+//     steps in turn).  The share is issued before dv and dk, and handed to
+//     the writer while they run; the diagonal tile's last share is
+//     finished after them.  The consumers take turns to issue S^T and dP^T
+//     (named barriers, as the forward): one consumer's exponentials run
+//     under the other's products;
+//   - a writer thread adds each share to a float32 dq accumulator in
+//     device memory with one bulk reduce-add (cp.reduce.async.bulk) of
+//     its 64 x D floats, through two share buffers.
+// The adds to one (batch x head, 64-query tile) come in ascending
+// key-tile order, enforced by a counter per tile in device memory: key
+// tile kt waits until the counter reads kt, adds, and bumps it.  Key tile
+// 0 stores instead of adding (no memset); the last one, the diagonal
+// tile, reads the sum, adds its own share in registers, scales by
+// D^-0.5, rounds to bfloat16 and writes dq (no conversion pass).
+// The walk: the list is key-tile-major, key tile 0 of every (batch, KV
+// head) first (the heaviest items start first, and the tile a wait points
+// at is BKV items earlier in the list, so taken earlier: no wait is on an
+// item that is not running or done); inside an item the query tiles run
+// from the last one down to the diagonal, the group's heads inner.  So
+// every item of a KV head walks the same query tiles in the same order,
+// an item only trails the one before it in the add order, and waits are
+// those of the first steps (key tile kt starts about kt steps behind key
+// tile 0) and of the diagonal tiles, which come last.
 //
 // float32 at any D, and bfloat16 at D > 128 (simplebwd): CUDA cores,
 // float32 arithmetic, written for correctness as the wide forward body.
 // 16-query x 32-key tiles, D staged in chunks of 128 columns in shared
-// memory; the accumulators live in float32 rows in device memory (the
-// outputs themselves at float32, a scratch the caller allocates at
-// bfloat16), each element read and written by one thread in a fixed order.
+// memory; the accumulators live in float32 rows of a scratch the caller
+// allocates, each element read and written by one thread in a fixed
+// order.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cstdint>
@@ -130,6 +161,18 @@
 #include "common.cuh"
 
 namespace {
+
+// Element strides of a (B, heads, S, D) operand whose last axis is
+// contiguous: batch, head, row.
+struct Lay {
+  long long b, h, s;
+};
+
+// the start of head h of batch b
+template <typename T>
+__device__ __forceinline__ T* at(T* p, const Lay& l, int b, int h) {
+  return p + b * l.b + h * l.h;
+}
 
 // element loads and stores in float32 arithmetic, for the CUDA-core bodies
 // that take either dtype
@@ -163,7 +206,8 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int H, int KV, int S, float scale) {
+                 float* __restrict__ lse, Lay lq, Lay lk, Lay lv, Lay lo,
+                 int H, int KV, int S, float scale) {
   constexpr int DS = D + 1;
   constexpr int RD = D / 16;     // output columns per thread
   extern __shared__ float smem[];
@@ -176,18 +220,18 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
-  const int kvh = b * KV + h / (H / KV);
-  const float* qp = q + (size_t)bh * S * D;
-  const float* kp = k + (size_t)kvh * S * D;
-  const float* vp = v + (size_t)kvh * S * D;
-  float* op = o + (size_t)bh * S * D;
+  const int kvh = h / (H / KV);
+  const float* qp = at(q, lq, b, h);
+  const float* kp = at(k, lk, b, kvh);
+  const float* vp = at(v, lv, b, kvh);
+  float* op = at(o, lo, b, h);
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
 
   for (int e = tid; e < BQ * D; e += THREADS) {
     const int r = e / D, c = e % D;
-    Qs[r * DS + c] = q0 + r < S ? qp[(size_t)(q0 + r) * D + c] : 0.f;
+    Qs[r * DS + c] = q0 + r < S ? qp[(q0 + r) * lq.s + c] : 0.f;
   }
 
   float m[RI], l[RI], acc[RI][RD];
@@ -206,8 +250,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = tid; e < BK * D; e += THREADS) {
       const int r = e / D, c = e % D;
       const bool in = k0 + r < S;
-      Ks[r * DS + c] = in ? kp[(size_t)(k0 + r) * D + c] : 0.f;
-      Vs[r * D + c] = in ? vp[(size_t)(k0 + r) * D + c] : 0.f;
+      Ks[r * DS + c] = in ? kp[(k0 + r) * lk.s + c] : 0.f;
+      Vs[r * D + c] = in ? vp[(k0 + r) * lv.s + c] : 0.f;
     }
     __syncthreads();
 
@@ -283,7 +327,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int c = 0; c < RD; ++c)
-        op[(size_t)r * D + tx + 16 * c] = acc[i][c] / den;
+        op[r * lo.s + tx + 16 * c] = acc[i][c] / den;
       if (lse != nullptr && tx == 0) lse[(size_t)bh * S + r] = m[i] + logf(den);
     }
   }
@@ -291,7 +335,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int H, int KV, int S, float scale, cudaStream_t stream) {
+           const Lay* ly, int B, int H, int KV, int S, float scale,
+           cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -300,8 +345,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const dim3 grid((S + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, H, KV, S,
-      scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, ly[0], ly[1],
+      ly[2], ly[3], H, KV, S, scale);
   return (int)cudaGetLastError();
 }
 
@@ -377,15 +422,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// one box {AW, 128, 1} at (c0, c1, c2) of a 3-D map into shared memory
+// one box {AW, 1, rows, 1} at (column c, head h, row r, batch b) of a
+// 4-D map over (D, heads, S, B) into shared memory
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
+                                         uint32_t bar, int c, int h, int r,
+                                         int b) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(h),
+      "r"(r), "r"(b)
       : "memory");
 }
 
@@ -585,7 +631,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       __nv_bfloat16* __restrict__ o,
-                      float* __restrict__ lse, int H, int KV, int S,
+                      float* __restrict__ lse, Lay lo, int H, int KV, int S,
                       float scale_log2) {
   using G = Geo<D>;
   extern __shared__ uint8_t smem_raw[];
@@ -599,9 +645,10 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                  empty_v = empty_k + 8 * STAGES;
 
   const int bh = blockIdx.x;
+  const int b = bh / H, hq = bh % H;
   const int qt = gridDim.y - 1 - blockIdx.y;   // heaviest tiles first
   const int q0 = qt * BQ;
-  const int kvh = (bh / H) * KV + (bh % H) / (H / KV);
+  const int kvh = hq / (H / KV);
   const int n_kv = qt + 1;                     // KV tiles up to the diagonal
 
   if (threadIdx.x == 0) {
@@ -622,7 +669,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == 0) {
       mbar_expect_tx(full_q, G::TILE);
       for (int c = 0; c < G::NC; ++c)
-        tma_load(base + c * G::CHUNK, &tq, full_q, c * G::AW, q0, bh);
+        tma_load(base + c * G::CHUNK, &tq, full_q, c * G::AW, hq, q0, b);
       for (int t = 0; t < n_kv; ++t) {
         const int s = t % STAGES;
         const uint32_t parity = ((t / STAGES) & 1) ^ 1;
@@ -631,19 +678,20 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_wait(empty_k + 8 * s, parity);
         mbar_expect_tx(full_k + 8 * s, G::TILE);
         for (int c = 0; c < G::NC; ++c)
-          tma_load(ks + c * G::CHUNK, &tk, full_k + 8 * s, c * G::AW,
-                   t * BK, kvh);
+          tma_load(ks + c * G::CHUNK, &tk, full_k + 8 * s, c * G::AW, kvh,
+                   t * BK, b);
         mbar_wait(empty_v + 8 * s, parity);
         mbar_expect_tx(full_v + 8 * s, G::TILE);
         for (int c = 0; c < G::NC; ++c)
-          tma_load(vs + c * G::CHUNK, &tv, full_v + 8 * s, c * G::AW,
-                   t * BK, kvh);
+          tma_load(vs + c * G::CHUNK, &tv, full_v + 8 * s, c * G::AW, kvh,
+                   t * BK, b);
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     const int w = threadIdx.x / 128 - 1;       // which 64 rows of the tile
     const int tid = threadIdx.x % 128;
+    __nv_bfloat16* const oh = at(o, lo, b, hq);  // this head's output
     // accumulator fragment: this thread holds rows r0 and r0 + 8 (h = 0, 1)
     // at columns 8 j + c0 + {0, 1}: element [4 j + 2 h + {0, 1}]
     const int r0 = 64 * w + 16 * (tid / 32) + (tid % 32) / 4;
@@ -783,8 +831,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       const int row = q0 + r0 + 8 * h;
       if (row < S) {
         const float den = fmaxf(l[h], 1e-30f);
-        __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(
-            o + ((size_t)bh * S + row) * D + c0);
+        __nv_bfloat162* op =
+            reinterpret_cast<__nv_bfloat162*>(oh + row * lo.s + c0);
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
           op[4 * j] = __floats2bfloat162_rn(acc[4 * j + 2 * h] / den,
@@ -819,19 +867,22 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a 3-D map over a contiguous (n, S, D) bfloat16 tensor, boxes of
-// {AW, rows, 1}: rows past S read as zeros, never the next head's
+// a 4-D map over a (B, n heads, S, D) bfloat16 tensor with element
+// strides `l` (the last axis contiguous), seen as (D, n, S, B); boxes of
+// {AW, 1, rows, 1}: rows past S read as zeros, never the next head's
 template <int D>
-int make_map(CUtensorMap* map, const void* ptr, int S, int n,
-             int rows = 128) {
+int make_map(CUtensorMap* map, const void* ptr, const Lay& l, int n, int S,
+             int B, int rows = 128) {
   using G = Geo<D>;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)n};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)G::AW, (cuuint32_t)rows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)n, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)l.h * 2, (cuuint64_t)l.s * 2,
+                                 (cuuint64_t)l.b * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)G::AW, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(ptr), dims, strides, box, step,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, G::SWIZZLE,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -841,11 +892,12 @@ int make_map(CUtensorMap* map, const void* ptr, int S, int n,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int H, int KV, int S, float scale, cudaStream_t stream) {
+           const Lay* ly, int B, int H, int KV, int S, float scale,
+           cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  int err = make_map<D>(&mq, q, S, B * H);
-  if (err == 0) err = make_map<D>(&mk, k, S, B * KV);
-  if (err == 0) err = make_map<D>(&mv, v, S, B * KV);
+  int err = make_map<D>(&mq, q, ly[0], H, S, B);
+  if (err == 0) err = make_map<D>(&mk, k, ly[1], KV, S, B);
+  if (err == 0) err = make_map<D>(&mv, v, ly[2], KV, S, B);
   if (err != 0) return err;
   constexpr size_t smem = Geo<D>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
@@ -854,7 +906,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
   flash_fwd_bf16_kernel<D><<<grid, THREADS, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, H, KV, S,
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, ly[3], H, KV, S,
       scale * LOG2E);
   return (int)cudaGetLastError();
 }
@@ -873,8 +925,9 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
-                      float* __restrict__ acc, float* __restrict__ lse, int H,
-                      int KV, int S, int D, float scale) {
+                      float* __restrict__ acc, float* __restrict__ lse,
+                      Lay lq, Lay lk, Lay lv, Lay lo, int H, int KV, int S,
+                      int D, float scale) {
   __shared__ float Qs[BQ * DC];
   __shared__ float KVs[BK * (DC + 1)];    // a K chunk, then a V chunk
   __shared__ float Ps[BQ * (BK + 1)];     // scores, then probabilities
@@ -883,11 +936,11 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
-  const int kvh = b * KV + h / (H / KV);
-  const T* qp = q + (size_t)bh * S * D;
-  const T* kp = k + (size_t)kvh * S * D;
-  const T* vp = v + (size_t)kvh * S * D;
-  T* op = o + (size_t)bh * S * D;
+  const int kvh = h / (H / KV);
+  const T* qp = at(q, lq, b, h);
+  const T* kp = at(k, lk, b, kvh);
+  const T* vp = at(v, lv, b, kvh);
+  T* op = at(o, lo, b, h);
   float* ap = acc + (size_t)bh * S * D;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -910,12 +963,12 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = tid; e < BQ * dc; e += THREADS) {
         const int r = e / dc, c = e % dc;
         Qs[r * DC + c] =
-            r < rows ? ld(qp + (size_t)(q0 + r) * D + d0 + c) : 0.f;
+            r < rows ? ld(qp + (q0 + r) * lq.s + d0 + c) : 0.f;
       }
       for (int e = tid; e < BK * dc; e += THREADS) {
         const int r = e / dc, c = e % dc;
         KVs[r * (DC + 1) + c] =
-            k0 + r < S ? ld(kp + (size_t)(k0 + r) * D + d0 + c) : 0.f;
+            k0 + r < S ? ld(kp + (k0 + r) * lk.s + d0 + c) : 0.f;
       }
       __syncthreads();
 #pragma unroll
@@ -969,7 +1022,7 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = tid; e < BK * dc; e += THREADS) {
         const int r = e / dc, c = e % dc;
         KVs[r * (DC + 1) + c] =
-            k0 + r < S ? ld(vp + (size_t)(k0 + r) * D + d0 + c) : 0.f;
+            k0 + r < S ? ld(vp + (k0 + r) * lv.s + d0 + c) : 0.f;
       }
       __syncthreads();
       for (int e = tid; e < rows * dc; e += THREADS) {
@@ -985,7 +1038,7 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   for (size_t e = tid; e < (size_t)rows * D; e += THREADS) {
     const size_t g = (size_t)q0 * D + e;
-    st(op + g, ap[g] / fmaxf(ls[e / D], 1e-30f));
+    st(op + (q0 + e / D) * lo.s + e % D, ap[g] / fmaxf(ls[e / D], 1e-30f));
   }
   if (lse != nullptr && tid < rows)
     lse[(size_t)bh * S + q0 + tid] = ms[tid] + logf(fmaxf(ls[tid], 1e-30f));
@@ -993,13 +1046,13 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o,
-           float* ws, float* lse, int B, int H, int KV, int S, int D,
-           float scale, cudaStream_t stream) {
+           float* ws, float* lse, const Lay* ly, int B, int H, int KV, int S,
+           int D, float scale, cudaStream_t stream) {
   const dim3 grid((S + BQ - 1) / BQ, B * H);
   flash_fwd_wide_kernel<T><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), ws, lse, H, KV, S, D,
-      scale);
+      static_cast<const T*>(v), static_cast<T*>(o), ws, lse, ly[0], ly[1],
+      ly[2], ly[3], H, KV, S, D, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1009,18 +1062,25 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // The backward (see the note at the top of the file)
 // ---------------------------------------------------------------------------
 
-// Delta = rowsum(dO * o) in float32: one warp a row, the lanes' partial
-// sums over D added by xor shuffles (a fixed order: the same bits on every
-// run)
+// Delta = rowsum(dO * o) in float32: one warp a row (row r of head r / S),
+// the lanes' partial sums over D added by xor shuffles (a fixed order: the
+// same bits on every run).  The first n_zero threads also zero `zero`,
+// the main pass's counters.
 template <typename T>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                       float* __restrict__ delta, long long rows, int D) {
-  const long long r = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+                       float* __restrict__ delta, Lay lo, Lay ld_, int H,
+                       int S, long long rows, int D, int* __restrict__ zero,
+                       int n_zero) {
+  const long long gid = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (gid < n_zero) zero[gid] = 0;
+  const long long r = gid / 32;
   const int lane = threadIdx.x % 32;
   if (r >= rows) return;
-  const T* op = o + r * D;
-  const T* dp = dout + r * D;
+  const int s = (int)(r % S);
+  const int bh = (int)(r / S);
+  const T* op = at(o, lo, bh / H, bh % H) + s * lo.s;
+  const T* dp = at(dout, ld_, bh / H, bh % H) + s * ld_.s;
   float x = 0.f;
   for (int c = lane; c < D; c += 32) x = fmaf(ld(op + c), ld(dp + c), x);
 #pragma unroll
@@ -1030,11 +1090,15 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 }
 
 template <typename T>
-int launch_delta(const void* o, const void* dout, float* delta, long long rows,
-                 int D, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((rows + 7) / 8);
+int launch_delta(const void* o, const void* dout, float* delta,
+                 const Lay& lo, const Lay& ld_, int B, int H, int S, int D,
+                 int* zero, int n_zero, cudaStream_t stream) {
+  const long long rows = (long long)B * H * S;
+  const long long threads = rows * 32 > n_zero ? rows * 32 : n_zero;
+  const unsigned blocks = (unsigned)((threads + 255) / 256);
   flash_bwd_delta_kernel<T><<<blocks, 256, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows, D);
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, lo, ld_,
+      H, S, rows, D, zero, n_zero);
   return (int)cudaGetLastError();
 }
 
@@ -1042,11 +1106,9 @@ namespace bf16bwd {
 
 using namespace bf16body;   // mbarriers, TMA, wgmma helpers, Geo, make_map
 
-constexpr int KT = 128;     // keys per dk/dv block, 64 per consumer
-constexpr int QT = 64;      // queries per step of the dk/dv pass
-constexpr int QB = 128;     // queries per dq block, 64 per consumer
-constexpr int KB = 64;      // keys per step of the dq pass
-constexpr int NSTAGE = 2;   // depth of each pass's ring
+constexpr int KT = 128;     // keys per work item, 64 per consumer
+constexpr int QT = 64;      // queries per step
+constexpr int NSTAGE = 2;   // depth of the Q / dO ring
 constexpr int NTHREADS = 384;
 
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], both operands in shared memory
@@ -1123,245 +1185,230 @@ __device__ __forceinline__ void accumulate(float (&acc)[D / 2],
   }
 }
 
-// dk/dv pass, shared memory: K, V (128 rows each, loaded once), then
-// NSTAGE slots of Q and of dO (64 rows each), of lse and of Delta (64
-// floats each), then the mbarriers
+// D[64 x N] (+)= A[64 x 16] . B[16 x N], both operands in shared memory
+// and MN-major (A's rows run along M, B's along N)
+__device__ __forceinline__ void wgmma_tt_n16(float (&d)[8], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tt_n32(float (&d)[16], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tt_n64(float (&d)[32], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tt(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 16) wgmma_tt_n16(d, da, db, scale_d);
+  else if constexpr (N == 32) wgmma_tt_n32(d, da, db, scale_d);
+  else wgmma_tt_n64(d, da, db, scale_d);
+}
+
+// bar.sync on named barrier `id` for n threads
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+// order this thread's generic accesses to shared / global memory against
+// the async proxy (TMA, wgmma operands)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t a, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(a), "r"(v) : "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t a, float x, float y,
+                                          float z, float u) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(a), "f"(x),
+               "f"(y), "f"(z), "f"(u)
+               : "memory");
+}
+// wait until the counter at p reads at least n (acquire, device scope)
+__device__ __forceinline__ void wait_count(const int* p, int n) {
+  for (;;) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+                 : "=r"(v)
+                 : "l"(p)
+                 : "memory");
+    if (v >= n) return;
+    __nanosleep(64);
+  }
+}
+// counter += 1, releasing this thread's earlier writes (device scope)
+__device__ __forceinline__ void bump(int* p) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], 1;" ::"l"(p)
+               : "memory");
+}
+// `bytes` of float32 from shared memory at src to global memory at dst,
+// stored over it or added to it element by element (one bulk copy)
+__device__ __forceinline__ void bulk_store(float* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+          dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_add(float* dst, uint32_t src,
+                                         uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32"
+      " [%0], [%1], %2;" ::"l"(dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+// commit this thread's bulk copies and wait until they are complete (the
+// global writes performed, the shared source free)
+__device__ __forceinline__ void bulk_commit_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n"
+               "cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// Shared memory of the main pass for head dim D: K, V (128 rows each, an
+// item's), NSTAGE slots of Q and of dO (64 rows each), two dS^T tiles
+// (128 keys x 64 queries, bfloat16), two float32 dq shares (64 queries x
+// D), NSTAGE slots of lse and of Delta (64 floats each), the shares'
+// (batch x head, first query, key tile), the current item, the
+// mbarriers.  At D = 128: 64 + 64 + 32 + 64 KB of tiles, 1,024 B of lse
+// and Delta, 128 B of the rest, 1,024 B to align the base: 231,552 bytes
+// of the 232,448 a block may take.
+//
+// A float32 share (and its tile of the accumulator in device memory, 64 x
+// D floats a (batch x head, query tile)) is kept in the order of the
+// wgmma fragments: the consumer's part (at D = 128 consumer w's 64
+// columns, the second half; below that all D), then per group of four
+// fragment elements c, per consumer thread t, the four floats
+// [4 c .. 4 c + 3] of t's fragment.  So a consumer stores (and the last
+// key tile loads) 16 contiguous bytes a thread, neighbouring threads on
+// neighbouring addresses, and a share leaves for the accumulator as one
+// contiguous bulk add.
 template <int D>
-struct KvSmem {
+struct Smem {
   using G1 = Geo<D, 128>;
   using G2 = Geo<D, 64>;
+  // dq's share of a step: at D = 128 each consumer takes 64 columns; below
+  // that one consumer takes all D, the two in turn
+  static constexpr bool SPLIT = D == 128;
+  static constexpr int DQN = SPLIT ? 64 : D;
+  static constexpr uint32_t DS_TILE = KT * QT * 2;
+  static constexpr uint32_t DQ_TILE = QT * D * 4;
   static constexpr uint32_t K_OFF = 0;
   static constexpr uint32_t V_OFF = G1::TILE;
   static constexpr uint32_t Q_OFF = 2 * G1::TILE;
   static constexpr uint32_t DO_OFF = Q_OFF + NSTAGE * G2::TILE;
-  static constexpr uint32_t LSE_OFF = DO_OFF + NSTAGE * G2::TILE;
+  static constexpr uint32_t DS_OFF = DO_OFF + NSTAGE * G2::TILE;
+  static constexpr uint32_t DQ_OFF = DS_OFF + 2 * DS_TILE;
+  static constexpr uint32_t LSE_OFF = DQ_OFF + 2 * DQ_TILE;
   static constexpr uint32_t DL_OFF = LSE_OFF + NSTAGE * QT * 4;
-  static constexpr uint32_t BAR_OFF = DL_OFF + NSTAGE * QT * 4;
-  static constexpr size_t SMEM = BAR_OFF + 8 * (1 + 2 * NSTAGE) + 1024;
+  static constexpr uint32_t META_OFF = DL_OFF + NSTAGE * QT * 4;
+  static constexpr uint32_t ITEM_OFF = META_OFF + 2 * 16;
+  static constexpr uint32_t BAR_OFF = ITEM_OFF + 16;
+  static constexpr size_t SMEM = BAR_OFF + 8 * (2 + 2 * NSTAGE + 4) + 1024;
+  static_assert(SMEM <= 232448, "more shared memory than a block may take");
 };
 
-// One block per (batch x KV head, 128-key tile), key tile 0 (the most
-// queries) first.  Consumer w owns keys k0 + 64 w .. + 63 and computes
-// the transposed products: S^T = K Q^T and dP^T = V dO^T, so that P^T and
-// dS^T are the A fragments of dv += P^T dO and dk += dS^T Q.
+// byte offset `off` in a tile of 128-byte rows, swizzled as TMA's and
+// wgmma's 128 B mode: the 16-byte unit XOR the row's low three bits
+__device__ __forceinline__ uint32_t swz(uint32_t off) {
+  return off ^ (((off >> 7) & 7) << 4);
+}
+
+// The main pass: persistent blocks over the work items (batch x KV head,
+// 128-key tile), key-tile-major; see the note at the top of the file.
+// Consumer w owns keys k0 + 64 w .. + 63 of the item and computes the
+// transposed products S^T = K Q^T and dP^T = V dO^T, so that P^T and dS^T
+// are the A fragments of dv += P^T dO and dk += dS^T Q.
 template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
-flash_bwd_kv_kernel(const __grid_constant__ CUtensorMap tq,
-                    const __grid_constant__ CUtensorMap tk,
-                    const __grid_constant__ CUtensorMap tv,
-                    const __grid_constant__ CUtensorMap tdo,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dk,
-                    __nv_bfloat16* __restrict__ dv, int H, int KV, int S,
-                    float scale, float scale_log2) {
+flash_bwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* acc,
+                 __nv_bfloat16* __restrict__ dq,
+                 __nv_bfloat16* __restrict__ dk,
+                 __nv_bfloat16* __restrict__ dv, Lay ldq, Lay ldk, Lay ldv,
+                 int* sem, int* work, int B, int H, int KV, int S,
+                 float scale, float scale_log2) {
   using G1 = Geo<D, 128>;
   using G2 = Geo<D, 64>;
-  using L = KvSmem<D>;
+  using L = Smem<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const float* lse_s =
-      reinterpret_cast<const float*>(smem_raw + (base - smem_u32(smem_raw)) +
-                                     L::LSE_OFF);
-  const float* dl_s = lse_s + (L::DL_OFF - L::LSE_OFF) / 4;
+  uint8_t* gb = smem_raw + (base - smem_u32(smem_raw));
+  const float* lse_s = reinterpret_cast<const float*>(gb + L::LSE_OFF);
+  const float* dl_s = reinterpret_cast<const float*>(gb + L::DL_OFF);
+  volatile int* meta = reinterpret_cast<volatile int*>(gb + L::META_OFF);
+  volatile int* item_s = reinterpret_cast<volatile int*>(gb + L::ITEM_OFF);
   const uint32_t bar = base + L::BAR_OFF;
-  // mbarriers: K and V full; per slot full (TMA bytes, plus the producer
-  // warp's 32 cp.async arrivals) and empty (every consumer thread)
-  const uint32_t full_kv = bar, full = bar + 8, empty = full + 8 * NSTAGE;
+  // mbarriers: K and V full (TMA bytes) and empty (every consumer
+  // thread); per ring slot full (TMA bytes, plus the producer warp's 32
+  // cp.async arrivals) and empty; per dq share buffer full (every
+  // consumer thread) and empty (the writer)
+  const uint32_t full_kv = bar, empty_kv = bar + 8, full = bar + 16,
+                 empty = full + 8 * NSTAGE, dq_full = empty + 8 * NSTAGE,
+                 dq_empty = dq_full + 16;
 
-  const int bkv = blockIdx.x;
-  const int b = bkv / KV, kvh = bkv % KV, G = H / KV;
-  const int k0 = blockIdx.y * KT;
-  const int nq = (S - k0 + QT - 1) / QT;     // query tiles from the diagonal
-  const int steps = G * nq;                  // group heads in order
+  const int G = H / KV, BKV = B * KV;
+  const int nQ = (S + QT - 1) / QT;                  // 64-query tiles
+  const int n_items = BKV * ((S + KT - 1) / KT);
 
   if (threadIdx.x == 0) {
     mbar_init(full_kv, 1);
+    mbar_init(empty_kv, 256);
     for (int s = 0; s < NSTAGE; ++s) {
       mbar_init(full + 8 * s, 33);
       mbar_init(empty + 8 * s, 256);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-
-  if (threadIdx.x < 128) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (threadIdx.x < 32) {                  // the producer warp
-      const int lane = threadIdx.x;
-      if (lane == 0) {
-        mbar_expect_tx(full_kv, 2 * G1::TILE);
-        for (int c = 0; c < G1::NC; ++c) {
-          tma_load(base + L::K_OFF + c * G1::CHUNK, &tk, full_kv, c * G1::AW,
-                   k0, bkv);
-          tma_load(base + L::V_OFF + c * G1::CHUNK, &tv, full_kv, c * G1::AW,
-                   k0, bkv);
-        }
-      }
-      for (int t = 0; t < steps; ++t) {
-        const int s = t % NSTAGE;
-        const int q0 = k0 + (t % nq) * QT;
-        const int bh = b * H + kvh * G + t / nq;
-        mbar_wait(empty + 8 * s, ((t / NSTAGE) & 1) ^ 1);
-        if (lane == 0) {
-          mbar_expect_tx(full + 8 * s, 2 * G2::TILE);
-          for (int c = 0; c < G2::NC; ++c) {
-            tma_load(base + L::Q_OFF + s * G2::TILE + c * G2::CHUNK, &tq,
-                     full + 8 * s, c * G2::AW, q0, bh);
-            tma_load(base + L::DO_OFF + s * G2::TILE + c * G2::CHUNK, &tdo,
-                     full + 8 * s, c * G2::AW, q0, bh);
-          }
-        }
-        for (int i = lane; i < QT; i += 32) {
-          const bool in = q0 + i < S;
-          const size_t g = (size_t)bh * S + (in ? q0 + i : 0);
-          cp_async4(base + L::LSE_OFF + (s * QT + i) * 4, lse + g, in);
-          cp_async4(base + L::DL_OFF + (s * QT + i) * 4, delta + g, in);
-        }
-        cp_async_arrive(full + 8 * s);
-      }
-    }
-  } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    const int w = threadIdx.x / 128 - 1;
-    const int tid = threadIdx.x % 128;
-    // accumulator fragment: rows (keys) r0 and r0 + 8 (h = 0, 1) of this
-    // consumer's 64, columns 8 j + c0 + {0, 1}: element [4 j + 2 h + e]
-    const int r0 = 16 * (tid / 32) + (tid % 32) / 4;
-    const int c0 = 2 * (tid % 4);
-    const int kw = k0 + 64 * w;
-    const uint32_t ka = base + L::K_OFF + w * 64 * G1::ROW;
-    const uint32_t va = base + L::V_OFF + w * 64 * G1::ROW;
-
-    float dk_acc[D / 2], dv_acc[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-    float st[32], dp[32];
-    uint32_t pa[16], da[16];
-
-    mbar_wait(full_kv, 0);
-    for (int t = 0; t < steps; ++t) {
-      const int s = t % NSTAGE;
-      const int q0 = k0 + (t % nq) * QT;
-      const uint32_t qs = base + L::Q_OFF + s * G2::TILE;
-      const uint32_t dos = base + L::DO_OFF + s * G2::TILE;
-      mbar_wait(full + 8 * s, (t / NSTAGE) & 1);
-      pin(dk_acc);
-      pin(dv_acc);
-      wgmma_fence();
-      scores<D>(st, ka, qs);                 // S^T = K Q^T
-      scores<D>(dp, va, dos);                // dP^T = V dO^T
-      wgmma_commit();
-      wgmma_wait<0>();
-      pin(st);
-      pin(dp);
-      // keys above a query, and queries past S, get P = dS = 0
-      const bool edge = q0 < kw + 64 || q0 + QT > S;
-      const float* ls = lse_s + s * QT;
-      const float* dl = dl_s + s * QT;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 8 * j + c0 + e;
-          const float l2 = ls[col] * LOG2E;
-          const float dlt = dl[col];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int i = 4 * j + 2 * h + e;
-            float p = ex2(fmaf(st[i], scale_log2, -l2));
-            if (edge && (kw + r0 + 8 * h > q0 + col || q0 + col >= S))
-              p = 0.f;
-            st[i] = p;
-            dp[i] = p * (dp[i] - dlt);
-          }
-        }
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          pa[2 * j + h] = pack_bf16(st[4 * j + 2 * h], st[4 * j + 2 * h + 1]);
-          da[2 * j + h] = pack_bf16(dp[4 * j + 2 * h], dp[4 * j + 2 * h + 1]);
-        }
-      pin(pa);
-      pin(da);
-      pin(dk_acc);
-      pin(dv_acc);
-      wgmma_fence();
-      accumulate<D>(dv_acc, pa, dos);        // dv += P^T dO
-      accumulate<D>(dk_acc, da, qs);         // dk += dS^T Q
-      wgmma_commit();
-      wgmma_wait<0>();
-      pin(dk_acc);
-      pin(dv_acc);
-      mbar_arrive(empty + 8 * s);
-    }
-
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int key = kw + r0 + 8 * h;
-      if (key < S) {
-        const size_t g = ((size_t)bkv * S + key) * D + c0;
-        __nv_bfloat162* kp = reinterpret_cast<__nv_bfloat162*>(dk + g);
-        __nv_bfloat162* vp = reinterpret_cast<__nv_bfloat162*>(dv + g);
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          kp[4 * j] = __floats2bfloat162_rn(dk_acc[4 * j + 2 * h] * scale,
-                                            dk_acc[4 * j + 2 * h + 1] * scale);
-          vp[4 * j] = __floats2bfloat162_rn(dv_acc[4 * j + 2 * h],
-                                            dv_acc[4 * j + 2 * h + 1]);
-        }
-      }
-    }
-  }
-}
-
-// dq pass, shared memory: Q, dO (128 rows each, loaded once), then NSTAGE
-// slots of K and of V (64 rows each), then the mbarriers
-template <int D>
-struct QSmem {
-  using G1 = Geo<D, 128>;
-  using G2 = Geo<D, 64>;
-  static constexpr uint32_t Q_OFF = 0;
-  static constexpr uint32_t DO_OFF = G1::TILE;
-  static constexpr uint32_t K_OFF = 2 * G1::TILE;
-  static constexpr uint32_t V_OFF = K_OFF + NSTAGE * G2::TILE;
-  static constexpr uint32_t BAR_OFF = V_OFF + NSTAGE * G2::TILE;
-  static constexpr size_t SMEM = BAR_OFF + 8 * (1 + 2 * NSTAGE) + 1024;
-};
-
-// One block per (batch x head, 128-query tile), the heaviest tiles first.
-// Consumer w owns queries q0 + 64 w .. + 63 and walks the 64-key tiles up
-// to the diagonal: S = Q K^T, dP = dO V^T, dS = P (dP - Delta), and
-// dq += dS K with dS as the A fragment.
-template <int D>
-__global__ void __launch_bounds__(NTHREADS, 1)
-flash_bwd_q_kernel(const __grid_constant__ CUtensorMap tq,
-                   const __grid_constant__ CUtensorMap tk,
-                   const __grid_constant__ CUtensorMap tv,
-                   const __grid_constant__ CUtensorMap tdo,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta,
-                   __nv_bfloat16* __restrict__ dq, int H, int KV, int S,
-                   float scale, float scale_log2) {
-  using G1 = Geo<D, 128>;
-  using G2 = Geo<D, 64>;
-  using L = QSmem<D>;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bar = base + L::BAR_OFF;
-  const uint32_t full_q = bar, full = bar + 8, empty = full + 8 * NSTAGE;
-
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * QB;
-  const int kvh = (bh / H) * KV + (bh % H) / (H / KV);
-  const int n_kv = (min(S, q0 + QB) + KB - 1) / KB;   // up to the diagonal
-
-  if (threadIdx.x == 0) {
-    mbar_init(full_q, 1);
-    for (int s = 0; s < NSTAGE; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 256);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(dq_full + 8 * s, 256);
+      mbar_init(dq_empty + 8 * s, 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -1369,148 +1416,333 @@ flash_bwd_q_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (threadIdx.x < 128) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(full_q, 2 * G1::TILE);
-      for (int c = 0; c < G1::NC; ++c) {
-        tma_load(base + L::Q_OFF + c * G1::CHUNK, &tq, full_q, c * G1::AW,
-                 q0, bh);
-        tma_load(base + L::DO_OFF + c * G1::CHUNK, &tdo, full_q, c * G1::AW,
-                 q0, bh);
-      }
-      for (int t = 0; t < n_kv; ++t) {
-        const int s = t % NSTAGE;
-        mbar_wait(empty + 8 * s, ((t / NSTAGE) & 1) ^ 1);
-        mbar_expect_tx(full + 8 * s, 2 * G2::TILE);
-        for (int c = 0; c < G2::NC; ++c) {
-          tma_load(base + L::K_OFF + s * G2::TILE + c * G2::CHUNK, &tk,
-                   full + 8 * s, c * G2::AW, t * KB, kvh);
-          tma_load(base + L::V_OFF + s * G2::TILE + c * G2::CHUNK, &tv,
-                   full + 8 * s, c * G2::AW, t * KB, kvh);
+    if (threadIdx.x < 32) {
+      // the producer warp: takes the items, loads K and V once an item and
+      // each step's Q, dO (lane 0, TMA), lse and Delta (every lane)
+      const int lane = threadIdx.x;
+      int it = 0;                                    // steps so far
+      for (int n = 0;; ++n) {
+        int item = 0;
+        if (lane == 0) item = atomicAdd(work, 1);
+        item = __shfl_sync(0xffffffffu, item, 0);
+        mbar_wait(empty_kv, (n & 1) ^ 1);            // the last item done
+        if (item >= n_items) {
+          if (lane == 0) {
+            *item_s = -1;
+            mbar_arrive(full_kv);
+          }
+          break;
         }
+        const int bkv = item % BKV, kt = item / BKV;
+        const int b = bkv / KV, kvh = bkv % KV, k0 = kt * KT;
+        if (lane == 0) {
+          *item_s = item;
+          mbar_expect_tx(full_kv, 2 * G1::TILE);
+          for (int c = 0; c < G1::NC; ++c) {
+            tma_load(base + L::K_OFF + c * G1::CHUNK, &tk, full_kv,
+                     c * G1::AW, kvh, k0, b);
+            tma_load(base + L::V_OFF + c * G1::CHUNK, &tv, full_kv,
+                     c * G1::AW, kvh, k0, b);
+          }
+        }
+        const int steps = G * (nQ - k0 / QT);
+        for (int s = 0; s < steps; ++s, ++it) {
+          const int slot = it % NSTAGE;
+          const int q0 = (nQ - 1 - s / G) * QT;
+          const int h = kvh * G + s % G;
+          mbar_wait(empty + 8 * slot, ((it / NSTAGE) & 1) ^ 1);
+          if (lane == 0) {
+            mbar_expect_tx(full + 8 * slot, 2 * G2::TILE);
+            for (int c = 0; c < G2::NC; ++c) {
+              tma_load(base + L::Q_OFF + slot * G2::TILE + c * G2::CHUNK,
+                       &tq, full + 8 * slot, c * G2::AW, h, q0, b);
+              tma_load(base + L::DO_OFF + slot * G2::TILE + c * G2::CHUNK,
+                       &tdo, full + 8 * slot, c * G2::AW, h, q0, b);
+            }
+          }
+          for (int i = lane; i < QT; i += 32) {
+            const bool in = q0 + i < S;
+            const size_t g = (size_t)(b * H + h) * S + (in ? q0 + i : 0);
+            cp_async4(base + L::LSE_OFF + (slot * QT + i) * 4, lse + g, in);
+            cp_async4(base + L::DL_OFF + (slot * QT + i) * 4, delta + g, in);
+          }
+          cp_async_arrive(full + 8 * slot);
+        }
+      }
+    } else if (threadIdx.x == 32) {
+      // the writer: each share that is not its tile's last goes to the
+      // float32 accumulator, in key-tile order (the tile's counter)
+      for (int n = 0;; ++n) {
+        const int buf = n & 1;
+        mbar_wait(dq_full + 8 * buf, (n >> 1) & 1);
+        const int bh = meta[4 * buf], q0 = meta[4 * buf + 1],
+                  kt = meta[4 * buf + 2];
+        if (bh < 0) break;
+        int* cnt = sem + bh * nQ + q0 / QT;
+        float* dst = acc + ((size_t)bh * nQ + q0 / QT) * QT * D;
+        if (kt > 0) {
+          wait_count(cnt, kt);
+          fence_async_global();
+        }
+        const uint32_t src = base + L::DQ_OFF + buf * L::DQ_TILE;
+        if (kt == 0)
+          bulk_store(dst, src, L::DQ_TILE);
+        else
+          bulk_add(dst, src, L::DQ_TILE);
+        bulk_commit_wait();
+        fence_async_global();
+        bump(cnt);
+        mbar_arrive(dq_empty + 8 * buf);
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     const int w = threadIdx.x / 128 - 1;
     const int tid = threadIdx.x % 128;
-    // rows (queries) r0 and r0 + 8 of this consumer's 64, columns (keys)
-    // 8 j + c0 + {0, 1}
+    // accumulator fragment: rows r0 and r0 + 8 (h = 0, 1) of this
+    // consumer's 64, columns 8 j + c0 + {0, 1}: element [4 j + 2 h + e]
     const int r0 = 16 * (tid / 32) + (tid % 32) / 4;
     const int c0 = 2 * (tid % 4);
-    const int qw = q0 + 64 * w;
-    const uint32_t qa = base + L::Q_OFF + w * 64 * G1::ROW;
-    const uint32_t doa = base + L::DO_OFF + w * 64 * G1::ROW;
-    float l2[2], dl[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = qw + r0 + 8 * h;
-      l2[h] = row < S ? lse[(size_t)bh * S + row] * LOG2E : 0.f;
-      dl[h] = row < S ? delta[(size_t)bh * S + row] : 0.f;
-    }
+    const uint32_t ka = base + L::K_OFF + w * 64 * G1::ROW;
+    const uint32_t va = base + L::V_OFF + w * 64 * G1::ROW;
+    // dq's B operand (K, MN-major), this consumer's first dq column and
+    // its part of a share (floats)
+    const uint32_t kb = base + L::K_OFF + (L::SPLIT ? w * G1::CHUNK : 0);
+    const int colb = L::SPLIT ? 64 * w : 0;
+    const int part = L::SPLIT ? w * QT * 64 : 0;
 
-    float dq_acc[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
-    float sc[32], dp[32];
-    uint32_t da[16];
+    float dk_acc[D / 2], dv_acc[D / 2];
+    float st[32], dp[32], dq_acc[L::DQN / 2];
+    uint32_t pa[16], da[16];
 
-    mbar_wait(full_q, 0);
-    for (int t = 0; t < n_kv; ++t) {
-      const int s = t % NSTAGE;
-      const int k0 = t * KB;
-      const uint32_t ks = base + L::K_OFF + s * G2::TILE;
-      const uint32_t vs = base + L::V_OFF + s * G2::TILE;
-      mbar_wait(full + 8 * s, (t / NSTAGE) & 1);
-      pin(dq_acc);
-      wgmma_fence();
-      scores<D>(sc, qa, ks);                 // S = Q K^T
-      scores<D>(dp, doa, vs);                // dP = dO V^T
-      wgmma_commit();
-      wgmma_wait<0>();
-      pin(sc);
-      pin(dp);
-      // keys above a query (and so every key past S) get P = dS = 0
-      const bool edge = k0 + KB - 1 > qw;
+    // dq's share of the step whose dS^T is in buffer `buf`: dS K over the
+    // item's 128 keys (one batch, not committed)
+    auto dq_product = [&](int buf) {
+      const uint32_t a = base + L::DS_OFF + buf * L::DS_TILE;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int kk = 0; kk < KT / 16; ++kk)
+        wgmma_tt<L::DQN>(dq_acc,
+                         sdesc(a + kk * 16 * 128, L::DS_TILE, 1024, 1),
+                         sdesc(kb + kk * 16 * G1::ROW, G1::CHUNK, G1::SBO,
+                               G1::LAYOUT),
+                         kk > 0);
+    };
+    int n_sh = 0;                  // shares handed to the writer so far
+    // the last share of query tile qi of head bh, from its diagonal key
+    // tile kt, in dq_acc: added to the other key tiles' sum (all of it
+    // read first), scaled, rounded and written out as dq
+    auto finish = [&](int bh, int qi, int kt) {
+      const int q0 = qi * QT;
+      float4 a[L::DQN / 8];
+      if (kt > 0) {
+        const float4* ap = reinterpret_cast<const float4*>(
+            acc + ((size_t)bh * nQ + qi) * QT * D + part);
+        if (tid == 0) wait_count(sem + bh * nQ + qi, kt);
+        named_sync(4 + w, 128);
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+        for (int j = 0; j < L::DQN / 8; ++j) a[j] = __ldcg(ap + j * 128 + tid);
+#pragma unroll
+        for (int j = 0; j < L::DQN / 8; ++j) {
+          dq_acc[4 * j] = a[j].x + dq_acc[4 * j];
+          dq_acc[4 * j + 1] = a[j].y + dq_acc[4 * j + 1];
+          dq_acc[4 * j + 2] = a[j].z + dq_acc[4 * j + 2];
+          dq_acc[4 * j + 3] = a[j].w + dq_acc[4 * j + 3];
+        }
+      }
+      __nv_bfloat16* out = at(dq, ldq, bh / H, bh % H);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = q0 + r0 + 8 * h;
+        if (row >= S) continue;
+#pragma unroll
+        for (int j = 0; j < L::DQN / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(out + row * ldq.s + colb +
+                                             8 * j + c0) =
+              __floats2bfloat162_rn(dq_acc[4 * j + 2 * h] * scale,
+                                    dq_acc[4 * j + 2 * h + 1] * scale);
+      }
+    };
+    // a share that is not its tile's last, in dq_acc where this consumer
+    // computed it (act): to the writer through a share buffer
+    auto share = [&](int bh, int qi, int kt, bool act) {
+      const int q0 = qi * QT;
+      const int buf = n_sh & 1;
+      mbar_wait(dq_empty + 8 * buf, ((n_sh >> 1) & 1) ^ 1);
+      if (act) {
+        const uint32_t dst = base + L::DQ_OFF + buf * L::DQ_TILE + part * 4;
+#pragma unroll
+        for (int j = 0; j < L::DQN / 8; ++j)
+          st_shared(dst + (j * 128 + tid) * 16, dq_acc[4 * j],
+                    dq_acc[4 * j + 1], dq_acc[4 * j + 2], dq_acc[4 * j + 3]);
+        fence_async_smem();
+      }
+      if (w == 0 && tid == 0) {
+        meta[4 * buf] = bh;
+        meta[4 * buf + 1] = q0;
+        meta[4 * buf + 2] = kt;
+      }
+      mbar_arrive(dq_full + 8 * buf);
+      ++n_sh;
+    };
+
+    int it = 0;                                  // steps so far
+    if (w == 1) bar_arrive(1);                   // consumer 0 goes first
+    for (int n = 0;; ++n) {
+      mbar_wait(full_kv, n & 1);
+      const int item = *item_s;
+      if (item < 0) break;
+      const int bkv = item % BKV, kt = item / BKV;
+      const int b = bkv / KV, kvh = bkv % KV, k0 = kt * KT;
+      const int kw = k0 + 64 * w;
+      const int steps = G * (nQ - k0 / QT);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+      for (int s = 0; s < steps; ++s, ++it) {
+        const int slot = it % NSTAGE;
+        const int qi = nQ - 1 - s / G;
+        const int q0 = qi * QT;
+        const uint32_t qs = base + L::Q_OFF + slot * G2::TILE;
+        const uint32_t dos = base + L::DO_OFF + slot * G2::TILE;
+        mbar_wait(full + 8 * slot, (it / NSTAGE) & 1);
+        pin(dk_acc);
+        pin(dv_acc);
+        // this consumer's turn on the tensor cores: the other one's
+        // exponentials run under these products, and its products under
+        // this consumer's exponentials
+        bar_sync(1 + w);
+        wgmma_fence();
+        scores<D>(st, ka, qs);                   // S^T = K Q^T
+        scores<D>(dp, va, dos);                  // dP^T = V dO^T
+        wgmma_commit();
+        bar_arrive(2 - w);
+        wgmma_wait<0>();
+        pin(st);
+        pin(dp);
+        // keys above a query, and queries past S, get P = dS = 0
+        const bool edge = q0 < kw + 64 || q0 + QT > S;
+        const float* ls = lse_s + slot * QT;
+        const float* dl = dl_s + slot * QT;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int i = 4 * j + 2 * h + e;
-            float p = ex2(fmaf(sc[i], scale_log2, -l2[h]));
-            if (edge && k0 + 8 * j + c0 + e > qw + r0 + 8 * h) p = 0.f;
-            dp[i] = p * (dp[i] - dl[h]);
+            const int col = 8 * j + c0 + e;
+            const float l2 = ls[col] * LOG2E;
+            const float dlt = dl[col];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = 4 * j + 2 * h + e;
+              float p = ex2(fmaf(st[i], scale_log2, -l2));
+              if (edge && (kw + r0 + 8 * h > q0 + col || q0 + col >= S))
+                p = 0.f;
+              st[i] = p;
+              dp[i] = p * (dp[i] - dlt);
+            }
           }
+        // P^T and dS^T as bfloat16 A fragments; dS^T also into this
+        // step's tile in shared memory (row = key, 128 B a row, swizzled)
+        const uint32_t dsb = base + L::DS_OFF + (it & 1) * L::DS_TILE;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          da[2 * j + h] = pack_bf16(dp[4 * j + 2 * h], dp[4 * j + 2 * h + 1]);
-      pin(da);
-      pin(dq_acc);
-      wgmma_fence();
-      accumulate<D>(dq_acc, da, ks);         // dq += dS K
-      wgmma_commit();
-      wgmma_wait<0>();
-      pin(dq_acc);
-      mbar_arrive(empty + 8 * s);
-    }
+          for (int h = 0; h < 2; ++h) {
+            pa[2 * j + h] = pack_bf16(st[4 * j + 2 * h], st[4 * j + 2 * h + 1]);
+            da[2 * j + h] = pack_bf16(dp[4 * j + 2 * h], dp[4 * j + 2 * h + 1]);
+            const uint32_t row = 64 * w + r0 + 8 * h;
+            st_shared(dsb + swz(row * 128 + 16 * j + 2 * c0),
+                      da[2 * j + h]);
+          }
+        fence_async_smem();
+        // both halves of dS^T in; both consumers past their last step, so
+        // neither still reads the other tile
+        named_sync(3, 256);
+        pin(pa);
+        pin(da);
+        pin(dk_acc);
+        pin(dv_acc);
+        wgmma_fence();
+        const bool act = L::SPLIT || (s & 1) == w;
+        if (act) dq_product(it & 1);             // dq's share: dS K
+        wgmma_commit();
+        accumulate<D>(dv_acc, pa, dos);          // dv += P^T dO
+        accumulate<D>(dk_acc, da, qs);           // dk += dS^T Q
+        wgmma_commit();
+        // a share goes out while dv and dk run; the diagonal tile's
+        // last share is finished once they are done (and pa, da free)
+        const int bh = b * H + kvh * G + s % G;
+        const bool last = kt == q0 / KT;
+        wgmma_wait<1>();
+        pin(dq_acc);
+        if (!last) share(bh, qi, kt, act);
+        wgmma_wait<0>();                         // dv, dk: Q and dO read
+        pin(dk_acc);
+        pin(dv_acc);
+        mbar_arrive(empty + 8 * slot);
+        if (last && act) finish(bh, qi, kt);
+      }
+      mbar_arrive(empty_kv);                     // K and V read
 
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = qw + r0 + 8 * h;
-      if (row < S) {
-        __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(
-            dq + ((size_t)bh * S + row) * D + c0);
+      for (int h = 0; h < 2; ++h) {
+        const int key = kw + r0 + 8 * h;
+        if (key < S) {
+          __nv_bfloat16* kp = at(dk, ldk, b, kvh) + key * ldk.s + c0;
+          __nv_bfloat16* vp = at(dv, ldv, b, kvh) + key * ldv.s + c0;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          p[4 * j] = __floats2bfloat162_rn(dq_acc[4 * j + 2 * h] * scale,
-                                           dq_acc[4 * j + 2 * h + 1] * scale);
+          for (int j = 0; j < D / 8; ++j) {
+            *reinterpret_cast<__nv_bfloat162*>(kp + 8 * j) =
+                __floats2bfloat162_rn(dk_acc[4 * j + 2 * h] * scale,
+                                      dk_acc[4 * j + 2 * h + 1] * scale);
+            *reinterpret_cast<__nv_bfloat162*>(vp + 8 * j) =
+                __floats2bfloat162_rn(dv_acc[4 * j + 2 * h],
+                                      dv_acc[4 * j + 2 * h + 1]);
+          }
+        }
       }
     }
+    if (w == 0) bar_sync(1);                     // consumer 1's last turn
+    // tell the writer to stop
+    const int buf = n_sh & 1;
+    mbar_wait(dq_empty + 8 * buf, ((n_sh >> 1) & 1) ^ 1);
+    if (w == 0 && tid == 0) meta[4 * buf] = -1;
+    mbar_arrive(dq_full + 8 * buf);
   }
 }
 
+// ly: the strides of q, k, v, o, dO, dq, dk, dv; acc a float32 scratch
+// of B * H * ceil(S / 64) * 64 * D (dq's accumulator, a tile of 64 x D
+// for each (batch x head, query tile)); sem B * H * ceil(S / 64) + 1 ints,
+// zeroed (the Delta pass)
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dq, void* dk,
-           void* dv, int B, int H, int KV, int S, float scale,
-           cudaStream_t stream) {
-  // 64-row boxes for the tiles a pass streams, 128-row for those it holds
-  CUtensorMap q64, do64, k128, v128, q128, do128, k64, v64;
-  int err = make_map<D>(&q64, q, S, B * H, 64);
-  if (err == 0) err = make_map<D>(&do64, dout, S, B * H, 64);
-  if (err == 0) err = make_map<D>(&k128, k, S, B * KV, 128);
-  if (err == 0) err = make_map<D>(&v128, v, S, B * KV, 128);
-  if (err == 0) err = make_map<D>(&q128, q, S, B * H, 128);
-  if (err == 0) err = make_map<D>(&do128, dout, S, B * H, 128);
-  if (err == 0) err = make_map<D>(&k64, k, S, B * KV, 64);
-  if (err == 0) err = make_map<D>(&v64, v, S, B * KV, 64);
+           void* dv, float* acc, int* sem, const Lay* ly, int B, int H,
+           int KV, int S, float scale, cudaStream_t stream) {
+  // 64-row boxes for the streamed Q and dO, 128-row for K and V
+  CUtensorMap mq, mdo, mk, mv;
+  int err = make_map<D>(&mq, q, ly[0], H, S, B, QT);
+  if (err == 0) err = make_map<D>(&mdo, dout, ly[4], H, S, B, QT);
+  if (err == 0) err = make_map<D>(&mk, k, ly[1], KV, S, B, KT);
+  if (err == 0) err = make_map<D>(&mv, v, ly[2], KV, S, B, KT);
   if (err != 0) return err;
-  const float scale_log2 = scale * LOG2E;
-
-  constexpr size_t kv_smem = KvSmem<D>::SMEM;
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_kv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kv_smem);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_kv_kernel<D><<<dim3(B * KV, (S + KT - 1) / KT), NTHREADS,
-                           kv_smem, stream>>>(
-      q64, k128, v128, do64, lse, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), H, KV, S, scale, scale_log2);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-
-  constexpr size_t q_smem = QSmem<D>::SMEM;
-  e = cudaFuncSetAttribute(flash_bwd_q_kernel<D>,
+  constexpr size_t smem = Smem<D>::SMEM;
+  e = cudaFuncSetAttribute(flash_bwd_kernel<D>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)q_smem);
+                           (int)smem);
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_q_kernel<D><<<dim3(B * H, (S + QB - 1) / QB), NTHREADS, q_smem,
-                          stream>>>(q128, k64, v64, do128, lse, delta,
-                                    static_cast<__nv_bfloat16*>(dq), H, KV,
-                                    S, scale, scale_log2);
+  const int n_items = B * KV * ((S + KT - 1) / KT);
+  const int nQ = (S + QT - 1) / QT;
+  flash_bwd_kernel<D><<<n_items < sms ? n_items : sms, NTHREADS, smem,
+                        stream>>>(
+      mq, mk, mv, mdo, lse, delta, acc,
+      static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), ly[5], ly[6], ly[7], sem,
+      sem + (size_t)B * H * nQ, B, H, KV, S, scale, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -1532,23 +1764,23 @@ struct Smem {
 };
 
 // x[t] += a-row . b-row over all of D for this thread's two pairs (query
-// pr / BK, key pr % BK), the dot in column order; rows past S read zeros
+// pr / BK, key pr % BK), the dot in column order; rows past S read zeros;
+// sa, sb the rows' strides
 template <typename T>
-__device__ void dots(const T* a, const T* bm, int q0, int k0, int S, int D,
-                     Smem& sm, float (&x)[2]) {
+__device__ void dots(const T* a, long long sa, const T* bm, long long sb,
+                     int q0, int k0, int S, int D, Smem& sm, float (&x)[2]) {
   const int tid = threadIdx.x;
   for (int d0 = 0; d0 < D; d0 += DC) {
     const int dc = min(DC, D - d0);
     __syncthreads();                    // Qs, KVs free
     for (int e = tid; e < BQ * dc; e += THREADS) {
       const int r = e / dc, c = e % dc;
-      sm.Qs[r * DC + c] = q0 + r < S ? ld(a + (size_t)(q0 + r) * D + d0 + c)
-                                     : 0.f;
+      sm.Qs[r * DC + c] = q0 + r < S ? ld(a + (q0 + r) * sa + d0 + c) : 0.f;
     }
     for (int e = tid; e < BK * dc; e += THREADS) {
       const int r = e / dc, c = e % dc;
       sm.KVs[r * (DC + 1) + c] =
-          k0 + r < S ? ld(bm + (size_t)(k0 + r) * D + d0 + c) : 0.f;
+          k0 + r < S ? ld(bm + (k0 + r) * sb + d0 + c) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -1565,13 +1797,16 @@ __device__ void dots(const T* a, const T* bm, int q0, int k0, int S, int D,
 
 // P and dS of queries q0 .. q0 + 15 against keys k0 .. k0 + 31 into
 // sm.Ps, sm.dSs (sm.lse, sm.dl hold the rows' lse and Delta); keys above
-// the query and rows past S get 0
+// the query and rows past S get 0.  qp, dop, kp, vp: the heads' starts,
+// their rows at the strides of lq, ldo, lk, lv.
 template <typename T>
 __device__ void p_ds(const T* qp, const T* dop, const T* kp, const T* vp,
-                     int q0, int k0, int S, int D, float scale, Smem& sm) {
+                     const Lay& lq, const Lay& ldo, const Lay& lk,
+                     const Lay& lv, int q0, int k0, int S, int D, float scale,
+                     Smem& sm) {
   float s[2] = {0.f, 0.f}, dp[2] = {0.f, 0.f};
-  dots(qp, kp, q0, k0, S, D, sm, s);
-  dots(dop, vp, q0, k0, S, D, sm, dp);
+  dots(qp, lq.s, kp, lk.s, q0, k0, S, D, sm, s);
+  dots(dop, ldo.s, vp, lv.s, q0, k0, S, D, sm, dp);
 #pragma unroll
   for (int t = 0; t < 2; ++t) {
     const int pr = threadIdx.x + t * THREADS;
@@ -1585,15 +1820,14 @@ __device__ void p_ds(const T* qp, const T* dop, const T* kp, const T* vp,
   __syncthreads();
 }
 
-// stage rows r0 .. r0 + n - 1 (zeros past S) of columns d0 .. d0 + dc - 1
-// into dst with row stride `ld_`
+// stage rows r0 .. r0 + n - 1 (zeros past S; `ss` apart in src) of
+// columns d0 .. d0 + dc - 1 into dst with row stride `ld_`
 template <typename T>
-__device__ void stage(float* dst, int ld_, const T* src, int r0, int n,
-                      int S, int D, int d0, int dc) {
+__device__ void stage(float* dst, int ld_, const T* src, long long ss, int r0,
+                      int n, int S, int d0, int dc) {
   for (int e = threadIdx.x; e < n * dc; e += THREADS) {
     const int r = e / dc, c = e % dc;
-    dst[r * ld_ + c] = r0 + r < S ? ld(src + (size_t)(r0 + r) * D + d0 + c)
-                                  : 0.f;
+    dst[r * ld_ + c] = r0 + r < S ? ld(src + (r0 + r) * ss + d0 + c) : 0.f;
   }
 }
 
@@ -1606,8 +1840,9 @@ flash_bwd_kv_simple(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* dk, T* dv,
-                    float* dk_acc, float* dv_acc, int H, int KV, int S,
-                    int D, float scale) {
+                    float* dk_acc, float* dv_acc, Lay lq, Lay lk, Lay lv,
+                    Lay ldo, Lay ldk, Lay ldv, int H, int KV, int S, int D,
+                    float scale) {
   __shared__ Smem sm;
   const int bkv = blockIdx.x;
   const int b = bkv / KV, kvh = bkv % KV, G = H / KV;
@@ -1617,27 +1852,30 @@ flash_bwd_kv_simple(const T* __restrict__ q, const T* __restrict__ k,
   const size_t off = (size_t)bkv * S * D;
   float* akp = dk_acc + off;
   float* avp = dv_acc + off;
+  const T* kp = at(k, lk, b, kvh);
+  const T* vp = at(v, lv, b, kvh);
   for (size_t e = tid; e < (size_t)keys * D; e += THREADS) {
     akp[(size_t)k0 * D + e] = 0.f;
     avp[(size_t)k0 * D + e] = 0.f;
   }
   for (int g = 0; g < G; ++g) {
     const int bh = b * H + kvh * G + g;
-    const T* qp = q + (size_t)bh * S * D;
-    const T* dop = dout + (size_t)bh * S * D;
+    const T* qp = at(q, lq, b, kvh * G + g);
+    const T* dop = at(dout, ldo, b, kvh * G + g);
     for (int q0 = k0 / BQ * BQ; q0 < S; q0 += BQ) {
       if (tid < BQ) {
         const bool in = q0 + tid < S;
         sm.lse[tid] = in ? lse[(size_t)bh * S + q0 + tid] : 0.f;
         sm.dl[tid] = in ? delta[(size_t)bh * S + q0 + tid] : 0.f;
       }
-      p_ds(qp, dop, k + off, v + off, q0, k0, S, D, scale, sm);
+      p_ds(qp, dop, kp, vp, lq, ldo, lk, lv, q0, k0, S, D, scale, sm);
       for (int d0 = 0; d0 < D; d0 += DC) {
         const int dc = min(DC, D - d0);
         // dv += P^T dO, then dk += dS^T Q
         for (int pass = 0; pass < 2; ++pass) {
           __syncthreads();              // Qs free
-          stage(sm.Qs, DC, pass ? qp : dop, q0, BQ, S, D, d0, dc);
+          stage(sm.Qs, DC, pass ? qp : dop, pass ? lq.s : ldo.s, q0, BQ, S,
+                d0, dc);
           __syncthreads();
           const float* w = pass ? sm.dSs : sm.Ps;
           float* acc = pass ? akp : avp;
@@ -1654,10 +1892,13 @@ flash_bwd_kv_simple(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();
+  T* dkp = at(dk, ldk, b, kvh);
+  T* dvp = at(dv, ldv, b, kvh);
   for (size_t e = tid; e < (size_t)keys * D; e += THREADS) {
     const size_t g = off + (size_t)k0 * D + e;
-    st(dk + g, dk_acc[g] * scale);
-    st(dv + g, dv_acc[g]);
+    const long long key = k0 + (long long)(e / D), c = e % D;
+    st(dkp + key * ldk.s + c, dk_acc[g] * scale);
+    st(dvp + key * ldv.s + c, dv_acc[g]);
   }
 }
 
@@ -1669,16 +1910,18 @@ flash_bwd_q_simple(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, T* dq, float* dq_acc,
-                   int H, int KV, int S, int D, float scale) {
+                   Lay lq, Lay lk, Lay lv, Lay ldo, Lay ldq, int H, int KV,
+                   int S, int D, float scale) {
   __shared__ Smem sm;
   const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const int kvh = (bh / H) * KV + (bh % H) / (H / KV);
+  const int kvh = h / (H / KV);
   const int rows = min(BQ, S - q0);
   const int tid = threadIdx.x;
   const size_t off = (size_t)bh * S * D;
-  const T* kp = k + (size_t)kvh * S * D;
-  const T* vp = v + (size_t)kvh * S * D;
+  const T* kp = at(k, lk, b, kvh);
+  const T* vp = at(v, lv, b, kvh);
   float* ap = dq_acc + off;
   for (size_t e = tid; e < (size_t)rows * D; e += THREADS)
     ap[(size_t)q0 * D + e] = 0.f;
@@ -1689,11 +1932,12 @@ flash_bwd_q_simple(const T* __restrict__ q, const T* __restrict__ k,
   }
   const int kv_end = min(S, q0 + BQ);   // causal: later keys never read
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    p_ds(q + off, dout + off, kp, vp, q0, k0, S, D, scale, sm);
+    p_ds(at(q, lq, b, h), at(dout, ldo, b, h), kp, vp, lq, ldo, lk, lv, q0,
+         k0, S, D, scale, sm);
     for (int d0 = 0; d0 < D; d0 += DC) {
       const int dc = min(DC, D - d0);
       __syncthreads();                  // KVs free
-      stage(sm.KVs, DC + 1, kp, k0, BK, S, D, d0, dc);
+      stage(sm.KVs, DC + 1, kp, lk.s, k0, BK, S, d0, dc);
       __syncthreads();
       for (int e = tid; e < rows * dc; e += THREADS) {
         const int i = e / dc, c = e % dc;
@@ -1706,23 +1950,24 @@ flash_bwd_q_simple(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();
+  T* dqp = at(dq, ldq, b, h);
   for (size_t e = tid; e < (size_t)rows * D; e += THREADS) {
     const size_t g = off + (size_t)q0 * D + e;
-    st(dq + g, dq_acc[g] * scale);
+    st(dqp + (q0 + (long long)(e / D)) * ldq.s + (long long)(e % D),
+       dq_acc[g] * scale);
   }
 }
 
+// ly: the strides of q, k, v, o, dO, dq, dk, dv; ws the float32
+// accumulators (dq, then dk, then dv, contiguous)
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dq, void* dk,
-           void* dv, float* ws, int B, int H, int KV, int S, int D,
-           float scale, cudaStream_t stream) {
-  // float32 accumulates in the outputs themselves, bfloat16 in ws
-  float* dq_acc = ws != nullptr ? ws : static_cast<float*>(dq);
-  float* dk_acc = ws != nullptr ? ws + (size_t)B * H * S * D
-                                : static_cast<float*>(dk);
-  float* dv_acc = ws != nullptr ? dk_acc + (size_t)B * KV * S * D
-                                : static_cast<float*>(dv);
+           void* dv, float* ws, const Lay* ly, int B, int H, int KV, int S,
+           int D, float scale, cudaStream_t stream) {
+  float* dq_acc = ws;
+  float* dk_acc = ws + (size_t)B * H * S * D;
+  float* dv_acc = dk_acc + (size_t)B * KV * S * D;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -1730,13 +1975,14 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   flash_bwd_kv_simple<T><<<dim3(B * KV, (S + BK - 1) / BK), THREADS, 0,
                            stream>>>(qt, kt, vt, dot, lse, delta,
                                      static_cast<T*>(dk), static_cast<T*>(dv),
-                                     dk_acc, dv_acc, H, KV, S, D, scale);
+                                     dk_acc, dv_acc, ly[0], ly[1], ly[2],
+                                     ly[4], ly[6], ly[7], H, KV, S, D, scale);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   flash_bwd_q_simple<T><<<dim3(B * H, (S + BQ - 1) / BQ), THREADS, 0,
                           stream>>>(qt, kt, vt, dot, lse, delta,
-                                    static_cast<T*>(dq), dq_acc, H, KV, S, D,
-                                    scale);
+                                    static_cast<T*>(dq), dq_acc, ly[0], ly[1],
+                                    ly[2], ly[4], ly[5], H, KV, S, D, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1744,103 +1990,120 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// q, o: (B, H, S, D); k, v: (B, KV, S, D); all contiguous, float32
-// (is_bf16 = 0) or bfloat16 (is_bf16 = 1); lse null or a float32 (B, H, S)
-// that receives each row's natural log-sum-exp.  The caller checks KV | H,
-// D in {16, 32, 64, 128} and the grid's y dimension: B * H <= 65535 at
+// q, o: (B, H, S, D); k, v: (B, KV, S, D), float32 (is_bf16 = 0) or
+// bfloat16 (is_bf16 = 1); strides: 12 element strides, (batch, head, row)
+// of q, k, v and o in that order, each a multiple of 16 bytes, the last
+// axis contiguous; lse null or a contiguous float32 (B, H, S) that
+// receives each row's natural log-sum-exp.  The caller checks KV | H, D in
+// {16, 32, 64, 128} and the grid's y dimension: B * H <= 65535 at
 // float32, ceil(S / 128) <= 65535 at bfloat16.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
-                                      int B, int H, int KV, int S, int D,
-                                      int is_bf16, float scale,
-                                      void* stream) {
+                                      const void* strides, int B, int H,
+                                      int KV, int S, int D, int is_bf16,
+                                      float scale, void* stream) {
   if (B == 0 || H == 0 || S == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  const Lay* ly = static_cast<const Lay*>(strides);
   if (is_bf16) {
     switch (D) {
-      case 16: return bf16body::launch<16>(q, k, v, o, l, B, H, KV, S, scale,
-                                           st);
-      case 32: return bf16body::launch<32>(q, k, v, o, l, B, H, KV, S, scale,
-                                           st);
-      case 64: return bf16body::launch<64>(q, k, v, o, l, B, H, KV, S, scale,
-                                           st);
-      case 128: return bf16body::launch<128>(q, k, v, o, l, B, H, KV, S,
+      case 16: return bf16body::launch<16>(q, k, v, o, l, ly, B, H, KV, S,
+                                           scale, st);
+      case 32: return bf16body::launch<32>(q, k, v, o, l, ly, B, H, KV, S,
+                                           scale, st);
+      case 64: return bf16body::launch<64>(q, k, v, o, l, ly, B, H, KV, S,
+                                           scale, st);
+      case 128: return bf16body::launch<128>(q, k, v, o, l, ly, B, H, KV, S,
                                              scale, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   switch (D) {
-    case 16: return f32body::launch<16>(q, k, v, o, l, B, H, KV, S, scale,
-                                        st);
-    case 32: return f32body::launch<32>(q, k, v, o, l, B, H, KV, S, scale,
-                                        st);
-    case 64: return f32body::launch<64>(q, k, v, o, l, B, H, KV, S, scale,
-                                        st);
-    case 128: return f32body::launch<128>(q, k, v, o, l, B, H, KV, S, scale,
-                                          st);
+    case 16: return f32body::launch<16>(q, k, v, o, l, ly, B, H, KV, S,
+                                        scale, st);
+    case 32: return f32body::launch<32>(q, k, v, o, l, ly, B, H, KV, S,
+                                        scale, st);
+    case 64: return f32body::launch<64>(q, k, v, o, l, ly, B, H, KV, S,
+                                        scale, st);
+    case 128: return f32body::launch<128>(q, k, v, o, l, ly, B, H, KV, S,
+                                          scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// The body for any D > 128: q, o (B, H, S, D); k, v (B, KV, S, D);
-// ws a float32 workspace of B * H * S * D; lse null or float32 (B, H, S);
-// all contiguous, float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1).  The
-// caller checks KV | H and B * H <= 65535.
+// The body for any D > 128: q, o (B, H, S, D); k, v (B, KV, S, D) with
+// the strides of flash_attention_launch; ws a contiguous float32
+// workspace of B * H * S * D; lse null or float32 (B, H, S); float32
+// (is_bf16 = 0) or bfloat16 (is_bf16 = 1).  The caller checks KV | H and
+// B * H <= 65535.
 extern "C" int flash_attention_wide_launch(const void* q, const void* k,
                                            const void* v, void* o,
-                                           void* ws, void* lse, int B, int H,
+                                           void* ws, void* lse,
+                                           const void* strides, int B, int H,
                                            int KV, int S, int D, int is_bf16,
                                            float scale, void* stream) {
   if (B == 0 || H == 0 || S == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* acc = static_cast<float*>(ws);
   float* l = static_cast<float*>(lse);
+  const Lay* ly = static_cast<const Lay*>(strides);
   if (is_bf16)
-    return widebody::launch<__nv_bfloat16>(q, k, v, o, acc, l, B, H, KV, S,
-                                           D, scale, st);
-  return widebody::launch<float>(q, k, v, o, acc, l, B, H, KV, S, D, scale,
-                                 st);
+    return widebody::launch<__nv_bfloat16>(q, k, v, o, acc, l, ly, B, H, KV,
+                                           S, D, scale, st);
+  return widebody::launch<float>(q, k, v, o, acc, l, ly, B, H, KV, S, D,
+                                 scale, st);
 }
 
 // The backward: dq, dk, dv of causal GQA attention from q, o, dout (B, H,
-// S, D), k, v (B, KV, S, D), lse (B, H, S) float32 (the forward's), all
-// contiguous, float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); dq (B, H,
-// S, D), dk, dv (B, KV, S, D) in that dtype; delta a float32 (B, H, S)
-// scratch; ws null, or for bfloat16 at D outside {16, 32, 64, 128} a
-// float32 scratch of (B H + 2 B KV) S D.  Launches the Delta pass, then
-// the dk/dv pass, then the dq pass, and returns the first launch error.
-// The caller checks KV | H and ceil(S / 16) <= 65535.
+// S, D), k, v (B, KV, S, D), lse (B, H, S) float32 (the forward's), float32
+// (is_bf16 = 0) or bfloat16 (is_bf16 = 1); dq (B, H, S, D), dk, dv (B, KV,
+// S, D) in that dtype; strides: 24 element strides, (batch, head, row) of
+// q, k, v, o, dout, dq, dk, dv in that order, each a multiple of 16
+// bytes, the last axis contiguous; delta a float32 (B, H, S) scratch.
+// bfloat16 at D in {16, 32, 64, 128}: ws a float32 scratch of
+// B * H * ceil(S / 64) * 64 * D (dq's accumulator), sem B * H *
+// ceil(S / 64) + 1 ints of scratch;
+// otherwise ws a float32 scratch of (B H + 2 B KV) S D and sem unused.
+// Launches the Delta pass, then the main pass, and returns the first
+// launch error.  The caller checks KV | H and, for the CUDA-core body,
+// ceil(S / 16) <= 65535.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
-    void* delta, void* ws, int B, int H, int KV, int S, int D, int is_bf16,
-    float scale, void* stream) {
+    void* delta, void* ws, void* sem, const void* strides, int B, int H,
+    int KV, int S, int D, int is_bf16, float scale, void* stream) {
   if (B == 0 || H == 0 || S == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  const long long rows = (long long)B * H * S;
-  int err = is_bf16 ? launch_delta<__nv_bfloat16>(o, dout, dl, rows, D, st)
-                    : launch_delta<float>(o, dout, dl, rows, D, st);
+  float* w = static_cast<float*>(ws);
+  int* cnt = static_cast<int*>(sem);
+  const Lay* ly = static_cast<const Lay*>(strides);
+  const bool tc = is_bf16 && (D == 16 || D == 32 || D == 64 || D == 128);
+  const int n_zero = tc ? B * H * ((S + bf16bwd::QT - 1) / bf16bwd::QT) + 1
+                        : 0;
+  int err = is_bf16
+                ? launch_delta<__nv_bfloat16>(o, dout, dl, ly[3], ly[4], B,
+                                              H, S, D, cnt, n_zero, st)
+                : launch_delta<float>(o, dout, dl, ly[3], ly[4], B, H, S, D,
+                                      cnt, n_zero, st);
   if (err != 0) return err;
-  if (is_bf16) {
-    switch (D) {
-      case 16: return bf16bwd::launch<16>(q, k, v, dout, l, dl, dq, dk, dv, B,
-                                          H, KV, S, scale, st);
-      case 32: return bf16bwd::launch<32>(q, k, v, dout, l, dl, dq, dk, dv, B,
-                                          H, KV, S, scale, st);
-      case 64: return bf16bwd::launch<64>(q, k, v, dout, l, dl, dq, dk, dv, B,
-                                          H, KV, S, scale, st);
-      case 128: return bf16bwd::launch<128>(q, k, v, dout, l, dl, dq, dk, dv,
-                                            B, H, KV, S, scale, st);
-      default:
-        if (ws == nullptr) return (int)cudaErrorInvalidValue;
-        return simplebwd::launch<__nv_bfloat16>(
-            q, k, v, dout, l, dl, dq, dk, dv, static_cast<float*>(ws), B, H,
-            KV, S, D, scale, st);
-    }
+  if (!is_bf16)
+    return simplebwd::launch<float>(q, k, v, dout, l, dl, dq, dk, dv, w, ly,
+                                    B, H, KV, S, D, scale, st);
+  switch (D) {
+    case 16: return bf16bwd::launch<16>(q, k, v, dout, l, dl, dq, dk, dv, w,
+                                        cnt, ly, B, H, KV, S, scale, st);
+    case 32: return bf16bwd::launch<32>(q, k, v, dout, l, dl, dq, dk, dv, w,
+                                        cnt, ly, B, H, KV, S, scale, st);
+    case 64: return bf16bwd::launch<64>(q, k, v, dout, l, dl, dq, dk, dv, w,
+                                        cnt, ly, B, H, KV, S, scale, st);
+    case 128: return bf16bwd::launch<128>(q, k, v, dout, l, dl, dq, dk, dv,
+                                          w, cnt, ly, B, H, KV, S, scale, st);
+    default:
+      return simplebwd::launch<__nv_bfloat16>(q, k, v, dout, l, dl, dq, dk,
+                                              dv, w, ly, B, H, KV, S, D,
+                                              scale, st);
   }
-  return simplebwd::launch<float>(q, k, v, dout, l, dl, dq, dk, dv, nullptr,
-                                  B, H, KV, S, D, scale, st);
 }

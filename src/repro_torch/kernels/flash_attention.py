@@ -27,13 +27,29 @@ log-sum-exp.
 
 `flash_attention_bwd` is the gradient of that forward from (q, k, v, o,
 lse, dO); it has no TPU counterpart (the reference differentiates
-`attn_flash` with XLA).  bfloat16 at D in {16, 32, 64, 128} runs every
-product on the tensor cores (other D <= 128 zero-padded as the forward,
-the gradients sliced back: the zero columns change no score and give zero
-gradient columns); float32 at any D and bfloat16 at D > 128 run a simple
-CUDA-core body.  Each gradient is summed in one fixed order (no atomics),
-so two runs give the same bits.  Its launches count under
-``flash_attention_bwd``.
+`attn_flash` with XLA).  bfloat16 at D in {16, 32, 64, 128} runs FA2's
+five products on the tensor cores (other D <= 128 zero-padded as the
+forward, the gradients sliced back: the zero columns change no score and
+give zero gradient columns): persistent blocks, one per SM, take
+(batch x KV head, 128-key tile) items in a list order fixed by the shape;
+each computes dk and dv in registers and, per 64-query step, a share of
+dq that a writer thread adds to a float32 accumulator in ascending
+key-tile order, held by a counter per (batch x head, query tile) in
+device memory (the last key tile rounds the sum into dq).  float32 at any
+D and bfloat16 at D > 128 run a simple CUDA-core body.  Every gradient is
+summed in an order fixed by the shape, so two runs give the same bits.
+Its launches count under ``flash_attention_bwd``.
+
+Layout: the public functions keep the reference's (B, H, S, D), and on
+the card every body reads its operands in place: the last axis
+contiguous, the start and the other strides multiples of 16 bytes for
+the bfloat16 tensor-core bodies (TMA), of one element for the others
+(the transposed views of the model's (B, S, H, D) tensors are the case
+that matters); any other layout raises, nothing is copied to make it
+fit.  The outputs (o, dq, dk, dv)
+take their input's layout (`torch.empty_like`), so a (B, S, H, D) tensor
+seen as (B, H, S, D) gets its result in (B, S, H, D) memory.  lse stays a
+contiguous float32 (B, H, S).
 """
 from __future__ import annotations
 
@@ -47,8 +63,11 @@ from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 TILES = {torch.float32: (64, 64), torch.bfloat16: (128, 128)}
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GRID_Y = 65_535      # blocks along a grid's y dimension
-BWD_ROWS = 16            # query rows per block of the backward's dq pass
-                         # (simple body; the tensor-core body takes 128)
+BWD_QT = 64              # queries per step (and per dq counter) of the
+                         # tensor-core backward
+BWD_ROWS = 16            # query rows per block of the CUDA-core backward's
+                         # dq pass (the tensor-core body's grid is one
+                         # persistent block per SM)
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention_bwd_plain", "TILES"]
@@ -80,6 +99,24 @@ def _on_card(name, q):
 def _pad(D):
     """The tensor-core head dim a head dim <= 128 is padded to."""
     return next(d for d in HEAD_DIMS if d >= D)
+
+
+def _align(q, D):
+    """The byte multiple the kernels need of an operand's start and
+    strides: 16 for the bfloat16 tensor-core bodies (TMA maps, paired
+    stores), one element for the CUDA-core bodies."""
+    return 16 if q.dtype == torch.bfloat16 and D in HEAD_DIMS else \
+        q.element_size()
+
+
+def _strides(*ts):
+    """The kernels' stride array: (batch, head, row) element strides of
+    each (B, heads, S, D) tensor in turn, a dim of size 1 given the
+    stride D (never stepped, and a multiple of 16 bytes wherever the
+    kernels' maps need one)."""
+    vals = [t.stride(i) if t.shape[i] > 1 else t.shape[-1]
+            for t in ts for i in range(3)]
+    return (_build.L * len(vals))(*vals)
 
 
 def flash_attention(q, k, v, *, bq=None, bk=None) -> torch.Tensor:
@@ -123,36 +160,37 @@ def _forward(q, k, v, *, with_lse):
     if grid_y > MAX_GRID_Y:
         raise ValueError(f"{grid_y} blocks along the grid's y dimension > "
                          f"{MAX_GRID_Y}")
-    _build.require("q", q, q.dtype, (B, H, S, D), dev)
-    _build.require("k", k, q.dtype, (B, KV, S, D), dev)
-    _build.require("v", v, q.dtype, (B, KV, S, D), dev)
+    Dp = D if wide else _pad(D)
+    if Dp != D:         # zero columns: exact zeros in every score
+        q, k, v = (torch.nn.functional.pad(x, (0, Dp - D)) for x in (q, k, v))
+    align = _align(q, Dp)
+    _build.require("q", q, q.dtype, (B, H, S, Dp), dev, align=align)
+    _build.require("k", k, q.dtype, (B, KV, S, Dp), dev, align=align)
+    _build.require("v", v, q.dtype, (B, KV, S, Dp), dev, align=align)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
            if with_lse else None)
     lse_ptr = lse.data_ptr() if with_lse else None
     bf16 = int(q.dtype == torch.bfloat16)
+    o = torch.empty_like(q)         # q's layout: the model's, read in place
+    strides = _strides(q, k, v, o)
     if wide:
-        o = torch.empty_like(q)
         ws = torch.empty((B, H, S, D), dtype=torch.float32, device=dev)
         fn = _build.function("flash_attention", "flash_attention_wide_launch",
-                             [_build.P] * 6 + [_build.I] * 6
+                             [_build.P] * 7 + [_build.I] * 6
                              + [_build.F, _build.P])
         with torch.cuda.device(dev):
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     ws.data_ptr(), lse_ptr, B, H, KV, S, D, bf16,
+                     ws.data_ptr(), lse_ptr, strides, B, H, KV, S, D, bf16,
                      D ** -0.5, _build.stream_of(dev))
         _build.check("flash_attention", err)
         _build.launches["flash_attention"] += 1
         return o, lse
-    Dp = _pad(D)
-    if Dp != D:         # zero columns: exact zeros in every score
-        q, k, v = (torch.nn.functional.pad(x, (0, Dp - D)) for x in (q, k, v))
-    o = torch.empty_like(q)
     fn = _build.function("flash_attention", "flash_attention_launch",
-                         [_build.P] * 5 + [_build.I] * 6
+                         [_build.P] * 6 + [_build.I] * 6
                          + [_build.F, _build.P])
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse_ptr, B, H, KV, S, Dp, bf16, D ** -0.5,
+                 lse_ptr, strides, B, H, KV, S, Dp, bf16, D ** -0.5,
                  _build.stream_of(dev))
     _build.check("flash_attention", err)
     _build.launches["flash_attention"] += 1
@@ -201,34 +239,45 @@ def flash_attention_bwd(q, k, v, o, lse, do):
         return flash_attention_bwd_plain(q, k, v, o, lse, do)
     _on_card("flash_attention_bwd", q)
     dev = q.device
-    if -(-S // BWD_ROWS) > MAX_GRID_Y:
-        raise ValueError(f"S = {S}: {-(-S // BWD_ROWS)} blocks along the "
-                         f"grid's y dimension > {MAX_GRID_Y}")
-    for name, t in (("q", q), ("o", o), ("do", do)):
-        _build.require(name, t, q.dtype, (B, H, S, D), dev)
-    _build.require("k", k, q.dtype, (B, KV, S, D), dev)
-    _build.require("v", v, q.dtype, (B, KV, S, D), dev)
-    _build.require("lse", lse, torch.float32, (B, H, S), dev)
     bf16 = q.dtype == torch.bfloat16
     Dp = _pad(D) if bf16 and D <= HEAD_DIMS[-1] else D
+    tc = bf16 and Dp in HEAD_DIMS       # the tensor-core body
+    # the CUDA-core body's dq pass has a grid y of ceil(S / BWD_ROWS); the
+    # tensor-core body's grid is one persistent block per SM
+    if not tc and -(-S // BWD_ROWS) > MAX_GRID_Y:
+        raise ValueError(f"S = {S}: {-(-S // BWD_ROWS)} blocks along the "
+                         f"grid's y dimension > {MAX_GRID_Y}")
+    _build.require("lse", lse, torch.float32, (B, H, S), dev)
     if Dp != D:         # zero columns: no score changes, zero gradients
         q, k, v, o, do = (torch.nn.functional.pad(x, (0, Dp - D))
                           for x in (q, k, v, o, do))
-    dq = torch.empty_like(q)
+    align = _align(q, Dp)
+    for name, t in (("q", q), ("o", o), ("do", do)):
+        _build.require(name, t, q.dtype, (B, H, S, Dp), dev, align=align)
+    _build.require("k", k, q.dtype, (B, KV, S, Dp), dev, align=align)
+    _build.require("v", v, q.dtype, (B, KV, S, Dp), dev, align=align)
+    dq = torch.empty_like(q)        # each in its input's layout
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
-    ws = (torch.empty(((B * H + 2 * B * KV) * S * Dp,), dtype=torch.float32,
-                      device=dev)
-          if bf16 and Dp not in HEAD_DIMS else None)
+    if tc:      # dq's float32 accumulator (a 64 x D tile for each (batch x
+        # head, query tile)), its counters and the work-item counter
+        nq = B * H * -(-S // BWD_QT)
+        ws = torch.empty((nq * BWD_QT * Dp,), dtype=torch.float32, device=dev)
+        sem = torch.empty((nq + 1,), dtype=torch.int32, device=dev)
+    else:       # the CUDA-core body's float32 accumulators
+        ws = torch.empty(((B * H + 2 * B * KV) * S * Dp,),
+                         dtype=torch.float32, device=dev)
+        sem = None
     fn = _build.function("flash_attention", "flash_attention_bwd_launch",
-                         [_build.P] * 11 + [_build.I] * 6
+                         [_build.P] * 13 + [_build.I] * 6
                          + [_build.F, _build.P])
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), delta.data_ptr(),
-                 None if ws is None else ws.data_ptr(), B, H, KV, S, Dp,
+                 dv.data_ptr(), delta.data_ptr(), ws.data_ptr(),
+                 None if sem is None else sem.data_ptr(),
+                 _strides(q, k, v, o, do, dq, dk, dv), B, H, KV, S, Dp,
                  int(bf16), D ** -0.5, _build.stream_of(dev))
     _build.check("flash_attention", err)
     _build.launches["flash_attention_bwd"] += 1

@@ -267,10 +267,10 @@ def flash_kernel_takes(cfg, S: int) -> bool:
 
 
 def _flash_kernel(q, k, v):
-    """The kernel on (B, S, H, Dh) tensors; its layout is (B, H, S, Dh)."""
-    o = flash_attention(q.transpose(1, 2).contiguous(),
-                        k.transpose(1, 2).contiguous(),
-                        v.transpose(1, 2).contiguous())
+    """The kernel on (B, S, H, Dh) tensors, read in place as the
+    (B, H, S, Dh) views of its signature; the output comes back in q's
+    layout."""
+    o = flash_attention(*(x.transpose(1, 2) for x in (q, k, v)))
     return o.transpose(1, 2)
 
 
@@ -291,26 +291,31 @@ def causal_plain(q, k, v, chunk: int):
 
 class FlashAttentionFunction(torch.autograd.Function):
     """Causal self-attention on (B, S, H, Dh) q and (B, S, KV, Dh) k, v.
-    The forward is `flash_attention_fwd` on the (B, H, S, Dh) layout,
-    which saves q, k, v, the output and each row's log-sum-exp; the
-    backward is `flash_attention_bwd` on them (one launch a call on the
-    card; on CPU tensors both run their plain versions, the dense
-    oracle and dense float32 gradients).  Under remat the forward runs
-    again inside the checkpoint and the backward reads the recomputed
-    output and log-sum-exp."""
+    The forward is `flash_attention_fwd` on their (B, H, S, Dh) views,
+    read in place; it saves the model's own q, k, v, the output and each
+    row's log-sum-exp.  The backward is `flash_attention_bwd` on the same
+    views and on those of the output and of the cotangent (one launch a
+    call on the card; on CPU tensors both run their plain versions, the
+    dense oracle and dense float32 gradients).  The kernels write the
+    output and the gradients in their inputs' layout, so a (B, S, H, Dh)
+    q gets a (B, S, H, Dh) output and gradient with no copy.  On the card
+    a layout the kernels cannot read (a last axis that is not contiguous,
+    strides that are not multiples of 16 bytes) raises.  Under remat the
+    forward runs again inside the checkpoint and the backward reads the
+    recomputed output and log-sum-exp."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        q, k, v = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        o, lse = flash_attention_fwd(q, k, v)
-        ctx.save_for_backward(q, k, v, o, lse)
-        return o.transpose(1, 2)
+        o, lse = flash_attention_fwd(*(x.transpose(1, 2) for x in (q, k, v)))
+        out = o.transpose(1, 2)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        q, k, v, o, lse = ctx.saved_tensors
-        grads = flash_attention_bwd(q, k, v, o, lse,
-                                    grad_out.transpose(1, 2).contiguous())
+        q, k, v, out, lse = ctx.saved_tensors
+        views = (x.transpose(1, 2) for x in (q, k, v, out))
+        grads = flash_attention_bwd(*views, lse, grad_out.transpose(1, 2))
         need = ctx.needs_input_grad[:3]
         return tuple(g.transpose(1, 2) if n else None
                      for g, n in zip(grads, need))

@@ -322,9 +322,10 @@ def test_flash_attention_fwd_lse(dev, rng, dtype, B, H, KV, S, D):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 120, 128, 160])
+@pytest.mark.parametrize("D", [16, 32, 64, 120, 128, 160])
 @pytest.mark.parametrize("B,H,KV,S", [
-    (1, 4, 4, 1), (2, 8, 2, 100), (1, 8, 1, 257), (1, 32, 4, 130)])
+    (1, 4, 4, 1), (2, 8, 2, 100), (1, 8, 1, 257), (1, 32, 4, 130),
+    (2, 16, 8, 1100)])
 def test_flash_attention_bwd(dev, rng, dtype, D, B, H, KV, S):
     """The backward kernel against `flash_attention_bwd_plain` given the
     same (o, lse), at FLASH_TOL; two runs give the same bits; one count
@@ -357,9 +358,15 @@ def test_flash_bwd_refuses_bad_inputs(dev):
         FA.flash_attention_bwd(q, q, q, q, lse.double(), q)
     with pytest.raises(TypeError, match="do"):
         FA.flash_attention_bwd(q, q, q, q, lse, q.bfloat16())
-    with pytest.raises(ValueError, match="contiguous"):
-        x = torch.zeros((1, 64, 4, 32), device=dev).transpose(1, 2)
+    # layouts the kernels cannot read in place: a last axis that is not
+    # contiguous; at bfloat16 a row stride that is no multiple of 16 bytes
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        x = torch.zeros((1, 4, 32, 64), device=dev).transpose(2, 3)
         FA.flash_attention_bwd(q, q, q, q, lse, x)
+    qb = q.bfloat16()
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        x = torch.zeros((1, 4, 64, 36), device=dev).bfloat16()[..., :32]
+        FA.flash_attention_bwd(qb, qb, qb, qb, lse, x)
 
 
 def test_flash_wrapper_refuses_bad_inputs(dev):
@@ -375,9 +382,42 @@ def test_flash_wrapper_refuses_bad_inputs(dev):
     with pytest.raises(ValueError, match="head dim"):
         x = torch.zeros((1, 4, 64, 0), device=dev)
         FA.flash_attention(x, x, x)
-    with pytest.raises(ValueError, match="contiguous"):
-        x = torch.zeros((1, 64, 4, 32), device=dev).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        x = torch.zeros((1, 4, 32, 64), device=dev).transpose(2, 3)
         FA.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        x = torch.zeros((1, 4, 64, 36), device=dev).bfloat16()[..., :32]
+        FA.flash_attention(x, x, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 64, 128, 160])
+@pytest.mark.parametrize("B,H,KV,S", [(2, 8, 2, 130), (1, 4, 1, 257)])
+def test_flash_reads_the_model_layout_in_place(dev, rng, dtype, D, B, H,
+                                               KV, S):
+    """Both wrappers on the (B, H, S, D) views of (B, S, H, D) tensors:
+    the same bits as on contiguous copies (the kernels do the same
+    arithmetic whatever the strides), the outputs in the inputs' (B, S,
+    H, D) memory, and a head slice of them read in place too."""
+    q, k, v, do = (torch.as_tensor(rng.normal(size=(B, S, h, D)).astype(
+        np.float32), device=dev).to(dtype).transpose(1, 2)
+        for h in (H, KV, KV, H))
+    qc, kc, vc, doc = (x.contiguous() for x in (q, k, v, do))
+    o, lse = FA.flash_attention_fwd(q, k, v)
+    oc, lsec = FA.flash_attention_fwd(qc, kc, vc)
+    assert _same(o, oc) and _same(lse, lsec)
+    assert o.transpose(1, 2).is_contiguous()
+    g = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    gc = FA.flash_attention_bwd(qc, kc, vc, oc, lsec, doc)
+    for x, y in zip(g, gc):
+        assert _same(x, y) and x.transpose(1, 2).is_contiguous()
+    # every other KV head and its query heads: a view with an offset
+    sl = slice(KV // 2, KV) if KV > 1 else slice(0, 1)
+    G = H // KV
+    qs = q[:, sl.start * G:sl.stop * G]
+    ks, vs = k[:, sl], v[:, sl]
+    assert _same(FA.flash_attention(qs, ks, vs),
+                 FA.flash_attention(*(x.contiguous() for x in (qs, ks, vs))))
 
 
 def test_prefill_runs_the_kernel_once_per_layer(dev):
