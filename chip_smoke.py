@@ -8,8 +8,9 @@
 1. builds every CUDA kernel of `src/repro_torch/kernels/csrc` with nvcc;
    It counts the HGMMA (wgmma) instructions in the flash library's SASS
    where the toolkit has `cuobjdump` (none fails the run) and requires
-   ptxas to report no spills in the bfloat16 flash bodies (the forward
-   and the backward's persistent pass, one each per D);
+   ptxas to report no spills in the bfloat16 flash bodies (the
+   backward's persistent pass one per D, the forward per D at its own
+   width and at a narrower runtime width, and at danube's 120);
 2. holds each kernel against its plain PyTorch version on the card at
    small shapes (for gee_scatter also K = 256, one row holding 50,000
    contributions and rows whose donors mostly share a class, each
@@ -20,8 +21,9 @@
    bfloat16, ragged S, every D of the tensor-core body, yi's heads at
    S = 2049 and the prefill's shape at S = 2047), and requires two runs
    to give the same bits; and the widths outside the main path's bodies:
-   gee_delta_renorm at K = 200, topk_fused at K = 300 and at k = 100,
-   flash attention at D = 96 (zero-padded to 128) and at D = 160 and
+   gee_delta_renorm at K = 200, topk_fused at K = 300 and at k = 100
+   (the chunked and long-list select bodies), flash attention at D = 96
+   (read in place by the D = 128 body) and at D = 160 and
    256 in both dtypes (the wide body for D > 128).  At every flash case
    the forward with lse (`flash_attention_fwd`: the same output bits,
    lse within 1e-5 of the dense oracle's) and the backward
@@ -41,10 +43,11 @@
    with CUDA events (for top-k also its select and merge passes, each
    launched on its own; for gee_scatter also the kernel with every node
    labelled, as in a refine round, and one whole `CudaBackend.embed`;
-   and the general bodies at one wide shape each: top-k with k = 100 on
-   shard 0's rows, top-k at K = 300 and the delta kernel at K = 200 on
-   262,144 random rows; each of these shapes, and the skew graph's
-   scatter, also beside its library call);
+   and the wide bodies at one wide shape each: top-k with k = 100 on
+   shard 0's rows (the register body's long lists), top-k at K = 300
+   (the chunked body) and the delta kernel at K = 200 on 262,144 random
+   rows; each of these shapes, and the skew graph's scatter, also
+   beside its library call, the top-k lines with the body each took);
 5. self-checks: the shards' Z equals a fresh fit on the updated graph,
    and the fused answers equal the plain scan's on the same Zn;
 5'. the plan cache and refinement on the same graph: a cuda fit with a
@@ -140,8 +143,9 @@
    run under torch.profiler (device busy time, idle share).  Then the
    self-check of `family_self_check`, block by block on the same input,
    by the rule of step 6; last, the kernel at the families' other head
-   dims (D = 64 for whisper and zamba2, D = 120 for danube) against its
-   plain version, timed beside SDPA;
+   dims (D = 64 for whisper and zamba2, D = 120 for danube, read in
+   place) against its plain version, timed beside SDPA, with the ops
+   named pad or copy in a profile of one launch (none expected);
 8. the LM training path (`train_path`), at --lm-batch x --lm-prompt:
    a. `FlashAttentionFunction` (the forward kernel and the backward
       kernel) at yi-6b's attention shape against autograd of the plain
@@ -1579,12 +1583,16 @@ def main() -> int:
             _build.ptxas_log["flash_attention"]).items()
             if any(k_ in f for k_ in ("flash_fwd_bf16_kernel",
                                       "flash_bwd_kernel"))}
-        if len(bf16) != 8 or any(bf16.values()):
+        # the forward: per D one body at its own width and one at a
+        # runtime narrower width, and danube's 120 on D = 128 (its own
+        # body: `launch.fwd_ablate` times it against the runtime width's);
+        # the backward one per D
+        if len(bf16) != 13 or any(bf16.values()):
             raise AssertionError(f"ptxas spill bytes of the bfloat16 flash "
-                                 f"bodies (forward and backward, one per D "
-                                 f"expected, all 0): {bf16}")
-        print("ptxas: the 8 bfloat16 flash bodies (forward, backward) "
-              "spill 0 bytes")
+                                 f"bodies (13 expected: forward 9, "
+                                 f"backward 4; all 0): {bf16}")
+        print("ptxas: the 13 bfloat16 flash bodies (forward 9, backward "
+              "4) spill 0 bytes")
     hgmma = count_hgmma(_build.library_path("flash_attention"))
     if hgmma is None:
         print("cuobjdump not found: HGMMA count of the flash library not "
@@ -1780,7 +1788,8 @@ def main() -> int:
                     torch.as_tensor(sign * v, device=dev),
                     f"small sign={sign}")
     # the widths outside the main path's bodies: the delta kernel's rows
-    # in device memory (K > 128), top-k's general path (K > 256, k > 64)
+    # in device memory (K > 128), top-k's chunked body (K > 256), its
+    # long lists (k > 64) and its general path (k > 4096)
     Zw = torch.as_tensor(rng.random((700, 200), dtype=np.float32),
                          device=dev)
     rw = np.sort(rng.integers(0, 700, 600)).astype(np.int32)
@@ -1789,7 +1798,8 @@ def main() -> int:
                                 device=dev),
                 torch.as_tensor(rng.random(600, dtype=np.float32),
                                 device=dev), "K=200")
-    for Kw, mw, kw_ in ((300, 5000, 10), (16, 20000, 100), (300, 40, 100)):
+    for Kw, mw, kw_ in ((300, 5000, 10), (16, 20000, 100), (300, 40, 100),
+                        (16, 6000, 4100)):
         Zw = torch.as_tensor(np.repeat(rng.normal(size=(mw // 2, Kw)).astype(
             np.float32), 2, axis=0), device=dev)
         qnw = torch.as_tensor(rng.integers(0, mw, 64).astype(np.int32),
@@ -2021,8 +2031,9 @@ def main() -> int:
             shape=f"m={m} nq={nq} k={k} K={K} select grid "
                   f"{cand[0].shape[1]} blocks"))
         del cand
-        # the general path at one wide shape each: k = 100 on shard 0's
-        # rows, and K = 300 on 262,144 random unit rows (k = 10)
+        # the bodies outside the k = 10 main shape: long lists (k = 100
+        # on shard 0's rows, the register body) and wide rows (K = 300 on
+        # 262,144 random unit rows, k = 10, the chunked body)
         wide = {}
         check_topk(Zn0, qc, qn, 100, sh.lo, True, False, "real k=100")
         wide["wide_k100_ms"] = timer(lambda: QF.topk_fused(
@@ -2045,6 +2056,19 @@ def main() -> int:
             2.0 * nq * Zw.numel())[0]
         wide["wide_K300_library_ms"] = timer(
             lambda: torch.topk(qw @ Zw.T, k, dim=1), 3)
+        # which select body each launch took, and the times side by side
+        for tag, rows_, k_ in (("wide_k100", Zn0, 100), ("wide_K300", Zw, k)):
+            info = QF.select_info(rows_, k=k_, nq=nq)
+            wide[f"{tag}_body"] = info["body"]
+            ms_, b_, lib_ = (wide[f"{tag}{x}"] for x in
+                             ("_ms", "_bound_ms", "_library_ms"))
+            print(f"topk_fused {tag[5:]} (m={rows_.shape[0]} "
+                  f"K={rows_.shape[1]} nq={nq} k={k_}): body {info['body']}"
+                  f" (group {info['group']}, tile {info['tile']}, slots "
+                  f"{info['cap']}, chunk {info['chunk']}, smem "
+                  f"{info['smem']} B); kernel {ms_:.4f} ms, bound "
+                  f"{b_:.4f} ms, library {lib_:.4f} ms; kernel / library "
+                  f"{ms_ / lib_:.3f}, bound / kernel {b_ / ms_:.3f}")
         results[-1].update(wide)
         del Zw, qw
 
@@ -3346,11 +3370,23 @@ def main() -> int:
             out[f"{tag}_library_ms"] = timer(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q, k, v, is_causal=True, enable_gqa=True), 20)
+            # a pad or slice copy around the launch would show here
+            prof_, _ = profiled(torch, lambda: FA.flash_attention(q, k, v),
+                             [torch.profiler.ProfilerActivity.CPU,
+                              torch.profiler.ProfilerActivity.CUDA])
+            copies = sorted({ev.key for ev in prof_.key_averages()
+                             if "pad" in ev.key or "copy" in ev.key.lower()})
+            out[f"{tag}_copies"] = copies
             print(f"flash_attention at {arch}'s prefill shape B={B} H={H} "
-                  f"KV={KV} S={S} D={D} bf16: kernel {out[tag + '_ms']:.4f}"
-                  f" ms, bound {out[tag + '_bound_ms']:.4f} ms, plain "
+                  f"KV={KV} S={S} D={D} bf16 (route "
+                  f"{FA._forward_route(q.dtype, D)[0]}): kernel "
+                  f"{out[tag + '_ms']:.4f} ms, bound "
+                  f"{out[tag + '_bound_ms']:.4f} ms, plain "
                   f"{out[tag + '_plain_ms']:.4f} ms, library "
-                  f"{out[tag + '_library_ms']:.4f} ms, max|err| {e_:.3e}")
+                  f"{out[tag + '_library_ms']:.4f} ms, kernel / library "
+                  f"{out[tag + '_ms'] / out[tag + '_library_ms']:.3f}, "
+                  f"max|err| {e_:.3e}; copies around the launch: "
+                  f"{', '.join(copies) if copies else 'none'}")
             del q, k, v
         return out
 
@@ -3424,9 +3460,11 @@ def main() -> int:
             rate = (f", select {r_['select_ms']:.4f} ms + merge "
                     f"{r_['merge_ms']:.4f} ms, {r_['bound_share']:.3f} of "
                     f"the bound, issue floor {r_['issue_floor_ms']:.4f} ms; "
-                    f"general path: k = 100 {r_['wide_k100_ms']:.4f} ms "
+                    f"k = 100 ({r_['wide_k100_body']} body) "
+                    f"{r_['wide_k100_ms']:.4f} ms "
                     f"(bound {r_['wide_k100_bound_ms']:.4f}, library "
                     f"{r_['wide_k100_library_ms']:.4f}), K = 300 "
+                    f"({r_['wide_K300_body']} body) "
                     f"{r_['wide_K300_ms']:.4f} ms (bound "
                     f"{r_['wide_K300_bound_ms']:.4f}, library "
                     f"{r_['wide_K300_library_ms']:.4f})")

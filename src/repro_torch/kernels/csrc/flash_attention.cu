@@ -18,8 +18,9 @@
 // against a few hundred MB of q, k, v and out.
 //
 // flash_attention_launch picks one of two bodies by dtype, for D in
-// {16, 32, 64, 128}; flash_attention_wide_launch runs a third, simple body
-// for any D > 128 (widebody, below).
+// {16, 32, 64, 128} (and at bfloat16 any narrower multiple of 8, read in
+// place); flash_attention_wide_launch runs a third, simple body for any
+// D > 128 (widebody, below).
 //
 // bfloat16 (bf16body): both products on the tensor cores.  One block per
 // (batch x head, 128-row query tile), the heaviest tiles first; along the
@@ -30,7 +31,12 @@
 //     the Q tile once and then each 128-row K and V tile with TMA
 //     (cp.async.bulk.tensor, 4-D maps over (D, heads, S, B), so rows past
 //     S in a ragged last tile are zero-filled inside their own head) into
-//     a ring of STAGES slots, each tile completing on an mbarrier;
+//     a ring of STAGES slots, each tile completing on an mbarrier.  A head
+//     dim below the body's that is a multiple of 8 (h2o-danube's 120 on
+//     the D = 128 body) is read in place the same way: the maps' innermost
+//     dimension is the real width, so the columns past it land as zeros
+//     (exact zeros in every score, zero P V columns), and the epilogue
+//     stores only the columns below it: no padded copies;
 //   - two consumer warpgroups (232 registers) own 64 query rows each.
 //     S = Q K^T is wgmma m64n128k16 with both operands in shared memory
 //     (the K tile as it lies is the K-major B operand).  The softmax runs
@@ -615,6 +621,43 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 120] += A[64 x 16] . B[16 x 120], A in registers, B MN-major
+// (the P V product at h2o-danube's head dim: 15 of the 16 column groups
+// of the D = 128 tile)
+__device__ __forceinline__ void wgmma_rs_n120(float (&d)[60],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %65, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n120k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59"
+      "}, {%60, %61, %62, %63}, %64, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
                                          const uint32_t (&a)[4],
@@ -622,18 +665,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
   if constexpr (D == 16) wgmma_rs_n16(d, a, db);
   else if constexpr (D == 32) wgmma_rs_n32(d, a, db);
   else if constexpr (D == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (D == 120) wgmma_rs_n120(d, a, db);
   else wgmma_rs_n128(d, a, db);
 }
 
-template <int D>
+// W: the operands' width, D (the body's own), a narrower one fixed at
+// compile time (h2o-danube's 120 on the D = 128 body: its P V product and
+// accumulator take 120 columns), or 0 for the runtime `width` (any other
+// multiple of 8 below D)
+template <int D, int W>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       __nv_bfloat16* __restrict__ o,
                       float* __restrict__ lse, Lay lo, int H, int KV, int S,
-                      float scale_log2) {
+                      int width, float scale_log2) {
   using G = Geo<D>;
+  // P V's output width: a narrower W fixed at compile time needs only its
+  // own columns (m64nWk16); a runtime width computes all D
+  constexpr int N = W > 0 ? W : D;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar = base + G::BAR_OFF;
@@ -699,9 +750,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     const uint32_t qa = base + w * 64 * G::ROW;
 
     float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, alpha[2];
-    float acc[D / 2];
+    float acc[N / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
     float s[64];
     uint32_t p[32];
 
@@ -723,7 +774,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                                p[4 * kk + 3]};
-        wgmma_rs<D>(acc, a,
+        wgmma_rs<N>(acc, a,
                     sdesc(vs + kk * 16 * G::ROW, G::CHUNK, G::SBO,
                           G::LAYOUT));
       }
@@ -765,7 +816,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     // p[4 kk .. 4 kk + 3] holds keys 16 kk .. 16 kk + 15
     auto rescale_pack = [&]() {
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < N / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
       for (int j = 0; j < 16; ++j)
 #pragma unroll
@@ -833,10 +884,13 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         const float den = fmaxf(l[h], 1e-30f);
         __nv_bfloat162* op =
             reinterpret_cast<__nv_bfloat162*>(oh + row * lo.s + c0);
+        // columns 8 j + c0 + {0, 1}; the width is a multiple of 8, so a
+        // pair is all inside it or all past it
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          op[4 * j] = __floats2bfloat162_rn(acc[4 * j + 2 * h] / den,
-                                            acc[4 * j + 2 * h + 1] / den);
+        for (int j = 0; j < N / 8; ++j)
+          if (W > 0 || 8 * j < width)
+            op[4 * j] = __floats2bfloat162_rn(acc[4 * j + 2 * h] / den,
+                                              acc[4 * j + 2 * h + 1] / den);
         // m is in the log2 domain: lse = ln(2^m l)
         if (lse != nullptr && c0 == 0)
           lse[(size_t)bh * S + row] = (m[h] + log2f(den)) * LN2;
@@ -867,17 +921,18 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a 4-D map over a (B, n heads, S, D) bfloat16 tensor with element
-// strides `l` (the last axis contiguous), seen as (D, n, S, B); boxes of
-// {AW, 1, rows, 1}: rows past S read as zeros, never the next head's
+// a 4-D map over a (B, n heads, S, width) bfloat16 tensor with element
+// strides `l` (the last axis contiguous), seen as (width, n, S, B), for
+// the body of head dim D >= width; boxes of {AW, 1, rows, 1}: rows past S
+// read as zeros, never the next head's, and so do columns width .. D - 1
 template <int D>
 int make_map(CUtensorMap* map, const void* ptr, const Lay& l, int n, int S,
-             int B, int rows = 128) {
+             int B, int rows = 128, int width = D) {
   using G = Geo<D>;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)n, (cuuint64_t)S,
-                              (cuuint64_t)B};
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)n,
+                              (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)l.h * 2, (cuuint64_t)l.s * 2,
                                  (cuuint64_t)l.b * 2};
   const cuuint32_t box[4] = {(cuuint32_t)G::AW, 1, (cuuint32_t)rows, 1};
@@ -890,24 +945,30 @@ int make_map(CUtensorMap* map, const void* ptr, const Lay& l, int n, int S,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// the body of head dim D on operands `width` <= D columns wide: the maps
+// zero-fill the columns past width, which add exact zeros to every score
+// and give output columns that are never stored
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           const Lay* ly, int B, int H, int KV, int S, float scale,
-           cudaStream_t stream) {
+           const Lay* ly, int B, int H, int KV, int S, int width,
+           float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  int err = make_map<D>(&mq, q, ly[0], H, S, B);
-  if (err == 0) err = make_map<D>(&mk, k, ly[1], KV, S, B);
-  if (err == 0) err = make_map<D>(&mv, v, ly[2], KV, S, B);
+  int err = make_map<D>(&mq, q, ly[0], H, S, B, BQ, width);
+  if (err == 0) err = make_map<D>(&mk, k, ly[1], KV, S, B, BK, width);
+  if (err == 0) err = make_map<D>(&mv, v, ly[2], KV, S, B, BK, width);
   if (err != 0) return err;
+  auto fn = width == D ? flash_fwd_bf16_kernel<D, D>
+                       : flash_fwd_bf16_kernel<D, 0>;
+  if constexpr (D == 128)
+    if (width == 120) fn = flash_fwd_bf16_kernel<128, 120>;
   constexpr size_t smem = Geo<D>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_fwd_bf16_kernel<D><<<grid, THREADS, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, ly[3], H, KV, S,
-      scale * LOG2E);
+  fn<<<grid, THREADS, smem, stream>>>(mq, mk, mv,
+                                      static_cast<__nv_bfloat16*>(o), lse,
+                                      ly[3], H, KV, S, width, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -1990,32 +2051,39 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// q, o: (B, H, S, D); k, v: (B, KV, S, D), float32 (is_bf16 = 0) or
-// bfloat16 (is_bf16 = 1); strides: 12 element strides, (batch, head, row)
-// of q, k, v and o in that order, each a multiple of 16 bytes, the last
-// axis contiguous; lse null or a contiguous float32 (B, H, S) that
-// receives each row's natural log-sum-exp.  The caller checks KV | H, D in
-// {16, 32, 64, 128} and the grid's y dimension: B * H <= 65535 at
-// float32, ceil(S / 128) <= 65535 at bfloat16.
+// q, o: (B, H, S, width); k, v: (B, KV, S, width), float32 (is_bf16 = 0)
+// or bfloat16 (is_bf16 = 1), run by the body of head dim D; strides: 12
+// element strides, (batch, head, row) of q, k, v and o in that order,
+// each a multiple of 16 bytes, the last axis contiguous; lse null or a
+// contiguous float32 (B, H, S) that receives each row's natural
+// log-sum-exp.  width == D, except at bfloat16, where width <= D may be
+// any multiple of 8 (a row of 16-byte units, as TMA needs): the maps
+// zero-fill columns width .. D - 1 and only columns below width are
+// stored.  The caller checks KV | H, D in {16, 32, 64, 128} and the
+// grid's y dimension: B * H <= 65535 at float32, ceil(S / 128) <= 65535
+// at bfloat16.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       const void* strides, int B, int H,
-                                      int KV, int S, int D, int is_bf16,
-                                      float scale, void* stream) {
+                                      int KV, int S, int D, int width,
+                                      int is_bf16, float scale,
+                                      void* stream) {
   if (B == 0 || H == 0 || S == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const Lay* ly = static_cast<const Lay*>(strides);
+  if (width > D || width < 1 || (width != D && (!is_bf16 || width % 8)))
+    return (int)cudaErrorInvalidValue;
   if (is_bf16) {
     switch (D) {
       case 16: return bf16body::launch<16>(q, k, v, o, l, ly, B, H, KV, S,
-                                           scale, st);
+                                           width, scale, st);
       case 32: return bf16body::launch<32>(q, k, v, o, l, ly, B, H, KV, S,
-                                           scale, st);
+                                           width, scale, st);
       case 64: return bf16body::launch<64>(q, k, v, o, l, ly, B, H, KV, S,
-                                           scale, st);
+                                           width, scale, st);
       case 128: return bf16body::launch<128>(q, k, v, o, l, ly, B, H, KV, S,
-                                             scale, st);
+                                             width, scale, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -47,19 +47,38 @@
 //   (row, query), half the exact one.  A row is read once per query group,
 //   each shared load of q feeds R rows, and the top-k bookkeeping is one
 //   compare per (row, query).
-//   Wide rows and long lists: the bodies above serve k <= 64 and K <= 256
-//   (their lists, buffers and query group live in shared memory).  Any
-//   other (K, k) takes the general path, which the launchers pick by
-//   shape: every warp is a selector of its own for one query (blockIdx.x)
-//   over a contiguous range of rows, a lane per row, scoring exactly from
-//   device memory (row_dot of common.cuh, so the same bits) and keeping
-//   its sorted list of k in its candidate slot in device memory; rows are
-//   normalized first by a kernel of their own when normalize=True.  The
-//   merge of k > 64 lists is one warp per query over its selectors'
-//   candidates, the list again in device memory (merge_batch_any places a
-//   batch by rank for lists of any length).  No shared thresholds and no
-//   prefilter: a simple path, bound by the 2 nq m K exact-score
-//   instructions and by reading the rows once per query.
+//   Long lists and wide rows: the bodies above take any k up to
+//   KLIST_MAX = 4096.  For k > 64 (the long-list bodies) the lists are
+//   merged by merge_batch_long (a binary search gives each candidate its
+//   rank, the entries move down in 32-wide chunks), each query keeps
+//   cap = 2k survivor slots (at least 32), and the group shrinks from 64
+//   queries (64, 32, ..., 1; never more than nq needs) until its lists,
+//   buffers and rows fit in a block's shared memory, and once more where
+//   that lets two blocks share an SM.  Rows wider than 256
+//   take the chunked body (topk_select_chunked_kernel): the tile streams
+//   through a ring of chunk slots in column chunks, rows and the group's
+//   queries together (cp.async), and each thread carries its (row, query)
+//   sums in registers across the chunks in column order, so every score
+//   is row_dot's; the scores stay in registers for the filter and any
+//   rescan, each tile's filter reads the threshold the grid has
+//   published (gkey) besides the block's own, and survivors wait in the
+//   buffers across tiles until one holds a warp's batch.  It scores every (row,
+//   query) exactly: 2 nq m K FP32 instructions against m K 4 bytes of
+//   rows read once per group.  (Two FMA prefilters with an exact rescore
+//   from device memory, one with thresholds seeded from a sample of the
+//   rows, measured slower: the rescores cost more than the FFMA saves.)
+//   With normalize=True a first pass over the tile's chunks takes the row
+//   norms, the second divides each element as it lands (no separate
+//   kernel) and group 0 writes Zn.  The
+//   merge of k > 64 lists is one block per query over the grid x k
+//   candidates, the list in shared memory, 256 candidates placed by rank a
+//   batch (topk_merge_long_kernel).  Lists longer than KLIST_MAX do not
+//   fit in shared memory at one query a block: they take the general
+//   path, chosen by k alone (general_path): every warp is a selector of
+//   its own for one query over a contiguous range of rows, a lane per row,
+//   scoring exactly from device memory (row_dot) and keeping its sorted
+//   list in device memory (merge_batch_any), rows normalized first by a
+//   kernel of their own, and one warp per query merges.
 //   Exact: every score that is kept is the fixed-order K-term dot of
 //   common.cuh, so it has the same bits whichever block, tile or body
 //   computes it and the same bits as the plain version.  The order (score
@@ -95,19 +114,51 @@
 
 namespace {
 
-constexpr int KMAX = 64;       // largest k
+constexpr int KMAX = 64;       // longest list of the short-list merge
+constexpr int KLIST_MAX = 4096;  // longest list kept in shared memory
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int GROUP = 64;      // queries per group (blockIdx.y)
-constexpr int CAP = 2 * KMAX;  // survivor slots per query and pass
+constexpr int GROUP = 64;      // most queries per group (blockIdx.y)
+constexpr int CAP = 2 * KMAX;  // survivor slots per query and pass, k <= KMAX
+constexpr int CAP_MIN = 32;    // least survivor slots of the long-list bodies
 constexpr int KSMEM_MAX = 256; // widest rows of the shared-memory body
+constexpr int CQ = 8;          // chunked body: most queries a thread
+constexpr int RC = 4;          // chunked body: rows a thread
+constexpr int CHUNK_FLOATS = 4096;  // chunked body: floats of a row chunk
+constexpr int KCH_MIN = 4, KCH_MAX = 32;  // chunked body: columns a chunk
+constexpr int MERGE_AT = 32;   // chunked body: survivors that start a merge
+constexpr int RING = 3;        // chunked body: chunk slots in flight
 constexpr int GEN_WARPS = THREADS / 32;  // selectors a block, general path
 constexpr int DELTA_SMEM_K = 128;  // widest rows the delta body stages
 constexpr unsigned FULL = 0xffffffffu;
 
-// The select bodies above the general path take k <= KMAX, K <= KSMEM_MAX.
-__host__ __device__ __forceinline__ bool general_path(int K, int k) {
-  return k > KMAX || K > KSMEM_MAX;
+// The select bodies: rows in registers (K in {8, 16, 32}, rows on 16
+// bytes), rows in shared memory (other K <= KSMEM_MAX), rows streamed in
+// column chunks (K > KSMEM_MAX), each for any k <= KLIST_MAX; the general
+// path takes the lists too long for shared memory.
+enum Body { BODY_REGISTERS = 0, BODY_SHARED = 1, BODY_CHUNKED = 2,
+            BODY_GENERAL = 3 };
+
+__host__ __device__ __forceinline__ bool general_path(int k) {
+  return k > KLIST_MAX;
+}
+
+// The chunked body's geometry for a group of G queries (a power of two):
+// each thread scores q queries x RC rows, wq warps side by side across
+// the group, the other warps stacked along the rows; a tile is `tile`
+// rows, streamed in chunks of kch columns.
+struct Chunking {
+  int q, wq, tile, kch;
+};
+
+__host__ __device__ __forceinline__ Chunking chunking(int G) {
+  Chunking c;
+  c.q = G < CQ ? G : CQ;
+  c.wq = G / c.q;
+  c.tile = 32 * RC * (WARPS / c.wq);
+  const int w = CHUNK_FLOATS / c.tile;
+  c.kch = w < KCH_MIN ? KCH_MIN : w > KCH_MAX ? KCH_MAX : w;
+  return c;
 }
 
 __device__ __forceinline__ bool better(float sa, int ia, float sb, int ib) {
@@ -177,13 +228,76 @@ __device__ __forceinline__ void merge_batch(float* ls, int* li, int k,
   __syncwarp();
 }
 
-// The select pass's shared memory, carved in this order (16-byte aligned
-// pieces): the group's queries (GROUP x K), their own ids (-1 when
-// exclude_self is off), their prefilter margins, their thresholds (scores,
-// then ids), the lists (GROUP x k scores, then ids), the survivor counts
-// and rescan flags (GROUP each),
-// the survivor buffers (GROUP x CAP scores, then ids), and for the
-// shared-memory body the row tile (tile x odd_stride(K)).
+// merge_batch for lists of any length k (the long-list bodies); called by
+// a whole warp, the list in shared memory.  A candidate's rank in the list
+// comes from a binary search (the list is sorted under the total order);
+// a row held already sits at that rank and drops out.  Its new slot is
+// its rank plus the other candidates better than it; a list entry moves
+// down by the candidates whose rank is at most its slot.  Entries before
+// the least rank stay; the others move 32 at a time from the end of the
+// list, each chunk read whole before any of it is written, so that no
+// entry is overwritten before it is read.  The same selection as
+// merge_batch.
+__device__ __forceinline__ void merge_batch_long(float* ls, int* li, int k,
+                                                 float s, int i, bool v) {
+  const int lane = threadIdx.x & 31;
+  v = v && better(s, i, ls[k - 1], li[k - 1]);
+  if (!__any_sync(FULL, v)) return;
+  int rank = 0;                         // entries better than (s, i)
+  for (int step = 1 << (31 - __clz(k)); step > 0; step >>= 1)
+    if (rank + step <= k &&
+        better(ls[rank + step - 1], li[rank + step - 1], s, i))
+      rank += step;
+  v = v && !(rank < k && li[rank] == i);
+  const unsigned cand = __ballot_sync(FULL, v);
+  if (cand == 0) return;
+  int slot = rank;
+  for (unsigned c = cand; c != 0; c &= c - 1) {
+    const int src = __ffs(c) - 1;
+    slot += better(__shfl_sync(FULL, s, src), __shfl_sync(FULL, i, src), s,
+                   i);
+  }
+  const int lo = __reduce_min_sync(FULL, v ? rank : k);
+  for (int b = (k - 1) & ~31; b >= (lo & ~31); b -= 32) {
+    const int t = b + lane;
+    const bool h = t >= lo && t < k;
+    const float e = h ? ls[t] : 0.f;
+    const int f = h ? li[t] : 0;
+    int p = t;
+    for (unsigned c = cand; c != 0; c &= c - 1)
+      p += __shfl_sync(FULL, rank, __ffs(c) - 1) <= t;
+    __syncwarp();
+    if (h && p < k) {
+      ls[p] = e;
+      li[p] = f;
+    }
+    __syncwarp();
+  }
+  if (v && slot < k) {
+    ls[slot] = s;
+    li[slot] = i;
+  }
+  __syncwarp();
+}
+
+template <bool LONG>
+__device__ __forceinline__ void merge_into(float* ls, int* li, int k, float s,
+                                           int i, bool v) {
+  if constexpr (LONG)
+    merge_batch_long(ls, li, k, s, i, v);
+  else
+    merge_batch(ls, li, k, s, i, v);
+}
+
+// The select pass's shared memory for a group of G queries, carved in
+// this order (16-byte aligned pieces): the group's queries (G x K; not
+// for the chunked body, which streams them with the rows), their own ids
+// (-1 when exclude_self is off), their prefilter margins, their
+// thresholds (scores, then ids), the lists (G x k scores, then ids), the
+// survivor counts and rescan flags (G each), the survivor buffers (G x cap
+// scores, then ids); then for the shared-memory body the row tile (tile x
+// odd_stride(K)), for the chunked body the tile's row norms (tile) and
+// the ring of RING chunk slots (chunk_slot floats each).
 struct Smem {
   float* qs;
   int* qid;
@@ -197,7 +311,17 @@ struct Smem {
   float* bs;
   int* bi;
   float* zs;
+  float* dn;
+  float* ring;
 };
+
+// A chunk slot of the chunked body: the rows' kch columns, row-major in
+// rows of kch + 4 floats or column-major in columns of tile + 1 floats
+// (the larger of the two is the first), then the group's queries' kch
+// columns, row-major.
+__host__ __device__ __forceinline__ int chunk_slot(const Chunking& c, int G) {
+  return c.tile * (c.kch + 4) + G * c.kch;
+}
 
 __host__ __device__ __forceinline__ void take(char* base, size_t& off,
                                               size_t bytes, void** out) {
@@ -206,30 +330,36 @@ __host__ __device__ __forceinline__ void take(char* base, size_t& off,
 }
 
 // Carve `base` (nullptr: only size it); returns the bytes used.
-__host__ __device__ __forceinline__ size_t carve(char* base, int K, int k,
-                                                 int tile, bool smem_rows,
-                                                 Smem* s) {
+__host__ __device__ __forceinline__ size_t carve(char* base, int body, int K,
+                                                 int k, int G, int cap,
+                                                 int tile, Smem* s) {
   size_t off = 0;
-  void* p[12] = {};
-  take(base, off, sizeof(float) * GROUP * K, &p[0]);
-  take(base, off, sizeof(int) * GROUP, &p[1]);
-  take(base, off, sizeof(float) * GROUP, &p[2]);
-  take(base, off, sizeof(float) * GROUP, &p[3]);
-  take(base, off, sizeof(int) * GROUP, &p[4]);
-  take(base, off, sizeof(float) * GROUP * k, &p[5]);
-  take(base, off, sizeof(int) * GROUP * k, &p[6]);
-  take(base, off, sizeof(int) * GROUP, &p[7]);
-  take(base, off, sizeof(int) * GROUP, &p[8]);
-  take(base, off, sizeof(float) * GROUP * CAP, &p[9]);
-  take(base, off, sizeof(int) * GROUP * CAP, &p[10]);
-  if (smem_rows)
+  void* p[14] = {};
+  if (body != BODY_CHUNKED) take(base, off, sizeof(float) * G * K, &p[0]);
+  take(base, off, sizeof(int) * G, &p[1]);
+  take(base, off, sizeof(float) * G, &p[2]);
+  take(base, off, sizeof(float) * G, &p[3]);
+  take(base, off, sizeof(int) * G, &p[4]);
+  take(base, off, sizeof(float) * G * k, &p[5]);
+  take(base, off, sizeof(int) * G * k, &p[6]);
+  take(base, off, sizeof(int) * G, &p[7]);
+  take(base, off, sizeof(int) * G, &p[8]);
+  take(base, off, sizeof(float) * G * cap, &p[9]);
+  take(base, off, sizeof(int) * G * cap, &p[10]);
+  if (body == BODY_SHARED)
     take(base, off, sizeof(float) * tile * odd_stride(K), &p[11]);
+  if (body == BODY_CHUNKED) {
+    take(base, off, sizeof(float) * tile, &p[12]);
+    take(base, off, sizeof(float) * RING * chunk_slot(chunking(G), G),
+         &p[13]);
+  }
   *s = Smem{static_cast<float*>(p[0]),  static_cast<int*>(p[1]),
             static_cast<float*>(p[2]),  static_cast<float*>(p[3]),
             static_cast<int*>(p[4]),    static_cast<float*>(p[5]),
             static_cast<int*>(p[6]),    static_cast<int*>(p[7]),
             static_cast<int*>(p[8]),    static_cast<float*>(p[9]),
-            static_cast<int*>(p[10]),   static_cast<float*>(p[11])};
+            static_cast<int*>(p[10]),   static_cast<float*>(p[11]),
+            static_cast<float*>(p[12]), static_cast<float*>(p[13])};
   return off;
 }
 
@@ -263,10 +393,10 @@ __device__ __forceinline__ void set_threshold(const Smem& S, int j, int k,
 }
 
 // Append the lanes' survivors for query j (one atomicAdd a warp).  The
-// count runs on past CAP; what does not fit is dropped, and the merge
+// count runs on past cap; what does not fit is dropped, and the merge
 // asks for a rescan of the tile.
 __device__ __forceinline__ void append(const Smem& S, int j, bool pass,
-                                       float s, int id) {
+                                       float s, int id, int cap) {
   const unsigned mask = __ballot_sync(FULL, pass);
   if (mask == 0) return;
   const int lane = threadIdx.x & 31;
@@ -275,9 +405,9 @@ __device__ __forceinline__ void append(const Smem& S, int j, bool pass,
   if (lane == leader) base = atomicAdd(&S.cnt[j], __popc(mask));
   base = __shfl_sync(FULL, base, leader);
   const int at = base + __popc(mask & ((1u << lane) - 1));
-  if (pass && at < CAP) {
-    S.bs[j * CAP + at] = s;
-    S.bi[j * CAP + at] = id;
+  if (pass && at < cap) {
+    S.bs[j * cap + at] = s;
+    S.bi[j * cap + at] = id;
   }
 }
 
@@ -286,25 +416,31 @@ __device__ __forceinline__ void append(const Smem& S, int j, bool pass,
 // threshold is renewed (its lane of the warp).  Returns, the same in
 // every thread, whether a buffer overflowed: those queries (redo) rescan
 // the tile against their new threshold.  Ends with the block synchronized.
+// `reset` (a flag every thread has read before the call) is zeroed once
+// all have.
+template <bool LONG>
 __device__ __forceinline__ bool merge_tile(const Smem& S, int gq, int k,
                                            unsigned long long* gkey,
-                                           bool any) {
+                                           bool any, int cap,
+                                           int* reset = nullptr) {
   if (!__syncthreads_or(any)) return false;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (reset != nullptr && threadIdx.x == 0) *reset = 0;  // read by all
   bool again = false;
   for (int j = warp; j < gq; j += WARPS) {
     const int n = S.cnt[j];
-    again |= n > CAP;
+    again |= n > cap;
     __syncwarp();
     if (lane == 0) {
-      S.redo[j] = n > CAP;
+      S.redo[j] = n > cap;
       S.cnt[j] = 0;
     }
-    for (int b = 0; b < min(n, CAP); b += 32) {
+    for (int b = 0; b < min(n, cap); b += 32) {
       const int e = b + lane;
-      const bool v = e < min(n, CAP);
-      merge_batch(S.ls + j * k, S.li + j * k, k, v ? S.bs[j * CAP + e] : 0.f,
-                  v ? S.bi[j * CAP + e] : 0, v);
+      const bool v = e < min(n, cap);
+      merge_into<LONG>(S.ls + j * k, S.li + j * k, k,
+                       v ? S.bs[j * cap + e] : 0.f,
+                       v ? S.bi[j * cap + e] : 0, v);
     }
   }
   __syncwarp();
@@ -350,11 +486,11 @@ __device__ __forceinline__ float exact_dot(const float4* qv,
 // gets an FMA dot a (KR instructions); only if a + margin could reach the
 // query's threshold is the exact fixed-order score s computed and held
 // to the threshold under the full (score, id) order.
-template <int KR>
+template <int KR, bool LONG>
 __device__ __forceinline__ void tile_in_registers(
     const Smem& S, const float* __restrict__ Z, bool normalize,
     float* __restrict__ zn, int r0, int rows, int next_r0, int m, int gq,
-    int k, int row_offset, float eps, bool seed,
+    int k, int cap, int row_offset, float eps, bool seed,
     unsigned long long* __restrict__ gkey) {
   constexpr int R = 64 / KR;
   float z[R][KR];
@@ -428,7 +564,7 @@ __device__ __forceinline__ void tile_in_registers(
           bi = gid[r];
         }
       }
-      merge_batch(S.ls + j * k, S.li + j * k, k, bs, bi, bi != INT_MAX);
+      merge_into<LONG>(S.ls + j * k, S.li + j * k, k, bs, bi, bi != INT_MAX);
       if ((threadIdx.x & 31) == 0) set_threshold(S, j, k, gkey + j);
     }
     __syncthreads();
@@ -488,25 +624,27 @@ __device__ __forceinline__ void tile_in_registers(
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int at = base + __popc(mask[r] & ((1u << lane) - 1));
-        if (pass[r] && at < CAP) {
-          S.bs[j * CAP + at] = s[r];
-          S.bi[j * CAP + at] = gid[r];
+        if (pass[r] && at < cap) {
+          S.bs[j * cap + at] = s[r];
+          S.bi[j * cap + at] = gid[r];
         }
         base += __popc(mask[r]);
       }
       any = true;
     }
-    if (!merge_tile(S, gq, k, gkey, any)) break;
+    if (!merge_tile<LONG>(S, gq, k, gkey, any, cap)) break;
   }
 }
 
 // One tile with the rows staged in shared memory (any K): the threads
 // take (row, query) pairs, consecutive threads consecutive rows of one
 // query, and score each exactly.
+template <bool LONG>
 __device__ __forceinline__ void tile_in_shared(
     const Smem& S, const float* __restrict__ Z, bool normalize,
-    float* __restrict__ zn, int r0, int rows, int K, int gq, int k, int tile,
-    int row_offset, float eps, unsigned long long* __restrict__ gkey) {
+    float* __restrict__ zn, int r0, int rows, int K, int gq, int k, int cap,
+    int tile, int row_offset, float eps,
+    unsigned long long* __restrict__ gkey) {
   const int KP = odd_stride(K);
   __syncthreads();                       // the last tile's rows are done
   const float* src = Z + (size_t)r0 * K;
@@ -541,39 +679,33 @@ __device__ __forceinline__ void tile_in_shared(
         pass = id != S.qid[j] && better(s, id, S.ts[j], S.ti[j]);
       }
       // a warp's pairs belong to one query (tile is a multiple of 32)
-      append(S, j, pass, s, id);
+      append(S, j, pass, s, id, cap);
       any |= pass;
     }
-    if (!merge_tile(S, gq, k, gkey, any)) break;
+    if (!merge_tile<LONG>(S, gq, k, gkey, any, cap)) break;
   }
 }
 
-// Select pass.  KR > 0: rows in registers, exactly KR columns; KR == 0:
-// rows in shared memory.  Block (x, y) walks tiles [x nt / gx, (x + 1) nt
-// / gx) for query group y and writes its lists to cand[(query, x, slot)].
-template <int KR>
-__global__ void __launch_bounds__(THREADS, 2)
-    topk_select_kernel(const float* __restrict__ Z,
-                       const float* __restrict__ q,
-                       const int* __restrict__ qnodes,
-                       float* __restrict__ zn, float* __restrict__ cand_s,
-                       int* __restrict__ cand_i,
-                       unsigned long long* __restrict__ gkey, int m, int K,
-                       int nq, int k, int tile, int row_offset,
-                       int exclude_self, float eps) {
-  extern __shared__ __align__(16) char smem_raw[];
-  Smem S;
-  carve(smem_raw, K, k, tile, KR == 0, &S);
-  const int g0 = blockIdx.y * GROUP;
-  const int gq = max(0, min(GROUP, nq - g0));
-  for (int e = threadIdx.x; e < gq * K; e += THREADS)
-    S.qs[e] = q[(size_t)g0 * K + e];
+// A block's set-up for query group g0 (gq queries): ids, thresholds,
+// survivor counts, empty lists, and for the register and shared bodies
+// the queries and their prefilter margins.  Ends with the block
+// synchronized.
+__device__ __forceinline__ void init_group(const Smem& S,
+                                           const float* __restrict__ q,
+                                           const int* __restrict__ qnodes,
+                                           int g0, int gq, int K, int k,
+                                           int exclude_self, bool stage_q) {
+  if (stage_q)
+    for (int e = threadIdx.x; e < gq * K; e += THREADS)
+      S.qs[e] = q[(size_t)g0 * K + e];
   for (int j = threadIdx.x; j < gq; j += THREADS) {
     S.qid[j] = exclude_self ? qnodes[g0 + j] : -1;
-    const float* qj = q + (size_t)(g0 + j) * K;
-    float ss = 0.f;
-    for (int c = 0; c < K; ++c) ss = fmaf(qj[c], qj[c], ss);
-    S.qe[j] = margin_factor(K) * norm_floor(ss);
+    if (stage_q) {
+      const float* qj = q + (size_t)(g0 + j) * K;
+      float ss = 0.f;
+      for (int c = 0; c < K; ++c) ss = fmaf(qj[c], qj[c], ss);
+      S.qe[j] = margin_factor(K) * norm_floor(ss);
+    }
     S.cnt[j] = 0;
     S.redo[j] = 0;
     S.ts[j] = -CUDART_INF_F;
@@ -584,6 +716,48 @@ __global__ void __launch_bounds__(THREADS, 2)
     S.li[e] = INT_MAX;
   }
   __syncthreads();
+}
+
+// The block's lists to cand[(query, blockIdx.x, slot)].
+__device__ __forceinline__ void write_lists(const Smem& S, int g0, int gq,
+                                            int k, float* __restrict__ cand_s,
+                                            int* __restrict__ cand_i) {
+  __syncthreads();
+  for (int e = threadIdx.x; e < gq * k; e += THREADS) {
+    const int j = e / k, slot = e % k;
+    const size_t o = ((size_t)(g0 + j) * gridDim.x + blockIdx.x) * k + slot;
+    cand_s[o] = S.ls[e];
+    cand_i[o] = S.li[e];
+  }
+}
+
+// Select pass.  KR > 0: rows in registers, exactly KR columns; KR == 0:
+// rows in shared memory.  LONG: lists of any k <= KLIST_MAX (merged by
+// merge_batch_long), G queries a group and cap survivor slots; else
+// k <= KMAX, GROUP and CAP.  Block (x, y) walks tiles [x nt / gx, (x + 1)
+// nt / gx) for query group y and writes its lists to cand[(query, x,
+// slot)].
+template <int KR, bool LONG>
+__global__ void __launch_bounds__(THREADS, 2)
+    topk_select_kernel(const float* __restrict__ Z,
+                       const float* __restrict__ q,
+                       const int* __restrict__ qnodes,
+                       float* __restrict__ zn, float* __restrict__ cand_s,
+                       int* __restrict__ cand_i,
+                       unsigned long long* __restrict__ gkey, int m, int K,
+                       int nq, int k, int tile, int row_offset,
+                       int exclude_self, float eps, int G, int cap) {
+  extern __shared__ __align__(16) char smem_raw[];
+  if constexpr (!LONG) {
+    G = GROUP;
+    cap = CAP;
+  }
+  Smem S;
+  carve(smem_raw, KR > 0 ? BODY_REGISTERS : BODY_SHARED, K, k, G, cap, tile,
+        &S);
+  const int g0 = blockIdx.y * G;
+  const int gq = max(0, min(G, nq - g0));
+  init_group(S, q, qnodes, g0, gq, K, k, exclude_self, true);
   // every group normalizes its rows; group 0 writes Zn
   const bool normalize = zn != nullptr;
   float* zout = blockIdx.y == 0 ? zn : nullptr;
@@ -594,20 +768,350 @@ __global__ void __launch_bounds__(THREADS, 2)
     const int r0 = t * tile;
     const int rows = min(tile, m - r0);
     if constexpr (KR > 0)
-      tile_in_registers<KR>(S, Z, normalize, zout, r0, rows,
-                            t + 1 < t1 ? r0 + tile : m, m, gq, k,
-                            row_offset, eps, t == t0, gkey + g0);
+      tile_in_registers<KR, LONG>(S, Z, normalize, zout, r0, rows,
+                                  t + 1 < t1 ? r0 + tile : m, m, gq, k, cap,
+                                  row_offset, eps, t == t0, gkey + g0);
     else
-      tile_in_shared(S, Z, normalize, zout, r0, rows, K, gq, k, tile,
-                     row_offset, eps, gkey + g0);
+      tile_in_shared<LONG>(S, Z, normalize, zout, r0, rows, K, gq, k, cap,
+                           tile, row_offset, eps, gkey + g0);
+  }
+  write_lists(S, g0, gq, k, cand_s, cand_i);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// Where the chunked body's stages stand: tile t, pass (0: the row norms,
+// only with normalize; 1: the scores), chunk c of the pass.
+struct Stage {
+  int t, pass, c;
+  __device__ __forceinline__ void next(int nc, bool normalize) {
+    if (++c < nc) return;
+    c = 0;
+    if (normalize && pass == 0) {
+      pass = 1;
+      return;
+    }
+    pass = normalize ? 0 : 1;
+    ++t;
+  }
+};
+
+// Select pass for rows wider than KSMEM_MAX (any K), the chunked body: the
+// block's tiles stream through a ring of RING chunk slots, each chunk
+// kch columns of the tile's rows and of the group's queries (cp.async: 16
+// bytes at a time when K % 4 == 0 and the rows and queries start on 16
+// bytes (VEC), the rows then row-major in the slot with rows of kch + 4
+// floats, so that 8 lanes reading 8 rows' 16 bytes hit 32 banks; else 4
+// bytes at a time, any K and alignment, the rows column-major with a
+// stride of tile + 1).  A stage is one chunk; with normalize=True each
+// tile takes two passes over its chunks, the first for its row norms (in
+// common.cuh's order), the second divides each element by its row's norm
+// as it lands (group 0 writes Zn) and scores.  Thread (warp, lane) scores
+// queries qbase .. qbase + Q - 1 against rows rbase + lane + 32 r (r <
+// RC), each sum carried in a register across the chunks in column order
+// from -0.0 (which adds to the first product without changing its bits),
+// so the score is row_dot's: every (row, query) is scored exactly.  A
+// block's first tile seeds the lists, as the register body does.  After
+// each tile's last chunk the scores are filtered against each query's
+// threshold, the better of the block's own and the one the grid has
+// published (gkey, read as the last chunk began); survivors wait in the
+// buffers until one holds MERGE_AT (or overflowed), are merged as in the
+// other bodies, and an overflowed buffer rescans the tile's scores still
+// in registers.
+template <int Q, bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+    topk_select_chunked_kernel(const float* __restrict__ Z,
+                               const float* __restrict__ q,
+                               const int* __restrict__ qnodes,
+                               float* __restrict__ zn,
+                               float* __restrict__ cand_s,
+                               int* __restrict__ cand_i,
+                               unsigned long long* __restrict__ gkey, int m,
+                               int K, int nq, int k, int tile, int row_offset,
+                               int exclude_self, float eps, int G, int cap) {
+  extern __shared__ __align__(16) char smem_raw[];
+  const Chunking ch = chunking(G);       // its tile is `tile`
+  const int TR = tile, KCH = ch.kch;
+  // element (r, c) of a slot: row-major (VEC) or column-major
+  const int ZP = VEC ? KCH + 4 : tile + 1;
+  auto at = [&](int r, int c) { return VEC ? r * ZP + c : c * ZP + r; };
+  Smem S;
+  carve(smem_raw, BODY_CHUNKED, K, k, G, cap, TR, &S);
+  const int g0 = blockIdx.y * G;
+  const int gq = max(0, min(G, nq - g0));
+  init_group(S, q, qnodes, g0, gq, K, k, exclude_self, false);
+  const bool normalize = zn != nullptr;
+  float* zout = blockIdx.y == 0 ? zn : nullptr;
+  const int nt = (m + TR - 1) / TR;
+  const int t0 = (int)((long long)blockIdx.x * nt / gridDim.x);
+  const int t1 = (int)((long long)(blockIdx.x + 1) * nt / gridDim.x);
+  const int nc = (K + KCH - 1) / KCH;           // chunks a pass
+  const int stages = (t1 - t0) * nc * (normalize ? 2 : 1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qbase = (warp % ch.wq) * Q;
+  const int rbase = (warp / ch.wq) * 32 * RC;
+  const int slot = chunk_slot(ch, G);
+  // copies: thread t takes unit t % U (4 columns for VEC, else 1) of rows
+  // t / U, t / U + THREADS / U, ...
+  const int U = VEC ? KCH / 4 : KCH, W = VEC ? 4 : 1;
+  const int cu = threadIdx.x % U, rfirst = threadIdx.x / U,
+            rstep = THREADS / U;
+  const Stage first{t0, normalize ? 0 : 1, 0};
+  Stage in = first;                     // the next stage to copy
+  int issued = 0;
+  auto issue = [&]() {
+    if (issued < stages) {
+      float* zs = S.ring + (issued % RING) * slot;
+      const int r0 = in.t * TR, rows = min(TR, m - r0);
+      const int c0 = in.c * KCH, kc = min(KCH, K - c0);
+      if (W * cu < kc) {
+        const float* src = Z + (size_t)r0 * K + c0 + W * cu;
+        for (int r = rfirst; r < rows; r += rstep) {
+          if constexpr (VEC)
+            cp_async16(zs + at(r, 4 * cu), src + (size_t)r * K);
+          else
+            cp_async4(zs + at(r, cu), src + (size_t)r * K);
+        }
+        if (in.pass == 1) {
+          const float* qsrc = q + (size_t)g0 * K + c0 + W * cu;
+          float* qdst = zs + TR * (VEC ? ZP : 0) + (VEC ? 0 : KCH * ZP);
+          for (int j = rfirst; j < gq; j += rstep) {
+            if constexpr (VEC)
+              cp_async16(qdst + j * KCH + 4 * cu, qsrc + (size_t)j * K);
+            else
+              cp_async4(qdst + j * KCH + cu, qsrc + (size_t)j * K);
+          }
+        }
+      }
+      in.next(nc, normalize);
+    }
+    ++issued;
+    cp_async_commit();                  // empty past the end: counts match
+  };
+
+  float acc[Q][RC];
+  unsigned long long gk = 0;      // lane i < Q: query qbase + i's gkey
+  __shared__ int full;            // a buffer holds MERGE_AT survivors
+  if (threadIdx.x == 0) full = 0;
+  // Filter the whole tile at r0 (rows rows) whose scores are in acc: all
+  // queries, or those to rescan (redo).  A pair goes on if it beats the
+  // query's threshold: the better of the block's own and gkey's (read as
+  // the tile's last chunk began).  One atomicAdd a warp and query; a
+  // count that reaches MERGE_AT raises `full`.
+  auto filter = [&](bool all, int r0, int rows) {
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      const int j = qbase + i;
+      const unsigned long long key = __shfl_sync(FULL, gk, i);
+      if (j >= gq || !(all || S.redo[j])) continue;
+      float ts = S.ts[j];
+      int ti = S.ti[j];
+      if (key != 0ull) {
+        unsigned u = static_cast<unsigned>(key >> 32);
+        u = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
+        const float gs = __uint_as_float(u);
+        const int gi = INT_MAX - static_cast<int>(key & 0xffffffffu);
+        if (better(gs, gi, ts, ti)) {
+          ts = gs;
+          ti = gi;
+        }
+      }
+      const int self = S.qid[j];
+      bool pass[RC];
+      unsigned mask[RC];
+      int total = 0;
+#pragma unroll
+      for (int r = 0; r < RC; ++r) {
+        const int row = rbase + 32 * r + lane;
+        const int id = row_offset + r0 + row;
+        pass[r] = row < rows && id != self && better(acc[i][r], id, ts, ti);
+        mask[r] = __ballot_sync(FULL, pass[r]);
+        total += __popc(mask[r]);
+      }
+      if (total == 0) continue;
+      int base = 0;
+      if (lane == 0) {
+        base = atomicAdd(&S.cnt[j], total);
+        if (base + total >= MERGE_AT) full = 1;
+      }
+      base = __shfl_sync(FULL, base, 0);
+#pragma unroll
+      for (int r = 0; r < RC; ++r) {
+        const int pos = base + __popc(mask[r] & ((1u << lane) - 1));
+        if (pass[r] && pos < cap) {
+          S.bs[j * cap + pos] = acc[i][r];
+          S.bi[j * cap + pos] = row_offset + r0 + rbase + 32 * r + lane;
+        }
+        base += __popc(mask[r]);
+      }
+    }
+  };
+  // With the block synchronized and `full` up (read by every thread):
+  // merge every buffer, then rescan the tile's scores for the queries
+  // whose buffer overflowed, until none does.
+  auto merge = [&](int r0, int rows) {
+    while (merge_tile<true>(S, gq, k, gkey + g0, true, cap, &full)) {
+      filter(false, r0, rows);
+      __syncthreads();
+      if (!full) break;
+    }
+  };
+  int pr0 = 0, prows = 0;         // the last whole tile, its scores in acc
+  bool pending = false;           // filtered, its merge not yet decided
+  for (int n = 0; n < RING - 1; ++n) issue();
+  Stage now = first;
+  for (int n = 0; n < stages; ++n, now.next(nc, normalize)) {
+    cp_async_wait<RING - 2>();          // this thread's copies of stage n
+    __syncthreads();                    // everyone's; slot n - 1 is free
+    if (pending) {                      // the last tile's merge, if due
+      pending = false;
+      if (full) merge(pr0, prows);
+    }
+    issue();
+    float* zs = S.ring + (n % RING) * slot;
+    const float* qs = zs + (VEC ? TR * ZP : KCH * ZP);
+    const int r0 = now.t * TR, rows = min(TR, m - r0);
+    const int c0 = now.c * KCH, kc = min(KCH, K - c0);
+    if (now.pass == 0) {                // row norms, column by column
+      for (int r = threadIdx.x; r < rows; r += THREADS) {
+        float ss = c0 == 0 ? -0.f : S.dn[r];
+        for (int c = 0; c < kc; ++c) {
+          const float v = zs[at(r, c)];
+          ss = __fadd_rn(ss, __fmul_rn(v, v));
+        }
+        S.dn[r] = c0 + kc == K ? fmaxf(__fsqrt_rn(ss), eps) : ss;
+      }
+      continue;
+    }
+    if (normalize) {
+      if (W * cu < kc)
+        for (int r = rfirst; r < rows; r += rstep) {
+          const float d = S.dn[r];
+#pragma unroll
+          for (int e = 0; e < W; ++e) {
+            float* p = zs + at(r, W * cu + e);
+            *p = __fdiv_rn(*p, d);
+            if (zout != nullptr)
+              zout[(size_t)(r0 + r) * K + c0 + W * cu + e] = *p;
+          }
+        }
+      __syncthreads();
+    }
+    if (c0 == 0) {
+#pragma unroll
+      for (int i = 0; i < Q; ++i)
+#pragma unroll
+        for (int r = 0; r < RC; ++r) acc[i][r] = -0.f;
+    }
+    if (c0 + kc == K && lane < Q && qbase + lane < gq)
+      gk = *reinterpret_cast<volatile unsigned long long*>(gkey + g0 +
+                                                            qbase + lane);
+    if (qbase < gq) {
+      const float* qb = qs + qbase * KCH;
+      int c = 0;
+      for (; c + 4 <= kc; c += 4) {
+        float z[4][RC];
+#pragma unroll
+        for (int r = 0; r < RC; ++r) {
+          const int row = rbase + 32 * r + lane;
+          if constexpr (VEC) {
+            const float4 v4 = *reinterpret_cast<const float4*>(zs + at(row, c));
+            z[0][r] = v4.x;
+            z[1][r] = v4.y;
+            z[2][r] = v4.z;
+            z[3][r] = v4.w;
+          } else {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) z[u][r] = zs[at(row, c + u)];
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < Q; ++i) {
+          const float4 v = *reinterpret_cast<const float4*>(qb + i * KCH + c);
+#pragma unroll
+          for (int r = 0; r < RC; ++r) {
+            float a = acc[i][r];
+            a = __fadd_rn(a, __fmul_rn(v.x, z[0][r]));
+            a = __fadd_rn(a, __fmul_rn(v.y, z[1][r]));
+            a = __fadd_rn(a, __fmul_rn(v.z, z[2][r]));
+            acc[i][r] = __fadd_rn(a, __fmul_rn(v.w, z[3][r]));
+          }
+        }
+      }
+      for (; c < kc; ++c) {           // a ragged last chunk (not VEC)
+        float z[RC];
+#pragma unroll
+        for (int r = 0; r < RC; ++r) z[r] = zs[at(rbase + 32 * r + lane, c)];
+#pragma unroll
+        for (int i = 0; i < Q; ++i) {
+          const float v = qb[i * KCH + c];
+#pragma unroll
+          for (int r = 0; r < RC; ++r)
+            acc[i][r] = __fadd_rn(acc[i][r], __fmul_rn(v, z[r]));
+        }
+      }
+    }
+    if (c0 + kc < K) continue;
+    if (now.t == t0) {
+      // The block's first tile: the warps of the first rows seed each of
+      // their queries' lists with the best of each lane's RC rows, so
+      // that the first pass filters against the k-th of those 32 and
+      // not (-inf, INT_MAX).  The pass offers these rows again; the
+      // merge skips them as held.
+      if (rbase == 0 && qbase < gq) {
+#pragma unroll
+        for (int i = 0; i < Q; ++i) {
+          const int j = qbase + i;
+          if (j >= gq) break;
+          float bs = -CUDART_INF_F;
+          int bi = INT_MAX;
+#pragma unroll
+          for (int r = 0; r < RC; ++r) {
+            const int row = 32 * r + lane;
+            const int id = row_offset + r0 + row;
+            if (row < rows && id != S.qid[j] &&
+                better(acc[i][r], id, bs, bi)) {
+              bs = acc[i][r];
+              bi = id;
+            }
+          }
+          merge_batch_long(S.ls + j * k, S.li + j * k, k, bs, bi,
+                           bi != INT_MAX);
+          if (lane == 0) set_threshold(S, j, k, gkey + g0 + j);
+        }
+      }
+      __syncthreads();
+    }
+    // the tile's scores are whole: filter them now, and let the next
+    // stage's barrier decide whether a buffer is due for a merge
+    filter(true, r0, rows);
+    pending = true;
+    pr0 = r0;
+    prows = rows;
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < gq * k; e += THREADS) {
-    const int j = e / k, slot = e % k;
-    const size_t o = ((size_t)(g0 + j) * gridDim.x + blockIdx.x) * k + slot;
-    cand_s[o] = S.ls[e];
-    cand_i[o] = S.li[e];
-  }
+  if (pending && full) merge(pr0, prows);
+  merge_tile<true>(S, gq, k, gkey + g0, true, cap);   // what still waits
+  write_lists(S, g0, gq, k, cand_s, cand_i);
 }
 
 // Merge pass: block j selects query j's top-k from its nb x k candidates
@@ -648,6 +1152,91 @@ __global__ void __launch_bounds__(THREADS)
     out_s[(size_t)j * k + t] = ls[t];
     out_i[(size_t)j * k + t] =
         li[t] == INT_MAX || !isfinite(ls[t]) ? -1 : li[t];
+  }
+}
+
+// Merge pass for k in (KMAX, KLIST_MAX]: block j selects query j's top-k
+// from its nb x k candidates in batches of THREADS, the list in shared
+// memory (two copies, the new one written from the old).  A candidate
+// goes on only if it beats the list's k-th slot and is not held (binary
+// search: its rank, and a held row sits at its rank); the survivors of
+// the batch gather in shared memory (any order), and each then takes slot
+// rank + the survivors better than it, while each list entry moves down
+// by the survivors whose rank is at most its slot.  The same selection as
+// merge_batch_long, for the whole block at once.
+__global__ void __launch_bounds__(THREADS)
+    topk_merge_long_kernel(const float* __restrict__ cand_s,
+                           const int* __restrict__ cand_i,
+                           float* __restrict__ out_s, int* __restrict__ out_i,
+                           int nb, int k) {
+  extern __shared__ __align__(16) char smem_raw[];
+  float* ls[2] = {reinterpret_cast<float*>(smem_raw),
+                  reinterpret_cast<float*>(smem_raw) + k};
+  int* li[2] = {reinterpret_cast<int*>(smem_raw) + 2 * k,
+                reinterpret_cast<int*>(smem_raw) + 3 * k};
+  float* bs = reinterpret_cast<float*>(smem_raw) + 4 * k;
+  int* bi = reinterpret_cast<int*>(bs + THREADS);
+  int* br = bi + THREADS;
+  __shared__ int nsurv;
+  const int j = blockIdx.x;
+  const size_t total = (size_t)nb * k;
+  const float* cs = cand_s + (size_t)j * total;
+  const int* ci = cand_i + (size_t)j * total;
+  for (int t = threadIdx.x; t < k; t += THREADS) {
+    ls[0][t] = -CUDART_INF_F;
+    li[0][t] = INT_MAX;
+  }
+  __syncthreads();
+  int cur = 0;
+  for (size_t b = 0; b < total; b += THREADS) {
+    const size_t e = b + threadIdx.x;
+    bool v = e < total;
+    const float s = v ? cs[e] : 0.f;
+    const int i = v ? ci[e] : 0;
+    const float* os = ls[cur];
+    const int* oi = li[cur];
+    v = v && better(s, i, os[k - 1], oi[k - 1]);
+    if (threadIdx.x == 0) nsurv = 0;
+    if (!__syncthreads_or(v)) continue;
+    int rank = 0;
+    for (int step = 1 << (31 - __clz(k)); step > 0; step >>= 1)
+      if (rank + step <= k &&
+          better(os[rank + step - 1], oi[rank + step - 1], s, i))
+        rank += step;
+    v = v && !(rank < k && oi[rank] == i);
+    if (v) {
+      const int at = atomicAdd(&nsurv, 1);
+      bs[at] = s;
+      bi[at] = i;
+      br[at] = rank;
+    }
+    __syncthreads();
+    const int n = nsurv;
+    float* ns = ls[cur ^ 1];
+    int* ni = li[cur ^ 1];
+    if (v) {
+      int slot = rank;
+      for (int u = 0; u < n; ++u) slot += better(bs[u], bi[u], s, i);
+      if (slot < k) {
+        ns[slot] = s;
+        ni[slot] = i;
+      }
+    }
+    for (int t = threadIdx.x; t < k; t += THREADS) {
+      int p = t;
+      for (int u = 0; u < n; ++u) p += br[u] <= t;
+      if (p < k) {
+        ns[p] = os[t];
+        ni[p] = oi[t];
+      }
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+  for (int t = threadIdx.x; t < k; t += THREADS) {
+    out_s[(size_t)j * k + t] = ls[cur][t];
+    out_i[(size_t)j * k + t] =
+        li[cur][t] == INT_MAX || !isfinite(ls[cur][t]) ? -1 : li[cur][t];
   }
 }
 
@@ -751,7 +1340,7 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// General merge pass (k > KMAX): one warp per query, its list in out.
+// General merge pass (k > KLIST_MAX): one warp per query, its list in out.
 __global__ void __launch_bounds__(32)
     topk_merge_general_kernel(const float* __restrict__ cand_s,
                               const int* __restrict__ cand_i, float* out_s,
@@ -858,48 +1447,140 @@ int set_smem(const void* fn, size_t bytes) {
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// How the select pass runs for (K, k, row alignment): which body, its
-// tile, and its shared memory.
+// How the select pass runs for (K, k, nq, row alignment): which body and
+// kernel, its query group, tile, survivor slots and shared memory.
 struct SelectPlan {
   const void* fn;
-  int tile;
+  int body, group, tile, cap;
+  bool vec;               // rows on 16 bytes, K % 4 == 0 (chunked body)
   size_t smem;
 };
 
-SelectPlan select_plan(const float* Z, int K, int k) {
-  SelectPlan p;
-  const bool vec = (reinterpret_cast<uintptr_t>(Z) & 15) == 0;
-  bool smem_rows = false;
-  if (vec && K == 8) {
-    p.fn = (const void*)topk_select_kernel<8>;
-  } else if (vec && K == 16) {
-    p.fn = (const void*)topk_select_kernel<16>;
-  } else if (vec && K == 32) {
-    p.fn = (const void*)topk_select_kernel<32>;
-  } else {
-    p.fn = (const void*)topk_select_kernel<0>;
-    smem_rows = true;
+// The register and shared bodies' tile: R = 64 / K rows a thread, or
+// about 32 KiB of rows, 32 to 256 of them (a multiple of 32: a warp's
+// pairs share a query)
+int body_tile(int body, int K, int G) {
+  if (body == BODY_CHUNKED) return chunking(G).tile;
+  return body == BODY_SHARED ? max(32, min(THREADS, (8192 / K) / 32 * 32))
+                             : THREADS * (64 / K);
+}
+
+template <bool VEC>
+const void* chunked_fn(int G) {
+  switch (chunking(G).q) {
+    case 8: return (const void*)topk_select_chunked_kernel<8, VEC>;
+    case 4: return (const void*)topk_select_chunked_kernel<4, VEC>;
+    case 2: return (const void*)topk_select_chunked_kernel<2, VEC>;
+    default: return (const void*)topk_select_chunked_kernel<1, VEC>;
   }
-  // register body: R = 64 / K rows a thread; shared body: about 32 KiB of
-  // rows, 32 to 256 of them (a multiple of 32: a warp's pairs share a
-  // query)
-  p.tile = smem_rows ? max(32, min(THREADS, (8192 / K) / 32 * 32))
-                     : THREADS * (64 / K);
+}
+
+const void* select_fn(int body, int K, bool is_long, int G, bool vec) {
+  if (body == BODY_CHUNKED)
+    return vec ? chunked_fn<true>(G) : chunked_fn<false>(G);
+  if (body == BODY_SHARED)
+    return is_long ? (const void*)topk_select_kernel<0, true>
+                   : (const void*)topk_select_kernel<0, false>;
+  if (K == 8)
+    return is_long ? (const void*)topk_select_kernel<8, true>
+                   : (const void*)topk_select_kernel<8, false>;
+  if (K == 16)
+    return is_long ? (const void*)topk_select_kernel<16, true>
+                   : (const void*)topk_select_kernel<16, false>;
+  return is_long ? (const void*)topk_select_kernel<32, true>
+                 : (const void*)topk_select_kernel<32, false>;
+}
+
+// The plan for k <= KLIST_MAX.  k <= KMAX on the register and shared
+// bodies: GROUP queries, CAP slots, as always.  Otherwise (long lists, or
+// the chunked body) cap = max(2k, CAP_MIN), and the group is the largest
+// power of two, at most GROUP and no larger than nq needs, that fits one
+// block in shared memory, halved once where that lets two blocks share
+// an SM (each halving reads the rows once more); one query always fits
+// (k <= KLIST_MAX).
+int select_plan(const float* Z, int K, int k, int nq, SelectPlan* p) {
+  const bool vec = (reinterpret_cast<uintptr_t>(Z) & 15) == 0;
+  p->body = vec && (K == 8 || K == 16 || K == 32) ? BODY_REGISTERS
+            : K <= KSMEM_MAX                      ? BODY_SHARED
+                                                  : BODY_CHUNKED;
+  const bool is_long = k > KMAX || p->body == BODY_CHUNKED;
   Smem unused;
-  p.smem = carve(nullptr, K, k, p.tile, smem_rows, &unused);
-  return p;
+  if (!is_long) {
+    p->group = GROUP;
+    p->cap = CAP;
+  } else {
+    int dev = 0, per_block = 0, per_sm = 0, reserved = 0;
+    int err = (int)cudaGetDevice(&dev);
+    if (!err)
+      err = (int)cudaDeviceGetAttribute(
+          &per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (!err)
+      err = (int)cudaDeviceGetAttribute(
+          &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    if (!err)
+      err = (int)cudaDeviceGetAttribute(
+          &reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+    if (err) return err;
+    p->cap = max(2 * k, CAP_MIN);
+    auto bytes = [&](int G) {
+      return carve(nullptr, p->body, K, k, G, p->cap,
+                   body_tile(p->body, K, G), &unused);
+    };
+    int top = 1;
+    while (top < min(nq, GROUP)) top *= 2;
+    int G = top;                        // the largest group one block fits
+    while (G > 1 && bytes(G) > (size_t)per_block) G /= 2;
+    if (bytes(G) > (size_t)per_block) return (int)cudaErrorInvalidValue;
+    // half of it, where that lets two blocks share an SM
+    if (G > 1 && 2 * (bytes(G) + reserved) > (size_t)per_sm &&
+        2 * (bytes(G / 2) + reserved) <= (size_t)per_sm)
+      G /= 2;
+    p->group = G;
+  }
+  p->tile = body_tile(p->body, K, p->group);
+  p->smem = carve(nullptr, p->body, K, k, p->group, p->cap, p->tile,
+                  &unused);
+  p->vec = p->body == BODY_CHUNKED && vec && K % 4 == 0;
+  p->fn = select_fn(p->body, K, is_long, p->group, p->vec);
+  return 0;
 }
 
 }  // namespace
 
+// How the select pass runs for these arguments: info[0] the body (0
+// registers, 1 shared, 2 chunked, 3 general), [1] queries a group, [2]
+// rows a tile, [3] survivor slots a query, [4] shared memory bytes, [5]
+// columns a chunk (chunked body; else 0), [6] 1 where the chunked body
+// copies 16 bytes at a time (for queries on 16 bytes too).
+extern "C" int topk_select_info(const float* Z, int K, int k, int nq,
+                                int* info) {
+  for (int i = 0; i < 7; ++i) info[i] = 0;
+  if (general_path(k)) {
+    info[0] = BODY_GENERAL;
+    return 0;
+  }
+  SelectPlan p;
+  const int err = select_plan(Z, K, k, nq, &p);
+  if (err) return err;
+  info[0] = p.body;
+  info[1] = p.group;
+  info[2] = p.tile;
+  info[3] = p.cap;
+  info[4] = (int)p.smem;
+  info[5] = p.body == BODY_CHUNKED ? chunking(p.group).kch : 0;
+  info[6] = p.vec;
+  return 0;
+}
+
 // Candidate lists per query of the select pass for m rows, 0 for no rows;
 // the wrapper sizes the candidate scratch (nq x grid x k) from it.  The
-// bodies for k <= KMAX, K <= KSMEM_MAX: blocks along x, as many as fit on
-// the card at once (occupancy API), at most one per tile.  The general
-// path: selectors (warps), GEN_WARPS a block, about four blocks an SM in
-// all over the nq queries, and at least 1,024 rows a block.  max_grid > 0
-// caps the grid (on the general path at whole blocks, at least one); 0
-// leaves it as chosen.  The answer has the same bits for any grid.
+// shared-memory bodies (k <= KLIST_MAX): blocks along x, as many as fit
+// on the card at once (occupancy API), shared among the query groups for
+// long lists and the chunked body, at most one per tile.  The general path: selectors (warps), GEN_WARPS a
+// block, about four blocks an SM in all over the nq queries, and at least
+// 1,024 rows a block.  max_grid > 0 caps the grid (on the general path at
+// whole blocks, at least one); 0 leaves it as chosen.  The answer has the
+// same bits for any grid.
 extern "C" int topk_select_grid(const float* Z, int m, int K, int k, int nq,
                                 int max_grid, int* grid) {
   *grid = 0;
@@ -910,7 +1591,7 @@ extern "C" int topk_select_grid(const float* Z, int m, int K, int k, int nq,
     err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                       dev);
   if (err) return err;
-  if (general_path(K, k)) {
+  if (general_path(k)) {
     const int want = (4 * sms + max(nq, 1) - 1) / max(nq, 1);
     const int most = (m + GEN_WARPS * 1024 - 1) / (GEN_WARPS * 1024);
     int blocks = max(1, min(want, min(most, 65535)));
@@ -918,15 +1599,20 @@ extern "C" int topk_select_grid(const float* Z, int m, int K, int k, int nq,
     *grid = GEN_WARPS * blocks;
     return 0;
   }
-  const SelectPlan p = select_plan(Z, K, k);
-  err = set_smem(p.fn, p.smem);
+  SelectPlan p;
+  err = select_plan(Z, K, k, nq, &p);
+  if (!err) err = set_smem(p.fn, p.smem);
   if (err) return err;
   int per_sm = 0;
   err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, p.fn, THREADS, p.smem);
   if (err) return err;
+  // long lists and the chunked body share one wave among their query
+  // groups; the main bodies (k <= KMAX) give each group a wave, as before
+  const bool is_long = k > KMAX || p.body == BODY_CHUNKED;
+  const int groups = is_long ? max(1, (nq + p.group - 1) / p.group) : 1;
   const int tiles = (m + p.tile - 1) / p.tile;
-  *grid = max(1, min(tiles, sms * max(per_sm, 1)));
+  *grid = max(1, min(tiles, (sms * max(per_sm, 1) + groups - 1) / groups));
   if (max_grid > 0) *grid = min(*grid, max_grid);
   return 0;
 }
@@ -941,7 +1627,7 @@ extern "C" int topk_select_launch(const float* Z, const float* q,
                                   int nq, int k, int grid, int row_offset,
                                   int exclude_self, float eps, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (general_path(K, k)) {
+  if (general_path(k)) {
     if (zn != nullptr) {
       normalize_rows_kernel<<<(m + THREADS - 1) / THREADS, THREADS, 0, st>>>(
           Z, zn, m, K, eps);
@@ -953,13 +1639,19 @@ extern "C" int topk_select_launch(const float* Z, const float* q,
                                          k, grid, row_offset, exclude_self);
     return (int)cudaGetLastError();
   }
-  SelectPlan p = select_plan(Z, K, k);
-  int err = set_smem(p.fn, p.smem);
+  SelectPlan p;
+  int err = select_plan(Z, K, k, nq, &p);
+  // the chunked body copies the queries 16 bytes at a time too
+  if (!err && p.vec && (reinterpret_cast<uintptr_t>(q) & 15) != 0) {
+    p.vec = false;
+    p.fn = select_fn(p.body, K, true, p.group, false);
+  }
+  if (!err) err = set_smem(p.fn, p.smem);
   if (err) return err;
-  const dim3 blocks(grid, max(1, (nq + GROUP - 1) / GROUP));
+  const dim3 blocks(grid, max(1, (nq + p.group - 1) / p.group));
   void* args[] = {&Z,      &q,  &qnodes, &zn, &cand_s, &cand_i,
                   &gkey,   &m,  &K,      &nq, &k,      &p.tile,
-                  &row_offset, &exclude_self, &eps};
+                  &row_offset, &exclude_self, &eps, &p.group, &p.cap};
   err = (int)cudaLaunchKernel(p.fn, blocks, dim3(THREADS), args, p.smem, st);
   if (err) return err;
   return (int)cudaGetLastError();
@@ -972,12 +1664,19 @@ extern "C" int topk_merge_launch(const float* cand_s, const int* cand_i,
                                  int k, void* stream) {
   if (nq == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (k > KMAX)
-    topk_merge_general_kernel<<<nq, 32, 0, st>>>(cand_s, cand_i, out_s,
-                                                  out_i, grid, k);
-  else
+  if (k <= KMAX) {
     topk_merge_kernel<<<nq, THREADS, 0, st>>>(cand_s, cand_i, out_s, out_i,
                                               grid, k);
+  } else if (!general_path(k)) {
+    const size_t smem = sizeof(float) * (4 * (size_t)k + 3 * THREADS);
+    const int err = set_smem((const void*)topk_merge_long_kernel, smem);
+    if (err) return err;
+    topk_merge_long_kernel<<<nq, THREADS, smem, st>>>(cand_s, cand_i, out_s,
+                                                      out_i, grid, k);
+  } else {
+    topk_merge_general_kernel<<<nq, 32, 0, st>>>(cand_s, cand_i, out_s,
+                                                  out_i, grid, k);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -11,11 +11,16 @@ On CPU tensors each wrapper runs its plain version (the forward the
 reference's dense oracle, `kernels/ref.py`); on CUDA tensors it launches
 the kernel or raises.  The kernel takes float32 or bfloat16, any head
 dim and any S (a ragged last tile is masked).  Its two main bodies take
-D in {16, 32, 64, 128}; a head dim below 128 outside that set is
-zero-padded on the last axis to the next one and launched with the real
-D ** -0.5 as its scale: the zero columns add exact zeros to every score
-and give zero output columns, which are sliced off, so the answer is the
-unpadded one.  The two bodies pick their own tiles: bfloat16 runs both
+D in {16, 32, 64, 128}.  A head dim below 128 outside that set runs the
+body of the next one, with the real D ** -0.5 as its scale, and zero
+columns up to the body's width: they add exact zeros to every score and
+give output columns that are dropped, so the answer is the unpadded
+one.  At bfloat16 with D a multiple of 8 (a row of whole 16-byte units,
+which TMA needs; h2o-danube's 120) the kernel reads the operands in
+place and TMA zero-fills those columns in shared memory, and the output
+is written at its real width: no copy (`_forward_route`).  Any other
+such D (and float32) gets zero-padded copies, sliced back after.  The
+two bodies pick their own tiles: bfloat16 runs both
 products on the tensor cores (wgmma, TMA-fed) in 128 x 128 tiles,
 float32 runs on the CUDA cores in 64 x 64 tiles.  A head dim above 128
 runs a third, simple body in either dtype (``flash_attention_wide_launch``:
@@ -101,6 +106,19 @@ def _pad(D):
     return next(d for d in HEAD_DIMS if d >= D)
 
 
+def _forward_route(dtype, D):
+    """How the forward runs head dim D at `dtype`: (route, body head
+    dim), route "in place" (the operands as they are, the body's columns
+    past D zero-filled by TMA when D < body), "padded" (zero-padded copies
+    of q, k, v, and the output sliced back) or "wide" (the D > 128 body)."""
+    if D > HEAD_DIMS[-1]:
+        return "wide", D
+    body = _pad(D)
+    if body == D or (dtype == torch.bfloat16 and D % 8 == 0):
+        return "in place", body
+    return "padded", body
+
+
 def _align(q, D):
     """The byte multiple the kernels need of an operand's start and
     strides: 16 for the bfloat16 tensor-core bodies (TMA maps, paired
@@ -152,28 +170,28 @@ def _forward(q, k, v, *, with_lse):
     """Check and launch the forward on CUDA tensors; (out, lse or None)."""
     B, H, KV, S, D = _shapes(q, k, v)
     dev = q.device
-    wide = D > HEAD_DIMS[-1]
+    route, Dp = _forward_route(q.dtype, D)
     # the grid's y dimension: B * H (float32 and wide bodies) or the
     # query tiles (bfloat16 body)
-    grid_y = (B * H if wide or q.dtype == torch.float32
+    grid_y = (B * H if route == "wide" or q.dtype == torch.float32
               else -(-S // TILES[q.dtype][0]))
     if grid_y > MAX_GRID_Y:
         raise ValueError(f"{grid_y} blocks along the grid's y dimension > "
                          f"{MAX_GRID_Y}")
-    Dp = D if wide else _pad(D)
-    if Dp != D:         # zero columns: exact zeros in every score
+    if route == "padded":   # zero columns: exact zeros in every score
         q, k, v = (torch.nn.functional.pad(x, (0, Dp - D)) for x in (q, k, v))
+    width = Dp if route == "padded" else D      # the operands' last axis
     align = _align(q, Dp)
-    _build.require("q", q, q.dtype, (B, H, S, Dp), dev, align=align)
-    _build.require("k", k, q.dtype, (B, KV, S, Dp), dev, align=align)
-    _build.require("v", v, q.dtype, (B, KV, S, Dp), dev, align=align)
+    _build.require("q", q, q.dtype, (B, H, S, width), dev, align=align)
+    _build.require("k", k, q.dtype, (B, KV, S, width), dev, align=align)
+    _build.require("v", v, q.dtype, (B, KV, S, width), dev, align=align)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
            if with_lse else None)
     lse_ptr = lse.data_ptr() if with_lse else None
     bf16 = int(q.dtype == torch.bfloat16)
     o = torch.empty_like(q)         # q's layout: the model's, read in place
     strides = _strides(q, k, v, o)
-    if wide:
+    if route == "wide":
         ws = torch.empty((B, H, S, D), dtype=torch.float32, device=dev)
         fn = _build.function("flash_attention", "flash_attention_wide_launch",
                              [_build.P] * 7 + [_build.I] * 6
@@ -186,15 +204,15 @@ def _forward(q, k, v, *, with_lse):
         _build.launches["flash_attention"] += 1
         return o, lse
     fn = _build.function("flash_attention", "flash_attention_launch",
-                         [_build.P] * 6 + [_build.I] * 6
+                         [_build.P] * 6 + [_build.I] * 7
                          + [_build.F, _build.P])
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse_ptr, strides, B, H, KV, S, Dp, bf16, D ** -0.5,
+                 lse_ptr, strides, B, H, KV, S, Dp, width, bf16, D ** -0.5,
                  _build.stream_of(dev))
     _build.check("flash_attention", err)
     _build.launches["flash_attention"] += 1
-    return (o if Dp == D else o[..., :D].contiguous()), lse
+    return (o if width == D else o[..., :D].contiguous()), lse
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do):

@@ -16,13 +16,20 @@ The port of `repro.kernels.query_fused` (``csrc/query_fused.cu``):
     Z_new = Z + delta contributions, Zn = normalize_rows(Z_new), for the
     whole owned slice, with Z read once.
 
-Both take any width.  The select bodies that the main path runs hold
-their lists, buffers and query group in shared memory, for k <= 64 and
-K <= 256; any other (K, k) takes a general path that scores rows from
-device memory and keeps its lists there, chosen by the launchers from
-the shape.  The delta kernel stages 256 rows in shared memory for
-K <= 128 and works on its rows in device memory above that.  The answer
-has the same bits either way.
+Both take any width.  The select pass has three bodies that hold their
+lists, survivor buffers and query group in shared memory, for any
+k <= KLIST_MAX = 4096: rows in registers (K in {8, 16, 32}, rows on 16
+bytes), rows in shared memory (other K <= 256), and rows streamed in
+column chunks (K > 256, the chunked body: every score exact, its sums
+carried across the chunks in column order).  Past k = 64 the lists are
+merged by rank with a binary search, the group shrinks from 64 queries
+until the lists fit, and the merge pass is one block per query with its
+list in shared memory.  Only k > 4096 (lists too long for shared memory
+at one query a block) takes the general path, which scores rows from
+device memory and keeps its lists there.  The launchers choose by shape
+(`select_info` says which body a call takes).  The delta kernel stages
+256 rows in shared memory for K <= 128 and works on its rows in device
+memory above that.  The answer has the same bits either way.
 
 **One arithmetic for norms and scores.**  `normalize_rows` and
 `row_scores` spell out a fixed-order elementwise loop over the K
@@ -48,6 +55,9 @@ from repro_torch.core.gee import scatter_add_ordered
 from repro_torch.kernels import _build
 
 EPS = 1e-9        # normalize_rows' clamp
+#: the select pass's bodies, by the code `topk_select_info` returns
+SELECT_BODIES = ("registers", "shared", "chunked", "general")
+KLIST_MAX = 4096  # the longest list the shared-memory bodies keep
 
 
 def normalize_rows(X: torch.Tensor, eps: float = EPS) -> torch.Tensor:
@@ -157,6 +167,23 @@ def _topk_select(Z_rows, q, qnodes, zn, *, k: int, row_offset: int,
                  _build.stream_of(dev))
         _build.check("query_fused", err)
     return cand_s, cand_i
+
+
+def select_info(Z_rows, *, k: int, nq: int) -> dict:
+    """How the select pass runs `topk_fused` on these rows (CUDA): its
+    body (one of `SELECT_BODIES`), queries a group, rows a tile, survivor
+    slots a query, shared memory bytes a block, columns a chunk (the
+    chunked body; else 0) and whether the chunked body copies 16 bytes at
+    a time (`vec`: K % 4 == 0 and rows and queries on 16 bytes)."""
+    info = (ctypes.c_int * 7)()
+    m, K = Z_rows.shape
+    with torch.cuda.device(Z_rows.device):
+        err = _build.function("query_fused", "topk_select_info",
+                              [_build.P] + [_build.I] * 3 + [_build.P])(
+            Z_rows.data_ptr(), K, k, nq, info)
+    _build.check("query_fused", err)
+    return dict(body=SELECT_BODIES[info[0]], group=info[1], tile=info[2],
+                cap=info[3], smem=info[4], chunk=info[5], vec=bool(info[6]))
 
 
 def _topk_merge(cand_s, cand_i, *, k: int):

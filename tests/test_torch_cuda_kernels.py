@@ -227,13 +227,22 @@ def test_gee_delta_renorm_wide(dev, rng, K):
         assert _same(x.cpu(), z)
 
 
-# the general select path: K > 256 or k > 64 (any other shape is the
-# register or shared-memory body), k beyond the candidates included
+# wide rows and long lists: K > 256 takes the chunked body, k > 64 the
+# long-list bodies (k <= 4096), k > 4096 the general path; k beyond the
+# candidates included
 TOPK_WIDE_SHAPES = [
     (257, 3000, 65, 10, 3), (300, 5000, 64, 10, 7), (512, 2000, 3, 64, 2),
     (16, 70001, 64, 65, 7), (16, 5000, 64, 100, 3), (8, 3000, 5, 256, 4),
     (300, 1500, 64, 100, 5), (16, 40, 7, 100, 2), (300, 3, 4, 70, 1),
-    (300, 3, 4, 8, 1)]
+    (300, 3, 4, 8, 1),
+    (300, 20000, 64, 100, 3), (1024, 3000, 5, 1024, 3),
+    (512, 2000, 130, 256, 2), (301, 2000, 9, 10, 3), (33, 5000, 64, 100, 7),
+    (16, 70001, 64, 1024, 7), (257, 700, 3, 4096, 1),
+    (16, 5000, 3, 4100, 3),     # past the shared-memory lists: general
+    # many tiles a block: thresholds shared across blocks (gkey),
+    # buffers that fill and merge
+    (300, 70000, 64, 10, 3), (257, 66000, 5, 100, 2),
+    (1024, 65536, 3, 1024, 4)]
 
 
 @pytest.mark.parametrize("normalize", [False, True])
@@ -252,6 +261,40 @@ def test_topk_fused_wide(dev, rng, normalize, exclude_self, K, m, nq, k,
         vals, idxs = QF.topk_fused(Zn, q, qn, k=k)
         assert bool((idxs[:, m:] == -1).all())
         assert bool(torch.isneginf(vals[:, m:]).all())
+
+
+@pytest.mark.parametrize("K,k,nq,aligned,body", [
+    (16, 10, 64, True, "registers"), (16, 100, 64, True, "registers"),
+    (16, 10, 64, False, "shared"), (33, 100, 64, True, "shared"),
+    (256, 1024, 3, True, "shared"), (257, 10, 64, True, "chunked"),
+    (300, 100, 5, True, "chunked"), (1024, 4096, 1, True, "chunked"),
+    (16, 4097, 2, True, "general"), (300, 5000, 2, True, "general")])
+def test_topk_select_body_by_shape(dev, rng, K, k, nq, aligned, body):
+    """The launchers pick the body from the shape: k <= 64 on the
+    register and shared bodies keeps its 64-query group and 128 slots;
+    longer lists and the chunked body shrink the group until the lists
+    fit, with 2k slots (at least 32); only k > 4096 takes the general
+    path.  The answer is the plain scan's at every one."""
+    m = 3000
+    Zn = QF.normalize_rows(torch.as_tensor(
+        rng.normal(size=(m, K)).astype(np.float32), device=dev))
+    if not aligned:             # rows that do not start on 16 bytes
+        flat = torch.empty(m * K + 1, device=dev)
+        flat[1:].view(m, K).copy_(Zn)
+        Zn = flat[1:].view(m, K)
+        assert Zn.data_ptr() % 16 != 0
+    info = QF.select_info(Zn, k=k, nq=nq)
+    assert info["body"] == body, info
+    if body != "general":
+        assert info["group"] & (info["group"] - 1) == 0
+        assert info["smem"] <= 232_448
+        if k <= 64 and body != "chunked":
+            assert (info["group"], info["cap"]) == (64, 128)
+        else:
+            assert info["cap"] == max(2 * k, 32)
+            assert info["group"] <= max(1, 1 << (nq - 1).bit_length())
+    qn = torch.as_tensor(rng.integers(0, m, nq).astype(np.int32), device=dev)
+    _check_topk(Zn, Zn[qn.long()].contiguous(), qn, k=k)
 
 
 def test_wrappers_refuse_bad_inputs(dev):
@@ -418,6 +461,49 @@ def test_flash_reads_the_model_layout_in_place(dev, rng, dtype, D, B, H,
     ks, vs = k[:, sl], v[:, sl]
     assert _same(FA.flash_attention(qs, ks, vs),
                  FA.flash_attention(*(x.contiguous() for x in (qs, ks, vs))))
+
+
+@pytest.mark.parametrize("D", [40, 72, 96, 120])
+@pytest.mark.parametrize("B,H,KV,S", [(2, 8, 2, 130), (1, 32, 8, 257)])
+def test_flash_narrow_heads_read_in_place(dev, rng, D, B, H, KV, S):
+    """bfloat16 head dims below the body's, multiples of 8, in the
+    model's (B, S, H, D) layout: the kernel reads them in place (TMA
+    zero-fills the body's columns past D), writes the output at its real
+    width in `torch.empty_like(q)`'s memory, and launches no pad or copy
+    around it; the answer is the plain version's (bfloat16 tolerance) and
+    the zero-padded launch's bit for bit."""
+    assert FA._forward_route(torch.bfloat16, D)[0] == "in place"
+    q, k, v = (torch.as_tensor(rng.normal(size=(B, S, h, D)).astype(
+        np.float32), device=dev).bfloat16().transpose(1, 2)
+        for h in (H, KV, KV))
+    before = _build.launches["flash_attention"]
+    o = FA.flash_attention(q, k, v)
+    assert _build.launches["flash_attention"] == before + 1
+    e = torch.empty_like(q)
+    assert o.stride() == e.stride() and o.shape == q.shape
+    assert o.transpose(1, 2).is_contiguous()
+    assert _same(o, FA.flash_attention(q, k, v))
+    p = FA.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(o.float(), p.float(), atol=2e-2, rtol=2e-2)
+    # the zero-padded launch at the same scale: the same bits
+    Dp = FA._pad(D)
+    qp, kp, vp = (torch.nn.functional.pad(x, (0, Dp - D)) for x in (q, k, v))
+    op = torch.empty_like(qp)
+    fn = _build.function("flash_attention", "flash_attention_launch",
+                         [_build.P] * 6 + [_build.I] * 7
+                         + [_build.F, _build.P])
+    err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), op.data_ptr(),
+             None, FA._strides(qp, kp, vp, op), B, H, KV, S, Dp, Dp, 1,
+             D ** -0.5, _build.stream_of(dev))
+    _build.check("flash_attention", err)
+    assert _same(o, op[..., :D])
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        FA.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+    names = [ev.key for ev in prof.key_averages()]
+    assert not [n for n in names if "pad" in n or "copy" in n.lower()], names
 
 
 def test_prefill_runs_the_kernel_once_per_layer(dev):

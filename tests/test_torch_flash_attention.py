@@ -206,3 +206,37 @@ def test_wide_body_arithmetic_matches_oracle(rng, S, D, dtype):
     (jq, jk, jv), (tq, tk, tv) = _both(_inputs(rng, 2, 4, 2, S, D), dtype)
     got = _emulate_wide_body(tq, tk, tv)
     _close(got, JRef.flash_attention_ref(jq, jk, jv), DT[dtype][2])
+
+
+@pytest.mark.parametrize("D,bf16,fp32", [
+    (16, ("in place", 16), ("in place", 16)),
+    (8, ("in place", 16), ("padded", 16)),
+    (12, ("padded", 16), ("padded", 16)),
+    (40, ("in place", 64), ("padded", 64)),
+    (64, ("in place", 64), ("in place", 64)),
+    (72, ("in place", 128), ("padded", 128)),
+    (96, ("in place", 128), ("padded", 128)),
+    (100, ("padded", 128), ("padded", 128)),
+    (120, ("in place", 128), ("padded", 128)),
+    (128, ("in place", 128), ("in place", 128)),
+    (160, ("wide", 160), ("wide", 160))])
+def test_forward_route_by_head_dim(D, bf16, fp32):
+    """The forward's route for each head dim: the bodies' own D in place;
+    a narrower bfloat16 D whose rows are whole 16-byte units (D % 8 == 0,
+    danube's 120) in place on the next body, TMA zero-filling the rest;
+    other narrower D (and every narrower float32 D) through zero-padded
+    copies; D > 128 the wide body."""
+    assert FA._forward_route(torch.bfloat16, D) == bf16
+    assert FA._forward_route(torch.float32, D) == fp32
+
+
+@pytest.mark.parametrize("name", ["base", "runtime_width"])
+def test_fwd_ablate_patches_apply(name):
+    """`launch.fwd_ablate`'s variants still find the line they patch in
+    csrc/flash_attention.cu: width 120 has a body of its own, and the
+    runtime_width variant only stops choosing it."""
+    from repro_torch.launch import fwd_ablate as FWA
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    out = FWA.variant_source(name)
+    assert (out == src) == (name == "base")
+    assert ("flash_fwd_bf16_kernel<128, 120>;" in out) == (name == "base")
