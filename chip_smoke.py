@@ -682,7 +682,8 @@ def train_path(torch, dev, args, timer, smi):
     gaps_lib = [grad_gap(a, b) for a, b in zip(
         torch.autograd.grad(lib_out, lib_in, dot, retain_graph=True), gpl)]
     dq1, dk1, dv1 = g1
-    last_tile = torch.arange(S - FA.TILES[torch.bfloat16][1], S, device=dev)
+    last_tile = torch.arange(S - FA.TILES[torch.bfloat16][D][1], S,
+                             device=dev)
     faults = {"dq from row 256 on zero": (0, dq1.index_fill(
                   2, torch.arange(256, S, device=dev), 0)),
               "dq x 1.02": (0, (dq1.float() * 1.02).to(dq1.dtype)),
@@ -1579,6 +1580,14 @@ def main() -> int:
                     or "entry function" in line):
                 print(f"ptxas[{name}]: {line.strip()}")
     if "flash_attention" in _build.ptxas_log:     # built in this run
+        c7520 = [ln.strip() for ln in
+                 _build.ptxas_log["flash_attention"].splitlines()
+                 if "C7520" in ln]
+        fwd_c7520 = [ln for ln in c7520 if "flash_fwd_bf16_kernel" in ln]
+        for ln in c7520:
+            print(f"ptxas C7520 (wgmma serialized): {ln}")
+        print(f"ptxas: {len(fwd_c7520)} C7520 warnings in the bfloat16 "
+              f"forward bodies, {len(c7520) - len(fwd_c7520)} elsewhere")
         bf16 = {f: n for f, n in ptxas_spills(
             _build.ptxas_log["flash_attention"]).items()
             if any(k_ in f for k_ in ("flash_fwd_bf16_kernel",
@@ -3058,8 +3067,15 @@ def main() -> int:
         ms1, lib1 = timer(run_kernel, 20), timer(run_sdpa, 20)
         lib2, ms2 = timer(run_sdpa, 20), timer(run_kernel, 20)
         ms = (ms1 + ms2) / 2
-        print(f"flash_attention at the prefill's shape: kernel {ms1:.4f} / "
-              f"{ms2:.4f} ms, library {lib1:.4f} / {lib2:.4f} ms")
+        sch = FA._fwd_schedule(B, H, S, D, dev)
+        print(f"flash_attention at the prefill's shape B={B} H={H} KV={KV} "
+              f"S={S} D={D} bf16: kernel {ms1:.4f} / {ms2:.4f} ms, library "
+              f"{lib1:.4f} / {lib2:.4f} ms, kernel / library "
+              f"{ms / ((lib1 + lib2) / 2):.3f}, bound {b:.4f} ms, share of "
+              f"the bound {b / ms:.3f}; the launcher's schedule "
+              f"(flash_attention_fwd_info): {sch['items']} work items of "
+              f"{sch['rows']} rows on a grid of {sch['grid']} persistent "
+              f"blocks")
         plain_ms = timer(lambda: FA.flash_attention_plain(q, k, v), 3)
         del q, k, v
         # the wide body (D > 128) at one shape: yi's batch and GQA group,
@@ -3377,15 +3393,20 @@ def main() -> int:
             copies = sorted({ev.key for ev in prof_.key_averages()
                              if "pad" in ev.key or "copy" in ev.key.lower()})
             out[f"{tag}_copies"] = copies
+            sch = FA._fwd_schedule(B, H, S, D, dev)
             print(f"flash_attention at {arch}'s prefill shape B={B} H={H} "
                   f"KV={KV} S={S} D={D} bf16 (route "
                   f"{FA._forward_route(q.dtype, D)[0]}): kernel "
                   f"{out[tag + '_ms']:.4f} ms, bound "
-                  f"{out[tag + '_bound_ms']:.4f} ms, plain "
+                  f"{out[tag + '_bound_ms']:.4f} ms, share of the bound "
+                  f"{out[tag + '_bound_ms'] / out[tag + '_ms']:.3f}, plain "
                   f"{out[tag + '_plain_ms']:.4f} ms, library "
                   f"{out[tag + '_library_ms']:.4f} ms, kernel / library "
                   f"{out[tag + '_ms'] / out[tag + '_library_ms']:.3f}, "
-                  f"max|err| {e_:.3e}; copies around the launch: "
+                  f"max|err| {e_:.3e}; the launcher's schedule "
+                  f"(flash_attention_fwd_info): {sch['items']} work items "
+                  f"of {sch['rows']} rows on a grid of {sch['grid']} "
+                  f"persistent blocks; copies around the launch: "
                   f"{', '.join(copies) if copies else 'none'}")
             del q, k, v
         return out

@@ -22,40 +22,71 @@
 // place); flash_attention_wide_launch runs a third, simple body for any
 // D > 128 (widebody, below).
 //
-// bfloat16 (bf16body): both products on the tensor cores.  One block per
-// (batch x head, 128-row query tile), the heaviest tiles first; along the
-// grid's fast dimension consecutive blocks are consecutive heads, so the
-// query heads of a GQA group read their KV head's tiles from L2.  Three
-// warpgroups:
-//   - a producer warp (warpgroup 0, 40 registers after setmaxnreg) loads
-//     the Q tile once and then each 128-row K and V tile with TMA
-//     (cp.async.bulk.tensor, 4-D maps over (D, heads, S, B), so rows past
-//     S in a ragged last tile are zero-filled inside their own head) into
-//     a ring of STAGES slots, each tile completing on an mbarrier.  A head
-//     dim below the body's that is a multiple of 8 (h2o-danube's 120 on
-//     the D = 128 body) is read in place the same way: the maps' innermost
-//     dimension is the real width, so the columns past it land as zeros
-//     (exact zeros in every score, zero P V columns), and the epilogue
-//     stores only the columns below it: no padded copies;
-//   - two consumer warpgroups (232 registers) own 64 query rows each.
-//     S = Q K^T is wgmma m64n128k16 with both operands in shared memory
-//     (the K tile as it lies is the K-major B operand).  The softmax runs
-//     on the float32 accumulator fragment in registers (row max and sum
-//     over the 4 lanes of a quad), in the log2 domain; only the diagonal
-//     tile is masked, and tiles above it are never loaded.  P is rounded
-//     to bf16 pairs that are directly the A fragments of O += P V
-//     (wgmma m64nDk16, A from registers, V as the MN-major B operand), so
-//     P never touches shared memory.
-// The consumers take turns on the tensor cores (two named barriers): in
-// its turn a consumer starts S of tile t and P V of tile t - 1 as two
+// bfloat16 (bf16body): both products on the tensor cores, in persistent
+// blocks.  The grid is one block per SM (fewer if there are fewer work
+// items).  A work item is (batch x head, query tile of BQ rows); the list
+// holds the last query tiles (the most keys) first and, inside a tile, the
+// heads in order, so the query heads of a GQA group run side by side and
+// read their KV head's tiles from L2.  A block's producer takes the items
+// in list order from a counter in device memory (atomicAdd; the ticket
+// past the last item ends a block, and the launch's last ticket puts the
+// counter back to zero for the next launch on the stream: unlike the
+// backward's, no pass before it could zero it; see work_counter).  The
+// launcher and flash_attention_fwd_info take the items and the grid from
+// one place (`schedule`).  Per block:
+//   - a producer warpgroup (one thread; 40 or 32 registers after
+//     setmaxnreg) loads each item's Q tile into one of two Q slots and
+//     then its 128-row K and V tiles into a ring of STAGES slots, all with
+//     TMA (cp.async.bulk.tensor, 4-D maps over (D, heads, S, B), so rows
+//     past S in a ragged last tile are zero-filled inside their own head),
+//     each tile completing on an mbarrier.  The ring's positions and
+//     phases run on across items, so the next item's Q and first K and V
+//     land while the consumers finish the current one.  A head dim below
+//     the body's that is a multiple of 8 (h2o-danube's 120 on the D = 128
+//     body) is read in place the same way: the maps' innermost dimension
+//     is the real width, so the columns past it land as zeros (exact zeros
+//     in every score, zero P V columns), and the store map drops them;
+//   - CONSUMERS warpgroups own 64 query rows each of an item.  S = Q K^T
+//     is wgmma m64n128k16 with both operands in shared memory (the K tile
+//     as it lies is the K-major B operand).  The softmax runs on the
+//     float32 accumulator fragment in registers (row max and sum over the
+//     4 lanes of a quad), in the log2 domain; only a consumer's last key
+//     tile is masked, and tiles past it are never computed.  P is rounded
+//     to bf16 pairs that are directly the A fragments of O += P V (wgmma
+//     m64nDk16, A from registers, V as the MN-major B operand), so P never
+//     touches shared memory.  The epilogue writes O / l as bf16 into the
+//     consumer's staging tile in shared memory (the TMA swizzle) and one
+//     thread stores it with TMA (cp.async.bulk.tensor, shared to global,
+//     over a 4-D map of the output like the loads': rows past S and
+//     columns past the width are not written).
+// The consumers take turns on the tensor cores (a named barrier each,
+// handed on in a cycle across items), n_kv turns an item each: in its
+// turn a consumer starts S of tile t and P V of tile t - 1 as two
 // batches, then computes tile t's softmax while P V of tile t - 1 still
-// runs and the other consumer starts its products.  A K slot is released
-// as soon as S has been computed from it, a V slot once P V has.
-// Tiles are stored as D / AW column chunks of 128 rows x AW elements, one
+// runs and the others start their products.  P V of an item's last tile
+// goes out in the same turn as S of the consumer's next item's first
+// tile, and the item's epilogue runs while that S does; its TMA store
+// runs under the next turns.  A K slot is released as soon as S has been
+// computed from it, a V slot once P V has, a Q slot after the item's last
+// S.  A consumer whose rows end before the item's last key tile passes
+// the remaining turns empty and releases those tiles unread.
+// What bounds the body at D = 64 is the exponentials as much as the tensor
+// cores: a 64 x 128 tile takes 2.1 MFLOP of wgmma (512 clocks of an SM's
+// tensor cores) and 8,192 ex2 (512 clocks at 16 a clock).  So at D = 64 an
+// item is 192 rows, three consumers (160 registers each, the producer
+// 32): while one consumer's exponentials run, two others' products keep
+// the tensor cores busy (`launch.fwd_ablate`'s two_consumers variant
+// times D = 64 with two).  At D = 128 the products take twice as long as
+// the exponentials, and two consumers of 64 rows suffice (232 registers).
+// Tiles are stored as D / AW column chunks of R rows x AW elements, one
 // swizzle atom per row (AW * 2 = 32, 64 or 128 bytes, TMA swizzle and
-// wgmma layout type alike), 1024-byte aligned.  No atomics and no split
-// over KV: every row is reduced in one fixed order, the same bits on
-// every run.
+// wgmma layout type alike), 1024-byte aligned.  No atomics on data and no
+// split over KV: every row is reduced over its keys in one order fixed by
+// the shape, the same bits on every run, whichever block takes its item.
+// Control values that steer wgmma (the warpgroup index, the item) are read
+// through __shfl_sync so that ptxas sees them warp-uniform, and every
+// wgmma sits in straight-line code or a loop: otherwise ptxas serializes
+// all of them (C7520).
 //
 // float32 (f32body): CUDA cores (TF32 tensor cores would miss the float32
 // contract).  The block stages its Q tile and then one 64-row K and V tile
@@ -163,6 +194,9 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <utility>
 
 #include "common.cuh"
 
@@ -360,17 +394,13 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 namespace bf16body {
 
-constexpr int BQ = 128;            // query rows per block, 64 per consumer
 constexpr int BK = 128;            // keys per KV tile
-constexpr int STAGES = 2;          // depth of the K / V ring
-constexpr int THREADS = 384;       // producer + two consumer warpgroups
 constexpr float NEG = -1e30f;      // the reference's mask value
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // A tile of R rows x D bfloat16 as NC chunks of R rows x AW elements (one
-// swizzle atom a row); the forward's shared memory for head dim D: tiles
-// Q, K[STAGES], V[STAGES] of 128 rows, then the mbarriers.
+// swizzle atom a row), each chunk a multiple of 1024 bytes.
 template <int D, int R = 128>
 struct Geo {
   static constexpr int AW = D < 64 ? D : 64;
@@ -385,11 +415,47 @@ struct Geo {
       ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                  : ROW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                              : CU_TENSOR_MAP_SWIZZLE_32B;
-  static constexpr uint32_t K_OFF = TILE;
-  static constexpr uint32_t V_OFF = TILE * (1 + STAGES);
-  static constexpr uint32_t BAR_OFF = TILE * (1 + 2 * STAGES);
-  // + the barriers, + room to align the base to 1024 bytes
-  static constexpr size_t SMEM = BAR_OFF + 8 + 32 * STAGES + 1024;
+  // byte `off` of a chunk as TMA and wgmma swizzle it: the 16-byte unit
+  // XOR the row's low bits (every 8 rows of 128 B, 4 of 64, 2 of 32)
+  static __device__ __forceinline__ uint32_t swizzle(uint32_t off) {
+    return off ^ (((off >> 7) & (ROW / 16 - 1)) << 4);
+  }
+};
+
+// The forward's tiling for head dim D: a work item is BQ query rows of one
+// (batch x head), CONSUMERS warpgroups of 64 rows each, against key tiles
+// of BK; one producer warpgroup.  Shared memory: QSLOTS Q tiles (the next
+// item's Q lands while this one runs), a ring of STAGES K and V tiles,
+// each consumer's 64 x D output staged for the TMA store, the Q slots'
+// items, the mbarriers.  At D = 128: 64 + 64 + 64 + 32 KB and 1,136 B:
+// 230,512 bytes of the 232,448 a block may take.
+template <int D>
+struct Fwd {
+  static constexpr int CONSUMERS = D == 64 ? 3 : 2;
+  static constexpr int STAGES = 2;
+  static constexpr int QSLOTS = 2;
+  static constexpr int BQ = 64 * CONSUMERS;
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);
+  // registers a thread after setmaxnreg (65,536 an SM): the producer's
+  // warpgroup gives up what the consumers take
+  static constexpr int PRODUCER_REGS = CONSUMERS == 3 ? 32 : 40;
+  static constexpr int CONSUMER_REGS = CONSUMERS == 3 ? 160 : 232;
+  using GQ = Geo<D, BQ>;
+  using GK = Geo<D, BK>;
+  using GO = Geo<D, 64>;
+  static constexpr uint32_t K_OFF = QSLOTS * GQ::TILE;
+  static constexpr uint32_t V_OFF = K_OFF + STAGES * GK::TILE;
+  static constexpr uint32_t O_OFF = V_OFF + STAGES * GK::TILE;
+  static constexpr uint32_t ITEM_OFF = O_OFF + CONSUMERS * GO::TILE;
+  static constexpr uint32_t BAR_OFF = ITEM_OFF + 16;
+  // + the barriers (per Q slot full and empty; per stage K and V full and
+  // empty), + room to align the base to 1024 bytes
+  static constexpr size_t SMEM =
+      BAR_OFF + 8 * (2 * QSLOTS + 4 * STAGES) + 1024;
+  static_assert(SMEM <= 232448, "more shared memory than a block may take");
+  static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 128 * CONSUMERS <=
+                    65536,
+                "more registers than an SM has");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -526,6 +592,51 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// bar.sync on named barrier `id` for n threads
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+// order this thread's generic accesses to shared memory against the
+// async proxy (TMA, wgmma operands)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t a, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(a), "r"(v) : "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t a, float x, float y,
+                                          float z, float u) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(a), "f"(x),
+               "f"(y), "f"(z), "f"(u)
+               : "memory");
+}
+
+// one box {AW, 1, rows, 1} from shared memory at src to (column c, head
+// h, row r, batch b) of a 4-D map over (D, heads, S, B); the parts of the
+// box past the map's dims are not written
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c, int h, int r,
+                                          int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c), "r"(h), "r"(r), "r"(b)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// wait until this thread's committed bulk stores have read their shared
+// memory (read_only) or are complete
+template <bool read_only>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (read_only)
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 // D[64 x 16] += A[64 x 16] . B[16 x 16], A in registers, B MN-major
@@ -669,125 +780,181 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
   else wgmma_rs_n128(d, a, db);
 }
 
+// Work item `item` of the forward's list: (batch b, head h, query tile
+// qt).  The last query tiles (the most keys) come first; inside a tile the
+// (batch, head) pairs in order, so a GQA group's query heads sit next to
+// each other and read their KV head's tiles from L2.
+__device__ __forceinline__ void work_item(int item, int B, int H, int n_qt,
+                                          int& b, int& h, int& qt) {
+  const int bh = item % (B * H);
+  qt = n_qt - 1 - item / (B * H);
+  b = bh / H;
+  h = bh % H;
+}
+
 // W: the operands' width, D (the body's own), a narrower one fixed at
 // compile time (h2o-danube's 120 on the D = 128 body: its P V product and
-// accumulator take 120 columns), or 0 for the runtime `width` (any other
-// multiple of 8 below D)
+// accumulator take 120 columns), or 0 for the runtime width of the maps
+// (any other multiple of 8 below D; the store map's width drops the rest).
+// `work`: the ticket counter, zero at the launch and left zero.
 template <int D, int W>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Fwd<D>::THREADS, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
-                      __nv_bfloat16* __restrict__ o,
-                      float* __restrict__ lse, Lay lo, int H, int KV, int S,
-                      int width, float scale_log2) {
-  using G = Geo<D>;
+                      const __grid_constant__ CUtensorMap to,
+                      float* __restrict__ lse, int* work, int B, int H,
+                      int KV, int S, float scale_log2) {
+  using F = Fwd<D>;
+  using GQ = typename F::GQ;
+  using GK = typename F::GK;
+  using GO = typename F::GO;
+  constexpr int NCONS = F::CONSUMERS, STAGES = F::STAGES;
+  constexpr int QSLOTS = F::QSLOTS, BQ = F::BQ;
   // P V's output width: a narrower W fixed at compile time needs only its
   // own columns (m64nWk16); a runtime width computes all D
   constexpr int N = W > 0 ? W : D;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bar = base + G::BAR_OFF;
-  // mbarriers: Q full, then for each stage K full, V full, K empty and
-  // V empty (K is released as soon as S is computed, V after P V)
-  const uint32_t full_q = bar;
-  const uint32_t full_k = bar + 8, full_v = full_k + 8 * STAGES,
+  volatile int* item_s = reinterpret_cast<volatile int*>(
+      smem_raw + (base - smem_u32(smem_raw)) + F::ITEM_OFF);
+  const uint32_t bar = base + F::BAR_OFF;
+  // mbarriers: per Q slot full and empty; per stage K full, V full, K
+  // empty and V empty (K is released as soon as S is computed, V after
+  // P V, Q after the item's last S)
+  const uint32_t full_q = bar, empty_q = full_q + 8 * QSLOTS,
+                 full_k = empty_q + 8 * QSLOTS,
+                 full_v = full_k + 8 * STAGES,
                  empty_k = full_v + 8 * STAGES,
                  empty_v = empty_k + 8 * STAGES;
 
-  const int bh = blockIdx.x;
-  const int b = bh / H, hq = bh % H;
-  const int qt = gridDim.y - 1 - blockIdx.y;   // heaviest tiles first
-  const int q0 = qt * BQ;
-  const int kvh = hq / (H / KV);
-  const int n_kv = qt + 1;                     // KV tiles up to the diagonal
+  const int G = H / KV;
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int n_items = B * H * n_qt;
 
   if (threadIdx.x == 0) {
-    mbar_init(full_q, 1);
+    for (int i = 0; i < QSLOTS; ++i) {
+      mbar_init(full_q + 8 * i, 1);
+      mbar_init(empty_q + 8 * i, 128 * NCONS);   // every consumer thread
+    }
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full_k + 8 * s, 1);
       mbar_init(full_v + 8 * s, 1);
-      mbar_init(empty_k + 8 * s, 256);         // every consumer thread
-      mbar_init(empty_v + 8 * s, 256);
+      mbar_init(empty_k + 8 * s, 128 * NCONS);
+      mbar_init(empty_v + 8 * s, 128 * NCONS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    // producer warpgroup: one thread starts every load
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    // producer warpgroup: one thread takes the items and starts every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+                     F::PRODUCER_REGS)
+                 : "memory");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(full_q, G::TILE);
-      for (int c = 0; c < G::NC; ++c)
-        tma_load(base + c * G::CHUNK, &tq, full_q, c * G::AW, hq, q0, b);
-      for (int t = 0; t < n_kv; ++t) {
-        const int s = t % STAGES;
-        const uint32_t parity = ((t / STAGES) & 1) ^ 1;
-        const uint32_t ks = base + G::K_OFF + s * G::TILE;
-        const uint32_t vs = base + G::V_OFF + s * G::TILE;
-        mbar_wait(empty_k + 8 * s, parity);
-        mbar_expect_tx(full_k + 8 * s, G::TILE);
-        for (int c = 0; c < G::NC; ++c)
-          tma_load(ks + c * G::CHUNK, &tk, full_k + 8 * s, c * G::AW, kvh,
-                   t * BK, b);
-        mbar_wait(empty_v + 8 * s, parity);
-        mbar_expect_tx(full_v + 8 * s, G::TILE);
-        for (int c = 0; c < G::NC; ++c)
-          tma_load(vs + c * G::CHUNK, &tv, full_v + 8 * s, c * G::AW, kvh,
-                   t * BK, b);
+      int j = 0;                                 // K, V tiles loaded so far
+      for (int n = 0;; ++n) {
+        // items in list order: the last query tiles (the most keys) first,
+        // the heads of a GQA group next to each other
+        const int item = atomicAdd(work, 1);
+        const int qs = n % QSLOTS;
+        mbar_wait(empty_q + 8 * qs, ((n / QSLOTS) & 1) ^ 1);
+        if (item >= n_items) {
+          // the last ticket of the launch puts the counter back to zero
+          if (item == n_items + (int)gridDim.x - 1) atomicExch(work, 0);
+          item_s[qs] = -1;
+          mbar_arrive(full_q + 8 * qs);
+          break;
+        }
+        int b, h, qt;
+        work_item(item, B, H, n_qt, b, h, qt);
+        const int kvh = h / G, q0 = qt * BQ;
+        const int n_kv = (min(S, q0 + BQ) + BK - 1) / BK;
+        item_s[qs] = item;
+        mbar_expect_tx(full_q + 8 * qs, GQ::TILE);
+        for (int c = 0; c < GQ::NC; ++c)
+          tma_load(base + qs * GQ::TILE + c * GQ::CHUNK, &tq, full_q + 8 * qs,
+                   c * GQ::AW, h, q0, b);
+        for (int t = 0; t < n_kv; ++t, ++j) {
+          const int s = j % STAGES;
+          const uint32_t parity = ((j / STAGES) & 1) ^ 1;
+          const uint32_t ks = base + F::K_OFF + s * GK::TILE;
+          const uint32_t vs = base + F::V_OFF + s * GK::TILE;
+          mbar_wait(empty_k + 8 * s, parity);
+          mbar_expect_tx(full_k + 8 * s, GK::TILE);
+          for (int c = 0; c < GK::NC; ++c)
+            tma_load(ks + c * GK::CHUNK, &tk, full_k + 8 * s, c * GK::AW, kvh,
+                     t * BK, b);
+          mbar_wait(empty_v + 8 * s, parity);
+          mbar_expect_tx(full_v + 8 * s, GK::TILE);
+          for (int c = 0; c < GK::NC; ++c)
+            tma_load(vs + c * GK::CHUNK, &tv, full_v + 8 * s, c * GK::AW, kvh,
+                     t * BK, b);
+        }
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    const int w = threadIdx.x / 128 - 1;       // which 64 rows of the tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+                     F::CONSUMER_REGS)
+                 : "memory");
+    // which 64 rows of an item; read through a shuffle, as the item below,
+    // so that ptxas sees a warp-uniform value: a branch around wgmma on a
+    // value it takes to be divergent serializes every wgmma of the kernel
+    // (C7520)
+    const int w = __shfl_sync(0xffffffffu, threadIdx.x / 128 - 1, 0);
     const int tid = threadIdx.x % 128;
-    __nv_bfloat16* const oh = at(o, lo, b, hq);  // this head's output
     // accumulator fragment: this thread holds rows r0 and r0 + 8 (h = 0, 1)
-    // at columns 8 j + c0 + {0, 1}: element [4 j + 2 h + {0, 1}]
-    const int r0 = 64 * w + 16 * (tid / 32) + (tid % 32) / 4;
+    // of the consumer's 64 at columns 8 j + c0 + {0, 1}: element
+    // [4 j + 2 h + {0, 1}]
+    const int r0 = 16 * (tid / 32) + (tid % 32) / 4;
     const int c0 = 2 * (tid % 4);
-    const uint32_t qa = base + w * 64 * G::ROW;
+    const uint32_t ob = base + F::O_OFF + w * GO::TILE;   // O staging
 
-    float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, alpha[2];
+    float m[2], l[2], alpha[2];
     float acc[N / 2];
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
     float s[64];
     uint32_t p[32];
 
-    // S = Q K^T of tile t into s (one batch, not committed)
-    auto qk = [&](int t) {
-      const uint32_t ks = base + G::K_OFF + (t % STAGES) * G::TILE;
+    // S = Q K^T of the tile in ring slot `slot` into s (one batch, not
+    // committed)
+    auto qk = [&](uint32_t qa, int slot) {
+      const uint32_t ks = base + F::K_OFF + slot * GK::TILE;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off =
-            (kk * 16 / G::AW) * G::CHUNK + (kk * 16 % G::AW) * 2;
-        wgmma_ss_n128(s, sdesc(qa + off, 16, G::SBO, G::LAYOUT),
-                      sdesc(ks + off, 16, G::SBO, G::LAYOUT), kk > 0);
+        const uint32_t col = (kk * 16 % GK::AW) * 2;
+        wgmma_ss_n128(s,
+                      sdesc(qa + (kk * 16 / GQ::AW) * GQ::CHUNK + col, 16,
+                            GQ::SBO, GQ::LAYOUT),
+                      sdesc(ks + (kk * 16 / GK::AW) * GK::CHUNK + col, 16,
+                            GK::SBO, GK::LAYOUT),
+                      kk > 0);
       }
     };
-    // O += P V of tile t (one batch, not committed)
-    auto pv = [&](int t) {
-      const uint32_t vs = base + G::V_OFF + (t % STAGES) * G::TILE;
+    // O += P V of the tile in ring slot `slot` (one batch, not committed)
+    auto pv = [&](int slot) {
+      const uint32_t vs = base + F::V_OFF + slot * GK::TILE;
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                                p[4 * kk + 3]};
         wgmma_rs<N>(acc, a,
-                    sdesc(vs + kk * 16 * G::ROW, G::CHUNK, G::SBO,
-                          G::LAYOUT));
+                    sdesc(vs + kk * 16 * GK::ROW, GK::CHUNK, GK::SBO,
+                          GK::LAYOUT));
       }
     };
-    // online softmax of tile t's scores: m (log2 domain) and l updated,
-    // s holds exp2(s * scale - m), alpha the rescale of earlier tiles
-    auto softmax = [&](int t) {
-      if (t == n_kv - 1) {       // the diagonal tile: mask keys > query
+    // online softmax of a tile's scores: m (log2 domain) and l updated, s
+    // holds exp2(s * scale - m), alpha the rescale of earlier tiles.
+    // `masked`: the consumer's last tile, where key 8 j + c0 + e of the
+    // tile is masked above row dq + r0 (+ 8) of it
+    auto softmax = [&](bool masked, int dq) {
+      if (masked) {
 #pragma unroll
         for (int j = 0; j < 16; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            if (8 * j + c0 + (e & 1) > r0 + 8 * (e >> 1)) s[4 * j + e] = NEG;
+            if (8 * j + c0 + (e & 1) > dq + r0 + 8 * (e >> 1))
+              s[4 * j + e] = NEG;
       }
       float mt[2] = {NEG, NEG};
 #pragma unroll
@@ -823,79 +990,181 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         for (int h = 0; h < 2; ++h)
           p[2 * j + h] = pack_bf16(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]);
     };
-
-    // The consumers take turns on the tensor cores (named barriers
-    // 1 + w): each starts S of tile t and P V of tile t - 1 together, then
-    // runs tile t's softmax while the other starts its products, and P V
-    // of tile t - 1 runs under this softmax.
-    if (w == 1) bar_arrive(1);                 // consumer 0 goes first
-    mbar_wait(full_q, 0);
-    mbar_wait(full_k, 0);
-    bar_sync(1 + w);
-    wgmma_fence();
-    qk(0);
-    wgmma_commit();
-    bar_arrive(2 - w);
-    wgmma_wait<0>();
-    pin(s);
-    mbar_arrive(empty_k);
-    softmax(0);
-    rescale_pack();
-    for (int t = 1; t < n_kv; ++t) {
-      const int st = t % STAGES, pst = (t - 1) % STAGES;
-      mbar_wait(full_k + 8 * st, (t / STAGES) & 1);
-      mbar_wait(full_v + 8 * pst, ((t - 1) / STAGES) & 1);
+    // one turn on the tensor cores: wait for named barrier 1 + w, start
+    // this consumer's products, hand the turn to the next consumer
+    auto turn = [&](auto&& issue) {
       pin(acc);
       pin(p);
       bar_sync(1 + w);
       wgmma_fence();
-      qk(t);
-      wgmma_commit();
-      pv(t - 1);
-      wgmma_commit();
-      bar_arrive(2 - w);
-      wgmma_wait<1>();                         // S of tile t
-      pin(s);
-      mbar_arrive(empty_k + 8 * st);
-      softmax(t);
-      wgmma_wait<0>();                         // P V of tile t - 1
+      issue();
+      bar_arrive(1 + (w + 1) % NCONS);
+    };
+    int j = 0;                                 // K, V tiles consumed so far
+    auto slot = [&](int t) { return (j + t) % STAGES; };
+    auto phase = [&](int t) { return (uint32_t)(((j + t) / STAGES) & 1); };
+
+    // the epilogue of an item whose first row is row0 (none at row0 >= S):
+    // O / l rounded to bf16 into this consumer's staging tile (the TMA
+    // store's swizzled layout), then one TMA store a chunk that runs while
+    // the next products do; the store map's dims drop rows past S and
+    // columns past the width
+    auto epilogue = [&](int b, int h, int row0) {
+      if (row0 >= S) return;
+      float den[2];
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        l[h2] += __shfl_xor_sync(0xffffffffu, l[h2], 1);
+        l[h2] += __shfl_xor_sync(0xffffffffu, l[h2], 2);
+        den[h2] = fmaxf(l[h2], 1e-30f);
+      }
+      if (tid == 0) bulk_wait<true>();         // the last store has read it
+      named_sync(1 + NCONS + w, 128);
+#pragma unroll
+      for (int jj = 0; jj < N / 8; ++jj) {
+        const int col = 8 * jj + c0;
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2)
+          st_shared(ob + (col / GO::AW) * GO::CHUNK +
+                        GO::swizzle((r0 + 8 * h2) * GO::ROW +
+                                    (col % GO::AW) * 2),
+                    pack_bf16(acc[4 * jj + 2 * h2] / den[h2],
+                              acc[4 * jj + 2 * h2 + 1] / den[h2]));
+      }
+      fence_async_smem();
+      named_sync(1 + NCONS + w, 128);
+      if (tid == 0) {
+        for (int c = 0; c < GO::NC; ++c)
+          tma_store(&to, ob + c * GO::CHUNK, c * GO::AW, h, row0, b);
+        bulk_commit();
+      }
+      // m is in the log2 domain: lse = ln(2^m l)
+      if (lse != nullptr && c0 == 0) {
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int row = row0 + r0 + 8 * h2;
+          if (row < S)
+            lse[((size_t)b * H + h) * S + row] =
+                (m[h2] + log2f(den[h2])) * LN2;
+        }
+      }
+    };
+
+    // The consumers take turns on the tensor cores (named barrier 1 + w,
+    // handed on in a cycle, across items), n_kv turns an item each.  A
+    // consumer walks the key tiles 0 .. last that its rows see: each turn
+    // starts S of tile t and P V of tile t - 1 together, then runs tile
+    // t's softmax while the others start their products, and P V of tile
+    // t - 1 runs under this softmax.  P V of an item's last tile goes out
+    // with S of the next item's first tile, and the item's epilogue runs
+    // under that S.  The turns past its last tile pass empty, releasing
+    // the tiles it does not read.  A consumer with no row below S computes
+    // its first S and P V all the same (never stored).  Every wgmma sits
+    // in straight-line code or a loop: ptxas serializes wgmma issued on
+    // paths that differ in what is in flight.
+    int pv_slot = 0;                 // the pending P V's V slot and phase
+    uint32_t pv_phase = 0;
+    bool pv_real = false;            // false: none yet, or a discarded one
+    int pb = 0, ph = 0, prow0 = S;   // the pending item's batch, head, row
+    if (w == NCONS - 1) bar_arrive(1);         // consumer 0 goes first
+    for (int n = 0;; ++n) {
+      const int qs = n % QSLOTS;
+      mbar_wait(full_q + 8 * qs, (n / QSLOTS) & 1);
+      const int item = __shfl_sync(0xffffffffu, item_s[qs], 0);
+      if (item < 0) break;
+      int b, h, qt;
+      work_item(item, B, H, n_qt, b, h, qt);
+      const int q0 = qt * BQ;
+      const int n_kv = (min(S, q0 + BQ) + BK - 1) / BK;
+      const int row0 = q0 + 64 * w;            // this consumer's first row
+      const uint32_t qa = base + qs * GQ::TILE + w * 64 * GQ::ROW;
+      // the last key tile its rows below S see (0 if none is below S) and
+      // its first key's offset from the first row (0 or 64); the rows see
+      // every key of the earlier tiles
+      const bool walks = row0 < S;
+      const int last = walks ? min(S - 1, row0 + 63) / BK : 0;
+      const int dq = row0 - last * BK;
+
+      // turn 0: the pending P V, and S of tile 0
+      mbar_wait(full_k + 8 * slot(0), phase(0));
+      if (pv_real) mbar_wait(full_v + 8 * pv_slot, pv_phase);
+      turn([&] {
+        pv(pv_slot);
+        wgmma_commit();
+        qk(qa, slot(0));
+        wgmma_commit();
+      });
+      wgmma_wait<1>();                         // the pending P V
       pin(acc);
-      mbar_arrive(empty_v + 8 * pst);
-      rescale_pack();
+      if (pv_real) mbar_arrive(empty_v + 8 * pv_slot);
+      epilogue(pb, ph, prow0);
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        m[h2] = NEG;
+        l[h2] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+      wgmma_wait<0>();                         // S of tile 0
+      pin(s);
+      mbar_arrive(empty_k + 8 * slot(0));
+      if (last == 0) mbar_arrive(empty_q + 8 * qs);
+      if (walks) {
+        softmax(last == 0, dq);
+        rescale_pack();
+      } else {                                 // tile 0's V is not read
+        mbar_wait(full_v + 8 * slot(0), phase(0));
+        mbar_arrive(empty_v + 8 * slot(0));
+      }
+      for (int t = 1; t <= last; ++t) {
+        mbar_wait(full_k + 8 * slot(t), phase(t));
+        mbar_wait(full_v + 8 * slot(t - 1), phase(t - 1));
+        turn([&] {
+          qk(qa, slot(t));
+          wgmma_commit();
+          pv(slot(t - 1));
+          wgmma_commit();
+        });
+        wgmma_wait<1>();                       // S of tile t
+        pin(s);
+        mbar_arrive(empty_k + 8 * slot(t));
+        if (t == last) mbar_arrive(empty_q + 8 * qs);
+        softmax(t == last, dq);
+        wgmma_wait<0>();                       // P V of tile t - 1
+        pin(acc);
+        mbar_arrive(empty_v + 8 * slot(t - 1));
+        rescale_pack();
+      }
+      // the turns past the last tile: its K and V are released unread
+      // in turn t (never later than the others release theirs)
+      for (int t = last + 1; t < n_kv; ++t) {
+        mbar_wait(full_k + 8 * slot(t), phase(t));
+        mbar_arrive(empty_k + 8 * slot(t));
+        bar_sync(1 + w);
+        bar_arrive(1 + (w + 1) % NCONS);
+        mbar_wait(full_v + 8 * slot(t), phase(t));
+        mbar_arrive(empty_v + 8 * slot(t));
+      }
+      pv_real = walks;
+      pv_slot = slot(last);
+      pv_phase = phase(last);
+      pb = b;
+      ph = h;
+      prow0 = row0;
+      j += n_kv;
     }
-    const int last = n_kv - 1;
-    mbar_wait(full_v + 8 * (last % STAGES), (last / STAGES) & 1);
-    pin(acc);
-    pin(p);
-    bar_sync(1 + w);
-    wgmma_fence();
-    pv(last);
-    wgmma_commit();
-    if (w == 0) bar_arrive(2);                 // consumer 1's last turn
+    // the last item's pending P V and its epilogue
+    if (pv_real) mbar_wait(full_v + 8 * pv_slot, pv_phase);
+    turn([&] {
+      pv(pv_slot);
+      wgmma_commit();
+    });
     wgmma_wait<0>();
     pin(acc);
-
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-      const int row = q0 + r0 + 8 * h;
-      if (row < S) {
-        const float den = fmaxf(l[h], 1e-30f);
-        __nv_bfloat162* op =
-            reinterpret_cast<__nv_bfloat162*>(oh + row * lo.s + c0);
-        // columns 8 j + c0 + {0, 1}; the width is a multiple of 8, so a
-        // pair is all inside it or all past it
-#pragma unroll
-        for (int j = 0; j < N / 8; ++j)
-          if (W > 0 || 8 * j < width)
-            op[4 * j] = __floats2bfloat162_rn(acc[4 * j + 2 * h] / den,
-                                              acc[4 * j + 2 * h + 1] / den);
-        // m is in the log2 domain: lse = ln(2^m l)
-        if (lse != nullptr && c0 == 0)
-          lse[(size_t)bh * S + row] = (m[h] + log2f(den)) * LN2;
-      }
-    }
+    if (pv_real) mbar_arrive(empty_v + 8 * pv_slot);
+    epilogue(pb, ph, prow0);
+    if (w == 0) bar_sync(1);                   // the last turn's hand-over
+    if (tid == 0) bulk_wait<false>();
   }
 }
 
@@ -945,30 +1214,93 @@ int make_map(CUtensorMap* map, const void* ptr, const Lay& l, int n, int S,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// The forward's ticket counter for launches on `stream` of the current
+// device: one int in device memory, zeroed once, and left zero by every
+// launch (the block that takes the last ticket puts it back), so launches
+// on one stream share it in turn and no launch needs a memset.  It lives
+// as long as the process (one int a device and stream).  The backward
+// takes its counters from the caller's scratch instead, because its Delta
+// pass runs first and zeroes them for free; the forward has no pass
+// before it, and a memset would add a launch to every call, which
+// short prompts would feel.  A launch that stops short leaves the counter
+// dirty, but it also leaves the context with a sticky error, so no later
+// launch runs on it.
+int* work_counter(cudaStream_t stream) {
+  static std::mutex mu;
+  static std::map<std::pair<int, cudaStream_t>, int*> counters;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return nullptr;
+  std::lock_guard<std::mutex> lock(mu);
+  int*& p = counters[{dev, stream}];
+  if (p == nullptr) {
+    int* c = nullptr;
+    if (cudaMalloc(&c, sizeof(int)) != cudaSuccess) return nullptr;
+    if (cudaMemsetAsync(c, 0, sizeof(int), stream) != cudaSuccess) {
+      cudaFree(c);
+      return nullptr;
+    }
+    p = c;
+  }
+  return p;
+}
+
+// the current device's SM count, read once a device
+int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0 &&
+      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    return 0;
+  return counts[dev];
+}
+
+// The schedule of the body of head dim D for B x H heads of S rows: its
+// work items, (batch x head, query tile of BQ rows), and its grid, one
+// persistent block an SM (fewer if there are fewer items).  `launch` and
+// flash_attention_fwd_info both take it from here.
+template <int D>
+int schedule(int B, int H, int S, int* items, int* blocks) {
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  const int n_items = B * H * ((S + Fwd<D>::BQ - 1) / Fwd<D>::BQ);
+  const int grid = n_items < sms ? n_items : sms;     // one block an SM
+  *items = n_items;
+  *blocks = grid;
+  return 0;
+}
+
 // the body of head dim D on operands `width` <= D columns wide: the maps
 // zero-fill the columns past width, which add exact zeros to every score
-// and give output columns that are never stored
+// and give output columns that the store map drops.  The persistent
+// blocks of `schedule` take the work items in list order from the
+// counter.
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const Lay* ly, int B, int H, int KV, int S, int width,
            float scale, cudaStream_t stream) {
-  CUtensorMap mq, mk, mv;
-  int err = make_map<D>(&mq, q, ly[0], H, S, B, BQ, width);
+  using F = Fwd<D>;
+  CUtensorMap mq, mk, mv, mo;
+  int err = make_map<D>(&mq, q, ly[0], H, S, B, F::BQ, width);
   if (err == 0) err = make_map<D>(&mk, k, ly[1], KV, S, B, BK, width);
   if (err == 0) err = make_map<D>(&mv, v, ly[2], KV, S, B, BK, width);
+  if (err == 0) err = make_map<D>(&mo, o, ly[3], H, S, B, 64, width);
+  if (err != 0) return err;
+  int* work = work_counter(stream);
+  if (work == nullptr) return (int)cudaErrorMemoryAllocation;
+  int n_items = 0, grid = 0;
+  err = schedule<D>(B, H, S, &n_items, &grid);
   if (err != 0) return err;
   auto fn = width == D ? flash_fwd_bf16_kernel<D, D>
                        : flash_fwd_bf16_kernel<D, 0>;
   if constexpr (D == 128)
     if (width == 120) fn = flash_fwd_bf16_kernel<128, 120>;
-  constexpr size_t smem = Geo<D>::SMEM;
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  fn<<<grid, THREADS, smem, stream>>>(mq, mk, mv,
-                                      static_cast<__nv_bfloat16*>(o), lse,
-                                      ly[3], H, KV, S, width, scale * LOG2E);
+  fn<<<grid, F::THREADS, F::SMEM, stream>>>(
+      mq, mk, mv, mo, lse, work, B, H, KV, S, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -1307,26 +1639,10 @@ __device__ __forceinline__ void wgmma_tt(float (&d)[N / 2], uint64_t da,
   else wgmma_tt_n64(d, da, db, scale_d);
 }
 
-// bar.sync on named barrier `id` for n threads
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
-}
-// order this thread's generic accesses to shared / global memory against
-// the async proxy (TMA, wgmma operands)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
+// order this thread's generic accesses to global memory against the
+// async proxy (bulk copies)
 __device__ __forceinline__ void fence_async_global() {
   asm volatile("fence.proxy.async.global;" ::: "memory");
-}
-__device__ __forceinline__ void st_shared(uint32_t a, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;" ::"r"(a), "r"(v) : "memory");
-}
-__device__ __forceinline__ void st_shared(uint32_t a, float x, float y,
-                                          float z, float u) {
-  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(a), "f"(x),
-               "f"(y), "f"(z), "f"(u)
-               : "memory");
 }
 // wait until the counter at p reads at least n (acquire, device scope)
 __device__ __forceinline__ void wait_count(const int* p, int n) {
@@ -2059,9 +2375,9 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // log-sum-exp.  width == D, except at bfloat16, where width <= D may be
 // any multiple of 8 (a row of 16-byte units, as TMA needs): the maps
 // zero-fill columns width .. D - 1 and only columns below width are
-// stored.  The caller checks KV | H, D in {16, 32, 64, 128} and the
-// grid's y dimension: B * H <= 65535 at float32, ceil(S / 128) <= 65535
-// at bfloat16.
+// stored.  The caller checks KV | H, D in {16, 32, 64, 128} and, at
+// float32, the grid's y dimension: B * H <= 65535 (the bfloat16 body's
+// grid is one persistent block per SM).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       const void* strides, int B, int H,
@@ -2096,6 +2412,27 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                         scale, st);
     case 128: return f32body::launch<128>(q, k, v, o, l, ly, B, H, KV, S,
                                           scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// How the bfloat16 body of head dim D (16, 32, 64 or 128) runs a forward
+// of B x H heads of S rows on the current device, as
+// flash_attention_launch schedules it: out[0] query rows of a work item,
+// out[1] keys of a KV tile, out[2] the work items, out[3] the grid's
+// persistent blocks.
+extern "C" int flash_attention_fwd_info(int B, int H, int S, int D,
+                                        int* out) {
+  out[1] = bf16body::BK;
+  switch (D) {
+    case 16: out[0] = bf16body::Fwd<16>::BQ;
+             return bf16body::schedule<16>(B, H, S, out + 2, out + 3);
+    case 32: out[0] = bf16body::Fwd<32>::BQ;
+             return bf16body::schedule<32>(B, H, S, out + 2, out + 3);
+    case 64: out[0] = bf16body::Fwd<64>::BQ;
+             return bf16body::schedule<64>(B, H, S, out + 2, out + 3);
+    case 128: out[0] = bf16body::Fwd<128>::BQ;
+              return bf16body::schedule<128>(B, H, S, out + 2, out + 3);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -20,9 +20,12 @@ which TMA needs; h2o-danube's 120) the kernel reads the operands in
 place and TMA zero-fills those columns in shared memory, and the output
 is written at its real width: no copy (`_forward_route`).  Any other
 such D (and float32) gets zero-padded copies, sliced back after.  The
-two bodies pick their own tiles: bfloat16 runs both
-products on the tensor cores (wgmma, TMA-fed) in 128 x 128 tiles,
-float32 runs on the CUDA cores in 64 x 64 tiles.  A head dim above 128
+two bodies pick their own tiles (`TILES`): bfloat16 runs both products
+on the tensor cores (wgmma, TMA-fed) in persistent blocks, one an SM,
+that take (batch x head, query tile) items heaviest first from a
+counter, 128 query rows x 128 keys (192 x 128 at D = 64), and store the
+output from shared memory with TMA; float32 runs on the CUDA cores in
+64 x 64 tiles.  A head dim above 128
 runs a third, simple body in either dtype (``flash_attention_wide_launch``:
 CUDA cores, float32 arithmetic, 16-row query tiles, 32-key tiles, D in
 chunks of 128, the accumulators in a float32 workspace the wrapper
@@ -58,15 +61,21 @@ contiguous float32 (B, H, S).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 
-#: (query rows per block, keys per KV tile) of each body
-#: (csrc/flash_attention.cu)
-TILES = {torch.float32: (64, 64), torch.bfloat16: (128, 128)}
 HEAD_DIMS = (16, 32, 64, 128)
+#: (query rows per block or work item, keys per KV tile) of each body, by
+#: dtype and the body's head dim (csrc/flash_attention.cu: f32body,
+#: bf16body::Fwd); a head dim below 128 runs the body of the next one in
+#: HEAD_DIMS (`_pad`)
+TILES = {torch.float32: {d: (64, 64) for d in HEAD_DIMS},
+         torch.bfloat16: {d: (192 if d == 64 else 128, 128)
+                          for d in HEAD_DIMS}}
 MAX_GRID_Y = 65_535      # blocks along a grid's y dimension
 BWD_QT = 64              # queries per step (and per dq counter) of the
                          # tensor-core backward
@@ -147,7 +156,7 @@ def flash_attention(q, k, v, *, bq=None, bk=None) -> torch.Tensor:
         return flash_attention_plain(q, k, v)
     _on_card("flash_attention", q)
     if (bq, bk) != (None, None):
-        tq, tk = TILES[q.dtype]
+        tq, tk = TILES[q.dtype][_pad(min(q.shape[-1], HEAD_DIMS[-1]))]
         raise ValueError(f"the kernel uses its own {tq} x {tk} tiles at "
                          f"{q.dtype}: pass bq=None, bk=None, not bq={bq}, "
                          f"bk={bk}")
@@ -166,17 +175,29 @@ def flash_attention_fwd(q, k, v):
     return _forward(q, k, v, with_lse=True)
 
 
+def _fwd_schedule(B, H, S, D, device) -> dict:
+    """How the bfloat16 tensor-core body schedules a forward of B x H
+    heads of S rows at head dim D <= 128 on `device`, as its launcher
+    decides it (``flash_attention_fwd_info``): query rows and keys of a
+    work item's tiles, the work items, and the grid of persistent blocks."""
+    info = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        err = _build.function("flash_attention", "flash_attention_fwd_info",
+                              [_build.I] * 4 + [_build.P])(
+            B, H, S, _pad(D), info)
+    _build.check("flash_attention", err)
+    return dict(rows=info[0], keys=info[1], items=info[2], grid=info[3])
+
+
 def _forward(q, k, v, *, with_lse):
     """Check and launch the forward on CUDA tensors; (out, lse or None)."""
     B, H, KV, S, D = _shapes(q, k, v)
     dev = q.device
     route, Dp = _forward_route(q.dtype, D)
-    # the grid's y dimension: B * H (float32 and wide bodies) or the
-    # query tiles (bfloat16 body)
-    grid_y = (B * H if route == "wide" or q.dtype == torch.float32
-              else -(-S // TILES[q.dtype][0]))
-    if grid_y > MAX_GRID_Y:
-        raise ValueError(f"{grid_y} blocks along the grid's y dimension > "
+    # the float32 and wide bodies' grid has B * H blocks along y; the
+    # bfloat16 body's grid is one persistent block per SM
+    if (route == "wide" or q.dtype == torch.float32) and B * H > MAX_GRID_Y:
+        raise ValueError(f"{B * H} blocks along the grid's y dimension > "
                          f"{MAX_GRID_Y}")
     if route == "padded":   # zero columns: exact zeros in every score
         q, k, v = (torch.nn.functional.pad(x, (0, Dp - D)) for x in (q, k, v))

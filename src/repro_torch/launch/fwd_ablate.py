@@ -1,30 +1,62 @@
-"""What h2o-danube's own forward body buys: `flash_attention` at a head
-dim of 120, timed with the D = 128 body built at that width
-(`flash_fwd_bf16_kernel<128, 120>`: a 120-column P V product and
-accumulator) and with the runtime-width body that every other narrow
-multiple of 8 takes (`flash_fwd_bf16_kernel<128, 0>`: all 128 columns,
-the stores checked against the width).
+"""Where the bfloat16 flash forward's time goes: `flash_attention` at the
+models' prefill shapes, timed with source variants of its tensor-core
+body (``flash_fwd_bf16_kernel``) that each drop or change one piece of
+work.
 
 Each variant is ``csrc/flash_attention.cu`` with a text patch, built
-with nvcc into ``build/repro_torch/fwd_ablate/`` and run in a process of
-its own, in the order base, runtime_width, runtime_width, base.  Both
-give the same answer; each process prints its largest difference from
-SDPA.
+with nvcc (``-Xptxas -v``) into ``build/repro_torch/fwd_ablate/`` and
+run in a process of its own, in the order base, the variants, base.
+The variants that drop work give wrong answers by design: they are
+timed, never checked (each process prints its largest difference from
+SDPA).  The build prints ptxas' C7520 warnings (wgmma serialized) and
+the spill bytes of every forward body.
 
     base           the kernel as it is
+    no_store       the epilogue's TMA stores off (O is computed and staged
+                   in shared memory, never written)
+    no_exp         P = S * scale - m with no ex2: the products, loads and
+                   the rest of the softmax alone
+    stages3        a ring of 3 K and V slots below D = 128 (2 in the
+                   kernel; D = 128 has no room for a third)
+    two_consumers  D = 64 in items of 128 rows, two consumer warpgroups
+                   (three over 192 rows in the kernel)
+    no_turns       the consumers issue their products without taking
+                   turns on the tensor cores
+    legacy         one block per work item (the grid before the
+                   persistent blocks; each block takes one ticket)
     runtime_width  width 120 through the runtime-width body
+
+Shapes (--shape, repeatable: a preset or B,H,KV,S,D):
+
+    yi       4, 32, 4, 2048, 128   (yi-6b's prefill)
+    zamba2   4, 32, 32, 2048, 64   (zamba2-1.2b's)
+    danube   4, 32, 8, 2048, 120   (h2o-danube-3-4b's, read in place)
+    whisper  4, 16, 16, 2048, 64   (whisper-medium's decoder)
 
 Run on a card (CUDA events, the mean of 20 calls, three rounds each, on
 the model's (B, S, H, D) layout and on contiguous (B, H, S, D) tensors;
 each process also times `scaled_dot_product_attention` on the same
-inputs):
+inputs).  Per shape and layout each process also prints the device-only
+time of kernel and SDPA (the calls queued behind a spin kernel, so that
+no host gap is timed), the device time of one profiled kernel call
+(torch.profiler; "not measured" if it records no kernel), and a digest
+of the output's and lse's bits:
 
-    PYTHONPATH=src python -m repro_torch.launch.fwd_ablate [--shape B,H,KV,S,D]
+    PYTHONPATH=src python -m repro_torch.launch.fwd_ablate \\
+        [--shape yi --shape zamba2 ...] [--variants base,no_exp] \\
+        [--parent OTHER/src/repro_torch/kernels/csrc/flash_attention.cu]
+
+--parent adds a variant "parent": that file as it is (say, a parent
+commit's, unpacked with ``git archive``), run first and last (parent,
+base, the variants, base, parent).  Its ``flash_attention_launch`` must
+take the arguments this wrapper passes.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
+import re
 import subprocess
 import sys
 import time
@@ -33,8 +65,39 @@ from repro_torch.kernels import _build
 
 OUT = _build.BUILD_DIR / "fwd_ablate"
 
+#: (B, H, KV, S, D) of each model's prefill at batch 4 x 2048 tokens
+PRESETS = {
+    "yi": (4, 32, 4, 2048, 128),
+    "zamba2": (4, 32, 32, 2048, 64),
+    "danube": (4, 32, 8, 2048, 120),
+    "whisper": (4, 16, 16, 2048, 64),
+}
+
+_EX2 = "s[4 * j + e] = ex2(fmaf(s[4 * j + e], scale_log2, -m[e >> 1]));"
+
 PATCHES = {
     "base": [],
+    "no_store": [("      if (tid == 0) {\n"
+                  "        for (int c = 0; c < GO::NC; ++c)\n",
+                  "      if (tid == 0 && scale_log2 < 0.f) {\n"
+                  "        for (int c = 0; c < GO::NC; ++c)\n")],
+    "no_exp": [(_EX2, _EX2.replace("ex2(fmaf", "(fmaf"))],
+    "stages3": [("  static constexpr int STAGES = 2;\n",
+                 "  static constexpr int STAGES = D == 128 ? 2 : 3;\n")],
+    "two_consumers": [("  static constexpr int CONSUMERS = D == 64 ? 3 : 2;\n",
+                       "  static constexpr int CONSUMERS = 2;\n")],
+    "no_turns": [
+        ("      pin(p);\n      bar_sync(1 + w);\n      wgmma_fence();\n"
+         "      issue();\n      bar_arrive(1 + (w + 1) % NCONS);\n",
+         "      pin(p);\n      wgmma_fence();\n      issue();\n"),
+        ("        bar_sync(1 + w);\n"
+         "        bar_arrive(1 + (w + 1) % NCONS);\n", ""),
+        ("    if (w == NCONS - 1) bar_arrive(1);         // consumer 0 goes "
+         "first\n", ""),
+        ("    if (w == 0) bar_sync(1);                   // the last turn's "
+         "hand-over\n", "")],
+    "legacy": [("  const int grid = n_items < sms ? n_items : sms;",
+                "  const int grid = n_items;")],
     "runtime_width": [
         ("  if constexpr (D == 128)\n"
          "    if (width == 120) fn = flash_fwd_bf16_kernel<128, 120>;\n",
@@ -42,8 +105,11 @@ PATCHES = {
 }
 
 
-def variant_source(name: str) -> str:
-    """The source of one variant (raises if a patch no longer applies)."""
+def variant_source(name: str, parent=None) -> str:
+    """The source of one variant (raises if a patch does not apply
+    exactly once); "parent" is the file `parent` as it is."""
+    if name == "parent":
+        return open(parent).read()
     src = (_build.CSRC / "flash_attention.cu").read_text()
     for old, new in PATCHES[name]:
         if src.count(old) != 1:
@@ -53,36 +119,89 @@ def variant_source(name: str) -> str:
     return src
 
 
-def build(names) -> None:
-    """One nvcc per variant, all started together."""
+def forward_notes(log: str) -> list:
+    """From an ``nvcc -Xptxas -v`` log: ptxas' C7520 warnings (wgmma
+    serialized) and, per forward body (``flash_fwd_bf16_kernel<D, W>``),
+    its registers and spill bytes."""
+    out, fn = [], None
+    for line in log.splitlines():
+        body = re.search(r"flash_fwd_bf16_kernelILi(\d+)ELi(\d+)E", line)
+        if "C7520" in line:
+            if body:
+                out.append(f"C7520 in <{body[1]}, {body[2]}>: "
+                           + line.split("C7520)")[-1].split(" in the "
+                                                           "function")[0]
+                           .strip())
+            continue
+        if "Function properties for" in line:
+            fn = f"<{body[1]}, {body[2]}>" if body else None
+        elif fn and "spill stores" in line:
+            sp = re.findall(r"(\d+) bytes spill", line)
+            out.append(f"{fn} spill {'+'.join(sp)} B")
+        elif fn and "Used" in line and "registers" in line:
+            out[-1] += f", {re.search(r'Used (\d+) registers', line)[1]} regs"
+            fn = None
+    return out
+
+
+def build(names, parent=None) -> dict:
+    """One nvcc per variant, all started together; {variant: the forward
+    bodies' ptxas notes}."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         cu = OUT / f"{name}.cu"
-        cu.write_text(variant_source(name))
-        cmd = [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-I", str(_build.CSRC),
-               "-o", str(OUT / f"{name}.so"), str(cu)]
+        cu.write_text(variant_source(name, parent))
+        cmd = [_build._nvcc(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS,
+               "-I", str(_build.CSRC), "-o", str(OUT / f"{name}.so"),
+               str(cu)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
+    notes = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
+        notes[name] = forward_notes(log)
+    return notes
 
 
-def _mean_ms(fn, reps: int) -> float:
+def _mean_ms(fn, reps: int, queued: bool = False) -> float:
+    """CUDA-event ms a call over `reps` calls; `queued`: the calls wait
+    behind a spin kernel while the host enqueues them, so the time is the
+    device's alone."""
     import torch
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(100_000_000)            # tens of ms of spin
     a.record()
     for _ in range(reps):
         fn()
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def _profiled_ms(fn):
+    """Device ms of the kernels of one call of fn under torch.profiler
+    (after one call that is not recorded), or None if it records none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA
+          and not e.name.startswith("ProfilerStep")]
+    return sum(us) / 1e3 if us else None
 
 
 def time_variant(name: str, shape, reps: int = 20) -> dict:
@@ -110,37 +229,93 @@ def time_variant(name: str, shape, reps: int = 20) -> dict:
             return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                   enable_gqa=True)
 
-        err = (FA.flash_attention(q, k, v).float() - sdpa().float()).abs()
-        rounds = [(_mean_ms(lambda: FA.flash_attention(q, k, v), reps),
-                   _mean_ms(sdpa, reps)) for _ in range(3)]
-        out[layout] = dict(rounds=rounds, max_abs_err=float(err.max()))
+        def kernel():
+            return FA.flash_attention(q, k, v)
+
+        err = (kernel().float() - sdpa().float()).abs()
+        o, lse = FA.flash_attention_fwd(q, k, v)
+        bits = hashlib.sha1(o.contiguous().view(torch.int16).cpu().numpy()
+                            .tobytes() + lse.cpu().numpy().tobytes())
+        rounds = [(_mean_ms(kernel, reps), _mean_ms(sdpa, reps))
+                  for _ in range(3)]
+        out[layout] = dict(
+            rounds=rounds, max_abs_err=float(err.max()),
+            queued=(_mean_ms(kernel, reps, queued=True),
+                    _mean_ms(sdpa, reps, queued=True)),
+            profiled_ms=_profiled_ms(kernel), bits=bits.hexdigest()[:16])
     return out
+
+
+def parse_shape(text: str) -> tuple:
+    """A preset's (B, H, KV, S, D), or B,H,KV,S,D as written."""
+    if text in PRESETS:
+        return PRESETS[text]
+    shape = tuple(int(x) for x in text.split(","))
+    if len(shape) != 5:
+        raise ValueError(f"--shape {text!r}: a preset "
+                         f"({', '.join(PRESETS)}) or B,H,KV,S,D")
+    return shape
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--shape", default="4,32,8,2048,120",
-                    help="B,H,KV,S,D (default: h2o-danube-3-4b's prefill "
-                         "shape)")
+    ap.add_argument("--shape", action="append",
+                    help="a preset (yi, zamba2, danube, whisper) or "
+                         "B,H,KV,S,D; repeatable (default: the four "
+                         "presets)")
+    ap.add_argument("--variants", default=",".join(PATCHES),
+                    help="comma-separated variants (default: all)")
+    ap.add_argument("--parent", help="another flash_attention.cu, timed "
+                    "as variant 'parent' first and last")
     ap.add_argument("--variant", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    shape = tuple(int(x) for x in args.shape.split(","))
+    shapes = args.shape or list(PRESETS)
+    for s in shapes:
+        parse_shape(s)
     if args.variant:                    # one variant, in its own process
-        for layout, r in time_variant(args.variant, shape).items():
-            print(f"variant {args.variant}, {layout} layout: kernel / SDPA "
-                  f"ms {[(round(a, 4), round(b, 4)) for a, b in r['rounds']]}"
-                  f", kernel / SDPA "
-                  f"{[round(a / b, 3) for a, b in r['rounds']]}, "
-                  f"max|kernel - SDPA| {r['max_abs_err']:.3e}", flush=True)
+        for s in shapes:
+            for layout, r in time_variant(args.variant,
+                                          parse_shape(s)).items():
+                print(f"variant {args.variant}, {s}, {layout} layout: "
+                      f"kernel / SDPA ms "
+                      f"{[(round(a, 4), round(b, 4)) for a, b in r['rounds']]}"
+                      f", kernel / SDPA "
+                      f"{[round(a / b, 3) for a, b in r['rounds']]}, "
+                      f"max|kernel - SDPA| {r['max_abs_err']:.3e}; "
+                      f"device-only kernel / SDPA ms "
+                      f"{tuple(round(x, 4) for x in r['queued'])}; one "
+                      f"profiled kernel call "
+                      + (f"{r['profiled_ms']:.4f} ms"
+                         if r["profiled_ms"] is not None
+                         else "not measured")
+                      + f"; o and lse bits {r['bits']}", flush=True)
         return 0
+    names = [n for n in args.variants.split(",") if n]
+    for n in names:
+        if n not in PATCHES:
+            raise SystemExit(f"unknown variant {n!r}: {', '.join(PATCHES)}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()
+    print(f"card: {card[0] if card else 'nvidia-smi gave nothing'}",
+          flush=True)
     t0 = time.perf_counter()
-    build(PATCHES)
-    print(f"built {len(PATCHES)} variants in "
+    extra = ["parent"] if args.parent else []
+    notes = build(dict.fromkeys([*extra, "base", *names]), args.parent)
+    print(f"built {len(notes)} variants in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for name in ("base", "runtime_width", "runtime_width", "base"):
+    for name, lines in notes.items():
+        print(f"ptxas, variant {name}: "
+              + ("; ".join(lines) if lines else
+                 "no C7520 warning and no spill line in the forward bodies"),
+              flush=True)
+    order = [*extra, "base", *(n for n in names if n != "base"), "base",
+             *extra]
+    shape_args = [a for s in shapes for a in ("--shape", s)]
+    for name in order:
         r = subprocess.run(["timeout", "-k", "5", "120", sys.executable,
                             "-m", "repro_torch.launch.fwd_ablate",
-                            "--shape", args.shape, "--variant", name],
+                            *shape_args, "--variant", name],
                            capture_output=True, text=True)
         print(r.stdout.strip() or f"variant {name}: exit {r.returncode} "
               f"{r.stderr.strip()[-500:]}", flush=True)

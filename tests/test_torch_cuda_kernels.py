@@ -332,18 +332,46 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     (1, 8, 1, 257, 120),
     # head dims above 128: the wide body (D in chunks of 128, ragged S)
     (1, 4, 2, 100, 160), (2, 4, 1, 130, 256), (1, 2, 2, 33, 200),
-    (1, 8, 8, 1, 384)])
+    (1, 8, 8, 1, 384),
+    # the bfloat16 body's persistent schedule: D = 64's 192-row items with
+    # H = KV and with GQA, S ragged against them (a last item of 1 and of
+    # 129 rows), fewer items than SMs, more items than a block's share,
+    # and yi's and zamba2's full prefill shapes
+    (2, 8, 8, 385, 64), (2, 16, 4, 577, 64), (1, 8, 2, 1000, 64),
+    (1, 2, 2, 256, 64), (2, 16, 4, 1000, 64), (4, 32, 4, 2048, 128),
+    (4, 32, 32, 2048, 64)])
 def test_flash_attention(dev, rng, dtype, B, H, KV, S, D):
-    q, k, v = (torch.as_tensor(rng.normal(size=(B, h, S, D)).astype(
-        np.float32), device=dev).to(dtype) for h in (H, KV, KV))
+    """The kernel against its plain version at FLASH_TOL, two runs
+    bit-equal; with lse the same output bits and lse within 1e-5 of the
+    dense oracle's; on the (B, H, S, D) views of (B, S, H, D) tensors the
+    same bits as on contiguous ones."""
+    q, k, v = (torch.as_tensor(rng.normal(size=(B, S, h, D)).astype(
+        np.float32), device=dev).to(dtype).transpose(1, 2)
+        for h in (H, KV, KV))
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
     before = _build.launches["flash_attention"]
-    a = FA.flash_attention(q, k, v)
-    b = FA.flash_attention(q, k, v)
-    p = FA.flash_attention_plain(q, k, v)
-    assert _build.launches["flash_attention"] == before + 2
+    a = FA.flash_attention(qc, kc, vc)
+    b = FA.flash_attention(qc, kc, vc)
+    o, lse = FA.flash_attention_fwd(qc, kc, vc)
+    ov = FA.flash_attention(q, k, v)
+    p, plse = FA.flash_attention_plain(qc, kc, vc, return_lse=True)
+    assert _build.launches["flash_attention"] == before + 4
     assert a.dtype == dtype and _same(a, b)
+    assert _same(o, a) and _same(ov, a)
+    if FA._forward_route(dtype, D)[0] != "padded":   # written in q's layout
+        assert ov.transpose(1, 2).is_contiguous()
+    if dtype == torch.bfloat16 and D <= FA.HEAD_DIMS[-1]:
+        # the launcher's schedule: the wrapper's tiles, every (batch x
+        # head, query tile) item, one persistent block an SM at most
+        sch = FA._fwd_schedule(B, H, S, D, dev)
+        rows, keys = FA.TILES[dtype][FA._pad(D)]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert (sch["rows"], sch["keys"]) == (rows, keys)
+        assert sch["items"] == B * H * -(-S // rows)
+        assert sch["grid"] == min(sch["items"], sms)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(a.float(), p.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, plse, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -230,13 +230,40 @@ def test_forward_route_by_head_dim(D, bf16, fp32):
     assert FA._forward_route(torch.float32, D) == fp32
 
 
-@pytest.mark.parametrize("name", ["base", "runtime_width"])
+@pytest.mark.parametrize("name", ["base", "no_store", "no_exp", "stages3",
+                                  "two_consumers", "no_turns", "legacy",
+                                  "runtime_width"])
 def test_fwd_ablate_patches_apply(name):
-    """`launch.fwd_ablate`'s variants still find the line they patch in
-    csrc/flash_attention.cu: width 120 has a body of its own, and the
-    runtime_width variant only stops choosing it."""
+    """`launch.fwd_ablate`'s variants still find the lines they patch in
+    csrc/flash_attention.cu, each exactly once: every variant differs from
+    the source but base, and the runtime_width variant only stops choosing
+    width 120's own body."""
     from repro_torch.launch import fwd_ablate as FWA
+    assert set(FWA.PATCHES) == {"base", "no_store", "no_exp", "stages3",
+                                "two_consumers", "no_turns", "legacy",
+                                "runtime_width"}
     src = (_build.CSRC / "flash_attention.cu").read_text()
     out = FWA.variant_source(name)
     assert (out == src) == (name == "base")
-    assert ("flash_fwd_bf16_kernel<128, 120>;" in out) == (name == "base")
+    assert ("flash_fwd_bf16_kernel<128, 120>;" in out) == \
+        (name != "runtime_width")
+    for old, new in FWA.PATCHES[name]:
+        assert src.count(old) == 1 and new in out
+
+
+@pytest.mark.parametrize("preset,shape", [
+    ("yi", (4, 32, 4, 2048, 128)), ("zamba2", (4, 32, 32, 2048, 64)),
+    ("danube", (4, 32, 8, 2048, 120)), ("whisper", (4, 16, 16, 2048, 64))])
+def test_fwd_ablate_shape_presets(preset, shape):
+    """`launch.fwd_ablate`'s --shape presets are the models' prefill
+    shapes at batch 4 x 2048 tokens: (B, H, KV, S, D) from each config."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import fwd_ablate as FWA
+    arch = {"yi": "yi-6b", "zamba2": "zamba2-1.2b",
+            "danube": "h2o-danube-3-4b", "whisper": "whisper-medium"}[preset]
+    cfg = get_config(arch)
+    assert FWA.parse_shape(preset) == shape == (
+        4, cfg.n_heads, cfg.n_kv_heads, 2048, cfg.head_dim)
+    assert FWA.parse_shape("1,2,2,64,16") == (1, 2, 2, 64, 16)
+    with pytest.raises(ValueError):
+        FWA.parse_shape("1,2,2")
