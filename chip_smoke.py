@@ -9,8 +9,9 @@
    It counts the HGMMA (wgmma) instructions in the flash library's SASS
    where the toolkit has `cuobjdump` (none fails the run) and requires
    ptxas to report no spills in the bfloat16 flash bodies (the
-   backward's persistent pass one per D, the forward per D at its own
-   width and at a narrower runtime width, and at danube's 120);
+   backward's persistent pass one per D, the forward per D <= 128 at its
+   own width and at a narrower runtime width, at danube's 120, and the
+   D = 256 body) and no C7520 (wgmma serialized) in any;
 2. holds each kernel against its plain PyTorch version on the card at
    small shapes (for gee_scatter also K = 256, one row holding 50,000
    contributions and rows whose donors mostly share a class, each
@@ -23,14 +24,16 @@
    to give the same bits; and the widths outside the main path's bodies:
    gee_delta_renorm at K = 200, topk_fused at K = 300 and at k = 100
    (the chunked and long-list select bodies), flash attention at D = 96
-   (read in place by the D = 128 body) and at D = 160 and
-   256 in both dtypes (the wide body for D > 128).  At every flash case
+   (read in place by the D = 128 body) and at D = 160, 192, 256 and 512
+   in both dtypes (at bfloat16 the D = 256 tensor-core body up to 256,
+   read in place; at float32 and at 512 the CUDA-core wide body).  At
+   every flash case
    the forward with lse (`flash_attention_fwd`: the same output bits,
    lse within 1e-5 of the dense oracle's) and the backward
    (`flash_attention_bwd`, twice: the same bits) against its plain
    version on the same (o, lse) and a random dO, at the forward's
-   tolerance; D = 160 and 256 take the backward's CUDA-core body in
-   both dtypes;
+   tolerance; D > 128 takes the backward's CUDA-core body in both
+   dtypes;
 3. drives the GEE path at the scale of SNAP soc-LiveJournal1 (an SBM
    with n = 4,847,571 nodes, s = 68,993,773 edges, K = 16, 10% labeled):
    `Embedder(backend="cuda").fit`, then two `EmbeddingShard`s
@@ -129,7 +132,11 @@
    prefill and in the first decode step, and `prefill`'s and
    `decode_step`'s logits against that run's (see LM_REL_TOL); then the
    flash kernel is held against its plain version and timed at the
-   prefill's shape;
+   prefill's shape, and at one wide shape (B = --lm-batch, H 8, KV 2,
+   S = --lm-prompt, D = 256): the D = 256 tensor-core body at bfloat16
+   beside SDPA and its bound (with the launcher's items and grid), the
+   CUDA-core wide body on the same inputs in float32, and the backward
+   (its CUDA-core body) beside SDPA's backward;
 7. the LM families (`FAMILIES`): each of the other nine archs of the
    registry at full width, its weights drawn from --seed, through
    `generate` at --lm-batch prompts of --lm-prompt tokens (whisper also
@@ -1592,16 +1599,19 @@ def main() -> int:
             _build.ptxas_log["flash_attention"]).items()
             if any(k_ in f for k_ in ("flash_fwd_bf16_kernel",
                                       "flash_bwd_kernel"))}
-        # the forward: per D one body at its own width and one at a
+        # the forward: per D <= 128 one body at its own width and one at a
         # runtime narrower width, and danube's 120 on D = 128 (its own
-        # body: `launch.fwd_ablate` times it against the runtime width's);
-        # the backward one per D
-        if len(bf16) != 13 or any(bf16.values()):
+        # body: `launch.fwd_ablate` times it against the runtime width's),
+        # and the D = 256 body (any width); the backward one per D
+        if len(bf16) != 14 or any(bf16.values()):
             raise AssertionError(f"ptxas spill bytes of the bfloat16 flash "
-                                 f"bodies (13 expected: forward 9, "
+                                 f"bodies (14 expected: forward 10, "
                                  f"backward 4; all 0): {bf16}")
-        print("ptxas: the 13 bfloat16 flash bodies (forward 9, backward "
+        print("ptxas: the 14 bfloat16 flash bodies (forward 10, backward "
               "4) spill 0 bytes")
+        if c7520:
+            raise AssertionError(f"ptxas serialized the wgmma of a flash "
+                                 f"body (C7520): {c7520}")
     hgmma = count_hgmma(_build.library_path("flash_attention"))
     if hgmma is None:
         print("cuobjdump not found: HGMMA count of the flash library not "
@@ -1826,8 +1836,12 @@ def main() -> int:
         (1, 2, 2, 64, 16), (2, 4, 2, 128, 32), (1, 8, 1, 128, 16),
         (2, 4, 2, 100, 64), (1, 4, 4, 1, 32), (1, 8, 2, 200, 128),
         (1, 32, 4, 130, 128), (1, 8, 2, 200, 96),
-        # the wide body (D > 128): ragged S and a ragged last D chunk
-        (1, 4, 2, 100, 160), (2, 8, 2, 130, 256))
+        # D > 128: at bfloat16 the D = 256 tensor-core body (160 and 192
+        # read in place), at float32 and at D = 512 the CUDA-core wide body
+        # (ragged S and a ragged last D chunk); the backward's CUDA-core
+        # body at all of them
+        (1, 4, 2, 100, 160), (1, 4, 2, 130, 192), (2, 8, 2, 130, 256),
+        (1, 2, 1, 70, 512))
         for dt in (torch.float32, torch.bfloat16)]
     flash_cases += [((1, lm.n_heads, lm.n_kv_heads, 2049, lm.head_dim),
                      torch.bfloat16),
@@ -3078,30 +3092,102 @@ def main() -> int:
               f"blocks")
         plain_ms = timer(lambda: FA.flash_attention_plain(q, k, v), 3)
         del q, k, v
-        # the wide body (D > 128) at one shape: yi's batch and GQA group,
-        # 8 query heads, S = 2048, D = 256, bfloat16
+        # the wide bodies (D > 128) at one shape: yi's batch and a GQA
+        # group of 4, 8 query heads, S = 2048, D = 256 (a Gemma-style head
+        # dim): bfloat16 on the D = 256 tensor-core body beside SDPA, the
+        # same inputs in float32 on the CUDA-core wide body, and the
+        # backward at bfloat16 (its CUDA-core body) beside SDPA's
         Dw, Hw, KVw = 256, 8, 2
         qw, kw_, vw = (torch.randn((B, h_, S, Dw), generator=gen_,
                                    device=dev, dtype=torch.bfloat16)
                        for h_ in (Hw, KVw, KVw))
-        check_flash(qw, kw_, vw, "wide body D=256")
+        err_w = check_flash(qw, kw_, vw, "wide D=256 bf16")
         flops_w = 4.0 * Dw * B * Hw * S * (S + 1) / 2
+        bytes_w = 2 * (2 * B * Hw * S * Dw + 2 * B * KVw * S * Dw)
+
+        def run_wide():
+            return FA.flash_attention(qw, kw_, vw)
+
+        def run_wide_sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qw, kw_, vw, is_causal=True, enable_gqa=True)
+
+        # kernel and library call in turns, as at the prefill's shape
+        w1, wl1 = timer(run_wide, 20), timer(run_wide_sdpa, 20)
+        wl2, w2 = timer(run_wide_sdpa, 20), timer(run_wide, 20)
+        sch_w = FA._fwd_schedule(B, Hw, S, Dw, dev)
         wide = dict(
-            wide_D256_ms=timer(lambda: FA.flash_attention(qw, kw_, vw), 5),
-            wide_D256_bound_ms=bound_ms(
-                2 * (2 * B * Hw * S * Dw + 2 * B * KVw * S * Dw), flops_w,
-                tensor_cores=True)[0],
+            wide_D256_ms=(w1 + w2) / 2,
+            wide_D256_bound_ms=bound_ms(bytes_w, flops_w,
+                                        tensor_cores=True)[0],
             wide_D256_plain_ms=timer(
                 lambda: FA.flash_attention_plain(qw, kw_, vw), 2),
-            wide_D256_library_ms=timer(
+            wide_D256_library_ms=(wl1 + wl2) / 2,
+            wide_D256_max_abs_err=err_w)
+        ms_w, lib_w = wide["wide_D256_ms"], wide["wide_D256_library_ms"]
+        print(f"flash_attention wide, the D = 256 tensor-core body, at B={B} "
+              f"H={Hw} KV={KVw} S={S} D={Dw} bf16: kernel {w1:.4f} / "
+              f"{w2:.4f} ms, library {wl1:.4f} / {wl2:.4f} ms, kernel / "
+              f"library {ms_w / lib_w:.3f}, bound "
+              f"{wide['wide_D256_bound_ms']:.4f} ms, share of the bound "
+              f"{wide['wide_D256_bound_ms'] / ms_w:.3f}, plain "
+              f"{wide['wide_D256_plain_ms']:.4f} ms; the launcher's "
+              f"schedule (flash_attention_fwd_info): {sch_w['items']} work "
+              f"items of {sch_w['rows']} rows x {sch_w['keys']}-key tiles on "
+              f"a grid of {sch_w['grid']} persistent blocks")
+        qf, kf, vf = (x.float() for x in (qw, kw_, vw))
+        err_f = check_flash(qf, kf, vf, "wide D=256 float32")
+        wide.update(
+            wide_D256_f32_ms=timer(lambda: FA.flash_attention(qf, kf, vf), 3),
+            # float32 operations outside the tensor cores, 4-byte operands
+            wide_D256_f32_bound_ms=bound_ms(2 * bytes_w, flops_w)[0],
+            wide_D256_f32_plain_ms=timer(
+                lambda: FA.flash_attention_plain(qf, kf, vf), 2),
+            wide_D256_f32_library_ms=timer(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qw, kw_, vw, is_causal=True, enable_gqa=True), 5))
-        print(f"flash_attention wide body at B={B} H={Hw} KV={KVw} S={S} "
-              f"D={Dw} bf16: kernel {wide['wide_D256_ms']:.4f} ms, bound "
-              f"{wide['wide_D256_bound_ms']:.4f} ms, plain "
-              f"{wide['wide_D256_plain_ms']:.4f} ms, library "
-              f"{wide['wide_D256_library_ms']:.4f} ms")
-        del qw, kw_, vw
+                    qf, kf, vf, is_causal=True, enable_gqa=True), 3),
+            wide_D256_f32_max_abs_err=err_f)
+        print(f"flash_attention wide, the CUDA-core body, at the same shape "
+              f"in float32: kernel {wide['wide_D256_f32_ms']:.4f} ms, bound "
+              f"{wide['wide_D256_f32_bound_ms']:.4f} ms (fp32 operations), "
+              f"plain {wide['wide_D256_f32_plain_ms']:.4f} ms, library "
+              f"{wide['wide_D256_f32_library_ms']:.4f} ms, max|err| "
+              f"{err_f:.3e}")
+        del qf, kf, vf
+        # the backward at the bfloat16 shape: two runs bit-equal, held to
+        # its plain version by phase 8's limits, timed beside SDPA's
+        # backward (one autograd call on a retained graph)
+        o_w, lse_w = FA.flash_attention_fwd(qw, kw_, vw)
+        do_w = torch.randn(qw.shape, generator=gen_, device=dev,
+                           dtype=torch.bfloat16)
+        gw1 = FA.flash_attention_bwd(qw, kw_, vw, o_w, lse_w, do_w)
+        gw2 = FA.flash_attention_bwd(qw, kw_, vw, o_w, lse_w, do_w)
+        gwp = FA.flash_attention_bwd_plain(qw, kw_, vw, o_w, lse_w, do_w)
+        gaps_w = [grad_gap(a, b) for a, b in zip(gw1, gwp)]
+        if not (all(same(a, b) for a, b in zip(gw1, gw2))
+                and all(grad_ok(g_) for g_ in gaps_w)):
+            raise AssertionError(f"flash_attention_bwd at D = 256: runs "
+                                 f"differ or {show_gaps(gaps_w)}")
+        del gw1, gw2, gwp
+        lib_in = [x.detach().requires_grad_() for x in (qw, kw_, vw)]
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            *lib_in, is_causal=True, enable_gqa=True)
+        wide.update(
+            wide_bwd_D256_ms=timer(lambda: FA.flash_attention_bwd(
+                qw, kw_, vw, o_w, lse_w, do_w), 2),
+            # five products over the causal pairs; q, o, dO, k, v read and
+            # dq, dk, dv written in bf16, lse read
+            wide_bwd_D256_bound_ms=bound_ms(
+                2 * (4 * B * Hw * S * Dw + 4 * B * KVw * S * Dw)
+                + 4 * B * Hw * S, 2.5 * flops_w, tensor_cores=True)[0],
+            wide_bwd_D256_library_ms=timer(lambda: torch.autograd.grad(
+                lib_out, lib_in, do_w, retain_graph=True), 5))
+        print(f"flash_attention_bwd at the same shape, bf16 (its CUDA-core "
+              f"body): {wide['wide_bwd_D256_ms']:.4f} ms, bound "
+              f"{wide['wide_bwd_D256_bound_ms']:.4f} ms, library (SDPA's "
+              f"backward) {wide['wide_bwd_D256_library_ms']:.4f} ms; two runs "
+              f"bit-equal; vs plain {show_gaps(gaps_w)}")
+        del qw, kw_, vw, o_w, lse_w, do_w, lib_in, lib_out
         return dict(**wide,
             name="flash_attention", route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3465,8 +3551,12 @@ def main() -> int:
 
     for r_ in results:
         rate = (f", {r_['tflops']:.1f} TFLOP/s, {r_['bound_share']:.3f} of "
-                f"the bound; wide body D = 256: {r_['wide_D256_ms']:.4f} ms "
-                f"(bound {r_['wide_D256_bound_ms']:.4f})"
+                f"the bound; the D = 256 body: {r_['wide_D256_ms']:.4f} ms "
+                f"(bound {r_['wide_D256_bound_ms']:.4f}, library "
+                f"{r_['wide_D256_library_ms']:.4f}); the CUDA-core "
+                f"body at float32 D = 256: {r_['wide_D256_f32_ms']:.4f} ms; "
+                f"the backward at D = 256: {r_['wide_bwd_D256_ms']:.4f} ms "
+                f"(SDPA's {r_['wide_bwd_D256_library_ms']:.4f})"
                 ) if "tflops" in r_ else ""
         if "ms_all_labelled" in r_:
             rate = (f", {r_['bound_share']:.3f} of the bound "

@@ -19,8 +19,9 @@
 //
 // flash_attention_launch picks one of two bodies by dtype, for D in
 // {16, 32, 64, 128} (and at bfloat16 any narrower multiple of 8, read in
-// place); flash_attention_wide_launch runs a third, simple body for any
-// D > 128 (widebody, below).
+// place), and at bfloat16 a third for 128 < D <= 256 (the wide tensor-core
+// body, below); flash_attention_wide_launch runs a simple body for any
+// D > 128 at float32 and D > 256 at bfloat16 (widebody, below).
 //
 // bfloat16 (bf16body): both products on the tensor cores, in persistent
 // blocks.  The grid is one block per SM (fewer if there are fewer work
@@ -88,6 +89,26 @@
 // wgmma sits in straight-line code or a loop: otherwise ptxas serializes
 // all of them (C7520).
 //
+// bfloat16 at 128 < D <= 256 (bf16body: Fwd<256>,
+// flash_fwd_bf16_kernel_d256): the bfloat16 body's schedule, work list,
+// tickets, turns and arithmetic at D = 256 (a narrower width read in
+// place, as above), retiled because the D = 128 layout needs 320 KB
+// there: items of 128 query rows, two
+// consumers, 80-key K and V tiles in a ring of two, one Q slot (64 KB).
+// S = Q K^T is m64n80k16 over 16 k-steps of D, O += P V m64n256k16 with P
+// from registers; a consumer's 64 x 256 float32 accumulator takes 128 of
+// its 232 registers.  With 80-key tiles up to two tiles of a consumer's
+// walk hold keys past its first row, and each such tile is masked.  No
+// second Q slot fits, so the next item's Q lands once the item has
+// released the slot (its first K and V tiles already land before): O is
+// staged in the consumer's own 64 rows of the Q slot (its last S has read
+// them) and leaves by TMA store, and the slot is released once both
+// consumers' stores have read it.  (`launch.fwd_ablate` times 64-key
+// tiles and O written from registers, the slot then released after the
+// last S: both slower.)  The same rules as the
+// other bodies: no atomics on data, every row reduced over its key tiles
+// in one order fixed by the shape, control values through __shfl_sync.
+//
 // float32 (f32body): CUDA cores (TF32 tensor cores would miss the float32
 // contract).  The block stages its Q tile and then one 64-row K and V tile
 // at a time in shared memory as float32, and never loads a KV tile wholly
@@ -99,8 +120,9 @@
 // thread owns output columns tx + 16 c.  Rows and keys past S (a ragged
 // last tile) are zero-filled and masked.
 //
-// any D > 128, float32 or bfloat16 (widebody): CUDA cores, float32
-// arithmetic, no tensor cores; correctness first, not speed.  One block
+// float32 at any D > 128, and bfloat16 at D > 256 (widebody): CUDA cores,
+// float32 arithmetic, no tensor cores; correctness first, not speed.  One
+// block
 // of 256 threads per (batch x head, 16-row query tile), the heaviest
 // tiles first.  For each 32-key tile: the scores take the dot over D in
 // chunks of 128 columns staged in shared memory (fmaf in column order,
@@ -458,6 +480,52 @@ struct Fwd {
                 "more registers than an SM has");
 };
 
+// The wide body's tiling (bfloat16, 128 < D <= 256, run at 256; a
+// narrower width is read in place): a work item is BQ = 128 query rows of
+// one (batch x head), two consumer warpgroups of 64 rows each, against key
+// tiles of BK keys; one producer warpgroup.  At D = 256 a 128-row Q tile
+// is 64 KB and an 80-key K or V tile 40 KB (64 keys: 32 KB), so shared
+// memory holds one Q slot and a ring of two K and two V tiles: 224 KB
+// (192 KB) of the 232,448 bytes a block may take.  No second Q slot and
+// no staging tiles of O fit: the next item's Q lands once this item has
+// released the slot, and O leaves through the consumer's own 64 rows of
+// the Q slot and a TMA store, the slot released once the stores have read
+// it.  `launch.fwd_ablate` chose 80-key tiles and staged O (its wide_bk64
+// variant and its wide_o_regs one, O from registers with the slot
+// released after the consumers' last S, are slower); the turns, as the
+// bfloat16 body's, neither pay nor cost there (wide_no_turns).
+// Registers: a consumer's 64 x 256 float32 accumulator takes 128 a
+// thread, the 64 x BK scores and P's bf16 fragments come on top: 232,
+// the producer 40.  setmaxnreg.inc takes only what the block's other
+// warpgroups gave back of the 168 a thread it was launched with (384
+// threads), so the consumers' increase must not exceed the producer's
+// decrease, or they wait for ever.
+template <>
+struct Fwd<256> {
+  static constexpr int BK = 80;              // keys per K and V tile
+  static constexpr int CONSUMERS = 2;        // of 64 query rows each
+  static constexpr int STAGES = 2;           // K and V tiles in the ring
+  static constexpr int BQ = 64 * CONSUMERS;
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = 232;
+  using GQ = Geo<256, BQ>;
+  using GK = Geo<256, BK>;
+  static constexpr uint32_t K_OFF = GQ::TILE;
+  static constexpr uint32_t V_OFF = K_OFF + STAGES * GK::TILE;
+  static constexpr uint32_t ITEM_OFF = V_OFF + STAGES * GK::TILE;
+  static constexpr uint32_t BAR_OFF = ITEM_OFF + 16;
+  // + the barriers (Q full and empty; per stage K and V full and empty),
+  // + room to align the base to 1024 bytes
+  static constexpr size_t SMEM = BAR_OFF + 8 * (2 + 4 * STAGES) + 1024;
+  static_assert(SMEM <= 232448, "more shared memory than a block may take");
+  static_assert(BK % 16 == 0 && (BK == 64 || BK == 80),
+                "S = Q K^T is m64n64k16 or m64n80k16");
+  static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 128 * CONSUMERS <=
+                    65536 / THREADS / 8 * 8 * THREADS,
+                "more registers than the block was launched with");
+};
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -767,6 +835,124 @@ __device__ __forceinline__ void wgmma_rs_n120(float (&d)[60],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], both operands in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 80] (+)= A[64 x 16] . B[16 x 80], both operands in shared memory
+__device__ __forceinline__ void wgmma_ss_n80(float (&d)[40], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 256] += A[64 x 16] . B[16 x 256], A in registers, B MN-major
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// S of the wide body's key tile: D[64 x N] (+)= A . B, both operands in
+// shared memory, N = 64 or 80 keys
+template <int N>
+__device__ __forceinline__ void wgmma_ss_keys(float (&d)[N / 2], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  if constexpr (N == 80) wgmma_ss_n80(d, da, db, scale_d);
+  else wgmma_ss_n64(d, da, db, scale_d);
 }
 
 template <int D>
@@ -1304,6 +1490,375 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   return (int)cudaGetLastError();
 }
 
+// The wide body (Fwd<256>; see the note at the top of the file): the
+// bfloat16 body's persistent schedule, work list, ticket counter, turns
+// and arithmetic, with one Q slot.  The maps hold the operands' real
+// width (a multiple of 8, at most 256): they zero-fill the columns past
+// it, and the store map `to` drops them.
+__global__ void __launch_bounds__(Fwd<256>::THREADS, 1)
+flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap to,
+                           float* __restrict__ lse, int* work, int B, int H,
+                           int KV, int S, float scale_log2) {
+  using F = Fwd<256>;
+  using GQ = F::GQ;
+  using GK = F::GK;
+  constexpr int D = 256, KT = F::BK, NCONS = F::CONSUMERS;
+  constexpr int STAGES = F::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  volatile int* item_s = reinterpret_cast<volatile int*>(
+      smem_raw + (base - smem_u32(smem_raw)) + F::ITEM_OFF);
+  const uint32_t bar = base + F::BAR_OFF;
+  // mbarriers: Q full and empty; per stage K full, V full, K empty and V
+  // empty (K is released as soon as S is computed, V after P V)
+  const uint32_t full_q = bar, empty_q = bar + 8, full_k = bar + 16,
+                 full_v = full_k + 8 * STAGES,
+                 empty_k = full_v + 8 * STAGES,
+                 empty_v = empty_k + 8 * STAGES;
+
+  const int G = H / KV;
+  const int n_qt = (S + F::BQ - 1) / F::BQ;
+  const int n_items = B * H * n_qt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    // each consumer's storing thread once its store has read the slot
+    mbar_init(empty_q, NCONS);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, 128 * NCONS);
+      mbar_init(empty_v + 8 * s, 128 * NCONS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread takes the items and starts every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+                     F::PRODUCER_REGS)
+                 : "memory");
+    if (threadIdx.x == 0) {
+      int j = 0;                                 // K, V tiles loaded so far
+      for (int n = 0;; ++n) {
+        const int item = atomicAdd(work, 1);
+        if (item >= n_items) {
+          // the last ticket of the launch puts the counter back to zero
+          if (item == n_items + (int)gridDim.x - 1) atomicExch(work, 0);
+          mbar_wait(empty_q, (n & 1) ^ 1);
+          item_s[0] = -1;
+          mbar_arrive(full_q);
+          break;
+        }
+        int b, h, qt;
+        work_item(item, B, H, n_qt, b, h, qt);
+        const int kvh = h / G, q0 = qt * F::BQ;
+        const int n_kv = (min(S, q0 + F::BQ) + KT - 1) / KT;
+        // K and V of key tile t into the next ring slot
+        auto kv_load = [&](int t) {
+          const int s = j % STAGES;
+          const uint32_t parity = ((j / STAGES) & 1) ^ 1;
+          const uint32_t ks = base + F::K_OFF + s * GK::TILE;
+          const uint32_t vs = base + F::V_OFF + s * GK::TILE;
+          mbar_wait(empty_k + 8 * s, parity);
+          mbar_expect_tx(full_k + 8 * s, GK::TILE);
+          for (int c = 0; c < GK::NC; ++c)
+            tma_load(ks + c * GK::CHUNK, &tk, full_k + 8 * s, c * GK::AW, kvh,
+                     t * KT, b);
+          mbar_wait(empty_v + 8 * s, parity);
+          mbar_expect_tx(full_v + 8 * s, GK::TILE);
+          for (int c = 0; c < GK::NC; ++c)
+            tma_load(vs + c * GK::CHUNK, &tv, full_v + 8 * s, c * GK::AW, kvh,
+                     t * KT, b);
+          ++j;
+        };
+        // the item's first tiles land while the consumers end the last
+        // item (their slots are released by its last tiles alone), its Q
+        // once the last item has released the one slot
+        const int pre = min(n_kv, STAGES);
+        for (int t = 0; t < pre; ++t) kv_load(t);
+        mbar_wait(empty_q, (n & 1) ^ 1);
+        item_s[0] = item;
+        mbar_expect_tx(full_q, GQ::TILE);
+        for (int c = 0; c < GQ::NC; ++c)
+          tma_load(base + c * GQ::CHUNK, &tq, full_q, c * GQ::AW, h, q0, b);
+        for (int t = pre; t < n_kv; ++t) kv_load(t);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+                     F::CONSUMER_REGS)
+                 : "memory");
+    // which 64 rows of an item, read through a shuffle (warp-uniform for
+    // ptxas: no C7520), as the item below
+    const int w = __shfl_sync(0xffffffffu, threadIdx.x / 128 - 1, 0);
+    const int tid = threadIdx.x % 128;
+    // accumulator fragment: rows r0 and r0 + 8 (h = 0, 1) of the
+    // consumer's 64, columns 8 j + c0 + {0, 1}: element [4 j + 2 h + e]
+    const int r0 = 16 * (tid / 32) + (tid % 32) / 4;
+    const int c0 = 2 * (tid % 4);
+    // this consumer's 64 rows of the Q slot, in each column chunk
+    const uint32_t qa = base + w * 64 * GQ::ROW;
+
+    float m[2], l[2], alpha[2];
+    float acc[D / 2];
+    float sc[KT / 2];
+    uint32_t pk[KT / 4];
+#pragma unroll
+    for (int i = 0; i < KT / 4; ++i) pk[i] = 0;
+
+    // S = Q K^T of the tile in ring slot `slot` into sc (one batch, not
+    // committed): 16 k-steps over D
+    auto qk = [&](int slot) {
+      const uint32_t ks = base + F::K_OFF + slot * GK::TILE;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t col = (kk * 16 % GK::AW) * 2;
+        const uint64_t da = sdesc(qa + (kk * 16 / GQ::AW) * GQ::CHUNK + col,
+                                  16, GQ::SBO, GQ::LAYOUT);
+        const uint64_t db = sdesc(ks + (kk * 16 / GK::AW) * GK::CHUNK + col,
+                                  16, GK::SBO, GK::LAYOUT);
+        wgmma_ss_keys<KT>(sc, da, db, kk > 0);
+      }
+    };
+    // O += P V of the tile in ring slot `slot` (one batch, not committed):
+    // m64n256k16, the largest N wgmma has
+    auto pv = [&](int slot) {
+      const uint32_t vs = base + F::V_OFF + slot * GK::TILE;
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk) {
+        const uint32_t a[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2],
+                               pk[4 * kk + 3]};
+        wgmma_rs_n256(acc, a,
+                      sdesc(vs + kk * 16 * GK::ROW, GK::CHUNK, GK::SBO,
+                            GK::LAYOUT));
+      }
+    };
+    // the online softmax of a tile's scores, as the bfloat16 body's: m
+    // (log2 domain) and l updated, sc holds exp2(s * scale - m), alpha
+    // the rescale of earlier tiles.  `masked`: some key of the tile lies
+    // past this consumer's first row; key 8 j + c0 + e of the tile is then
+    // masked above row `off` + r0 (+ 8) of it (off: the consumer's first
+    // row less the tile's first key)
+    auto online = [&](bool masked, int off) {
+      if (masked) {
+#pragma unroll
+        for (int jj = 0; jj < KT / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (8 * jj + c0 + (e & 1) > off + r0 + 8 * (e >> 1))
+              sc[4 * jj + e] = NEG;
+      }
+      float mt[2] = {NEG, NEG};
+#pragma unroll
+      for (int i = 0; i < KT / 2; ++i)
+        mt[(i >> 1) & 1] = fmaxf(mt[(i >> 1) & 1], sc[i]);
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        mt[h2] = fmaxf(mt[h2], __shfl_xor_sync(0xffffffffu, mt[h2], 1));
+        mt[h2] = fmaxf(mt[h2], __shfl_xor_sync(0xffffffffu, mt[h2], 2));
+        const float m_new = fmaxf(m[h2], mt[h2] * scale_log2);
+        alpha[h2] = ex2(m[h2] - m_new);
+        m[h2] = m_new;
+        l[h2] *= alpha[h2];
+      }
+#pragma unroll
+      for (int i = 0; i < KT / 2; ++i) {
+        sc[i] = ex2(fmaf(sc[i], scale_log2, -m[(i >> 1) & 1]));
+        l[(i >> 1) & 1] += sc[i];
+      }
+    };
+    // rescale O by alpha and round P to the bf16 A fragments of P V:
+    // pk[4 kk .. 4 kk + 3] holds keys 16 kk .. 16 kk + 15
+    auto rescale_round = [&]() {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int jj = 0; jj < KT / 8; ++jj)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2)
+          pk[2 * jj + h2] = pack_bf16(sc[4 * jj + 2 * h2],
+                                      sc[4 * jj + 2 * h2 + 1]);
+    };
+    // one turn on the tensor cores (named barrier 1 + w, handed on to the
+    // other consumer)
+    auto take_turn = [&](auto&& issue) {
+      pin(acc);
+      pin(pk);
+      bar_sync(1 + w);
+      wgmma_fence();
+      issue();
+      bar_arrive(1 + (w + 1) % NCONS);
+    };
+    int j = 0;                                 // K, V tiles consumed so far
+    auto slot = [&](int t) { return (j + t) % STAGES; };
+    auto phase = [&](int t) { return (uint32_t)(((j + t) / STAGES) & 1); };
+
+    // O / l of an item whose first row is row0 (none at row0 >= S) in q's
+    // dtype, and lse; releases the Q slot, where O is staged
+    auto epilogue = [&](int b, int h, int row0) {
+      if (row0 >= S) {
+        if (tid == 0) mbar_arrive(empty_q);
+        return;
+      }
+      float den[2];
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        l[h2] += __shfl_xor_sync(0xffffffffu, l[h2], 1);
+        l[h2] += __shfl_xor_sync(0xffffffffu, l[h2], 2);
+        den[h2] = fmaxf(l[h2], 1e-30f);
+      }
+      // into this consumer's own rows of the Q slot (its last S has read
+      // them) in the TMA store's swizzled layout, then one store a
+      // column chunk; the map drops rows past S and columns past the
+      // width.  The slot is released once the stores have read it.
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj) {
+        const int col = 8 * jj + c0;
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2)
+          st_shared(qa + (col / GQ::AW) * GQ::CHUNK +
+                        GQ::swizzle((r0 + 8 * h2) * GQ::ROW +
+                                    (col % GQ::AW) * 2),
+                    pack_bf16(acc[4 * jj + 2 * h2] / den[h2],
+                              acc[4 * jj + 2 * h2 + 1] / den[h2]));
+      }
+      fence_async_smem();
+      named_sync(1 + NCONS + w, 128);
+      if (tid == 0) {
+        for (int cc = 0; cc < GQ::NC; ++cc)
+          tma_store(&to, qa + cc * GQ::CHUNK, cc * GQ::AW, h, row0, b);
+        bulk_commit();
+        bulk_wait<true>();
+        mbar_arrive(empty_q);
+      }
+      // m is in the log2 domain: lse = ln(2^m l)
+      if (lse != nullptr && c0 == 0) {
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int row = row0 + r0 + 8 * h2;
+          if (row < S)
+            lse[((size_t)b * H + h) * S + row] =
+                (m[h2] + log2f(den[h2])) * LN2;
+        }
+      }
+    };
+
+    // A consumer walks key tiles 0 .. last that its rows below S see:
+    // turn 0 starts S of tile 0; turn t starts S of tile t and P V of
+    // tile t - 1, then runs tile t's softmax while P V of tile t - 1 and
+    // the other consumer's products run.  P V of the last tile follows
+    // outside the turns (computed and dropped if no row is below S), then
+    // the turns past the last tile, which release their tiles unread, and
+    // the epilogue.  Every wgmma sits in straight-line code or a loop.
+    if (w == NCONS - 1) bar_arrive(1);         // consumer 0 takes turn 0
+    for (int n = 0;; ++n) {
+      mbar_wait(full_q, n & 1);
+      const int item = __shfl_sync(0xffffffffu, item_s[0], 0);
+      if (item < 0) break;
+      int b, h, qt;
+      work_item(item, B, H, n_qt, b, h, qt);
+      const int q0 = qt * F::BQ;
+      const int n_kv = (min(S, q0 + F::BQ) + KT - 1) / KT;
+      const int row0 = q0 + 64 * w;            // this consumer's first row
+      const bool walks = row0 < S;
+      const int last = walks ? min(S - 1, row0 + 63) / KT : 0;
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        m[h2] = NEG;
+        l[h2] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+      mbar_wait(full_k + 8 * slot(0), phase(0));
+      take_turn([&] {
+        qk(slot(0));
+        wgmma_commit();
+      });
+      wgmma_wait<0>();                         // S of tile 0
+      pin(sc);
+      mbar_arrive(empty_k + 8 * slot(0));
+      if (walks) {
+        online(KT - 1 > row0, row0);
+        rescale_round();
+      } else {                                 // tile 0's V is not read
+        mbar_wait(full_v + 8 * slot(0), phase(0));
+        mbar_arrive(empty_v + 8 * slot(0));
+      }
+      for (int t = 1; t <= last; ++t) {
+        mbar_wait(full_k + 8 * slot(t), phase(t));
+        mbar_wait(full_v + 8 * slot(t - 1), phase(t - 1));
+        take_turn([&] {
+          qk(slot(t));
+          wgmma_commit();
+          pv(slot(t - 1));
+          wgmma_commit();
+        });
+        wgmma_wait<1>();                       // S of tile t
+        pin(sc);
+        mbar_arrive(empty_k + 8 * slot(t));
+        online(t * KT + KT - 1 > row0, row0 - t * KT);
+        wgmma_wait<0>();                       // P V of tile t - 1
+        pin(acc);
+        mbar_arrive(empty_v + 8 * slot(t - 1));
+        rescale_round();
+      }
+      // P V of the last tile
+      if (walks) mbar_wait(full_v + 8 * slot(last), phase(last));
+      pin(acc);
+      pin(pk);
+      wgmma_fence();
+      pv(slot(last));
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(acc);
+      if (walks) mbar_arrive(empty_v + 8 * slot(last));
+      // the turns past the last tile: its K and V released unread
+      for (int t = last + 1; t < n_kv; ++t) {
+        mbar_wait(full_k + 8 * slot(t), phase(t));
+        mbar_arrive(empty_k + 8 * slot(t));
+        take_turn([] {});
+        mbar_wait(full_v + 8 * slot(t), phase(t));
+        mbar_arrive(empty_v + 8 * slot(t));
+      }
+      epilogue(b, h, row0);
+      j += n_kv;
+    }
+    if (w == 0) bar_sync(1);                   // the other's last hand-over
+  }
+}
+
+// the wide body on operands `width` columns wide (a multiple of 8 up to
+// 256): the same persistent schedule as the other bodies
+int launch_wide(const void* q, const void* k, const void* v, void* o,
+                float* lse, const Lay* ly, int B, int H, int KV, int S,
+                int width, float scale, cudaStream_t stream) {
+  using F = Fwd<256>;
+  CUtensorMap mq, mk, mv, mo;
+  int err = make_map<256>(&mq, q, ly[0], H, S, B, F::BQ, width);
+  if (err == 0) err = make_map<256>(&mk, k, ly[1], KV, S, B, F::BK, width);
+  if (err == 0) err = make_map<256>(&mv, v, ly[2], KV, S, B, F::BK, width);
+  if (err == 0) err = make_map<256>(&mo, o, ly[3], H, S, B, 64, width);
+  if (err != 0) return err;
+  int* work = work_counter(stream);
+  if (work == nullptr) return (int)cudaErrorMemoryAllocation;
+  int n_items = 0, grid = 0;
+  err = schedule<256>(B, H, S, &n_items, &grid);
+  if (err != 0) return err;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_bf16_kernel_d256,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  flash_fwd_bf16_kernel_d256<<<grid, F::THREADS, F::SMEM, stream>>>(
+      mq, mk, mv, mo, lse, work, B, H, KV, S, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace bf16body
 
 namespace widebody {
@@ -1503,29 +2058,6 @@ constexpr int KT = 128;     // keys per work item, 64 per consumer
 constexpr int QT = 64;      // queries per step
 constexpr int NSTAGE = 2;   // depth of the Q / dO ring
 constexpr int NTHREADS = 384;
-
-// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], both operands in shared memory
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
 
 // 4 bytes global -> shared, zero-filled where !in (src is then not read)
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
@@ -1874,7 +2406,10 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tq,
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    const int w = threadIdx.x / 128 - 1;
+    // which 64 keys of an item; read through a shuffle so that ptxas sees
+    // a warp-uniform value: the branch around dq's product below on one it
+    // takes to be divergent serializes every wgmma of the kernel (C7520)
+    const int w = __shfl_sync(0xffffffffu, threadIdx.x / 128 - 1, 0);
     const int tid = threadIdx.x % 128;
     // accumulator fragment: rows r0 and r0 + 8 (h = 0, 1) of this
     // consumer's 64, columns 8 j + c0 + {0, 1}: element [4 j + 2 h + e]
@@ -2375,9 +2910,10 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // log-sum-exp.  width == D, except at bfloat16, where width <= D may be
 // any multiple of 8 (a row of 16-byte units, as TMA needs): the maps
 // zero-fill columns width .. D - 1 and only columns below width are
-// stored.  The caller checks KV | H, D in {16, 32, 64, 128} and, at
-// float32, the grid's y dimension: B * H <= 65535 (the bfloat16 body's
-// grid is one persistent block per SM).
+// stored.  The caller checks KV | H, D in {16, 32, 64, 128} (and at
+// bfloat16 also 256, the wide body) and, at float32, the grid's y
+// dimension: B * H <= 65535 (the bfloat16 bodies' grid is one persistent
+// block per SM).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       const void* strides, int B, int H,
@@ -2400,6 +2936,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                            width, scale, st);
       case 128: return bf16body::launch<128>(q, k, v, o, l, ly, B, H, KV, S,
                                              width, scale, st);
+      case 256: return bf16body::launch_wide(q, k, v, o, l, ly, B, H, KV, S,
+                                             width, scale, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -2416,8 +2954,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   }
 }
 
-// How the bfloat16 body of head dim D (16, 32, 64 or 128) runs a forward
-// of B x H heads of S rows on the current device, as
+// How the bfloat16 body of head dim D (16, 32, 64, 128 or 256) runs a
+// forward of B x H heads of S rows on the current device, as
 // flash_attention_launch schedules it: out[0] query rows of a work item,
 // out[1] keys of a KV tile, out[2] the work items, out[3] the grid's
 // persistent blocks.
@@ -2433,6 +2971,9 @@ extern "C" int flash_attention_fwd_info(int B, int H, int S, int D,
              return bf16body::schedule<64>(B, H, S, out + 2, out + 3);
     case 128: out[0] = bf16body::Fwd<128>::BQ;
               return bf16body::schedule<128>(B, H, S, out + 2, out + 3);
+    case 256: out[0] = bf16body::Fwd<256>::BQ;
+              out[1] = bf16body::Fwd<256>::BK;
+              return bf16body::schedule<256>(B, H, S, out + 2, out + 3);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -10,32 +10,35 @@ no window), where the reference runs the kernel's jnp twin `attn_flash`.
 On CPU tensors each wrapper runs its plain version (the forward the
 reference's dense oracle, `kernels/ref.py`); on CUDA tensors it launches
 the kernel or raises.  The kernel takes float32 or bfloat16, any head
-dim and any S (a ragged last tile is masked).  Its two main bodies take
-D in {16, 32, 64, 128}.  A head dim below 128 outside that set runs the
-body of the next one, with the real D ** -0.5 as its scale, and zero
-columns up to the body's width: they add exact zeros to every score and
-give output columns that are dropped, so the answer is the unpadded
-one.  At bfloat16 with D a multiple of 8 (a row of whole 16-byte units,
-which TMA needs; h2o-danube's 120) the kernel reads the operands in
-place and TMA zero-fills those columns in shared memory, and the output
-is written at its real width: no copy (`_forward_route`).  Any other
-such D (and float32) gets zero-padded copies, sliced back after.  The
-two bodies pick their own tiles (`TILES`): bfloat16 runs both products
-on the tensor cores (wgmma, TMA-fed) in persistent blocks, one an SM,
-that take (batch x head, query tile) items heaviest first from a
-counter, 128 query rows x 128 keys (192 x 128 at D = 64), and store the
-output from shared memory with TMA; float32 runs on the CUDA cores in
-64 x 64 tiles.  A head dim above 128
-runs a third, simple body in either dtype (``flash_attention_wide_launch``:
-CUDA cores, float32 arithmetic, 16-row query tiles, 32-key tiles, D in
-chunks of 128, the accumulators in a float32 workspace the wrapper
-allocates); it is written for correctness, not speed.
+dim and any S (a ragged last tile is masked).  Its bodies take D in
+`HEAD_DIMS`: {16, 32, 64, 128} in both dtypes, and 256 at bfloat16.  A
+head dim below the largest outside that set runs the body of the next
+one, with the real D ** -0.5 as its scale, and zero columns up to the
+body's width: they add exact zeros to every score and give output
+columns that are dropped, so the answer is the unpadded one.  At
+bfloat16 with D a multiple of 8 (a row of whole 16-byte units, which TMA
+needs; h2o-danube's 120, and 160 or 192 on the D = 256 body) the kernel
+reads the operands in place and TMA zero-fills those columns in shared
+memory, and the output is written at its real width: no copy
+(`_forward_route`).  Any other such D (and float32) gets zero-padded
+copies, sliced back after.  The bodies pick their own tiles (`TILES`):
+bfloat16 runs both products on the tensor cores (wgmma, TMA-fed) in
+persistent blocks, one an SM, that take (batch x head, query tile) items
+heaviest first from a counter, 128 query rows x 128 keys (192 x 128 at
+D = 64, 128 x 80 at D = 256), and store the output from shared memory
+with TMA; float32 runs on the CUDA cores in
+64 x 64 tiles.  Float32 above D = 128 and bfloat16 above D = 256 run a
+simple body (``flash_attention_wide_launch``: CUDA cores, float32
+arithmetic, 16-row query tiles, 32-key tiles, D in chunks of 128, the
+accumulators in a float32 workspace the wrapper allocates); it is written
+for correctness, not speed.
 `flash_attention_fwd` is the same forward that also returns each row's
 log-sum-exp.
 
 `flash_attention_bwd` is the gradient of that forward from (q, k, v, o,
 lse, dO); it has no TPU counterpart (the reference differentiates
-`attn_flash` with XLA).  bfloat16 at D in {16, 32, 64, 128} runs FA2's
+`attn_flash` with XLA).  bfloat16 at D in `BWD_HEAD_DIMS` (16, 32, 64,
+128) runs FA2's
 five products on the tensor cores (other D <= 128 zero-padded as the
 forward, the gradients sliced back: the zero columns change no score and
 give zero gradient columns): persistent blocks, one per SM, take
@@ -68,14 +71,21 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 
-HEAD_DIMS = (16, 32, 64, 128)
+#: the forward bodies' head dims by dtype: float32's and bfloat16's
+#: {16, 32, 64, 128} (csrc/flash_attention.cu: f32body, bf16body::Fwd<D>),
+#: and bfloat16's wide tensor-core body at 256 (bf16body::Fwd<256>); a
+#: narrower head dim runs the body of the next one (`_pad`), a wider one
+#: the CUDA-core wide body
+HEAD_DIMS = {torch.float32: (16, 32, 64, 128),
+             torch.bfloat16: (16, 32, 64, 128, 256)}
+#: the tensor-core backward's head dims (bfloat16; bf16bwd)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 #: (query rows per block or work item, keys per KV tile) of each body, by
-#: dtype and the body's head dim (csrc/flash_attention.cu: f32body,
-#: bf16body::Fwd); a head dim below 128 runs the body of the next one in
-#: HEAD_DIMS (`_pad`)
-TILES = {torch.float32: {d: (64, 64) for d in HEAD_DIMS},
-         torch.bfloat16: {d: (192 if d == 64 else 128, 128)
-                          for d in HEAD_DIMS}}
+#: dtype and the body's head dim
+TILES = {torch.float32: {d: (64, 64) for d in HEAD_DIMS[torch.float32]},
+         torch.bfloat16: {d: (192 if d == 64 else 128, 80 if d == 256
+                              else 128)
+                          for d in HEAD_DIMS[torch.bfloat16]}}
 MAX_GRID_Y = 65_535      # blocks along a grid's y dimension
 BWD_QT = 64              # queries per step (and per dq counter) of the
                          # tensor-core backward
@@ -110,29 +120,31 @@ def _on_card(name, q):
         raise ValueError(f"head dim {q.shape[-1]} < 1")
 
 
-def _pad(D):
-    """The tensor-core head dim a head dim <= 128 is padded to."""
-    return next(d for d in HEAD_DIMS if d >= D)
+def _pad(D, dims=HEAD_DIMS[torch.bfloat16]):
+    """The body's head dim that head dim D <= max(dims) runs at."""
+    return next(d for d in dims if d >= D)
 
 
 def _forward_route(dtype, D):
     """How the forward runs head dim D at `dtype`: (route, body head
     dim), route "in place" (the operands as they are, the body's columns
     past D zero-filled by TMA when D < body), "padded" (zero-padded copies
-    of q, k, v, and the output sliced back) or "wide" (the D > 128 body)."""
-    if D > HEAD_DIMS[-1]:
+    of q, k, v, and the output sliced back) or "wide" (the CUDA-core body
+    above the dtype's largest head dim)."""
+    dims = HEAD_DIMS[dtype]
+    if D > dims[-1]:
         return "wide", D
-    body = _pad(D)
+    body = _pad(D, dims)
     if body == D or (dtype == torch.bfloat16 and D % 8 == 0):
         return "in place", body
     return "padded", body
 
 
-def _align(q, D):
+def _align(q, D, dims=HEAD_DIMS[torch.bfloat16]):
     """The byte multiple the kernels need of an operand's start and
-    strides: 16 for the bfloat16 tensor-core bodies (TMA maps, paired
-    stores), one element for the CUDA-core bodies."""
-    return 16 if q.dtype == torch.bfloat16 and D in HEAD_DIMS else \
+    strides: 16 for the bfloat16 tensor-core bodies of head dims `dims`
+    (TMA maps, paired stores), one element for the CUDA-core bodies."""
+    return 16 if q.dtype == torch.bfloat16 and D in dims else \
         q.element_size()
 
 
@@ -156,7 +168,8 @@ def flash_attention(q, k, v, *, bq=None, bk=None) -> torch.Tensor:
         return flash_attention_plain(q, k, v)
     _on_card("flash_attention", q)
     if (bq, bk) != (None, None):
-        tq, tk = TILES[q.dtype][_pad(min(q.shape[-1], HEAD_DIMS[-1]))]
+        dims = HEAD_DIMS[q.dtype]
+        tq, tk = TILES[q.dtype][_pad(min(q.shape[-1], dims[-1]), dims)]
         raise ValueError(f"the kernel uses its own {tq} x {tk} tiles at "
                          f"{q.dtype}: pass bq=None, bk=None, not bq={bq}, "
                          f"bk={bk}")
@@ -177,7 +190,7 @@ def flash_attention_fwd(q, k, v):
 
 def _fwd_schedule(B, H, S, D, device) -> dict:
     """How the bfloat16 tensor-core body schedules a forward of B x H
-    heads of S rows at head dim D <= 128 on `device`, as its launcher
+    heads of S rows at head dim D <= 256 on `device`, as its launcher
     decides it (``flash_attention_fwd_info``): query rows and keys of a
     work item's tiles, the work items, and the grid of persistent blocks."""
     info = (ctypes.c_int * 4)()
@@ -279,8 +292,8 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     _on_card("flash_attention_bwd", q)
     dev = q.device
     bf16 = q.dtype == torch.bfloat16
-    Dp = _pad(D) if bf16 and D <= HEAD_DIMS[-1] else D
-    tc = bf16 and Dp in HEAD_DIMS       # the tensor-core body
+    Dp = _pad(D, BWD_HEAD_DIMS) if bf16 and D <= BWD_HEAD_DIMS[-1] else D
+    tc = bf16 and Dp in BWD_HEAD_DIMS       # the tensor-core body
     # the CUDA-core body's dq pass has a grid y of ceil(S / BWD_ROWS); the
     # tensor-core body's grid is one persistent block per SM
     if not tc and -(-S // BWD_ROWS) > MAX_GRID_Y:
@@ -290,7 +303,7 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     if Dp != D:         # zero columns: no score changes, zero gradients
         q, k, v, o, do = (torch.nn.functional.pad(x, (0, Dp - D))
                           for x in (q, k, v, o, do))
-    align = _align(q, Dp)
+    align = _align(q, Dp, BWD_HEAD_DIMS)
     for name, t in (("q", q), ("o", o), ("do", do)):
         _build.require(name, t, q.dtype, (B, H, S, Dp), dev, align=align)
     _build.require("k", k, q.dtype, (B, KV, S, Dp), dev, align=align)

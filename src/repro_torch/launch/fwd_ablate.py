@@ -1,7 +1,8 @@
 """Where the bfloat16 flash forward's time goes: `flash_attention` at the
-models' prefill shapes, timed with source variants of its tensor-core
-body (``flash_fwd_bf16_kernel``) that each drop or change one piece of
-work.
+models' prefill shapes and at one wide head dim, timed with source
+variants of its tensor-core bodies (``flash_fwd_bf16_kernel``, and
+``flash_fwd_bf16_kernel_d256`` for 128 < D <= 256) that each drop or
+change one piece of work.
 
 Each variant is ``csrc/flash_attention.cu`` with a text patch, built
 with nvcc (``-Xptxas -v``) into ``build/repro_torch/fwd_ablate/`` and
@@ -25,6 +26,17 @@ the spill bytes of every forward body.
     legacy         one block per work item (the grid before the
                    persistent blocks; each block takes one ticket)
     runtime_width  width 120 through the runtime-width body
+    wide_bk64      the D = 256 body with 64-key K and V tiles (80 in the
+                   kernel, as in FlashAttention-3's hdim-256 forward)
+    wide_o_regs    the D = 256 body's O written from registers, the Q
+                   slot released after the consumers' last S (in the
+                   kernel O is staged in the consumer's rows of the Q slot
+                   and stored with TMA, the slot released once the store
+                   has read it)
+    wide_no_turns  the D = 256 body's consumers without turns
+
+`legacy` changes the grid rule that both bodies share; the `wide_*`
+variants touch only the D = 256 body, the others only the D <= 128 ones.
 
 Shapes (--shape, repeatable: a preset or B,H,KV,S,D):
 
@@ -32,6 +44,8 @@ Shapes (--shape, repeatable: a preset or B,H,KV,S,D):
     zamba2   4, 32, 32, 2048, 64   (zamba2-1.2b's)
     danube   4, 32, 8, 2048, 120   (h2o-danube-3-4b's, read in place)
     whisper  4, 16, 16, 2048, 64   (whisper-medium's decoder)
+    wide     4, 8, 2, 2048, 256    (yi's batch and GQA group of 4 at a
+                                    Gemma-style head dim: the D = 256 body)
 
 Run on a card (CUDA events, the mean of 20 calls, three rounds each, on
 the model's (B, S, H, D) layout and on contiguous (B, H, S, D) tensors;
@@ -71,9 +85,59 @@ PRESETS = {
     "zamba2": (4, 32, 32, 2048, 64),
     "danube": (4, 32, 8, 2048, 120),
     "whisper": (4, 16, 16, 2048, 64),
+    "wide": (4, 8, 2, 2048, 256),
 }
+#: the model presets (the D <= 128 bodies), the default --shape list
+MODEL_PRESETS = ("yi", "zamba2", "danube", "whisper")
 
 _EX2 = "s[4 * j + e] = ex2(fmaf(s[4 * j + e], scale_log2, -m[e >> 1]));"
+
+# the D = 256 body's epilogue: O staged in the Q slot and stored by TMA,
+# and (wide_o_regs) written from registers instead, rows below S and
+# columns below the width
+_WIDE_STAGED = """\
+      // into this consumer's own rows of the Q slot (its last S has read
+      // them) in the TMA store's swizzled layout, then one store a
+      // column chunk; the map drops rows past S and columns past the
+      // width.  The slot is released once the stores have read it.
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj) {
+        const int col = 8 * jj + c0;
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2)
+          st_shared(qa + (col / GQ::AW) * GQ::CHUNK +
+                        GQ::swizzle((r0 + 8 * h2) * GQ::ROW +
+                                    (col % GQ::AW) * 2),
+                    pack_bf16(acc[4 * jj + 2 * h2] / den[h2],
+                              acc[4 * jj + 2 * h2 + 1] / den[h2]));
+      }
+      fence_async_smem();
+      named_sync(1 + NCONS + w, 128);
+      if (tid == 0) {
+        for (int cc = 0; cc < GQ::NC; ++cc)
+          tma_store(&to, qa + cc * GQ::CHUNK, cc * GQ::AW, h, row0, b);
+        bulk_commit();
+        bulk_wait<true>();
+        mbar_arrive(empty_q);
+      }
+"""
+_WIDE_REGS = """\
+      // straight from registers: rows below S, columns below the width
+      __nv_bfloat16* op = at(o, lo, b, h);
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int row = row0 + r0 + 8 * h2;
+        if (row >= S) continue;
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          const int col = 8 * jj + c0;
+          if (col < width)
+            *reinterpret_cast<__nv_bfloat162*>(op + row * lo.s + col) =
+                __floats2bfloat162_rn(acc[4 * jj + 2 * h2] / den[h2],
+                                      acc[4 * jj + 2 * h2 + 1] / den[h2]);
+        }
+      }
+"""
 
 PATCHES = {
     "base": [],
@@ -102,6 +166,38 @@ PATCHES = {
         ("  if constexpr (D == 128)\n"
          "    if (width == 120) fn = flash_fwd_bf16_kernel<128, 120>;\n",
          "")],
+    "wide_bk64": [
+        ("  static constexpr int BK = 80;              // keys per K and V "
+         "tile\n",
+         "  static constexpr int BK = 64;              // keys per K and V "
+         "tile\n")],
+    "wide_o_regs": [
+        ("                           int KV, int S, float scale_log2) {",
+         "                           int KV, int S, float scale_log2,\n"
+         "                           __nv_bfloat16* __restrict__ o, Lay lo,"
+         "\n                           int width) {"),
+        ("  flash_fwd_bf16_kernel_d256<<<grid, F::THREADS, F::SMEM, stream>>>"
+         "(\n      mq, mk, mv, mo, lse, work, B, H, KV, S, scale * LOG2E);",
+         "  flash_fwd_bf16_kernel_d256<<<grid, F::THREADS, F::SMEM, stream>>>"
+         "(\n      mq, mk, mv, mo, lse, work, B, H, KV, S, scale * LOG2E,\n"
+         "      static_cast<__nv_bfloat16*>(o), ly[3], width);"),
+        ("    mbar_init(empty_q, NCONS);", "    mbar_init(empty_q, 128 * NCONS);"),
+        ("        if (tid == 0) mbar_arrive(empty_q);\n", ""),
+        (_WIDE_STAGED, _WIDE_REGS),
+        ("      mbar_arrive(empty_k + 8 * slot(0));\n      if (walks) {\n",
+         "      mbar_arrive(empty_k + 8 * slot(0));\n"
+         "      if (last == 0) mbar_arrive(empty_q);\n      if (walks) {\n"),
+        ("        mbar_arrive(empty_k + 8 * slot(t));\n        online(",
+         "        mbar_arrive(empty_k + 8 * slot(t));\n"
+         "        if (t == last) mbar_arrive(empty_q);\n        online(")],
+    "wide_no_turns": [
+        ("      pin(pk);\n      bar_sync(1 + w);\n      wgmma_fence();\n"
+         "      issue();\n      bar_arrive(1 + (w + 1) % NCONS);\n",
+         "      pin(pk);\n      wgmma_fence();\n      issue();\n"),
+        ("    if (w == NCONS - 1) bar_arrive(1);         // consumer 0 takes "
+         "turn 0\n", ""),
+        ("    if (w == 0) bar_sync(1);                   // the other's last "
+         "hand-over\n", "")],
 }
 
 
@@ -121,20 +217,23 @@ def variant_source(name: str, parent=None) -> str:
 
 def forward_notes(log: str) -> list:
     """From an ``nvcc -Xptxas -v`` log: ptxas' C7520 warnings (wgmma
-    serialized) and, per forward body (``flash_fwd_bf16_kernel<D, W>``),
-    its registers and spill bytes."""
+    serialized) and, per forward body (``flash_fwd_bf16_kernel<D, W>``,
+    and ``<256>`` for ``flash_fwd_bf16_kernel_d256``), its registers and
+    spill bytes."""
     out, fn = [], None
     for line in log.splitlines():
         body = re.search(r"flash_fwd_bf16_kernelILi(\d+)ELi(\d+)E", line)
+        name = (f"<{body[1]}, {body[2]}>" if body else
+                "<256>" if "flash_fwd_bf16_kernel_d256" in line else None)
         if "C7520" in line:
-            if body:
-                out.append(f"C7520 in <{body[1]}, {body[2]}>: "
+            if name:
+                out.append(f"C7520 in {name}: "
                            + line.split("C7520)")[-1].split(" in the "
                                                            "function")[0]
                            .strip())
             continue
         if "Function properties for" in line:
-            fn = f"<{body[1]}, {body[2]}>" if body else None
+            fn = name
         elif fn and "spill stores" in line:
             sp = re.findall(r"(\d+) bytes spill", line)
             out.append(f"{fn} spill {'+'.join(sp)} B")
@@ -260,16 +359,16 @@ def parse_shape(text: str) -> tuple:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--shape", action="append",
-                    help="a preset (yi, zamba2, danube, whisper) or "
-                         "B,H,KV,S,D; repeatable (default: the four "
-                         "presets)")
+                    help="a preset (yi, zamba2, danube, whisper, wide) "
+                         "or B,H,KV,S,D; repeatable (default: the four "
+                         "model presets)")
     ap.add_argument("--variants", default=",".join(PATCHES),
                     help="comma-separated variants (default: all)")
     ap.add_argument("--parent", help="another flash_attention.cu, timed "
                     "as variant 'parent' first and last")
     ap.add_argument("--variant", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    shapes = args.shape or list(PRESETS)
+    shapes = args.shape or list(MODEL_PRESETS)
     for s in shapes:
         parse_shape(s)
     if args.variant:                    # one variant, in its own process

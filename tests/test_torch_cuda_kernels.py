@@ -360,7 +360,7 @@ def test_flash_attention(dev, rng, dtype, B, H, KV, S, D):
     assert _same(o, a) and _same(ov, a)
     if FA._forward_route(dtype, D)[0] != "padded":   # written in q's layout
         assert ov.transpose(1, 2).is_contiguous()
-    if dtype == torch.bfloat16 and D <= FA.HEAD_DIMS[-1]:
+    if dtype == torch.bfloat16 and D <= FA.HEAD_DIMS[dtype][-1]:
         # the launcher's schedule: the wrapper's tiles, every (batch x
         # head, query tile) item, one persistent block an SM at most
         sch = FA._fwd_schedule(B, H, S, D, dev)
@@ -491,7 +491,7 @@ def test_flash_reads_the_model_layout_in_place(dev, rng, dtype, D, B, H,
                  FA.flash_attention(*(x.contiguous() for x in (qs, ks, vs))))
 
 
-@pytest.mark.parametrize("D", [40, 72, 96, 120])
+@pytest.mark.parametrize("D", [40, 72, 96, 120, 160, 192])
 @pytest.mark.parametrize("B,H,KV,S", [(2, 8, 2, 130), (1, 32, 8, 257)])
 def test_flash_narrow_heads_read_in_place(dev, rng, D, B, H, KV, S):
     """bfloat16 head dims below the body's, multiples of 8, in the
@@ -532,6 +532,39 @@ def test_flash_narrow_heads_read_in_place(dev, rng, D, B, H, KV, S):
         torch.cuda.synchronize()
     names = [ev.key for ev in prof.key_averages()]
     assert not [n for n in names if "pad" in n or "copy" in n.lower()], names
+
+
+@pytest.mark.parametrize("D", [160, 192, 256])
+@pytest.mark.parametrize("B,H,KV,S", [
+    (1, 2, 1, 1), (2, 8, 2, 385), (1, 4, 1, 1000), (1, 16, 16, 257),
+    (4, 8, 2, 2048)])
+def test_flash_wide_bf16_body(dev, rng, D, B, H, KV, S):
+    """The D = 256 tensor-core body (bfloat16, 128 < D <= 256): on the
+    views of the model's (B, S, H, D) tensors, read in place, with ragged
+    S and with lse; against the plain version at the bfloat16 tolerance,
+    lse within 1e-5 of the dense oracle's, two runs bit-equal and equal to
+    the contiguous copies' run; one launch a call, and the launcher's
+    schedule: 128-row items over key tiles of `TILES`, one persistent
+    block an SM at most."""
+    assert FA._forward_route(torch.bfloat16, D) == ("in place", 256)
+    q, k, v = (torch.as_tensor(rng.normal(size=(B, S, h, D)).astype(
+        np.float32), device=dev).bfloat16().transpose(1, 2)
+        for h in (H, KV, KV))
+    before = _build.launches["flash_attention"]
+    o, lse = FA.flash_attention_fwd(q, k, v)
+    o2, lse2 = FA.flash_attention_fwd(q, k, v)
+    oc = FA.flash_attention(*(x.contiguous() for x in (q, k, v)))
+    assert _build.launches["flash_attention"] == before + 3
+    assert _same(o, o2) and _same(lse, lse2) and _same(o, oc)
+    assert o.transpose(1, 2).is_contiguous() and o.shape == (B, H, S, D)
+    p, plse = FA.flash_attention_plain(q, k, v, return_lse=True)
+    torch.testing.assert_close(o.float(), p.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, plse, atol=1e-5, rtol=1e-5)
+    sch = FA._fwd_schedule(B, H, S, D, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (sch["rows"], sch["keys"]) == FA.TILES[torch.bfloat16][256]
+    assert sch["items"] == B * H * -(-S // 128)
+    assert sch["grid"] == min(sch["items"], sms)
 
 
 def test_prefill_runs_the_kernel_once_per_layer(dev):

@@ -144,12 +144,12 @@ def test_wrapper_refuses_bad_shapes():
                            torch.zeros((1, 2, 9, 16)))
 
 
-@pytest.mark.parametrize("D", [160, 256])
+@pytest.mark.parametrize("D", [160, 192, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wide_head_dims_match_pallas_kernel(rng, D, dtype):
-    """Head dims above 128 (the kernel's wide body on the card): the
-    plain version against the reference kernel in interpret mode and its
-    oracle."""
+    """Head dims above 128 (on the card the D = 256 tensor-core body at
+    bfloat16, the CUDA-core wide body at float32): the plain version
+    against the reference kernel in interpret mode and its oracle."""
     B, H, KV, S = 1, 4, 2, 96
     (jq, jk, jv), (tq, tk, tv) = _both(_inputs(rng, B, H, KV, S, D), dtype)
     o = FA.flash_attention(tq, tk, tv)
@@ -219,29 +219,35 @@ def test_wide_body_arithmetic_matches_oracle(rng, S, D, dtype):
     (100, ("padded", 128), ("padded", 128)),
     (120, ("in place", 128), ("padded", 128)),
     (128, ("in place", 128), ("in place", 128)),
-    (160, ("wide", 160), ("wide", 160))])
+    (130, ("padded", 256), ("wide", 130)),
+    (160, ("in place", 256), ("wide", 160)),
+    (192, ("in place", 256), ("wide", 192)),
+    (256, ("in place", 256), ("wide", 256)),
+    (512, ("wide", 512), ("wide", 512))])
 def test_forward_route_by_head_dim(D, bf16, fp32):
     """The forward's route for each head dim: the bodies' own D in place;
     a narrower bfloat16 D whose rows are whole 16-byte units (D % 8 == 0,
-    danube's 120) in place on the next body, TMA zero-filling the rest;
-    other narrower D (and every narrower float32 D) through zero-padded
-    copies; D > 128 the wide body."""
+    danube's 120; 160 and 192 on the D = 256 body) in place on the next
+    body, TMA zero-filling the rest; other narrower D (and every narrower
+    float32 D) through zero-padded copies; D above the dtype's largest
+    body (128 at float32, 256 at bfloat16) the CUDA-core wide body."""
     assert FA._forward_route(torch.bfloat16, D) == bf16
     assert FA._forward_route(torch.float32, D) == fp32
 
 
-@pytest.mark.parametrize("name", ["base", "no_store", "no_exp", "stages3",
-                                  "two_consumers", "no_turns", "legacy",
-                                  "runtime_width"])
+_VARIANTS = ["base", "no_store", "no_exp", "stages3", "two_consumers",
+             "no_turns", "legacy", "runtime_width", "wide_bk64",
+             "wide_o_regs", "wide_no_turns"]
+
+
+@pytest.mark.parametrize("name", _VARIANTS)
 def test_fwd_ablate_patches_apply(name):
     """`launch.fwd_ablate`'s variants still find the lines they patch in
     csrc/flash_attention.cu, each exactly once: every variant differs from
     the source but base, and the runtime_width variant only stops choosing
     width 120's own body."""
     from repro_torch.launch import fwd_ablate as FWA
-    assert set(FWA.PATCHES) == {"base", "no_store", "no_exp", "stages3",
-                                "two_consumers", "no_turns", "legacy",
-                                "runtime_width"}
+    assert set(FWA.PATCHES) == set(_VARIANTS)
     src = (_build.CSRC / "flash_attention.cu").read_text()
     out = FWA.variant_source(name)
     assert (out == src) == (name == "base")
@@ -267,3 +273,43 @@ def test_fwd_ablate_shape_presets(preset, shape):
     assert FWA.parse_shape("1,2,2,64,16") == (1, 2, 2, 64, 16)
     with pytest.raises(ValueError):
         FWA.parse_shape("1,2,2")
+
+
+def _wide_body_split(text):
+    """(the source less `Fwd<256>` and the D = 256 kernel and launcher,
+    those three)."""
+    a = text.index("struct Fwd<256> {")
+    b = text.index("\n};\n", a)
+    c = text.index("// The wide body (Fwd<256>")
+    d = text.index("\n}\n", text.index("int launch_wide("))
+    return text[:a] + text[b:c] + text[d:], text[a:b] + text[c:d]
+
+
+@pytest.mark.parametrize("name,old,new", [
+    ("wide_bk64", "static constexpr int BK = 80;",
+     "static constexpr int BK = 64;"),
+    ("wide_o_regs", "tma_store(&to, qa",
+     "*reinterpret_cast<__nv_bfloat162*>(op + row * lo.s + col)"),
+    ("wide_no_turns", "bar_sync(1 + w);", None)])
+def test_fwd_ablate_wide_variants_touch_only_the_wide_body(name, old, new):
+    """The D = 256 body's variants change `bf16body::Fwd<256>`, its kernel
+    or its launcher and nothing else: 64-key tiles, O written from
+    registers in place of the staged TMA store, or no turns."""
+    from repro_torch.launch import fwd_ablate as FWA
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    out = FWA.variant_source(name)
+    rest, wide = _wide_body_split(out)
+    assert rest == _wide_body_split(src)[0]
+    assert old in _wide_body_split(src)[1] and old not in wide
+    assert new is None or new in wide
+
+
+def test_fwd_ablate_wide_preset():
+    """`launch.fwd_ablate`'s wide preset: yi's batch and GQA group of 4 at
+    head dim 256, run by the D = 256 tensor-core body in place; the
+    default shapes stay the four model presets."""
+    from repro_torch.launch import fwd_ablate as FWA
+    assert FWA.parse_shape("wide") == (4, 8, 2, 2048, 256)
+    assert FA._forward_route(torch.bfloat16, 256) == ("in place", 256)
+    assert FWA.MODEL_PRESETS == ("yi", "zamba2", "danube", "whisper")
+    assert set(FWA.PRESETS) == {*FWA.MODEL_PRESETS, "wide"}
