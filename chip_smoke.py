@@ -9,9 +9,10 @@
    It counts the HGMMA (wgmma) instructions in the flash library's SASS
    where the toolkit has `cuobjdump` (none fails the run) and requires
    ptxas to report no spills in the bfloat16 flash bodies (the
-   backward's persistent pass one per D, the forward per D <= 128 at its
-   own width and at a narrower runtime width, at danube's 120, and the
-   D = 256 body) and no C7520 (wgmma serialized) in any;
+   backward's persistent pass one per D <= 128 and the D = 256 body, the
+   forward per D <= 128 at its own width and at a narrower runtime width,
+   at danube's 120, and the D = 256 body) and no C7520 (wgmma
+   serialized) in any;
 2. holds each kernel against its plain PyTorch version on the card at
    small shapes (for gee_scatter also K = 256, one row holding 50,000
    contributions and rows whose donors mostly share a class, each
@@ -32,8 +33,9 @@
    lse within 1e-5 of the dense oracle's) and the backward
    (`flash_attention_bwd`, twice: the same bits) against its plain
    version on the same (o, lse) and a random dO, at the forward's
-   tolerance; D > 128 takes the backward's CUDA-core body in both
-   dtypes;
+   tolerance; D > 128 takes the backward's CUDA-core body at float32
+   and at 512, its D = 256 tensor-core body at bfloat16 up to 256 (160
+   and 192 read in place);
 3. drives the GEE path at the scale of SNAP soc-LiveJournal1 (an SBM
    with n = 4,847,571 nodes, s = 68,993,773 edges, K = 16, 10% labeled):
    `Embedder(backend="cuda").fit`, then two `EmbeddingShard`s
@@ -135,8 +137,13 @@
    prefill's shape, and at one wide shape (B = --lm-batch, H 8, KV 2,
    S = --lm-prompt, D = 256): the D = 256 tensor-core body at bfloat16
    beside SDPA and its bound (with the launcher's items and grid), the
-   CUDA-core wide body on the same inputs in float32, and the backward
-   (its CUDA-core body) beside SDPA's backward;
+   CUDA-core wide body on the same inputs in float32, the backward (its
+   D = 256 tensor-core body, with the launcher's items and grid) beside
+   SDPA's backward, and `FlashAttentionFunction` forward + backward on
+   the model's (B, S, H, D) layout beside SDPA's forward + backward, all
+   in turns; then, at yi's prefill shape in float32, the CUDA-core
+   forward (`f32body`) and backward (`simplebwd<float>`) beside SDPA's
+   float32 forward and backward and their float32 operation bounds;
 7. the LM families (`FAMILIES`): each of the other nine archs of the
    registry at full width, its weights drawn from --seed, through
    `generate` at --lm-batch prompts of --lm-prompt tokens (whisper also
@@ -1602,13 +1609,14 @@ def main() -> int:
         # the forward: per D <= 128 one body at its own width and one at a
         # runtime narrower width, and danube's 120 on D = 128 (its own
         # body: `launch.fwd_ablate` times it against the runtime width's),
-        # and the D = 256 body (any width); the backward one per D
-        if len(bf16) != 14 or any(bf16.values()):
+        # and the D = 256 body (any width); the backward one per D <= 128
+        # and the D = 256 body (any width)
+        if len(bf16) != 15 or any(bf16.values()):
             raise AssertionError(f"ptxas spill bytes of the bfloat16 flash "
-                                 f"bodies (14 expected: forward 10, "
-                                 f"backward 4; all 0): {bf16}")
-        print("ptxas: the 14 bfloat16 flash bodies (forward 10, backward "
-              "4) spill 0 bytes")
+                                 f"bodies (15 expected: forward 10, "
+                                 f"backward 5; all 0): {bf16}")
+        print("ptxas: the 15 bfloat16 flash bodies (forward 10, backward "
+              "5) spill 0 bytes")
         if c7520:
             raise AssertionError(f"ptxas serialized the wgmma of a flash "
                                  f"body (C7520): {c7520}")
@@ -3154,9 +3162,10 @@ def main() -> int:
               f"{wide['wide_D256_f32_library_ms']:.4f} ms, max|err| "
               f"{err_f:.3e}")
         del qf, kf, vf
-        # the backward at the bfloat16 shape: two runs bit-equal, held to
-        # its plain version by phase 8's limits, timed beside SDPA's
-        # backward (one autograd call on a retained graph)
+        # the backward at the bfloat16 shape, on its tensor-core body for
+        # 128 < D <= 256: two runs bit-equal, held to its plain version by
+        # phase 8's limits, timed beside SDPA's backward (one autograd call
+        # on a retained graph) in turns
         o_w, lse_w = FA.flash_attention_fwd(qw, kw_, vw)
         do_w = torch.randn(qw.shape, generator=gen_, device=dev,
                            dtype=torch.bfloat16)
@@ -3172,22 +3181,124 @@ def main() -> int:
         lib_in = [x.detach().requires_grad_() for x in (qw, kw_, vw)]
         lib_out = torch.nn.functional.scaled_dot_product_attention(
             *lib_in, is_causal=True, enable_gqa=True)
+
+        def run_wide_bwd():
+            return FA.flash_attention_bwd(qw, kw_, vw, o_w, lse_w, do_w)
+
+        def run_wide_bwd_sdpa():
+            return torch.autograd.grad(lib_out, lib_in, do_w,
+                                       retain_graph=True)
+
+        b1, bl1 = timer(run_wide_bwd, 10), timer(run_wide_bwd_sdpa, 10)
+        bl2, b2 = timer(run_wide_bwd_sdpa, 10), timer(run_wide_bwd, 10)
+        route_b = FA._backward_route(torch.bfloat16, Dw)
+        sch_b = FA._bwd_schedule(B, KVw, S, Dw, dev)
         wide.update(
-            wide_bwd_D256_ms=timer(lambda: FA.flash_attention_bwd(
-                qw, kw_, vw, o_w, lse_w, do_w), 2),
+            wide_bwd_D256_ms=(b1 + b2) / 2,
             # five products over the causal pairs; q, o, dO, k, v read and
             # dq, dk, dv written in bf16, lse read
             wide_bwd_D256_bound_ms=bound_ms(
                 2 * (4 * B * Hw * S * Dw + 4 * B * KVw * S * Dw)
                 + 4 * B * Hw * S, 2.5 * flops_w, tensor_cores=True)[0],
-            wide_bwd_D256_library_ms=timer(lambda: torch.autograd.grad(
-                lib_out, lib_in, do_w, retain_graph=True), 5))
-        print(f"flash_attention_bwd at the same shape, bf16 (its CUDA-core "
-              f"body): {wide['wide_bwd_D256_ms']:.4f} ms, bound "
-              f"{wide['wide_bwd_D256_bound_ms']:.4f} ms, library (SDPA's "
-              f"backward) {wide['wide_bwd_D256_library_ms']:.4f} ms; two runs "
-              f"bit-equal; vs plain {show_gaps(gaps_w)}")
-        del qw, kw_, vw, o_w, lse_w, do_w, lib_in, lib_out
+            wide_bwd_D256_library_ms=(bl1 + bl2) / 2,
+            wide_bwd_D256_body=f"widebwd (flash_bwd_kernel_d256, "
+                               f"{route_b[0]})")
+        ms_b, lib_b = wide["wide_bwd_D256_ms"], wide["wide_bwd_D256_library_ms"]
+        print(f"flash_attention_bwd at the same shape, bf16, the D = 256 "
+              f"tensor-core body ({wide['wide_bwd_D256_body']}): kernel "
+              f"{b1:.4f} / {b2:.4f} ms, library (SDPA's backward) "
+              f"{bl1:.4f} / {bl2:.4f} ms, kernel / library "
+              f"{ms_b / lib_b:.3f}, bound "
+              f"{wide['wide_bwd_D256_bound_ms']:.4f} ms, share of the bound "
+              f"{wide['wide_bwd_D256_bound_ms'] / ms_b:.3f}; the launcher's "
+              f"schedule (flash_attention_bwd_info): {sch_b['items']} work "
+              f"items of {sch_b['keys']} keys x {sch_b['queries']}-query "
+              f"steps on a grid of {sch_b['grid']} persistent blocks; two "
+              f"runs bit-equal; vs plain {show_gaps(gaps_w)}")
+        del o_w, lse_w, lib_in, lib_out
+        # the slice at the wide shape: FlashAttentionFunction forward +
+        # backward on the model's (B, S, H, D) layout (both kernels) beside
+        # SDPA's forward + backward, in turns
+        from repro_torch.models.attention import FlashAttentionFunction
+        ins_w = [x.transpose(1, 2) for x in (qw, kw_, vw)]
+        do_sw = do_w.transpose(1, 2)
+
+        def wide_fn(fn):
+            ins = [t.detach().requires_grad_() for t in ins_w]
+            fn(*ins).backward(do_sw)
+            return [t.grad for t in ins]
+
+        def fn_wide_kernel(*t):
+            return FlashAttentionFunction.apply(*t)
+
+        def fn_wide_sdpa(*t):
+            return torch.nn.functional.scaled_dot_product_attention(
+                *(x.transpose(1, 2) for x in t), is_causal=True,
+                enable_gqa=True).transpose(1, 2)
+
+        n0 = (_build.launches["flash_attention"],
+              _build.launches["flash_attention_bwd"])
+        wide_fn(fn_wide_kernel)
+        n1 = (_build.launches["flash_attention"],
+              _build.launches["flash_attention_bwd"])
+        if (n1[0] - n0[0], n1[1] - n0[1]) != (1, 1):
+            raise AssertionError(f"FlashAttentionFunction at the wide shape "
+                                 f"launched {n1[0] - n0[0]} forward and "
+                                 f"{n1[1] - n0[1]} backward kernels, "
+                                 f"expected 1 and 1")
+        f1, fl1 = (timer(lambda: wide_fn(fn_wide_kernel), 5),
+                   timer(lambda: wide_fn(fn_wide_sdpa), 5))
+        fl2, f2 = (timer(lambda: wide_fn(fn_wide_sdpa), 5),
+                   timer(lambda: wide_fn(fn_wide_kernel), 5))
+        wide.update(wide_fn_D256_ms=(f1 + f2) / 2,
+                    wide_fn_D256_library_ms=(fl1 + fl2) / 2)
+        print(f"FlashAttentionFunction forward + backward at the same shape "
+              f"on the (B, S, H, D) layout: {f1:.4f} / {f2:.4f} ms, SDPA's "
+              f"forward + backward {fl1:.4f} / {fl2:.4f} ms, ratio "
+              f"{(f1 + f2) / (fl1 + fl2):.3f}")
+        del qw, kw_, vw, do_w, do_sw, ins_w
+        # the CUDA-core bodies that float32 runs at D <= 128 (the reduced
+        # archs of phase 8e train on them), at yi's prefill shape: the
+        # forward (f32body) and the backward (simplebwd<float>) beside
+        # SDPA's float32 forward and backward (one autograd call on a
+        # retained graph), against their float32 operation bounds; the
+        # forward held to its plain version, the backward's gap printed
+        qf, kf, vf, dof = (torch.randn((B, h_, S, D), generator=gen_,
+                                       device=dev, dtype=torch.float32)
+                           for h_ in (H, KV, KV, H))
+        err_y = check_flash(qf, kf, vf, "yi's shape float32")
+        o_f, lse_f = FA.flash_attention_fwd(qf, kf, vf)
+        gaps_f = [grad_gap(a, b) for a, b in zip(
+            FA.flash_attention_bwd(qf, kf, vf, o_f, lse_f, dof),
+            FA.flash_attention_bwd_plain(qf, kf, vf, o_f, lse_f, dof))]
+        lib_in = [x.detach().requires_grad_() for x in (qf, kf, vf)]
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            *lib_in, is_causal=True, enable_gqa=True)
+        nbytes_f = 4 * (2 * B * H * S * D + 2 * B * KV * S * D)
+        wide.update(
+            f32_yi_ms=timer(lambda: FA.flash_attention(qf, kf, vf), 3),
+            f32_yi_bound_ms=bound_ms(nbytes_f, flops)[0],
+            f32_yi_library_ms=timer(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qf, kf, vf, is_causal=True, enable_gqa=True), 3),
+            f32_yi_max_abs_err=err_y,
+            f32_bwd_yi_ms=timer(lambda: FA.flash_attention_bwd(
+                qf, kf, vf, o_f, lse_f, dof), 2),
+            f32_bwd_yi_bound_ms=bound_ms(
+                4 * (4 * B * H * S * D + 4 * B * KV * S * D)
+                + 4 * B * H * S, 2.5 * flops)[0],
+            f32_bwd_yi_library_ms=timer(lambda: torch.autograd.grad(
+                lib_out, lib_in, dof, retain_graph=True), 3))
+        print(f"float32 at yi's prefill shape (B={B} H={H} KV={KV} S={S} "
+              f"D={D}), the CUDA-core bodies: forward "
+              f"{wide['f32_yi_ms']:.4f} ms (bound "
+              f"{wide['f32_yi_bound_ms']:.4f} ms, fp32 operations; SDPA "
+              f"{wide['f32_yi_library_ms']:.4f} ms; max|err| vs plain "
+              f"{err_y:.3e}), backward {wide['f32_bwd_yi_ms']:.4f} ms "
+              f"(bound {wide['f32_bwd_yi_bound_ms']:.4f} ms; SDPA's "
+              f"backward {wide['f32_bwd_yi_library_ms']:.4f} ms; vs plain, "
+              f"printed: {show_gaps(gaps_f)})")
+        del qf, kf, vf, dof, o_f, lse_f, lib_in, lib_out
         return dict(**wide,
             name="flash_attention", route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3547,6 +3658,9 @@ def main() -> int:
     results[-1].update(fam)
     results[-1].update(flash_train)
     results[0].update(scatter_train)
+    # phase 6's float32 backward at yi's shape goes to the backward's row
+    bwd_row.update({k_: results[-1].pop(k_) for k_ in list(results[-1])
+                    if k_.startswith("f32_bwd_")})
     results.append(bwd_row)
 
     for r_ in results:
@@ -3555,8 +3669,11 @@ def main() -> int:
                 f"(bound {r_['wide_D256_bound_ms']:.4f}, library "
                 f"{r_['wide_D256_library_ms']:.4f}); the CUDA-core "
                 f"body at float32 D = 256: {r_['wide_D256_f32_ms']:.4f} ms; "
-                f"the backward at D = 256: {r_['wide_bwd_D256_ms']:.4f} ms "
-                f"(SDPA's {r_['wide_bwd_D256_library_ms']:.4f})"
+                f"the backward at D = 256 ({r_['wide_bwd_D256_body']}): "
+                f"{r_['wide_bwd_D256_ms']:.4f} ms (SDPA's "
+                f"{r_['wide_bwd_D256_library_ms']:.4f}); forward + "
+                f"backward at D = 256 {r_['wide_fn_D256_ms']:.4f} ms (SDPA's "
+                f"{r_['wide_fn_D256_library_ms']:.4f})"
                 ) if "tflops" in r_ else ""
         if "ms_all_labelled" in r_:
             rate = (f", {r_['bound_share']:.3f} of the bound "
@@ -3605,7 +3722,10 @@ def main() -> int:
                   f"over its five products, {r_['bound_share']:.3f} of the "
                   f"bound; launches by reduced arch {r_['launches_by_arch']}; "
                   f"{r_['shard_train_launches']} in two sharded train steps "
-                  f"(phase 9)")
+                  f"(phase 9); float32 at yi's shape (the CUDA-core body) "
+                  f"{r_['f32_bwd_yi_ms']:.4f} ms (bound "
+                  f"{r_['f32_bwd_yi_bound_ms']:.4f}, SDPA's "
+                  f"{r_['f32_bwd_yi_library_ms']:.4f})")
         elif "shard_train_launches" in r_:
             print(f"  {r_['name']} on local heads under DTensor (phase 9): "
                   f"launches {r_['shard_train_launches']} in two sharded "

@@ -207,7 +207,33 @@
 // those of the first steps (key tile kt starts about kt steps behind key
 // tile 0) and of the diagonal tiles, which come last.
 //
-// float32 at any D, and bfloat16 at D > 128 (simplebwd): CUDA cores,
+// bfloat16 at 128 < D <= 256 (widebwd, run at 256 with a narrower width
+// that is a multiple of 8 read in place, as the wide forward): the same
+// five products, roles, list order, walk and add order, retiled because
+// the layout above needs about 416 KB of shared memory at D = 256 and a
+// consumer's dk and dv 256 registers a thread.  An item is (batch x KV
+// head, 64-key tile); the two consumers split D, not the keys: consumer w
+// holds dk and dv of the item's 64 keys for columns 128 w .. + 127 (64 +
+// 64 registers).  A step (one query head, 64 queries) has consumer w
+// compute S^T and dP^T for queries 32 w .. + 31 (m64n32, 16 k-steps over
+// D), P^T and dS^T in float32 registers, rounded to bfloat16 into two
+// shared tiles (keys x queries, double-buffered across steps); once both
+// halves are in, each consumer issues dq's share for its columns (dS K,
+// m64n128), dv += P^T dO and dk += dS^T Q (m64n128, A the shared tile,
+// K-major).  Shared memory holds K, V, two Q / dO slots and the four
+// tiles: 226 KB, with no room for a buffer of dq's 64 KB share.  So once
+// its dv and dk are done each consumer stages its half of the share, in
+// float32, in the columns of the step's Q and dO tiles that only its own
+// dv and dk read; the producer warp, before it loads that slot again,
+// adds the share to the float32 accumulator in device memory with four
+// bulk reduce-adds (a bulk store at key tile 0), under a counter per
+// (batch x head, query tile): key tile kt waits until it reads kt, and
+// bumps it.  The diagonal tile, the last, is not staged: its consumers
+// wait for the counter, add the sum to their share in registers and
+// round it into dq.  No turns: at D = 256 a step's products take an SM's
+// tensor cores about 2,600 clocks, its 4,096 exponentials 256.
+//
+// float32 at any D, and bfloat16 at D > 256 (simplebwd): CUDA cores,
 // float32 arithmetic, written for correctness as the wide forward body.
 // 16-query x 32-key tiles, D staged in chunks of 128 columns in shared
 // memory; the accumulators live in float32 rows of a scratch the caller
@@ -2660,6 +2686,563 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace bf16bwd
 
+namespace widebwd {
+
+using namespace bf16body;   // mbarriers, TMA, wgmma helpers, Geo, make_map
+using bf16bwd::bulk_add;
+using bf16bwd::bulk_commit_wait;
+using bf16bwd::bulk_store;
+using bf16bwd::bump;
+using bf16bwd::cp_async4;
+using bf16bwd::cp_async_arrive;
+using bf16bwd::fence_async_global;
+using bf16bwd::swz;
+using bf16bwd::wait_count;
+
+constexpr int D = 256;      // the body's width (a narrower one read in place)
+constexpr int KT = 64;      // keys per work item: the rows of dk and dv
+constexpr int QT = 64;      // queries per step, 32 scored by each consumer
+constexpr int STAGES = 2;   // depth of the Q / dO ring
+constexpr int NTHREADS = 384;
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+
+static_assert(KT == QT, "the diagonal key tile of query tile qi is qi");
+static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 256 <=
+                  65536 / NTHREADS / 8 * 8 * NTHREADS,
+              "more registers than the block was launched with");
+
+// Shared memory: an item's K and V (64 keys x 256 each), STAGES slots of
+// Q and of dO (64 queries each), two P^T and two dS^T tiles (64 keys x 64
+// queries, bfloat16: a step's, while the other consumer may still read
+// the last step's), STAGES slots of lse and Delta and of the staged
+// share's (batch x head, query tile, key tile, last), the current item,
+// the mbarriers: 64 + 128 + 32 KB of tiles, 1,024 B of lse and Delta,
+// the rest and 1,024 B to align the base: 231,520 bytes of the 232,448 a
+// block may take.  No room is left for a buffer of dq's share (64 KB a
+// step in float32): a consumer stages its half of the share in the
+// columns of the step's Q and dO tiles that only its own dv and dk read,
+// once they are done (its dq columns 0 .. 63 in its Q chunks, 64 .. 127
+// in its dO chunks, in fragment order).
+struct Smem {
+  using G = Geo<D, 64>;                         // K, V, Q or dO
+  static constexpr uint32_t PT_TILE = KT * QT * 2;
+  static constexpr uint32_t K_OFF = 0;
+  static constexpr uint32_t V_OFF = G::TILE;
+  static constexpr uint32_t Q_OFF = 2 * G::TILE;
+  static constexpr uint32_t DO_OFF = Q_OFF + STAGES * G::TILE;
+  static constexpr uint32_t P_OFF = DO_OFF + STAGES * G::TILE;
+  static constexpr uint32_t DS_OFF = P_OFF + 2 * PT_TILE;
+  static constexpr uint32_t LSE_OFF = DS_OFF + 2 * PT_TILE;
+  static constexpr uint32_t DL_OFF = LSE_OFF + STAGES * QT * 4;
+  static constexpr uint32_t META_OFF = DL_OFF + STAGES * QT * 4;
+  static constexpr uint32_t ITEM_OFF = META_OFF + STAGES * 16;
+  static constexpr uint32_t BAR_OFF = ITEM_OFF + 16;
+  static constexpr size_t SMEM = BAR_OFF + 8 * (2 + 2 * STAGES) + 1024;
+  static_assert(SMEM <= 232448, "more shared memory than a block may take");
+};
+
+// D[64 x 32] (+)= A[64 x 16] . B[16 x 32], both operands in shared memory
+// and K-major
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] += A[64 x 16] . B[16 x 128], both operands in shared memory,
+// A K-major, B MN-major
+__device__ __forceinline__ void wgmma_sm_n128(float (&d)[64], uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 128] (+)= A[64 x 16] . B[16 x 128], both operands in shared
+// memory and MN-major
+__device__ __forceinline__ void wgmma_tt_n128(float (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The main pass at 128 < D <= 256: persistent blocks over the work items
+// (batch x KV head, 64-key tile), key-tile-major; see the note at the top
+// of the file.  Consumer w holds dk and dv of the item's 64 keys for
+// columns 128 w .. 128 w + 127, and scores queries 32 w .. 32 w + 31 of
+// each step.  The producer warp also adds each staged share to dq's
+// accumulator (lane 0: bulk reduce-adds from shared memory, in key-tile
+// order) before it loads the slot again.  `width`: the operands' real
+// width (the maps zero-fill the columns past it; dq, dk and dv are stored
+// below it).  `acc`: dq's float32 accumulator, a 64 x 256 tile for each
+// (batch x head, query tile), in the consumers' fragment order; `sem` a
+// counter for each such tile (the key tiles added so far), then the
+// ticket counter, all zeroed by the Delta pass.
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_kernel_d256(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* acc,
+                      __nv_bfloat16* __restrict__ dq,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, Lay ldq, Lay ldk,
+                      Lay ldv, int* sem, int* work, int B, int H, int KV,
+                      int S, int width, float scale, float scale_log2) {
+  using L = Smem;
+  using G = L::G;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* gb = smem_raw + (base - smem_u32(smem_raw));
+  const float* lse_s = reinterpret_cast<const float*>(gb + L::LSE_OFF);
+  const float* dl_s = reinterpret_cast<const float*>(gb + L::DL_OFF);
+  volatile int* meta = reinterpret_cast<volatile int*>(gb + L::META_OFF);
+  volatile int* item_s = reinterpret_cast<volatile int*>(gb + L::ITEM_OFF);
+  const uint32_t bar = base + L::BAR_OFF;
+  // mbarriers: K and V full (TMA bytes) and empty (every consumer
+  // thread); per ring slot full (TMA bytes, plus the producer warp's 32
+  // cp.async arrivals) and staged (every consumer thread, once the step's
+  // Q and dO are read and its dq share staged)
+  const uint32_t full_kv = bar, empty_kv = bar + 8, full = bar + 16,
+                 staged = full + 8 * STAGES;
+
+  const int GS = H / KV, BKV = B * KV;
+  const int nQ = (S + QT - 1) / QT;                  // query tiles
+  const int n_items = BKV * ((S + KT - 1) / KT);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    mbar_init(empty_kv, 256);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 33);
+      mbar_init(staged + 8 * s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+                     PRODUCER_REGS)
+                 : "memory");
+    if (threadIdx.x < 32) {
+      // the producer warp: takes the items, loads K and V once an item and
+      // each step's Q, dO (lane 0, TMA), lse and Delta (every lane); before
+      // it loads a slot again, lane 0 adds the share staged there
+      const int lane = threadIdx.x;
+      // the share that step `i` staged in its slot: to the accumulator's
+      // tile, stored by key tile 0, added by the later ones once the tile's
+      // counter reads their key tile, and the counter bumped once the adds
+      // are complete (the diagonal tile's share is never staged: its
+      // consumers round the sum into dq)
+      auto add_share = [&](int i) {
+        const int slot = i % STAGES;
+        mbar_wait(staged + 8 * slot, (i / STAGES) & 1);
+        const int bh = meta[4 * slot], qi = meta[4 * slot + 1],
+                  kt = meta[4 * slot + 2];
+        if (meta[4 * slot + 3]) return;
+        int* cnt = sem + bh * nQ + qi;
+        float* dst = acc + ((size_t)bh * nQ + qi) * QT * D;
+        if (kt > 0) {
+          wait_count(cnt, kt);
+          fence_async_global();
+        }
+        for (int r = 0; r < 4; ++r) {                // consumer r / 2's half
+          const uint32_t src = base + (r & 1 ? L::DO_OFF : L::Q_OFF) +
+                               slot * G::TILE + (r >> 1) * 2 * G::CHUNK;
+          if (kt == 0) bulk_store(dst + r * QT * 64, src, 2 * G::CHUNK);
+          else bulk_add(dst + r * QT * 64, src, 2 * G::CHUNK);
+        }
+        bulk_commit_wait();
+        fence_async_global();
+        bump(cnt);
+      };
+      int it = 0;                                    // steps so far
+      for (int n = 0;; ++n) {
+        int item = 0;
+        if (lane == 0) item = atomicAdd(work, 1);
+        item = __shfl_sync(0xffffffffu, item, 0);
+        mbar_wait(empty_kv, (n & 1) ^ 1);            // the last item done
+        if (item >= n_items) {
+          if (lane == 0) {
+            *item_s = -1;
+            mbar_arrive(full_kv);
+            for (int i = it < STAGES ? 0 : it - STAGES; i < it; ++i)
+              add_share(i);
+          }
+          break;
+        }
+        const int bkv = item % BKV, kt = item / BKV;
+        const int b = bkv / KV, kvh = bkv % KV, k0 = kt * KT;
+        if (lane == 0) {
+          *item_s = item;
+          mbar_expect_tx(full_kv, 2 * G::TILE);
+          for (int c = 0; c < G::NC; ++c) {
+            tma_load(base + L::K_OFF + c * G::CHUNK, &tk, full_kv,
+                     c * G::AW, kvh, k0, b);
+            tma_load(base + L::V_OFF + c * G::CHUNK, &tv, full_kv,
+                     c * G::AW, kvh, k0, b);
+          }
+        }
+        const int steps = GS * (nQ - kt);
+        for (int s = 0; s < steps; ++s, ++it) {
+          const int slot = it % STAGES;
+          const int q0 = (nQ - 1 - s / GS) * QT;
+          const int h = kvh * GS + s % GS;
+          if (it >= STAGES) {          // the slot's last step staged its share
+            if (lane == 0) add_share(it - STAGES);
+            __syncwarp();
+          }
+          if (lane == 0) {
+            mbar_expect_tx(full + 8 * slot, 2 * G::TILE);
+            for (int c = 0; c < G::NC; ++c) {
+              tma_load(base + L::Q_OFF + slot * G::TILE + c * G::CHUNK,
+                       &tq, full + 8 * slot, c * G::AW, h, q0, b);
+              tma_load(base + L::DO_OFF + slot * G::TILE + c * G::CHUNK,
+                       &tdo, full + 8 * slot, c * G::AW, h, q0, b);
+            }
+          }
+          for (int i = lane; i < QT; i += 32) {
+            const bool in = q0 + i < S;
+            const size_t g = (size_t)(b * H + h) * S + (in ? q0 + i : 0);
+            cp_async4(base + L::LSE_OFF + (slot * QT + i) * 4, lse + g, in);
+            cp_async4(base + L::DL_OFF + (slot * QT + i) * 4, delta + g, in);
+          }
+          cp_async_arrive(full + 8 * slot);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+                     CONSUMER_REGS)
+                 : "memory");
+    // which half of the columns and of each step's queries; read through
+    // a shuffle so that ptxas sees a warp-uniform value (no C7520)
+    const int w = __shfl_sync(0xffffffffu, threadIdx.x / 128 - 1, 0);
+    const int tid = threadIdx.x % 128;
+    // accumulator fragment: rows r0 and r0 + 8 (h = 0, 1), columns
+    // 8 j + c0 + {0, 1}: element [4 j + 2 h + e]
+    const int r0 = 16 * (tid / 32) + (tid % 32) / 4;
+    const int c0 = 2 * (tid % 4);
+    const uint32_t ks = base + L::K_OFF, vs = base + L::V_OFF;
+
+    float dk_acc[64], dv_acc[64];    // 64 keys x this consumer's 128 columns
+    float st[16], dp[16];            // S^T, dP^T: 64 keys x 32 queries
+    float dq_acc[64];                // dq's share: 64 queries x 128 columns
+
+    // S^T (a = K) or dP^T (a = V) of this consumer's 32 queries of the
+    // Q or dO tile at b: 16 k-steps over D (one batch, not committed)
+    auto scores = [&](float (&s)[16], uint32_t a, uint32_t b) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk * 16 / G::AW) * G::CHUNK +
+                             (kk * 16 % G::AW) * 2;
+        wgmma_ss_n32(s, sdesc(a + off, 16, G::SBO, G::LAYOUT),
+                     sdesc(b + 32 * w * G::ROW + off, 16, G::SBO, G::LAYOUT),
+                     kk > 0);
+      }
+    };
+    // d += A T over the step's 64 queries: A the P^T or dS^T tile at a
+    // (keys x queries, K-major), T this consumer's 128 columns of the dO or
+    // Q tile at t (MN-major)
+    auto accumulate = [&](float (&d)[64], uint32_t a, uint32_t t) {
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk)
+        wgmma_sm_n128(d, sdesc(a + kk * 32, 16, 1024, 1),
+                      sdesc(t + 2 * w * G::CHUNK + kk * 16 * G::ROW,
+                            G::CHUNK, G::SBO, G::LAYOUT));
+    };
+    // dq's share: dS K over the item's 64 keys for this consumer's 128
+    // columns (dS the MN-major A from the dS^T tile at ds, K the MN-major
+    // B)
+    auto dq_product = [&](uint32_t ds) {
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk)
+        wgmma_tt_n128(dq_acc, sdesc(ds + kk * 16 * 128, L::PT_TILE, 1024, 1),
+                      sdesc(ks + 2 * w * G::CHUNK + kk * 16 * G::ROW,
+                            G::CHUNK, G::SBO, G::LAYOUT),
+                      kk > 0);
+    };
+    // the share of a step that is not its query tile's last: into the
+    // slot's Q chunks of this consumer (its columns 0 .. 63) and its dO
+    // chunks (64 .. 127), as float4s in fragment order, where only its
+    // own dv and dk read (done)
+    auto stage = [&](int slot) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        st_shared(base + (j < 8 ? L::Q_OFF : L::DO_OFF) + slot * G::TILE +
+                      2 * w * G::CHUNK + ((j % 8) * 128 + tid) * 16,
+                  dq_acc[4 * j], dq_acc[4 * j + 1], dq_acc[4 * j + 2],
+                  dq_acc[4 * j + 3]);
+    };
+    // the share of the diagonal tile (the query tile's last) added to the
+    // sum of the others from `tile` (this consumer's half of the
+    // accumulator's, in the same order; none at kt = 0), scaled and
+    // rounded into dq below the width
+    auto finish = [&](const float* tile, int kt, int bh, int q0) {
+      if (kt > 0) {
+        const float4* tp = reinterpret_cast<const float4*>(tile) + tid;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float4 a = __ldcg(tp + j * 128);
+          dq_acc[4 * j] = a.x + dq_acc[4 * j];
+          dq_acc[4 * j + 1] = a.y + dq_acc[4 * j + 1];
+          dq_acc[4 * j + 2] = a.z + dq_acc[4 * j + 2];
+          dq_acc[4 * j + 3] = a.w + dq_acc[4 * j + 3];
+        }
+      }
+      __nv_bfloat16* out = at(dq, ldq, bh / H, bh % H);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = q0 + r0 + 8 * h;
+        if (row >= S) continue;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = 128 * w + 8 * j + c0;
+          if (col < width)
+            *reinterpret_cast<__nv_bfloat162*>(out + row * ldq.s + col) =
+                __floats2bfloat162_rn(dq_acc[4 * j + 2 * h] * scale,
+                                      dq_acc[4 * j + 2 * h + 1] * scale);
+        }
+      }
+    };
+
+    int it = 0;                                  // steps so far
+    for (int n = 0;; ++n) {
+      mbar_wait(full_kv, n & 1);
+      const int item = __shfl_sync(0xffffffffu, *item_s, 0);
+      if (item < 0) break;
+      const int bkv = item % BKV, kt = item / BKV;
+      const int b = bkv / KV, kvh = bkv % KV, k0 = kt * KT;
+      const int steps = GS * (nQ - kt);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+      for (int s = 0; s < steps; ++s, ++it) {
+        const int slot = it % STAGES;
+        const int qi = nQ - 1 - s / GS;
+        const int q0 = qi * QT;
+        const int bh = b * H + kvh * GS + s % GS;
+        const uint32_t qs = base + L::Q_OFF + slot * G::TILE;
+        const uint32_t dos = base + L::DO_OFF + slot * G::TILE;
+        const uint32_t pt = base + L::P_OFF + (it & 1) * L::PT_TILE;
+        const uint32_t dst = base + L::DS_OFF + (it & 1) * L::PT_TILE;
+        mbar_wait(full + 8 * slot, (it / STAGES) & 1);
+        pin(dk_acc);
+        pin(dv_acc);
+        wgmma_fence();
+        scores(st, ks, qs);                      // S^T = K Q^T
+        scores(dp, vs, dos);                     // dP^T = V dO^T
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(st);
+        pin(dp);
+        // keys above a query, and queries past S, get P = dS = 0
+        const int qw = q0 + 32 * w;              // this consumer's first
+        const bool edge = qw < k0 + KT || qw + 32 > S;
+        const float* ls = lse_s + slot * QT + 32 * w;
+        const float* dl = dl_s + slot * QT + 32 * w;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * j + c0 + e;
+            const float l2 = ls[col] * LOG2E;
+            const float dlt = dl[col];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = 4 * j + 2 * h + e;
+              float p = ex2(fmaf(st[i], scale_log2, -l2));
+              if (edge && (k0 + r0 + 8 * h > qw + col || qw + col >= S))
+                p = 0.f;
+              st[i] = p;
+              dp[i] = p * (dp[i] - dlt);
+            }
+          }
+        // P^T and dS^T rounded to bfloat16 into the step's tiles (row =
+        // key, 128 B a row, swizzled), this consumer's 32 query columns
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t off =
+                swz((r0 + 8 * h) * 128 + 64 * w + 16 * j + 2 * c0);
+            st_shared(pt + off,
+                      pack_bf16(st[4 * j + 2 * h], st[4 * j + 2 * h + 1]));
+            st_shared(dst + off,
+                      pack_bf16(dp[4 * j + 2 * h], dp[4 * j + 2 * h + 1]));
+          }
+        fence_async_smem();
+        // both consumers' halves in; both past their last step, so neither
+        // still reads the other tiles
+        named_sync(1, 256);
+        const bool last = kt == qi;              // the diagonal key tile
+        pin(dk_acc);
+        pin(dv_acc);
+        wgmma_fence();
+        dq_product(dst);                         // dq's share: dS K
+        accumulate(dv_acc, pt, dos);             // dv += P^T dO
+        accumulate(dk_acc, dst, qs);             // dk += dS^T Q
+        wgmma_commit();
+        wgmma_wait<0>();                         // Q and dO read
+        pin(dq_acc);
+        pin(dk_acc);
+        pin(dv_acc);
+        if (w == 0 && tid == 0) {                // for the producer's add
+          meta[4 * slot] = bh;
+          meta[4 * slot + 1] = qi;
+          meta[4 * slot + 2] = kt;
+          meta[4 * slot + 3] = last;
+        }
+        const float* tile =
+            acc + ((size_t)bh * nQ + qi) * QT * D + w * QT * 128;
+        if (last) {
+          mbar_arrive(staged + 8 * slot);        // nothing staged
+          // the other key tiles' adds to this tile are in
+          if (kt > 0) {
+            if (tid == 0) wait_count(sem + bh * nQ + qi, kt);
+            named_sync(2 + w, 128);
+          }
+          finish(tile, kt, bh, q0);
+        } else {
+          stage(slot);
+          fence_async_smem();
+          mbar_arrive(staged + 8 * slot);
+        }
+      }
+      mbar_arrive(empty_kv);                     // K and V read
+
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key = k0 + r0 + 8 * h;
+        if (key >= S) continue;
+        __nv_bfloat16* kp = at(dk, ldk, b, kvh) + key * ldk.s;
+        __nv_bfloat16* vp = at(dv, ldv, b, kvh) + key * ldv.s;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = 128 * w + 8 * j + c0;
+          if (col < width) {
+            *reinterpret_cast<__nv_bfloat162*>(kp + col) =
+                __floats2bfloat162_rn(dk_acc[4 * j + 2 * h] * scale,
+                                      dk_acc[4 * j + 2 * h + 1] * scale);
+            *reinterpret_cast<__nv_bfloat162*>(vp + col) =
+                __floats2bfloat162_rn(dv_acc[4 * j + 2 * h],
+                                      dv_acc[4 * j + 2 * h + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The schedule for B x KV heads of S rows: the work items and the grid,
+// one persistent block an SM (fewer if there are fewer items)
+int schedule(int B, int KV, int S, int* items, int* blocks) {
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  *items = B * KV * ((S + KT - 1) / KT);
+  *blocks = *items < sms ? *items : sms;
+  return 0;
+}
+
+// ly: the strides of q, k, v, o, dO, dq, dk, dv; acc a float32 scratch of
+// B * H * ceil(S / 64) * 64 * 256; sem B * H * ceil(S / 64) + 1 ints,
+// zeroed (the Delta pass); width the operands' (a multiple of 8, at most
+// 256)
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* delta, void* dq, void* dk,
+           void* dv, float* acc, int* sem, const Lay* ly, int B, int H,
+           int KV, int S, int width, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mdo, mk, mv;
+  int err = make_map<D>(&mq, q, ly[0], H, S, B, QT, width);
+  if (err == 0) err = make_map<D>(&mdo, dout, ly[4], H, S, B, QT, width);
+  if (err == 0) err = make_map<D>(&mk, k, ly[1], KV, S, B, KT, width);
+  if (err == 0) err = make_map<D>(&mv, v, ly[2], KV, S, B, KT, width);
+  if (err != 0) return err;
+  int n_items = 0, grid = 0;
+  err = schedule(B, KV, S, &n_items, &grid);
+  if (err != 0) return err;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_kernel_d256, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Smem::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int nQ = (S + QT - 1) / QT;
+  flash_bwd_kernel_d256<<<grid, NTHREADS, Smem::SMEM, stream>>>(
+      mq, mk, mv, mdo, lse, delta, acc, static_cast<__nv_bfloat16*>(dq),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+      ly[5], ly[6], ly[7], sem, sem + (size_t)B * H * nQ, B, H, KV, S,
+      width, scale, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace widebwd
+
 namespace simplebwd {
 
 constexpr int BQ = 16;          // query rows per tile
@@ -3009,7 +3592,9 @@ extern "C" int flash_attention_wide_launch(const void* q, const void* k,
 // bytes, the last axis contiguous; delta a float32 (B, H, S) scratch.
 // bfloat16 at D in {16, 32, 64, 128}: ws a float32 scratch of
 // B * H * ceil(S / 64) * 64 * D (dq's accumulator), sem B * H *
-// ceil(S / 64) + 1 ints of scratch;
+// ceil(S / 64) + 1 ints of scratch; bfloat16 at 128 < D <= 256 with
+// D % 8 == 0 (the D = 256 body, the operands read in place at width D):
+// ws B * H * ceil(S / 64) * 64 * 256 floats, sem as at D <= 128;
 // otherwise ws a float32 scratch of (B H + 2 B KV) S D and sem unused.
 // Launches the Delta pass, then the main pass, and returns the first
 // launch error.  The caller checks KV | H and, for the CUDA-core body,
@@ -3027,8 +3612,10 @@ extern "C" int flash_attention_bwd_launch(
   int* cnt = static_cast<int*>(sem);
   const Lay* ly = static_cast<const Lay*>(strides);
   const bool tc = is_bf16 && (D == 16 || D == 32 || D == 64 || D == 128);
-  const int n_zero = tc ? B * H * ((S + bf16bwd::QT - 1) / bf16bwd::QT) + 1
-                        : 0;
+  const bool wide = is_bf16 && D > 128 && D <= 256 && D % 8 == 0;
+  const int n_zero =
+      tc ? B * H * ((S + bf16bwd::QT - 1) / bf16bwd::QT) + 1
+         : wide ? B * H * ((S + widebwd::QT - 1) / widebwd::QT) + 1 : 0;
   int err = is_bf16
                 ? launch_delta<__nv_bfloat16>(o, dout, dl, ly[3], ly[4], B,
                                               H, S, D, cnt, n_zero, st)
@@ -3038,6 +3625,9 @@ extern "C" int flash_attention_bwd_launch(
   if (!is_bf16)
     return simplebwd::launch<float>(q, k, v, dout, l, dl, dq, dk, dv, w, ly,
                                     B, H, KV, S, D, scale, st);
+  if (wide)
+    return widebwd::launch(q, k, v, dout, l, dl, dq, dk, dv, w, cnt, ly, B,
+                           H, KV, S, D, scale, st);
   switch (D) {
     case 16: return bf16bwd::launch<16>(q, k, v, dout, l, dl, dq, dk, dv, w,
                                         cnt, ly, B, H, KV, S, scale, st);
@@ -3052,4 +3642,27 @@ extern "C" int flash_attention_bwd_launch(
                                               dv, w, ly, B, H, KV, S, D,
                                               scale, st);
   }
+}
+
+// How the bfloat16 backward's tensor-core body for head dim D (16, 32,
+// 64, 128, or the D = 256 body's 128 < D <= 256 with D % 8 == 0) runs B x
+// KV heads of S rows on the current device, as flash_attention_bwd_launch
+// schedules it: out[0] keys of a work item, out[1] queries of a step,
+// out[2] the work items, out[3] the grid's persistent blocks.
+extern "C" int flash_attention_bwd_info(int B, int KV, int S, int D,
+                                        int* out) {
+  if (D > 128 && D <= 256 && D % 8 == 0) {
+    out[0] = widebwd::KT;
+    out[1] = widebwd::QT;
+    return widebwd::schedule(B, KV, S, out + 2, out + 3);
+  }
+  if (D != 16 && D != 32 && D != 64 && D != 128)
+    return (int)cudaErrorInvalidValue;
+  const int sms = bf16body::sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  out[0] = bf16bwd::KT;
+  out[1] = bf16bwd::QT;
+  out[2] = B * KV * ((S + bf16bwd::KT - 1) / bf16bwd::KT);
+  out[3] = out[2] < sms ? out[2] : sms;
+  return 0;
 }

@@ -38,18 +38,24 @@ log-sum-exp.
 `flash_attention_bwd` is the gradient of that forward from (q, k, v, o,
 lse, dO); it has no TPU counterpart (the reference differentiates
 `attn_flash` with XLA).  bfloat16 at D in `BWD_HEAD_DIMS` (16, 32, 64,
-128) runs FA2's
-five products on the tensor cores (other D <= 128 zero-padded as the
-forward, the gradients sliced back: the zero columns change no score and
-give zero gradient columns): persistent blocks, one per SM, take
-(batch x KV head, 128-key tile) items in a list order fixed by the shape;
-each computes dk and dv in registers and, per 64-query step, a share of
-dq that a writer thread adds to a float32 accumulator in ascending
-key-tile order, held by a counter per (batch x head, query tile) in
-device memory (the last key tile rounds the sum into dq).  float32 at any
-D and bfloat16 at D > 128 run a simple CUDA-core body.  Every gradient is
-summed in an order fixed by the shape, so two runs give the same bits.
-Its launches count under ``flash_attention_bwd``.
+128 and 256) runs FA2's five products on the tensor cores
+(`_backward_route`: other D <= 128 zero-padded as the forward, the
+gradients sliced back, since the zero columns change no score and give
+zero gradient columns; 128 < D < 256 read in place by the D = 256 body
+when D % 8 == 0, else zero-padded to 256): persistent blocks, one per
+SM, take (batch x KV head, key tile) items in a list order fixed by the
+shape; each computes dk and dv in registers and, per 64-query step, a
+share of dq, which bulk reduce-adds from shared memory add to a float32
+accumulator in ascending key-tile order, held by a counter per (batch x
+head, query tile) in device memory (the last key tile rounds the sum
+into dq).  Items of 128 keys up to D = 128, where a writer thread adds
+the shares; of 64 keys at D = 256, where the two consumers split D and
+stage their halves of a share in the step's Q and dO tiles once those
+are read, and the producer adds it before loading the slot again
+(`BWD_TILES`).  float32 at any D and bfloat16 at D > 256 run a simple
+CUDA-core body.  Every gradient is summed in an order fixed by the
+shape, so two runs give the same bits.  Its launches count under
+``flash_attention_bwd``.
 
 Layout: the public functions keep the reference's (B, H, S, D), and on
 the card every body reads its operands in place: the last axis
@@ -78,8 +84,12 @@ from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 #: the CUDA-core wide body
 HEAD_DIMS = {torch.float32: (16, 32, 64, 128),
              torch.bfloat16: (16, 32, 64, 128, 256)}
-#: the tensor-core backward's head dims (bfloat16; bf16bwd)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
+#: the tensor-core backward's head dims (bfloat16; bf16bwd up to 128,
+#: widebwd at 256)
+BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
+#: (keys per work item, queries per step) of each tensor-core backward
+#: body, by its head dim
+BWD_TILES = {d: (64, 64) if d == 256 else (128, 64) for d in BWD_HEAD_DIMS}
 #: (query rows per block or work item, keys per KV tile) of each body, by
 #: dtype and the body's head dim
 TILES = {torch.float32: {d: (64, 64) for d in HEAD_DIMS[torch.float32]},
@@ -138,6 +148,36 @@ def _forward_route(dtype, D):
     if body == D or (dtype == torch.bfloat16 and D % 8 == 0):
         return "in place", body
     return "padded", body
+
+
+def _backward_route(dtype, D):
+    """How the backward runs head dim D at `dtype`: (route, body head
+    dim), route "in place" (the operands as they are; at 128 < D < 256
+    the D = 256 body's columns past D zero-filled by TMA), "padded"
+    (zero-padded copies of q, k, v, o and dO, the gradients sliced back)
+    or "cuda cores" (the CUDA-core body: float32 at any D, bfloat16 above
+    256)."""
+    if dtype != torch.bfloat16 or D > BWD_HEAD_DIMS[-1]:
+        return "cuda cores", D
+    body = _pad(D, BWD_HEAD_DIMS)
+    if body == D or (body == 256 and D % 8 == 0):
+        return "in place", body
+    return "padded", body
+
+
+def _bwd_schedule(B, KV, S, D, device) -> dict:
+    """How the bfloat16 tensor-core backward schedules B x KV heads of S
+    rows at head dim D <= 256 on `device`, as its launcher decides it
+    (``flash_attention_bwd_info``): keys of a work item, queries of a step,
+    the work items, and the grid of persistent blocks."""
+    route, body = _backward_route(torch.bfloat16, D)
+    info = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        err = _build.function("flash_attention", "flash_attention_bwd_info",
+                              [_build.I] * 4 + [_build.P])(
+            B, KV, S, D if route == "in place" else body, info)
+    _build.check("flash_attention", err)
+    return dict(keys=info[0], queries=info[1], items=info[2], grid=info[3])
 
 
 def _align(q, D, dims=HEAD_DIMS[torch.bfloat16]):
@@ -292,28 +332,29 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     _on_card("flash_attention_bwd", q)
     dev = q.device
     bf16 = q.dtype == torch.bfloat16
-    Dp = _pad(D, BWD_HEAD_DIMS) if bf16 and D <= BWD_HEAD_DIMS[-1] else D
-    tc = bf16 and Dp in BWD_HEAD_DIMS       # the tensor-core body
+    route, Dp = _backward_route(q.dtype, D)
     # the CUDA-core body's dq pass has a grid y of ceil(S / BWD_ROWS); the
-    # tensor-core body's grid is one persistent block per SM
-    if not tc and -(-S // BWD_ROWS) > MAX_GRID_Y:
+    # tensor-core bodies' grid is one persistent block per SM
+    if route == "cuda cores" and -(-S // BWD_ROWS) > MAX_GRID_Y:
         raise ValueError(f"S = {S}: {-(-S // BWD_ROWS)} blocks along the "
                          f"grid's y dimension > {MAX_GRID_Y}")
     _build.require("lse", lse, torch.float32, (B, H, S), dev)
-    if Dp != D:         # zero columns: no score changes, zero gradients
+    if route == "padded":   # zero columns: no score changes, zero gradients
         q, k, v, o, do = (torch.nn.functional.pad(x, (0, Dp - D))
                           for x in (q, k, v, o, do))
+    width = q.shape[-1]     # the operands' (D in place; the body's padded)
     align = _align(q, Dp, BWD_HEAD_DIMS)
     for name, t in (("q", q), ("o", o), ("do", do)):
-        _build.require(name, t, q.dtype, (B, H, S, Dp), dev, align=align)
-    _build.require("k", k, q.dtype, (B, KV, S, Dp), dev, align=align)
-    _build.require("v", v, q.dtype, (B, KV, S, Dp), dev, align=align)
+        _build.require(name, t, q.dtype, (B, H, S, width), dev, align=align)
+    _build.require("k", k, q.dtype, (B, KV, S, width), dev, align=align)
+    _build.require("v", v, q.dtype, (B, KV, S, width), dev, align=align)
     dq = torch.empty_like(q)        # each in its input's layout
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
-    if tc:      # dq's float32 accumulator (a 64 x D tile for each (batch x
-        # head, query tile)), its counters and the work-item counter
+    if route != "cuda cores":
+        # dq's float32 accumulator (a 64 x Dp tile for each (batch x head,
+        # query tile)), its counters and the work-item counter
         nq = B * H * -(-S // BWD_QT)
         ws = torch.empty((nq * BWD_QT * Dp,), dtype=torch.float32, device=dev)
         sem = torch.empty((nq + 1,), dtype=torch.int32, device=dev)
@@ -329,10 +370,10 @@ def flash_attention_bwd(q, k, v, o, lse, do):
                  lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), delta.data_ptr(), ws.data_ptr(),
                  None if sem is None else sem.data_ptr(),
-                 _strides(q, k, v, o, do, dq, dk, dv), B, H, KV, S, Dp,
+                 _strides(q, k, v, o, do, dq, dk, dv), B, H, KV, S, width,
                  int(bf16), D ** -0.5, _build.stream_of(dev))
     _build.check("flash_attention", err)
     _build.launches["flash_attention_bwd"] += 1
-    if Dp != D:
+    if width != D:
         dq, dk, dv = (x[..., :D].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv

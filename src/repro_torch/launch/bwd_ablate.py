@@ -1,28 +1,65 @@
 """Where the flash backward's time goes: `flash_attention_bwd` at one
-shape, timed with source variants of its tensor-core pass that each drop
-one piece of work.
+shape, timed with source variants of its tensor-core passes that each drop
+or change one piece of work.
 
-Each variant is ``csrc/flash_attention.cu`` with a text patch inside the
-``bf16bwd`` namespace, built with nvcc into ``build/repro_torch/ablate/``
-and run in a process of its own (a variant whose waits can no longer be
-met would hang; each process has a time limit).  The variants give wrong
-gradients by design: they are timed, never checked.
+Each variant is ``csrc/flash_attention.cu`` with a text patch inside one
+body's namespace (``bf16bwd`` for D <= 128, ``widebwd`` for the D = 256
+body, the ``wide_*`` variants), built with nvcc (``-Xptxas -v``) into
+``build/repro_torch/ablate/`` and run in a process of its own (a variant
+whose waits can no longer be met would hang; each process has a time
+limit), in the order base, the variants, base.  The variants that drop
+work give wrong gradients by design: they are timed, never checked.  The
+build prints the backward bodies' registers and spill bytes and ptxas'
+C7520 warnings (wgmma serialized).
 
-    base        the kernel as it is
-    no_handoff  dq's share computed but never handed to the writer, and
-                the diagonal tiles not finished: the five products alone
-    no_finish   the diagonal tiles' last shares not finished
-    no_order    no counter waits: the adds to a tile in any order
-    no_turns    the consumers issue S^T and dP^T without taking turns
+    base           the kernel as it is
+    no_handoff     dq's share computed but never handed to the writer, and
+                   the diagonal tiles not finished: the five products alone
+    no_finish      the diagonal tiles' last shares not finished
+    no_order       no counter waits: the adds to a tile in any order
+    no_turns       the consumers issue S^T and dP^T without taking turns
+    wide_one_slot  the D = 256 body with one Q / dO slot (two in the
+                   kernel): a slot's share is added before it is loaded
+                   again, with nothing between
+    wide_store     the D = 256 body's shares stored over the accumulator's
+                   tile, not added to it: the same bytes, no reduction
+    wide_no_order  the D = 256 body without its counter waits
+    wide_no_dq     the D = 256 body's dq shares computed and staged, never
+                   added to the accumulator, the diagonal tiles not waiting
+    wide_no_stage  as wide_no_dq, and the shares not staged either: the
+                   five products, the softmax and the protocol alone
+    wide_no_exp    the D = 256 body with P = S * scale - lse, no ex2
+    wide_no_mma    the D = 256 body without its dq, dv and dk products (S
+                   and dP alone on the tensor cores)
 
-Run on a card (CUDA events, the mean of 20 calls, three rounds each):
+Shapes (--shape, a preset or B,H,KV,S,D):
 
-    PYTHONPATH=src python -m repro_torch.launch.bwd_ablate [--shape B,H,KV,S,D]
+    yi    4, 32, 4, 2048, 128   (yi-6b's training shape, the default)
+    wide  4, 8, 2, 2048, 256    (yi's batch and GQA group of 4 at a
+                                 Gemma-style head dim: the D = 256 body)
+
+Run on a card (CUDA events, the mean of 20 calls, three rounds each, on
+the (B, H, S, D) views of (B, S, H, D) tensors from a seeded generator;
+each process also times SDPA's backward on the same inputs, one autograd
+call on a retained graph, and prints a digest of dq's, dk's and dv's
+bits):
+
+    PYTHONPATH=src python -m repro_torch.launch.bwd_ablate \\
+        [--shape wide] [--variants base,wide_no_dq] \\
+        [--parent OTHER/src/repro_torch/kernels/csrc/flash_attention.cu]
+
+--parent adds a variant "parent": that file as it is (say, a parent
+commit's, unpacked with ``git archive``), run first and last (parent,
+base, the variants, base, parent); equal digests show equal bits.  Its
+``flash_attention_bwd_launch`` must take the arguments this wrapper
+passes.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
+import re
 import subprocess
 import sys
 import time
@@ -31,8 +68,19 @@ from repro_torch.kernels import _build
 
 OUT = _build.BUILD_DIR / "ablate"
 
+#: (B, H, KV, S, D) of the presets
+PRESETS = {"yi": (4, 32, 4, 2048, 128), "wide": (4, 8, 2, 2048, 256)}
+
+#: the namespace each body's source lives in
+NAMESPACES = {"narrow": "bf16bwd", "wide": "widebwd"}
+
 _HANDOFF = "        if (!last) share(bh, qi, kt, act);"
 _FINISH = "        if (last && act) finish(bh, qi, kt);"
+_WIDE_WAIT = "          wait_count(cnt, kt);\n"
+_WIDE_NO_ADD = ("        if (meta[4 * slot + 3]) return;\n",
+                "        return;\n")
+_WIDE_DIAG_WAIT = ("            if (tid == 0) wait_count(sem + bh * nQ + qi, "
+                   "kt);\n")
 PATCHES = {
     "base": [],
     "no_handoff": [(_HANDOFF, ""), (_FINISH, "")],
@@ -42,46 +90,124 @@ PATCHES = {
     "no_turns": [("bar_sync(1 + w);", ""), ("bar_arrive(2 - w);", ""),
                  ("if (w == 1) bar_arrive(1);", ""),
                  ("if (w == 0) bar_sync(1);", "")],
+    "wide_one_slot": [("constexpr int STAGES = 2;",
+                       "constexpr int STAGES = 1;")],
+    "wide_store": [("          if (kt == 0) bulk_store(dst + r * QT * 64, src, "
+                    "2 * G::CHUNK);\n          else bulk_add(",
+                    "          if (kt >= 0) bulk_store(dst + r * QT * 64, src, "
+                    "2 * G::CHUNK);\n          else bulk_add(")],
+    "wide_no_order": [(_WIDE_WAIT, ""), (_WIDE_DIAG_WAIT, "")],
+    "wide_no_dq": [_WIDE_NO_ADD, (_WIDE_DIAG_WAIT, "")],
+    "wide_no_stage": [_WIDE_NO_ADD, (_WIDE_DIAG_WAIT, ""),
+                      ("          stage(slot);\n", "")],
+    "wide_no_exp": [("              float p = ex2(fmaf(st[i], scale_log2, "
+                     "-l2));\n",
+                     "              float p = fmaf(st[i], scale_log2, -l2);"
+                     "\n")],
+    "wide_no_mma": [("        dq_product(dst);                         // dq's "
+                     "share: dS K\n"
+                     "        accumulate(dv_acc, pt, dos);             // dv += "
+                     "P^T dO\n"
+                     "        accumulate(dk_acc, dst, qs);             // dk += "
+                     "dS^T Q\n", "")],
 }
 
 
-def variant_source(name: str) -> str:
-    """The source of one variant (raises if a patch no longer applies)."""
+def body_of(name: str) -> str:
+    """The body a variant patches: "wide" (the D = 256 body) or
+    "narrow" (D <= 128)."""
+    return "wide" if name.startswith("wide_") else "narrow"
+
+
+def span(src: str, body: str) -> tuple:
+    """(start, end) of a body's namespace in the source."""
+    ns = NAMESPACES[body]
+    return src.index(f"namespace {ns} {{"), src.index(f"}}  // namespace {ns}")
+
+
+def variant_source(name: str, parent=None) -> str:
+    """The source of one variant (raises if a patch does not apply exactly
+    once inside its body's namespace); "parent" is the file `parent` as it
+    is."""
+    if name == "parent":
+        return open(parent).read()
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    a, b = src.index("namespace bf16bwd {"), src.index(
-        "}  // namespace bf16bwd")
+    a, b = span(src, body_of(name))
     body = src[a:b]
     for old, new in PATCHES[name]:
-        if old not in body:
-            raise ValueError(f"variant {name}: {old!r} not in the source")
+        if body.count(old) != 1:
+            raise ValueError(f"variant {name}: {old!r} not once in the "
+                             "source")
         body = body.replace(old, new)
     return src[:a] + body + src[b:]
 
 
-def build(names) -> None:
-    """One nvcc per variant, all started together."""
+def backward_notes(log: str) -> list:
+    """From an ``nvcc -Xptxas -v`` log: ptxas' C7520 warnings and, per
+    backward body (``flash_bwd_kernel<D>``, and ``<256>`` for
+    ``flash_bwd_kernel_d256``), its registers and spill bytes."""
+    out, fn = [], None
+    for line in log.splitlines():
+        body = re.search(r"flash_bwd_kernelILi(\d+)E", line)
+        name = (f"<{body[1]}>" if body else
+                "<256>" if "flash_bwd_kernel_d256" in line else None)
+        if "C7520" in line:
+            out.append("C7520: " + line.strip()[-160:])
+            continue
+        if "Function properties for" in line:
+            fn = name
+        elif fn and "spill stores" in line:
+            sp = re.findall(r"(\d+) bytes spill", line)
+            out.append(f"{fn} spill {'+'.join(sp)} B")
+        elif fn and "Used" in line and "registers" in line:
+            out[-1] += f", {re.search(r'Used (\d+) registers', line)[1]} regs"
+            fn = None
+    return out
+
+
+def build(names, parent=None) -> dict:
+    """One nvcc per variant, all started together; {variant: the backward
+    bodies' ptxas notes}."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         cu = OUT / f"{name}.cu"
-        cu.write_text(variant_source(name))
-        cmd = [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-I", str(_build.CSRC),
-               "-o", str(OUT / f"{name}.so"), str(cu)]
+        cu.write_text(variant_source(name, parent))
+        cmd = [_build._nvcc(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS,
+               "-I", str(_build.CSRC), "-o", str(OUT / f"{name}.so"),
+               str(cu)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
+    notes = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
+        notes[name] = backward_notes(log)
+    return notes
 
 
-def time_variant(name: str, shape, reps: int = 20) -> list:
-    """Three rounds of the mean ms of `reps` backward calls with the
+def _mean_ms(fn, reps: int) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def time_variant(name: str, shape, reps: int = 20) -> dict:
+    """Three rounds of (backward ms, SDPA's backward ms) with the
     variant's library, on the (B, H, S, D) views of (B, S, H, D) tensors
-    from a seeded generator."""
+    from a seeded generator, and a digest of the gradients' bits."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
     _build._libs["flash_attention"] = ctypes.CDLL(str(OUT / f"{name}.so"))
@@ -92,41 +218,82 @@ def time_variant(name: str, shape, reps: int = 20) -> list:
         np.float32), device=dev).bfloat16().transpose(1, 2)
         for h in (H, KV, KV, H))
     o, lse = FA.flash_attention_fwd(q, k, v)
-    out = []
-    for _ in range(3):
-        FA.flash_attention_bwd(q, k, v, o, lse, do)
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            FA.flash_attention_bwd(q, k, v, o, lse, do)
-        b.record()
-        torch.cuda.synchronize()
-        out.append(a.elapsed_time(b) / reps)
-    return out
+    grads = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    bits = hashlib.sha1(b"".join(g.contiguous().view(torch.int16).cpu()
+                                 .numpy().tobytes() for g in grads))
+    lib_in = [x.detach().requires_grad_() for x in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True,
+                                             enable_gqa=True)
+
+    def kernel():
+        return FA.flash_attention_bwd(q, k, v, o, lse, do)
+
+    def sdpa():
+        return torch.autograd.grad(lib_out, lib_in, do, retain_graph=True)
+
+    rounds = [(_mean_ms(kernel, reps), _mean_ms(sdpa, reps))
+              for _ in range(3)]
+    return dict(rounds=rounds, bits=bits.hexdigest()[:16])
+
+
+def parse_shape(text: str) -> tuple:
+    """A preset's (B, H, KV, S, D), or B,H,KV,S,D as written."""
+    if text in PRESETS:
+        return PRESETS[text]
+    shape = tuple(int(x) for x in text.split(","))
+    if len(shape) != 5:
+        raise ValueError(f"--shape {text!r}: a preset "
+                         f"({', '.join(PRESETS)}) or B,H,KV,S,D")
+    return shape
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--shape", default="4,32,4,2048,128",
-                    help="B,H,KV,S,D (default: yi-6b's training shape)")
+    ap.add_argument("--shape", default="yi",
+                    help="a preset (yi, wide) or B,H,KV,S,D (default: yi, "
+                         "yi-6b's training shape)")
+    ap.add_argument("--variants", help="comma-separated variants (default: "
+                    "those of the shape's body)")
+    ap.add_argument("--parent", help="another flash_attention.cu, run as "
+                    "variant 'parent' first and last")
     ap.add_argument("--variant", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    shape = tuple(int(x) for x in args.shape.split(","))
+    shape = parse_shape(args.shape)
     if args.variant:                    # one variant, in its own process
-        ms = time_variant(args.variant, shape)
-        print(f"variant {args.variant}: backward ms "
-              f"{[round(x, 4) for x in ms]}", flush=True)
+        r = time_variant(args.variant, shape)
+        print(f"variant {args.variant}, {args.shape}: backward / SDPA's "
+              f"backward ms "
+              f"{[(round(a, 4), round(b, 4)) for a, b in r['rounds']]}, "
+              f"ratio {[round(a / b, 3) for a, b in r['rounds']]}; dq, dk, "
+              f"dv bits {r['bits']}", flush=True)
         return 0
+    mine = "wide" if 128 < shape[4] <= 256 else "narrow"
+    names = ([n for n in args.variants.split(",") if n] if args.variants
+             else [n for n in PATCHES if n != "base" and body_of(n) == mine])
+    for n in names:
+        if n not in PATCHES:
+            raise SystemExit(f"unknown variant {n!r}: {', '.join(PATCHES)}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()
+    print(f"card: {card[0] if card else 'nvidia-smi gave nothing'}",
+          flush=True)
     t0 = time.perf_counter()
-    build(PATCHES)
-    print(f"built {len(PATCHES)} variants in "
+    extra = ["parent"] if args.parent else []
+    notes = build(dict.fromkeys([*extra, "base", *names]), args.parent)
+    print(f"built {len(notes)} variants in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for name in PATCHES:
-        r = subprocess.run(["timeout", "-k", "5", "60", sys.executable, "-m",
-                            "repro_torch.launch.bwd_ablate", "--shape",
-                            args.shape, "--variant", name],
+    for name, lines in notes.items():
+        print(f"ptxas, variant {name}: "
+              + ("; ".join(lines) if lines else
+                 "no C7520 warning and no spill line in the backward bodies"),
+              flush=True)
+    order = [*extra, "base", *(n for n in names if n != "base"), "base",
+             *extra]
+    for name in order:
+        r = subprocess.run(["timeout", "-k", "5", "120", sys.executable,
+                            "-m", "repro_torch.launch.bwd_ablate",
+                            "--shape", args.shape, "--variant", name],
                            capture_output=True, text=True)
         print(r.stdout.strip() or f"variant {name}: exit {r.returncode} "
               f"{r.stderr.strip()[-500:]}", flush=True)

@@ -393,14 +393,17 @@ def test_flash_attention_fwd_lse(dev, rng, dtype, B, H, KV, S, D):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [16, 32, 64, 120, 128, 160])
+@pytest.mark.parametrize("D", [16, 32, 64, 120, 128, 160, 192, 256, 320])
 @pytest.mark.parametrize("B,H,KV,S", [
     (1, 4, 4, 1), (2, 8, 2, 100), (1, 8, 1, 257), (1, 32, 4, 130),
     (2, 16, 8, 1100)])
 def test_flash_attention_bwd(dev, rng, dtype, D, B, H, KV, S):
     """The backward kernel against `flash_attention_bwd_plain` given the
     same (o, lse), at FLASH_TOL; two runs give the same bits; one count
-    under ``flash_attention_bwd`` a call and none under the forward's."""
+    under ``flash_attention_bwd`` a call and none under the forward's.
+    At bfloat16 160, 192 and 256 run the D = 256 tensor-core body (ragged
+    S, and at (2, 16, 8, 1100) more work items than SMs), 320 the
+    CUDA-core body."""
     q, k, v = (torch.as_tensor(rng.normal(size=(B, h, S, D)).astype(
         np.float32), device=dev).to(dtype) for h in (H, KV, KV))
     do = torch.as_tensor(rng.normal(size=(B, H, S, D)).astype(np.float32),
@@ -462,7 +465,7 @@ def test_flash_wrapper_refuses_bad_inputs(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [16, 64, 128, 160])
+@pytest.mark.parametrize("D", [16, 64, 128, 160, 256])
 @pytest.mark.parametrize("B,H,KV,S", [(2, 8, 2, 130), (1, 4, 1, 257)])
 def test_flash_reads_the_model_layout_in_place(dev, rng, dtype, D, B, H,
                                                KV, S):
@@ -564,6 +567,48 @@ def test_flash_wide_bf16_body(dev, rng, D, B, H, KV, S):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert (sch["rows"], sch["keys"]) == FA.TILES[torch.bfloat16][256]
     assert sch["items"] == B * H * -(-S // 128)
+    assert sch["grid"] == min(sch["items"], sms)
+
+
+@pytest.mark.parametrize("D", [160, 192, 256])
+@pytest.mark.parametrize("B,H,KV,S", [(2, 8, 2, 130), (1, 16, 4, 1000),
+                                      (4, 8, 2, 2048)])
+def test_flash_wide_bwd_body(dev, rng, D, B, H, KV, S):
+    """The backward's D = 256 tensor-core body (bfloat16, 128 < D <=
+    256) on the views of the model's (B, S, H, D) tensors, read in place:
+    the gradients of the contiguous copies bit for bit and in (B, S, H,
+    D) memory, two runs bit-equal, within FLASH_TOL of the plain version;
+    no pad or copy in a profile of one call; the launcher's schedule: an
+    item per (batch x KV head, 64-key tile), one persistent block an SM
+    at most."""
+    assert FA._backward_route(torch.bfloat16, D) == ("in place", 256)
+    q, k, v, do = (torch.as_tensor(rng.normal(size=(B, S, h, D)).astype(
+        np.float32), device=dev).bfloat16().transpose(1, 2)
+        for h in (H, KV, KV, H))
+    o, lse = FA.flash_attention_fwd(q, k, v)
+    before = _build.launches["flash_attention_bwd"]
+    g = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    g2 = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    gc = FA.flash_attention_bwd(*(x.contiguous() for x in (q, k, v, o)),
+                                lse, do.contiguous())
+    assert _build.launches["flash_attention_bwd"] == before + 3
+    p = FA.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    for x, y, z, w in zip(g, g2, gc, p):
+        assert _same(x, y) and _same(x, z)
+        assert x.transpose(1, 2).is_contiguous() and x.shape == w.shape
+        torch.testing.assert_close(x.float(), w.float(), atol=2e-2,
+                                   rtol=2e-2)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        FA.flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+    names = [ev.key for ev in prof.key_averages()]
+    assert not [n for n in names if "pad" in n or "copy" in n.lower()], names
+    sch = FA._bwd_schedule(B, KV, S, D, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (sch["keys"], sch["queries"]) == FA.BWD_TILES[256]
+    assert sch["items"] == B * KV * -(-S // 64)
     assert sch["grid"] == min(sch["items"], sms)
 
 

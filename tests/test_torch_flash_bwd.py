@@ -32,10 +32,11 @@ CHUNK = 16
 
 # (H, KV): MHA, GQA, MQA; S: a multiple of the chunk, below one chunk,
 # ragged (attn_flash then runs one chunk of S); D: the tensor-core
-# body's smallest width's half, its smallest, and danube's padded one
+# body's smallest width's half, its smallest, danube's padded one, and
+# the D = 256 body's: a narrower width read in place and its own
 HEADS = [(4, 4), (4, 2), (4, 1)]
 SEQS = [64, 12, 40]
-DIMS = [8, 16, 120]
+DIMS = [8, 16, 120, 160, 256]
 
 
 def _inputs(rng, B, H, KV, S, D):
