@@ -11,8 +11,8 @@
    ptxas to report no spills in the bfloat16 flash bodies (the
    backward's persistent pass one per D <= 128 and the D = 256 body, the
    forward per D <= 128 at its own width and at a narrower runtime width,
-   at danube's 120, and the D = 256 body) and no C7520 (wgmma
-   serialized) in any;
+   at danube's 120, and the D = 256 body) and in the float32 backward's
+   (`f32bwd`, one per D <= 128), and no C7520 (wgmma serialized) in any;
 2. holds each kernel against its plain PyTorch version on the card at
    small shapes (for gee_scatter also K = 256, one row holding 50,000
    contributions and rows whose donors mostly share a class, each
@@ -33,9 +33,10 @@
    lse within 1e-5 of the dense oracle's) and the backward
    (`flash_attention_bwd`, twice: the same bits) against its plain
    version on the same (o, lse) and a random dO, at the forward's
-   tolerance; D > 128 takes the backward's CUDA-core body at float32
-   and at 512, its D = 256 tensor-core body at bfloat16 up to 256 (160
-   and 192 read in place);
+   tolerance; the float32 backward takes its body `f32bwd` up to D = 128
+   (two float32-only cases: D = 96, zero-padded to 128, and a ragged S =
+   1000 at D = 64), `simplebwd` above; bfloat16 its D = 256 tensor-core
+   body up to 256 (160 and 192 read in place), `simplebwd` at 512;
 3. drives the GEE path at the scale of SNAP soc-LiveJournal1 (an SBM
    with n = 4,847,571 nodes, s = 68,993,773 edges, K = 16, 10% labeled):
    `Embedder(backend="cuda").fit`, then two `EmbeddingShard`s
@@ -142,8 +143,13 @@
    SDPA's backward, and `FlashAttentionFunction` forward + backward on
    the model's (B, S, H, D) layout beside SDPA's forward + backward, all
    in turns; then, at yi's prefill shape in float32, the CUDA-core
-   forward (`f32body`) and backward (`simplebwd<float>`) beside SDPA's
-   float32 forward and backward and their float32 operation bounds;
+   forward (`f32body`) and backward (`f32bwd`, with the launcher's items
+   and grid) beside SDPA's float32 forward and backward (in turns) and
+   their float32 operation bounds, each held to its plain version at
+   atol = rtol = 2e-5 (the backward to the plain version in float64,
+   since the float32 one's own rounding takes two thirds of that limit
+   there), the backward's two runs bit-equal and its time at most
+   F32_BWD_MAX_RATIO (1.25) x SDPA's backward;
 7. the LM families (`FAMILIES`): each of the other nine archs of the
    registry at full width, its weights drawn from --seed, through
    `generate` at --lm-batch prompts of --lm-prompt tokens (whisper also
@@ -212,7 +218,8 @@
       card against the same two on the CPU from the same weights (wq
       and wk tempered),
       losses within FAM_TRAIN_TOL; flash launched twice per causal
-      self-attention per step, its backward once (the float32 body);
+      self-attention per step, its backward once (the float32 body
+      `f32bwd` at the reduced head dim);
 9. the sharded paths and the dry run (`shard_path`, budget 150 s):
    a. a one-rank NCCL group and a (data=1, model=1) `DeviceMesh`: yi-6b
       at full width, 2 layers, remat, bfloat16 compute, wq and wk
@@ -491,6 +498,9 @@ def same(a, b) -> bool:
 # from run to run on the card (an index backward that adds rows with
 # atomics) could separate the two, by a few float32 steps an update.
 FAM_TRAIN_TOL = 1e-4
+# the float32 backward body (f32bwd) at yi's shape: its time over SDPA's
+# float32 backward in the same run (phase 6), at most
+F32_BWD_MAX_RATIO = 1.25
 RESUME_TOL = 1e-4
 
 
@@ -1013,10 +1023,14 @@ def train_path(torch, dev, args, timer, smi):
     torch.cuda.empty_cache()
 
     # -- 8e. every family's reduced config: card vs CPU, two steps ------
-    by_arch, bwd_by_arch = {}, {}
+    by_arch, bwd_by_arch, bwd_bodies = {}, {}, set()
     worst = (0.0, "")
     for arch in list_archs():
         cfg = dataclasses.replace(get_config(arch).reduced(), remat=True)
+        route_ = FA._backward_route(torch.float32, cfg.head_dim)
+        bwd_bodies.add(f"D = {cfg.head_dim}: "
+                       + ("simplebwd" if route_[0] == "simple" else
+                          f"f32bwd<{route_[1]}> {route_[0]}"))
         src = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=64,
                                          global_batch=2, seed=args.seed))
         rs = np.random.default_rng(args.seed)
@@ -1055,7 +1069,8 @@ def train_path(torch, dev, args, timer, smi):
     print(f"reduced families, 2 train steps with remat, card vs CPU from "
           f"the same weights (wq, wk at 1/sqrt(d_model)): worst loss gap {worst[0]:.3e} ({worst[1]}; "
           f"tol {FAM_TRAIN_TOL}); flash launches {by_arch}; backward "
-          f"{bwd_by_arch}")
+          f"{bwd_by_arch} (float32 backward body: "
+          f"{', '.join(sorted(bwd_bodies))})")
     flash_add["train_launches_by_arch"] = by_arch
     bwd_row["launches_by_arch"] = bwd_by_arch
     return flash_add, scatter_add, bwd_row, measured
@@ -1617,6 +1632,16 @@ def main() -> int:
                                  f"backward 5; all 0): {bf16}")
         print("ptxas: the 15 bfloat16 flash bodies (forward 10, backward "
               "5) spill 0 bytes")
+        # the float32 backward body, one per D <= 128
+        f32b = {f: n for f, n in ptxas_spills(
+            _build.ptxas_log["flash_attention"]).items()
+            if "flash_bwd_f32_kernel" in f}
+        if len(f32b) != 4 or any(f32b.values()):
+            raise AssertionError(f"ptxas spill bytes of the float32 "
+                                 f"backward bodies (4 expected, all 0): "
+                                 f"{f32b}")
+        print("ptxas: the 4 float32 backward bodies (f32bwd, D = 16, 32, "
+              "64, 128) spill 0 bytes")
         if c7520:
             raise AssertionError(f"ptxas serialized the wgmma of a flash "
                                  f"body (C7520): {c7520}")
@@ -1851,6 +1876,10 @@ def main() -> int:
         (1, 4, 2, 100, 160), (1, 4, 2, 130, 192), (2, 8, 2, 130, 256),
         (1, 2, 1, 70, 512))
         for dt in (torch.float32, torch.bfloat16)]
+    # float32 only: the float32 backward body (f32bwd) at D = 96, zero-padded
+    # to its D = 128, and at a ragged S against its 64-key items
+    flash_cases += [((2, 4, 1, 333, 96), torch.float32),
+                    ((1, 8, 2, 1000, 64), torch.float32)]
     flash_cases += [((1, lm.n_heads, lm.n_kv_heads, 2049, lm.head_dim),
                      torch.bfloat16),
                     ((args.lm_batch, lm.n_heads, lm.n_kv_heads,
@@ -3104,7 +3133,7 @@ def main() -> int:
         # group of 4, 8 query heads, S = 2048, D = 256 (a Gemma-style head
         # dim): bfloat16 on the D = 256 tensor-core body beside SDPA, the
         # same inputs in float32 on the CUDA-core wide body, and the
-        # backward at bfloat16 (its CUDA-core body) beside SDPA's
+        # backward at bfloat16 (its D = 256 tensor-core body) beside SDPA's
         Dw, Hw, KVw = 256, 8, 2
         qw, kw_, vw = (torch.randn((B, h_, S, Dw), generator=gen_,
                                    device=dev, dtype=torch.bfloat16)
@@ -3259,22 +3288,63 @@ def main() -> int:
         del qw, kw_, vw, do_w, do_sw, ins_w
         # the CUDA-core bodies that float32 runs at D <= 128 (the reduced
         # archs of phase 8e train on them), at yi's prefill shape: the
-        # forward (f32body) and the backward (simplebwd<float>) beside
-        # SDPA's float32 forward and backward (one autograd call on a
-        # retained graph), against their float32 operation bounds; the
-        # forward held to its plain version, the backward's gap printed
+        # forward (f32body) and the backward (f32bwd) beside SDPA's float32
+        # forward and backward (one autograd call on a retained graph),
+        # against their float32 operation bounds; both held to their plain
+        # versions at phase 2's float32 limit (atol = rtol = 2e-5), the
+        # backward's to the plain version in float64: a dv element here
+        # sums 16,384 terms, and the float32 plain version's own rounding
+        # takes about two thirds of the limit (its gap is printed); the
+        # backward's two runs bit-equal, and its time at most
+        # F32_BWD_MAX_RATIO x SDPA's backward, timed in turns
         qf, kf, vf, dof = (torch.randn((B, h_, S, D), generator=gen_,
                                        device=dev, dtype=torch.float32)
                            for h_ in (H, KV, KV, H))
         err_y = check_flash(qf, kf, vf, "yi's shape float32")
         o_f, lse_f = FA.flash_attention_fwd(qf, kf, vf)
-        gaps_f = [grad_gap(a, b) for a, b in zip(
-            FA.flash_attention_bwd(qf, kf, vf, o_f, lse_f, dof),
-            FA.flash_attention_bwd_plain(qf, kf, vf, o_f, lse_f, dof))]
+        gf1 = FA.flash_attention_bwd(qf, kf, vf, o_f, lse_f, dof)
+        gf2 = FA.flash_attention_bwd(qf, kf, vf, o_f, lse_f, dof)
+        gfp = FA.flash_attention_bwd_plain(qf, kf, vf, o_f, lse_f, dof)
+        gf64 = FA.flash_attention_bwd_plain(
+            *(x.double() for x in (qf, kf, vf, o_f, lse_f, dof)))
+
+        def limit_share(x_, z_):        # of atol = rtol = 2e-5
+            return ((x_.double() - z_).abs() / (2e-5 * (1 + z_.abs()))
+                    ).max().item()
+
+        gaps_f = [grad_gap(a, b) for a, b in zip(gf1, gf64)]
+        err_bf = max(g_[0] for g_ in gaps_f)
+        for n_, x_, y_, z_ in zip(("dq", "dk", "dv"), gf1, gf2, gf64):
+            if not same(x_, y_):
+                raise AssertionError(f"flash_attention_bwd at yi's shape "
+                                     f"float32: {n_} runs differ")
+            if not limit_share(x_, z_) <= 1:
+                raise AssertionError(
+                    f"flash_attention_bwd at yi's shape float32: {n_} "
+                    f"max|err| {(x_.double() - z_).abs().max().item()} "
+                    f"from the float64 plain version, outside atol = rtol "
+                    f"= 2e-5")
+        f32_share = [limit_share(x_, z_) for x_, z_ in zip(gf1, gf64)]
+        plain_share = [limit_share(x_, z_) for x_, z_ in zip(gfp, gf64)]
+        del gf1, gf2, gfp, gf64
         lib_in = [x.detach().requires_grad_() for x in (qf, kf, vf)]
         lib_out = torch.nn.functional.scaled_dot_product_attention(
             *lib_in, is_causal=True, enable_gqa=True)
         nbytes_f = 4 * (2 * B * H * S * D + 2 * B * KV * S * D)
+
+        def run_f32_bwd():
+            return FA.flash_attention_bwd(qf, kf, vf, o_f, lse_f, dof)
+
+        def run_f32_bwd_sdpa():
+            return torch.autograd.grad(lib_out, lib_in, dof,
+                                       retain_graph=True)
+
+        fb1, fbl1 = timer(run_f32_bwd, 3), timer(run_f32_bwd_sdpa, 3)
+        fbl2, fb2 = timer(run_f32_bwd_sdpa, 3), timer(run_f32_bwd, 3)
+        plain_bwd_ms = timer(lambda: FA.flash_attention_bwd_plain(
+            qf, kf, vf, o_f, lse_f, dof), 1)
+        route_f = FA._backward_route(torch.float32, D)
+        sch_f = FA._bwd_schedule(B, KV, S, D, dev, torch.float32)
         wide.update(
             f32_yi_ms=timer(lambda: FA.flash_attention(qf, kf, vf), 3),
             f32_yi_bound_ms=bound_ms(nbytes_f, flops)[0],
@@ -3282,22 +3352,42 @@ def main() -> int:
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     qf, kf, vf, is_causal=True, enable_gqa=True), 3),
             f32_yi_max_abs_err=err_y,
-            f32_bwd_yi_ms=timer(lambda: FA.flash_attention_bwd(
-                qf, kf, vf, o_f, lse_f, dof), 2),
+            f32_bwd_yi_ms=(fb1 + fb2) / 2,
             f32_bwd_yi_bound_ms=bound_ms(
                 4 * (4 * B * H * S * D + 4 * B * KV * S * D)
                 + 4 * B * H * S, 2.5 * flops)[0],
-            f32_bwd_yi_library_ms=timer(lambda: torch.autograd.grad(
-                lib_out, lib_in, dof, retain_graph=True), 3))
+            f32_bwd_yi_plain_ms=plain_bwd_ms,
+            f32_bwd_yi_library_ms=(fbl1 + fbl2) / 2,
+            f32_bwd_yi_max_abs_err=err_bf,
+            f32_bwd_yi_body=f"f32bwd (flash_bwd_f32_kernel<{route_f[1]}>, "
+                            f"{route_f[0]})")
+        ratio_f = wide["f32_bwd_yi_ms"] / wide["f32_bwd_yi_library_ms"]
         print(f"float32 at yi's prefill shape (B={B} H={H} KV={KV} S={S} "
               f"D={D}), the CUDA-core bodies: forward "
               f"{wide['f32_yi_ms']:.4f} ms (bound "
               f"{wide['f32_yi_bound_ms']:.4f} ms, fp32 operations; SDPA "
               f"{wide['f32_yi_library_ms']:.4f} ms; max|err| vs plain "
-              f"{err_y:.3e}), backward {wide['f32_bwd_yi_ms']:.4f} ms "
-              f"(bound {wide['f32_bwd_yi_bound_ms']:.4f} ms; SDPA's "
-              f"backward {wide['f32_bwd_yi_library_ms']:.4f} ms; vs plain, "
-              f"printed: {show_gaps(gaps_f)})")
+              f"{err_y:.3e}); backward ({wide['f32_bwd_yi_body']}) "
+              f"{fb1:.4f} / {fb2:.4f} ms, SDPA's backward {fbl1:.4f} / "
+              f"{fbl2:.4f} ms, kernel / library {ratio_f:.3f} (at most "
+              f"{F32_BWD_MAX_RATIO}), bound "
+              f"{wide['f32_bwd_yi_bound_ms']:.4f} ms (fp32 operations), "
+              f"share of the bound "
+              f"{wide['f32_bwd_yi_bound_ms'] / wide['f32_bwd_yi_ms']:.3f}, "
+              f"plain {plain_bwd_ms:.1f} ms; the "
+              f"launcher's schedule: {sch_f['items']} work items of "
+              f"{sch_f['keys']} keys x {sch_f['queries']}-query steps on a "
+              f"grid of {sch_f['grid']} persistent blocks; two runs "
+              f"bit-equal; against the plain version in float64, "
+              f"dq, dk, dv at {', '.join(f'{s_:.3f}' for s_ in f32_share)} "
+              f"of the elementwise limit atol = rtol = 2e-5 (the float32 "
+              f"plain version at "
+              f"{', '.join(f'{s_:.3f}' for s_ in plain_share)}), "
+              f"{show_gaps(gaps_f)}")
+        if ratio_f > F32_BWD_MAX_RATIO:
+            raise AssertionError(f"flash_attention_bwd at yi's shape "
+                                 f"float32 takes {ratio_f:.3f} x SDPA's "
+                                 f"backward, above {F32_BWD_MAX_RATIO}")
         del qf, kf, vf, dof, o_f, lse_f, lib_in, lib_out
         return dict(**wide,
             name="flash_attention", route="cuda",
@@ -3722,9 +3812,11 @@ def main() -> int:
                   f"over its five products, {r_['bound_share']:.3f} of the "
                   f"bound; launches by reduced arch {r_['launches_by_arch']}; "
                   f"{r_['shard_train_launches']} in two sharded train steps "
-                  f"(phase 9); float32 at yi's shape (the CUDA-core body) "
+                  f"(phase 9); float32 at yi's shape "
+                  f"({r_['f32_bwd_yi_body']}) "
                   f"{r_['f32_bwd_yi_ms']:.4f} ms (bound "
-                  f"{r_['f32_bwd_yi_bound_ms']:.4f}, SDPA's "
+                  f"{r_['f32_bwd_yi_bound_ms']:.4f}, plain "
+                  f"{r_['f32_bwd_yi_plain_ms']:.1f}, SDPA's "
                   f"{r_['f32_bwd_yi_library_ms']:.4f})")
         elif "shard_train_launches" in r_:
             print(f"  {r_['name']} on local heads under DTensor (phase 9): "

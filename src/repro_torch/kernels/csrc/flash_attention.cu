@@ -233,12 +233,49 @@
 // round it into dq.  No turns: at D = 256 a step's products take an SM's
 // tensor cores about 2,600 clocks, its 4,096 exponentials 256.
 //
-// float32 at any D, and bfloat16 at D > 256 (simplebwd): CUDA cores,
+// float32, D in {16, 32, 64, 128} (f32bwd; a narrower D zero-padded by
+// the caller): the five products on the CUDA cores in float32 (fmaf, expf;
+// TF32 tensor cores would keep about three decimal digits), with the
+// tensor-core bodies' list order, walk, tickets and dq add order.  What
+// bounds it is the FFMA rate (67 TFLOP/s): the five products take 2.6
+// MFMA a 64 x 64 step at D = 128, against 64 KB of Q and dO loaded.  An
+// item is (batch x KV head, 64-key tile); three warpgroups, the compute
+// ones at 232 registers a thread after setmaxnreg, the producer's at 40:
+//   - a producer warp loads K and V once an item and each step's Q and dO
+//     (TMA, float32 tiles of 32-float rows, 128 B swizzled; 64 B at D =
+//     16) and lse and Delta (cp.async) into one slot, and adds the step
+//     before's dq share (below) once the step's loads are issued;
+//   - group 0 (128 threads) computes S = Q K^T, P = exp(S D^-0.5 - lse)
+//     into a shared tile, then dv += P^T dO; group 1 (128 threads) dP =
+//     dO V^T, then dS = P (dP - Delta) into a shared tile and its
+//     transpose, then dk += dS^T Q; so each thread keeps one of dv, dk in
+//     registers (64 floats at D = 128), and sums each step's 64 queries
+//     into a tile of its own before adding it (a dv element of yi's shape
+//     sums 16,384 terms: two short chains of roundings, not one long
+//     one).  Every product is a register
+//     micro-tile fed by 16-byte shared loads: S and dP 8 queries x 4 keys
+//     a thread, dots over D unit by unit (a query row one address for 8
+//     lanes, the 8 lanes' key rows on 8 different swizzled units); dv and
+//     dk 8 keys x 8 columns at D = 128; then all 256 threads take dq's
+//     share, dS K, 8 queries x 4 columns at D = 128, from the dS^T tile
+//     and K.  The P, dS and dS^T tiles have padded rows (72 and 68 floats)
+//     so that their scalar stores hit 32 banks.
+// The slot is released once dv and dk have read it, so the next step's Q
+// and dO land while the share is computed; the share goes to the
+// producer through a float32 buffer in shared memory (64 x D, in the dq
+// threads' order), and it adds it to dq's accumulator with one bulk
+// reduce-add (a bulk store at key tile 0) under the counter per (batch x
+// head, query tile), as above.  The diagonal tile's share is not staged:
+// the compute threads wait for the counter, add the sum to the share in
+// registers, scale and write dq.  Shared memory: 219,712 bytes at D = 128
+// (two Q / dO slots would need 64 KB more).
+//
+// float32 at D > 128, and bfloat16 at D > 256 (simplebwd): CUDA cores,
 // float32 arithmetic, written for correctness as the wide forward body.
 // 16-query x 32-key tiles, D staged in chunks of 128 columns in shared
 // memory; the accumulators live in float32 rows of a scratch the caller
 // allocates, each element read and written by one thread in a fixed
-// order.
+// order.  Two launches (dk and dv, then dq), seven products.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cstdint>
@@ -3243,6 +3280,556 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace widebwd
 
+namespace f32bwd {
+
+using namespace bf16body;   // mbarriers, TMA loads, named barriers, sm_count
+using bf16bwd::bulk_add;
+using bf16bwd::bulk_commit_wait;
+using bf16bwd::bulk_store;
+using bf16bwd::bump;
+using bf16bwd::cp_async4;
+using bf16bwd::cp_async_arrive;
+using bf16bwd::fence_async_global;
+using bf16bwd::wait_count;
+
+constexpr int KT = 64;          // keys per work item: the rows of dk and dv
+constexpr int QT = 64;          // queries per step
+constexpr int CONSUMERS = 256;  // two groups of 128 compute threads
+constexpr int NTHREADS = CONSUMERS + 128;   // and the producer's warpgroup
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int PS = QT + 8;      // row stride (floats) of the P and dS tiles
+constexpr int TS = QT + 4;      // row stride of the dS^T tile
+
+static_assert(KT == QT, "the diagonal key tile of query tile qi is qi");
+static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * CONSUMERS <=
+                  65536 / NTHREADS / 8 * 8 * NTHREADS,
+              "more registers than the block was launched with");
+
+// A 64-row float32 tile of D columns as TMA lands it: D / AW chunks of 64
+// rows x AW floats, one swizzle atom a row (128 B; 64 B at D = 16), so a
+// 16-byte unit of a row sits at its index XOR the row's low bits.
+template <int D>
+struct Tile {
+  static constexpr int AW = D < 32 ? D : 32;        // floats in a chunk row
+  static constexpr int NC = D / AW;
+  static constexpr int UPR = AW / 4;                // units in a chunk row
+  static constexpr uint32_t ROW = AW * 4;
+  static constexpr uint32_t CHUNK = 64 * ROW;
+  static constexpr uint32_t BYTES = NC * CHUNK;
+  static constexpr CUtensorMapSwizzle SWIZZLE =
+      ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  // the byte offset of 16-byte unit u (columns 4 u .. 4 u + 3) of row r
+  static __device__ __forceinline__ uint32_t at(int r, int u) {
+    const uint32_t off = r * ROW + (u % UPR) * 16;
+    return (u / UPR) * CHUNK + (off ^ (((off >> 7) & (UPR - 1)) << 4));
+  }
+};
+
+// Shared memory at head dim D: the item's K and V, the step's Q and dO
+// (one slot: TMA, 64 rows each), the P and dS tiles (queries x keys) and
+// the dS^T tile (keys x queries) with padded rows, dq's float32 share of
+// the step (64 x D, in the dq threads' order), the step's lse and Delta,
+// the current item, the mbarriers.  At D = 128: 128 KB of operand tiles,
+// 52 KB of P, dS and dS^T, 32 KB of share, 512 B of lse and Delta, the
+// rest and 1,024 B to align the base: 219,712 bytes of the 232,448 a
+// block may take.  A second Q / dO slot (64 KB) does not fit beside the
+// share; the next step's Q and dO load while dq's share is computed.
+template <int D>
+struct Smem {
+  using T = Tile<D>;
+  static constexpr uint32_t K_OFF = 0;
+  static constexpr uint32_t V_OFF = T::BYTES;
+  static constexpr uint32_t Q_OFF = 2 * T::BYTES;
+  static constexpr uint32_t DO_OFF = 3 * T::BYTES;
+  static constexpr uint32_t P_OFF = 4 * T::BYTES;
+  static constexpr uint32_t DS_OFF = P_OFF + QT * PS * 4;
+  static constexpr uint32_t DST_OFF = DS_OFF + QT * PS * 4;
+  static constexpr uint32_t SH_OFF = DST_OFF + KT * TS * 4;
+  static constexpr uint32_t SHARE = QT * D * 4;
+  static constexpr uint32_t LSE_OFF = SH_OFF + SHARE;
+  static constexpr uint32_t DL_OFF = LSE_OFF + QT * 4;
+  static constexpr uint32_t ITEM_OFF = DL_OFF + QT * 4;
+  static constexpr uint32_t BAR_OFF = ITEM_OFF + 16;
+  static constexpr size_t SMEM = BAR_OFF + 8 * 6 + 1024;
+  static_assert(SMEM <= 232448, "more shared memory than a block may take");
+};
+
+// How a thread's share of each product is laid out at head dim D.
+//   S and dP (a group's 128 threads, 64 queries x 64 keys): queries
+//   qa + 4 r (r < 8) x keys ka + 8 c (c < 4), the dot over D from 16-byte
+//   units of both rows (LDS.128: a query row is one address for 8 lanes,
+//   the 8 key rows of 8 lanes sit in 8 different units);
+//   dv and dk (a group's 128 threads, 64 keys x D): KJ keys x UC column
+//   units, summed over the step's queries (both operands rows of shared
+//   tiles, LDS.64 or LDS.128);
+//   dq's share (256 threads, 64 queries x D): QI consecutive queries x one
+//   column unit, summed over the item's keys (dS^T rows, K rows).
+template <int D>
+struct Frag {
+  static constexpr int UC = D == 128 ? 2 : 1;       // column units, dv / dk
+  static constexpr int CG = D / (4 * UC);           // column groups
+  static constexpr int KJ = 64 * CG / 128;          // keys a thread
+  static constexpr int KW = KJ < 4 ? KJ : 4;        // keys a load
+  static constexpr int DCG = D / 4;                 // dq's column groups
+  static constexpr int QI = 64 * DCG / 256;         // dq's queries a thread
+  static_assert(KJ * 4 * UC * 128 == 64 * D && QI * 4 * 256 == 64 * D,
+                "every output of a tile owned once");
+};
+
+__device__ __forceinline__ float4 lds4(const uint8_t* p, uint32_t off) {
+  return *reinterpret_cast<const float4*>(p + off);
+}
+
+// N (1, 2, 4 or 8) consecutive floats of shared memory at p
+template <int N>
+__device__ __forceinline__ void lds(float (&x)[N], const float* p) {
+  if constexpr (N >= 4) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const float4 v = reinterpret_cast<const float4*>(p)[i];
+      x[4 * i] = v.x;
+      x[4 * i + 1] = v.y;
+      x[4 * i + 2] = v.z;
+      x[4 * i + 3] = v.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+// The main pass (float32, D in {16, 32, 64, 128}): persistent blocks over
+// the work items (batch x KV head, 64-key tile), key-tile-major, as the
+// tensor-core bodies; see the note at the top of the file.  Threads 0 ..
+// 127 (group 0) compute S, P and dv, threads 128 .. 255 (group 1) dP, dS
+// and dk, all 256 dq's share (232 registers each after setmaxnreg); the
+// first warp of the last warpgroup is the producer (40).  `acc`: dq's
+// float32 accumulator, a 64 x D tile for each (batch x head, query tile),
+// in the dq threads' order; `sem` a counter for each such tile (the key
+// tiles added so far), then the ticket counter, all zeroed by the Delta
+// pass.
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* acc,
+                     float* __restrict__ dq, float* __restrict__ dk,
+                     float* __restrict__ dv, Lay ldq, Lay ldk, Lay ldv,
+                     int* sem, int* work, int B, int H, int KV, int S,
+                     float scale) {
+  using T = Tile<D>;
+  using L = Smem<D>;
+  using F = Frag<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* gb = smem_raw + (base - smem_u32(smem_raw));
+  volatile int* item_s = reinterpret_cast<volatile int*>(gb + L::ITEM_OFF);
+  const uint32_t bar = base + L::BAR_OFF;
+  // mbarriers: K and V full (TMA bytes) and empty (every compute thread,
+  // after the item's last dq share); the step's Q / dO slot full (TMA
+  // bytes and the producer warp's 32 cp.async arrivals for lse and Delta)
+  // and empty (every compute thread, after dv and dk); dq's share staged
+  // (every compute thread) and freed (the producer, its add complete)
+  const uint32_t full_kv = bar, empty_kv = bar + 8, full = bar + 16,
+                 empty = bar + 24, staged = bar + 32, freed = bar + 40;
+
+  const int G = H / KV, BKV = B * KV;
+  const int nQ = (S + QT - 1) / QT;          // query tiles = key tiles
+  const int n_items = BKV * nQ;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    mbar_init(empty_kv, CONSUMERS);
+    mbar_init(full, 33);
+    mbar_init(empty, CONSUMERS);
+    mbar_init(staged, CONSUMERS);
+    mbar_init(freed, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS)
+                 : "memory");
+    if (threadIdx.x >= CONSUMERS + 32) return;
+    // the producer warp: takes the items, loads K and V once an item and
+    // each step's Q, dO (lane 0, TMA), lse and Delta (every lane); once a
+    // step's loads are issued, lane 0 adds the step before's dq share
+    const int lane = threadIdx.x - CONSUMERS;
+    int it = 0;                                  // steps so far
+    int n_sh = 0;                                // shares added so far
+    int p_bh = -1, p_qi = 0, p_kt = 0;           // the share pending
+    // the pending share to the accumulator's tile: stored by key tile 0,
+    // added by the later ones once the tile's counter reads their key
+    // tile; the counter bumped once the add is complete
+    auto add_share = [&]() {
+      mbar_wait(staged, n_sh & 1);
+      int* cnt = sem + p_bh * nQ + p_qi;
+      float* dst = acc + ((size_t)p_bh * nQ + p_qi) * QT * D;
+      if (p_kt > 0) {
+        wait_count(cnt, p_kt);
+        fence_async_global();
+        bulk_add(dst, base + L::SH_OFF, L::SHARE);
+      } else {
+        bulk_store(dst, base + L::SH_OFF, L::SHARE);
+      }
+      bulk_commit_wait();
+      fence_async_global();
+      bump(cnt);
+      mbar_arrive(freed);
+      ++n_sh;
+    };
+    for (int n = 0;; ++n) {
+      int item = 0;
+      if (lane == 0) item = atomicAdd(work, 1);
+      item = __shfl_sync(0xffffffffu, item, 0);
+      mbar_wait(empty_kv, (n & 1) ^ 1);          // the last item done
+      if (item >= n_items) {
+        if (lane == 0) {
+          *item_s = -1;
+          mbar_arrive(full_kv);
+          if (p_bh >= 0) add_share();
+        }
+        break;
+      }
+      const int bkv = item % BKV, kt = item / BKV;
+      const int b = bkv / KV, kvh = bkv % KV, k0 = kt * KT;
+      if (lane == 0) {
+        *item_s = item;
+        mbar_expect_tx(full_kv, 2 * T::BYTES);
+        for (int c = 0; c < T::NC; ++c) {
+          tma_load(base + L::K_OFF + c * T::CHUNK, &tk, full_kv, c * T::AW,
+                   kvh, k0, b);
+          tma_load(base + L::V_OFF + c * T::CHUNK, &tv, full_kv, c * T::AW,
+                   kvh, k0, b);
+        }
+      }
+      const int steps = G * (nQ - kt);
+      for (int s = 0; s < steps; ++s, ++it) {
+        const int qi = nQ - 1 - s / G, q0 = qi * QT;
+        const int h = kvh * G + s % G;
+        mbar_wait(empty, (it & 1) ^ 1);          // the step before read
+        if (lane == 0) {
+          mbar_expect_tx(full, 2 * T::BYTES);
+          for (int c = 0; c < T::NC; ++c) {
+            tma_load(base + L::Q_OFF + c * T::CHUNK, &tq, full, c * T::AW,
+                     h, q0, b);
+            tma_load(base + L::DO_OFF + c * T::CHUNK, &tdo, full,
+                     c * T::AW, h, q0, b);
+          }
+        }
+        for (int i = lane; i < QT; i += 32) {
+          const bool in = q0 + i < S;
+          const size_t g = (size_t)(b * H + h) * S + (in ? q0 + i : 0);
+          cp_async4(base + L::LSE_OFF + i * 4, lse + g, in);
+          cp_async4(base + L::DL_OFF + i * 4, delta + g, in);
+        }
+        cp_async_arrive(full);
+        if (p_bh >= 0) {                        // staged while these load
+          if (lane == 0) add_share();
+          __syncwarp();
+        }
+        // the diagonal tile's share is never staged: its compute threads
+        // round the sum into dq
+        p_bh = qi == kt ? -1 : b * H + h;
+        p_qi = qi;
+        p_kt = kt;
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS)
+                 : "memory");
+    const int tid = threadIdx.x;
+    // the group: 0 (S, P, dv) or 1 (dP, dS, dk); warp-uniform
+    const int grp = __shfl_sync(0xffffffffu, tid / 128, 0);
+    const int g = tid % 128, warp = g / 32, lane = tid % 32;
+    const int qa = 32 * (warp >> 1) + lane / 8;     // S and dP: queries
+    const int ka = 32 * (warp & 1) + lane % 8;      // and keys
+    const int cg = g % F::CG, jg = g / F::CG;       // dv and dk
+    const int cu = tid % F::DCG, iq = tid / F::DCG * F::QI;   // dq
+    float* ps = reinterpret_cast<float*>(gb + L::P_OFF);
+    float* dss = reinterpret_cast<float*>(gb + L::DS_OFF);
+    float* dst = reinterpret_cast<float*>(gb + L::DST_OFF);
+    const float* lse_s = reinterpret_cast<const float*>(gb + L::LSE_OFF);
+    const float* dl_s = reinterpret_cast<const float*>(gb + L::DL_OFF);
+    // group 0: S from Q and K, then dv += P^T dO; group 1: dP from dO and
+    // V, then dk += dS^T Q
+    const uint32_t ta = grp ? L::DO_OFF : L::Q_OFF;
+    const uint32_t tb = grp ? L::V_OFF : L::K_OFF;
+    const float* pa = grp ? dss : ps;
+    const uint32_t tc = grp ? L::Q_OFF : L::DO_OFF;
+
+    float kv_acc[F::KJ][4 * F::UC];   // dv (group 0) or dk (group 1)
+    float kv_step[F::KJ][4 * F::UC];  // the step's share of it
+    float x[8][4];                    // S or dP, then P or dS
+    int n_sh = 0;                     // shares staged so far
+    int it = 0;                       // steps so far
+    for (int n = 0;; ++n) {
+      mbar_wait(full_kv, n & 1);
+      const int item = *item_s;
+      if (item < 0) break;
+      const int bkv = item % BKV, kt = item / BKV;
+      const int b = bkv / KV, kvh = bkv % KV, k0 = kt * KT;
+      const int steps = G * (nQ - kt);
+#pragma unroll
+      for (int j = 0; j < F::KJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4 * F::UC; ++c) kv_acc[j][c] = 0.f;
+      for (int s = 0; s < steps; ++s, ++it) {
+        const int qi = nQ - 1 - s / G, q0 = qi * QT;
+        const int h = kvh * G + s % G, bh = b * H + h;
+        mbar_wait(full, it & 1);
+        // S = Q K^T (group 0) or dP = dO V^T (group 1): each dot over D
+        // in column order
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) x[r][c] = 0.f;
+        // units unrolled by 4: by 8, ptxas spills at D = 128
+#pragma unroll 1
+        for (int ch = 0; ch < T::NC; ++ch) {
+#pragma unroll 4
+          for (int w = 0; w < T::UPR; ++w) {
+            const int u = ch * T::UPR + w;
+            float4 kf[4];
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              kf[c] = lds4(gb, tb + T::at(ka + 8 * c, u));
+#pragma unroll
+            for (int r = 0; r < 8; ++r) {
+              const float4 qf = lds4(gb, ta + T::at(qa + 4 * r, u));
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                x[r][c] = fmaf(qf.x, kf[c].x, x[r][c]);
+                x[r][c] = fmaf(qf.y, kf[c].y, x[r][c]);
+                x[r][c] = fmaf(qf.z, kf[c].z, x[r][c]);
+                x[r][c] = fmaf(qf.w, kf[c].w, x[r][c]);
+              }
+            }
+          }
+        }
+        if (grp == 0) {
+          // P = exp(S D^-0.5 - lse) for keys at or below the query and
+          // queries below S, else 0, into the P tile
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const int i = qa + 4 * r;
+            const float ls = lse_s[i];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int j = ka + 8 * c;
+              ps[i * PS + j] = k0 + j <= q0 + i && q0 + i < S
+                                   ? expf(fmaf(x[r][c], scale, -ls)) : 0.f;
+            }
+          }
+          named_sync(2, 128);            // the P tile whole, for dv
+          bar_arrive(1);                 // and for group 1's dS
+        } else {
+          bar_sync(1);                   // the P tile whole
+          // dS = P (dP - Delta), into the dS and dS^T tiles
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const int i = qa + 4 * r;
+            const float dl = dl_s[i];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int j = ka + 8 * c;
+              const float d = ps[i * PS + j] * (x[r][c] - dl);
+              dss[i * PS + j] = d;
+              dst[j * TS + i] = d;
+            }
+          }
+          named_sync(3, 128);            // the dS tile whole, for dk
+          bar_arrive(4);                 // and dS^T for dq
+        }
+        // dv += P^T dO (group 0) or dk += dS^T Q (group 1): the step's
+        // sum over its queries in order, then added to the item's
+#pragma unroll
+        for (int j = 0; j < F::KJ; ++j)
+#pragma unroll
+          for (int c = 0; c < 4 * F::UC; ++c) kv_step[j][c] = 0.f;
+#pragma unroll 4
+        for (int i = 0; i < QT; ++i) {
+          float a[F::KJ];
+#pragma unroll
+          for (int m = 0; m < F::KJ / F::KW; ++m) {
+            float y[F::KW];
+            lds<F::KW>(y, pa + i * PS + F::KW * jg + 32 * m);
+#pragma unroll
+            for (int e = 0; e < F::KW; ++e) a[F::KW * m + e] = y[e];
+          }
+#pragma unroll
+          for (int uu = 0; uu < F::UC; ++uu) {
+            const float4 bv = lds4(gb, tc + T::at(i, cg + F::CG * uu));
+#pragma unroll
+            for (int j = 0; j < F::KJ; ++j) {
+              float* y = kv_step[j] + 4 * uu;
+              y[0] = fmaf(a[j], bv.x, y[0]);
+              y[1] = fmaf(a[j], bv.y, y[1]);
+              y[2] = fmaf(a[j], bv.z, y[2]);
+              y[3] = fmaf(a[j], bv.w, y[3]);
+            }
+          }
+        }
+        mbar_arrive(empty);              // Q, dO, lse and Delta read
+#pragma unroll
+        for (int j = 0; j < F::KJ; ++j)
+#pragma unroll
+          for (int c = 0; c < 4 * F::UC; ++c) kv_acc[j][c] += kv_step[j][c];
+        if (grp == 0) bar_sync(4);       // the dS^T tile whole
+        // dq's share: dS K over the item's keys in order
+        float dqa[F::QI][4];
+#pragma unroll
+        for (int r = 0; r < F::QI; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dqa[r][e] = 0.f;
+#pragma unroll 8
+        for (int j = 0; j < KT; ++j) {
+          float a[F::QI];
+          lds<F::QI>(a, dst + j * TS + iq);
+          const float4 kb = lds4(gb, L::K_OFF + T::at(j, cu));
+#pragma unroll
+          for (int r = 0; r < F::QI; ++r) {
+            dqa[r][0] = fmaf(a[r], kb.x, dqa[r][0]);
+            dqa[r][1] = fmaf(a[r], kb.y, dqa[r][1]);
+            dqa[r][2] = fmaf(a[r], kb.z, dqa[r][2]);
+            dqa[r][3] = fmaf(a[r], kb.w, dqa[r][3]);
+          }
+        }
+        if (s == steps - 1) mbar_arrive(empty_kv);   // K and V read
+        if (qi != kt) {
+          // to the producer through the share buffer, once the last
+          // share's add has read it: query iq + r's four columns as
+          // float4 r * 256 + tid
+          mbar_wait(freed, (n_sh & 1) ^ 1);
+#pragma unroll
+          for (int r = 0; r < F::QI; ++r)
+            st_shared(base + L::SH_OFF + (r * CONSUMERS + tid) * 16,
+                      dqa[r][0], dqa[r][1], dqa[r][2], dqa[r][3]);
+          fence_async_smem();
+          mbar_arrive(staged);
+          ++n_sh;
+        } else {
+          // the diagonal tile, the last: the other key tiles' sum (all
+          // of it added first) plus this share, scaled into dq
+          if (kt > 0) {
+            if (tid == 0) wait_count(sem + bh * nQ + qi, kt);
+            named_sync(5, CONSUMERS);
+            const float4* ap = reinterpret_cast<const float4*>(
+                                   acc + ((size_t)bh * nQ + qi) * QT * D) +
+                               tid;
+#pragma unroll
+            for (int r = 0; r < F::QI; ++r) {
+              const float4 y = __ldcg(ap + r * CONSUMERS);
+              dqa[r][0] = y.x + dqa[r][0];
+              dqa[r][1] = y.y + dqa[r][1];
+              dqa[r][2] = y.z + dqa[r][2];
+              dqa[r][3] = y.w + dqa[r][3];
+            }
+          }
+          float* out = at(dq, ldq, b, h) + 4 * cu;
+#pragma unroll
+          for (int r = 0; r < F::QI; ++r) {
+            const int row = q0 + iq + r;
+            if (row < S)
+              *reinterpret_cast<float4*>(out + row * ldq.s) =
+                  make_float4(dqa[r][0] * scale, dqa[r][1] * scale,
+                              dqa[r][2] * scale, dqa[r][3] * scale);
+          }
+        }
+      }
+      // dv (group 0) or dk = D^-0.5 sum (group 1) of the item's keys
+      float* out = grp ? at(dk, ldk, b, kvh) : at(dv, ldv, b, kvh);
+      const long long rs = grp ? ldk.s : ldv.s;
+      const float sc = grp ? scale : 1.f;
+#pragma unroll
+      for (int j = 0; j < F::KJ; ++j) {
+        const int key = k0 + F::KW * jg + j % F::KW + 32 * (j / F::KW);
+        if (key >= S) continue;
+#pragma unroll
+        for (int uu = 0; uu < F::UC; ++uu)
+          *reinterpret_cast<float4*>(out + key * rs +
+                                     4 * (cg + F::CG * uu)) =
+              make_float4(kv_acc[j][4 * uu] * sc, kv_acc[j][4 * uu + 1] * sc,
+                          kv_acc[j][4 * uu + 2] * sc,
+                          kv_acc[j][4 * uu + 3] * sc);
+      }
+    }
+  }
+}
+
+// a 4-D map over a (B, n heads, S, D) float32 tensor with element strides
+// `l` (the last axis contiguous), seen as (D, n, S, B), boxes of {AW, 1,
+// 64, 1}: rows past S read as zeros, never the next head's
+template <int D>
+int make_map(CUtensorMap* map, const void* ptr, const Lay& l, int n, int S,
+             int B) {
+  using T = Tile<D>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)n, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)l.h * 4, (cuuint64_t)l.s * 4,
+                                 (cuuint64_t)l.b * 4};
+  const cuuint32_t box[4] = {(cuuint32_t)T::AW, 1, 64, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                        const_cast<void*>(ptr), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, T::SWIZZLE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The schedule for B x KV heads of S rows: the work items and the grid,
+// one persistent block an SM (fewer if there are fewer items)
+int schedule(int B, int KV, int S, int* items, int* blocks) {
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  *items = B * KV * ((S + KT - 1) / KT);
+  *blocks = *items < sms ? *items : sms;
+  return 0;
+}
+
+// ly: the strides of q, k, v, o, dO, dq, dk, dv (each start and stride a
+// multiple of 16 bytes); acc a float32 scratch of B * H * ceil(S / 64) *
+// 64 * D; sem B * H * ceil(S / 64) + 1 ints, zeroed (the Delta pass)
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* delta, void* dq, void* dk,
+           void* dv, float* acc, int* sem, const Lay* ly, int B, int H,
+           int KV, int S, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mdo, mk, mv;
+  int err = make_map<D>(&mq, q, ly[0], H, S, B);
+  if (err == 0) err = make_map<D>(&mdo, dout, ly[4], H, S, B);
+  if (err == 0) err = make_map<D>(&mk, k, ly[1], KV, S, B);
+  if (err == 0) err = make_map<D>(&mv, v, ly[2], KV, S, B);
+  if (err != 0) return err;
+  int n_items = 0, grid = 0;
+  err = schedule(B, KV, S, &n_items, &grid);
+  if (err != 0) return err;
+  constexpr size_t smem = Smem<D>::SMEM;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int nQ = (S + QT - 1) / QT;
+  flash_bwd_f32_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+      mq, mk, mv, mdo, lse, delta, acc, static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv), ly[5], ly[6], ly[7],
+      sem, sem + (size_t)B * H * nQ, B, H, KV, S, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace f32bwd
+
 namespace simplebwd {
 
 constexpr int BQ = 16;          // query rows per tile
@@ -3590,15 +4177,15 @@ extern "C" int flash_attention_wide_launch(const void* q, const void* k,
 // S, D) in that dtype; strides: 24 element strides, (batch, head, row) of
 // q, k, v, o, dout, dq, dk, dv in that order, each a multiple of 16
 // bytes, the last axis contiguous; delta a float32 (B, H, S) scratch.
-// bfloat16 at D in {16, 32, 64, 128}: ws a float32 scratch of
+// At D in {16, 32, 64, 128} in either dtype: ws a float32 scratch of
 // B * H * ceil(S / 64) * 64 * D (dq's accumulator), sem B * H *
 // ceil(S / 64) + 1 ints of scratch; bfloat16 at 128 < D <= 256 with
 // D % 8 == 0 (the D = 256 body, the operands read in place at width D):
 // ws B * H * ceil(S / 64) * 64 * 256 floats, sem as at D <= 128;
-// otherwise ws a float32 scratch of (B H + 2 B KV) S D and sem unused.
-// Launches the Delta pass, then the main pass, and returns the first
-// launch error.  The caller checks KV | H and, for the CUDA-core body,
-// ceil(S / 16) <= 65535.
+// otherwise (float32 above 128, bfloat16 above 256: simplebwd) ws a
+// float32 scratch of (B H + 2 B KV) S D and sem unused.  Launches the
+// Delta pass, then the main pass, and returns the first launch error.
+// The caller checks KV | H and, for simplebwd, ceil(S / 16) <= 65535.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
@@ -3611,20 +4198,35 @@ extern "C" int flash_attention_bwd_launch(
   float* w = static_cast<float*>(ws);
   int* cnt = static_cast<int*>(sem);
   const Lay* ly = static_cast<const Lay*>(strides);
-  const bool tc = is_bf16 && (D == 16 || D == 32 || D == 64 || D == 128);
+  const bool narrow = D == 16 || D == 32 || D == 64 || D == 128;
+  const bool tc = is_bf16 && narrow;
   const bool wide = is_bf16 && D > 128 && D <= 256 && D % 8 == 0;
+  const bool f32 = !is_bf16 && narrow;
   const int n_zero =
       tc ? B * H * ((S + bf16bwd::QT - 1) / bf16bwd::QT) + 1
-         : wide ? B * H * ((S + widebwd::QT - 1) / widebwd::QT) + 1 : 0;
+      : wide ? B * H * ((S + widebwd::QT - 1) / widebwd::QT) + 1
+      : f32 ? B * H * ((S + f32bwd::QT - 1) / f32bwd::QT) + 1 : 0;
   int err = is_bf16
                 ? launch_delta<__nv_bfloat16>(o, dout, dl, ly[3], ly[4], B,
                                               H, S, D, cnt, n_zero, st)
                 : launch_delta<float>(o, dout, dl, ly[3], ly[4], B, H, S, D,
                                       cnt, n_zero, st);
   if (err != 0) return err;
-  if (!is_bf16)
-    return simplebwd::launch<float>(q, k, v, dout, l, dl, dq, dk, dv, w, ly,
-                                    B, H, KV, S, D, scale, st);
+  if (!is_bf16) {
+    switch (D) {
+      case 16: return f32bwd::launch<16>(q, k, v, dout, l, dl, dq, dk, dv, w,
+                                         cnt, ly, B, H, KV, S, scale, st);
+      case 32: return f32bwd::launch<32>(q, k, v, dout, l, dl, dq, dk, dv, w,
+                                         cnt, ly, B, H, KV, S, scale, st);
+      case 64: return f32bwd::launch<64>(q, k, v, dout, l, dl, dq, dk, dv, w,
+                                         cnt, ly, B, H, KV, S, scale, st);
+      case 128: return f32bwd::launch<128>(q, k, v, dout, l, dl, dq, dk, dv,
+                                           w, cnt, ly, B, H, KV, S, scale, st);
+      default:
+        return simplebwd::launch<float>(q, k, v, dout, l, dl, dq, dk, dv, w,
+                                        ly, B, H, KV, S, D, scale, st);
+    }
+  }
   if (wide)
     return widebwd::launch(q, k, v, dout, l, dl, dq, dk, dv, w, cnt, ly, B,
                            H, KV, S, D, scale, st);
@@ -3644,13 +4246,22 @@ extern "C" int flash_attention_bwd_launch(
   }
 }
 
-// How the bfloat16 backward's tensor-core body for head dim D (16, 32,
-// 64, 128, or the D = 256 body's 128 < D <= 256 with D % 8 == 0) runs B x
-// KV heads of S rows on the current device, as flash_attention_bwd_launch
-// schedules it: out[0] keys of a work item, out[1] queries of a step,
-// out[2] the work items, out[3] the grid's persistent blocks.
+// How the backward's persistent body for head dim D runs B x KV heads of
+// S rows on the current device, as flash_attention_bwd_launch schedules
+// it: at bfloat16 (is_bf16 = 1) the tensor-core bodies (16, 32, 64, 128,
+// or the D = 256 body's 128 < D <= 256 with D % 8 == 0), at float32 the
+// CUDA-core body f32bwd (16, 32, 64, 128): out[0] keys of a work item,
+// out[1] queries of a step, out[2] the work items, out[3] the grid's
+// persistent blocks.
 extern "C" int flash_attention_bwd_info(int B, int KV, int S, int D,
-                                        int* out) {
+                                        int is_bf16, int* out) {
+  if (!is_bf16) {
+    if (D != 16 && D != 32 && D != 64 && D != 128)
+      return (int)cudaErrorInvalidValue;
+    out[0] = f32bwd::KT;
+    out[1] = f32bwd::QT;
+    return f32bwd::schedule(B, KV, S, out + 2, out + 3);
+  }
   if (D > 128 && D <= 256 && D % 8 == 0) {
     out[0] = widebwd::KT;
     out[1] = widebwd::QT;

@@ -38,29 +38,36 @@ log-sum-exp.
 `flash_attention_bwd` is the gradient of that forward from (q, k, v, o,
 lse, dO); it has no TPU counterpart (the reference differentiates
 `attn_flash` with XLA).  bfloat16 at D in `BWD_HEAD_DIMS` (16, 32, 64,
-128 and 256) runs FA2's five products on the tensor cores
+128 and 256) runs FA2's five products on the tensor cores, float32 at D
+in `BWD_F32_HEAD_DIMS` (16, 32, 64, 128) on the CUDA cores in float32
+`fmaf` (`f32bwd`; TF32 would miss the float32 contract)
 (`_backward_route`: other D <= 128 zero-padded as the forward, the
 gradients sliced back, since the zero columns change no score and give
-zero gradient columns; 128 < D < 256 read in place by the D = 256 body
-when D % 8 == 0, else zero-padded to 256): persistent blocks, one per
-SM, take (batch x KV head, key tile) items in a list order fixed by the
-shape; each computes dk and dv in registers and, per 64-query step, a
-share of dq, which bulk reduce-adds from shared memory add to a float32
-accumulator in ascending key-tile order, held by a counter per (batch x
-head, query tile) in device memory (the last key tile rounds the sum
-into dq).  Items of 128 keys up to D = 128, where a writer thread adds
-the shares; of 64 keys at D = 256, where the two consumers split D and
-stage their halves of a share in the step's Q and dO tiles once those
-are read, and the producer adds it before loading the slot again
-(`BWD_TILES`).  float32 at any D and bfloat16 at D > 256 run a simple
-CUDA-core body.  Every gradient is summed in an order fixed by the
-shape, so two runs give the same bits.  Its launches count under
+zero gradient columns; at bfloat16 128 < D < 256 read in place by the
+D = 256 body when D % 8 == 0, else zero-padded to 256): persistent
+blocks, one per SM, take (batch x KV head, key tile) items in a list
+order fixed by the shape; each computes dk and dv in registers and, per
+64-query step, a share of dq, which bulk reduce-adds from shared memory
+add to a float32 accumulator in ascending key-tile order, held by a
+counter per (batch x head, query tile) in device memory (the last key
+tile rounds the sum into dq).  Items of 128 keys at bfloat16 up to D =
+128, where a writer thread adds the shares; of 64 keys at D = 256, where
+the two consumers split D and stage their halves of a share in the
+step's Q and dO tiles once those are read, and the producer adds it
+before loading the slot again; of 64 keys at float32, where one group of
+128 threads computes S, P and dv and another dP, dS and dk, all 256 the
+share, which the producer warp adds while the next step's Q and dO load
+(`BWD_TILES`, `BWD_F32_TILES`).  float32 above D = 128 and bfloat16
+above 256 run a simple CUDA-core body (`simplebwd`), written for
+correctness.  Every gradient is summed in an order fixed by the shape,
+so two runs give the same bits.  Its launches count under
 ``flash_attention_bwd``.
 
 Layout: the public functions keep the reference's (B, H, S, D), and on
 the card every body reads its operands in place: the last axis
 contiguous, the start and the other strides multiples of 16 bytes for
-the bfloat16 tensor-core bodies (TMA), of one element for the others
+the bfloat16 tensor-core bodies and the float32 backward body (TMA), of
+one element for the others
 (the transposed views of the model's (B, S, H, D) tensors are the case
 that matters); any other layout raises, nothing is copied to make it
 fit.  The outputs (o, dq, dk, dv)
@@ -90,6 +97,10 @@ BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
 #: (keys per work item, queries per step) of each tensor-core backward
 #: body, by its head dim
 BWD_TILES = {d: (64, 64) if d == 256 else (128, 64) for d in BWD_HEAD_DIMS}
+#: the float32 backward body's head dims (f32bwd) and its (keys per work
+#: item, queries per step)
+BWD_F32_HEAD_DIMS = (16, 32, 64, 128)
+BWD_F32_TILES = (64, 64)
 #: (query rows per block or work item, keys per KV tile) of each body, by
 #: dtype and the body's head dim
 TILES = {torch.float32: {d: (64, 64) for d in HEAD_DIMS[torch.float32]},
@@ -99,9 +110,9 @@ TILES = {torch.float32: {d: (64, 64) for d in HEAD_DIMS[torch.float32]},
 MAX_GRID_Y = 65_535      # blocks along a grid's y dimension
 BWD_QT = 64              # queries per step (and per dq counter) of the
                          # tensor-core backward
-BWD_ROWS = 16            # query rows per block of the CUDA-core backward's
-                         # dq pass (the tensor-core body's grid is one
-                         # persistent block per SM)
+BWD_ROWS = 16            # query rows per block of simplebwd's dq pass (the
+                         # other backward bodies' grid is one persistent
+                         # block per SM)
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention_bwd_plain", "TILES"]
@@ -152,40 +163,50 @@ def _forward_route(dtype, D):
 
 def _backward_route(dtype, D):
     """How the backward runs head dim D at `dtype`: (route, body head
-    dim), route "in place" (the operands as they are; at 128 < D < 256
-    the D = 256 body's columns past D zero-filled by TMA), "padded"
-    (zero-padded copies of q, k, v, o and dO, the gradients sliced back)
-    or "cuda cores" (the CUDA-core body: float32 at any D, bfloat16 above
-    256)."""
-    if dtype != torch.bfloat16 or D > BWD_HEAD_DIMS[-1]:
-        return "cuda cores", D
-    body = _pad(D, BWD_HEAD_DIMS)
+    dim), route "in place" (the operands as they are; at bfloat16 and 128
+    < D < 256 the D = 256 body's columns past D zero-filled by TMA),
+    "padded" (zero-padded copies of q, k, v, o and dO, the gradients
+    sliced back) or "simple" (the correctness-first CUDA-core body
+    `simplebwd`: float32 above 128, bfloat16 above 256).  The bodies of
+    the first two: bfloat16's `bf16bwd` (D <= 128) and `widebwd` (D =
+    256) on the tensor cores, float32's `f32bwd` (D <= 128) on the CUDA
+    cores."""
+    dims = BWD_HEAD_DIMS if dtype == torch.bfloat16 else BWD_F32_HEAD_DIMS
+    if D > dims[-1]:
+        return "simple", D
+    body = _pad(D, dims)
     if body == D or (body == 256 and D % 8 == 0):
         return "in place", body
     return "padded", body
 
 
-def _bwd_schedule(B, KV, S, D, device) -> dict:
-    """How the bfloat16 tensor-core backward schedules B x KV heads of S
-    rows at head dim D <= 256 on `device`, as its launcher decides it
+def _bwd_schedule(B, KV, S, D, device, dtype=torch.bfloat16) -> dict:
+    """How the backward's persistent body schedules B x KV heads of S rows
+    at head dim D on `device` (bfloat16 D <= 256 on the tensor cores,
+    float32 D <= 128 on `f32bwd`), as its launcher decides it
     (``flash_attention_bwd_info``): keys of a work item, queries of a step,
     the work items, and the grid of persistent blocks."""
-    route, body = _backward_route(torch.bfloat16, D)
+    route, body = _backward_route(dtype, D)
+    if route == "simple":
+        raise ValueError(f"D = {D} at {dtype} runs simplebwd, which has no "
+                         "persistent schedule")
     info = (ctypes.c_int * 4)()
     with torch.cuda.device(device):
         err = _build.function("flash_attention", "flash_attention_bwd_info",
-                              [_build.I] * 4 + [_build.P])(
-            B, KV, S, D if route == "in place" else body, info)
+                              [_build.I] * 5 + [_build.P])(
+            B, KV, S, D if route == "in place" else body,
+            int(dtype == torch.bfloat16), info)
     _build.check("flash_attention", err)
     return dict(keys=info[0], queries=info[1], items=info[2], grid=info[3])
 
 
-def _align(q, D, dims=HEAD_DIMS[torch.bfloat16]):
+def _align(q, D, dims=HEAD_DIMS[torch.bfloat16], f32_dims=()):
     """The byte multiple the kernels need of an operand's start and
     strides: 16 for the bfloat16 tensor-core bodies of head dims `dims`
-    (TMA maps, paired stores), one element for the CUDA-core bodies."""
-    return 16 if q.dtype == torch.bfloat16 and D in dims else \
-        q.element_size()
+    and the float32 bodies of head dims `f32_dims` (TMA maps, paired or
+    float4 stores), one element for the others."""
+    tma = dims if q.dtype == torch.bfloat16 else f32_dims
+    return 16 if D in tma else q.element_size()
 
 
 def _strides(*ts):
@@ -290,12 +311,13 @@ def _forward(q, k, v, *, with_lse):
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do):
-    """dq, dk, dv of causal GQA attention by dense float32 math, from the
-    forward's o and lse (P = exp(s D^-0.5 - lse)); each in its input's
-    dtype.  O(S^2) memory: for tests and the smoke's comparisons."""
+    """dq, dk, dv of causal GQA attention by dense float32 math (float64
+    for float64 inputs), from the forward's o and lse (P = exp(s D^-0.5 -
+    lse)); each in its input's dtype.  O(S^2) memory: for tests and the
+    smoke's comparisons."""
     B, H, KV, S, D = _shapes(q, k, v)
     G = H // KV
-    f32 = torch.float32
+    f32 = torch.float64 if q.dtype == torch.float64 else torch.float32
     scale = D ** -0.5
     qg = q.reshape(B, KV, G, S, D).to(f32)
     dog = do.reshape(B, KV, G, S, D).to(f32)
@@ -333,9 +355,9 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     dev = q.device
     bf16 = q.dtype == torch.bfloat16
     route, Dp = _backward_route(q.dtype, D)
-    # the CUDA-core body's dq pass has a grid y of ceil(S / BWD_ROWS); the
-    # tensor-core bodies' grid is one persistent block per SM
-    if route == "cuda cores" and -(-S // BWD_ROWS) > MAX_GRID_Y:
+    # simplebwd's dq pass has a grid y of ceil(S / BWD_ROWS); the other
+    # bodies' grid is one persistent block per SM
+    if route == "simple" and -(-S // BWD_ROWS) > MAX_GRID_Y:
         raise ValueError(f"S = {S}: {-(-S // BWD_ROWS)} blocks along the "
                          f"grid's y dimension > {MAX_GRID_Y}")
     _build.require("lse", lse, torch.float32, (B, H, S), dev)
@@ -343,7 +365,7 @@ def flash_attention_bwd(q, k, v, o, lse, do):
         q, k, v, o, do = (torch.nn.functional.pad(x, (0, Dp - D))
                           for x in (q, k, v, o, do))
     width = q.shape[-1]     # the operands' (D in place; the body's padded)
-    align = _align(q, Dp, BWD_HEAD_DIMS)
+    align = _align(q, Dp, BWD_HEAD_DIMS, BWD_F32_HEAD_DIMS)
     for name, t in (("q", q), ("o", o), ("do", do)):
         _build.require(name, t, q.dtype, (B, H, S, width), dev, align=align)
     _build.require("k", k, q.dtype, (B, KV, S, width), dev, align=align)
@@ -352,13 +374,13 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
-    if route != "cuda cores":
+    if route != "simple":
         # dq's float32 accumulator (a 64 x Dp tile for each (batch x head,
         # query tile)), its counters and the work-item counter
         nq = B * H * -(-S // BWD_QT)
         ws = torch.empty((nq * BWD_QT * Dp,), dtype=torch.float32, device=dev)
         sem = torch.empty((nq + 1,), dtype=torch.int32, device=dev)
-    else:       # the CUDA-core body's float32 accumulators
+    else:       # simplebwd's float32 accumulators
         ws = torch.empty(((B * H + 2 * B * KV) * S * Dp,),
                          dtype=torch.float32, device=dev)
         sem = None

@@ -4,7 +4,8 @@ or change one piece of work.
 
 Each variant is ``csrc/flash_attention.cu`` with a text patch inside one
 body's namespace (``bf16bwd`` for D <= 128, ``widebwd`` for the D = 256
-body, the ``wide_*`` variants), built with nvcc (``-Xptxas -v``) into
+body, the ``wide_*`` variants, ``f32bwd`` for the float32 body at D <=
+128, the ``f32_*`` variants), built with nvcc (``-Xptxas -v``) into
 ``build/repro_torch/ablate/`` and run in a process of its own (a variant
 whose waits can no longer be met would hang; each process has a time
 limit), in the order base, the variants, base.  The variants that drop
@@ -31,12 +32,25 @@ C7520 warnings (wgmma serialized).
     wide_no_exp    the D = 256 body with P = S * scale - lse, no ex2
     wide_no_mma    the D = 256 body without its dq, dv and dk products (S
                    and dP alone on the tensor cores)
+    f32_no_dq      the float32 body's dq shares computed and staged, never
+                   added to the accumulator (no counter waits, the
+                   diagonal tiles not waiting): what the hand-off costs
+    f32_no_exp     the float32 body with P = S * scale - lse, no expf
+    f32_no_sdp     the float32 body without its S and dP products
+    f32_no_kv      the float32 body without its dv and dk products
+    f32_no_dqmm    the float32 body without its dq product (the shares
+                   still staged and added)
 
 Shapes (--shape, a preset or B,H,KV,S,D):
 
     yi    4, 32, 4, 2048, 128   (yi-6b's training shape, the default)
     wide  4, 8, 2, 2048, 256    (yi's batch and GQA group of 4 at a
                                  Gemma-style head dim: the D = 256 body)
+    f32   4, 32, 4, 2048, 128   (yi's shape in float32 operands, as a
+                                 float32 model trains: the f32bwd body)
+
+The presets run bfloat16 operands, except f32, which runs float32; a
+shape written out runs bfloat16.
 
 Run on a card (CUDA events, the mean of 20 calls, three rounds each, on
 the (B, H, S, D) views of (B, S, H, D) tensors from a seeded generator;
@@ -45,14 +59,15 @@ call on a retained graph, and prints a digest of dq's, dk's and dv's
 bits):
 
     PYTHONPATH=src python -m repro_torch.launch.bwd_ablate \\
-        [--shape wide] [--variants base,wide_no_dq] \\
+        [--shape wide|f32] [--variants base,wide_no_dq] \\
         [--parent OTHER/src/repro_torch/kernels/csrc/flash_attention.cu]
 
 --parent adds a variant "parent": that file as it is (say, a parent
 commit's, unpacked with ``git archive``), run first and last (parent,
 base, the variants, base, parent); equal digests show equal bits.  Its
 ``flash_attention_bwd_launch`` must take the arguments this wrapper
-passes.
+passes, with the scratch this wrapper allocates: bfloat16 only (before
+f32bwd, float32 ran on a body with a larger scratch).
 """
 from __future__ import annotations
 
@@ -69,10 +84,13 @@ from repro_torch.kernels import _build
 OUT = _build.BUILD_DIR / "ablate"
 
 #: (B, H, KV, S, D) of the presets
-PRESETS = {"yi": (4, 32, 4, 2048, 128), "wide": (4, 8, 2, 2048, 256)}
+PRESETS = {"yi": (4, 32, 4, 2048, 128), "wide": (4, 8, 2, 2048, 256),
+           "f32": (4, 32, 4, 2048, 128)}
+#: the presets that run float32 operands (the others bfloat16)
+FLOAT32_PRESETS = ("f32",)
 
 #: the namespace each body's source lives in
-NAMESPACES = {"narrow": "bf16bwd", "wide": "widebwd"}
+NAMESPACES = {"narrow": "bf16bwd", "wide": "widebwd", "f32": "f32bwd"}
 
 _HANDOFF = "        if (!last) share(bh, qi, kt, act);"
 _FINISH = "        if (last && act) finish(bh, qi, kt);"
@@ -110,13 +128,29 @@ PATCHES = {
                      "P^T dO\n"
                      "        accumulate(dk_acc, dst, qs);             // dk += "
                      "dS^T Q\n", "")],
+    "f32_no_dq": [("      int* cnt = sem + p_bh * nQ + p_qi;\n",
+                   "      mbar_arrive(freed);\n      ++n_sh;\n      if (n_sh > 0) "
+                   "return;\n      int* cnt = sem + p_bh * nQ + p_qi;\n"),
+                  ("            if (tid == 0) wait_count(sem + bh * nQ + qi, "
+                   "kt);\n", "")],
+    "f32_no_exp": [("? expf(fmaf(x[r][c], scale, -ls)) : 0.f;",
+                    "? fmaf(x[r][c], scale, -ls) : 0.f;")],
+    "f32_no_sdp": [("        for (int ch = 0; ch < T::NC; ++ch) {",
+                    "        for (int ch = 0; ch < 0; ++ch) {")],
+    "f32_no_kv": [("        for (int i = 0; i < QT; ++i) {",
+                   "        for (int i = 0; i < 0; ++i) {")],
+    "f32_no_dqmm": [("        for (int j = 0; j < KT; ++j) {",
+                     "        for (int j = 0; j < 0; ++j) {")],
 }
 
 
 def body_of(name: str) -> str:
-    """The body a variant patches: "wide" (the D = 256 body) or
-    "narrow" (D <= 128)."""
-    return "wide" if name.startswith("wide_") else "narrow"
+    """The body a variant patches: "wide" (the D = 256 body), "f32" (the
+    float32 body) or "narrow" (bfloat16 D <= 128)."""
+    for body in ("wide", "f32"):
+        if name.startswith(body + "_"):
+            return body
+    return "narrow"
 
 
 def span(src: str, body: str) -> tuple:
@@ -144,12 +178,14 @@ def variant_source(name: str, parent=None) -> str:
 
 def backward_notes(log: str) -> list:
     """From an ``nvcc -Xptxas -v`` log: ptxas' C7520 warnings and, per
-    backward body (``flash_bwd_kernel<D>``, and ``<256>`` for
-    ``flash_bwd_kernel_d256``), its registers and spill bytes."""
+    backward body (``flash_bwd_kernel<D>``, ``<256>`` for
+    ``flash_bwd_kernel_d256``, ``f32<D>`` for ``flash_bwd_f32_kernel<D>``),
+    its registers and spill bytes."""
     out, fn = [], None
     for line in log.splitlines():
         body = re.search(r"flash_bwd_kernelILi(\d+)E", line)
-        name = (f"<{body[1]}>" if body else
+        f32 = re.search(r"flash_bwd_f32_kernelILi(\d+)E", line)
+        name = (f"<{body[1]}>" if body else f"f32<{f32[1]}>" if f32 else
                 "<256>" if "flash_bwd_kernel_d256" in line else None)
         if "C7520" in line:
             out.append("C7520: " + line.strip()[-160:])
@@ -201,10 +237,12 @@ def _mean_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def time_variant(name: str, shape, reps: int = 20) -> dict:
+def time_variant(name: str, shape, reps: int = 20,
+                 dtype: str = "bfloat16") -> dict:
     """Three rounds of (backward ms, SDPA's backward ms) with the
     variant's library, on the (B, H, S, D) views of (B, S, H, D) tensors
-    from a seeded generator, and a digest of the gradients' bits."""
+    of `dtype` from a seeded generator, and a digest of the gradients'
+    bits."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -215,7 +253,7 @@ def time_variant(name: str, shape, reps: int = 20) -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     q, k, v, do = (torch.as_tensor(rng.normal(size=(B, S, h, D)).astype(
-        np.float32), device=dev).bfloat16().transpose(1, 2)
+        np.float32), device=dev).to(getattr(torch, dtype)).transpose(1, 2)
         for h in (H, KV, KV, H))
     o, lse = FA.flash_attention_fwd(q, k, v)
     grads = FA.flash_attention_bwd(q, k, v, o, lse, do)
@@ -250,8 +288,8 @@ def parse_shape(text: str) -> tuple:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--shape", default="yi",
-                    help="a preset (yi, wide) or B,H,KV,S,D (default: yi, "
-                         "yi-6b's training shape)")
+                    help="a preset (yi, wide, f32) or B,H,KV,S,D (default: "
+                         "yi, yi-6b's training shape)")
     ap.add_argument("--variants", help="comma-separated variants (default: "
                     "those of the shape's body)")
     ap.add_argument("--parent", help="another flash_attention.cu, run as "
@@ -259,15 +297,20 @@ def main(argv=None) -> int:
     ap.add_argument("--variant", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     shape = parse_shape(args.shape)
+    dtype = "float32" if args.shape in FLOAT32_PRESETS else "bfloat16"
     if args.variant:                    # one variant, in its own process
-        r = time_variant(args.variant, shape)
-        print(f"variant {args.variant}, {args.shape}: backward / SDPA's "
+        r = time_variant(args.variant, shape, dtype=dtype)
+        print(f"variant {args.variant}, {args.shape} {dtype}: backward / "
+              f"SDPA's "
               f"backward ms "
               f"{[(round(a, 4), round(b, 4)) for a, b in r['rounds']]}, "
               f"ratio {[round(a / b, 3) for a, b in r['rounds']]}; dq, dk, "
               f"dv bits {r['bits']}", flush=True)
         return 0
-    mine = "wide" if 128 < shape[4] <= 256 else "narrow"
+    if args.parent and dtype == "float32":
+        raise SystemExit("--parent runs the bfloat16 bodies only")
+    mine = ("f32" if dtype == "float32" else
+            "wide" if 128 < shape[4] <= 256 else "narrow")
     names = ([n for n in args.variants.split(",") if n] if args.variants
              else [n for n in PATCHES if n != "base" and body_of(n) == mine])
     for n in names:

@@ -403,7 +403,8 @@ def test_flash_attention_bwd(dev, rng, dtype, D, B, H, KV, S):
     under ``flash_attention_bwd`` a call and none under the forward's.
     At bfloat16 160, 192 and 256 run the D = 256 tensor-core body (ragged
     S, and at (2, 16, 8, 1100) more work items than SMs), 320 the
-    CUDA-core body."""
+    CUDA-core body simplebwd; at float32 D <= 128 the f32bwd body (120
+    zero-padded to 128), above it simplebwd."""
     q, k, v = (torch.as_tensor(rng.normal(size=(B, h, S, D)).astype(
         np.float32), device=dev).to(dtype) for h in (H, KV, KV))
     do = torch.as_tensor(rng.normal(size=(B, H, S, D)).astype(np.float32),
@@ -610,6 +611,72 @@ def test_flash_wide_bwd_body(dev, rng, D, B, H, KV, S):
     assert (sch["keys"], sch["queries"]) == FA.BWD_TILES[256]
     assert sch["items"] == B * KV * -(-S // 64)
     assert sch["grid"] == min(sch["items"], sms)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("B,H,KV,S", [(2, 8, 2, 130), (1, 16, 4, 1000),
+                                      (1, 4, 1, 1), (2, 4, 4, 64)])
+def test_flash_f32_bwd_body(dev, rng, D, B, H, KV, S):
+    """The backward's float32 body (f32bwd; D = 96 zero-padded to 128) on
+    the views of the model's (B, S, H, D) tensors: within FLASH_TOL of the
+    plain version, two runs bit-equal, the gradients of contiguous copies
+    bit for bit and in (B, S, H, D) memory; the launcher's schedule (an
+    item per (batch x KV head, 64-key tile), one persistent block an SM at
+    most); and the call's peak extra memory: its outputs, Delta, dq's
+    accumulator (whole 64-row tiles) and counters, and at S = 1000, where
+    the tiles are nearly full, below the outputs and simplebwd's scratch of
+    (B H + 2 B KV) S D floats, which the route no longer allocates."""
+    route = FA._backward_route(torch.float32, D)
+    assert route == ("padded" if D == 96 else "in place", 128 if D == 96
+                     else D)
+    q, k, v, do = (torch.as_tensor(rng.normal(size=(B, S, h, D)).astype(
+        np.float32), device=dev).transpose(1, 2) for h in (H, KV, KV, H))
+    o, lse = FA.flash_attention_fwd(q, k, v)
+    before = _build.launches["flash_attention_bwd"]
+    g = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    g2 = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    gc = FA.flash_attention_bwd(*(x.contiguous() for x in (q, k, v, o)),
+                                lse, do.contiguous())
+    assert _build.launches["flash_attention_bwd"] == before + 3
+    p = FA.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    tol = FLASH_TOL[torch.float32]
+    for x, y, z, w in zip(g, g2, gc, p):
+        assert x.dtype == torch.float32 and x.shape == w.shape
+        assert _same(x, y) and _same(x, z)
+        if route[0] == "in place":
+            assert x.transpose(1, 2).is_contiguous()
+        torch.testing.assert_close(x, w, atol=tol, rtol=tol)
+    sch = FA._bwd_schedule(B, KV, S, D, dev, torch.float32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (sch["keys"], sch["queries"]) == FA.BWD_F32_TILES
+    assert sch["items"] == B * KV * -(-S // 64)
+    assert sch["grid"] == min(sch["items"], sms)
+    del g, g2, gc, p
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(dev) - base
+    del out
+    Dp = route[1]
+    outputs = 4 * (B * H + 2 * B * KV) * S * D
+    # padded: q, o, dO, k, v and the gradients at the body's width
+    pads = 4 * (4 * B * H + 4 * B * KV) * S * Dp if route[0] == "padded" \
+        else 0
+    nq = B * H * -(-S // 64)
+    ours = outputs + pads + 4 * B * H * S + 4 * nq * 64 * Dp + 4 * (nq + 1)
+    old_scratch = 4 * (B * H + 2 * B * KV) * S * Dp
+    assert extra <= ours + (2 << 20), (extra, ours)
+    if route[0] == "in place" and S >= 1000:    # tiles nearly full
+        assert extra < outputs + old_scratch, (extra, outputs, old_scratch)
+    # float32 rows the body's TMA cannot read: a row stride that is no
+    # multiple of 16 bytes
+    x = torch.zeros((1, 4, 64, D + 1), device=dev)[..., :D]
+    lse_x = torch.zeros((1, 4, 64), device=dev)
+    if route[0] == "in place":
+        with pytest.raises(ValueError, match="multiple of 16 bytes"):
+            FA.flash_attention_bwd(x, x, x, x, lse_x, x)
 
 
 def test_prefill_runs_the_kernel_once_per_layer(dev):
