@@ -53,7 +53,12 @@
    shard 0's rows (the register body's long lists), top-k at K = 300
    (the chunked body) and the delta kernel at K = 200 on 262,144 random
    rows; each of these shapes, and the skew graph's scatter, also
-   beside its library call, the top-k lines with the body each took);
+   beside its library call, the top-k lines with the body each took;
+   the delta kernel also on the device alone at the main shape, and a
+   sweep at n_local = 1,048,576 over K = 16, 64, 128, 129, 172, 200,
+   256, 512 with the real delta's entries: each K bit-equal to the
+   plain version, timed beside its byte bound and library call, with
+   the launcher's rows a tile, ring depth and grid);
 5. self-checks: the shards' Z equals a fresh fit on the updated graph,
    and the fused answers equal the plain scan's on the same Zn;
 5'. the plan cache and refinement on the same graph: a cuda fit with a
@@ -138,7 +143,9 @@
    prefill's shape, and at one wide shape (B = --lm-batch, H 8, KV 2,
    S = --lm-prompt, D = 256): the D = 256 tensor-core body at bfloat16
    beside SDPA and its bound (with the launcher's items and grid), the
-   CUDA-core wide body on the same inputs in float32, the backward (its
+   CUDA-core wide body on the same inputs in float32 and its float32
+   backward (`simplebwd<float>`) beside SDPA's float32 backward and its
+   fp32 operation bound, the backward (its
    D = 256 tensor-core body, with the launcher's items and grid) beside
    SDPA's backward, and `FlashAttentionFunction` forward + backward on
    the model's (B, S, H, D) layout beside SDPA's forward + backward, all
@@ -1645,6 +1652,15 @@ def main() -> int:
         if c7520:
             raise AssertionError(f"ptxas serialized the wgmma of a flash "
                                  f"body (C7520): {c7520}")
+    if "query_fused" in _build.ptxas_log:         # built in this run
+        dspill = {f: n for f, n in ptxas_spills(
+            _build.ptxas_log["query_fused"]).items()
+            if "delta_renorm_kernel" in f}
+        if len(dspill) != 1 or any(dspill.values()):
+            raise AssertionError(f"ptxas spill bytes of delta_renorm_kernel "
+                                 f"(one body, 0 expected): {dspill}")
+        print("ptxas: delta_renorm_kernel (one body for every K) spills 0 "
+              "bytes")
     hgmma = count_hgmma(_build.library_path("flash_attention"))
     if hgmma is None:
         print("cuobjdump not found: HGMMA count of the flash library not "
@@ -1710,16 +1726,69 @@ def main() -> int:
             if not same(x, y):
                 raise AssertionError(f"gee_delta_renorm {what}: runs "
                                      "differ")
-        if not torch.allclose(a[0], p[0], rtol=1e-5, atol=1e-6):
-            raise AssertionError(f"gee_delta_renorm {what}: Z_new off")
-        if not torch.allclose(a[1], p[1], rtol=0, atol=1e-6):
-            raise AssertionError(f"gee_delta_renorm {what}: Zn off")
+        # the plain version's additions in list order and its norms: the
+        # same bits
+        if not same(a[0], p[0]):
+            raise AssertionError(f"gee_delta_renorm {what}: Z_new is not "
+                                 "the plain version's bit for bit")
+        if not same(a[1], p[1]):
+            raise AssertionError(f"gee_delta_renorm {what}: Zn is not "
+                                 "the plain version's bit for bit")
         # the kernel's Zn is exactly normalize_rows of its own Z_new
         if not same(a[1], QF.normalize_rows(a[0])):
             raise AssertionError(f"gee_delta_renorm {what}: Zn is not "
                                  "normalize_rows(Z_new) bit for bit")
         return max((a[0] - p[0]).abs().max().item(),
                    (a[1] - p[1]).abs().max().item()) if Z.numel() else 0.0
+
+    def delta_sweep(r_t, c_t, v_t, gen_, n_local=1 << 20,
+                    widths=(16, 64, 128, 129, 172, 200, 256, 512)):
+        """gee_delta_renorm at n_local rows of each width: the real
+        delta's entries below n_local, classes mod K; each K held
+        bit-equal to the plain version, timed (kernel and library with
+        the calls queued behind a spin kernel: the device's time alone;
+        plain back to back) beside its byte bound, with the launcher's
+        plan.  Returns {"sweep": [...]} for the kernels line."""
+        keep = r_t < n_local
+        rs, vs = r_t[keep], v_t[keep]
+        out = []
+        for Kd in widths:
+            cs = c_t[keep] % Kd
+            Zd = torch.rand((n_local, Kd), generator=gen_, device=dev)
+            err_d = check_delta(Zd, rs, cs, vs, f"sweep K={Kd}")
+
+            def lib_d():
+                Zx = Zd.clone().index_put_((rs.long(), cs.long()), vs,
+                                           accumulate=True)
+                return torch.nn.functional.normalize(Zx, dim=1, eps=1e-9)
+
+            row = dict(
+                K=Kd, n_local=n_local, m=int(rs.shape[0]),
+                ms=timer(lambda: QF.gee_delta_renorm(Zd, rs, cs, vs), 10,
+                         queue_ahead=True),
+                bound_ms=bound_ms(3 * Zd.numel() * 4 + rs.shape[0] * 12,
+                                  rs.shape[0])[0],
+                plain_ms=timer(lambda: QF.gee_delta_renorm_plain(
+                    Zd, rs, cs, vs), 2),
+                library_ms=timer(lib_d, 5, queue_ahead=True),
+                max_abs_err=err_d, plan=QF.delta_info(Zd))
+            row["kernel_over_library"] = row["ms"] / row["library_ms"]
+            row["bound_over_kernel"] = row["bound_ms"] / row["ms"]
+            pl = row["plan"]
+            print(f"gee_delta_renorm sweep K={Kd} (n_local={n_local}, "
+                  f"{row['m']} entries): kernel {row['ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms, bound / kernel "
+                  f"{row['bound_over_kernel']:.3f}, library "
+                  f"{row['library_ms']:.4f} ms, kernel / library "
+                  f"{row['kernel_over_library']:.3f}, plain "
+                  f"{row['plain_ms']:.2f} ms; plan: {pl['rows']} rows a "
+                  f"tile, {pl['stages']} stages of {pl['stage_bytes']} B, "
+                  f"pitch {pl['kp']}, {pl['smem']} B a block, "
+                  f"{pl['blocks_per_sm']} blocks an SM, grid {pl['grid']} "
+                  f"over {pl['tiles']} tiles")
+            out.append(row)
+            del Zd
+        return {"sweep": out}
 
     def check_flash(q, k, v, what):
         """Kernel vs plain at the JAX suite's tolerance: 2e-5 at float32,
@@ -1839,9 +1908,10 @@ def main() -> int:
                     torch.as_tensor(c, device=dev),
                     torch.as_tensor(sign * v, device=dev),
                     f"small sign={sign}")
-    # the widths outside the main path's bodies: the delta kernel's rows
-    # in device memory (K > 128), top-k's chunked body (K > 256), its
-    # long lists (k > 64) and its general path (k > 4096)
+    # the widths outside the main path's bodies: the delta kernel at
+    # K = 200 (20 rows a tile) and at K = 20,000 (a row too wide for three
+    # stages: its chunks, twice), top-k's chunked body (K > 256), its long
+    # lists (k > 64) and its general path (k > 4096)
     Zw = torch.as_tensor(rng.random((700, 200), dtype=np.float32),
                          device=dev)
     rw = np.sort(rng.integers(0, 700, 600)).astype(np.int32)
@@ -1850,6 +1920,19 @@ def main() -> int:
                                 device=dev),
                 torch.as_tensor(rng.random(600, dtype=np.float32),
                                 device=dev), "K=200")
+    Zc = torch.as_tensor(rng.normal(size=(64, 20000)).astype(np.float32),
+                         device=dev)
+    rc = np.sort(rng.integers(0, 64, 800)).astype(np.int32)
+    check_delta(Zc, torch.as_tensor(rc, device=dev),
+                torch.as_tensor(rng.integers(0, 20000, 800).astype(np.int32),
+                                device=dev),
+                torch.as_tensor(rng.random(800, dtype=np.float32) - 0.5,
+                                device=dev), "K=20000")
+    pc = QF.delta_info(Zc)
+    print(f"gee_delta_renorm K=20000 (64 rows, 800 entries): bit-equal to "
+          f"the plain version; {pc['chunks']} chunks a row, "
+          f"{pc['tiles']} tiles, grid {pc['grid']}")
+    del Zc
     for Kw, mw, kw_ in ((300, 5000, 10), (16, 20000, 100), (300, 40, 100),
                         (16, 6000, 4100)):
         Zw = torch.as_tensor(np.repeat(rng.normal(size=(mw // 2, Kw)).astype(
@@ -2164,9 +2247,20 @@ def main() -> int:
             plain_ms=timer(lambda: QF.gee_delta_renorm_plain(Z0, r_t, c_t,
                                                              v_t), 3),
             bound_ms=b, bound_by=by, library_ms=timer(run_delta_lib, 3),
+            # the calls queued behind a spin kernel: the device's time alone
+            device_ms=timer(lambda: QF.gee_delta_renorm(Z0, r_t, c_t, v_t),
+                            10, queue_ahead=True),
+            plan=QF.delta_info(Z0),
             shape=f"n_local={nl} m={r_t.shape[0]} K={K}"))
-        # the rows-in-device-memory body at K = 200 on 262,144 rows, with
-        # the same delta's contributions
+        print(f"gee_delta_renorm at shard 0 (n_local={nl} K={K}, "
+              f"{r_t.shape[0]} entries): kernel {results[-1]['ms']:.4f} ms "
+              f"back to back, {results[-1]['device_ms']:.4f} ms on the "
+              f"device alone, bound {b:.4f} ms, bound / kernel "
+              f"{b / results[-1]['device_ms']:.3f}, library "
+              f"{results[-1]['library_ms']:.4f} ms; the launcher's plan "
+              f"{results[-1]['plan']}")
+        # K = 200 (20 rows a tile) on 262,144 rows, with the same delta's
+        # contributions
         Zw = torch.rand((1 << 18, 200), generator=gen_, device=dev)
         keep = r_t < Zw.shape[0]
         rw_, cw_, vw_ = r_t[keep], c_t[keep] % 200, v_t[keep]
@@ -2185,6 +2279,7 @@ def main() -> int:
                                         + rw_.shape[0] * 12,
                                         rw_.shape[0])[0])
         del Zw
+        results[-1].update(delta_sweep(r_t, c_t, v_t, gen_))
         return results, (g, truth, Y), Z_fit.cpu().numpy()
 
     def plan_cache_path(g, Y):
@@ -3190,6 +3285,55 @@ def main() -> int:
               f"plain {wide['wide_D256_f32_plain_ms']:.4f} ms, library "
               f"{wide['wide_D256_f32_library_ms']:.4f} ms, max|err| "
               f"{err_f:.3e}")
+        # the float32 backward at the same shape (simplebwd<float>, the
+        # CUDA-core body: no float32 body of its own above D = 128),
+        # beside SDPA's float32 backward in turns, against its fp32
+        # operation bound (the five products); its gap to the plain version
+        # in float64 and whether two runs agree are printed, not held (the
+        # smoke's small cases hold this body)
+        o_f, lse_f = FA.flash_attention_fwd(qf, kf, vf)
+        do_f = torch.randn(qf.shape, generator=gen_, device=dev)
+        gb1 = FA.flash_attention_bwd(qf, kf, vf, o_f, lse_f, do_f)
+        gb2 = FA.flash_attention_bwd(qf, kf, vf, o_f, lse_f, do_f)
+        runs_b = all(same(a_, b_) for a_, b_ in zip(gb1, gb2))
+        g64 = FA.flash_attention_bwd_plain(
+            *(x.double() for x in (qf, kf, vf, o_f, lse_f, do_f)))
+        err_fb = max((a_.double() - b_).abs().max().item()
+                     for a_, b_ in zip(gb1, g64))
+        del gb1, gb2, g64
+        lib_in = [x.detach().requires_grad_() for x in (qf, kf, vf)]
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            *lib_in, is_causal=True, enable_gqa=True)
+
+        def run_f32_wide_bwd():
+            return FA.flash_attention_bwd(qf, kf, vf, o_f, lse_f, do_f)
+
+        def run_f32_wide_bwd_sdpa():
+            return torch.autograd.grad(lib_out, lib_in, do_f,
+                                       retain_graph=True)
+
+        fw1, fwl1 = timer(run_f32_wide_bwd, 2), timer(run_f32_wide_bwd_sdpa, 3)
+        fwl2, fw2 = timer(run_f32_wide_bwd_sdpa, 3), timer(run_f32_wide_bwd, 2)
+        route_fw = FA._backward_route(torch.float32, Dw)
+        wide.update(
+            wide_bwd_D256_f32_ms=(fw1 + fw2) / 2,
+            wide_bwd_D256_f32_bound_ms=bound_ms(
+                4 * (4 * B * Hw * S * Dw + 4 * B * KVw * S * Dw)
+                + 4 * B * Hw * S, 2.5 * flops_w)[0],
+            wide_bwd_D256_f32_library_ms=(fwl1 + fwl2) / 2,
+            wide_bwd_D256_f32_max_abs_err=err_fb,
+            wide_bwd_D256_f32_body=str(route_fw))
+        ms_fw = wide["wide_bwd_D256_f32_ms"]
+        print(f"flash_attention_bwd at the same shape in float32, "
+              f"{route_fw}: kernel {fw1:.4f} / {fw2:.4f} ms, SDPA's float32 "
+              f"backward {fwl1:.4f} / {fwl2:.4f} ms, kernel / library "
+              f"{ms_fw / wide['wide_bwd_D256_f32_library_ms']:.3f}, bound "
+              f"{wide['wide_bwd_D256_f32_bound_ms']:.4f} ms (fp32 "
+              f"operations), share of the bound "
+              f"{wide['wide_bwd_D256_f32_bound_ms'] / ms_fw:.3f}; max|err| "
+              f"vs the float64 plain version {err_fb:.3e}, two runs "
+              f"bit-equal: {runs_b}")
+        del o_f, lse_f, do_f, lib_in, lib_out
         del qf, kf, vf
         # the backward at the bfloat16 shape, on its tensor-core body for
         # 128 < D <= 256: two runs bit-equal, held to its plain version by
@@ -3787,10 +3931,13 @@ def main() -> int:
                     f"{r_['wide_K300_bound_ms']:.4f}, library "
                     f"{r_['wide_K300_library_ms']:.4f})")
         if "wide_K200_ms" in r_:
-            rate = (f", rows in device memory at K = 200: "
-                    f"{r_['wide_K200_ms']:.4f} ms (bound "
-                    f"{r_['wide_K200_bound_ms']:.4f}, library "
-                    f"{r_['wide_K200_library_ms']:.4f})")
+            rate = (f", on the device alone {r_['device_ms']:.4f} ms; "
+                    f"K = 200 at 262,144 rows: {r_['wide_K200_ms']:.4f} ms "
+                    f"(bound {r_['wide_K200_bound_ms']:.4f}, library "
+                    f"{r_['wide_K200_library_ms']:.4f}); the sweep's bound "
+                    f"/ kernel " + ", ".join(
+                        f"K={w_['K']} {w_['bound_over_kernel']:.3f}"
+                        for w_ in r_["sweep"]))
         print(f"{r_['name']}: {r_['shape']}: kernel {r_['ms']:.4f} ms, "
               f"bound {r_['bound_ms']:.4f} ms ({r_['bound_by']}), plain "
               f"{r_['plain_ms']:.4f} ms, library {r_['library_ms']:.4f} ms, "

@@ -95,19 +95,60 @@
 //   slots come out as (-inf, -1).
 //
 // gee_delta_renorm replaces repro/kernels/query_fused.py:gee_delta_renorm
-// (body _delta_kernel): Z_new = Z + delta contributions, Zn =
-// normalize_rows(Z_new), for the whole owned slice.
+// (body _delta_kernel, pallas_call at :187): Z_new = Z + delta
+// contributions, Zn = normalize_rows(Z_new), for the whole owned slice.
 //   Bound on the H100: bytes, 3 x n_local x K x 4 (read Z, write Z_new and
-//   Zn); the delta itself is a few hundred contributions.
-//   Design: the TPU packs the delta over every destination tile of the
-//   slice (mostly padding); here the delta comes as one short list sorted
-//   by local row.  Each block stages 256 rows of Z in shared memory, each
-//   thread binary-searches its row's run in the list and adds it in list
-//   order, then the block writes Z_new and Zn once, coalesced.  Rows wider
-//   than DELTA_SMEM_K do not fit 256 to a block in shared memory: there the
-//   block copies its rows to Z_new first and each thread adds into and
-//   takes the norm of its row in device memory, in the same order, so
-//   Z_new and Zn have the same bits at every K.
+//   Zn once) plus 12 m for the delta; 0.1389 ms at the main shape
+//   (n_local = 2,423,786, K = 16).  A few instructions an element, so the
+//   design is about keeping bytes in flight and every pass over shared
+//   memory free of bank conflicts.
+//   Design (delta_renorm_kernel, one body for every K): persistent blocks
+//   (two an SM where the occupancy allows) walk tiles of R whole rows with
+//   a static stride.  R is a multiple of 4 from K so that
+//   a tile is about DELTA_TILE_FLOATS floats (16 KB; 4 rows at least,
+//   fewer only where 4 do not fit), so a tile of Z is one contiguous span:
+//   one 1-D bulk copy
+//   (cp.async.bulk, completing on an mbarrier, no tensor map) brings it
+//   into a ring of DELTA_STAGES stages, issued ahead by a producer warp.
+//   Bulk copies and not 16-byte cp.async into a padded pitch: the copy
+//   costs the threads nothing, takes any K (cp.async.16 needs K % 4 == 0),
+//   and the stage it fills, at pitch K, is also the source of Z_new's bulk
+//   store.  The producer finds each tile's range
+//   [lo, hi) of the sorted delta list first (one warp: one coalesced read
+//   of the 32 entries after the block's previous tile holds both ends for
+//   most tiles; a 32-way search takes the rest), before the tile's copy,
+//   so the range rides the full barrier's release.  The consumers
+//   (DELTA_CONSUMERS threads) add each row's run in list order into the
+//   staged rows (one thread a run, only on tiles whose range is not
+//   empty), square every element once
+//   (__fmul_rn) into a scratch of rows at a padded pitch KP >= K with
+//   KP % 8 == 4, from which one thread a row takes its norm chain in
+//   column order with 16-byte reads (KP / 4 odd: the 8 rows of a
+//   quarter-warp hit 8 distinct 16-byte bank groups), then divide
+//   (__fdiv_rn) and write Zn with 16-byte stores.  Z_new leaves the stage
+//   by a bulk store (cp.async.bulk.global.shared::cta) as soon as the
+//   consumers have added the tile's runs (an `added` mbarrier, before their
+//   norms).  They hold their values in registers from the squares to Zn
+//   (DELTA_GROUPS 16-byte groups a thread) and let the stage go after the
+//   squares, so a stage is held for its copy and one pass, not for the
+//   norms; it is loaded again once cp.async.bulk.wait_group.read says the
+//   store has read it.
+//   A row too wide for three stages (about 14,000 floats) streams through
+//   the same ring in chunks of DELTA_CHUNK columns, twice: the first pass
+//   adds the chunk's share of the row's run, bulk-stores Z_new and carries
+//   the norm chain from chunk to chunk in column order; the second copies
+//   the chunks again, adds the same entries in the same order (the same
+//   bits) and divides by the finished norm.  Such rows pay one more read
+//   of Z, and any K runs.
+//   Stage reads are 16-byte and contiguous, dn reads at most 32
+//   consecutive rows an instruction (16-byte pairs for K < 4): no read
+//   conflicts at any K.  Z starts on 16 bytes (the wrapper copies a view
+//   that does not), so a tile's 16-byte groups are Z's: the copy takes the
+//   aligned span around the tile, the bulk store its whole groups, and
+//   the consumers write the partial groups at its two ends.
+//   Exact: the adds, the chain and the division are the plain version's
+//   operations in its order, so Z_new and Zn have its bits at every K,
+//   grid and ring depth.
 #include <cstdint>
 
 #include "common.cuh"
@@ -129,7 +170,21 @@ constexpr int KCH_MIN = 4, KCH_MAX = 32;  // chunked body: columns a chunk
 constexpr int MERGE_AT = 32;   // chunked body: survivors that start a merge
 constexpr int RING = 3;        // chunked body: chunk slots in flight
 constexpr int GEN_WARPS = THREADS / 32;  // selectors a block, general path
-constexpr int DELTA_SMEM_K = 128;  // widest rows the delta body stages
+constexpr int DELTA_CONSUMERS = 256;   // delta: consumer threads a block
+constexpr int DELTA_THREADS = DELTA_CONSUMERS + 32;  // + the producer warp
+constexpr int DELTA_TILE_FLOATS = 4096;  // delta: floats of rows a tile
+// delta: a consumer's 16-byte groups of a tile of DELTA_TILE_FLOATS, held
+// in registers from the squares to Zn
+constexpr int DELTA_GROUPS = DELTA_TILE_FLOATS / (4 * DELTA_CONSUMERS);
+constexpr int DELTA_STAGES = 4;        // delta: ring depth (3 if 4 do not fit)
+constexpr int DELTA_MIN_STAGES = 3;    // delta: the least ring depth
+constexpr int DELTA_BLOCKS_PER_SM = 2; // delta: most blocks an SM
+// delta: columns a chunk of a row too wide for three stages (a multiple
+// of 4 that a thread's DELTA_GROUPS groups hold at any offset)
+constexpr int DELTA_CHUNK = 4092;
+static_assert(DELTA_CHUNK % 4 == 0 &&
+                  DELTA_CHUNK + 3 <= 4 * DELTA_GROUPS * DELTA_CONSUMERS,
+              "a chunk's groups must fit a thread's registers");
 constexpr unsigned FULL = 0xffffffffu;
 
 // The select bodies: rows in registers (K in {8, 16, 32}, rows on 16
@@ -1365,80 +1420,523 @@ __global__ void __launch_bounds__(32)
     if (li[t] == INT_MAX || !isfinite(ls[t])) li[t] = -1;
 }
 
-// Rows wider than DELTA_SMEM_K: the block's rows are copied to Z_new, then
-// each thread adds its row's run and takes its norm there, in the staged
-// body's order.
-__global__ void delta_renorm_wide_kernel(const float* __restrict__ Z,
+// ---- gee_delta_renorm -----------------------------------------------------
+
+// The delta body's geometry for width K: rows a tile, ring depth, floats a
+// stage (the tile's span rounded up to 4, plus 4 for a copy that starts
+// up to 3 floats early), the squares' row pitch, shared memory bytes;
+// columns a tile and chunks a row (K and 1, or DELTA_CHUNK and more for a
+// row too wide for three stages).
+struct DeltaPlan {
+  int rows, stages, stage_floats, kp;
+  size_t smem;
+  int cw, nch;
+};
+
+// the squares' row pitch: the least KP >= K with KP % 8 == 4, so KP / 4 is
+// odd and 8 consecutive rows' 16-byte reads at one column hit 8 distinct
+// 16-byte bank groups
+__host__ __device__ __forceinline__ int delta_pitch(int K) {
+  return K + (12 - K % 8) % 8;
+}
+
+// shared memory: S stages, R rows of squares, the rows' norms (16-byte
+// pairs read past the last row), each stage's delta range and its full,
+// added and empty mbarriers
+__host__ __device__ __forceinline__ DeltaPlan delta_geometry(int K, int R,
+                                                             int S) {
+  DeltaPlan p;
+  p.rows = R;
+  p.stages = S;
+  p.stage_floats = ((R * K + 3) & ~3) + 4;
+  p.kp = delta_pitch(K);
+  p.smem = sizeof(float) * ((size_t)S * p.stage_floats + (size_t)R * p.kp +
+                            ((R + 3) & ~3) + 8) +
+           (size_t)S * (sizeof(int2) + 3 * sizeof(uint64_t));
+  p.cw = K;
+  p.nch = 1;
+  return p;
+}
+
+// R: a multiple of 4 near DELTA_TILE_FLOATS floats of rows, 4 at least;
+// fewer than 4 only where 4 do not fit DELTA_MIN_STAGES stages; where one
+// row does not, one row a tile in chunks of DELTA_CHUNK columns.
+// DELTA_STAGES stages where they fit.  rows 0 for K < 1.
+DeltaPlan delta_plan(int K, size_t max_smem) {
+  DeltaPlan none{0, 0, 0, 0, 0, 0, 0};
+  if (K < 1) return none;
+  int R = DELTA_TILE_FLOATS / K;
+  R = R >= 4 ? R & ~3 : 4;
+  if ((size_t)K * sizeof(float) > max_smem) R = 0;  // no row fits whole
+  for (; R >= 1; R = R > 4 ? 4 : R - 1)
+    for (int S = DELTA_STAGES; S >= DELTA_MIN_STAGES; --S) {
+      const DeltaPlan p = delta_geometry(K, R, S);
+      if (p.smem <= max_smem) return p;
+    }
+  for (int S = DELTA_STAGES; S >= DELTA_MIN_STAGES; --S) {
+    DeltaPlan p = delta_geometry(DELTA_CHUNK, 1, S);
+    p.nch = (K - 1) / DELTA_CHUNK + 1;
+    if (p.smem <= max_smem) return p;
+  }
+  return none;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// wait until the phase of `bar` with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+// `bytes` (a multiple of 16) from global src to shared dst, both on 16
+// bytes, completing on the mbarrier bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// `bytes` from shared src to global dst as one bulk group of its own
+__device__ __forceinline__ void bulk_store(float* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      "cp.async.bulk.commit_group;" ::"l"(dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+// this thread's bulk stores have read their shared sources
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+// ... and written their global destinations
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+// order this thread's generic shared-memory writes before later bulk copies
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+// the consumer threads' own barrier (the producer warp is not in it)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(DELTA_CONSUMERS) : "memory");
+}
+
+// The first p in [lo, m] with p == m or rows[p] >= key, every entry before
+// lo below key: the calling warp probes 32 entries a round (all lanes, the
+// same answer).
+__device__ __forceinline__ int lower_bound_warp(const int* __restrict__ rows,
+                                                int m, int lo, int key,
+                                                int lane) {
+  int n = m - lo;                       // the answer is in [lo, lo + n]
+  while (n > 32) {
+    const int step = (n + 31) >> 5;
+    const int p = lo + step * (lane + 1) - 1;
+    const bool below = p < lo + n && __ldg(rows + p) < key;
+    const int nlo = lo + step * __popc(__ballot_sync(FULL, below));
+    n = min(step - 1, lo + n - nlo);
+    lo = nlo;
+  }
+  const bool below = lane < n && __ldg(rows + lo + lane) < key;
+  return lo + __popc(__ballot_sync(FULL, below));
+}
+
+// [lo, hi) of the entries with rows in [t0, t1), every entry before `from`
+// below t0.  The 32 entries from `from` (one coalesced read) hold both ends
+// for most tiles of a short delta: a block's next tile lies a grid of tiles
+// further on, past the few entries of the tiles between; the 32-way search
+// takes what lies beyond them.
+__device__ __forceinline__ int2 tile_range(const int* __restrict__ rows,
+                                           int m, int from, int t0, int t1,
+                                           int lane) {
+  const int p = from + lane;
+  const int v = p < m ? __ldg(rows + p) : INT_MAX;
+  const int n0 = __popc(__ballot_sync(FULL, v < t0));
+  const int n1 = __popc(__ballot_sync(FULL, v < t1));
+  const int lo =
+      n0 < 32 ? from + n0 : lower_bound_warp(rows, m, from + 32, t0, lane);
+  const int hi = n1 < 32 ? from + n1
+                         : lower_bound_warp(rows, m, max(lo, from + 32), t1,
+                                            lane);
+  return make_int2(lo, hi);
+}
+
+// A tile: its first row and rows, its first column and columns (all K, or
+// a chunk of one row), what it does (DELTA_PASS_NORM: Z_new's store, the
+// squares and the norm chains; DELTA_PASS_ZN: Zn), the global flat index
+// of its first element, its elements, and where that element sits in the
+// stage (the copy starts on the 16 bytes at or before it).
+constexpr int DELTA_PASS_NORM = 1, DELTA_PASS_ZN = 2;
+struct DeltaTile {
+  int t0, nr, c0, nc, ph;
+  long long x0;
+  int n_el, sh;
+};
+
+// tile i of this block: R whole rows (nch == 1), or, for a row too wide
+// for three stages, chunk i % nch of the block's row i / (2 nch), first
+// for the norm and then for Zn
+__device__ __forceinline__ DeltaTile delta_tile(int i, int R, int K,
+                                                int n_local, int cw,
+                                                int nch) {
+  DeltaTile t;
+  if (nch == 1) {
+    t.t0 = ((int)blockIdx.x + i * (int)gridDim.x) * R;
+    t.nr = min(R, n_local - t.t0);
+    t.c0 = 0;
+    t.nc = K;
+    t.ph = DELTA_PASS_NORM | DELTA_PASS_ZN;
+  } else {
+    const int w = i % (2 * nch);
+    t.t0 = (int)blockIdx.x + (i / (2 * nch)) * (int)gridDim.x;
+    t.nr = 1;
+    t.c0 = (w % nch) * cw;
+    t.nc = min(cw, K - t.c0);
+    t.ph = w < nch ? DELTA_PASS_NORM : DELTA_PASS_ZN;
+  }
+  t.x0 = (long long)t.t0 * K + t.c0;
+  t.n_el = t.nr * t.nc;
+  t.sh = (int)(t.x0 & 3);
+  return t;
+}
+
+// the tile's whole 16-byte groups of Z_new, from the stage by one bulk
+// store (Z on 16 bytes, so the stage's groups are Z_new's)
+__device__ __forceinline__ void store_groups(const DeltaTile& t,
+                                             const float* st, float* dst) {
+  const long long a0 = (t.x0 + 3) & ~3LL, a1 = (t.x0 + t.n_el) & ~3LL;
+  if (a1 > a0) {
+    fence_async_shared();
+    bulk_store(dst + a0, smem_addr(st + (a0 - (t.x0 - t.sh))),
+               (uint32_t)(a1 - a0) * 4u);
+  }
+}
+
+// tile t's range into rng[s], then its copy into stage s: the
+// 16-byte-aligned span around it, completing on full[s]
+__device__ __forceinline__ void load_tile(const float* Z, const DeltaTile& t,
+                                          int2 r2, float* stage,
+                                          int stage_floats, int2* rng,
+                                          uint64_t* full, int s) {
+  rng[s] = r2;
+  const uint32_t bytes = (uint32_t)((t.sh + t.n_el + 3) & ~3) * 4u;
+  mbar_expect_tx(smem_addr(full + s), bytes);
+  bulk_load(smem_addr(stage + (size_t)s * stage_floats), Z + (t.x0 - t.sh),
+            bytes, smem_addr(full + s));
+}
+
+// Each row's run of the tile's entries [lo, hi), added in list order into
+// the staged rows z (the tile's element 0), one thread a run; a chunk
+// takes the entries of its columns [c0, c0 + nc).
+__device__ __forceinline__ void add_runs(float* z,
                                          const int* __restrict__ rows,
                                          const int* __restrict__ cls,
                                          const float* __restrict__ val,
-                                         int m, float* Znew,
-                                         float* __restrict__ Zn, int n_local,
-                                         int K, float eps) {
-  __shared__ float dn[THREADS];
-  const int r0 = blockIdx.x * THREADS;
-  const int nr = min(THREADS, n_local - r0);
-  const size_t tot = (size_t)nr * K;
-  const float* src = Z + (size_t)r0 * K;
-  float* o1 = Znew + (size_t)r0 * K;
-  for (size_t e = threadIdx.x; e < tot; e += THREADS) o1[e] = src[e];
-  __syncthreads();
-  const int t = threadIdx.x;
-  if (t < nr) {
-    const int r = r0 + t;
-    int lo = 0, hi = m;                  // first contribution with row >= r
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (rows[mid] < r) lo = mid + 1; else hi = mid;
+                                         int lo, int hi, int t0, int K,
+                                         int c0, int nc, int tid) {
+  for (int p = lo + tid; p < hi; p += DELTA_CONSUMERS) {
+    const int r = __ldg(rows + p);
+    if (p > lo && __ldg(rows + p - 1) == r) continue;  // not its run's first
+    float* zr = z + (size_t)(r - t0) * K;
+    for (int q = p; q < hi && __ldg(rows + q) == r; ++q) {
+      const int c = __ldg(cls + q) - c0;
+      if ((unsigned)c < (unsigned)nc)
+        zr[c] = __fadd_rn(zr[c], __ldg(val + q));
     }
-    float* z = o1 + (size_t)t * K;
-    for (int j = lo; j < m && rows[j] == r; ++j)
-      z[cls[j]] = __fadd_rn(z[cls[j]], val[j]);
-    dn[t] = row_norm_denom(z, K, eps);
   }
-  __syncthreads();
-  float* o2 = Zn + (size_t)r0 * K;
-  for (size_t e = threadIdx.x; e < tot; e += THREADS)
-    o2[e] = __fdiv_rn(o1[e], dn[e / K]);
 }
 
-__global__ void delta_renorm_kernel(const float* __restrict__ Z,
-                                    const int* __restrict__ rows,
-                                    const int* __restrict__ cls,
-                                    const float* __restrict__ val, int m,
-                                    float* __restrict__ Znew,
-                                    float* __restrict__ Zn, int n_local,
-                                    int K, float eps) {
-  extern __shared__ float smem[];
-  const int KP = odd_stride(K);
-  float* zs = smem;                                  // THREADS x KP
-  float* dn = smem + (size_t)THREADS * KP;           // THREADS
-  const int r0 = blockIdx.x * THREADS;
-  const int nr = min(THREADS, n_local - r0);
-  const float* src = Z + (size_t)r0 * K;
-  for (int e = threadIdx.x; e < nr * K; e += THREADS)
-    zs[(e / K) * KP + e % K] = src[e];
-  __syncthreads();
-  const int t = threadIdx.x;
-  if (t < nr) {
-    const int r = r0 + t;
-    int lo = 0, hi = m;                  // first contribution with row >= r
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (rows[mid] < r) lo = mid + 1; else hi = mid;
+// The global group of four elements at g (g % 4 == 0) that meets the tile:
+// its elements [q0, q1) in the tile, their values from the stage (one
+// 16-byte read), and the row and column of q0 in the tile.
+struct DeltaGroup {
+  float v[4];
+  int q0, q1, r, c;
+};
+
+__device__ __forceinline__ DeltaGroup load_group(const float* st,
+                                                 const DeltaTile& t,
+                                                 long long g) {
+  DeltaGroup a;
+  a.q0 = (int)max(0LL, t.x0 - g);
+  a.q1 = (int)min(4LL, t.x0 + t.n_el - g);
+  const float4 x =                           // stage index of g: g - x0 + sh
+      *reinterpret_cast<const float4*>(st + (int)(g - t.x0) + t.sh);
+  a.v[0] = x.x;
+  a.v[1] = x.y;
+  a.v[2] = x.z;
+  a.v[3] = x.w;
+  const int e = (int)(g - t.x0) + a.q0;
+  a.r = e / t.nc;
+  a.c = e - a.r * t.nc;
+  return a;
+}
+
+// the k-th of 8 consecutive floats held as two float4
+__device__ __forceinline__ float pick8(const float4& a, const float4& b,
+                                       int k) {
+  const float4 h = k < 4 ? a : b;
+  const int j = k & 3;
+  return j == 0 ? h.x : j == 1 ? h.y : j == 2 ? h.z : h.w;
+}
+
+// a group's squares (__fmul_rn) into the scratch rows at pitch kp
+__device__ __forceinline__ void square_group(float* sq, const DeltaGroup& a,
+                                             int nc, int kp, bool rows4) {
+  if (rows4) {
+    *reinterpret_cast<float4*>(sq + a.r * kp + a.c) = make_float4(
+        __fmul_rn(a.v[0], a.v[0]), __fmul_rn(a.v[1], a.v[1]),
+        __fmul_rn(a.v[2], a.v[2]), __fmul_rn(a.v[3], a.v[3]));
+    return;
+  }
+  int r = a.r, c = a.c;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (q >= a.q0 && q < a.q1) {
+      sq[r * kp + c] = __fmul_rn(a.v[q], a.v[q]);
+      if (++c == nc) c = 0, ++r;
     }
-    float* z = zs + t * KP;
-    for (int j = lo; j < m && rows[j] == r; ++j)
-      z[cls[j]] = __fadd_rn(z[cls[j]], val[j]);
-    dn[t] = row_norm_denom(z, K, eps);
+}
+
+// z / d rounded once (d > 0).  A zero z is its own quotient, with its
+// sign; the division runs on 1 in its place, since a zero numerator sends
+// __fdiv_rn down its slow path, and zeros fill a GEE row with few
+// labelled neighbours.  The division is not branched around: every lane
+// runs it, so a warp of nonzeros pays two selects.
+__device__ __forceinline__ float quotient(float z, float d) {
+  const float q = __fdiv_rn(z != 0.f ? z : 1.f, d);
+  return z != 0.f ? q : z;
+}
+
+// a group's Zn (__fdiv_rn by its rows' norms), 16 bytes a store where the
+// group is whole; the tile's first and last groups, which the bulk store
+// leaves out, also write their Z_new
+__device__ __forceinline__ void normalize_group(float* Zn, float* Znew,
+                                                const float* dn,
+                                                const float4* dn4,
+                                                const DeltaGroup& a,
+                                                long long g, int nc) {
+  float z[4] = {0.f, 0.f, 0.f, 0.f};
+  if (nc >= 4) {                             // at most rows r and r + 1
+    const float d0 = dn[a.r], d1 = dn[a.r + 1];
+    int c = a.c;
+    bool next = false;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q >= a.q0 && q < a.q1) {
+        z[q] = quotient(a.v[q], next ? d1 : d0);
+        if (++c == nc) c = 0, next = true;
+      }
+  } else {                                   // rows r .. r + 3
+    const int b = a.r & ~3;
+    const float4 d0 = dn4[b >> 2], d1 = dn4[(b >> 2) + 1];
+    int r = a.r, c = a.c;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q >= a.q0 && q < a.q1) {
+        z[q] = quotient(a.v[q], pick8(d0, d1, r - b));
+        if (++c == nc) c = 0, ++r;
+      }
+  }
+  if (a.q0 == 0 && a.q1 == 4) {
+    *reinterpret_cast<float4*>(Zn + g) = make_float4(z[0], z[1], z[2], z[3]);
+  } else {                                   // the tile's first or last group
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q >= a.q0 && q < a.q1) {
+        Zn[g + q] = z[q];
+        Znew[g + q] = a.v[q];
+      }
+  }
+}
+
+// Z_new = Z + the delta's entries, Zn = normalize_rows(Z_new): persistent
+// blocks over tiles (blockIdx.x + i gridDim.x of R rows, or a row's chunks
+// twice), a ring of S stages filled by bulk copies from the producer warp
+// (the block's last), DELTA_CONSUMERS consumer threads.  Z, Z_new and Zn
+// on 16 bytes.  See the note at the top of the file.
+__global__ void __launch_bounds__(DELTA_THREADS)
+    delta_renorm_kernel(const float* __restrict__ Z,
+                        const int* __restrict__ rows,
+                        const int* __restrict__ cls,
+                        const float* __restrict__ val, int m,
+                        float* __restrict__ Znew, float* __restrict__ Zn,
+                        int n_local, int K, float eps, int R, int S,
+                        int stage_floats, int kp, int cw, int nch) {
+  extern __shared__ __align__(128) float smem[];
+  float* stage = smem;                               // S x stage_floats
+  float* sq = stage + (size_t)S * stage_floats;      // R x kp squares
+  float* dn = sq + (size_t)R * kp;                   // the rows' norms
+  int2* rng = reinterpret_cast<int2*>(dn + ((R + 3) & ~3) + 8);
+  uint64_t* full = reinterpret_cast<uint64_t*>(rng + S);   // copy landed
+  uint64_t* added = full + S;       // the consumers have added the runs
+  uint64_t* empty = added + S;      // the consumers are done with the stage
+  const int tid = threadIdx.x, lane = tid & 31;
+  // this block's tiles: its share of the row tiles, or of the rows (2 nch
+  // tiles each)
+  const int units = nch == 1 ? (n_local + R - 1) / R : n_local;
+  const int n_mine =
+      (units - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x *
+      (nch == 1 ? 1 : 2 * nch);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(smem_addr(full + s), 1);
+      mbar_init(smem_addr(added + s), DELTA_CONSUMERS / 32);
+      mbar_init(smem_addr(empty + s), DELTA_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  float* o1 = Znew + (size_t)r0 * K;
-  float* o2 = Zn + (size_t)r0 * K;
-  for (int e = threadIdx.x; e < nr * K; e += THREADS) {
-    const float x = zs[(e / K) * KP + e % K];
-    o1[e] = x;
-    o2[e] = __fdiv_rn(x, dn[e / K]);
+
+  if (tid >= DELTA_CONSUMERS) {
+    // The producer.  First the ring's first S tiles: each tile's range,
+    // then its copy.  Then step j: the range of tile j + S; once the
+    // consumers have added tile j's runs, tile j's Z_new store (the norm
+    // pass of a chunked row: its Zn pass adds the same runs again); once
+    // they have let its stage go (after their squares, where the tile fits
+    // their registers) and the store has read it, tile j + S's copy.  A
+    // chunked row's tiles share a range, so the next search starts at its
+    // first entry.
+    int from = 0;
+    for (int i = 0; i < min(S, n_mine); ++i) {
+      const DeltaTile t = delta_tile(i, R, K, n_local, cw, nch);
+      const int2 r2 = tile_range(rows, m, from, t.t0, t.t0 + t.nr, lane);
+      from = nch == 1 ? r2.y : r2.x;
+      if (lane == 0)
+        load_tile(Z, t, r2, stage, stage_floats, rng, full, i % S);
+      __syncwarp();
+    }
+    for (int j = 0; j < n_mine; ++j) {
+      const int s = j % S, i = j + S;
+      DeltaTile t{};
+      int2 r2 = make_int2(0, 0);
+      if (i < n_mine) {
+        t = delta_tile(i, R, K, n_local, cw, nch);
+        r2 = tile_range(rows, m, from, t.t0, t.t0 + t.nr, lane);
+        from = nch == 1 ? r2.y : r2.x;
+      }
+      if (lane == 0) {
+        mbar_wait(smem_addr(added + s), (j / S) & 1);
+        const DeltaTile tj = delta_tile(j, R, K, n_local, cw, nch);
+        if (tj.ph & DELTA_PASS_NORM)
+          store_groups(tj, stage + (size_t)s * stage_floats, Znew);
+        if (i < n_mine) {
+          mbar_wait(smem_addr(empty + s), (j / S) & 1);
+          bulk_wait_read();                  // the store has read the stage
+          load_tile(Z, t, r2, stage, stage_floats, rng, full, s);
+        }
+      }
+      __syncwarp();
+    }
+    if (lane == 0) bulk_wait_all();
+    return;
+  }
+
+  // The consumers, tile by tile: the delta's runs, the squares, the norm
+  // chains, Zn (and Z_new at the tile's two ends).  Where the tile fits
+  // (DELTA_GROUPS groups a thread) its values stay in registers from the
+  // squares to Zn and the stage is let go after the squares; wider tiles
+  // (rows of more than 1,024 floats) read it again and let it go last.  A
+  // chunked row's chain runs on in `carry` from chunk to chunk; its norm
+  // waits in dn[0] for the row's Zn pass.
+  const bool rows4 = K % 4 == 0;             // every group in one row
+  const float4* dn4 = reinterpret_cast<const float4*>(dn);
+  float carry = 0.f;
+  for (int i = 0; i < n_mine; ++i) {
+    const int s = i % S;
+    float* st = stage + (size_t)s * stage_floats;
+    const DeltaTile t = delta_tile(i, R, K, n_local, cw, nch);
+    const bool norm = t.ph & DELTA_PASS_NORM, zn = t.ph & DELTA_PASS_ZN;
+    const long long g0 = t.x0 & ~3LL, end = t.x0 + t.n_el;
+    const bool held = end - g0 <= 4LL * DELTA_GROUPS * DELTA_CONSUMERS;
+    mbar_wait(smem_addr(full + s), (i / S) & 1);
+    const int2 r2 = rng[s];
+    if (r2.x < r2.y) {                       // the same for every consumer
+      add_runs(st + t.sh, rows, cls, val, r2.x, r2.y, t.t0, K, t.c0, t.nc,
+               tid);
+      fence_async_shared();
+      consumers_sync();
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_addr(added + s));   // Z_new is final
+    DeltaGroup a[DELTA_GROUPS];
+#pragma unroll
+    for (int j = 0; j < DELTA_GROUPS; ++j) {
+      const long long g = g0 + 4 * (tid + (long long)DELTA_CONSUMERS * j);
+      if (held && g < end) {
+        a[j] = load_group(st, t, g);
+        if (norm) square_group(sq, a[j], t.nc, kp, rows4);
+      }
+    }
+    for (long long g = g0 + 4 * tid; !held && norm && g < end;
+         g += 4 * DELTA_CONSUMERS)
+      square_group(sq, load_group(st, t, g), t.nc, kp, rows4);
+    if (held) {                              // the stage is no longer read
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_addr(empty + s));
+    }
+    consumers_sync();
+    // each row's chain in column order (row_norm_denom's), 16 bytes a read
+    for (int r = tid; norm && r < t.nr; r += DELTA_CONSUMERS) {
+      const float4* p = reinterpret_cast<const float4*>(sq + r * kp);
+      float4 x = p[0];
+      float ss = t.c0 == 0 ? x.x : __fadd_rn(carry, x.x);
+      if (t.nc > 1) ss = __fadd_rn(ss, x.y);
+      if (t.nc > 2) ss = __fadd_rn(ss, x.z);
+      if (t.nc > 3) ss = __fadd_rn(ss, x.w);
+#pragma unroll 4
+      for (int c = 4; c < t.nc; c += 4) {
+        x = p[c >> 2];
+        ss = __fadd_rn(ss, x.x);
+        if (c + 1 < t.nc) ss = __fadd_rn(ss, x.y);
+        if (c + 2 < t.nc) ss = __fadd_rn(ss, x.z);
+        if (c + 3 < t.nc) ss = __fadd_rn(ss, x.w);
+      }
+      if (t.c0 + t.nc == K)
+        dn[r] = fmaxf(__fsqrt_rn(ss), eps);
+      else
+        carry = ss;
+    }
+    consumers_sync();
+#pragma unroll
+    for (int j = 0; j < DELTA_GROUPS; ++j) {
+      const long long g = g0 + 4 * (tid + (long long)DELTA_CONSUMERS * j);
+      if (held && zn && g < end)
+        normalize_group(Zn, Znew, dn, dn4, a[j], g, t.nc);
+    }
+    for (long long g = g0 + 4 * tid; !held && zn && g < end;
+         g += 4 * DELTA_CONSUMERS)
+      normalize_group(Zn, Znew, dn, dn4, load_group(st, t, g), g, t.nc);
+    if (!held) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_addr(empty + s));
+    }
   }
 }
 
@@ -1680,24 +2178,72 @@ extern "C" int topk_merge_launch(const float* cand_s, const int* cand_i,
   return (int)cudaGetLastError();
 }
 
+// The delta body's plan on the current device for (K, n_local): rows a
+// tile, ring depth, floats a stage, squares' pitch, shared memory bytes,
+// columns a tile and chunks a row, blocks an SM and the grid;
+// cudaErrorInvalidValue for K < 1.  The kernel may take the device's
+// whole opt-in shared memory, so no plan's launch is refused.
+static int delta_setup(int K, int n_local, DeltaPlan* p, int* per_sm,
+                       int* grid) {
+  int dev = 0, optin = 0, sms = 0, fit = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (err) return err;
+  *p = delta_plan(K, (size_t)optin);
+  if (!p->rows) return (int)cudaErrorInvalidValue;
+  err = set_smem((const void*)delta_renorm_kernel, (size_t)optin);
+  if (!err)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &fit, delta_renorm_kernel, DELTA_THREADS, p->smem);
+  if (err) return err;
+  *per_sm = max(1, min(DELTA_BLOCKS_PER_SM, fit));
+  const int units = p->nch == 1 ? (n_local + p->rows - 1) / p->rows
+                                : n_local;
+  *grid = max(1, min(units, sms * *per_sm));
+  return 0;
+}
+
+// out: rows a tile, ring depth, bytes a stage, squares' pitch, shared
+// memory bytes a block, blocks an SM, grid, tiles, chunks a row
+extern "C" int delta_renorm_info(int K, int n_local, int* out) {
+  DeltaPlan p;
+  int per_sm = 0, grid = 0;
+  const int err = delta_setup(K, n_local, &p, &per_sm, &grid);
+  if (err) return err;
+  out[0] = p.rows;
+  out[1] = p.stages;
+  out[2] = p.stage_floats * 4;
+  out[3] = p.kp;
+  out[4] = (int)p.smem;
+  out[5] = per_sm;
+  out[6] = grid;
+  out[7] = p.nch == 1 ? (n_local + p.rows - 1) / p.rows
+                      : n_local * 2 * p.nch;
+  out[8] = p.nch;
+  return 0;
+}
+
 extern "C" int delta_renorm_launch(const float* Z, const int* rows,
                                    const int* cls, const float* val, int m,
                                    float* Znew, float* Zn, int n_local, int K,
                                    float eps, void* stream) {
-  if (n_local == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (K > DELTA_SMEM_K) {
-    delta_renorm_wide_kernel<<<(n_local + THREADS - 1) / THREADS, THREADS, 0,
-                               st>>>(Z, rows, cls, val, m, Znew, Zn, n_local,
-                                     K, eps);
-    return (int)cudaGetLastError();
-  }
-  const size_t smem = sizeof(float) * ((size_t)THREADS * odd_stride(K) +
-                                       THREADS);
-  int err = set_smem((const void*)delta_renorm_kernel, smem);
+  if (n_local == 0 || K == 0) return 0;
+  if ((reinterpret_cast<uintptr_t>(Z) | reinterpret_cast<uintptr_t>(Znew) |
+       reinterpret_cast<uintptr_t>(Zn)) &
+      15)
+    return (int)cudaErrorMisalignedAddress;
+  DeltaPlan p;
+  int per_sm = 0, grid = 0;
+  const int err = delta_setup(K, n_local, &p, &per_sm, &grid);
   if (err) return err;
-  delta_renorm_kernel<<<(n_local + THREADS - 1) / THREADS, THREADS, smem,
-                        st>>>(
-      Z, rows, cls, val, m, Znew, Zn, n_local, K, eps);
+  delta_renorm_kernel<<<grid, DELTA_THREADS, p.smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      Z, rows, cls, val, m, Znew, Zn, n_local, K, eps, p.rows, p.stages,
+      p.stage_floats, p.kp, p.cw, p.nch);
   return (int)cudaGetLastError();
 }

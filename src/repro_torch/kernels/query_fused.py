@@ -27,9 +27,12 @@ until the lists fit, and the merge pass is one block per query with its
 list in shared memory.  Only k > 4096 (lists too long for shared memory
 at one query a block) takes the general path, which scores rows from
 device memory and keeps its lists there.  The launchers choose by shape
-(`select_info` says which body a call takes).  The delta kernel stages
-256 rows in shared memory for K <= 128 and works on its rows in device
-memory above that.  The answer has the same bits either way.
+(`select_info` says which body a call takes).  The delta kernel has one
+body for every K: persistent blocks stream tiles of whole rows through
+a ring of shared-memory stages by bulk copies, and a row too wide for
+three stages in chunks, twice (`delta_info` says its rows a tile, ring
+depth, grid and chunks a row).  The answer has the same bits at every K
+and grid.
 
 **One arithmetic for norms and scores.**  `normalize_rows` and
 `row_scores` spell out a fixed-order elementwise loop over the K
@@ -262,7 +265,8 @@ def gee_delta_renorm(Z, rows, cls, val, *, eps: float = EPS):
     sorted ascending (the kernel finds each row's run by binary search);
     cls int32 (m,) in [0, K); val float32 (m,), added in list order.
     Returns (Z_new, Zn), both (n_local, K) float32; Z is left as it
-    was."""
+    was.  On the card a Z that does not start on 16 bytes (a view) is
+    copied first: the kernel's bulk copies start on 16 bytes."""
     dev = Z.device
     if dev.type == "cpu":
         return gee_delta_renorm_plain(Z, rows, cls, val, eps=eps)
@@ -275,6 +279,8 @@ def gee_delta_renorm(Z, rows, cls, val, *, eps: float = EPS):
     _build.require("rows", rows, torch.int32, (m,), dev)
     _build.require("cls", cls, torch.int32, (m,), dev)
     _build.require("val", val, torch.float32, (m,), dev)
+    if Z.data_ptr() % 16:
+        Z = Z.clone()
     Z_new = torch.empty_like(Z)
     Zn = torch.empty_like(Z)
     fn = _build.function("query_fused", "delta_renorm_launch",
@@ -287,3 +293,19 @@ def gee_delta_renorm(Z, rows, cls, val, *, eps: float = EPS):
     _build.check("query_fused", err)
     _build.launches["gee_delta_renorm"] += 1
     return Z_new, Zn
+
+
+def delta_info(Z) -> dict:
+    """How `gee_delta_renorm` runs on these rows (CUDA): rows a tile,
+    ring depth, bytes a stage, the squares' row pitch, shared memory
+    bytes a block, blocks an SM, grid, tiles, and chunks a row (1: whole
+    rows; more: a row too wide for three stages, in two passes)."""
+    n_local, K = Z.shape
+    out = (ctypes.c_int * 9)()
+    with torch.cuda.device(Z.device):
+        err = _build.function("query_fused", "delta_renorm_info",
+                              [_build.I, _build.I, _build.P])(K, n_local,
+                                                               out)
+    _build.check("query_fused", err)
+    return dict(zip(("rows", "stages", "stage_bytes", "kp", "smem",
+                     "blocks_per_sm", "grid", "tiles", "chunks"), out))

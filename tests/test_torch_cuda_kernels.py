@@ -206,11 +206,11 @@ def test_gee_delta_renorm(dev, rng, sign):
     assert _same(a[1], QF.normalize_rows(a[0]))
 
 
-@pytest.mark.parametrize("K", [129, 200, 512])
+@pytest.mark.parametrize("K", [16, 129, 172, 200, 256, 512, 1500, 3001, 4000])
 def test_gee_delta_renorm_wide(dev, rng, K):
-    """K > 128 works on its rows in device memory: Z_new and Zn have the
-    plain version's bits (run on the host, where `index_put_` adds in
-    list order)."""
+    """One body for every K: Z_new and Zn have the plain version's bits
+    (run on the host, where the adds go in list order), repeated (row,
+    class) pairs included."""
     n, m = 700, 600
     Z = torch.as_tensor(rng.random((n, K), dtype=np.float32), device=dev)
     r = np.sort(rng.integers(0, n, m)).astype(np.int32)
@@ -225,6 +225,68 @@ def test_gee_delta_renorm_wide(dev, rng, K):
     for x, y, z in zip(a, b, p):
         assert _same(x, y)
         assert _same(x.cpu(), z)
+
+
+@pytest.mark.parametrize("K", [1, 3, 5, 16, 127, 200])
+@pytest.mark.parametrize("shift", [0, 1, 3])
+def test_gee_delta_renorm_any_offset(dev, rng, K, shift):
+    """Z at a 4-byte offset from 16 bytes (a view), tiles that straddle
+    the runs, the slice's first and last rows, a grid of more blocks than
+    tiles and of fewer: the plain version's bits, Z untouched, the
+    launcher's plan as `delta_info` reports it."""
+    for n in (5, 3000):
+        flat = torch.as_tensor(rng.normal(size=n * K + shift).astype(
+            np.float32), device=dev)
+        Z = flat[shift:].view(n, K)
+        before = Z.clone()
+        r = np.sort(np.concatenate([rng.integers(0, n, 300),
+                                    [0, 0, n - 1]])).astype(np.int32)
+        c = rng.integers(0, K, r.shape[0]).astype(np.int32)
+        v = rng.random(r.shape[0], dtype=np.float32) - np.float32(0.5)
+        args = [torch.as_tensor(x, device=dev) for x in (r, c, v)]
+        a = QF.gee_delta_renorm(Z, *args)
+        p = QF.gee_delta_renorm_plain(Z.cpu(), *(x.cpu() for x in args))
+        assert _same(a[0].cpu(), p[0]) and _same(a[1].cpu(), p[1])
+        assert _same(Z, before)
+        info = QF.delta_info(Z)
+        assert info["rows"] % 4 == 0 and info["stages"] >= 3
+        assert info["tiles"] == -(-n // info["rows"])
+        assert 1 <= info["grid"] <= info["tiles"]
+
+
+@pytest.mark.parametrize("K", [15000, 20000, 40001])
+def test_gee_delta_renorm_chunked_rows(dev, rng, K):
+    """A row too wide for three stages of shared memory streams through
+    the ring in column chunks, twice: Z_new and Zn have the plain
+    version's bits, with entries on both sides of every chunk boundary,
+    repeated (row, class) pairs, a row with none, and a row of zeros."""
+    n = 40
+    Zh = rng.normal(size=(n, K)).astype(np.float32)
+    Zh[3] = 0.0
+    Z = torch.as_tensor(Zh, device=dev)
+    before = Z.clone()
+    info = QF.delta_info(Z)
+    assert info["rows"] == 1 and info["chunks"] >= 2
+    assert info["tiles"] == n * 2 * info["chunks"]
+    w = info["stage_bytes"] // 4 - 4            # columns a chunk
+    cuts = np.arange(w, K, w)
+    r = np.concatenate([rng.integers(0, n, 500), np.full(2 * cuts.size, 7),
+                        np.full(50, n - 1), [0, 0]])
+    c = np.concatenate([rng.integers(0, K, 500), cuts, cuts - 1,
+                        rng.integers(0, 3, 50), [0, K - 1]])
+    order = np.argsort(r, kind="stable")
+    r, c = r[order].astype(np.int32), c[order].astype(np.int32)
+    r[r == 11] = 12                              # row 11 has no entries
+    v = rng.random(r.size, dtype=np.float32) - np.float32(0.5)
+    args = [torch.as_tensor(x, device=dev) for x in (r, c, v)]
+    a = QF.gee_delta_renorm(Z, *args)
+    b = QF.gee_delta_renorm(Z, *args)
+    p = QF.gee_delta_renorm_plain(Z.cpu(), *(x.cpu() for x in args))
+    for x, y, z in zip(a, b, p):
+        assert _same(x, y)
+        assert _same(x.cpu(), z)
+    assert _same(a[1], QF.normalize_rows(a[0]))
+    assert _same(Z, before)
 
 
 # wide rows and long lists: K > 256 takes the chunked body, k > 64 the
