@@ -11,8 +11,9 @@
    ptxas to report no spills in the bfloat16 flash bodies (the
    backward's persistent pass one per D <= 128 and the D = 256 body, the
    forward per D <= 128 at its own width and at a narrower runtime width,
-   at danube's 120, and the D = 256 body) and in the float32 backward's
-   (`f32bwd`, one per D <= 128), and no C7520 (wgmma serialized) in any;
+   at danube's 120, and the D = 256 body), in the float32 backward's
+   (`f32bwd`, one per D <= 128) and in the float32 bodies at D = 256
+   (`f32wide`, `f32widebwd`), and no C7520 (wgmma serialized) in any;
 2. holds each kernel against its plain PyTorch version on the card at
    small shapes (for gee_scatter also K = 256, one row holding 50,000
    contributions and rows whose donors mostly share a class, each
@@ -26,8 +27,9 @@
    gee_delta_renorm at K = 200, topk_fused at K = 300 and at k = 100
    (the chunked and long-list select bodies), flash attention at D = 96
    (read in place by the D = 128 body) and at D = 160, 192, 256 and 512
-   in both dtypes (at bfloat16 the D = 256 tensor-core body up to 256,
-   read in place; at float32 and at 512 the CUDA-core wide body).  At
+   in both dtypes (up to 256 each dtype's D = 256 body, read in place:
+   the tensor-core body at bfloat16, `f32wide` at float32; at 512 the
+   CUDA-core wide body).  At
    every flash case
    the forward with lse (`flash_attention_fwd`: the same output bits,
    lse within 1e-5 of the dense oracle's) and the backward
@@ -35,8 +37,9 @@
    version on the same (o, lse) and a random dO, at the forward's
    tolerance; the float32 backward takes its body `f32bwd` up to D = 128
    (two float32-only cases: D = 96, zero-padded to 128, and a ragged S =
-   1000 at D = 64), `simplebwd` above; bfloat16 its D = 256 tensor-core
-   body up to 256 (160 and 192 read in place), `simplebwd` at 512;
+   1000 at D = 64), `f32widebwd` up to 256 (160 and 192 read in place),
+   `simplebwd` at 512; bfloat16 its D = 256 tensor-core body up to 256
+   (160 and 192 read in place), `simplebwd` at 512;
 3. drives the GEE path at the scale of SNAP soc-LiveJournal1 (an SBM
    with n = 4,847,571 nodes, s = 68,993,773 edges, K = 16, 10% labeled):
    `Embedder(backend="cuda").fit`, then two `EmbeddingShard`s
@@ -143,9 +146,16 @@
    prefill's shape, and at one wide shape (B = --lm-batch, H 8, KV 2,
    S = --lm-prompt, D = 256): the D = 256 tensor-core body at bfloat16
    beside SDPA and its bound (with the launcher's items and grid), the
-   CUDA-core wide body on the same inputs in float32 and its float32
-   backward (`simplebwd<float>`) beside SDPA's float32 backward and its
-   fp32 operation bound, the backward (its
+   float32 bodies on the same inputs in float32 (`f32wide` and
+   `f32widebwd`, with the launchers' items and grid) beside SDPA's
+   float32 forward and backward (in turns) and their fp32 operation
+   bounds: the forward held to its plain version at 2e-5, the backward
+   to the plain version in float64 at atol = rtol = 2e-5, its two runs
+   bit-equal, each at most F32_FWD_MAX_RATIO or F32_BWD_MAX_RATIO (1.25)
+   x its SDPA call; both dtypes at D = 512 (B 1, H 8, KV 2, S =
+   --lm-prompt: the simple bodies `widebody` and `simplebwd`) in both
+   directions beside SDPA (the backend it picks, read from a profile)
+   and their bounds; the backward (its
    D = 256 tensor-core body, with the launcher's items and grid) beside
    SDPA's backward, and `FlashAttentionFunction` forward + backward on
    the model's (B, S, H, D) layout beside SDPA's forward + backward, all
@@ -505,9 +515,12 @@ def same(a, b) -> bool:
 # from run to run on the card (an index backward that adds rows with
 # atomics) could separate the two, by a few float32 steps an update.
 FAM_TRAIN_TOL = 1e-4
-# the float32 backward body (f32bwd) at yi's shape: its time over SDPA's
-# float32 backward in the same run (phase 6), at most
+# the float32 backward bodies (f32bwd at yi's shape, f32widebwd at the
+# wide shape): each time over SDPA's float32 backward in the same run
+# (phase 6), at most; and the float32 forward's at the wide shape
+# (f32wide) over SDPA's float32 forward
 F32_BWD_MAX_RATIO = 1.25
+F32_FWD_MAX_RATIO = 1.25
 RESUME_TOL = 1e-4
 
 
@@ -1649,6 +1662,15 @@ def main() -> int:
                                  f"{f32b}")
         print("ptxas: the 4 float32 backward bodies (f32bwd, D = 16, 32, "
               "64, 128) spill 0 bytes")
+        # the float32 bodies at D = 256, forward and backward
+        f32w = {f: n for f, n in ptxas_spills(
+            _build.ptxas_log["flash_attention"]).items()
+            if "f32_wide_kernel" in f}
+        if len(f32w) != 2 or any(f32w.values()):
+            raise AssertionError(f"ptxas spill bytes of the float32 D = 256 "
+                                 f"bodies (2 expected, all 0): {f32w}")
+        print("ptxas: the float32 D = 256 bodies (f32wide, f32widebwd) "
+              "spill 0 bytes")
         if c7520:
             raise AssertionError(f"ptxas serialized the wgmma of a flash "
                                  f"body (C7520): {c7520}")
@@ -1952,10 +1974,10 @@ def main() -> int:
         (1, 2, 2, 64, 16), (2, 4, 2, 128, 32), (1, 8, 1, 128, 16),
         (2, 4, 2, 100, 64), (1, 4, 4, 1, 32), (1, 8, 2, 200, 128),
         (1, 32, 4, 130, 128), (1, 8, 2, 200, 96),
-        # D > 128: at bfloat16 the D = 256 tensor-core body (160 and 192
-        # read in place), at float32 and at D = 512 the CUDA-core wide body
-        # (ragged S and a ragged last D chunk); the backward's CUDA-core
-        # body at all of them
+        # D > 128: up to 256 each dtype's D = 256 body, 160 and 192 read in
+        # place (the tensor-core bodies at bfloat16, f32wide and
+        # f32widebwd at float32), at D = 512 the CUDA-core wide bodies
+        # (ragged S and a ragged last D chunk)
         (1, 4, 2, 100, 160), (1, 4, 2, 130, 192), (2, 8, 2, 130, 256),
         (1, 2, 1, 70, 512))
         for dt in (torch.float32, torch.bfloat16)]
@@ -3114,6 +3136,117 @@ def main() -> int:
               f"not held): prefill {free[0]:.3f}, decode step 1 "
               f"{free[1]:.3f}")
 
+    def sdpa_backend(fn):
+        """(the SDPA backend one call of fn runs, its kernels' names) from
+        a profile of the call: "cudnn", "efficient" (the memory-efficient
+        kernels), "flash", or "math" (no fused attention kernel: matrix
+        products and a softmax)."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof_:
+            fn()
+            torch.cuda.synchronize()
+        names = [n_ for n_, _ in kernel_times(prof_)[2]]
+        low = " ".join(names).lower()
+        backend = ("cudnn" if "cudnn" in low else
+                   "efficient" if ("fmha" in low or "attention_kernel" in low
+                                   or "mem_eff" in low) else
+                   "flash" if "flash" in low else "math")
+        return backend, names
+
+    def d512_path(B):
+        """Both dtypes at D = 512 (B x 8 query heads over 2 KV heads, S =
+        --lm-prompt), where the simple CUDA-core bodies run (`widebody`
+        forward, `simplebwd` backward): forward and backward each timed
+        beside SDPA's (in turns; the backend it picks read from a
+        profile) and its bound, fp32 operations at float32 and
+        tensor-core operations at bfloat16; the forward held to its plain
+        version (check_flash), the backward's gap to its plain version
+        printed (the smoke's small case at D = 512 holds it).  Returns the
+        flash row's `wide_D512_*` and `wide_bwd_D512_*` entries."""
+        S, H, KV, D = args.lm_prompt, 8, 2, 512
+        gen_ = torch.Generator(device=dev).manual_seed(args.seed + 512)
+        flops = 4.0 * D * B * H * S * (S + 1) / 2
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        out = {}
+        for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            q, do = (torch.randn((B, H, S, D), generator=gen_, device=dev,
+                                 dtype=dt) for _ in range(2))
+            k, v = (torch.randn((B, KV, S, D), generator=gen_, device=dev,
+                                dtype=dt) for _ in range(2))
+            esz, tc = q.element_size(), dt == torch.bfloat16
+            err = check_flash(q, k, v, f"D=512 {dt}")
+
+            def fwd():
+                return FA.flash_attention(q, k, v)
+
+            def fwd_sdpa():
+                return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+
+            f1, l1 = timer(fwd, 2), timer(fwd_sdpa, 3)
+            l2, f2 = timer(fwd_sdpa, 3), timer(fwd, 2)
+            o, lse = FA.flash_attention_fwd(q, k, v)
+            ga = FA.flash_attention_bwd(q, k, v, o, lse, do)
+            gp = FA.flash_attention_bwd_plain(q, k, v, o, lse, do)
+            err_b = max((x_.float() - y_.float()).abs().max().item()
+                        for x_, y_ in zip(ga, gp))
+            del ga, gp
+            lib_in = [x.detach().requires_grad_() for x in (q, k, v)]
+            lib_out = sdpa(*lib_in, is_causal=True, enable_gqa=True)
+
+            def bwd():
+                return FA.flash_attention_bwd(q, k, v, o, lse, do)
+
+            def bwd_sdpa():
+                return torch.autograd.grad(lib_out, lib_in, do,
+                                           retain_graph=True)
+
+            b1, bl1 = timer(bwd, 1), timer(bwd_sdpa, 2)
+            bl2, b2 = timer(bwd_sdpa, 2), timer(bwd, 1)
+            be_f, names_f = sdpa_backend(fwd_sdpa)
+            be_b, names_b = sdpa_backend(bwd_sdpa)
+            fp, bp = f"wide_D512_{tag}", f"wide_bwd_D512_{tag}"
+            row = {
+                f"{fp}_ms": (f1 + f2) / 2,
+                f"{fp}_bound_ms": bound_ms(
+                    esz * (2 * B * H * S * D + 2 * B * KV * S * D), flops,
+                    tensor_cores=tc)[0],
+                f"{fp}_plain_ms": timer(
+                    lambda: FA.flash_attention_plain(q, k, v), 2),
+                f"{fp}_library_ms": (l1 + l2) / 2,
+                f"{fp}_library_backend": be_f,
+                f"{fp}_max_abs_err": err,
+                f"{bp}_ms": (b1 + b2) / 2,
+                f"{bp}_bound_ms": bound_ms(
+                    esz * (4 * B * H * S * D + 4 * B * KV * S * D)
+                    + 4 * B * H * S, 2.5 * flops, tensor_cores=tc)[0],
+                f"{bp}_plain_ms": timer(
+                    lambda: FA.flash_attention_bwd_plain(q, k, v, o, lse,
+                                                         do), 1),
+                f"{bp}_library_ms": (bl1 + bl2) / 2,
+                f"{bp}_library_backend": be_b,
+                f"{bp}_max_abs_err": err_b}
+            by = "fp32 operations" if not tc else "bf16 tensor-core operations"
+            for what, pre, k1, k2, lib1_, lib2_, be_, names_ in (
+                    ("flash_attention (widebody)", fp, f1, f2, l1, l2, be_f,
+                     names_f),
+                    ("flash_attention_bwd (simplebwd)", bp, b1, b2, bl1, bl2,
+                     be_b, names_b)):
+                ms_ = row[f"{pre}_ms"]
+                print(f"{what} at B={B} H={H} KV={KV} S={S} D={D} {dt}: "
+                      f"kernel {k1:.4f} / {k2:.4f} ms, SDPA {lib1_:.4f} / "
+                      f"{lib2_:.4f} ms (backend {be_}: "
+                      f"{'; '.join(n_[:48] for n_ in names_[:3])}), kernel "
+                      f"/ library {ms_ / row[f'{pre}_library_ms']:.3f}, "
+                      f"bound {row[f'{pre}_bound_ms']:.4f} ms ({by}), share "
+                      f"of the bound {row[f'{pre}_bound_ms'] / ms_:.4f}, "
+                      f"plain {row[f'{pre}_plain_ms']:.3f} ms, max|err| vs "
+                      f"plain {row[f'{pre}_max_abs_err']:.3e}")
+            out.update(row)
+            del q, k, v, do, o, lse, lib_in, lib_out
+        return out
+
     def lm_path():
         """Phase 6 (LM serve path); returns the flash kernel's row."""
         cfg = get_config("yi-6b")
@@ -3267,37 +3400,72 @@ def main() -> int:
               f"schedule (flash_attention_fwd_info): {sch_w['items']} work "
               f"items of {sch_w['rows']} rows x {sch_w['keys']}-key tiles on "
               f"a grid of {sch_w['grid']} persistent blocks")
+        # the float32 bodies at the same shape (f32wide, f32widebwd) on
+        # the same inputs in float32, beside SDPA's float32 forward and
+        # backward (one autograd call on a retained graph) in turns,
+        # against their fp32 operation bounds: the forward held to its
+        # plain version at 2e-5 (check_flash), the backward to the plain
+        # version in float64 at atol = rtol = 2e-5 and its two runs
+        # bit-equal; each at most F32_FWD_MAX_RATIO / F32_BWD_MAX_RATIO x
+        # its SDPA call
         qf, kf, vf = (x.float() for x in (qw, kw_, vw))
         err_f = check_flash(qf, kf, vf, "wide D=256 float32")
+
+        def run_f32_wide():
+            return FA.flash_attention(qf, kf, vf)
+
+        def run_f32_wide_sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qf, kf, vf, is_causal=True, enable_gqa=True)
+
+        ff1, ffl1 = timer(run_f32_wide, 5), timer(run_f32_wide_sdpa, 5)
+        ffl2, ff2 = timer(run_f32_wide_sdpa, 5), timer(run_f32_wide, 5)
+        sch_ff = FA._fwd_schedule(B, Hw, S, Dw, dev, torch.float32)
         wide.update(
-            wide_D256_f32_ms=timer(lambda: FA.flash_attention(qf, kf, vf), 3),
+            wide_D256_f32_ms=(ff1 + ff2) / 2,
             # float32 operations outside the tensor cores, 4-byte operands
             wide_D256_f32_bound_ms=bound_ms(2 * bytes_w, flops_w)[0],
             wide_D256_f32_plain_ms=timer(
                 lambda: FA.flash_attention_plain(qf, kf, vf), 2),
-            wide_D256_f32_library_ms=timer(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qf, kf, vf, is_causal=True, enable_gqa=True), 3),
-            wide_D256_f32_max_abs_err=err_f)
-        print(f"flash_attention wide, the CUDA-core body, at the same shape "
-              f"in float32: kernel {wide['wide_D256_f32_ms']:.4f} ms, bound "
+            wide_D256_f32_library_ms=(ffl1 + ffl2) / 2,
+            wide_D256_f32_max_abs_err=err_f,
+            wide_D256_f32_body=f"f32wide (flash_fwd_f32_wide_kernel, "
+                               f"{FA._forward_route(torch.float32, Dw)[0]})")
+        ms_ff = wide["wide_D256_f32_ms"]
+        ratio_ff = ms_ff / wide["wide_D256_f32_library_ms"]
+        print(f"flash_attention wide in float32 at the same shape, "
+              f"{wide['wide_D256_f32_body']}: kernel {ff1:.4f} / {ff2:.4f} "
+              f"ms, SDPA's float32 forward {ffl1:.4f} / {ffl2:.4f} ms, "
+              f"kernel / library {ratio_ff:.3f} (at most "
+              f"{F32_FWD_MAX_RATIO}), bound "
               f"{wide['wide_D256_f32_bound_ms']:.4f} ms (fp32 operations), "
-              f"plain {wide['wide_D256_f32_plain_ms']:.4f} ms, library "
-              f"{wide['wide_D256_f32_library_ms']:.4f} ms, max|err| "
-              f"{err_f:.3e}")
-        # the float32 backward at the same shape (simplebwd<float>, the
-        # CUDA-core body: no float32 body of its own above D = 128),
-        # beside SDPA's float32 backward in turns, against its fp32
-        # operation bound (the five products); its gap to the plain version
-        # in float64 and whether two runs agree are printed, not held (the
-        # smoke's small cases hold this body)
+              f"share of the bound "
+              f"{wide['wide_D256_f32_bound_ms'] / ms_ff:.3f}, plain "
+              f"{wide['wide_D256_f32_plain_ms']:.4f} ms, max|err| "
+              f"{err_f:.3e}; the launcher's schedule "
+              f"(flash_attention_fwd_info): {sch_ff['items']} work items of "
+              f"{sch_ff['rows']} rows x {sch_ff['keys']}-key tiles on a "
+              f"grid of {sch_ff['grid']} persistent blocks")
+        if ratio_ff > F32_FWD_MAX_RATIO:
+            raise AssertionError(f"flash_attention at the wide shape float32 "
+                                 f"takes {ratio_ff:.3f} x SDPA's forward, "
+                                 f"above {F32_FWD_MAX_RATIO}")
         o_f, lse_f = FA.flash_attention_fwd(qf, kf, vf)
         do_f = torch.randn(qf.shape, generator=gen_, device=dev)
         gb1 = FA.flash_attention_bwd(qf, kf, vf, o_f, lse_f, do_f)
         gb2 = FA.flash_attention_bwd(qf, kf, vf, o_f, lse_f, do_f)
-        runs_b = all(same(a_, b_) for a_, b_ in zip(gb1, gb2))
         g64 = FA.flash_attention_bwd_plain(
             *(x.double() for x in (qf, kf, vf, o_f, lse_f, do_f)))
+        for n_, x_, y_, z_ in zip(("dq", "dk", "dv"), gb1, gb2, g64):
+            if not same(x_, y_):
+                raise AssertionError(f"flash_attention_bwd at the wide shape "
+                                     f"float32: {n_} runs differ")
+            if not torch.allclose(x_.double(), z_, rtol=2e-5, atol=2e-5):
+                raise AssertionError(
+                    f"flash_attention_bwd at the wide shape float32: {n_} "
+                    f"max|err| {(x_.double() - z_).abs().max().item()} "
+                    f"from the float64 plain version, outside atol = rtol "
+                    f"= 2e-5")
         err_fb = max((a_.double() - b_).abs().max().item()
                      for a_, b_ in zip(gb1, g64))
         del gb1, gb2, g64
@@ -3312,29 +3480,45 @@ def main() -> int:
             return torch.autograd.grad(lib_out, lib_in, do_f,
                                        retain_graph=True)
 
-        fw1, fwl1 = timer(run_f32_wide_bwd, 2), timer(run_f32_wide_bwd_sdpa, 3)
-        fwl2, fw2 = timer(run_f32_wide_bwd_sdpa, 3), timer(run_f32_wide_bwd, 2)
+        fw1, fwl1 = timer(run_f32_wide_bwd, 3), timer(run_f32_wide_bwd_sdpa, 3)
+        fwl2, fw2 = timer(run_f32_wide_bwd_sdpa, 3), timer(run_f32_wide_bwd, 3)
         route_fw = FA._backward_route(torch.float32, Dw)
+        sch_fw = FA._bwd_schedule(B, KVw, S, Dw, dev, torch.float32)
         wide.update(
             wide_bwd_D256_f32_ms=(fw1 + fw2) / 2,
             wide_bwd_D256_f32_bound_ms=bound_ms(
                 4 * (4 * B * Hw * S * Dw + 4 * B * KVw * S * Dw)
                 + 4 * B * Hw * S, 2.5 * flops_w)[0],
+            wide_bwd_D256_f32_plain_ms=timer(
+                lambda: FA.flash_attention_bwd_plain(qf, kf, vf, o_f, lse_f,
+                                                     do_f), 1),
             wide_bwd_D256_f32_library_ms=(fwl1 + fwl2) / 2,
             wide_bwd_D256_f32_max_abs_err=err_fb,
-            wide_bwd_D256_f32_body=str(route_fw))
+            wide_bwd_D256_f32_body=f"f32widebwd (flash_bwd_f32_wide_kernel, "
+                                   f"{route_fw[0]})")
         ms_fw = wide["wide_bwd_D256_f32_ms"]
+        ratio_fw = ms_fw / wide["wide_bwd_D256_f32_library_ms"]
         print(f"flash_attention_bwd at the same shape in float32, "
-              f"{route_fw}: kernel {fw1:.4f} / {fw2:.4f} ms, SDPA's float32 "
-              f"backward {fwl1:.4f} / {fwl2:.4f} ms, kernel / library "
-              f"{ms_fw / wide['wide_bwd_D256_f32_library_ms']:.3f}, bound "
+              f"{wide['wide_bwd_D256_f32_body']}: kernel {fw1:.4f} / "
+              f"{fw2:.4f} ms, SDPA's float32 backward {fwl1:.4f} / "
+              f"{fwl2:.4f} ms, kernel / library {ratio_fw:.3f} (at most "
+              f"{F32_BWD_MAX_RATIO}), bound "
               f"{wide['wide_bwd_D256_f32_bound_ms']:.4f} ms (fp32 "
               f"operations), share of the bound "
-              f"{wide['wide_bwd_D256_f32_bound_ms'] / ms_fw:.3f}; max|err| "
-              f"vs the float64 plain version {err_fb:.3e}, two runs "
-              f"bit-equal: {runs_b}")
+              f"{wide['wide_bwd_D256_f32_bound_ms'] / ms_fw:.3f}, plain "
+              f"{wide['wide_bwd_D256_f32_plain_ms']:.1f} ms; the launcher's "
+              f"schedule (flash_attention_bwd_info): {sch_fw['items']} work "
+              f"items of {sch_fw['keys']} keys x {sch_fw['queries']}-query "
+              f"steps on a grid of {sch_fw['grid']} persistent blocks; "
+              f"max|err| vs the float64 plain version {err_fb:.3e} (atol = "
+              f"rtol = 2e-5 held), two runs bit-equal")
+        if ratio_fw > F32_BWD_MAX_RATIO:
+            raise AssertionError(f"flash_attention_bwd at the wide shape "
+                                 f"float32 takes {ratio_fw:.3f} x SDPA's "
+                                 f"backward, above {F32_BWD_MAX_RATIO}")
         del o_f, lse_f, do_f, lib_in, lib_out
         del qf, kf, vf
+        wide.update(d512_path(B=1))
         # the backward at the bfloat16 shape, on its tensor-core body for
         # 128 < D <= 256: two runs bit-equal, held to its plain version by
         # phase 8's limits, timed beside SDPA's backward (one autograd call
@@ -3901,8 +4085,9 @@ def main() -> int:
         rate = (f", {r_['tflops']:.1f} TFLOP/s, {r_['bound_share']:.3f} of "
                 f"the bound; the D = 256 body: {r_['wide_D256_ms']:.4f} ms "
                 f"(bound {r_['wide_D256_bound_ms']:.4f}, library "
-                f"{r_['wide_D256_library_ms']:.4f}); the CUDA-core "
-                f"body at float32 D = 256: {r_['wide_D256_f32_ms']:.4f} ms; "
+                f"{r_['wide_D256_library_ms']:.4f}); float32 at D = 256 "
+                f"(f32wide): {r_['wide_D256_f32_ms']:.4f} ms, backward "
+                f"(f32widebwd) {r_['wide_bwd_D256_f32_ms']:.4f} ms; "
                 f"the backward at D = 256 ({r_['wide_bwd_D256_body']}): "
                 f"{r_['wide_bwd_D256_ms']:.4f} ms (SDPA's "
                 f"{r_['wide_bwd_D256_library_ms']:.4f}); forward + "

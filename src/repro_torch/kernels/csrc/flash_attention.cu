@@ -19,9 +19,10 @@
 //
 // flash_attention_launch picks one of two bodies by dtype, for D in
 // {16, 32, 64, 128} (and at bfloat16 any narrower multiple of 8, read in
-// place), and at bfloat16 a third for 128 < D <= 256 (the wide tensor-core
-// body, below); flash_attention_wide_launch runs a simple body for any
-// D > 128 at float32 and D > 256 at bfloat16 (widebody, below).
+// place), and for 128 < D <= 256 one more a dtype: at bfloat16 the wide
+// tensor-core body, at float32 the wide CUDA-core body f32wide (each
+// reading a narrower width in place, below); flash_attention_wide_launch
+// runs a simple body for any D > 256 (widebody, below).
 //
 // bfloat16 (bf16body): both products on the tensor cores, in persistent
 // blocks.  The grid is one block per SM (fewer if there are fewer work
@@ -120,7 +121,30 @@
 // thread owns output columns tx + 16 c.  Rows and keys past S (a ragged
 // last tile) are zero-filled and masked.
 //
-// float32 at any D > 128, and bfloat16 at D > 256 (widebody): CUDA cores,
+// float32 at 128 < D <= 256 (f32wide, run at 256 with a narrower width
+// that is a multiple of 4 read in place: the maps' columns past it land
+// as zeros): f32body's arithmetic and contract (fmaf and expf, every row
+// reduced over its key tiles in one order, no atomics, the optional lse)
+// in the bfloat16 bodies' persistent schedule: one block an SM takes
+// (batch x head, 64-row query tile) items heaviest first from the ticket
+// counter.  One thread of a producer warpgroup (40 registers after
+// setmaxnreg, the compute warps 232) loads the item's Q once (TMA, 64 KB,
+// resident while the item runs) and 32-key K and V tiles (32 KB each,
+// 128 B swizzled) into a ring of two stages, so that the next tiles land
+// under the products; eight compute warps own 8 rows each.  On this card a
+// warp's 16-byte shared load moves 512 bytes, 4 cycles of shared memory
+// whatever it broadcasts, against 4 warp FFMAs a cycle: what bounds a
+// CUDA-core product is 16-byte loads per FFMA, so both products are
+// register tiles that need few.  S splits D four ways: each thread sums a
+// quarter of the dots of 4 rows x 8 keys (12 loads a unit for 128 FFMA),
+// and xor shuffles add the quarters and leave it one row x 8 keys for the
+// softmax (a row's max and sum over its 4 lanes); P goes to a transposed
+// shared tile, and P V gives each thread O for its warp's 8 rows x 8
+// columns in registers (64 floats; 4 loads a key for 64 FFMA).  Shared
+// memory: 207,456 bytes (f32body's layout, Q and K at pitch D + 1, would
+// take 213,760 at D = 256 for one K and V tile and no ring).
+//
+// float32 at D > 256, and bfloat16 at D > 256 (widebody): CUDA cores,
 // float32 arithmetic, no tensor cores; correctness first, not speed.  One
 // block
 // of 256 threads per (batch x head, 16-row query tile), the heaviest
@@ -270,8 +294,19 @@
 // registers, scale and write dq.  Shared memory: 219,712 bytes at D = 128
 // (two Q / dO slots would need 64 KB more).
 //
-// float32 at D > 128, and bfloat16 at D > 256 (simplebwd): CUDA cores,
-// float32 arithmetic, written for correctness as the wide forward body.
+// float32 at 128 < D <= 256 (f32widebwd, run at 256 with a narrower width
+// that is a multiple of 4 read in place): f32bwd retiled, since its
+// layout needs 256 KB of operand tiles and 64 KB of share at D = 256.
+// Items of 32 keys and steps of 32 queries: K, V, Q and dO take 32 KB
+// each, dq's share 32 KB, 179,008 bytes in all; each compute thread keeps
+// dv or dk for 8 keys x 8 columns (64 floats, as f32bwd at D = 128).  The
+// same roles, list order, walk, tickets, counters, dq add order and fmaf
+// sums, but S and dP split D four ways as f32wide's S (a quarter of the
+// dots of 4 queries x 8 keys a thread, the quarters added by xor
+// shuffles); dq's share is 8 queries x 4 columns a thread.
+//
+// float32 and bfloat16 at D > 256 (simplebwd): CUDA cores, float32
+// arithmetic, written for correctness as the wide forward body.
 // 16-query x 32-key tiles, D staged in chunks of 128 columns in shared
 // memory; the accumulators live in float32 rows of a scratch the caller
 // allocates, each element read and written by one thread in a fixed
@@ -3306,16 +3341,16 @@ static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * CONSUMERS <=
                   65536 / NTHREADS / 8 * 8 * NTHREADS,
               "more registers than the block was launched with");
 
-// A 64-row float32 tile of D columns as TMA lands it: D / AW chunks of 64
+// An R-row float32 tile of D columns as TMA lands it: D / AW chunks of R
 // rows x AW floats, one swizzle atom a row (128 B; 64 B at D = 16), so a
 // 16-byte unit of a row sits at its index XOR the row's low bits.
-template <int D>
+template <int D, int R = 64>
 struct Tile {
   static constexpr int AW = D < 32 ? D : 32;        // floats in a chunk row
   static constexpr int NC = D / AW;
   static constexpr int UPR = AW / 4;                // units in a chunk row
   static constexpr uint32_t ROW = AW * 4;
-  static constexpr uint32_t CHUNK = 64 * ROW;
+  static constexpr uint32_t CHUNK = R * ROW;
   static constexpr uint32_t BYTES = NC * CHUNK;
   static constexpr CUtensorMapSwizzle SWIZZLE =
       ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
@@ -3765,20 +3800,21 @@ flash_bwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// a 4-D map over a (B, n heads, S, D) float32 tensor with element strides
-// `l` (the last axis contiguous), seen as (D, n, S, B), boxes of {AW, 1,
-// 64, 1}: rows past S read as zeros, never the next head's
-template <int D>
+// a 4-D map over a (B, n heads, S, width) float32 tensor with element
+// strides `l` (the last axis contiguous), seen as (width, n, S, B), for
+// tiles of R rows x D >= width columns; boxes of {AW, 1, R, 1}: rows past
+// S read as zeros, never the next head's, and so do columns width .. D - 1
+template <int D, int R = 64>
 int make_map(CUtensorMap* map, const void* ptr, const Lay& l, int n, int S,
-             int B) {
-  using T = Tile<D>;
+             int B, int width = D) {
+  using T = Tile<D, R>;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)n, (cuuint64_t)S,
-                              (cuuint64_t)B};
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)n,
+                              (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)l.h * 4, (cuuint64_t)l.s * 4,
                                  (cuuint64_t)l.b * 4};
-  const cuuint32_t box[4] = {(cuuint32_t)T::AW, 1, 64, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)T::AW, 1, (cuuint32_t)R, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
                         const_cast<void*>(ptr), dims, strides, box, step,
@@ -3829,6 +3865,848 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 }
 
 }  // namespace f32bwd
+
+namespace f32wide {
+
+using namespace bf16body;   // mbarriers, TMA loads, the work list, NEG
+using f32bwd::lds;
+using f32bwd::lds4;
+
+constexpr int D = 256;          // the body's width (a narrower one read in place)
+constexpr int BQ = 64;          // query rows of a work item, 8 a compute warp
+constexpr int BK = 32;          // keys per K and V tile
+constexpr int STAGES = 2;       // K and V tiles in the ring
+constexpr int WARPS = 8;        // compute warps
+constexpr int THREADS = 32 * WARPS + 128;  // and the producer's warpgroup
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int PT = BQ + 8;      // row stride (floats) of the P^T tile
+constexpr int PARTS = 4;        // S: D split among 4 lanes
+
+using TQ = f32bwd::Tile<D, BQ>;   // the item's Q: 64 KB
+using TK = f32bwd::Tile<D, BK>;   // a K or V tile: 32 KB
+
+// Shared memory: Q (64 rows, resident for the item), STAGES K tiles and
+// STAGES V tiles of 32 rows (TMA, 128 B swizzled), the P^T tile (32 keys
+// x 64 rows at a padded row of 72 floats: a lane's keys kq + 4 c put the
+// 32 lanes' stores on 32 banks), each row's rescale factor and sum (2 x
+// 64 floats), the current item, the mbarriers: 65,536 + 131,072 + 9,216 +
+// 512 + 16 + 80 + 1,024 to align the base = 207,456 bytes of the 232,448
+// a block may take.  (f32body's layout at D = 256, Q and K
+// at pitch D + 1 beside V and P, takes 213,760 and holds one K and V
+// tile: no room to load the next under the products.)
+constexpr uint32_t Q_OFF = 0;
+constexpr uint32_t K_OFF = TQ::BYTES;
+constexpr uint32_t V_OFF = K_OFF + STAGES * TK::BYTES;
+constexpr uint32_t P_OFF = V_OFF + STAGES * TK::BYTES;
+constexpr uint32_t ROW_OFF = P_OFF + BK * PT * 4;
+constexpr uint32_t ITEM_OFF = ROW_OFF + 2 * BQ * 4;
+constexpr uint32_t BAR_OFF = ITEM_OFF + 16;
+constexpr size_t SMEM = BAR_OFF + 8 * (2 + 4 * STAGES) + 1024;
+static_assert(SMEM <= 232448, "more shared memory than a block may take");
+static_assert(BQ == 8 * WARPS, "a compute warp owns 8 rows of an item");
+static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 32 * WARPS <=
+                  65536 / THREADS / 8 * 8 * THREADS,
+              "more registers than the block was launched with");
+
+// The forward at float32 and 128 < D <= 256 (see the note at the top of
+// the file): persistent blocks over the bfloat16 bodies' work list (the
+// last query tiles first, a GQA group's heads side by side), one ticket
+// counter.  Compute warp w owns rows 8 w .. 8 w + 7 of an item.  S splits
+// D four ways: lane (p, h, kq) = (lane / 8, lane / 4 % 2, lane % 4) sums
+// units 16 p .. 16 p + 15 of the dots of rows 8 w + 4 h + r (r < 4) with
+// keys kq + 4 c (c < 8) of a tile, 32 partial dots from 12 16-byte loads a
+// unit (a warp's 16-byte load moves 512 bytes, 4 cycles of shared memory,
+// whatever it broadcasts, so what counts is loads per product); xor
+// shuffles add the quarters, (x0 + x1) + (x2 + x3), and leave the lane one
+// row, 8 w + 4 h + 2 (p & 1) + p / 2, against 8 keys.  A row's max and sum
+// are taken over its 4 lanes (xor shuffles).  P goes to the P^T tile
+// (keys x rows) and the rows' rescale factors beside it, and P V gives
+// each lane O of all 8 rows at 8 columns (units lane and lane + 32): per
+// key two loads of P^T and two of V for 64 products.  No step waits on
+// another warp.  `work`: the ticket counter, zero at the launch and left
+// zero.
+// The maps hold the operands' real width (a multiple of 4, at most 256):
+// the columns past it land as zeros, and O is stored below it.
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          float* __restrict__ o, float* __restrict__ lse,
+                          Lay lo, int* work, int B, int H, int KV, int S,
+                          int width, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* gb = smem_raw + (base - smem_u32(smem_raw));
+  volatile int* item_s = reinterpret_cast<volatile int*>(gb + ITEM_OFF);
+  const uint32_t bar = base + BAR_OFF;
+  // mbarriers: Q full (TMA bytes) and empty (every compute thread, after
+  // the item's last S); per stage K full and V full (TMA bytes), K empty
+  // (every compute thread, after the tile's S) and V empty (after P V)
+  const uint32_t full_q = bar, empty_q = bar + 8, full_k = bar + 16,
+                 full_v = full_k + 8 * STAGES,
+                 empty_k = full_v + 8 * STAGES,
+                 empty_v = empty_k + 8 * STAGES;
+
+  const int G = H / KV;
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int n_items = B * H * n_qt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    mbar_init(empty_q, 32 * WARPS);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, 32 * WARPS);
+      mbar_init(empty_v + 8 * s, 32 * WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 32 * WARPS) {
+    // the producer warpgroup's first thread takes the items and starts
+    // every load; the compute warps take the registers it gives back (O,
+    // S's partial dots and the loaded units take more than the 168 a
+    // thread the launch allows)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS)
+                 : "memory");
+    if (threadIdx.x != 32 * WARPS) return;
+    int j = 0;                                   // K, V tiles loaded so far
+    for (int n = 0;; ++n) {
+      const int item = atomicAdd(work, 1);
+      if (item >= n_items) {
+        // the last ticket of the launch puts the counter back to zero
+        if (item == n_items + (int)gridDim.x - 1) atomicExch(work, 0);
+        mbar_wait(empty_q, (n & 1) ^ 1);
+        *item_s = -1;
+        mbar_arrive(full_q);
+        break;
+      }
+      int b, h, qt;
+      work_item(item, B, H, n_qt, b, h, qt);
+      const int kvh = h / G, q0 = qt * BQ;
+      const int n_kv = (min(S, q0 + BQ) + BK - 1) / BK;
+      // K and V of key tile t into the next ring slot
+      auto kv_load = [&](int t) {
+        const int s = j % STAGES;
+        const uint32_t parity = ((j / STAGES) & 1) ^ 1;
+        mbar_wait(empty_k + 8 * s, parity);
+        mbar_expect_tx(full_k + 8 * s, TK::BYTES);
+        for (int c = 0; c < TK::NC; ++c)
+          tma_load(base + K_OFF + s * TK::BYTES + c * TK::CHUNK, &tk,
+                   full_k + 8 * s, c * TK::AW, kvh, t * BK, b);
+        mbar_wait(empty_v + 8 * s, parity);
+        mbar_expect_tx(full_v + 8 * s, TK::BYTES);
+        for (int c = 0; c < TK::NC; ++c)
+          tma_load(base + V_OFF + s * TK::BYTES + c * TK::CHUNK, &tv,
+                   full_v + 8 * s, c * TK::AW, kvh, t * BK, b);
+        ++j;
+      };
+      // the item's first tiles land while the consumers end the last item
+      // (their slots are released by its last tiles alone), its Q once
+      // the last item's S has released the one slot
+      const int pre = min(n_kv, STAGES);
+      for (int t = 0; t < pre; ++t) kv_load(t);
+      mbar_wait(empty_q, (n & 1) ^ 1);
+      *item_s = item;
+      mbar_expect_tx(full_q, TQ::BYTES);
+      for (int c = 0; c < TQ::NC; ++c)
+        tma_load(base + Q_OFF + c * TQ::CHUNK, &tq, full_q, c * TQ::AW, h,
+                 q0, b);
+      for (int t = pre; t < n_kv; ++t) kv_load(t);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS)
+                 : "memory");
+    const int tid = threadIdx.x;
+    const int warp = tid / 32, lane = tid % 32;
+    const int pq = lane / 8, kq = lane % 4;
+    const int r4 = 8 * warp + 4 * (lane / 4 % 2);      // S: rows r4 + r
+    const int ro = r4 + 2 * (pq & 1) + (pq >> 1);      // the lane's row
+    float* pt = reinterpret_cast<float*>(gb + P_OFF);
+    float* alpha_s = reinterpret_cast<float*>(gb + ROW_OFF);
+    float* l_s = alpha_s + BQ;
+    int j = 0;                                   // K, V tiles read so far
+    for (int n = 0;; ++n) {
+      mbar_wait(full_q, n & 1);
+      const int item = *item_s;
+      if (item < 0) break;
+      int b, h, qt;
+      work_item(item, B, H, n_qt, b, h, qt);
+      const int q0 = qt * BQ;
+      const int n_kv = (min(S, q0 + BQ) + BK - 1) / BK;
+      // the lane's row: running max and sum; O: rows 8 warp + r8 x
+      // columns 4 (lane + 32 uu) + e, element [r8][4 uu + e]
+      float m = NEG, l = 0.f;
+      float acc[8][8];
+#pragma unroll
+      for (int r8 = 0; r8 < 8; ++r8)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[r8][e] = 0.f;
+      for (int t = 0; t < n_kv; ++t, ++j) {
+        const int s = j % STAGES;
+        const uint32_t parity = (j / STAGES) & 1;
+        const uint32_t ks = K_OFF + s * TK::BYTES, vs = V_OFF + s * TK::BYTES;
+        // S = Q K^T: each quarter of a dot over D in column order
+        float x[4][8];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) x[r][c] = 0.f;
+        mbar_wait(full_k + 8 * s, parity);
+#pragma unroll 2
+        for (int tt = 0; tt < D / 4 / PARTS; ++tt) {
+          const int u = D / 4 / PARTS * pq + tt;
+          float4 qf[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            qf[r] = lds4(gb, Q_OFF + TQ::at(r4 + r, u));
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            const float4 kf = lds4(gb, ks + TK::at(kq + 4 * c, u));
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              x[r][c] = fmaf(qf[r].x, kf.x, x[r][c]);
+              x[r][c] = fmaf(qf[r].y, kf.y, x[r][c]);
+              x[r][c] = fmaf(qf[r].z, kf.z, x[r][c]);
+              x[r][c] = fmaf(qf[r].w, kf.w, x[r][c]);
+            }
+          }
+        }
+        mbar_arrive(empty_k + 8 * s);            // K read
+        if (t == n_kv - 1) mbar_arrive(empty_q);   // Q read
+        // the quarters: p and p ^ 1 (lanes 8 apart) keep rows 0, 1 where
+        // p is even and 2, 3 where it is odd, then p and p ^ 2 (16 apart)
+        float z[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          float y[2];
+#pragma unroll
+          for (int r2 = 0; r2 < 2; ++r2) {
+            const float mine = pq & 1 ? x[r2 + 2][c] : x[r2][c];
+            const float other = pq & 1 ? x[r2][c] : x[r2 + 2][c];
+            y[r2] = mine + __shfl_xor_sync(0xffffffffu, other, 8);
+          }
+          const float mine = pq & 2 ? y[1] : y[0];
+          const float other = pq & 2 ? y[0] : y[1];
+          z[c] = mine + __shfl_xor_sync(0xffffffffu, other, 16);
+        }
+        // the online softmax of the lane's row over the tile's keys (its
+        // 8, then its row's 4 lanes); P into the P^T tile
+        const int k0 = t * BK, qpos = q0 + ro;
+        float mt = NEG;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int kpos = k0 + kq + 4 * c;
+          z[c] = (kpos <= qpos && kpos < S) ? z[c] * scale : NEG;
+          mt = fmaxf(mt, z[c]);
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1)
+          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+        const float m_new = fmaxf(m, mt);
+        const float alpha = expf(m - m_new);
+        float rs = 0.f;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const float p = expf(z[c] - m_new);
+          pt[(kq + 4 * c) * PT + ro] = p;
+          rs += p;
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1)
+          rs += __shfl_xor_sync(0xffffffffu, rs, off);
+        l = l * alpha + rs;
+        m = m_new;
+        if (kq == 0) alpha_s[ro] = alpha;
+        __syncwarp();                            // the warp's P and alphas
+        float al[8];
+        lds<8>(al, alpha_s + 8 * warp);
+#pragma unroll
+        for (int r8 = 0; r8 < 8; ++r8)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[r8][e] *= al[r8];
+        mbar_wait(full_v + 8 * s, parity);
+        // O += P V: the tile's keys in order, the warp's 8 rows of P^T and
+        // the lane's two column units of V
+#pragma unroll 4
+        for (int key = 0; key < BK; ++key) {
+          float pr[8];
+          lds<8>(pr, pt + key * PT + 8 * warp);
+#pragma unroll
+          for (int uu = 0; uu < 2; ++uu) {
+            const float4 vf = lds4(gb, vs + TK::at(key, lane + 32 * uu));
+#pragma unroll
+            for (int r8 = 0; r8 < 8; ++r8) {
+              float* y = acc[r8] + 4 * uu;
+              y[0] = fmaf(pr[r8], vf.x, y[0]);
+              y[1] = fmaf(pr[r8], vf.y, y[1]);
+              y[2] = fmaf(pr[r8], vf.z, y[2]);
+              y[3] = fmaf(pr[r8], vf.w, y[3]);
+            }
+          }
+        }
+        __syncwarp();                            // P read before it is rewritten
+        mbar_arrive(empty_v + 8 * s);            // V read
+      }
+      // O / l from registers, rows below S and columns below the width;
+      // lse from the rows' own lanes
+      const float den = fmaxf(l, 1e-30f);
+      if (kq == 0) {
+        l_s[ro] = den;
+        if (lse != nullptr && q0 + ro < S)
+          lse[(size_t)(b * H + h) * S + q0 + ro] = m + logf(den);
+      }
+      __syncwarp();
+      float dn[8];
+      lds<8>(dn, l_s + 8 * warp);
+      float* op = at(o, lo, b, h);
+#pragma unroll
+      for (int r8 = 0; r8 < 8; ++r8) {
+        const int row = q0 + 8 * warp + r8;
+        if (row >= S) continue;
+#pragma unroll
+        for (int uu = 0; uu < 2; ++uu) {
+          const int col = 4 * (lane + 32 * uu);
+          if (col < width)
+            *reinterpret_cast<float4*>(op + row * lo.s + col) =
+                make_float4(acc[r8][4 * uu] / dn[r8],
+                            acc[r8][4 * uu + 1] / dn[r8],
+                            acc[r8][4 * uu + 2] / dn[r8],
+                            acc[r8][4 * uu + 3] / dn[r8]);
+        }
+      }
+      __syncwarp();                              // l_s read
+    }
+  }
+}
+
+// The schedule for B x H heads of S rows: the work items (batch x head,
+// 64-row query tile) and the grid, one persistent block an SM (fewer if
+// there are fewer items).  `launch` and flash_attention_fwd_info both
+// take it from here.
+int schedule(int B, int H, int S, int* items, int* blocks) {
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  *items = B * H * ((S + BQ - 1) / BQ);
+  *blocks = *items < sms ? *items : sms;
+  return 0;
+}
+
+// q, o (B, H, S, width), k, v (B, KV, S, width) float32 with the strides
+// ly[0 .. 3] (starts and strides multiples of 16 bytes), width <= 256 a
+// multiple of 4; lse null or float32 (B, H, S)
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           const Lay* ly, int B, int H, int KV, int S, int width,
+           float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  int err = f32bwd::make_map<D, BQ>(&mq, q, ly[0], H, S, B, width);
+  if (err == 0) err = f32bwd::make_map<D, BK>(&mk, k, ly[1], KV, S, B, width);
+  if (err == 0) err = f32bwd::make_map<D, BK>(&mv, v, ly[2], KV, S, B, width);
+  if (err != 0) return err;
+  int* work = work_counter(stream);
+  if (work == nullptr) return (int)cudaErrorMemoryAllocation;
+  int n_items = 0, grid = 0;
+  err = schedule(B, H, S, &n_items, &grid);
+  if (err != 0) return err;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_f32_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM);
+  if (e != cudaSuccess) return (int)e;
+  flash_fwd_f32_wide_kernel<<<grid, THREADS, SMEM, stream>>>(
+      mq, mk, mv, static_cast<float*>(o), lse, ly[3], work, B, H, KV, S,
+      width, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace f32wide
+
+namespace f32widebwd {
+
+using namespace bf16body;   // mbarriers, TMA loads, named barriers, sm_count
+using bf16bwd::bulk_add;
+using bf16bwd::bulk_commit_wait;
+using bf16bwd::bulk_store;
+using bf16bwd::bump;
+using bf16bwd::cp_async4;
+using bf16bwd::cp_async_arrive;
+using bf16bwd::fence_async_global;
+using bf16bwd::wait_count;
+using f32bwd::lds;
+using f32bwd::lds4;
+
+constexpr int D = 256;          // the body's width (a narrower one read in place)
+constexpr int KT = 32;          // keys per work item: the rows of dk and dv
+constexpr int QT = 32;          // queries per step
+constexpr int CONSUMERS = 256;  // two groups of 128 compute threads
+constexpr int NTHREADS = CONSUMERS + 128;   // and the producer's warpgroup
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int PS = QT + 4;      // row stride (floats) of the P and dS tiles
+constexpr int TS = QT + 4;      // row stride of the dS^T tile
+constexpr int PARTS = 4;        // S and dP: D split among 4 lanes
+// dv and dk (a group's 128 threads, 32 keys x D): KJ consecutive keys x
+// UC column units a thread; dq's share (256 threads, 32 queries x D): QI
+// consecutive queries x one column unit
+constexpr int UC = 2;
+constexpr int CG = D / (4 * UC);            // column groups of dv and dk
+constexpr int KJ = KT * CG / 128;           // their keys a thread
+constexpr int DCG = D / 4;                  // dq's column groups
+constexpr int QI = QT * DCG / CONSUMERS;    // dq's queries a thread
+
+static_assert(KT == QT, "the diagonal key tile of query tile qi is qi");
+static_assert(KJ * 4 * UC * 128 == KT * D && QI * 4 * CONSUMERS == QT * D,
+              "every output of a tile owned once");
+static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * CONSUMERS <=
+                  65536 / NTHREADS / 8 * 8 * NTHREADS,
+              "more registers than the block was launched with");
+
+using T = f32bwd::Tile<D, KT>;  // K, V, Q and dO alike: 32 rows, 32 KB
+
+// Shared memory: the item's K and V, the step's Q and dO (one slot), the
+// P and dS tiles (queries x keys) and the dS^T tile (keys x queries) with
+// padded rows, dq's float32 share of the step (32 x D, in the dq
+// threads' order), the step's lse and Delta, the item, the mbarriers:
+// 131,072 B of operand tiles, 13,824 of P, dS and dS^T, 32,768 of share,
+// 256 of lse and Delta, the rest and 1,024 to align the base: 179,008
+// bytes of the 232,448 a block may take.  A second Q / dO slot (64 KB)
+// does not fit beside the share; the next step's Q and dO load while
+// dq's share is computed, as at D <= 128.
+constexpr uint32_t K_OFF = 0;
+constexpr uint32_t V_OFF = T::BYTES;
+constexpr uint32_t Q_OFF = 2 * T::BYTES;
+constexpr uint32_t DO_OFF = 3 * T::BYTES;
+constexpr uint32_t P_OFF = 4 * T::BYTES;
+constexpr uint32_t DS_OFF = P_OFF + QT * PS * 4;
+constexpr uint32_t DST_OFF = DS_OFF + QT * PS * 4;
+constexpr uint32_t SH_OFF = DST_OFF + KT * TS * 4;
+constexpr uint32_t SHARE = QT * D * 4;
+constexpr uint32_t LSE_OFF = SH_OFF + SHARE;
+constexpr uint32_t DL_OFF = LSE_OFF + QT * 4;
+constexpr uint32_t ITEM_OFF = DL_OFF + QT * 4;
+constexpr uint32_t BAR_OFF = ITEM_OFF + 16;
+constexpr size_t SMEM = BAR_OFF + 8 * 6 + 1024;
+static_assert(SMEM <= 232448, "more shared memory than a block may take");
+
+// The main pass (float32, 128 < D <= 256): f32bwd's roles, list order,
+// walk, tickets, counters and dq add order over items of 32 keys and
+// steps of 32 queries; see the note at the top of the file.  Threads 0 ..
+// 127 (group 0) compute S, P and dv, threads 128 .. 255 (group 1) dP, dS
+// and dk, all 256 dq's share (232 registers each after setmaxnreg); the
+// first warp of the last warpgroup is the producer (40).  S and dP split
+// D four ways: lane (p, rg) = (lane / 8, lane % 8) of a group's warp w
+// sums units 16 p .. 16 p + 15 of the dots of queries rg + 8 r (r < 4)
+// with keys 8 w + c (c < 8), 32 partial dots from 12 16-byte loads a
+// unit (a 4 x 2 tile over all of D would take 6 loads for 8 dots, and a
+// warp's 16-byte load moves 512 bytes, 4 cycles of shared memory,
+// whatever it broadcasts); xor shuffles then add the quarters, (x0 + x1)
+// + (x2 + x3), and leave each lane one query, rg + 8 (2 (p & 1) + p /
+// 2), against the warp's 8 keys.  `acc`: dq's
+// float32 accumulator, a 32 x D tile for each (batch x head, query tile),
+// in the dq threads' order; `sem` a counter for each such tile, then the
+// ticket counter, all zeroed by the Delta pass.  The maps hold the
+// operands' real width (a multiple of 4, at most D): the columns past it
+// land as zeros, and the gradients are stored below it.
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta, float* acc,
+                          float* __restrict__ dq, float* __restrict__ dk,
+                          float* __restrict__ dv, Lay ldq, Lay ldk, Lay ldv,
+                          int* sem, int* work, int B, int H, int KV, int S,
+                          int width, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* gb = smem_raw + (base - smem_u32(smem_raw));
+  volatile int* item_s = reinterpret_cast<volatile int*>(gb + ITEM_OFF);
+  const uint32_t bar = base + BAR_OFF;
+  // mbarriers, as f32bwd's: K and V full and empty; the step's Q / dO
+  // slot full (TMA bytes and the producer warp's 32 cp.async arrivals)
+  // and empty; dq's share staged and freed
+  const uint32_t full_kv = bar, empty_kv = bar + 8, full = bar + 16,
+                 empty = bar + 24, staged = bar + 32, freed = bar + 40;
+
+  const int G = H / KV, BKV = B * KV;
+  const int nQ = (S + QT - 1) / QT;          // query tiles = key tiles
+  const int n_items = BKV * nQ;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    mbar_init(empty_kv, CONSUMERS);
+    mbar_init(full, 33);
+    mbar_init(empty, CONSUMERS);
+    mbar_init(staged, CONSUMERS);
+    mbar_init(freed, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS)
+                 : "memory");
+    if (threadIdx.x >= CONSUMERS + 32) return;
+    // the producer warp: takes the items, loads K and V once an item and
+    // each step's Q, dO (lane 0, TMA), lse and Delta (every lane); once a
+    // step's loads are issued, lane 0 adds the step before's dq share
+    const int lane = threadIdx.x - CONSUMERS;
+    int it = 0;                                  // steps so far
+    int n_sh = 0;                                // shares added so far
+    int p_bh = -1, p_qi = 0, p_kt = 0;           // the share pending
+    // the pending share to the accumulator's tile: stored by key tile 0,
+    // added by the later ones once the tile's counter reads their key
+    // tile; the counter bumped once the add is complete
+    auto add_share = [&]() {
+      mbar_wait(staged, n_sh & 1);
+      int* cnt = sem + p_bh * nQ + p_qi;
+      float* dst = acc + ((size_t)p_bh * nQ + p_qi) * QT * D;
+      if (p_kt > 0) {
+        wait_count(cnt, p_kt);
+        fence_async_global();
+        bulk_add(dst, base + SH_OFF, SHARE);
+      } else {
+        bulk_store(dst, base + SH_OFF, SHARE);
+      }
+      bulk_commit_wait();
+      fence_async_global();
+      bump(cnt);
+      mbar_arrive(freed);
+      ++n_sh;
+    };
+    for (int n = 0;; ++n) {
+      int item = 0;
+      if (lane == 0) item = atomicAdd(work, 1);
+      item = __shfl_sync(0xffffffffu, item, 0);
+      mbar_wait(empty_kv, (n & 1) ^ 1);          // the last item done
+      if (item >= n_items) {
+        if (lane == 0) {
+          *item_s = -1;
+          mbar_arrive(full_kv);
+          if (p_bh >= 0) add_share();
+        }
+        break;
+      }
+      const int bkv = item % BKV, kt = item / BKV;
+      const int b = bkv / KV, kvh = bkv % KV, k0 = kt * KT;
+      if (lane == 0) {
+        *item_s = item;
+        mbar_expect_tx(full_kv, 2 * T::BYTES);
+        for (int c = 0; c < T::NC; ++c) {
+          tma_load(base + K_OFF + c * T::CHUNK, &tk, full_kv, c * T::AW,
+                   kvh, k0, b);
+          tma_load(base + V_OFF + c * T::CHUNK, &tv, full_kv, c * T::AW,
+                   kvh, k0, b);
+        }
+      }
+      const int steps = G * (nQ - kt);
+      for (int s = 0; s < steps; ++s, ++it) {
+        const int qi = nQ - 1 - s / G, q0 = qi * QT;
+        const int h = kvh * G + s % G;
+        mbar_wait(empty, (it & 1) ^ 1);          // the step before read
+        if (lane == 0) {
+          mbar_expect_tx(full, 2 * T::BYTES);
+          for (int c = 0; c < T::NC; ++c) {
+            tma_load(base + Q_OFF + c * T::CHUNK, &tq, full, c * T::AW,
+                     h, q0, b);
+            tma_load(base + DO_OFF + c * T::CHUNK, &tdo, full, c * T::AW,
+                     h, q0, b);
+          }
+        }
+        {                                        // one row a lane
+          const bool in = q0 + lane < S;
+          const size_t g = (size_t)(b * H + h) * S + (in ? q0 + lane : 0);
+          cp_async4(base + LSE_OFF + lane * 4, lse + g, in);
+          cp_async4(base + DL_OFF + lane * 4, delta + g, in);
+        }
+        cp_async_arrive(full);
+        if (p_bh >= 0) {                        // staged while these load
+          if (lane == 0) add_share();
+          __syncwarp();
+        }
+        // the diagonal tile's share is never staged: its compute threads
+        // round the sum into dq
+        p_bh = qi == kt ? -1 : b * H + h;
+        p_qi = qi;
+        p_kt = kt;
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS)
+                 : "memory");
+    const int tid = threadIdx.x;
+    // the group: 0 (S, P, dv) or 1 (dP, dS, dk); warp-uniform
+    const int grp = __shfl_sync(0xffffffffu, tid / 128, 0);
+    const int g = tid % 128, warp = g / 32, lane = tid % 32;
+    // S and dP: D's quarter p, queries rg + 8 r x keys k8 + c; then the
+    // lane's own query qo against the 8 keys
+    const int pq = lane / 8, rg = lane % 8, k8 = 8 * warp;
+    const int qo = rg + 8 * (2 * (pq & 1) + (pq >> 1));
+    const int cg = g % CG, jg = g / CG;         // dv and dk
+    const int cu = tid % DCG, iq = tid / DCG * QI;   // dq
+    float* ps = reinterpret_cast<float*>(gb + P_OFF);
+    float* dss = reinterpret_cast<float*>(gb + DS_OFF);
+    float* dst = reinterpret_cast<float*>(gb + DST_OFF);
+    const float* lse_s = reinterpret_cast<const float*>(gb + LSE_OFF);
+    const float* dl_s = reinterpret_cast<const float*>(gb + DL_OFF);
+    // group 0: S from Q and K, then dv += P^T dO; group 1: dP from dO and
+    // V, then dk += dS^T Q
+    const uint32_t ta = grp ? DO_OFF : Q_OFF;
+    const uint32_t tb = grp ? V_OFF : K_OFF;
+    const float* pa = grp ? dss : ps;
+    const uint32_t tc = grp ? Q_OFF : DO_OFF;
+
+    float kv_acc[KJ][4 * UC];   // dv (group 0) or dk (group 1)
+    float kv_step[KJ][4 * UC];  // the step's share of it
+    float x[4][8];              // S or dP over the lane's quarter of D
+    float z[8];                 // the lane's query: S or dP, then P or dS
+    int n_sh = 0;               // shares staged so far
+    int it = 0;                 // steps so far
+    for (int n = 0;; ++n) {
+      mbar_wait(full_kv, n & 1);
+      const int item = *item_s;
+      if (item < 0) break;
+      const int bkv = item % BKV, kt = item / BKV;
+      const int b = bkv / KV, kvh = bkv % KV, k0 = kt * KT;
+      const int steps = G * (nQ - kt);
+#pragma unroll
+      for (int j = 0; j < KJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4 * UC; ++c) kv_acc[j][c] = 0.f;
+      for (int s = 0; s < steps; ++s, ++it) {
+        const int qi = nQ - 1 - s / G, q0 = qi * QT;
+        const int h = kvh * G + s % G, bh = b * H + h;
+        mbar_wait(full, it & 1);
+        // S = Q K^T (group 0) or dP = dO V^T (group 1): each quarter of
+        // a dot over D in column order, then the quarters added
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) x[r][c] = 0.f;
+#pragma unroll 2
+        for (int t = 0; t < D / 4 / PARTS; ++t) {
+          const int u = D / 4 / PARTS * pq + t;
+          float4 qf[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            qf[r] = lds4(gb, ta + T::at(rg + 8 * r, u));
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            const float4 kf = lds4(gb, tb + T::at(k8 + c, u));
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              x[r][c] = fmaf(qf[r].x, kf.x, x[r][c]);
+              x[r][c] = fmaf(qf[r].y, kf.y, x[r][c]);
+              x[r][c] = fmaf(qf[r].z, kf.z, x[r][c]);
+              x[r][c] = fmaf(qf[r].w, kf.w, x[r][c]);
+            }
+          }
+        }
+        // quarters p and p ^ 1 (lanes 8 apart): rows 0, 1 stay where p is
+        // even, rows 2, 3 where it is odd; then p and p ^ 2 (16 apart)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          float y[2];
+#pragma unroll
+          for (int r2 = 0; r2 < 2; ++r2) {
+            const float mine = pq & 1 ? x[r2 + 2][c] : x[r2][c];
+            const float other = pq & 1 ? x[r2][c] : x[r2 + 2][c];
+            y[r2] = mine + __shfl_xor_sync(0xffffffffu, other, 8);
+          }
+          const float mine = pq & 2 ? y[1] : y[0];
+          const float other = pq & 2 ? y[0] : y[1];
+          z[c] = mine + __shfl_xor_sync(0xffffffffu, other, 16);
+        }
+        if (grp == 0) {
+          // P = exp(S D^-0.5 - lse) for keys at or below the query and
+          // queries below S, else 0, into the P tile
+          const float ls = lse_s[qo];
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            z[c] = k0 + k8 + c <= q0 + qo && q0 + qo < S
+                       ? expf(fmaf(z[c], scale, -ls)) : 0.f;
+          float4* pw = reinterpret_cast<float4*>(ps + qo * PS + k8);
+          pw[0] = make_float4(z[0], z[1], z[2], z[3]);
+          pw[1] = make_float4(z[4], z[5], z[6], z[7]);
+          named_sync(2, 128);            // the P tile whole, for dv
+          bar_arrive(1);                 // and for group 1's dS
+        } else {
+          bar_sync(1);                   // the P tile whole
+          // dS = P (dP - Delta), into the dS and dS^T tiles
+          const float dl = dl_s[qo];
+          float pr[8];
+          lds<8>(pr, ps + qo * PS + k8);
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            z[c] = pr[c] * (z[c] - dl);
+            dst[(k8 + c) * TS + qo] = z[c];
+          }
+          float4* dw = reinterpret_cast<float4*>(dss + qo * PS + k8);
+          dw[0] = make_float4(z[0], z[1], z[2], z[3]);
+          dw[1] = make_float4(z[4], z[5], z[6], z[7]);
+          named_sync(3, 128);            // the dS tile whole, for dk
+          bar_arrive(4);                 // and dS^T for dq
+        }
+        // dv += P^T dO (group 0) or dk += dS^T Q (group 1): the step's
+        // sum over its queries in order, then added to the item's
+#pragma unroll
+        for (int j = 0; j < KJ; ++j)
+#pragma unroll
+          for (int c = 0; c < 4 * UC; ++c) kv_step[j][c] = 0.f;
+#pragma unroll 4
+        for (int i = 0; i < QT; ++i) {
+          float a[KJ];
+          lds<KJ>(a, pa + i * PS + KJ * jg);
+#pragma unroll
+          for (int uu = 0; uu < UC; ++uu) {
+            const float4 bv = lds4(gb, tc + T::at(i, cg + CG * uu));
+#pragma unroll
+            for (int j = 0; j < KJ; ++j) {
+              float* y = kv_step[j] + 4 * uu;
+              y[0] = fmaf(a[j], bv.x, y[0]);
+              y[1] = fmaf(a[j], bv.y, y[1]);
+              y[2] = fmaf(a[j], bv.z, y[2]);
+              y[3] = fmaf(a[j], bv.w, y[3]);
+            }
+          }
+        }
+        mbar_arrive(empty);              // Q, dO, lse and Delta read
+#pragma unroll
+        for (int j = 0; j < KJ; ++j)
+#pragma unroll
+          for (int c = 0; c < 4 * UC; ++c) kv_acc[j][c] += kv_step[j][c];
+        if (grp == 0) bar_sync(4);       // the dS^T tile whole
+        // dq's share: dS K over the item's keys in order
+        float dqa[QI][4];
+#pragma unroll
+        for (int r = 0; r < QI; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dqa[r][e] = 0.f;
+#pragma unroll 8
+        for (int j = 0; j < KT; ++j) {
+          float a[QI];
+          lds<QI>(a, dst + j * TS + iq);
+          const float4 kb = lds4(gb, K_OFF + T::at(j, cu));
+#pragma unroll
+          for (int r = 0; r < QI; ++r) {
+            dqa[r][0] = fmaf(a[r], kb.x, dqa[r][0]);
+            dqa[r][1] = fmaf(a[r], kb.y, dqa[r][1]);
+            dqa[r][2] = fmaf(a[r], kb.z, dqa[r][2]);
+            dqa[r][3] = fmaf(a[r], kb.w, dqa[r][3]);
+          }
+        }
+        if (s == steps - 1) mbar_arrive(empty_kv);   // K and V read
+        if (qi != kt) {
+          // to the producer through the share buffer, once the last
+          // share's add has read it: query iq + r's four columns as
+          // float4 r * 256 + tid
+          mbar_wait(freed, (n_sh & 1) ^ 1);
+#pragma unroll
+          for (int r = 0; r < QI; ++r)
+            st_shared(base + SH_OFF + (r * CONSUMERS + tid) * 16,
+                      dqa[r][0], dqa[r][1], dqa[r][2], dqa[r][3]);
+          fence_async_smem();
+          mbar_arrive(staged);
+          ++n_sh;
+        } else {
+          // the diagonal tile, the last: the other key tiles' sum (all
+          // of it added first) plus this share, scaled into dq
+          if (kt > 0) {
+            if (tid == 0) wait_count(sem + bh * nQ + qi, kt);
+            named_sync(5, CONSUMERS);
+            const float4* ap = reinterpret_cast<const float4*>(
+                                   acc + ((size_t)bh * nQ + qi) * QT * D) +
+                               tid;
+#pragma unroll
+            for (int r = 0; r < QI; ++r) {
+              const float4 y = __ldcg(ap + r * CONSUMERS);
+              dqa[r][0] = y.x + dqa[r][0];
+              dqa[r][1] = y.y + dqa[r][1];
+              dqa[r][2] = y.z + dqa[r][2];
+              dqa[r][3] = y.w + dqa[r][3];
+            }
+          }
+          float* out = at(dq, ldq, b, h) + 4 * cu;
+          if (4 * cu < width) {
+#pragma unroll
+            for (int r = 0; r < QI; ++r) {
+              const int row = q0 + iq + r;
+              if (row < S)
+                *reinterpret_cast<float4*>(out + row * ldq.s) =
+                    make_float4(dqa[r][0] * scale, dqa[r][1] * scale,
+                                dqa[r][2] * scale, dqa[r][3] * scale);
+            }
+          }
+        }
+      }
+      // dv (group 0) or dk = D^-0.5 sum (group 1) of the item's keys
+      float* out = grp ? at(dk, ldk, b, kvh) : at(dv, ldv, b, kvh);
+      const long long rs = grp ? ldk.s : ldv.s;
+      const float sc = grp ? scale : 1.f;
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        const int key = k0 + KJ * jg + j;
+        if (key >= S) continue;
+#pragma unroll
+        for (int uu = 0; uu < UC; ++uu) {
+          const int col = 4 * (cg + CG * uu);
+          if (col < width)
+            *reinterpret_cast<float4*>(out + key * rs + col) =
+                make_float4(kv_acc[j][4 * uu] * sc,
+                            kv_acc[j][4 * uu + 1] * sc,
+                            kv_acc[j][4 * uu + 2] * sc,
+                            kv_acc[j][4 * uu + 3] * sc);
+        }
+      }
+    }
+  }
+}
+
+// The schedule for B x KV heads of S rows: the work items (batch x KV
+// head, 32-key tile) and the grid, one persistent block an SM (fewer if
+// there are fewer items)
+int schedule(int B, int KV, int S, int* items, int* blocks) {
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  *items = B * KV * ((S + KT - 1) / KT);
+  *blocks = *items < sms ? *items : sms;
+  return 0;
+}
+
+// ly: the strides of q, k, v, o, dO, dq, dk, dv (each start and stride a
+// multiple of 16 bytes), width <= D a multiple of 4; acc a float32
+// scratch of B * H * ceil(S / 32) * 32 * D; sem B * H * ceil(S / 32) + 1
+// ints, zeroed (the Delta pass)
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* delta, void* dq, void* dk,
+           void* dv, float* acc, int* sem, const Lay* ly, int B, int H,
+           int KV, int S, int width, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mdo, mk, mv;
+  int err = f32bwd::make_map<D, QT>(&mq, q, ly[0], H, S, B, width);
+  if (err == 0) err = f32bwd::make_map<D, QT>(&mdo, dout, ly[4], H, S, B,
+                                              width);
+  if (err == 0) err = f32bwd::make_map<D, KT>(&mk, k, ly[1], KV, S, B, width);
+  if (err == 0) err = f32bwd::make_map<D, KT>(&mv, v, ly[2], KV, S, B, width);
+  if (err != 0) return err;
+  int n_items = 0, grid = 0;
+  err = schedule(B, KV, S, &n_items, &grid);
+  if (err != 0) return err;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_f32_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int nQ = (S + QT - 1) / QT;
+  flash_bwd_f32_wide_kernel<<<grid, NTHREADS, SMEM, stream>>>(
+      mq, mk, mv, mdo, lse, delta, acc, static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv), ly[5], ly[6], ly[7],
+      sem, sem + (size_t)B * H * nQ, B, H, KV, S, width, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace f32widebwd
 
 namespace simplebwd {
 
@@ -4077,13 +4955,13 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // element strides, (batch, head, row) of q, k, v and o in that order,
 // each a multiple of 16 bytes, the last axis contiguous; lse null or a
 // contiguous float32 (B, H, S) that receives each row's natural
-// log-sum-exp.  width == D, except at bfloat16, where width <= D may be
-// any multiple of 8 (a row of 16-byte units, as TMA needs): the maps
+// log-sum-exp.  width == D, except on the TMA-fed bodies: at bfloat16
+// width <= D may be any multiple of 8, at float32 on the D = 256 body any
+// multiple of 4 (a row of 16-byte units, as TMA needs): the maps
 // zero-fill columns width .. D - 1 and only columns below width are
-// stored.  The caller checks KV | H, D in {16, 32, 64, 128} (and at
-// bfloat16 also 256, the wide body) and, at float32, the grid's y
-// dimension: B * H <= 65535 (the bfloat16 bodies' grid is one persistent
-// block per SM).
+// stored.  The caller checks KV | H, D in {16, 32, 64, 128, 256} and, at
+// float32 up to 128, the grid's y dimension: B * H <= 65535 (the other
+// bodies' grid is one persistent block per SM).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       const void* strides, int B, int H,
@@ -4094,7 +4972,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const Lay* ly = static_cast<const Lay*>(strides);
-  if (width > D || width < 1 || (width != D && (!is_bf16 || width % 8)))
+  const bool tma = is_bf16 || D == 256;
+  if (width > D || width < 1 ||
+      (width != D && (!tma || width % (is_bf16 ? 8 : 4))))
     return (int)cudaErrorInvalidValue;
   if (is_bf16) {
     switch (D) {
@@ -4120,17 +5000,26 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                         scale, st);
     case 128: return f32body::launch<128>(q, k, v, o, l, ly, B, H, KV, S,
                                           scale, st);
+    case 256: return f32wide::launch(q, k, v, o, l, ly, B, H, KV, S, width,
+                                     scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// How the bfloat16 body of head dim D (16, 32, 64, 128 or 256) runs a
-// forward of B x H heads of S rows on the current device, as
-// flash_attention_launch schedules it: out[0] query rows of a work item,
-// out[1] keys of a KV tile, out[2] the work items, out[3] the grid's
-// persistent blocks.
+// How a persistent forward body runs B x H heads of S rows on the
+// current device, as flash_attention_launch schedules it: at bfloat16
+// (is_bf16 = 1) the tensor-core body of head dim D (16, 32, 64, 128 or
+// 256), at float32 the D = 256 body (f32wide): out[0] query rows of a
+// work item, out[1] keys of a KV tile, out[2] the work items, out[3] the
+// grid's persistent blocks.
 extern "C" int flash_attention_fwd_info(int B, int H, int S, int D,
-                                        int* out) {
+                                        int is_bf16, int* out) {
+  if (!is_bf16) {
+    if (D != 256) return (int)cudaErrorInvalidValue;
+    out[0] = f32wide::BQ;
+    out[1] = f32wide::BK;
+    return f32wide::schedule(B, H, S, out + 2, out + 3);
+  }
   out[1] = bf16body::BK;
   switch (D) {
     case 16: out[0] = bf16body::Fwd<16>::BQ;
@@ -4148,11 +5037,11 @@ extern "C" int flash_attention_fwd_info(int B, int H, int S, int D,
   }
 }
 
-// The body for any D > 128: q, o (B, H, S, D); k, v (B, KV, S, D) with
-// the strides of flash_attention_launch; ws a contiguous float32
-// workspace of B * H * S * D; lse null or float32 (B, H, S); float32
-// (is_bf16 = 0) or bfloat16 (is_bf16 = 1).  The caller checks KV | H and
-// B * H <= 65535.
+// The body for any D (run above 256, where no other body reaches): q, o
+// (B, H, S, D); k, v (B, KV, S, D) with the strides of
+// flash_attention_launch; ws a contiguous float32 workspace of
+// B * H * S * D; lse null or float32 (B, H, S); float32 (is_bf16 = 0) or
+// bfloat16 (is_bf16 = 1).  The caller checks KV | H and B * H <= 65535.
 extern "C" int flash_attention_wide_launch(const void* q, const void* k,
                                            const void* v, void* o,
                                            void* ws, void* lse,
@@ -4181,9 +5070,11 @@ extern "C" int flash_attention_wide_launch(const void* q, const void* k,
 // B * H * ceil(S / 64) * 64 * D (dq's accumulator), sem B * H *
 // ceil(S / 64) + 1 ints of scratch; bfloat16 at 128 < D <= 256 with
 // D % 8 == 0 (the D = 256 body, the operands read in place at width D):
-// ws B * H * ceil(S / 64) * 64 * 256 floats, sem as at D <= 128;
-// otherwise (float32 above 128, bfloat16 above 256: simplebwd) ws a
-// float32 scratch of (B H + 2 B KV) S D and sem unused.  Launches the
+// ws B * H * ceil(S / 64) * 64 * 256 floats, sem as at D <= 128; float32
+// at 128 < D <= 256 with D % 4 == 0 (f32widebwd, read in place the same
+// way): ws B * H * ceil(S / 32) * 32 * 256 floats, sem B * H *
+// ceil(S / 32) + 1 ints; otherwise (above 256: simplebwd) ws a float32
+// scratch of (B H + 2 B KV) S D and sem unused.  Launches the
 // Delta pass, then the main pass, and returns the first launch error.
 // The caller checks KV | H and, for simplebwd, ceil(S / 16) <= 65535.
 extern "C" int flash_attention_bwd_launch(
@@ -4202,10 +5093,13 @@ extern "C" int flash_attention_bwd_launch(
   const bool tc = is_bf16 && narrow;
   const bool wide = is_bf16 && D > 128 && D <= 256 && D % 8 == 0;
   const bool f32 = !is_bf16 && narrow;
+  const bool f32w = !is_bf16 && D > 128 && D <= 256 && D % 4 == 0;
   const int n_zero =
       tc ? B * H * ((S + bf16bwd::QT - 1) / bf16bwd::QT) + 1
       : wide ? B * H * ((S + widebwd::QT - 1) / widebwd::QT) + 1
-      : f32 ? B * H * ((S + f32bwd::QT - 1) / f32bwd::QT) + 1 : 0;
+      : f32 ? B * H * ((S + f32bwd::QT - 1) / f32bwd::QT) + 1
+      : f32w ? B * H * ((S + f32widebwd::QT - 1) / f32widebwd::QT) + 1
+      : 0;
   int err = is_bf16
                 ? launch_delta<__nv_bfloat16>(o, dout, dl, ly[3], ly[4], B,
                                               H, S, D, cnt, n_zero, st)
@@ -4223,6 +5117,9 @@ extern "C" int flash_attention_bwd_launch(
       case 128: return f32bwd::launch<128>(q, k, v, dout, l, dl, dq, dk, dv,
                                            w, cnt, ly, B, H, KV, S, scale, st);
       default:
+        if (f32w)
+          return f32widebwd::launch(q, k, v, dout, l, dl, dq, dk, dv, w, cnt,
+                                    ly, B, H, KV, S, D, scale, st);
         return simplebwd::launch<float>(q, k, v, dout, l, dl, dq, dk, dv, w,
                                         ly, B, H, KV, S, D, scale, st);
     }
@@ -4250,11 +5147,16 @@ extern "C" int flash_attention_bwd_launch(
 // S rows on the current device, as flash_attention_bwd_launch schedules
 // it: at bfloat16 (is_bf16 = 1) the tensor-core bodies (16, 32, 64, 128,
 // or the D = 256 body's 128 < D <= 256 with D % 8 == 0), at float32 the
-// CUDA-core body f32bwd (16, 32, 64, 128): out[0] keys of a work item,
-// out[1] queries of a step, out[2] the work items, out[3] the grid's
-// persistent blocks.
+// CUDA-core bodies f32bwd (16, 32, 64, 128) and f32widebwd (128 < D <=
+// 256 with D % 4 == 0): out[0] keys of a work item, out[1] queries of a
+// step, out[2] the work items, out[3] the grid's persistent blocks.
 extern "C" int flash_attention_bwd_info(int B, int KV, int S, int D,
                                         int is_bf16, int* out) {
+  if (!is_bf16 && D > 128 && D <= 256 && D % 4 == 0) {
+    out[0] = f32widebwd::KT;
+    out[1] = f32widebwd::QT;
+    return f32widebwd::schedule(B, KV, S, out + 2, out + 3);
+  }
   if (!is_bf16) {
     if (D != 16 && D != 32 && D != 64 && D != 128)
       return (int)cudaErrorInvalidValue;

@@ -11,27 +11,30 @@ On CPU tensors each wrapper runs its plain version (the forward the
 reference's dense oracle, `kernels/ref.py`); on CUDA tensors it launches
 the kernel or raises.  The kernel takes float32 or bfloat16, any head
 dim and any S (a ragged last tile is masked).  Its bodies take D in
-`HEAD_DIMS`: {16, 32, 64, 128} in both dtypes, and 256 at bfloat16.  A
-head dim below the largest outside that set runs the body of the next
-one, with the real D ** -0.5 as its scale, and zero columns up to the
-body's width: they add exact zeros to every score and give output
-columns that are dropped, so the answer is the unpadded one.  At
-bfloat16 with D a multiple of 8 (a row of whole 16-byte units, which TMA
-needs; h2o-danube's 120, and 160 or 192 on the D = 256 body) the kernel
-reads the operands in place and TMA zero-fills those columns in shared
-memory, and the output is written at its real width: no copy
-(`_forward_route`).  Any other such D (and float32) gets zero-padded
-copies, sliced back after.  The bodies pick their own tiles (`TILES`):
-bfloat16 runs both products on the tensor cores (wgmma, TMA-fed) in
-persistent blocks, one an SM, that take (batch x head, query tile) items
-heaviest first from a counter, 128 query rows x 128 keys (192 x 128 at
-D = 64, 128 x 80 at D = 256), and store the output from shared memory
-with TMA; float32 runs on the CUDA cores in
-64 x 64 tiles.  Float32 above D = 128 and bfloat16 above D = 256 run a
-simple body (``flash_attention_wide_launch``: CUDA cores, float32
-arithmetic, 16-row query tiles, 32-key tiles, D in chunks of 128, the
-accumulators in a float32 workspace the wrapper allocates); it is written
-for correctness, not speed.
+`HEAD_DIMS`: {16, 32, 64, 128, 256} in both dtypes.  A head dim below
+the largest outside that set runs the body of the next one, with the
+real D ** -0.5 as its scale, and zero columns up to the body's width:
+they add exact zeros to every score and give output columns that are
+dropped, so the answer is the unpadded one.  On the TMA-fed bodies
+(bfloat16, and float32 at D = 256) with D a whole number of 16-byte
+units (bfloat16: D % 8 == 0, h2o-danube's 120, and 160 or 192 on the
+D = 256 body; float32: D % 4 == 0 above 128) the kernel reads the
+operands in place and TMA zero-fills those columns in shared memory,
+and the output is written at its real width: no copy
+(`_forward_route`).  Any other such D gets zero-padded copies, sliced
+back after.  The bodies pick their own tiles (`TILES`): bfloat16 runs
+both products on the tensor cores (wgmma, TMA-fed) in persistent
+blocks, one an SM, that take (batch x head, query tile) items heaviest
+first from a counter, 128 query rows x 128 keys (192 x 128 at D = 64,
+128 x 80 at D = 256), and store the output from shared memory with
+TMA; float32 runs on the CUDA cores, in 64 x 64 tiles up to D = 128
+(`f32body`), and above it on `f32wide`: the same persistent schedule
+over 64-row items, Q resident, 32-key K and V tiles through a TMA ring
+of two, O in registers.  Both dtypes above D = 256 run a simple body
+(``flash_attention_wide_launch``: CUDA cores, float32 arithmetic,
+16-row query tiles, 32-key tiles, D in chunks of 128, the accumulators
+in a float32 workspace the wrapper allocates); it is written for
+correctness, not speed.
 `flash_attention_fwd` is the same forward that also returns each row's
 log-sum-exp.
 
@@ -39,13 +42,14 @@ log-sum-exp.
 lse, dO); it has no TPU counterpart (the reference differentiates
 `attn_flash` with XLA).  bfloat16 at D in `BWD_HEAD_DIMS` (16, 32, 64,
 128 and 256) runs FA2's five products on the tensor cores, float32 at D
-in `BWD_F32_HEAD_DIMS` (16, 32, 64, 128) on the CUDA cores in float32
-`fmaf` (`f32bwd`; TF32 would miss the float32 contract)
-(`_backward_route`: other D <= 128 zero-padded as the forward, the
-gradients sliced back, since the zero columns change no score and give
-zero gradient columns; at bfloat16 128 < D < 256 read in place by the
-D = 256 body when D % 8 == 0, else zero-padded to 256): persistent
-blocks, one per SM, take (batch x KV head, key tile) items in a list
+in `BWD_F32_HEAD_DIMS` (16, 32, 64, 128 and 256) on the CUDA cores in
+float32 `fmaf` (`f32bwd`, and `f32widebwd` at 256; TF32 would miss the
+float32 contract) (`_backward_route`: other D <= 128 zero-padded as the
+forward, the gradients sliced back, since the zero columns change no
+score and give zero gradient columns; 128 < D < 256 read in place by
+the D = 256 body when D is a whole number of 16-byte units, D % 8 == 0
+at bfloat16 and D % 4 == 0 at float32, else zero-padded to 256):
+persistent blocks, one per SM, take (batch x KV head, key tile) items in a list
 order fixed by the shape; each computes dk and dv in registers and, per
 64-query step, a share of dq, which bulk reduce-adds from shared memory
 add to a float32 accumulator in ascending key-tile order, held by a
@@ -54,20 +58,21 @@ tile rounds the sum into dq).  Items of 128 keys at bfloat16 up to D =
 128, where a writer thread adds the shares; of 64 keys at D = 256, where
 the two consumers split D and stage their halves of a share in the
 step's Q and dO tiles once those are read, and the producer adds it
-before loading the slot again; of 64 keys at float32, where one group of
-128 threads computes S, P and dv and another dP, dS and dk, all 256 the
-share, which the producer warp adds while the next step's Q and dO load
-(`BWD_TILES`, `BWD_F32_TILES`).  float32 above D = 128 and bfloat16
-above 256 run a simple CUDA-core body (`simplebwd`), written for
-correctness.  Every gradient is summed in an order fixed by the shape,
-so two runs give the same bits.  Its launches count under
+before loading the slot again; of 64 keys at float32 (32 keys and
+32-query steps at D = 256), where one group of 128 threads computes S, P
+and dv and another dP, dS and dk, all 256 the share, which the producer
+warp adds while the next step's Q and dO load (`BWD_TILES`,
+`BWD_F32_TILES`, `BWD_F32_WIDE_TILES`).  Both dtypes above D = 256 run a
+simple CUDA-core body (`simplebwd`), written for correctness.  Every
+gradient is summed in an order fixed by the shape, so two runs give the
+same bits.  Its launches count under
 ``flash_attention_bwd``.
 
 Layout: the public functions keep the reference's (B, H, S, D), and on
 the card every body reads its operands in place: the last axis
 contiguous, the start and the other strides multiples of 16 bytes for
-the bfloat16 tensor-core bodies and the float32 backward body (TMA), of
-one element for the others
+the bfloat16 tensor-core bodies, the float32 backward bodies and the
+float32 forward at D = 256 (TMA), of one element for the others
 (the transposed views of the model's (B, S, H, D) tensors are the case
 that matters); any other layout raises, nothing is copied to make it
 fit.  The outputs (o, dq, dk, dv)
@@ -86,10 +91,10 @@ from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 
 #: the forward bodies' head dims by dtype: float32's and bfloat16's
 #: {16, 32, 64, 128} (csrc/flash_attention.cu: f32body, bf16body::Fwd<D>),
-#: and bfloat16's wide tensor-core body at 256 (bf16body::Fwd<256>); a
-#: narrower head dim runs the body of the next one (`_pad`), a wider one
-#: the CUDA-core wide body
-HEAD_DIMS = {torch.float32: (16, 32, 64, 128),
+#: and each dtype's wide body at 256 (bf16body::Fwd<256> on the tensor
+#: cores, f32wide on the CUDA cores); a narrower head dim runs the body of
+#: the next one (`_pad`), a wider one the simple CUDA-core body
+HEAD_DIMS = {torch.float32: (16, 32, 64, 128, 256),
              torch.bfloat16: (16, 32, 64, 128, 256)}
 #: the tensor-core backward's head dims (bfloat16; bf16bwd up to 128,
 #: widebwd at 256)
@@ -97,19 +102,21 @@ BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
 #: (keys per work item, queries per step) of each tensor-core backward
 #: body, by its head dim
 BWD_TILES = {d: (64, 64) if d == 256 else (128, 64) for d in BWD_HEAD_DIMS}
-#: the float32 backward body's head dims (f32bwd) and its (keys per work
-#: item, queries per step)
-BWD_F32_HEAD_DIMS = (16, 32, 64, 128)
+#: the float32 backward bodies' head dims (f32bwd up to 128, f32widebwd at
+#: 256) and their (keys per work item, queries per step)
+BWD_F32_HEAD_DIMS = (16, 32, 64, 128, 256)
 BWD_F32_TILES = (64, 64)
+BWD_F32_WIDE_TILES = (32, 32)
 #: (query rows per block or work item, keys per KV tile) of each body, by
 #: dtype and the body's head dim
-TILES = {torch.float32: {d: (64, 64) for d in HEAD_DIMS[torch.float32]},
+TILES = {torch.float32: {d: (64, 32) if d == 256 else (64, 64)
+                         for d in HEAD_DIMS[torch.float32]},
          torch.bfloat16: {d: (192 if d == 64 else 128, 80 if d == 256
                               else 128)
                           for d in HEAD_DIMS[torch.bfloat16]}}
 MAX_GRID_Y = 65_535      # blocks along a grid's y dimension
 BWD_QT = 64              # queries per step (and per dq counter) of the
-                         # tensor-core backward
+                         # persistent backward bodies (32 on f32widebwd)
 BWD_ROWS = 16            # query rows per block of simplebwd's dq pass (the
                          # other backward bodies' grid is one persistent
                          # block per SM)
@@ -146,36 +153,44 @@ def _pad(D, dims=HEAD_DIMS[torch.bfloat16]):
     return next(d for d in dims if d >= D)
 
 
+def _in_place(dtype, D, body):
+    """Whether a TMA-fed body of head dim `body` reads head dim D < body
+    in place: its rows whole 16-byte units (D % 8 == 0 at bfloat16, any
+    bfloat16 body; D % 4 == 0 at float32, the D = 256 bodies)."""
+    if dtype == torch.bfloat16:
+        return D % 8 == 0
+    return body == 256 and D % 4 == 0
+
+
 def _forward_route(dtype, D):
     """How the forward runs head dim D at `dtype`: (route, body head
     dim), route "in place" (the operands as they are, the body's columns
     past D zero-filled by TMA when D < body), "padded" (zero-padded copies
-    of q, k, v, and the output sliced back) or "wide" (the CUDA-core body
-    above the dtype's largest head dim)."""
+    of q, k, v, and the output sliced back) or "wide" (the simple
+    CUDA-core body above 256)."""
     dims = HEAD_DIMS[dtype]
     if D > dims[-1]:
         return "wide", D
     body = _pad(D, dims)
-    if body == D or (dtype == torch.bfloat16 and D % 8 == 0):
+    if body == D or _in_place(dtype, D, body):
         return "in place", body
     return "padded", body
 
 
 def _backward_route(dtype, D):
     """How the backward runs head dim D at `dtype`: (route, body head
-    dim), route "in place" (the operands as they are; at bfloat16 and 128
-    < D < 256 the D = 256 body's columns past D zero-filled by TMA),
-    "padded" (zero-padded copies of q, k, v, o and dO, the gradients
-    sliced back) or "simple" (the correctness-first CUDA-core body
-    `simplebwd`: float32 above 128, bfloat16 above 256).  The bodies of
-    the first two: bfloat16's `bf16bwd` (D <= 128) and `widebwd` (D =
-    256) on the tensor cores, float32's `f32bwd` (D <= 128) on the CUDA
-    cores."""
+    dim), route "in place" (the operands as they are; at 128 < D < 256
+    the D = 256 body's columns past D zero-filled by TMA), "padded"
+    (zero-padded copies of q, k, v, o and dO, the gradients sliced back)
+    or "simple" (the correctness-first CUDA-core body `simplebwd`, above
+    256).  The bodies of the first two: bfloat16's `bf16bwd` (D <= 128)
+    and `widebwd` (D = 256) on the tensor cores, float32's `f32bwd` (D <=
+    128) and `f32widebwd` (D = 256) on the CUDA cores."""
     dims = BWD_HEAD_DIMS if dtype == torch.bfloat16 else BWD_F32_HEAD_DIMS
     if D > dims[-1]:
         return "simple", D
     body = _pad(D, dims)
-    if body == D or (body == 256 and D % 8 == 0):
+    if body == D or (body == 256 and _in_place(dtype, D, body)):
         return "in place", body
     return "padded", body
 
@@ -183,7 +198,8 @@ def _backward_route(dtype, D):
 def _bwd_schedule(B, KV, S, D, device, dtype=torch.bfloat16) -> dict:
     """How the backward's persistent body schedules B x KV heads of S rows
     at head dim D on `device` (bfloat16 D <= 256 on the tensor cores,
-    float32 D <= 128 on `f32bwd`), as its launcher decides it
+    float32 D <= 256 on `f32bwd` and `f32widebwd`), as its launcher
+    decides it
     (``flash_attention_bwd_info``): keys of a work item, queries of a step,
     the work items, and the grid of persistent blocks."""
     route, body = _backward_route(dtype, D)
@@ -249,16 +265,21 @@ def flash_attention_fwd(q, k, v):
     return _forward(q, k, v, with_lse=True)
 
 
-def _fwd_schedule(B, H, S, D, device) -> dict:
-    """How the bfloat16 tensor-core body schedules a forward of B x H
-    heads of S rows at head dim D <= 256 on `device`, as its launcher
-    decides it (``flash_attention_fwd_info``): query rows and keys of a
-    work item's tiles, the work items, and the grid of persistent blocks."""
+def _fwd_schedule(B, H, S, D, device, dtype=torch.bfloat16) -> dict:
+    """How a persistent forward body schedules B x H heads of S rows at
+    head dim D on `device` (bfloat16 D <= 256 on the tensor cores,
+    float32 128 < D <= 256 on `f32wide`), as its launcher decides it
+    (``flash_attention_fwd_info``): query rows and keys of a work item's
+    tiles, the work items, and the grid of persistent blocks."""
+    route, body = _forward_route(dtype, D)
+    if route == "wide" or (dtype == torch.float32 and body <= 128):
+        raise ValueError(f"D = {D} at {dtype} runs a body with one block "
+                         "a query tile, not a persistent schedule")
     info = (ctypes.c_int * 4)()
     with torch.cuda.device(device):
         err = _build.function("flash_attention", "flash_attention_fwd_info",
-                              [_build.I] * 4 + [_build.P])(
-            B, H, S, _pad(D), info)
+                              [_build.I] * 5 + [_build.P])(
+            B, H, S, body, int(dtype == torch.bfloat16), info)
     _build.check("flash_attention", err)
     return dict(rows=info[0], keys=info[1], items=info[2], grid=info[3])
 
@@ -268,15 +289,17 @@ def _forward(q, k, v, *, with_lse):
     B, H, KV, S, D = _shapes(q, k, v)
     dev = q.device
     route, Dp = _forward_route(q.dtype, D)
-    # the float32 and wide bodies' grid has B * H blocks along y; the
-    # bfloat16 body's grid is one persistent block per SM
-    if (route == "wide" or q.dtype == torch.float32) and B * H > MAX_GRID_Y:
+    # the grid of f32body (float32 up to 128) and of the simple wide body
+    # has B * H blocks along y; the other bodies' is one persistent block
+    # per SM
+    if ((route == "wide" or (q.dtype == torch.float32 and Dp <= 128))
+            and B * H > MAX_GRID_Y):
         raise ValueError(f"{B * H} blocks along the grid's y dimension > "
                          f"{MAX_GRID_Y}")
     if route == "padded":   # zero columns: exact zeros in every score
         q, k, v = (torch.nn.functional.pad(x, (0, Dp - D)) for x in (q, k, v))
     width = Dp if route == "padded" else D      # the operands' last axis
-    align = _align(q, Dp)
+    align = _align(q, Dp, f32_dims=(256,))
     _build.require("q", q, q.dtype, (B, H, S, width), dev, align=align)
     _build.require("k", k, q.dtype, (B, KV, S, width), dev, align=align)
     _build.require("v", v, q.dtype, (B, KV, S, width), dev, align=align)
@@ -375,10 +398,11 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     dv = torch.empty_like(v)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
     if route != "simple":
-        # dq's float32 accumulator (a 64 x Dp tile for each (batch x head,
+        # dq's float32 accumulator (a qt x Dp tile for each (batch x head,
         # query tile)), its counters and the work-item counter
-        nq = B * H * -(-S // BWD_QT)
-        ws = torch.empty((nq * BWD_QT * Dp,), dtype=torch.float32, device=dev)
+        qt = BWD_F32_WIDE_TILES[1] if not bf16 and Dp == 256 else BWD_QT
+        nq = B * H * -(-S // qt)
+        ws = torch.empty((nq * qt * Dp,), dtype=torch.float32, device=dev)
         sem = torch.empty((nq + 1,), dtype=torch.int32, device=dev)
     else:       # simplebwd's float32 accumulators
         ws = torch.empty(((B * H + 2 * B * KV) * S * Dp,),

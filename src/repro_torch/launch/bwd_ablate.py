@@ -5,7 +5,8 @@ or change one piece of work.
 Each variant is ``csrc/flash_attention.cu`` with a text patch inside one
 body's namespace (``bf16bwd`` for D <= 128, ``widebwd`` for the D = 256
 body, the ``wide_*`` variants, ``f32bwd`` for the float32 body at D <=
-128, the ``f32_*`` variants), built with nvcc (``-Xptxas -v``) into
+128, the ``f32_*`` variants, ``f32widebwd`` for the float32 body at
+D = 256, the ``f32w_*`` variants), built with nvcc (``-Xptxas -v``) into
 ``build/repro_torch/ablate/`` and run in a process of its own (a variant
 whose waits can no longer be met would hang; each process has a time
 limit), in the order base, the variants, base.  The variants that drop
@@ -40,6 +41,8 @@ C7520 warnings (wgmma serialized).
     f32_no_kv      the float32 body without its dv and dk products
     f32_no_dqmm    the float32 body without its dq product (the shares
                    still staged and added)
+    f32w_no_dq, f32w_no_exp, f32w_no_sdp, f32w_no_kv, f32w_no_dqmm
+                   the same five on the float32 D = 256 body (f32widebwd)
 
 Shapes (--shape, a preset or B,H,KV,S,D):
 
@@ -48,9 +51,11 @@ Shapes (--shape, a preset or B,H,KV,S,D):
                                  Gemma-style head dim: the D = 256 body)
     f32   4, 32, 4, 2048, 128   (yi's shape in float32 operands, as a
                                  float32 model trains: the f32bwd body)
+    wide_f32  4, 8, 2, 2048, 256   (the wide shape in float32 operands:
+                                    the f32widebwd body)
 
-The presets run bfloat16 operands, except f32, which runs float32; a
-shape written out runs bfloat16.
+The presets run bfloat16 operands, except f32 and wide_f32, which run
+float32; a shape written out runs bfloat16.
 
 Run on a card (CUDA events, the mean of 20 calls, three rounds each, on
 the (B, H, S, D) views of (B, S, H, D) tensors from a seeded generator;
@@ -59,7 +64,7 @@ call on a retained graph, and prints a digest of dq's, dk's and dv's
 bits):
 
     PYTHONPATH=src python -m repro_torch.launch.bwd_ablate \\
-        [--shape wide|f32] [--variants base,wide_no_dq] \\
+        [--shape wide|f32|wide_f32] [--variants base,wide_no_dq] \\
         [--parent OTHER/src/repro_torch/kernels/csrc/flash_attention.cu]
 
 --parent adds a variant "parent": that file as it is (say, a parent
@@ -85,12 +90,13 @@ OUT = _build.BUILD_DIR / "ablate"
 
 #: (B, H, KV, S, D) of the presets
 PRESETS = {"yi": (4, 32, 4, 2048, 128), "wide": (4, 8, 2, 2048, 256),
-           "f32": (4, 32, 4, 2048, 128)}
+           "f32": (4, 32, 4, 2048, 128), "wide_f32": (4, 8, 2, 2048, 256)}
 #: the presets that run float32 operands (the others bfloat16)
-FLOAT32_PRESETS = ("f32",)
+FLOAT32_PRESETS = ("f32", "wide_f32")
 
 #: the namespace each body's source lives in
-NAMESPACES = {"narrow": "bf16bwd", "wide": "widebwd", "f32": "f32bwd"}
+NAMESPACES = {"narrow": "bf16bwd", "wide": "widebwd", "f32": "f32bwd",
+              "f32w": "f32widebwd"}
 
 _HANDOFF = "        if (!last) share(bh, qi, kt, act);"
 _FINISH = "        if (last && act) finish(bh, qi, kt);"
@@ -142,12 +148,23 @@ PATCHES = {
     "f32_no_dqmm": [("        for (int j = 0; j < KT; ++j) {",
                      "        for (int j = 0; j < 0; ++j) {")],
 }
+# the float32 D = 256 body: the same five cuts (its S and dP split D)
+PATCHES.update({
+    "f32w_no_dq": PATCHES["f32_no_dq"],
+    "f32w_no_exp": [("? expf(fmaf(z[c], scale, -ls)) : 0.f;",
+                     "? fmaf(z[c], scale, -ls) : 0.f;")],
+    "f32w_no_sdp": [("        for (int t = 0; t < D / 4 / PARTS; ++t) {",
+                     "        for (int t = 0; t < 0; ++t) {")],
+    "f32w_no_kv": PATCHES["f32_no_kv"],
+    "f32w_no_dqmm": PATCHES["f32_no_dqmm"],
+})
 
 
 def body_of(name: str) -> str:
     """The body a variant patches: "wide" (the D = 256 body), "f32" (the
-    float32 body) or "narrow" (bfloat16 D <= 128)."""
-    for body in ("wide", "f32"):
+    float32 body), "f32w" (the float32 D = 256 body) or "narrow"
+    (bfloat16 D <= 128)."""
+    for body in ("wide", "f32", "f32w"):
         if name.startswith(body + "_"):
             return body
     return "narrow"
@@ -180,13 +197,15 @@ def backward_notes(log: str) -> list:
     """From an ``nvcc -Xptxas -v`` log: ptxas' C7520 warnings and, per
     backward body (``flash_bwd_kernel<D>``, ``<256>`` for
     ``flash_bwd_kernel_d256``, ``f32<D>`` for ``flash_bwd_f32_kernel<D>``),
-    its registers and spill bytes."""
+    its registers and spill bytes; ``f32<256>`` for
+    ``flash_bwd_f32_wide_kernel``."""
     out, fn = [], None
     for line in log.splitlines():
         body = re.search(r"flash_bwd_kernelILi(\d+)E", line)
         f32 = re.search(r"flash_bwd_f32_kernelILi(\d+)E", line)
         name = (f"<{body[1]}>" if body else f"f32<{f32[1]}>" if f32 else
-                "<256>" if "flash_bwd_kernel_d256" in line else None)
+                "<256>" if "flash_bwd_kernel_d256" in line else
+                "f32<256>" if "flash_bwd_f32_wide_kernel" in line else None)
         if "C7520" in line:
             out.append("C7520: " + line.strip()[-160:])
             continue
@@ -288,7 +307,8 @@ def parse_shape(text: str) -> tuple:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--shape", default="yi",
-                    help="a preset (yi, wide, f32) or B,H,KV,S,D (default: "
+                    help="a preset (yi, wide, f32, wide_f32) or "
+                         "B,H,KV,S,D (default: "
                          "yi, yi-6b's training shape)")
     ap.add_argument("--variants", help="comma-separated variants (default: "
                     "those of the shape's body)")
@@ -309,8 +329,9 @@ def main(argv=None) -> int:
         return 0
     if args.parent and dtype == "float32":
         raise SystemExit("--parent runs the bfloat16 bodies only")
-    mine = ("f32" if dtype == "float32" else
-            "wide" if 128 < shape[4] <= 256 else "narrow")
+    wide = 128 < shape[4] <= 256
+    mine = (("f32w" if wide else "f32") if dtype == "float32" else
+            "wide" if wide else "narrow")
     names = ([n for n in args.variants.split(",") if n] if args.variants
              else [n for n in PATCHES if n != "base" and body_of(n) == mine])
     for n in names:

@@ -1,8 +1,9 @@
-"""Where the bfloat16 flash forward's time goes: `flash_attention` at the
-models' prefill shapes and at one wide head dim, timed with source
-variants of its tensor-core bodies (``flash_fwd_bf16_kernel``, and
-``flash_fwd_bf16_kernel_d256`` for 128 < D <= 256) that each drop or
-change one piece of work.
+"""Where the flash forward's time goes: `flash_attention` at the models'
+prefill shapes and at one wide head dim, timed with source variants of
+its tensor-core bodies (``flash_fwd_bf16_kernel``, and
+``flash_fwd_bf16_kernel_d256`` for 128 < D <= 256) and of its float32
+body for 128 < D <= 256 (``flash_fwd_f32_wide_kernel``) that each drop
+or change one piece of work.
 
 Each variant is ``csrc/flash_attention.cu`` with a text patch, built
 with nvcc (``-Xptxas -v``) into ``build/repro_torch/fwd_ablate/`` and
@@ -34,9 +35,18 @@ the spill bytes of every forward body.
                    and stored with TMA, the slot released once the store
                    has read it)
     wide_no_turns  the D = 256 body's consumers without turns
+    f32_body256    float32 at D = 256 on f32body as it stands (one block a
+                   64-row query tile, Q and K at pitch D + 1 in shared
+                   memory, one K and V tile at a time, plain loads): the
+                   floor the float32 wide body (f32wide) has to beat
+    f32w_no_exp    f32wide with p = s - m and alpha = 1, no expf
+    f32w_no_s      f32wide without its S product (the softmax on zeros)
+    f32w_no_pv     f32wide without its P V product
+    f32w_one_stage f32wide with one K and V stage (two in the kernel)
 
-`legacy` changes the grid rule that both bodies share; the `wide_*`
-variants touch only the D = 256 body, the others only the D <= 128 ones.
+`legacy` changes the grid rule that both bfloat16 bodies share; the
+`wide_*` variants touch only the bfloat16 D = 256 body, the `f32*`
+variants only float32 at D = 256, the others only the D <= 128 ones.
 
 Shapes (--shape, repeatable: a preset or B,H,KV,S,D):
 
@@ -46,6 +56,10 @@ Shapes (--shape, repeatable: a preset or B,H,KV,S,D):
     whisper  4, 16, 16, 2048, 64   (whisper-medium's decoder)
     wide     4, 8, 2, 2048, 256    (yi's batch and GQA group of 4 at a
                                     Gemma-style head dim: the D = 256 body)
+    wide_f32 4, 8, 2, 2048, 256    (the same in float32: f32wide)
+
+The presets run bfloat16 operands, except wide_f32, which runs float32;
+a shape written out runs bfloat16.
 
 Run on a card (CUDA events, the mean of 20 calls, three rounds each, on
 the model's (B, S, H, D) layout and on contiguous (B, H, S, D) tensors;
@@ -86,9 +100,12 @@ PRESETS = {
     "danube": (4, 32, 8, 2048, 120),
     "whisper": (4, 16, 16, 2048, 64),
     "wide": (4, 8, 2, 2048, 256),
+    "wide_f32": (4, 8, 2, 2048, 256),
 }
 #: the model presets (the D <= 128 bodies), the default --shape list
 MODEL_PRESETS = ("yi", "zamba2", "danube", "whisper")
+#: the presets that run float32 operands (the others bfloat16)
+FLOAT32_PRESETS = ("wide_f32",)
 
 _EX2 = "s[4 * j + e] = ex2(fmaf(s[4 * j + e], scale_log2, -m[e >> 1]));"
 
@@ -198,6 +215,23 @@ PATCHES = {
          "turn 0\n", ""),
         ("    if (w == 0) bar_sync(1);                   // the other's last "
          "hand-over\n", "")],
+    "f32_body256": [
+        ("    case 256: return f32wide::launch(q, k, v, o, l, ly, B, H, KV, S, "
+         "width,\n                                     scale, st);\n",
+         "    case 256: return f32body::launch<256>(q, k, v, o, l, ly, B, H, "
+         "KV, S,\n                                          scale, st);\n")],
+    "f32w_no_exp": [
+        ("        const float alpha = expf(m - m_new);\n",
+         "        const float alpha = 1.f;\n"),
+        ("          const float p = expf(z[c] - m_new);\n",
+         "          const float p = z[c] - m_new;\n")],
+    "f32w_no_s": [("        for (int tt = 0; tt < D / 4 / PARTS; ++tt) {",
+                   "        for (int tt = 0; tt < 0; ++tt) {")],
+    "f32w_no_pv": [("        for (int key = 0; key < BK; ++key) {",
+                    "        for (int key = 0; key < 0; ++key) {")],
+    "f32w_one_stage": [
+        ("constexpr int STAGES = 2;       // K and V tiles in the ring",
+         "constexpr int STAGES = 1;       // K and V tiles in the ring")],
 }
 
 
@@ -219,12 +253,18 @@ def forward_notes(log: str) -> list:
     """From an ``nvcc -Xptxas -v`` log: ptxas' C7520 warnings (wgmma
     serialized) and, per forward body (``flash_fwd_bf16_kernel<D, W>``,
     and ``<256>`` for ``flash_fwd_bf16_kernel_d256``), its registers and
-    spill bytes."""
+    spill bytes; the float32 bodies as ``f32<D>`` (f32body's
+    ``flash_fwd_kernel<D>``) and ``f32<256> wide``
+    (``flash_fwd_f32_wide_kernel``)."""
     out, fn = [], None
     for line in log.splitlines():
         body = re.search(r"flash_fwd_bf16_kernelILi(\d+)ELi(\d+)E", line)
+        f32 = re.search(r"flash_fwd_kernelILi(\d+)E", line)
         name = (f"<{body[1]}, {body[2]}>" if body else
-                "<256>" if "flash_fwd_bf16_kernel_d256" in line else None)
+                "<256>" if "flash_fwd_bf16_kernel_d256" in line else
+                f"f32<{f32[1]}>" if f32 else
+                "f32<256> wide" if "flash_fwd_f32_wide_kernel" in line
+                else None)
         if "C7520" in line:
             if name:
                 out.append(f"C7520 in {name}: "
@@ -303,12 +343,13 @@ def _profiled_ms(fn):
     return sum(us) / 1e3 if us else None
 
 
-def time_variant(name: str, shape, reps: int = 20) -> dict:
+def time_variant(name: str, shape, reps: int = 20,
+                 dtype: str = "bfloat16") -> dict:
     """Per layout, three rounds of (kernel ms, SDPA ms) with the variant's
-    library and the largest |kernel - SDPA|, on bf16 tensors from a seeded
-    generator: "model", the (B, H, S, D) views of the model's (B, S, H, D)
-    tensors; "contiguous", (B, H, S, D) tensors (as `chip_smoke.py`
-    times them)."""
+    library and the largest |kernel - SDPA|, on tensors of `dtype` from a
+    seeded generator: "model", the (B, H, S, D) views of the model's (B,
+    S, H, D) tensors; "contiguous", (B, H, S, D) tensors (as
+    `chip_smoke.py` times them)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -319,7 +360,7 @@ def time_variant(name: str, shape, reps: int = 20) -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     model = [torch.as_tensor(rng.normal(size=(B, S, h, D)).astype(
-        np.float32), device=dev).bfloat16().transpose(1, 2)
+        np.float32), device=dev).to(getattr(torch, dtype)).transpose(1, 2)
         for h in (H, KV, KV)]
     out = {}
     for layout, (q, k, v) in (("model", model), ("contiguous", [
@@ -345,6 +386,12 @@ def time_variant(name: str, shape, reps: int = 20) -> dict:
     return out
 
 
+def dtype_of(text: str) -> str:
+    """The operands' dtype of a --shape: float32 for the float32 presets,
+    else bfloat16."""
+    return "float32" if text in FLOAT32_PRESETS else "bfloat16"
+
+
 def parse_shape(text: str) -> tuple:
     """A preset's (B, H, KV, S, D), or B,H,KV,S,D as written."""
     if text in PRESETS:
@@ -359,7 +406,8 @@ def parse_shape(text: str) -> tuple:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--shape", action="append",
-                    help="a preset (yi, zamba2, danube, whisper, wide) "
+                    help="a preset (yi, zamba2, danube, whisper, wide, "
+                         "wide_f32) "
                          "or B,H,KV,S,D; repeatable (default: the four "
                          "model presets)")
     ap.add_argument("--variants", default=",".join(PATCHES),
@@ -373,9 +421,10 @@ def main(argv=None) -> int:
         parse_shape(s)
     if args.variant:                    # one variant, in its own process
         for s in shapes:
-            for layout, r in time_variant(args.variant,
-                                          parse_shape(s)).items():
-                print(f"variant {args.variant}, {s}, {layout} layout: "
+            for layout, r in time_variant(args.variant, parse_shape(s),
+                                          dtype=dtype_of(s)).items():
+                print(f"variant {args.variant}, {s} {dtype_of(s)}, "
+                      f"{layout} layout: "
                       f"kernel / SDPA ms "
                       f"{[(round(a, 4), round(b, 4)) for a, b in r['rounds']]}"
                       f", kernel / SDPA "

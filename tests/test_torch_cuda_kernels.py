@@ -741,6 +741,56 @@ def test_flash_f32_bwd_body(dev, rng, D, B, H, KV, S):
             FA.flash_attention_bwd(x, x, x, x, lse_x, x)
 
 
+
+@pytest.mark.parametrize("D", [132, 160, 200, 256])
+@pytest.mark.parametrize("B,H,KV,S", [(1, 2, 1, 1), (2, 8, 2, 385),
+                                      (1, 4, 1, 1000), (2, 16, 4, 257)])
+def test_flash_f32_wide_bodies(dev, rng, D, B, H, KV, S):
+    """The float32 bodies at 128 < D <= 256 (f32wide forward, f32widebwd
+    backward; D % 4 == 0 read in place, 132 too, 130 would be padded) on
+    the views of the model's (B, S, H, D) tensors: within FLASH_TOL of the
+    plain versions, lse within 1e-5 of the dense oracle's, two runs
+    bit-equal and equal to the contiguous copies' run, outputs in (B, S,
+    H, D) memory; the launchers' schedules: 64-row forward items and
+    32-key backward items, one persistent block an SM at most."""
+    assert FA._forward_route(torch.float32, D) == ("in place", 256)
+    assert FA._backward_route(torch.float32, D) == ("in place", 256)
+    q, k, v, do = (torch.as_tensor(rng.normal(size=(B, S, h, D)).astype(
+        np.float32), device=dev).transpose(1, 2) for h in (H, KV, KV, H))
+    qc, kc, vc, doc = (x.contiguous() for x in (q, k, v, do))
+    before = dict(_build.launches)
+    o, lse = FA.flash_attention_fwd(q, k, v)
+    o2, lse2 = FA.flash_attention_fwd(q, k, v)
+    oc = FA.flash_attention(qc, kc, vc)
+    g = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    g2 = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    gc = FA.flash_attention_bwd(qc, kc, vc, o.contiguous(), lse, doc)
+    assert _build.launches["flash_attention"] == \
+        before["flash_attention"] + 3
+    assert _build.launches["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 3
+    assert _same(o, o2) and _same(lse, lse2) and _same(o, oc)
+    assert o.transpose(1, 2).is_contiguous() and o.shape == (B, H, S, D)
+    tol = FLASH_TOL[torch.float32]
+    p, plse = FA.flash_attention_plain(q, k, v, return_lse=True)
+    torch.testing.assert_close(o, p, atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, plse, atol=1e-5, rtol=1e-5)
+    pg = FA.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    for x, y, z, w in zip(g, g2, gc, pg):
+        assert x.dtype == torch.float32 and x.shape == w.shape
+        assert _same(x, y) and _same(x, z)
+        assert x.transpose(1, 2).is_contiguous()
+        torch.testing.assert_close(x, w, atol=tol, rtol=tol)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sch = FA._fwd_schedule(B, H, S, D, dev, torch.float32)
+    assert (sch["rows"], sch["keys"]) == FA.TILES[torch.float32][256]
+    assert sch["items"] == B * H * -(-S // 64)
+    assert sch["grid"] == min(sch["items"], sms)
+    sch = FA._bwd_schedule(B, KV, S, D, dev, torch.float32)
+    assert (sch["keys"], sch["queries"]) == FA.BWD_F32_WIDE_TILES
+    assert sch["items"] == B * KV * -(-S // 32)
+    assert sch["grid"] == min(sch["items"], sms)
+
 def test_prefill_runs_the_kernel_once_per_layer(dev):
     """Reduced yi-6b on the card: prefill's self-attention is the kernel
     in every layer, and its logits equal the dense path's (float32)."""

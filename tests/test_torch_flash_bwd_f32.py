@@ -85,7 +85,7 @@ def test_constants_match_the_wrapper():
     output once."""
     assert (KT, QT, CONSUMERS, NTHREADS) == (64, 64, 256, 384)
     assert FA.BWD_F32_TILES == (KT, QT)
-    assert FA.BWD_F32_HEAD_DIMS == (16, 32, 64, 128)
+    assert FA.BWD_F32_HEAD_DIMS == (16, 32, 64, 128, 256)
     assert FA.BWD_QT == QT
     assert _smem(128) == 219_712 <= 232_448
     assert "static_assert(SMEM <= 232448" in _span()
@@ -95,7 +95,7 @@ def test_constants_match_the_wrapper():
     # padded rows: the scalar P / dS stores (rows qa + 4 r, keys ka + 8 c)
     # and dS^T stores hit 32 banks; 16-byte aligned rows for LDS.128
     assert PS % 32 == 8 and TS % 32 == 4 and PS % 4 == TS % 4 == 0
-    for D in FA.BWD_F32_HEAD_DIMS:
+    for D in (16, 32, 64, 128):         # f32bwd's (256 is f32widebwd's)
         f = _frag(D)
         assert f["KJ"] * 4 * f["UC"] * 128 == 64 * D
         assert f["QI"] * 4 * 256 == 64 * D
@@ -128,13 +128,14 @@ def test_shared_stores_are_conflict_free():
 @pytest.mark.parametrize("D,route", [
     (16, ("in place", 16)), (24, ("padded", 32)), (32, ("in place", 32)),
     (64, ("in place", 64)), (96, ("padded", 128)), (120, ("padded", 128)),
-    (128, ("in place", 128)), (160, ("simple", 160)),
-    (256, ("simple", 256))])
+    (128, ("in place", 128)), (160, ("in place", 256)),
+    (256, ("in place", 256))])
 def test_float32_backward_route(D, route):
     """float32 at D in {16, 32, 64, 128} runs the f32bwd body in place,
-    other D <= 128 zero-padded to the next of those, D > 128 simplebwd;
-    the operands of the f32bwd body need 16-byte starts and strides (TMA),
-    simplebwd's one element."""
+    other D <= 128 zero-padded to the next of those, 160 and 256 the
+    f32widebwd body in place (tests/test_torch_flash_f32_wide.py holds
+    its routes); the operands of both bodies need 16-byte starts and
+    strides (TMA), simplebwd's one element."""
     assert FA._backward_route(torch.float32, D) == route
     q = torch.zeros((1, 1, 1, D))
     want = 4 if route[0] == "simple" else 16
@@ -609,9 +610,10 @@ def test_f32_ablate_patches_touch_the_body_alone(name):
 
 def test_f32_preset_runs_float32():
     """`--shape f32` is yi's shape in float32 operands, and its default
-    variants are the float32 body's."""
+    variants are the float32 body's; `--shape wide_f32` (the wide shape
+    in float32) runs float32 too."""
     assert BA.PRESETS["f32"] == (4, 32, 4, 2048, 128)
-    assert BA.FLOAT32_PRESETS == ("f32",)
+    assert BA.FLOAT32_PRESETS == ("f32", "wide_f32")
     assert BA.NAMESPACES["f32"] == "f32bwd"
     assert {"f32_no_dq", "f32_no_exp"} <= set(BA.PATCHES)
     with pytest.raises(SystemExit, match="bfloat16"):
