@@ -26,10 +26,10 @@
    to give the same bits; and the widths outside the main path's bodies:
    gee_delta_renorm at K = 200, topk_fused at K = 300 and at k = 100
    (the chunked and long-list select bodies), flash attention at D = 96
-   (read in place by the D = 128 body) and at D = 160, 192, 256 and 512
-   in both dtypes (up to 256 each dtype's D = 256 body, read in place:
-   the tensor-core body at bfloat16, `f32wide` at float32; at 512 the
-   CUDA-core wide body).  At
+   (read in place by the D = 128 body) and at D = 160, 192, 256, 320,
+   512, 768 and 2112 in both dtypes (up to 256 each dtype's D = 256 body,
+   read in place: the tensor-core body at bfloat16, `f32wide` at float32;
+   above it the CUDA-core wide body).  At
    every flash case
    the forward with lse (`flash_attention_fwd`: the same output bits,
    lse within 1e-5 of the dense oracle's) and the backward
@@ -38,8 +38,10 @@
    tolerance; the float32 backward takes its body `f32bwd` up to D = 128
    (two float32-only cases: D = 96, zero-padded to 128, and a ragged S =
    1000 at D = 64), `f32widebwd` up to 256 (160 and 192 read in place),
-   `simplebwd` at 512; bfloat16 its D = 256 tensor-core body up to 256
-   (160 and 192 read in place), `simplebwd` at 512;
+   bfloat16 its D = 256 tensor-core body up to 256 (160 and 192 read in
+   place); both dtypes the cluster backward at 320 (a ragged last slice),
+   512 and 768 (three blocks a cluster), and `simplebwd` at 2112, above
+   the cluster route's 2048 (each case's route checked);
 3. drives the GEE path at the scale of SNAP soc-LiveJournal1 (an SBM
    with n = 4,847,571 nodes, s = 68,993,773 edges, K = 16, 10% labeled):
    `Embedder(backend="cuda").fit`, then two `EmbeddingShard`s
@@ -153,9 +155,15 @@
    to the plain version in float64 at atol = rtol = 2e-5, its two runs
    bit-equal, each at most F32_FWD_MAX_RATIO or F32_BWD_MAX_RATIO (1.25)
    x its SDPA call; both dtypes at D = 512 (B 1, H 8, KV 2, S =
-   --lm-prompt: the simple bodies `widebody` and `simplebwd`) in both
-   directions beside SDPA (the backend it picks, read from a profile)
-   and their bounds; the backward (its
+   --lm-prompt: the forward's simple body `widebody`, the cluster
+   backward, two blocks a cluster, with the launcher's C, items and
+   clusters) in both directions beside SDPA (the backend it picks, read
+   from a profile) and their bounds, the backward's two runs bit-equal,
+   held at float32 to the float64 plain version at atol = rtol = 2e-5
+   and at bfloat16 to the plain version at 2e-2, and at most
+   F32_BWD_MAX_RATIO (float32) or BF16_CLUSTER_BWD_MAX_RATIO (0.5,
+   bfloat16) x SDPA's backward; the same backward timed and printed at B
+   = --lm-batch; the backward (its
    D = 256 tensor-core body, with the launcher's items and grid) beside
    SDPA's backward, and `FlashAttentionFunction` forward + backward on
    the model's (B, S, H, D) layout beside SDPA's forward + backward, all
@@ -516,11 +524,13 @@ def same(a, b) -> bool:
 # atomics) could separate the two, by a few float32 steps an update.
 FAM_TRAIN_TOL = 1e-4
 # the float32 backward bodies (f32bwd at yi's shape, f32widebwd at the
-# wide shape): each time over SDPA's float32 backward in the same run
-# (phase 6), at most; and the float32 forward's at the wide shape
-# (f32wide) over SDPA's float32 forward
+# wide shape, the cluster backward at D = 512): each time over SDPA's
+# float32 backward in the same run (phase 6), at most; and the float32
+# forward's at the wide shape (f32wide) over SDPA's float32 forward
 F32_BWD_MAX_RATIO = 1.25
 F32_FWD_MAX_RATIO = 1.25
+# the bfloat16 cluster backward at D = 512 over SDPA's backward, at most
+BF16_CLUSTER_BWD_MAX_RATIO = 0.5
 RESUME_TOL = 1e-4
 
 
@@ -1050,6 +1060,8 @@ def train_path(torch, dev, args, timer, smi):
         route_ = FA._backward_route(torch.float32, cfg.head_dim)
         bwd_bodies.add(f"D = {cfg.head_dim}: "
                        + ("simplebwd" if route_[0] == "simple" else
+                          f"the cluster backward at {route_[1]}"
+                          if route_[0] == "cluster" else
                           f"f32bwd<{route_[1]}> {route_[0]}"))
         src = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=64,
                                          global_batch=2, seed=args.seed))
@@ -1646,12 +1658,13 @@ def main() -> int:
         # body: `launch.fwd_ablate` times it against the runtime width's),
         # and the D = 256 body (any width); the backward one per D <= 128
         # and the D = 256 body (any width)
-        if len(bf16) != 15 or any(bf16.values()):
+        # and the cluster backward's instantiation of the D = 256 body
+        if len(bf16) != 16 or any(bf16.values()):
             raise AssertionError(f"ptxas spill bytes of the bfloat16 flash "
-                                 f"bodies (15 expected: forward 10, "
-                                 f"backward 5; all 0): {bf16}")
-        print("ptxas: the 15 bfloat16 flash bodies (forward 10, backward "
-              "5) spill 0 bytes")
+                                 f"bodies (16 expected: forward 10, "
+                                 f"backward 6; all 0): {bf16}")
+        print("ptxas: the 16 bfloat16 flash bodies (forward 10, backward "
+              "5 and the cluster body) spill 0 bytes")
         # the float32 backward body, one per D <= 128
         f32b = {f: n for f, n in ptxas_spills(
             _build.ptxas_log["flash_attention"]).items()
@@ -1662,15 +1675,16 @@ def main() -> int:
                                  f"{f32b}")
         print("ptxas: the 4 float32 backward bodies (f32bwd, D = 16, 32, "
               "64, 128) spill 0 bytes")
-        # the float32 bodies at D = 256, forward and backward
+        # the float32 bodies at D = 256, forward and backward, and the
+        # cluster backward's instantiation of the backward
         f32w = {f: n for f, n in ptxas_spills(
             _build.ptxas_log["flash_attention"]).items()
             if "f32_wide_kernel" in f}
-        if len(f32w) != 2 or any(f32w.values()):
+        if len(f32w) != 3 or any(f32w.values()):
             raise AssertionError(f"ptxas spill bytes of the float32 D = 256 "
-                                 f"bodies (2 expected, all 0): {f32w}")
-        print("ptxas: the float32 D = 256 bodies (f32wide, f32widebwd) "
-              "spill 0 bytes")
+                                 f"bodies (3 expected, all 0): {f32w}")
+        print("ptxas: the float32 D = 256 bodies (f32wide, f32widebwd and "
+              "its cluster body) spill 0 bytes")
         if c7520:
             raise AssertionError(f"ptxas serialized the wgmma of a flash "
                                  f"body (C7520): {c7520}")
@@ -1979,7 +1993,10 @@ def main() -> int:
         # f32widebwd at float32), at D = 512 the CUDA-core wide bodies
         # (ragged S and a ragged last D chunk)
         (1, 4, 2, 100, 160), (1, 4, 2, 130, 192), (2, 8, 2, 130, 256),
-        (1, 2, 1, 70, 512))
+        (1, 2, 1, 70, 512),
+        # above 256 the backward's cluster body: a ragged last slice (320)
+        # and three blocks a cluster (768); above 2048 simplebwd (2112)
+        (1, 4, 2, 100, 320), (1, 4, 1, 130, 768), (1, 2, 1, 70, 2112))
         for dt in (torch.float32, torch.bfloat16)]
     # float32 only: the float32 backward body (f32bwd) at D = 96, zero-padded
     # to its D = 128, and at a ragged S against its 64-key items
@@ -1990,6 +2007,12 @@ def main() -> int:
                     ((args.lm_batch, lm.n_heads, lm.n_kv_heads,
                       args.lm_prompt - 1, lm.head_dim), torch.bfloat16)]
     for (B_, H_, KV_, S_, D_), dt in flash_cases:
+        want_ = ("cluster" if 256 < D_ <= FA.BWD_CLUSTER_MAX else
+                 "simple" if D_ > 256 else None)
+        if want_ and FA._backward_route(dt, D_)[0] != want_:
+            raise AssertionError(f"flash_attention_bwd at D = {D_} {dt}: "
+                                 f"route {FA._backward_route(dt, D_)}, not "
+                                 f"{want_}")
         qkv = [torch.as_tensor(rng.normal(size=(B_, h_, S_, D_)).astype(
             np.float32), device=dev).to(dt) for h_ in (H_, KV_, KV_)]
         check_flash(*qkv, f"B={B_} H={H_} KV={KV_} S={S_} D={D_} {dt}")
@@ -3155,18 +3178,25 @@ def main() -> int:
                    "flash" if "flash" in low else "math")
         return backend, names
 
-    def d512_path(B):
+    def d512_path(B, forward=True):
         """Both dtypes at D = 512 (B x 8 query heads over 2 KV heads, S =
-        --lm-prompt), where the simple CUDA-core bodies run (`widebody`
-        forward, `simplebwd` backward): forward and backward each timed
-        beside SDPA's (in turns; the backend it picks read from a
-        profile) and its bound, fp32 operations at float32 and
-        tensor-core operations at bfloat16; the forward held to its plain
-        version (check_flash), the backward's gap to its plain version
-        printed (the smoke's small case at D = 512 holds it).  Returns the
-        flash row's `wide_D512_*` and `wide_bwd_D512_*` entries."""
+        --lm-prompt): the forward on the simple CUDA-core body
+        (`widebody`), the backward on the cluster backward (two blocks a
+        cluster, each the D = 256 body on 256 columns): each timed beside
+        SDPA's (in turns; the backend it picks read from a profile) and
+        its bound, fp32 operations at float32 and tensor-core operations
+        at bfloat16; the forward held to its plain version (check_flash),
+        the backward's two runs bit-equal, held at float32 to the plain
+        version in float64 at atol = rtol = 2e-5 and at bfloat16 to the
+        plain version at the forward's tolerance, and its time at most
+        F32_BWD_MAX_RATIO x SDPA's float32 backward and
+        BF16_CLUSTER_BWD_MAX_RATIO x SDPA's bfloat16 backward.  With
+        forward=False (the run at B = --lm-batch) the backward alone, timed
+        and printed, not held.  Returns the flash row's `wide_D512_*` and
+        `wide_bwd_D512_*` entries (at B = --lm-batch `wide_bwd_D512_B<B>_*`
+        ones)."""
         S, H, KV, D = args.lm_prompt, 8, 2, 512
-        gen_ = torch.Generator(device=dev).manual_seed(args.seed + 512)
+        gen_ = torch.Generator(device=dev).manual_seed(args.seed + 512 + B)
         flops = 4.0 * D * B * H * S * (S + 1) / 2
         sdpa = torch.nn.functional.scaled_dot_product_attention
         out = {}
@@ -3176,22 +3206,73 @@ def main() -> int:
             k, v = (torch.randn((B, KV, S, D), generator=gen_, device=dev,
                                 dtype=dt) for _ in range(2))
             esz, tc = q.element_size(), dt == torch.bfloat16
-            err = check_flash(q, k, v, f"D=512 {dt}")
+            fp = f"wide_D512_{tag}"
+            bp = (f"wide_bwd_D512_{tag}" if forward else
+                  f"wide_bwd_D512_B{B}_{tag}")
+            row = {}
+            if forward:
+                err = check_flash(q, k, v, f"D=512 {dt}")
 
-            def fwd():
-                return FA.flash_attention(q, k, v)
+                def fwd():
+                    return FA.flash_attention(q, k, v)
 
-            def fwd_sdpa():
-                return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+                def fwd_sdpa():
+                    return sdpa(q, k, v, is_causal=True, enable_gqa=True)
 
-            f1, l1 = timer(fwd, 2), timer(fwd_sdpa, 3)
-            l2, f2 = timer(fwd_sdpa, 3), timer(fwd, 2)
+                f1, l1 = timer(fwd, 2), timer(fwd_sdpa, 3)
+                l2, f2 = timer(fwd_sdpa, 3), timer(fwd, 2)
+                be_f, names_f = sdpa_backend(fwd_sdpa)
+                row.update({
+                    f"{fp}_ms": (f1 + f2) / 2,
+                    f"{fp}_bound_ms": bound_ms(
+                        esz * (2 * B * H * S * D + 2 * B * KV * S * D),
+                        flops, tensor_cores=tc)[0],
+                    f"{fp}_plain_ms": timer(
+                        lambda: FA.flash_attention_plain(q, k, v), 2),
+                    f"{fp}_library_ms": (l1 + l2) / 2,
+                    f"{fp}_library_backend": be_f,
+                    f"{fp}_max_abs_err": err})
+                ms_ = row[f"{fp}_ms"]
+                print(f"flash_attention (widebody) at B={B} H={H} KV={KV} "
+                      f"S={S} D={D} {dt}: kernel {f1:.4f} / {f2:.4f} ms, "
+                      f"SDPA {l1:.4f} / {l2:.4f} ms (backend {be_f}: "
+                      f"{'; '.join(n_[:48] for n_ in names_f[:3])}), kernel "
+                      f"/ library {ms_ / row[f'{fp}_library_ms']:.3f}, bound "
+                      f"{row[f'{fp}_bound_ms']:.4f} ms, share of the bound "
+                      f"{row[f'{fp}_bound_ms'] / ms_:.4f}, plain "
+                      f"{row[f'{fp}_plain_ms']:.3f} ms, max|err| vs plain "
+                      f"{err:.3e}")
             o, lse = FA.flash_attention_fwd(q, k, v)
+            route_ = FA._backward_route(dt, D)
+            sch_ = FA._bwd_schedule(B, KV, S, D, dev, dt)
+            body_ = (f"{'widebwd' if tc else 'f32widebwd'} x {sch_['C']} "
+                     f"a cluster ({route_[0]})")
             ga = FA.flash_attention_bwd(q, k, v, o, lse, do)
-            gp = FA.flash_attention_bwd_plain(q, k, v, o, lse, do)
-            err_b = max((x_.float() - y_.float()).abs().max().item()
-                        for x_, y_ in zip(ga, gp))
-            del ga, gp
+            gb = FA.flash_attention_bwd(q, k, v, o, lse, do)
+            if not all(same(x_, y_) for x_, y_ in zip(ga, gb)):
+                raise AssertionError(f"flash_attention_bwd at D = 512 {dt} "
+                                     f"B={B}: two runs differ")
+            err_b = None
+            if forward:
+                if tc:
+                    gp = FA.flash_attention_bwd_plain(q, k, v, o, lse, do)
+                    tol_, how = 2e-2, "the plain version"
+                else:
+                    gp = FA.flash_attention_bwd_plain(
+                        *(x.double() for x in (q, k, v, o, lse, do)))
+                    tol_, how = 2e-5, "the float64 plain version"
+                for n_, x_, z_ in zip(("dq", "dk", "dv"), ga, gp):
+                    if not torch.allclose(x_.to(z_.dtype), z_, rtol=tol_,
+                                          atol=tol_):
+                        raise AssertionError(
+                            f"flash_attention_bwd at D = 512 {dt}: {n_} "
+                            f"max|err| "
+                            f"{(x_.to(z_.dtype) - z_).abs().max().item()} "
+                            f"from {how}, outside atol = rtol = {tol_}")
+                err_b = max((x_.to(z_.dtype) - z_).abs().max().item()
+                            for x_, z_ in zip(ga, gp))
+                del gp
+            del ga, gb
             lib_in = [x.detach().requires_grad_() for x in (q, k, v)]
             lib_out = sdpa(*lib_in, is_causal=True, enable_gqa=True)
 
@@ -3202,47 +3283,48 @@ def main() -> int:
                 return torch.autograd.grad(lib_out, lib_in, do,
                                            retain_graph=True)
 
-            b1, bl1 = timer(bwd, 1), timer(bwd_sdpa, 2)
-            bl2, b2 = timer(bwd_sdpa, 2), timer(bwd, 1)
-            be_f, names_f = sdpa_backend(fwd_sdpa)
+            b1, bl1 = timer(bwd, 3), timer(bwd_sdpa, 2)
+            bl2, b2 = timer(bwd_sdpa, 2), timer(bwd, 3)
             be_b, names_b = sdpa_backend(bwd_sdpa)
-            fp, bp = f"wide_D512_{tag}", f"wide_bwd_D512_{tag}"
-            row = {
-                f"{fp}_ms": (f1 + f2) / 2,
-                f"{fp}_bound_ms": bound_ms(
-                    esz * (2 * B * H * S * D + 2 * B * KV * S * D), flops,
-                    tensor_cores=tc)[0],
-                f"{fp}_plain_ms": timer(
-                    lambda: FA.flash_attention_plain(q, k, v), 2),
-                f"{fp}_library_ms": (l1 + l2) / 2,
-                f"{fp}_library_backend": be_f,
-                f"{fp}_max_abs_err": err,
+            row.update({
                 f"{bp}_ms": (b1 + b2) / 2,
                 f"{bp}_bound_ms": bound_ms(
                     esz * (4 * B * H * S * D + 4 * B * KV * S * D)
                     + 4 * B * H * S, 2.5 * flops, tensor_cores=tc)[0],
-                f"{bp}_plain_ms": timer(
-                    lambda: FA.flash_attention_bwd_plain(q, k, v, o, lse,
-                                                         do), 1),
                 f"{bp}_library_ms": (bl1 + bl2) / 2,
                 f"{bp}_library_backend": be_b,
-                f"{bp}_max_abs_err": err_b}
+                f"{bp}_body": body_,
+                f"{bp}_C": sch_["C"], f"{bp}_items": sch_["items"],
+                f"{bp}_clusters": sch_["clusters"]})
+            if forward:
+                row[f"{bp}_plain_ms"] = timer(
+                    lambda: FA.flash_attention_bwd_plain(q, k, v, o, lse,
+                                                         do), 1)
+                row[f"{bp}_max_abs_err"] = err_b
+            ms_ = row[f"{bp}_ms"]
+            ratio_ = ms_ / row[f"{bp}_library_ms"]
+            limit_ = F32_BWD_MAX_RATIO if not tc else \
+                BF16_CLUSTER_BWD_MAX_RATIO
             by = "fp32 operations" if not tc else "bf16 tensor-core operations"
-            for what, pre, k1, k2, lib1_, lib2_, be_, names_ in (
-                    ("flash_attention (widebody)", fp, f1, f2, l1, l2, be_f,
-                     names_f),
-                    ("flash_attention_bwd (simplebwd)", bp, b1, b2, bl1, bl2,
-                     be_b, names_b)):
-                ms_ = row[f"{pre}_ms"]
-                print(f"{what} at B={B} H={H} KV={KV} S={S} D={D} {dt}: "
-                      f"kernel {k1:.4f} / {k2:.4f} ms, SDPA {lib1_:.4f} / "
-                      f"{lib2_:.4f} ms (backend {be_}: "
-                      f"{'; '.join(n_[:48] for n_ in names_[:3])}), kernel "
-                      f"/ library {ms_ / row[f'{pre}_library_ms']:.3f}, "
-                      f"bound {row[f'{pre}_bound_ms']:.4f} ms ({by}), share "
-                      f"of the bound {row[f'{pre}_bound_ms'] / ms_:.4f}, "
-                      f"plain {row[f'{pre}_plain_ms']:.3f} ms, max|err| vs "
-                      f"plain {row[f'{pre}_max_abs_err']:.3e}")
+            print(f"flash_attention_bwd ({body_}) at B={B} H={H} KV={KV} "
+                  f"S={S} D={D} {dt}: kernel {b1:.4f} / {b2:.4f} ms, SDPA's "
+                  f"backward {bl1:.4f} / {bl2:.4f} ms (backend {be_b}: "
+                  f"{'; '.join(n_[:48] for n_ in names_b[:3])}), kernel / "
+                  f"library {ratio_:.3f} (at most {limit_}"
+                  f"{'' if forward else ', not held here'}), bound "
+                  f"{row[f'{bp}_bound_ms']:.4f} ms ({by}), share of the "
+                  f"bound {row[f'{bp}_bound_ms'] / ms_:.4f}; the launcher's "
+                  f"schedule: {sch_['items']} items of {sch_['keys']} keys x "
+                  f"{sch_['queries']}-query steps on {sch_['clusters']} "
+                  f"clusters of C = {sch_['C']} blocks (grid "
+                  f"{sch_['grid']}); two runs bit-equal"
+                  + (f"; plain {row[f'{bp}_plain_ms']:.3f} ms, max|err| "
+                     f"{err_b:.3e} (atol = rtol = "
+                     f"{2e-2 if tc else 2e-5} held)" if forward else ""))
+            if forward and ratio_ > limit_:
+                raise AssertionError(f"flash_attention_bwd at D = 512 {dt} "
+                                     f"takes {ratio_:.3f} x SDPA's backward, "
+                                     f"above {limit_}")
             out.update(row)
             del q, k, v, do, o, lse, lib_in, lib_out
         return out
@@ -3519,6 +3601,7 @@ def main() -> int:
         del o_f, lse_f, do_f, lib_in, lib_out
         del qf, kf, vf
         wide.update(d512_path(B=1))
+        wide.update(d512_path(B=args.lm_batch, forward=False))
         # the backward at the bfloat16 shape, on its tensor-core body for
         # 128 < D <= 256: two runs bit-equal, held to its plain version by
         # phase 8's limits, timed beside SDPA's backward (one autograd call

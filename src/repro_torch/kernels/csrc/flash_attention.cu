@@ -305,7 +305,38 @@
 // dots of 4 queries x 8 keys a thread, the quarters added by xor
 // shuffles); dq's share is 8 queries x 4 columns a thread.
 //
-// float32 and bfloat16 at D > 256 (simplebwd): CUDA cores, float32
+// float32 and bfloat16 at 256 < D <= 2048 (the cluster backward: widebwd
+// and f32widebwd with CL = true, a narrower width than C * 256 read in
+// place, D % 8 == 0 at bfloat16 and D % 4 == 0 at float32): no body's
+// layout fits a block at D = 512, but only S and dP need a sum over all of
+// D; dv, dk and dq are column by column.  So a cluster of C = ceil(D /
+// 256) blocks (8 at most, the portable cluster size) takes one item, and
+// block r runs the D = 256 body on columns 256 r .. 256 r + 255: its K, V,
+// Q and dO tiles are those columns (the maps over the whole width, their
+// coordinates offset, the columns past D zero-filled), its S and dP sums
+// over them in the body's own order, and then, through distributed
+// shared memory, each compute warp stores its lanes' partials, arrives on
+// an mbarrier of every other rank (release, cluster scope) and waits for
+// theirs on its own, and each lane adds the C ranks' partials of its
+// fragment in ascending rank order, so every block forms the same P and
+// dS bits (a warp reads back exactly the units its counterparts wrote: a
+// warp's wait is enough, and the producers, which never exchange, are not
+// held; two buffers, since a rank writes one again only after every other
+// rank's next arrival, made after its reads).  dv, dk and dq's share are
+// then the block's columns', dq's added to the slice's own accumulator
+// under the slice's own counters (a region of each a slice), in key-tile
+// order as at D = 256.  Rank 0 draws each ticket and writes it into every
+// rank's shared memory (two slots), so the blocks of a cluster walk the
+// same items and steps, and the same exchanges, to the end.  A cluster
+// barrier after the mbarriers are set and another before any block
+// exits.  The grid is C x min(items, the clusters the card holds at
+// once) (cudaLaunchKernelEx with the cluster dimension: C is known at
+// run time), so every item a counter wait points at has a resident
+// cluster.  At bfloat16 the exchange's two buffers (64 KB) take the second
+// Q / dO slot's room: one slot.  No product is added, and no tile but the
+// exchange buffers.
+//
+// float32 and bfloat16 at D > 2048 (simplebwd): CUDA cores, float32
 // arithmetic, written for correctness as the wide forward body.
 // 16-query x 32-key tiles, D staged in chunks of 128 columns in shared
 // memory; the accumulators live in float32 rows of a scratch the caller
@@ -317,6 +348,7 @@
 #include <map>
 #include <mutex>
 #include <utility>
+#include <tuple>
 
 #include "common.cuh"
 
@@ -2758,6 +2790,237 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace bf16bwd
 
+// What the D = 256 bodies (widebwd, f32widebwd) add to run as the cluster
+// backward above D = 256 (see the note at the top of the file): the
+// cluster's rank and size, the ticket rank 0 hands to every rank, the
+// exchange of S's and dP's partial sums through distributed shared
+// memory, and the launch.
+namespace clusterbwd {
+
+using bf16body::st_shared;
+
+constexpr int MAX_C = 8;        // blocks a cluster: the portable limit
+constexpr int WIDTH = 256;      // columns a block: its body's D
+constexpr int MAX_D = MAX_C * WIDTH;
+constexpr int XWARPS = 8;       // the compute warps that exchange
+constexpr int XUNIT = 512;      // bytes between a lane's 16-byte units
+
+__device__ __forceinline__ int rank() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ int size() {
+  int n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return n;
+}
+// shared address a of this block as the cluster sees it in rank r
+__device__ __forceinline__ uint32_t mapa(uint32_t a, int r) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(a), "r"(r));
+  return out;
+}
+// every thread of the cluster that has not exited arrives, then waits
+// for the others (release and acquire at cluster scope)
+__device__ __forceinline__ void sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+// an arrival on the mbarrier at cluster address bar (any rank's),
+// releasing this thread's earlier writes at cluster scope
+__device__ __forceinline__ void arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
+               ::"r"(bar)
+               : "memory");
+}
+// wait until the phase of this block's bar with this parity has
+// completed, acquiring what its arrivals released at cluster scope
+__device__ __forceinline__ void wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+__device__ __forceinline__ float4 ld4(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+// The cluster's n-th ticket, called by lane 0 of every rank's producer:
+// rank 0 takes it from the counter and writes it into slot n & 1 of every
+// rank (slots: two ints), arriving on that rank's mbarrier n & 1 (bars:
+// two, count 1); every rank waits there and reads its slot.  One counter
+// draw a cluster, so all ranks work on the same item; two slots, because
+// rank 0 can draw ticket n + 1 while a rank still reads ticket n (not n +
+// 2: rank 0 draws that only after its consumers finished item n, whose
+// every step exchanged with every rank).
+__device__ __forceinline__ int ticket(int* work, uint32_t slots,
+                                      uint32_t bars, int n, int C, int r) {
+  const uint32_t slot = slots + 4 * (n & 1), bar = bars + 8 * (n & 1);
+  if (r == 0) {
+    const int item = atomicAdd(work, 1);
+    for (int p = 0; p < C; ++p) {
+      asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(mapa(slot, p)),
+                   "r"(item)
+                   : "memory");
+      arrive(mapa(bar, p));
+    }
+  }
+  wait(bar, (n >> 1) & 1);
+  int item;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(item) : "r"(slot) : "memory");
+  return item;
+}
+
+// The exchange of one warp's partial sums at step `it`.  Lane l's N
+// partials (N % 4 == 0) go to this block's buffer (it & 1) at a, N / 4
+// 16-byte units XUNIT bytes apart (a warp's lanes side by side, no bank
+// conflict); once the warp's stores are in (__syncwarp), lane 0 arrives on
+// the warp's mbarrier (it & 1) of every other rank (count C - 1), and the
+// warp waits for theirs on its own.  Then each lane reads the same units
+// of every rank, its own included, and adds them in ascending rank order,
+// ((s0 + s1) + s2) + ...: every rank forms the same bits.  Two buffers:
+// a rank writes buffer (it & 1) again at step it + 2, after the arrivals
+// of step it + 1, which every other rank makes after its reads of step
+// it.
+template <int N>
+__device__ __forceinline__ void put(const float (&x)[N], uint32_t a) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+    st_shared(a + j * XUNIT, x[4 * j], x[4 * j + 1], x[4 * j + 2],
+              x[4 * j + 3]);
+}
+__device__ __forceinline__ void signal(uint32_t bar, int C, int r) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0)
+    for (int p = 0; p < C; ++p)
+      if (p != r) arrive(mapa(bar, p));
+}
+__device__ __forceinline__ void gather(uint32_t bar, int it) {
+  wait(bar, (it >> 1) & 1);
+}
+template <int N>
+__device__ __forceinline__ void sum(float (&x)[N], uint32_t a, int C) {
+  float t[N];
+  for (int p = 0; p < C; ++p) {
+    const uint32_t ra = mapa(a, p);
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      const float4 v = ld4(ra + j * XUNIT);
+      t[4 * j] = v.x;
+      t[4 * j + 1] = v.y;
+      t[4 * j + 2] = v.z;
+      t[4 * j + 3] = v.w;
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = p == 0 ? t[i] : x[i] + t[i];
+  }
+}
+// f32widebwd's exchange: a group's S or dP, 8 partials a lane
+__device__ __forceinline__ void exchange(float (&x)[8], uint32_t a,
+                                         uint32_t bar, int it, int C, int r) {
+  put(x, a);
+  signal(bar, C, r);
+  gather(bar, it);
+  sum(x, a, C);
+}
+// widebwd's: a consumer's S^T and dP^T fragments, 16 partials each
+__device__ __forceinline__ void exchange(float (&x)[16], float (&y)[16],
+                                         uint32_t a, uint32_t bar, int it,
+                                         int C, int r) {
+  put(x, a);
+  put(y, a + 4 * XUNIT);
+  signal(bar, C, r);
+  gather(bar, it);
+  sum(x, a, C);
+  sum(y, a + 4 * XUNIT, C);
+}
+
+// The clusters of C blocks of `fn` (its dynamic shared memory set) that
+// the current device holds at once; 0 if it cannot hold one.  Read once a
+// device, kernel and C.
+inline int max_clusters(const void* fn, int C, size_t smem, int threads) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, int>, int> seen;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(dev, fn, C);
+  auto hit = seen.find(key);
+  if (hit != seen.end()) return hit->second;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, fn, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  seen[key] = n;
+  return n;
+}
+
+// The cluster schedule: C = ceil(width / 256) blocks a cluster, one
+// cluster per item up to what the device holds at once, so that every
+// item a dq counter wait points at has been taken by a resident cluster.
+inline int schedule(const void* fn, size_t smem, int threads, int n_items,
+                    int width, int* C, int* clusters) {
+  *C = (width + WIDTH - 1) / WIDTH;
+  if (*C < 2 || *C > MAX_C) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int most = max_clusters(fn, *C, smem, threads);
+  if (most <= 0) return (int)cudaErrorInvalidConfiguration;
+  *clusters = n_items < most ? n_items : most;
+  return 0;
+}
+
+// launch fn on `clusters` clusters of C blocks
+template <typename... Params, typename... Args>
+int launch(void (*fn)(Params...), int C, int clusters, int threads,
+           size_t smem, cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(C * clusters);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, fn, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace clusterbwd
+
 namespace widebwd {
 
 using namespace bf16body;   // mbarriers, TMA, wgmma helpers, Geo, make_map
@@ -2796,21 +3059,35 @@ static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 256 <=
 // columns of the step's Q and dO tiles that only its own dv and dk read,
 // once they are done (its dq columns 0 .. 63 in its Q chunks, 64 .. 127
 // in its dO chunks, in fragment order).
+//
+// The cluster body (CL, a 256-column slice of D > 256 a block) has one Q /
+// dO slot (ST = 1): the 64 KB of the second one hold the exchange of S^T
+// and dP^T partials, two buffers of 8 warps x 8 16-byte units x 32 lanes
+// (a step's 64 keys x 64 queries of each, float32), beside the two
+// ticket slots and 18 more mbarriers (the 16 warps' exchanges, the two
+// tickets): 231,136 bytes.
+template <bool CL>
 struct Smem {
   using G = Geo<D, 64>;                         // K, V, Q or dO
+  static constexpr int ST = CL ? 1 : STAGES;    // Q / dO slots
   static constexpr uint32_t PT_TILE = KT * QT * 2;
+  static constexpr uint32_t XBUF = clusterbwd::XWARPS * 8 * clusterbwd::XUNIT;
   static constexpr uint32_t K_OFF = 0;
   static constexpr uint32_t V_OFF = G::TILE;
   static constexpr uint32_t Q_OFF = 2 * G::TILE;
-  static constexpr uint32_t DO_OFF = Q_OFF + STAGES * G::TILE;
-  static constexpr uint32_t P_OFF = DO_OFF + STAGES * G::TILE;
+  static constexpr uint32_t DO_OFF = Q_OFF + ST * G::TILE;
+  static constexpr uint32_t P_OFF = DO_OFF + ST * G::TILE;
   static constexpr uint32_t DS_OFF = P_OFF + 2 * PT_TILE;
-  static constexpr uint32_t LSE_OFF = DS_OFF + 2 * PT_TILE;
-  static constexpr uint32_t DL_OFF = LSE_OFF + STAGES * QT * 4;
-  static constexpr uint32_t META_OFF = DL_OFF + STAGES * QT * 4;
-  static constexpr uint32_t ITEM_OFF = META_OFF + STAGES * 16;
-  static constexpr uint32_t BAR_OFF = ITEM_OFF + 16;
-  static constexpr size_t SMEM = BAR_OFF + 8 * (2 + 2 * STAGES) + 1024;
+  static constexpr uint32_t X_OFF = DS_OFF + 2 * PT_TILE;
+  static constexpr uint32_t LSE_OFF = X_OFF + (CL ? 2 * XBUF : 0);
+  static constexpr uint32_t DL_OFF = LSE_OFF + ST * QT * 4;
+  static constexpr uint32_t META_OFF = DL_OFF + ST * QT * 4;
+  static constexpr uint32_t ITEM_OFF = META_OFF + ST * 16;
+  static constexpr uint32_t TICK_OFF = ITEM_OFF + 16;
+  static constexpr uint32_t BAR_OFF = TICK_OFF + (CL ? 16 : 0);
+  static constexpr size_t SMEM =
+      BAR_OFF + 8 * (2 + 2 * ST + (CL ? 2 * clusterbwd::XWARPS + 2 : 0)) +
+      1024;
   static_assert(SMEM <= 232448, "more shared memory than a block may take");
 };
 
@@ -2916,6 +3193,15 @@ __device__ __forceinline__ void wgmma_tt_n128(float (&d)[64], uint64_t da,
 // (batch x head, query tile), in the consumers' fragment order; `sem` a
 // counter for each such tile (the key tiles added so far), then the
 // ticket counter, all zeroed by the Delta pass.
+// CL: the cluster body, block `rank` of a cluster of C on columns 256 rank
+// .. 256 rank + 255 of operands `width` > 256 wide: the maps' coordinates
+// start there (the columns past width zero-filled), dq, dk and dv are
+// stored from there below width, and acc and sem are the slice's own (a
+// region of B * H * nQ tiles and counters each, slice-major), `work` the
+// ticket counter after all of them.  Rank 0 draws the tickets for the
+// cluster, and every step's S^T and dP^T are summed over the ranks
+// (clusterbwd::exchange) before the softmax.
+template <bool CL>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_kernel_d256(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -2928,8 +3214,9 @@ flash_bwd_kernel_d256(const __grid_constant__ CUtensorMap tq,
                       __nv_bfloat16* __restrict__ dv, Lay ldq, Lay ldk,
                       Lay ldv, int* sem, int* work, int B, int H, int KV,
                       int S, int width, float scale, float scale_log2) {
-  using L = Smem;
-  using G = L::G;
+  using L = Smem<CL>;
+  using G = typename L::G;
+  constexpr int ST = L::ST;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* gb = smem_raw + (base - smem_u32(smem_raw));
@@ -2941,24 +3228,51 @@ flash_bwd_kernel_d256(const __grid_constant__ CUtensorMap tq,
   // mbarriers: K and V full (TMA bytes) and empty (every consumer
   // thread); per ring slot full (TMA bytes, plus the producer warp's 32
   // cp.async arrivals) and staged (every consumer thread, once the step's
-  // Q and dO are read and its dq share staged)
+  // Q and dO are read and its dq share staged); CL: per exchange buffer
+  // and compute warp the other ranks' arrivals, and the two tickets'
   const uint32_t full_kv = bar, empty_kv = bar + 8, full = bar + 16,
-                 staged = full + 8 * STAGES;
+                 staged = full + 8 * ST;
+  const uint32_t xin = staged + 8 * ST, tick = xin + 16 * clusterbwd::XWARPS;
 
   const int GS = H / KV, BKV = B * KV;
   const int nQ = (S + QT - 1) / QT;                  // query tiles
   const int n_items = BKV * ((S + KT - 1) / KT);
+  int C = 1, rank = 0;
+  if constexpr (CL) {
+    C = clusterbwd::size();
+    rank = clusterbwd::rank();
+    sem += (size_t)rank * B * H * nQ;
+    acc += (size_t)rank * B * H * nQ * QT * D;
+    dq += rank * D;
+    dk += rank * D;
+    dv += rank * D;
+    width -= rank * D;                           // the slice's, >= 1
+  }
+  const int col0 = rank * D;                     // the slice's first column
+  // dq's accumulator tile: NP parts of 64 x 64 floats (columns 64 p ..
+  // 64 p + 63), 4 but in a last slice narrower than 256 columns, whose
+  // parts past its width are neither added nor read (their columns are
+  // zero and never stored)
+  const int NP = CL ? min(4, (width + 63) / 64) : 4;
+  const size_t TF = (size_t)NP * QT * 64;          // floats a tile
 
   if (threadIdx.x == 0) {
     mbar_init(full_kv, 1);
     mbar_init(empty_kv, 256);
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < ST; ++s) {
       mbar_init(full + 8 * s, 33);
       mbar_init(staged + 8 * s, 256);
+    }
+    if constexpr (CL) {
+      for (int i = 0; i < 2 * clusterbwd::XWARPS; ++i)
+        mbar_init(xin + 8 * i, C - 1);
+      mbar_init(tick, 1);
+      mbar_init(tick + 8, 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+  if constexpr (CL) clusterbwd::sync();        // every rank's mbarriers set
 
   if (threadIdx.x < 128) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
@@ -2975,18 +3289,18 @@ flash_bwd_kernel_d256(const __grid_constant__ CUtensorMap tq,
       // are complete (the diagonal tile's share is never staged: its
       // consumers round the sum into dq)
       auto add_share = [&](int i) {
-        const int slot = i % STAGES;
-        mbar_wait(staged + 8 * slot, (i / STAGES) & 1);
+        const int slot = i % ST;
+        mbar_wait(staged + 8 * slot, (i / ST) & 1);
         const int bh = meta[4 * slot], qi = meta[4 * slot + 1],
                   kt = meta[4 * slot + 2];
         if (meta[4 * slot + 3]) return;
         int* cnt = sem + bh * nQ + qi;
-        float* dst = acc + ((size_t)bh * nQ + qi) * QT * D;
+        float* dst = acc + ((size_t)bh * nQ + qi) * TF;
         if (kt > 0) {
           wait_count(cnt, kt);
           fence_async_global();
         }
-        for (int r = 0; r < 4; ++r) {                // consumer r / 2's half
+        for (int r = 0; r < NP; ++r) {               // consumer r / 2's half
           const uint32_t src = base + (r & 1 ? L::DO_OFF : L::Q_OFF) +
                                slot * G::TILE + (r >> 1) * 2 * G::CHUNK;
           if (kt == 0) bulk_store(dst + r * QT * 64, src, 2 * G::CHUNK);
@@ -2999,14 +3313,17 @@ flash_bwd_kernel_d256(const __grid_constant__ CUtensorMap tq,
       int it = 0;                                    // steps so far
       for (int n = 0;; ++n) {
         int item = 0;
-        if (lane == 0) item = atomicAdd(work, 1);
+        if (lane == 0)
+          item = CL ? clusterbwd::ticket(work, base + L::TICK_OFF, tick, n, C,
+                                         rank)
+                    : atomicAdd(work, 1);
         item = __shfl_sync(0xffffffffu, item, 0);
         mbar_wait(empty_kv, (n & 1) ^ 1);            // the last item done
         if (item >= n_items) {
           if (lane == 0) {
             *item_s = -1;
             mbar_arrive(full_kv);
-            for (int i = it < STAGES ? 0 : it - STAGES; i < it; ++i)
+            for (int i = it < ST ? 0 : it - ST; i < it; ++i)
               add_share(i);
           }
           break;
@@ -3018,27 +3335,29 @@ flash_bwd_kernel_d256(const __grid_constant__ CUtensorMap tq,
           mbar_expect_tx(full_kv, 2 * G::TILE);
           for (int c = 0; c < G::NC; ++c) {
             tma_load(base + L::K_OFF + c * G::CHUNK, &tk, full_kv,
-                     c * G::AW, kvh, k0, b);
+                     col0 + c * G::AW, kvh, k0, b);
             tma_load(base + L::V_OFF + c * G::CHUNK, &tv, full_kv,
-                     c * G::AW, kvh, k0, b);
+                     col0 + c * G::AW, kvh, k0, b);
           }
         }
         const int steps = GS * (nQ - kt);
         for (int s = 0; s < steps; ++s, ++it) {
-          const int slot = it % STAGES;
+          const int slot = it % ST;
           const int q0 = (nQ - 1 - s / GS) * QT;
           const int h = kvh * GS + s % GS;
-          if (it >= STAGES) {          // the slot's last step staged its share
-            if (lane == 0) add_share(it - STAGES);
+          if (it >= ST) {          // the slot's last step staged its share
+            if (lane == 0) add_share(it - ST);
             __syncwarp();
           }
           if (lane == 0) {
             mbar_expect_tx(full + 8 * slot, 2 * G::TILE);
             for (int c = 0; c < G::NC; ++c) {
               tma_load(base + L::Q_OFF + slot * G::TILE + c * G::CHUNK,
-                       &tq, full + 8 * slot, c * G::AW, h, q0, b);
+                       &tq, full + 8 * slot, col0 + c * G::AW, h, q0,
+                       b);
               tma_load(base + L::DO_OFF + slot * G::TILE + c * G::CHUNK,
-                       &tdo, full + 8 * slot, c * G::AW, h, q0, b);
+                       &tdo, full + 8 * slot, col0 + c * G::AW, h,
+                       q0, b);
             }
           }
           for (int i = lane; i < QT; i += 32) {
@@ -3123,6 +3442,7 @@ flash_bwd_kernel_d256(const __grid_constant__ CUtensorMap tq,
         const float4* tp = reinterpret_cast<const float4*>(tile) + tid;
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
+          if (CL && 2 * w + j / 8 >= NP) continue;   // past the width
           const float4 a = __ldcg(tp + j * 128);
           dq_acc[4 * j] = a.x + dq_acc[4 * j];
           dq_acc[4 * j + 1] = a.y + dq_acc[4 * j + 1];
@@ -3157,7 +3477,7 @@ flash_bwd_kernel_d256(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
       for (int s = 0; s < steps; ++s, ++it) {
-        const int slot = it % STAGES;
+        const int slot = it % ST;
         const int qi = nQ - 1 - s / GS;
         const int q0 = qi * QT;
         const int bh = b * H + kvh * GS + s % GS;
@@ -3165,7 +3485,7 @@ flash_bwd_kernel_d256(const __grid_constant__ CUtensorMap tq,
         const uint32_t dos = base + L::DO_OFF + slot * G::TILE;
         const uint32_t pt = base + L::P_OFF + (it & 1) * L::PT_TILE;
         const uint32_t dst = base + L::DS_OFF + (it & 1) * L::PT_TILE;
-        mbar_wait(full + 8 * slot, (it / STAGES) & 1);
+        mbar_wait(full + 8 * slot, (it / ST) & 1);
         pin(dk_acc);
         pin(dv_acc);
         wgmma_fence();
@@ -3175,6 +3495,14 @@ flash_bwd_kernel_d256(const __grid_constant__ CUtensorMap tq,
         wgmma_wait<0>();
         pin(st);
         pin(dp);
+        if constexpr (CL) {                      // the sums over all of D
+          const int xw = threadIdx.x / 32 - 4;   // compute warp 0 .. 7
+          clusterbwd::exchange(
+              st, dp,
+              base + L::X_OFF + (it & 1) * L::XBUF +
+                  xw * 8 * clusterbwd::XUNIT + (threadIdx.x & 31) * 16,
+              xin + 8 * ((it & 1) * clusterbwd::XWARPS + xw), it, C, rank);
+        }
         // keys above a query, and queries past S, get P = dS = 0
         const int qw = q0 + 32 * w;              // this consumer's first
         const bool edge = qw < k0 + KT || qw + 32 > S;
@@ -3232,8 +3560,7 @@ flash_bwd_kernel_d256(const __grid_constant__ CUtensorMap tq,
           meta[4 * slot + 2] = kt;
           meta[4 * slot + 3] = last;
         }
-        const float* tile =
-            acc + ((size_t)bh * nQ + qi) * QT * D + w * QT * 128;
+        const float* tile = acc + ((size_t)bh * nQ + qi) * TF + w * QT * 128;
         if (last) {
           mbar_arrive(staged + 8 * slot);        // nothing staged
           // the other key tiles' adds to this tile are in
@@ -3271,6 +3598,8 @@ flash_bwd_kernel_d256(const __grid_constant__ CUtensorMap tq,
       }
     }
   }
+  // no block leaves while another may still read its exchange buffers
+  if constexpr (CL) clusterbwd::sync();
 }
 
 // The schedule for B x KV heads of S rows: the work items and the grid,
@@ -3301,16 +3630,56 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   err = schedule(B, KV, S, &n_items, &grid);
   if (err != 0) return err;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_kernel_d256, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Smem::SMEM);
+      flash_bwd_kernel_d256<false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Smem<false>::SMEM);
   if (e != cudaSuccess) return (int)e;
   const int nQ = (S + QT - 1) / QT;
-  flash_bwd_kernel_d256<<<grid, NTHREADS, Smem::SMEM, stream>>>(
+  flash_bwd_kernel_d256<false><<<grid, NTHREADS, Smem<false>::SMEM, stream>>>(
       mq, mk, mv, mdo, lse, delta, acc, static_cast<__nv_bfloat16*>(dq),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
       ly[5], ly[6], ly[7], sem, sem + (size_t)B * H * nQ, B, H, KV, S,
       width, scale, scale * LOG2E);
   return (int)cudaGetLastError();
+}
+
+// The cluster body's schedule for operands `width` > 256 wide: the work
+// items (as above), C = ceil(width / 256) blocks a cluster and the
+// clusters (one an item, up to what the device holds at once)
+int cluster_schedule(int B, int KV, int S, int width, int* items, int* C,
+                     int* clusters) {
+  *items = B * KV * ((S + KT - 1) / KT);
+  return clusterbwd::schedule(
+      reinterpret_cast<const void*>(flash_bwd_kernel_d256<true>),
+      Smem<true>::SMEM, NTHREADS, *items, width, C, clusters);
+}
+
+// The cluster body at 256 < width <= 2048 (a multiple of 8): acc a
+// float32 scratch of B * H * ceil(S / 64) * 64 * W, W the width rounded
+// up to 64 (a region of 256-column tiles a slice, the last slice's tiles
+// as wide as its 64-column parts), and sem C * B * H * ceil(S / 64) + 1
+// ints, zeroed (the Delta pass), one region a slice
+int launch_cluster(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, void* dk, void* dv, float* acc, int* sem,
+                   const Lay* ly, int B, int H, int KV, int S, int width,
+                   float scale, cudaStream_t stream) {
+  CUtensorMap mq, mdo, mk, mv;
+  int err = make_map<D>(&mq, q, ly[0], H, S, B, QT, width);
+  if (err == 0) err = make_map<D>(&mdo, dout, ly[4], H, S, B, QT, width);
+  if (err == 0) err = make_map<D>(&mk, k, ly[1], KV, S, B, KT, width);
+  if (err == 0) err = make_map<D>(&mv, v, ly[2], KV, S, B, KT, width);
+  if (err != 0) return err;
+  int n_items = 0, C = 0, clusters = 0;
+  err = cluster_schedule(B, KV, S, width, &n_items, &C, &clusters);
+  if (err != 0) return err;
+  const int nQ = (S + QT - 1) / QT;
+  return clusterbwd::launch(
+      flash_bwd_kernel_d256<true>, C, clusters, NTHREADS, Smem<true>::SMEM,
+      stream, mq, mk, mv, mdo, lse, delta, acc,
+      static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), ly[5], ly[6], ly[7], sem,
+      sem + (size_t)C * B * H * nQ, B, H, KV, S, width, scale,
+      scale * LOG2E);
 }
 
 }  // namespace widebwd
@@ -4289,6 +4658,16 @@ constexpr uint32_t ITEM_OFF = DL_OFF + QT * 4;
 constexpr uint32_t BAR_OFF = ITEM_OFF + 16;
 constexpr size_t SMEM = BAR_OFF + 8 * 6 + 1024;
 static_assert(SMEM <= 232448, "more shared memory than a block may take");
+// The cluster body (CL) adds, after the mbarriers, the exchange of S and
+// dP partials, two buffers of 8 warps x 2 16-byte units x 32 lanes (a
+// step's 32 x 32 of each, float32), the two ticket slots and 18 more
+// mbarriers (the 16 warps' exchanges, the two tickets): 195,552 bytes.
+constexpr uint32_t XBUF = clusterbwd::XWARPS * 2 * clusterbwd::XUNIT;
+constexpr uint32_t X_OFF = (BAR_OFF + 8 * 6 + 15) / 16 * 16;
+constexpr uint32_t TICK_OFF = X_OFF + 2 * XBUF;
+constexpr uint32_t XBAR_OFF = TICK_OFF + 16;
+constexpr size_t CL_SMEM = XBAR_OFF + 8 * (2 * clusterbwd::XWARPS + 2) + 1024;
+static_assert(CL_SMEM <= 232448, "more shared memory than a block may take");
 
 // The main pass (float32, 128 < D <= 256): f32bwd's roles, list order,
 // walk, tickets, counters and dq add order over items of 32 keys and
@@ -4309,6 +4688,13 @@ static_assert(SMEM <= 232448, "more shared memory than a block may take");
 // ticket counter, all zeroed by the Delta pass.  The maps hold the
 // operands' real width (a multiple of 4, at most D): the columns past it
 // land as zeros, and the gradients are stored below it.
+// CL: the cluster body, block `rank` of a cluster of C on columns 256 rank
+// .. 256 rank + 255 of operands `width` > 256 wide, as widebwd's: the
+// maps' coordinates start there, dq, dk and dv are stored from there
+// below width, acc and sem are the slice's own regions, `work` the ticket
+// counter after all of them; rank 0 draws the tickets, and each group's S
+// or dP is summed over the ranks (clusterbwd::exchange) before P and dS.
+template <bool CL>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -4330,10 +4716,31 @@ flash_bwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
   // and empty; dq's share staged and freed
   const uint32_t full_kv = bar, empty_kv = bar + 8, full = bar + 16,
                  empty = bar + 24, staged = bar + 32, freed = bar + 40;
+  // CL: per exchange buffer and compute warp the other ranks' arrivals,
+  // and the two tickets'
+  const uint32_t xin = base + XBAR_OFF, tick = xin + 16 * clusterbwd::XWARPS;
 
   const int G = H / KV, BKV = B * KV;
   const int nQ = (S + QT - 1) / QT;          // query tiles = key tiles
   const int n_items = BKV * nQ;
+  int C = 1, rank = 0;
+  if constexpr (CL) {
+    C = clusterbwd::size();
+    rank = clusterbwd::rank();
+    sem += (size_t)rank * B * H * nQ;
+    acc += (size_t)rank * B * H * nQ * QT * D;
+    dq += rank * D;
+    dk += rank * D;
+    dv += rank * D;
+    width -= rank * D;                       // the slice's, >= 1
+  }
+  const int col0 = rank * D;                 // the slice's first column
+  // dq's accumulator tile and share: QT queries x U column units (4
+  // floats), U = DCG but in a last slice narrower than 256 columns, whose
+  // units past its width are neither staged nor read; in the dq threads'
+  // order, [r][query group tid / DCG][unit] for query iq + r
+  const int U = CL ? min(DCG, (width + 3) / 4) : DCG;
+  const size_t TF = (size_t)QT * 4 * U;      // floats a tile
 
   if (threadIdx.x == 0) {
     mbar_init(full_kv, 1);
@@ -4342,14 +4749,24 @@ flash_bwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_init(empty, CONSUMERS);
     mbar_init(staged, CONSUMERS);
     mbar_init(freed, 1);
+    if constexpr (CL) {
+      for (int i = 0; i < 2 * clusterbwd::XWARPS; ++i)
+        mbar_init(xin + 8 * i, C - 1);
+      mbar_init(tick, 1);
+      mbar_init(tick + 8, 1);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+  if constexpr (CL) clusterbwd::sync();    // every rank's mbarriers set
 
   if (threadIdx.x >= CONSUMERS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS)
                  : "memory");
-    if (threadIdx.x >= CONSUMERS + 32) return;
+    if (threadIdx.x >= CONSUMERS + 32) {
+      if constexpr (CL) clusterbwd::sync();  // with the others, at the end
+      return;
+    }
     // the producer warp: takes the items, loads K and V once an item and
     // each step's Q, dO (lane 0, TMA), lse and Delta (every lane); once a
     // step's loads are issued, lane 0 adds the step before's dq share
@@ -4363,13 +4780,13 @@ flash_bwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
     auto add_share = [&]() {
       mbar_wait(staged, n_sh & 1);
       int* cnt = sem + p_bh * nQ + p_qi;
-      float* dst = acc + ((size_t)p_bh * nQ + p_qi) * QT * D;
+      float* dst = acc + ((size_t)p_bh * nQ + p_qi) * TF;
       if (p_kt > 0) {
         wait_count(cnt, p_kt);
         fence_async_global();
-        bulk_add(dst, base + SH_OFF, SHARE);
+        bulk_add(dst, base + SH_OFF, TF * 4);
       } else {
-        bulk_store(dst, base + SH_OFF, SHARE);
+        bulk_store(dst, base + SH_OFF, TF * 4);
       }
       bulk_commit_wait();
       fence_async_global();
@@ -4379,7 +4796,10 @@ flash_bwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
     };
     for (int n = 0;; ++n) {
       int item = 0;
-      if (lane == 0) item = atomicAdd(work, 1);
+      if (lane == 0)
+        item = CL ? clusterbwd::ticket(work, base + TICK_OFF, tick, n, C,
+                                       rank)
+                  : atomicAdd(work, 1);
       item = __shfl_sync(0xffffffffu, item, 0);
       mbar_wait(empty_kv, (n & 1) ^ 1);          // the last item done
       if (item >= n_items) {
@@ -4396,10 +4816,10 @@ flash_bwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
         *item_s = item;
         mbar_expect_tx(full_kv, 2 * T::BYTES);
         for (int c = 0; c < T::NC; ++c) {
-          tma_load(base + K_OFF + c * T::CHUNK, &tk, full_kv, c * T::AW,
-                   kvh, k0, b);
-          tma_load(base + V_OFF + c * T::CHUNK, &tv, full_kv, c * T::AW,
-                   kvh, k0, b);
+          tma_load(base + K_OFF + c * T::CHUNK, &tk, full_kv,
+                   col0 + c * T::AW, kvh, k0, b);
+          tma_load(base + V_OFF + c * T::CHUNK, &tv, full_kv,
+                   col0 + c * T::AW, kvh, k0, b);
         }
       }
       const int steps = G * (nQ - kt);
@@ -4410,10 +4830,10 @@ flash_bwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
         if (lane == 0) {
           mbar_expect_tx(full, 2 * T::BYTES);
           for (int c = 0; c < T::NC; ++c) {
-            tma_load(base + Q_OFF + c * T::CHUNK, &tq, full, c * T::AW,
-                     h, q0, b);
-            tma_load(base + DO_OFF + c * T::CHUNK, &tdo, full, c * T::AW,
-                     h, q0, b);
+            tma_load(base + Q_OFF + c * T::CHUNK, &tq, full,
+                     col0 + c * T::AW, h, q0, b);
+            tma_load(base + DO_OFF + c * T::CHUNK, &tdo, full,
+                     col0 + c * T::AW, h, q0, b);
           }
         }
         {                                        // one row a lane
@@ -4447,6 +4867,9 @@ flash_bwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
     const int qo = rg + 8 * (2 * (pq & 1) + (pq >> 1));
     const int cg = g % CG, jg = g / CG;         // dv and dk
     const int cu = tid % DCG, iq = tid / DCG * QI;   // dq
+    // the thread's float4 of a query's row of the share: [group][unit]
+    // (tid itself at U = DCG)
+    const int so = CL ? tid / DCG * U + cu : tid;
     float* ps = reinterpret_cast<float*>(gb + P_OFF);
     float* dss = reinterpret_cast<float*>(gb + DS_OFF);
     float* dst = reinterpret_cast<float*>(gb + DST_OFF);
@@ -4520,6 +4943,12 @@ flash_bwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
           const float other = pq & 2 ? y[0] : y[1];
           z[c] = mine + __shfl_xor_sync(0xffffffffu, other, 16);
         }
+        if constexpr (CL)                // the sums over all of D
+          clusterbwd::exchange(    // compute warp tid / 32: 0 .. 7
+              z, base + X_OFF + (it & 1) * XBUF + tid / 32 * 2 *
+                     clusterbwd::XUNIT + lane * 16,
+              xin + 8 * ((it & 1) * clusterbwd::XWARPS + tid / 32), it, C,
+              rank);
         if (grp == 0) {
           // P = exp(S D^-0.5 - lse) for keys at or below the query and
           // queries below S, else 0, into the P tile
@@ -4602,12 +5031,14 @@ flash_bwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
         if (qi != kt) {
           // to the producer through the share buffer, once the last
           // share's add has read it: query iq + r's four columns as
-          // float4 r * 256 + tid
+          // float4 r * 4 U + so (r * 256 + tid at U = DCG)
           mbar_wait(freed, (n_sh & 1) ^ 1);
+          if (!CL || cu < U) {
 #pragma unroll
-          for (int r = 0; r < QI; ++r)
-            st_shared(base + SH_OFF + (r * CONSUMERS + tid) * 16,
-                      dqa[r][0], dqa[r][1], dqa[r][2], dqa[r][3]);
+            for (int r = 0; r < QI; ++r)
+              st_shared(base + SH_OFF + (r * 4 * U + so) * 16, dqa[r][0],
+                        dqa[r][1], dqa[r][2], dqa[r][3]);
+          }
           fence_async_smem();
           mbar_arrive(staged);
           ++n_sh;
@@ -4618,11 +5049,12 @@ flash_bwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
             if (tid == 0) wait_count(sem + bh * nQ + qi, kt);
             named_sync(5, CONSUMERS);
             const float4* ap = reinterpret_cast<const float4*>(
-                                   acc + ((size_t)bh * nQ + qi) * QT * D) +
-                               tid;
+                                   acc + ((size_t)bh * nQ + qi) * TF) +
+                               so;
 #pragma unroll
             for (int r = 0; r < QI; ++r) {
-              const float4 y = __ldcg(ap + r * CONSUMERS);
+              if (CL && cu >= U) break;      // a unit past the width
+              const float4 y = __ldcg(ap + r * 4 * U);
               dqa[r][0] = y.x + dqa[r][0];
               dqa[r][1] = y.y + dqa[r][1];
               dqa[r][2] = y.z + dqa[r][2];
@@ -4663,6 +5095,8 @@ flash_bwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
   }
+  // no block leaves while another may still read its exchange buffers
+  if constexpr (CL) clusterbwd::sync();
 }
 
 // The schedule for B x KV heads of S rows: the work items (batch x KV
@@ -4695,15 +5129,53 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   err = schedule(B, KV, S, &n_items, &grid);
   if (err != 0) return err;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_f32_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM);
+      flash_bwd_f32_wide_kernel<false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   if (e != cudaSuccess) return (int)e;
   const int nQ = (S + QT - 1) / QT;
-  flash_bwd_f32_wide_kernel<<<grid, NTHREADS, SMEM, stream>>>(
+  flash_bwd_f32_wide_kernel<false><<<grid, NTHREADS, SMEM, stream>>>(
       mq, mk, mv, mdo, lse, delta, acc, static_cast<float*>(dq),
       static_cast<float*>(dk), static_cast<float*>(dv), ly[5], ly[6], ly[7],
       sem, sem + (size_t)B * H * nQ, B, H, KV, S, width, scale);
   return (int)cudaGetLastError();
+}
+
+// The cluster body's schedule for operands `width` > 256 wide: the work
+// items, C = ceil(width / 256) blocks a cluster and the clusters
+int cluster_schedule(int B, int KV, int S, int width, int* items, int* C,
+                     int* clusters) {
+  *items = B * KV * ((S + KT - 1) / KT);
+  return clusterbwd::schedule(
+      reinterpret_cast<const void*>(flash_bwd_f32_wide_kernel<true>),
+      CL_SMEM, NTHREADS, *items, width, C, clusters);
+}
+
+// The cluster body at 256 < width <= 2048 (a multiple of 4): acc a
+// float32 scratch of B * H * ceil(S / 32) * 32 * width (a region of
+// 256-column tiles a slice, the last slice's tiles as wide as its
+// columns) and sem C * B * H * ceil(S / 32) + 1 ints, zeroed (the Delta
+// pass), one region a slice
+int launch_cluster(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, void* dk, void* dv, float* acc, int* sem,
+                   const Lay* ly, int B, int H, int KV, int S, int width,
+                   float scale, cudaStream_t stream) {
+  CUtensorMap mq, mdo, mk, mv;
+  int err = f32bwd::make_map<D, QT>(&mq, q, ly[0], H, S, B, width);
+  if (err == 0) err = f32bwd::make_map<D, QT>(&mdo, dout, ly[4], H, S, B,
+                                              width);
+  if (err == 0) err = f32bwd::make_map<D, KT>(&mk, k, ly[1], KV, S, B, width);
+  if (err == 0) err = f32bwd::make_map<D, KT>(&mv, v, ly[2], KV, S, B, width);
+  if (err != 0) return err;
+  int n_items = 0, C = 0, clusters = 0;
+  err = cluster_schedule(B, KV, S, width, &n_items, &C, &clusters);
+  if (err != 0) return err;
+  const int nQ = (S + QT - 1) / QT;
+  return clusterbwd::launch(
+      flash_bwd_f32_wide_kernel<true>, C, clusters, NTHREADS, CL_SMEM,
+      stream, mq, mk, mv, mdo, lse, delta, acc, static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv), ly[5], ly[6], ly[7],
+      sem, sem + (size_t)C * B * H * nQ, B, H, KV, S, width, scale);
 }
 
 }  // namespace f32widebwd
@@ -5073,10 +5545,16 @@ extern "C" int flash_attention_wide_launch(const void* q, const void* k,
 // ws B * H * ceil(S / 64) * 64 * 256 floats, sem as at D <= 128; float32
 // at 128 < D <= 256 with D % 4 == 0 (f32widebwd, read in place the same
 // way): ws B * H * ceil(S / 32) * 32 * 256 floats, sem B * H *
-// ceil(S / 32) + 1 ints; otherwise (above 256: simplebwd) ws a float32
-// scratch of (B H + 2 B KV) S D and sem unused.  Launches the
-// Delta pass, then the main pass, and returns the first launch error.
-// The caller checks KV | H and, for simplebwd, ceil(S / 16) <= 65535.
+// ceil(S / 32) + 1 ints; at 256 < D <= 2048 with D % 8 == 0 (bfloat16)
+// or D % 4 == 0 (float32) the cluster body of C = ceil(D / 256) blocks a
+// cluster: ws B * H * ceil(S / QT) * QT * W floats (W = D rounded up to
+// 64 at bfloat16, D at float32: each slice's dq tiles as wide as its
+// columns), sem C * B * H * ceil(S / QT) + 1 ints (QT = 64 at bfloat16
+// and 32 at float32); otherwise (above 2048:
+// simplebwd) ws a float32 scratch of (B H + 2 B KV) S D and sem unused.
+// Launches the Delta pass, then the main pass, and returns the first
+// launch error.  The caller checks KV | H and, for simplebwd, ceil(S /
+// 16) <= 65535.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
@@ -5094,11 +5572,16 @@ extern "C" int flash_attention_bwd_launch(
   const bool wide = is_bf16 && D > 128 && D <= 256 && D % 8 == 0;
   const bool f32 = !is_bf16 && narrow;
   const bool f32w = !is_bf16 && D > 128 && D <= 256 && D % 4 == 0;
+  const bool cl = D > 256 && D <= clusterbwd::MAX_D &&
+                  D % (is_bf16 ? 8 : 4) == 0;
+  const int qt = is_bf16 ? widebwd::QT : f32widebwd::QT;   // cl's
   const int n_zero =
       tc ? B * H * ((S + bf16bwd::QT - 1) / bf16bwd::QT) + 1
       : wide ? B * H * ((S + widebwd::QT - 1) / widebwd::QT) + 1
       : f32 ? B * H * ((S + f32bwd::QT - 1) / f32bwd::QT) + 1
       : f32w ? B * H * ((S + f32widebwd::QT - 1) / f32widebwd::QT) + 1
+      : cl ? (D + clusterbwd::WIDTH - 1) / clusterbwd::WIDTH * B * H *
+                     ((S + qt - 1) / qt) + 1
       : 0;
   int err = is_bf16
                 ? launch_delta<__nv_bfloat16>(o, dout, dl, ly[3], ly[4], B,
@@ -5106,6 +5589,13 @@ extern "C" int flash_attention_bwd_launch(
                 : launch_delta<float>(o, dout, dl, ly[3], ly[4], B, H, S, D,
                                       cnt, n_zero, st);
   if (err != 0) return err;
+  if (cl)
+    return is_bf16 ? widebwd::launch_cluster(q, k, v, dout, l, dl, dq, dk,
+                                             dv, w, cnt, ly, B, H, KV, S, D,
+                                             scale, st)
+                   : f32widebwd::launch_cluster(q, k, v, dout, l, dl, dq, dk,
+                                                dv, w, cnt, ly, B, H, KV, S,
+                                                D, scale, st);
   if (!is_bf16) {
     switch (D) {
       case 16: return f32bwd::launch<16>(q, k, v, dout, l, dl, dq, dk, dv, w,
@@ -5148,34 +5638,49 @@ extern "C" int flash_attention_bwd_launch(
 // it: at bfloat16 (is_bf16 = 1) the tensor-core bodies (16, 32, 64, 128,
 // or the D = 256 body's 128 < D <= 256 with D % 8 == 0), at float32 the
 // CUDA-core bodies f32bwd (16, 32, 64, 128) and f32widebwd (128 < D <=
-// 256 with D % 4 == 0): out[0] keys of a work item, out[1] queries of a
-// step, out[2] the work items, out[3] the grid's persistent blocks.
+// 256 with D % 4 == 0), and in both the cluster body above 256 (up to
+// 2048, D % 8 == 0 at bfloat16, D % 4 == 0 at float32): out[0] keys of a
+// work item, out[1] queries of a step, out[2] the work items, out[3] the
+// grid's persistent blocks, out[4] its clusters and out[5] the blocks a
+// cluster (C = 1 but for the cluster body).
 extern "C" int flash_attention_bwd_info(int B, int KV, int S, int D,
                                         int is_bf16, int* out) {
+  out[5] = 1;
+  int err = 0;
+  if (D > 256 && D <= clusterbwd::MAX_D && D % (is_bf16 ? 8 : 4) == 0) {
+    out[0] = is_bf16 ? widebwd::KT : f32widebwd::KT;
+    out[1] = is_bf16 ? widebwd::QT : f32widebwd::QT;
+    err = is_bf16 ? widebwd::cluster_schedule(B, KV, S, D, out + 2, out + 5,
+                                              out + 4)
+                  : f32widebwd::cluster_schedule(B, KV, S, D, out + 2,
+                                                 out + 5, out + 4);
+    out[3] = out[4] * out[5];
+    return err;
+  }
   if (!is_bf16 && D > 128 && D <= 256 && D % 4 == 0) {
     out[0] = f32widebwd::KT;
     out[1] = f32widebwd::QT;
-    return f32widebwd::schedule(B, KV, S, out + 2, out + 3);
-  }
-  if (!is_bf16) {
+    err = f32widebwd::schedule(B, KV, S, out + 2, out + 3);
+  } else if (!is_bf16) {
     if (D != 16 && D != 32 && D != 64 && D != 128)
       return (int)cudaErrorInvalidValue;
     out[0] = f32bwd::KT;
     out[1] = f32bwd::QT;
-    return f32bwd::schedule(B, KV, S, out + 2, out + 3);
-  }
-  if (D > 128 && D <= 256 && D % 8 == 0) {
+    err = f32bwd::schedule(B, KV, S, out + 2, out + 3);
+  } else if (D > 128 && D <= 256 && D % 8 == 0) {
     out[0] = widebwd::KT;
     out[1] = widebwd::QT;
-    return widebwd::schedule(B, KV, S, out + 2, out + 3);
+    err = widebwd::schedule(B, KV, S, out + 2, out + 3);
+  } else {
+    if (D != 16 && D != 32 && D != 64 && D != 128)
+      return (int)cudaErrorInvalidValue;
+    const int sms = bf16body::sm_count();
+    if (sms <= 0) return (int)cudaErrorInvalidDevice;
+    out[0] = bf16bwd::KT;
+    out[1] = bf16bwd::QT;
+    out[2] = B * KV * ((S + bf16bwd::KT - 1) / bf16bwd::KT);
+    out[3] = out[2] < sms ? out[2] : sms;
   }
-  if (D != 16 && D != 32 && D != 64 && D != 128)
-    return (int)cudaErrorInvalidValue;
-  const int sms = bf16body::sm_count();
-  if (sms <= 0) return (int)cudaErrorInvalidDevice;
-  out[0] = bf16bwd::KT;
-  out[1] = bf16bwd::QT;
-  out[2] = B * KV * ((S + bf16bwd::KT - 1) / bf16bwd::KT);
-  out[3] = out[2] < sms ? out[2] : sms;
-  return 0;
+  out[4] = out[3];
+  return err;
 }

@@ -62,10 +62,18 @@ before loading the slot again; of 64 keys at float32 (32 keys and
 32-query steps at D = 256), where one group of 128 threads computes S, P
 and dv and another dP, dS and dk, all 256 the share, which the producer
 warp adds while the next step's Q and dO load (`BWD_TILES`,
-`BWD_F32_TILES`, `BWD_F32_WIDE_TILES`).  Both dtypes above D = 256 run a
-simple CUDA-core body (`simplebwd`), written for correctness.  Every
-gradient is summed in an order fixed by the shape, so two runs give the
-same bits.  Its launches count under
+`BWD_F32_TILES`, `BWD_F32_WIDE_TILES`).  Both dtypes at 256 < D <=
+`BWD_CLUSTER_MAX` (2048) run the cluster backward: a cluster of C =
+ceil(D / 256) blocks takes each item, block r runs its dtype's D = 256
+body on columns 256 r .. 256 r + 255, and the blocks add their partial S
+and dP through distributed shared memory in rank order before the
+softmax, so that each forms the same P and dS and then its columns' dv,
+dk and dq share (in place when D % 8 == 0 at bfloat16, D % 4 == 0 at
+float32, else zero-padded to the next such width; the accumulator and
+its counters C times the D = 256 body's, one region a slice).  Above
+2048 both dtypes run a simple CUDA-core body (`simplebwd`), written for
+correctness.  Every gradient is summed in an order fixed by the shape,
+so two runs give the same bits.  Its launches count under
 ``flash_attention_bwd``.
 
 Layout: the public functions keep the reference's (B, H, S, D), and on
@@ -107,6 +115,10 @@ BWD_TILES = {d: (64, 64) if d == 256 else (128, 64) for d in BWD_HEAD_DIMS}
 BWD_F32_HEAD_DIMS = (16, 32, 64, 128, 256)
 BWD_F32_TILES = (64, 64)
 BWD_F32_WIDE_TILES = (32, 32)
+#: the cluster backward's head dims: above 256 up to 8 blocks (the
+#: portable cluster size) of BWD_CLUSTER_WIDTH columns each
+BWD_CLUSTER_WIDTH = 256
+BWD_CLUSTER_MAX = 8 * BWD_CLUSTER_WIDTH
 #: (query rows per block or work item, keys per KV tile) of each body, by
 #: dtype and the body's head dim
 TILES = {torch.float32: {d: (64, 32) if d == 256 else (64, 64)
@@ -181,14 +193,22 @@ def _backward_route(dtype, D):
     """How the backward runs head dim D at `dtype`: (route, body head
     dim), route "in place" (the operands as they are; at 128 < D < 256
     the D = 256 body's columns past D zero-filled by TMA), "padded"
-    (zero-padded copies of q, k, v, o and dO, the gradients sliced back)
+    (zero-padded copies of q, k, v, o and dO, the gradients sliced back),
+    "cluster" (256 < D <= BWD_CLUSTER_MAX: the cluster backward, its
+    width D when a row is whole 16-byte units, D % 8 == 0 at bfloat16 and
+    D % 4 == 0 at float32, else the next such width, D zero-padded to it)
     or "simple" (the correctness-first CUDA-core body `simplebwd`, above
-    256).  The bodies of the first two: bfloat16's `bf16bwd` (D <= 128)
+    that).  The bodies of the first two: bfloat16's `bf16bwd` (D <= 128)
     and `widebwd` (D = 256) on the tensor cores, float32's `f32bwd` (D <=
-    128) and `f32widebwd` (D = 256) on the CUDA cores."""
+    128) and `f32widebwd` (D = 256) on the CUDA cores; of the cluster
+    route, clusters of ceil(width / 256) blocks of `widebwd` or
+    `f32widebwd`."""
     dims = BWD_HEAD_DIMS if dtype == torch.bfloat16 else BWD_F32_HEAD_DIMS
     if D > dims[-1]:
-        return "simple", D
+        unit = 8 if dtype == torch.bfloat16 else 4
+        width = -(-D // unit) * unit
+        return ("cluster", width) if width <= BWD_CLUSTER_MAX else \
+            ("simple", D)
     body = _pad(D, dims)
     if body == D or (body == 256 and _in_place(dtype, D, body)):
         return "in place", body
@@ -198,22 +218,24 @@ def _backward_route(dtype, D):
 def _bwd_schedule(B, KV, S, D, device, dtype=torch.bfloat16) -> dict:
     """How the backward's persistent body schedules B x KV heads of S rows
     at head dim D on `device` (bfloat16 D <= 256 on the tensor cores,
-    float32 D <= 256 on `f32bwd` and `f32widebwd`), as its launcher
-    decides it
-    (``flash_attention_bwd_info``): keys of a work item, queries of a step,
-    the work items, and the grid of persistent blocks."""
+    float32 D <= 256 on `f32bwd` and `f32widebwd`, both dtypes up to
+    BWD_CLUSTER_MAX on the cluster backward), as its launcher decides it
+    (``flash_attention_bwd_info``): keys of a work item, queries of a
+    step, the work items, the grid of persistent blocks, its clusters and
+    the blocks a cluster, C (1 but on the cluster route)."""
     route, body = _backward_route(dtype, D)
     if route == "simple":
         raise ValueError(f"D = {D} at {dtype} runs simplebwd, which has no "
                          "persistent schedule")
-    info = (ctypes.c_int * 4)()
+    info = (ctypes.c_int * 6)()
     with torch.cuda.device(device):
         err = _build.function("flash_attention", "flash_attention_bwd_info",
                               [_build.I] * 5 + [_build.P])(
             B, KV, S, D if route == "in place" else body,
             int(dtype == torch.bfloat16), info)
     _build.check("flash_attention", err)
-    return dict(keys=info[0], queries=info[1], items=info[2], grid=info[3])
+    return dict(keys=info[0], queries=info[1], items=info[2], grid=info[3],
+                clusters=info[4], C=info[5])
 
 
 def _align(q, D, dims=HEAD_DIMS[torch.bfloat16], f32_dims=()):
@@ -223,6 +245,22 @@ def _align(q, D, dims=HEAD_DIMS[torch.bfloat16], f32_dims=()):
     float4 stores), one element for the others."""
     tma = dims if q.dtype == torch.bfloat16 else f32_dims
     return 16 if D in tma else q.element_size()
+
+
+def _bwd_acc_columns(dtype, width):
+    """The columns of the cluster backward's dq accumulator for operands
+    `width` wide: 256 a slice, the last slice's as wide as its columns
+    (rounded up to 64 at bfloat16, whose tiles are 64-column parts)."""
+    return -(-width // 64) * 64 if dtype == torch.bfloat16 else width
+
+
+def _bwd_align(q, route, body):
+    """The byte multiple the backward needs of an operand's start and
+    strides on `route` at `body`'s head dim: 16 on the TMA-fed bodies
+    (every route but "simple"), one element on simplebwd."""
+    if route == "cluster":
+        return 16
+    return _align(q, body, BWD_HEAD_DIMS, BWD_F32_HEAD_DIMS)
 
 
 def _strides(*ts):
@@ -379,16 +417,17 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     bf16 = q.dtype == torch.bfloat16
     route, Dp = _backward_route(q.dtype, D)
     # simplebwd's dq pass has a grid y of ceil(S / BWD_ROWS); the other
-    # bodies' grid is one persistent block per SM
+    # bodies' grid is one persistent block (or cluster) per SM (or C SMs)
     if route == "simple" and -(-S // BWD_ROWS) > MAX_GRID_Y:
         raise ValueError(f"S = {S}: {-(-S // BWD_ROWS)} blocks along the "
                          f"grid's y dimension > {MAX_GRID_Y}")
     _build.require("lse", lse, torch.float32, (B, H, S), dev)
-    if route == "padded":   # zero columns: no score changes, zero gradients
+    if Dp > D and route in ("padded", "cluster"):
+        # zero columns: no score changes, zero gradient columns
         q, k, v, o, do = (torch.nn.functional.pad(x, (0, Dp - D))
                           for x in (q, k, v, o, do))
     width = q.shape[-1]     # the operands' (D in place; the body's padded)
-    align = _align(q, Dp, BWD_HEAD_DIMS, BWD_F32_HEAD_DIMS)
+    align = _bwd_align(q, route, Dp)
     for name, t in (("q", q), ("o", o), ("do", do)):
         _build.require(name, t, q.dtype, (B, H, S, width), dev, align=align)
     _build.require("k", k, q.dtype, (B, KV, S, width), dev, align=align)
@@ -397,7 +436,18 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
-    if route != "simple":
+    if route == "cluster":
+        # per 256-column slice, the D = 256 body's accumulator (a qt x 256
+        # tile for each (batch x head, query tile), the last slice's only
+        # as wide as its columns, in 64-column parts at bfloat16) and
+        # counters; then the work-item counter
+        C = -(-width // BWD_CLUSTER_WIDTH)
+        qt = BWD_QT if bf16 else BWD_F32_WIDE_TILES[1]
+        nq = B * H * -(-S // qt)
+        ws = torch.empty((nq * qt * _bwd_acc_columns(q.dtype, width),),
+                         dtype=torch.float32, device=dev)
+        sem = torch.empty((C * nq + 1,), dtype=torch.int32, device=dev)
+    elif route != "simple":
         # dq's float32 accumulator (a qt x Dp tile for each (batch x head,
         # query tile)), its counters and the work-item counter
         qt = BWD_F32_WIDE_TILES[1] if not bf16 and Dp == 256 else BWD_QT

@@ -6,7 +6,9 @@ Each variant is ``csrc/flash_attention.cu`` with a text patch inside one
 body's namespace (``bf16bwd`` for D <= 128, ``widebwd`` for the D = 256
 body, the ``wide_*`` variants, ``f32bwd`` for the float32 body at D <=
 128, the ``f32_*`` variants, ``f32widebwd`` for the float32 body at
-D = 256, the ``f32w_*`` variants), built with nvcc (``-Xptxas -v``) into
+D = 256, the ``f32w_*`` variants, ``clusterbwd`` for the cluster
+backward's exchange above D = 256, the ``cl_*`` variants, which both
+dtypes' cluster bodies share), built with nvcc (``-Xptxas -v``) into
 ``build/repro_torch/ablate/`` and run in a process of its own (a variant
 whose waits can no longer be met would hang; each process has a time
 limit), in the order base, the variants, base.  The variants that drop
@@ -43,6 +45,13 @@ C7520 warnings (wgmma serialized).
                    still staged and added)
     f32w_no_dq, f32w_no_exp, f32w_no_sdp, f32w_no_kv, f32w_no_dqmm
                    the same five on the float32 D = 256 body (f32widebwd)
+    cl_no_sum      the cluster backward (D > 256) with its exchange's reads
+                   cut: each block keeps its own partial S and dP, the
+                   arrivals and waits as they are
+    cl_no_sync     the cluster backward without the exchange's arrivals
+                   and waits (the reads and sums as they are, racing)
+    cl_no_xch      the cluster backward with neither: the D = 256 bodies
+                   on their slices alone
 
 Shapes (--shape, a preset or B,H,KV,S,D):
 
@@ -53,9 +62,13 @@ Shapes (--shape, a preset or B,H,KV,S,D):
                                  float32 model trains: the f32bwd body)
     wide_f32  4, 8, 2, 2048, 256   (the wide shape in float32 operands:
                                     the f32widebwd body)
+    d512  1, 8, 2, 2048, 512    (the wide shape at B 1 and D = 512: the
+                                 cluster backward, two blocks a cluster)
+    d512_f32  1, 8, 2, 2048, 512   (the same in float32 operands)
 
-The presets run bfloat16 operands, except f32 and wide_f32, which run
-float32; a shape written out runs bfloat16.
+The presets run bfloat16 operands, except f32, wide_f32 and d512_f32,
+which run float32; a shape written out runs bfloat16.  A shape above
+D = 256 runs the ``cl_*`` variants by default.
 
 Run on a card (CUDA events, the mean of 20 calls, three rounds each, on
 the (B, H, S, D) views of (B, S, H, D) tensors from a seeded generator;
@@ -71,8 +84,10 @@ bits):
 commit's, unpacked with ``git archive``), run first and last (parent,
 base, the variants, base, parent); equal digests show equal bits.  Its
 ``flash_attention_bwd_launch`` must take the arguments this wrapper
-passes, with the scratch this wrapper allocates: bfloat16 only (before
-f32bwd, float32 ran on a body with a larger scratch).
+passes, with the scratch this wrapper allocates: so D <= 256 only (above
+it a parent before the cluster backward runs simplebwd, whose scratch is
+another).  The float32 presets at D <= 256 qualify: their bodies, f32bwd
+and f32widebwd, take the scratch this wrapper allocates.
 """
 from __future__ import annotations
 
@@ -90,13 +105,15 @@ OUT = _build.BUILD_DIR / "ablate"
 
 #: (B, H, KV, S, D) of the presets
 PRESETS = {"yi": (4, 32, 4, 2048, 128), "wide": (4, 8, 2, 2048, 256),
-           "f32": (4, 32, 4, 2048, 128), "wide_f32": (4, 8, 2, 2048, 256)}
+           "f32": (4, 32, 4, 2048, 128), "wide_f32": (4, 8, 2, 2048, 256),
+           "d512": (1, 8, 2, 2048, 512), "d512_f32": (1, 8, 2, 2048, 512)}
 #: the presets that run float32 operands (the others bfloat16)
-FLOAT32_PRESETS = ("f32", "wide_f32")
+FLOAT32_PRESETS = ("f32", "wide_f32", "d512_f32")
 
-#: the namespace each body's source lives in
+#: the namespace each body's source lives in (the cluster backward's
+#: exchange: the helpers both D = 256 bodies call above D = 256)
 NAMESPACES = {"narrow": "bf16bwd", "wide": "widebwd", "f32": "f32bwd",
-              "f32w": "f32widebwd"}
+              "f32w": "f32widebwd", "cl": "clusterbwd"}
 
 _HANDOFF = "        if (!last) share(bh, qi, kt, act);"
 _FINISH = "        if (last && act) finish(bh, qi, kt);"
@@ -148,6 +165,14 @@ PATCHES = {
     "f32_no_dqmm": [("        for (int j = 0; j < KT; ++j) {",
                      "        for (int j = 0; j < 0; ++j) {")],
 }
+# the cluster backward's exchange: its reads of the ranks' partials, and
+# its arrivals and waits
+_CL_SUM = ("  for (int p = 0; p < C; ++p) {\n    const uint32_t ra = mapa(a, p);",
+           "  for (int p = 0; p < 0; ++p) {\n    const uint32_t ra = mapa(a, p);")
+_CL_SYNC = [("      if (p != r) arrive(mapa(bar, p));\n", "      ;\n"),
+            ("  wait(bar, (it >> 1) & 1);\n", "")]
+PATCHES.update({"cl_no_sum": [_CL_SUM], "cl_no_sync": _CL_SYNC,
+                "cl_no_xch": [_CL_SUM, *_CL_SYNC]})
 # the float32 D = 256 body: the same five cuts (its S and dP split D)
 PATCHES.update({
     "f32w_no_dq": PATCHES["f32_no_dq"],
@@ -162,9 +187,9 @@ PATCHES.update({
 
 def body_of(name: str) -> str:
     """The body a variant patches: "wide" (the D = 256 body), "f32" (the
-    float32 body), "f32w" (the float32 D = 256 body) or "narrow"
-    (bfloat16 D <= 128)."""
-    for body in ("wide", "f32", "f32w"):
+    float32 body), "f32w" (the float32 D = 256 body), "cl" (the cluster
+    backward's exchange) or "narrow" (bfloat16 D <= 128)."""
+    for body in ("wide", "f32", "f32w", "cl"):
         if name.startswith(body + "_"):
             return body
     return "narrow"
@@ -198,14 +223,18 @@ def backward_notes(log: str) -> list:
     backward body (``flash_bwd_kernel<D>``, ``<256>`` for
     ``flash_bwd_kernel_d256``, ``f32<D>`` for ``flash_bwd_f32_kernel<D>``),
     its registers and spill bytes; ``f32<256>`` for
-    ``flash_bwd_f32_wide_kernel``."""
+    ``flash_bwd_f32_wide_kernel``, and ``<256 cluster>`` and ``f32<256
+    cluster>`` for the two with CL = true (the cluster backward)."""
     out, fn = [], None
     for line in log.splitlines():
         body = re.search(r"flash_bwd_kernelILi(\d+)E", line)
         f32 = re.search(r"flash_bwd_f32_kernelILi(\d+)E", line)
         name = (f"<{body[1]}>" if body else f"f32<{f32[1]}>" if f32 else
+                "<256 cluster>" if "flash_bwd_kernel_d256ILb1E" in line else
                 "<256>" if "flash_bwd_kernel_d256" in line else
-                "f32<256>" if "flash_bwd_f32_wide_kernel" in line else None)
+                "f32<256 cluster>" if "flash_bwd_f32_wide_kernelILb1E" in line
+                else "f32<256>" if "flash_bwd_f32_wide_kernel" in line
+                else None)
         if "C7520" in line:
             out.append("C7520: " + line.strip()[-160:])
             continue
@@ -304,11 +333,22 @@ def parse_shape(text: str) -> tuple:
     return shape
 
 
+def parent_refusal(shape: str):
+    """Why ``--parent`` cannot run at ``--shape`` `shape`, or None: above
+    D = 256 a parent before the cluster backward runs simplebwd, whose
+    scratch is not the one this wrapper allocates.  (Every body at
+    D <= 256, the float32 ones included, takes this wrapper's.)"""
+    if parse_shape(shape)[4] > 256:
+        return ("--parent runs D <= 256 only: above it a parent before the "
+                "cluster backward takes another scratch")
+    return None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--shape", default="yi",
-                    help="a preset (yi, wide, f32, wide_f32) or "
-                         "B,H,KV,S,D (default: "
+                    help="a preset (yi, wide, f32, wide_f32, d512, "
+                         "d512_f32) or B,H,KV,S,D (default: "
                          "yi, yi-6b's training shape)")
     ap.add_argument("--variants", help="comma-separated variants (default: "
                     "those of the shape's body)")
@@ -327,10 +367,11 @@ def main(argv=None) -> int:
               f"ratio {[round(a / b, 3) for a, b in r['rounds']]}; dq, dk, "
               f"dv bits {r['bits']}", flush=True)
         return 0
-    if args.parent and dtype == "float32":
-        raise SystemExit("--parent runs the bfloat16 bodies only")
+    if args.parent and parent_refusal(args.shape):
+        raise SystemExit(parent_refusal(args.shape))
     wide = 128 < shape[4] <= 256
-    mine = (("f32w" if wide else "f32") if dtype == "float32" else
+    mine = ("cl" if shape[4] > 256 else
+            ("f32w" if wide else "f32") if dtype == "float32" else
             "wide" if wide else "narrow")
     names = ([n for n in args.variants.split(",") if n] if args.variants
              else [n for n in PATCHES if n != "base" and body_of(n) == mine])

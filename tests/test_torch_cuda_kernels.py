@@ -464,9 +464,10 @@ def test_flash_attention_bwd(dev, rng, dtype, D, B, H, KV, S):
     same (o, lse), at FLASH_TOL; two runs give the same bits; one count
     under ``flash_attention_bwd`` a call and none under the forward's.
     At bfloat16 160, 192 and 256 run the D = 256 tensor-core body (ragged
-    S, and at (2, 16, 8, 1100) more work items than SMs), 320 the
-    CUDA-core body simplebwd; at float32 D <= 128 the f32bwd body (120
-    zero-padded to 128), above it simplebwd."""
+    S, and at (2, 16, 8, 1100) more work items than SMs), 320 the cluster
+    backward (two blocks a cluster); at float32 D <= 128 the f32bwd body
+    (120 zero-padded to 128), up to 256 f32widebwd, 320 the cluster
+    backward."""
     q, k, v = (torch.as_tensor(rng.normal(size=(B, h, S, D)).astype(
         np.float32), device=dev).to(dtype) for h in (H, KV, KV))
     do = torch.as_tensor(rng.normal(size=(B, H, S, D)).astype(np.float32),
@@ -740,6 +741,68 @@ def test_flash_f32_bwd_body(dev, rng, D, B, H, KV, S):
         with pytest.raises(ValueError, match="multiple of 16 bytes"):
             FA.flash_attention_bwd(x, x, x, x, lse_x, x)
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [264, 320, 512, 768, 2048])
+@pytest.mark.parametrize("B,H,KV,S", [(1, 4, 2, 100), (2, 8, 2, 385)])
+def test_flash_cluster_bwd_body(dev, rng, dtype, D, B, H, KV, S):
+    """The cluster backward (256 < D <= 2048: clusters of ceil(D / 256)
+    blocks, each on a 256-column slice, 264 and 320 with a ragged last
+    slice, 768 three blocks, 2048 eight) on the views of the model's (B,
+    S, H, D) tensors, S ragged against the tiles: within FLASH_TOL of the
+    plain version, two runs bit-equal and equal to the contiguous copies'
+    run, the gradients in (B, S, H, D) memory, one launch count a call;
+    the launcher's schedule (the D = 256 body's items and tiles, C blocks
+    a cluster, a grid of C x min(items, the clusters the card holds));
+    and the call's peak extra memory: its outputs, Delta, the slices'
+    accumulators (a ragged last slice's only as wide as its columns) and
+    counters, below the outputs and simplebwd's scratch of (B H + 2 B KV)
+    S D floats, which the route no longer allocates."""
+    assert FA._backward_route(dtype, D) == ("cluster", D)
+    q, k, v, do = (torch.as_tensor(rng.normal(size=(B, S, h, D)).astype(
+        np.float32), device=dev).to(dtype).transpose(1, 2)
+        for h in (H, KV, KV, H))
+    o, lse = FA.flash_attention_fwd(q, k, v)
+    before = _build.launches["flash_attention_bwd"]
+    g = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    g2 = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    gc = FA.flash_attention_bwd(*(x.contiguous() for x in (q, k, v, o)),
+                                lse, do.contiguous())
+    assert _build.launches["flash_attention_bwd"] == before + 3
+    p = FA.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    tol = FLASH_TOL[dtype]
+    for x, y, z, w in zip(g, g2, gc, p):
+        assert x.dtype == dtype and x.shape == w.shape
+        assert _same(x, y) and _same(x, z)
+        assert x.transpose(1, 2).is_contiguous()
+        torch.testing.assert_close(x.float(), w.float(), atol=tol, rtol=tol)
+    sch = FA._bwd_schedule(B, KV, S, D, dev, dtype)
+    kt, qt = (FA.BWD_TILES[256] if dtype == torch.bfloat16
+              else FA.BWD_F32_WIDE_TILES)
+    C = -(-D // FA.BWD_CLUSTER_WIDTH)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (sch["keys"], sch["queries"], sch["C"]) == (kt, qt, C)
+    assert sch["items"] == B * KV * -(-S // kt)
+    assert 1 <= sch["clusters"] <= sch["items"]
+    assert sch["grid"] == C * sch["clusters"] <= sms
+    del g, g2, gc, p
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(dev) - base
+    del out
+    esz = q.element_size()
+    outputs = esz * (B * H + 2 * B * KV) * S * D
+    nq = B * H * -(-S // qt)
+    acc_cols = FA._bwd_acc_columns(dtype, D)    # each slice's dq tiles
+    assert acc_cols == (-(-D // 64) * 64 if dtype == torch.bfloat16 else D)
+    ours = outputs + 4 * B * H * S + 4 * nq * qt * acc_cols + 4 * (C * nq + 1)
+    old_scratch = 4 * (B * H + 2 * B * KV) * S * D
+    assert extra <= ours + (2 << 20), (extra, ours)
+    assert extra < outputs + old_scratch, (extra, outputs, old_scratch)
 
 
 @pytest.mark.parametrize("D", [132, 160, 200, 256])

@@ -611,10 +611,16 @@ def test_f32_ablate_patches_touch_the_body_alone(name):
 def test_f32_preset_runs_float32():
     """`--shape f32` is yi's shape in float32 operands, and its default
     variants are the float32 body's; `--shape wide_f32` (the wide shape
-    in float32) runs float32 too."""
+    in float32) and `d512_f32` (D = 512 in float32) run float32 too.
+    `--parent` takes the float32 presets at D <= 256, whose bodies
+    (f32bwd, f32widebwd) take the scratch this wrapper allocates, and
+    refuses D = 512, where a parent before the cluster backward runs
+    simplebwd on another scratch."""
     assert BA.PRESETS["f32"] == (4, 32, 4, 2048, 128)
-    assert BA.FLOAT32_PRESETS == ("f32", "wide_f32")
+    assert BA.FLOAT32_PRESETS == ("f32", "wide_f32", "d512_f32")
     assert BA.NAMESPACES["f32"] == "f32bwd"
     assert {"f32_no_dq", "f32_no_exp"} <= set(BA.PATCHES)
-    with pytest.raises(SystemExit, match="bfloat16"):
-        BA.main(["--shape", "f32", "--parent", "x.cu"])
+    assert BA.parent_refusal("f32") is None
+    assert BA.parent_refusal("wide_f32") is None
+    with pytest.raises(SystemExit, match="D <= 256"):
+        BA.main(["--shape", "d512_f32", "--parent", "x.cu"])

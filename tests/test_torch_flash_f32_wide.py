@@ -239,7 +239,9 @@ def test_backward_shared_accesses_are_conflict_free():
                  "lds4(gb, tc + T::at(i, cg + CG * uu));",
                  "lds<QI>(a, dst + j * TS + iq);",
                  "lds4(gb, K_OFF + T::at(j, cu));",
-                 "st_shared(base + SH_OFF + (r * CONSUMERS + tid) * 16,"):
+                 "st_shared(base + SH_OFF + (r * 4 * U + so) * 16, dqa[r][0],",
+                 "const int so = CL ? tid / DCG * U + cu : tid;",
+                 "const int U = CL ? min(DCG, (width + 3) / 4) : DCG;"):
         assert stmt in body, stmt
     PS, TS, CG, KJ, DCG, QI = (BWD[n] for n in ("PS", "TS", "CG", "KJ",
                                                 "DCG", "QI"))
@@ -275,8 +277,14 @@ def test_backward_shared_accesses_are_conflict_free():
             for half in range(QI // 4):
                 assert _conflict_free(4 * (j * TS + iq) + 16 * half, 16)
             assert _conflict_free(tile_at(j, cu, KT), 16)
-        for r in range(QI):
-            assert _conflict_free(16 * (r * 256 + tid), 16)
+        # the share's units: U = DCG (r * 256 + tid), or a cluster body's
+        # narrower last slice, whose units past its width stay out
+        for U in (DCG, 2, 16, 33):
+            on = cu < U
+            for r in range(QI):
+                if on.any():
+                    assert _conflict_free(
+                        16 * ((r * 4 + tid // DCG) * U + cu)[on], 16)
 
 
 # ---------------------------------------------------------------------------
@@ -291,21 +299,22 @@ def test_backward_shared_accesses_are_conflict_free():
     (200, ("in place", 256), ("in place", 256)),
     (255, ("padded", 256), ("padded", 256)),
     (256, ("in place", 256), ("in place", 256)),
-    (257, ("wide", 257), ("simple", 257)),
-    (512, ("wide", 512), ("simple", 512))])
+    (257, ("wide", 257), ("cluster", 260)),
+    (512, ("wide", 512), ("cluster", 512))])
 def test_float32_routes_above_128(D, fwd, bwd):
     """float32 at 128 < D <= 256 runs the D = 256 bodies: in place when a
     row is whole 16-byte units (D % 4 == 0; TMA zero-fills the columns
-    past D), else zero-padded to 256; above 256 the simple CUDA-core
-    bodies (widebody, simplebwd).  The new bodies need 16-byte starts and
-    strides (TMA), the simple ones one element."""
+    past D), else zero-padded to 256; above 256 the forward's simple
+    CUDA-core body (widebody) and the cluster backward (f32widebwd on
+    each 256-column slice; 257 zero-padded to 260, the next whole 16-byte
+    row).  The TMA-fed bodies need 16-byte starts and strides, the
+    simple one one element."""
     assert FA._forward_route(torch.float32, D) == fwd
     assert FA._backward_route(torch.float32, D) == bwd
     q = torch.zeros((1, 1, 1, D))
-    want = 4 if bwd[0] == "simple" else 16
+    want = 4 if fwd[0] == "wide" else 16
     assert FA._align(q, fwd[1], f32_dims=(256,)) == want
-    assert FA._align(q, bwd[1], FA.BWD_HEAD_DIMS,
-                     FA.BWD_F32_HEAD_DIMS) == want
+    assert FA._bwd_align(q, *bwd) == 16
     # the launchers take the same widths
     assert "const bool f32w = !is_bf16 && D > 128 && D <= 256 && D % 4 == 0;" \
         in _SRC
