@@ -11,9 +11,10 @@
    ptxas to report no spills in the bfloat16 flash bodies (the
    backward's persistent pass one per D <= 128 and the D = 256 body, the
    forward per D <= 128 at its own width and at a narrower runtime width,
-   at danube's 120, and the D = 256 body), in the float32 backward's
-   (`f32bwd`, one per D <= 128) and in the float32 bodies at D = 256
-   (`f32wide`, `f32widebwd`), and no C7520 (wgmma serialized) in any;
+   at danube's 120, and the D = 256 body and its cluster forward), in the
+   float32 backward's (`f32bwd`, one per D <= 128) and in the float32
+   bodies at D = 256 (`f32wide`, `f32widebwd`, each also as its cluster
+   body), and no C7520 (wgmma serialized) in any;
 2. holds each kernel against its plain PyTorch version on the card at
    small shapes (for gee_scatter also K = 256, one row holding 50,000
    contributions and rows whose donors mostly share a class, each
@@ -29,7 +30,8 @@
    (read in place by the D = 128 body) and at D = 160, 192, 256, 320,
    512, 768 and 2112 in both dtypes (up to 256 each dtype's D = 256 body,
    read in place: the tensor-core body at bfloat16, `f32wide` at float32;
-   above it the CUDA-core wide body).  At
+   above it, up to 2048, the cluster forward, and at 2112 the CUDA-core
+   wide body; each case's route checked).  At
    every flash case
    the forward with lse (`flash_attention_fwd`: the same output bits,
    lse within 1e-5 of the dense oracle's) and the backward
@@ -155,15 +157,20 @@
    to the plain version in float64 at atol = rtol = 2e-5, its two runs
    bit-equal, each at most F32_FWD_MAX_RATIO or F32_BWD_MAX_RATIO (1.25)
    x its SDPA call; both dtypes at D = 512 (B 1, H 8, KV 2, S =
-   --lm-prompt: the forward's simple body `widebody`, the cluster
-   backward, two blocks a cluster, with the launcher's C, items and
-   clusters) in both directions beside SDPA (the backend it picks, read
-   from a profile) and their bounds, the backward's two runs bit-equal,
+   --lm-prompt: the cluster forward and the cluster backward, two blocks
+   a cluster, with the launchers' C, items and clusters) in both
+   directions beside SDPA (the backend it picks, read from a profile) and
+   their bounds, the forward held to its plain version (2e-5 at float32,
+   2e-2 at bfloat16, two runs bit-equal) and at most
+   F32_CLUSTER_FWD_MAX_RATIO (0.8, float32) or BF16_CLUSTER_FWD_MAX_RATIO
+   (0.25, bfloat16) x SDPA's forward, the backward's two runs bit-equal,
    held at float32 to the float64 plain version at atol = rtol = 2e-5
    and at bfloat16 to the plain version at 2e-2, and at most
    F32_BWD_MAX_RATIO (float32) or BF16_CLUSTER_BWD_MAX_RATIO (0.5,
-   bfloat16) x SDPA's backward; the same backward timed and printed at B
-   = --lm-batch; the backward (its
+   bfloat16) x SDPA's backward; the same forward and backward timed and
+   printed at B = --lm-batch; both dtypes at D = 2304 (B 1, H 2, KV 1),
+   above the cluster routes: `widebody` and `simplebwd` beside SDPA and
+   their bounds (printed); the backward (its
    D = 256 tensor-core body, with the launcher's items and grid) beside
    SDPA's backward, and `FlashAttentionFunction` forward + backward on
    the model's (B, S, H, D) layout beside SDPA's forward + backward, all
@@ -531,6 +538,10 @@ F32_BWD_MAX_RATIO = 1.25
 F32_FWD_MAX_RATIO = 1.25
 # the bfloat16 cluster backward at D = 512 over SDPA's backward, at most
 BF16_CLUSTER_BWD_MAX_RATIO = 0.5
+# the cluster forward at D = 512 over SDPA's forward in the same run, at
+# most: float32 and bfloat16
+F32_CLUSTER_FWD_MAX_RATIO = 0.8
+BF16_CLUSTER_FWD_MAX_RATIO = 0.25
 RESUME_TOL = 1e-4
 
 
@@ -1656,15 +1667,16 @@ def main() -> int:
         # the forward: per D <= 128 one body at its own width and one at a
         # runtime narrower width, and danube's 120 on D = 128 (its own
         # body: `launch.fwd_ablate` times it against the runtime width's),
-        # and the D = 256 body (any width); the backward one per D <= 128
-        # and the D = 256 body (any width)
-        # and the cluster backward's instantiation of the D = 256 body
-        if len(bf16) != 16 or any(bf16.values()):
+        # and the D = 256 body (any width) and its cluster forward; the
+        # backward one per D <= 128 and the D = 256 body (any width) and
+        # its cluster backward
+        if len(bf16) != 17 or any(bf16.values()):
             raise AssertionError(f"ptxas spill bytes of the bfloat16 flash "
-                                 f"bodies (16 expected: forward 10, "
+                                 f"bodies (17 expected: forward 11, "
                                  f"backward 6; all 0): {bf16}")
-        print("ptxas: the 16 bfloat16 flash bodies (forward 10, backward "
-              "5 and the cluster body) spill 0 bytes")
+        print("ptxas: the 17 bfloat16 flash bodies (forward 10 and the "
+              "cluster forward, backward 5 and the cluster backward) spill "
+              "0 bytes")
         # the float32 backward body, one per D <= 128
         f32b = {f: n for f, n in ptxas_spills(
             _build.ptxas_log["flash_attention"]).items()
@@ -1675,16 +1687,16 @@ def main() -> int:
                                  f"{f32b}")
         print("ptxas: the 4 float32 backward bodies (f32bwd, D = 16, 32, "
               "64, 128) spill 0 bytes")
-        # the float32 bodies at D = 256, forward and backward, and the
-        # cluster backward's instantiation of the backward
+        # the float32 bodies at D = 256, forward and backward, and their
+        # cluster instantiations
         f32w = {f: n for f, n in ptxas_spills(
             _build.ptxas_log["flash_attention"]).items()
             if "f32_wide_kernel" in f}
-        if len(f32w) != 3 or any(f32w.values()):
+        if len(f32w) != 4 or any(f32w.values()):
             raise AssertionError(f"ptxas spill bytes of the float32 D = 256 "
-                                 f"bodies (3 expected, all 0): {f32w}")
+                                 f"bodies (4 expected, all 0): {f32w}")
         print("ptxas: the float32 D = 256 bodies (f32wide, f32widebwd and "
-              "its cluster body) spill 0 bytes")
+              "their cluster bodies) spill 0 bytes")
         if c7520:
             raise AssertionError(f"ptxas serialized the wgmma of a flash "
                                  f"body (C7520): {c7520}")
@@ -1990,12 +2002,12 @@ def main() -> int:
         (1, 32, 4, 130, 128), (1, 8, 2, 200, 96),
         # D > 128: up to 256 each dtype's D = 256 body, 160 and 192 read in
         # place (the tensor-core bodies at bfloat16, f32wide and
-        # f32widebwd at float32), at D = 512 the CUDA-core wide bodies
-        # (ragged S and a ragged last D chunk)
+        # f32widebwd at float32), at D = 512 the cluster bodies (ragged S)
         (1, 4, 2, 100, 160), (1, 4, 2, 130, 192), (2, 8, 2, 130, 256),
         (1, 2, 1, 70, 512),
-        # above 256 the backward's cluster body: a ragged last slice (320)
-        # and three blocks a cluster (768); above 2048 simplebwd (2112)
+        # above 256 the cluster forward and backward: a ragged last slice
+        # (320) and three blocks a cluster (768); above 2048 widebody and
+        # simplebwd (2112)
         (1, 4, 2, 100, 320), (1, 4, 1, 130, 768), (1, 2, 1, 70, 2112))
         for dt in (torch.float32, torch.bfloat16)]
     # float32 only: the float32 backward body (f32bwd) at D = 96, zero-padded
@@ -2007,12 +2019,18 @@ def main() -> int:
                     ((args.lm_batch, lm.n_heads, lm.n_kv_heads,
                       args.lm_prompt - 1, lm.head_dim), torch.bfloat16)]
     for (B_, H_, KV_, S_, D_), dt in flash_cases:
-        want_ = ("cluster" if 256 < D_ <= FA.BWD_CLUSTER_MAX else
+        want_ = ("cluster" if 256 < D_ <= FA.CLUSTER_MAX else
                  "simple" if D_ > 256 else None)
         if want_ and FA._backward_route(dt, D_)[0] != want_:
             raise AssertionError(f"flash_attention_bwd at D = {D_} {dt}: "
                                  f"route {FA._backward_route(dt, D_)}, not "
                                  f"{want_}")
+        want_f = ("cluster" if 256 < D_ <= FA.CLUSTER_MAX else
+                  "wide" if D_ > 256 else None)
+        if want_f and FA._forward_route(dt, D_)[0] != want_f:
+            raise AssertionError(f"flash_attention at D = {D_} {dt}: route "
+                                 f"{FA._forward_route(dt, D_)}, not "
+                                 f"{want_f}")
         qkv = [torch.as_tensor(rng.normal(size=(B_, h_, S_, D_)).astype(
             np.float32), device=dev).to(dt) for h_ in (H_, KV_, KV_)]
         check_flash(*qkv, f"B={B_} H={H_} KV={KV_} S={S_} D={D_} {dt}")
@@ -3180,21 +3198,25 @@ def main() -> int:
 
     def d512_path(B, forward=True):
         """Both dtypes at D = 512 (B x 8 query heads over 2 KV heads, S =
-        --lm-prompt): the forward on the simple CUDA-core body
-        (`widebody`), the backward on the cluster backward (two blocks a
-        cluster, each the D = 256 body on 256 columns): each timed beside
-        SDPA's (in turns; the backend it picks read from a profile) and
-        its bound, fp32 operations at float32 and tensor-core operations
-        at bfloat16; the forward held to its plain version (check_flash),
-        the backward's two runs bit-equal, held at float32 to the plain
+        --lm-prompt): the forward on the cluster forward and the backward
+        on the cluster backward (two blocks a cluster, each its dtype's
+        D = 256 body on 256 columns, with the launchers' C, items and
+        clusters): each timed beside SDPA's (in turns; the backend it
+        picks read from a profile) and its bound, fp32 operations at
+        float32 and tensor-core operations at bfloat16; the forward held
+        to its plain version (check_flash: 2e-5 at float32, 2e-2 at
+        bfloat16, two runs bit-equal) and its time at most
+        F32_CLUSTER_FWD_MAX_RATIO x SDPA's float32 forward and
+        BF16_CLUSTER_FWD_MAX_RATIO x SDPA's bfloat16 forward; the
+        backward's two runs bit-equal, held at float32 to the plain
         version in float64 at atol = rtol = 2e-5 and at bfloat16 to the
         plain version at the forward's tolerance, and its time at most
         F32_BWD_MAX_RATIO x SDPA's float32 backward and
         BF16_CLUSTER_BWD_MAX_RATIO x SDPA's bfloat16 backward.  With
-        forward=False (the run at B = --lm-batch) the backward alone, timed
-        and printed, not held.  Returns the flash row's `wide_D512_*` and
-        `wide_bwd_D512_*` entries (at B = --lm-batch `wide_bwd_D512_B<B>_*`
-        ones)."""
+        forward=False (the run at B = --lm-batch) both are timed and
+        printed, not held.  Returns the flash row's `wide_D512_*` and
+        `wide_bwd_D512_*` entries (at B = --lm-batch `wide_D512_B<B>_*`
+        and `wide_bwd_D512_B<B>_*` ones)."""
         S, H, KV, D = args.lm_prompt, 8, 2, 512
         gen_ = torch.Generator(device=dev).manual_seed(args.seed + 512 + B)
         flops = 4.0 * D * B * H * S * (S + 1) / 2
@@ -3210,38 +3232,67 @@ def main() -> int:
             bp = (f"wide_bwd_D512_{tag}" if forward else
                   f"wide_bwd_D512_B{B}_{tag}")
             row = {}
+            # the forward: the cluster forward, C blocks a cluster
+            froute_ = FA._forward_route(dt, D)
+            fsch_ = FA._fwd_schedule(B, H, S, D, dev, dt)
+            if froute_[0] != "cluster":
+                raise AssertionError(f"flash_attention at D = 512 {dt}: "
+                                     f"route {froute_}, not cluster")
+            fbody_ = (f"{'Fwd<256>' if tc else 'f32wide'} x {fsch_['C']} "
+                      f"a cluster")
+            err = None
             if forward:
-                err = check_flash(q, k, v, f"D=512 {dt}")
+                err = check_flash(q, k, v, f"D=512 {dt}")   # two runs equal
+            else:
+                fp = f"wide_D512_B{B}_{tag}"
 
-                def fwd():
-                    return FA.flash_attention(q, k, v)
+            def fwd():
+                return FA.flash_attention(q, k, v)
 
-                def fwd_sdpa():
-                    return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+            def fwd_sdpa():
+                return sdpa(q, k, v, is_causal=True, enable_gqa=True)
 
-                f1, l1 = timer(fwd, 2), timer(fwd_sdpa, 3)
-                l2, f2 = timer(fwd_sdpa, 3), timer(fwd, 2)
-                be_f, names_f = sdpa_backend(fwd_sdpa)
-                row.update({
-                    f"{fp}_ms": (f1 + f2) / 2,
-                    f"{fp}_bound_ms": bound_ms(
-                        esz * (2 * B * H * S * D + 2 * B * KV * S * D),
-                        flops, tensor_cores=tc)[0],
-                    f"{fp}_plain_ms": timer(
-                        lambda: FA.flash_attention_plain(q, k, v), 2),
-                    f"{fp}_library_ms": (l1 + l2) / 2,
-                    f"{fp}_library_backend": be_f,
-                    f"{fp}_max_abs_err": err})
-                ms_ = row[f"{fp}_ms"]
-                print(f"flash_attention (widebody) at B={B} H={H} KV={KV} "
-                      f"S={S} D={D} {dt}: kernel {f1:.4f} / {f2:.4f} ms, "
-                      f"SDPA {l1:.4f} / {l2:.4f} ms (backend {be_f}: "
-                      f"{'; '.join(n_[:48] for n_ in names_f[:3])}), kernel "
-                      f"/ library {ms_ / row[f'{fp}_library_ms']:.3f}, bound "
-                      f"{row[f'{fp}_bound_ms']:.4f} ms, share of the bound "
-                      f"{row[f'{fp}_bound_ms'] / ms_:.4f}, plain "
-                      f"{row[f'{fp}_plain_ms']:.3f} ms, max|err| vs plain "
-                      f"{err:.3e}")
+            f1, l1 = timer(fwd, 20, warm=3), timer(fwd_sdpa, 3)
+            l2, f2 = timer(fwd_sdpa, 3), timer(fwd, 20, warm=3)
+            be_f, names_f = sdpa_backend(fwd_sdpa)
+            row.update({
+                f"{fp}_ms": (f1 + f2) / 2,
+                f"{fp}_bound_ms": bound_ms(
+                    esz * (2 * B * H * S * D + 2 * B * KV * S * D),
+                    flops, tensor_cores=tc)[0],
+                f"{fp}_library_ms": (l1 + l2) / 2,
+                f"{fp}_library_backend": be_f,
+                f"{fp}_body": fbody_,
+                f"{fp}_C": fsch_["C"], f"{fp}_items": fsch_["items"],
+                f"{fp}_clusters": fsch_["clusters"]})
+            if forward:
+                row[f"{fp}_plain_ms"] = timer(
+                    lambda: FA.flash_attention_plain(q, k, v), 2)
+                row[f"{fp}_max_abs_err"] = err
+            ms_ = row[f"{fp}_ms"]
+            fratio_ = ms_ / row[f"{fp}_library_ms"]
+            flimit_ = (BF16_CLUSTER_FWD_MAX_RATIO if tc else
+                       F32_CLUSTER_FWD_MAX_RATIO)
+            print(f"flash_attention ({fbody_}) at B={B} H={H} KV={KV} "
+                  f"S={S} D={D} {dt}: kernel {f1:.4f} / {f2:.4f} ms, "
+                  f"SDPA {l1:.4f} / {l2:.4f} ms (backend {be_f}: "
+                  f"{'; '.join(n_[:48] for n_ in names_f[:3])}), kernel "
+                  f"/ library {fratio_:.3f} (at most {flimit_}"
+                  f"{'' if forward else ', not held here'}), bound "
+                  f"{row[f'{fp}_bound_ms']:.4f} ms, share of the bound "
+                  f"{row[f'{fp}_bound_ms'] / ms_:.4f}; the launcher's "
+                  f"schedule: {fsch_['items']} items of {fsch_['rows']} rows "
+                  f"x {fsch_['keys']}-key tiles on {fsch_['clusters']} "
+                  f"clusters of C = {fsch_['C']} blocks (grid "
+                  f"{fsch_['grid']})"
+                  + (f"; plain {row[f'{fp}_plain_ms']:.3f} ms, max|err| "
+                     f"vs plain {err:.3e} (atol = rtol = "
+                     f"{2e-2 if tc else 2e-5} held), two runs bit-equal"
+                     if forward else ""))
+            if forward and fratio_ > flimit_:
+                raise AssertionError(f"flash_attention at D = 512 {dt} "
+                                     f"takes {fratio_:.3f} x SDPA's forward, "
+                                     f"above {flimit_}")
             o, lse = FA.flash_attention_fwd(q, k, v)
             route_ = FA._backward_route(dt, D)
             sch_ = FA._bwd_schedule(B, KV, S, D, dev, dt)
@@ -3325,6 +3376,96 @@ def main() -> int:
                 raise AssertionError(f"flash_attention_bwd at D = 512 {dt} "
                                      f"takes {ratio_:.3f} x SDPA's backward, "
                                      f"above {limit_}")
+            out.update(row)
+            del q, k, v, do, o, lse, lib_in, lib_out
+        return out
+
+    def d2304_path():
+        """Both dtypes above the cluster routes' 2048 (B 1, H 2, KV 1, S =
+        --lm-prompt, D = 2304): the forward on `widebody` and the backward
+        on `simplebwd`, the correctness-first CUDA-core bodies that only
+        take D > 2048 now, each timed beside SDPA's (in turns) and its
+        bound, with the plain version's time and max|err| from it
+        (printed; the small cases at D = 2112 hold them).  Returns the
+        flash row's `wide_D2304_*` and `wide_bwd_D2304_*` entries."""
+        B, H, KV, S, D = 1, 2, 1, args.lm_prompt, 2304
+        gen_ = torch.Generator(device=dev).manual_seed(args.seed + D)
+        flops = 4.0 * D * B * H * S * (S + 1) / 2
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        out = {}
+        for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            if (FA._forward_route(dt, D)[0], FA._backward_route(dt, D)[0]) \
+                    != ("wide", "simple"):
+                raise AssertionError(f"flash attention at D = {D} {dt}: "
+                                     f"routes {FA._forward_route(dt, D)}, "
+                                     f"{FA._backward_route(dt, D)}")
+            q, do = (torch.randn((B, H, S, D), generator=gen_, device=dev,
+                                 dtype=dt) for _ in range(2))
+            k, v = (torch.randn((B, KV, S, D), generator=gen_, device=dev,
+                                dtype=dt) for _ in range(2))
+            esz, tc = q.element_size(), dt == torch.bfloat16
+            fp, bp = f"wide_D2304_{tag}", f"wide_bwd_D2304_{tag}"
+            o, lse = FA.flash_attention_fwd(q, k, v)
+            po = FA.flash_attention_plain(q, k, v)
+            pg = FA.flash_attention_bwd_plain(q, k, v, o, lse, do)
+            g = FA.flash_attention_bwd(q, k, v, o, lse, do)
+            torch.cuda.synchronize()
+            err_f = (o.float() - po.float()).abs().max().item()
+            err_b = max((x_.float() - z_.float()).abs().max().item()
+                        for x_, z_ in zip(g, pg))
+            del po, pg, g
+            lib_in = [x.detach().requires_grad_() for x in (q, k, v)]
+            lib_out = sdpa(*lib_in, is_causal=True, enable_gqa=True)
+
+            def fwd():
+                return FA.flash_attention(q, k, v)
+
+            def fwd_sdpa():
+                return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+
+            def bwd():
+                return FA.flash_attention_bwd(q, k, v, o, lse, do)
+
+            def bwd_sdpa():
+                return torch.autograd.grad(lib_out, lib_in, do,
+                                           retain_graph=True)
+
+            f1, l1 = timer(fwd, 2), timer(fwd_sdpa, 3)
+            l2, f2 = timer(fwd_sdpa, 3), timer(fwd, 2)
+            b1, bl1 = timer(bwd, 1), timer(bwd_sdpa, 2)
+            bl2, b2 = timer(bwd_sdpa, 2), timer(bwd, 1)
+            by = "fp32 operations" if not tc else "bf16 tensor-core operations"
+            row = {
+                f"{fp}_ms": (f1 + f2) / 2,
+                f"{fp}_bound_ms": bound_ms(
+                    esz * (2 * B * H * S * D + 2 * B * KV * S * D), flops,
+                    tensor_cores=tc)[0],
+                f"{fp}_plain_ms": timer(
+                    lambda: FA.flash_attention_plain(q, k, v), 1),
+                f"{fp}_library_ms": (l1 + l2) / 2,
+                f"{fp}_max_abs_err": err_f,
+                f"{bp}_ms": (b1 + b2) / 2,
+                f"{bp}_bound_ms": bound_ms(
+                    esz * (4 * B * H * S * D + 4 * B * KV * S * D)
+                    + 4 * B * H * S, 2.5 * flops, tensor_cores=tc)[0],
+                f"{bp}_plain_ms": timer(
+                    lambda: FA.flash_attention_bwd_plain(q, k, v, o, lse,
+                                                         do), 1),
+                f"{bp}_library_ms": (bl1 + bl2) / 2,
+                f"{bp}_max_abs_err": err_b}
+            for what, key, a_, b_, c_, d_ in (
+                    ("flash_attention (widebody)", fp, f1, f2, l1, l2),
+                    ("flash_attention_bwd (simplebwd)", bp, b1, b2, bl1,
+                     bl2)):
+                ms_ = row[f"{key}_ms"]
+                print(f"{what} at B={B} H={H} KV={KV} S={S} D={D} {dt}: "
+                      f"kernel {a_:.3f} / {b_:.3f} ms, SDPA {c_:.3f} / "
+                      f"{d_:.3f} ms, kernel / library "
+                      f"{ms_ / row[f'{key}_library_ms']:.3f}, bound "
+                      f"{row[f'{key}_bound_ms']:.4f} ms ({by}), share of "
+                      f"the bound {row[f'{key}_bound_ms'] / ms_:.4f}, plain "
+                      f"{row[f'{key}_plain_ms']:.3f} ms, max|err| vs plain "
+                      f"{row[f'{key}_max_abs_err']:.3e} (printed)")
             out.update(row)
             del q, k, v, do, o, lse, lib_in, lib_out
         return out
@@ -3602,6 +3743,7 @@ def main() -> int:
         del qf, kf, vf
         wide.update(d512_path(B=1))
         wide.update(d512_path(B=args.lm_batch, forward=False))
+        wide.update(d2304_path())
         # the backward at the bfloat16 shape, on its tensor-core body for
         # 128 < D <= 256: two runs bit-equal, held to its plain version by
         # phase 8's limits, timed beside SDPA's backward (one autograd call

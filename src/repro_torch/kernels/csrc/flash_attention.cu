@@ -21,8 +21,10 @@
 // {16, 32, 64, 128} (and at bfloat16 any narrower multiple of 8, read in
 // place), and for 128 < D <= 256 one more a dtype: at bfloat16 the wide
 // tensor-core body, at float32 the wide CUDA-core body f32wide (each
-// reading a narrower width in place, below); flash_attention_wide_launch
-// runs a simple body for any D > 256 (widebody, below).
+// reading a narrower width in place, below), and for 256 < D <= 2048 the
+// cluster forward (each dtype's D = 256 body on 256-column slices, below);
+// flash_attention_wide_launch runs a simple body for any D > 2048
+// (widebody, below).
 //
 // bfloat16 (bf16body): both products on the tensor cores, in persistent
 // blocks.  The grid is one block per SM (fewer if there are fewer work
@@ -144,8 +146,35 @@
 // memory: 207,456 bytes (f32body's layout, Q and K at pitch D + 1, would
 // take 213,760 at D = 256 for one K and V tile and no ring).
 //
-// float32 at D > 256, and bfloat16 at D > 256 (widebody): CUDA cores,
-// float32 arithmetic, no tensor cores; correctness first, not speed.  One
+// float32 and bfloat16 at 256 < D <= 2048 (the cluster forward: Fwd<256>
+// and f32wide with CL = true, a narrower width than C * 256 read in place,
+// D % 8 == 0 at bfloat16 and D % 4 == 0 at float32): no body's layout fits
+// a block at D = 512, but only S = Q K^T needs a sum over all of D; the
+// softmax's m and l come from S, and O += P V is column by column.  So a
+// cluster of C = ceil(D / 256) blocks (8 at most, the portable cluster
+// size) takes one item, and block r runs its dtype's D = 256 body on
+// columns 256 r .. 256 r + 255: its Q, K and V tiles are those columns
+// (the maps over the whole width, their coordinates offset, the columns
+// past D zero-filled), its S sums over them in the body's own order, and
+// then, through distributed shared memory, each compute warp stores its
+// lanes' partials, arrives on an mbarrier of every other rank and waits
+// for theirs (clusterbwd's exchange, as the cluster backward's below),
+// and each lane adds the C ranks' partials in ascending rank order: every
+// block forms the same m, l and P bits, and computes O for its own
+// columns, which it stores (rank 0 also lse).  At bfloat16 a warp's
+// partials go out while P V of the tile before is in flight and are summed
+// once it is done (the sums take its A fragments' registers), outside the
+// turns, and the exchange's two buffers (80 KB) take the second K and V
+// stage's room: one stage.  Rank 0 draws each ticket and writes it into
+// every rank's two slots; the launch's last ticket, n_items + clusters -
+// 1, puts the counter back to zero.  A cluster barrier after the mbarriers
+// are set
+// and another before any block exits; the grid is C x min(items, the
+// clusters the card holds at once) (cudaLaunchKernelEx).  No product is
+// added, and no tile but the exchange buffers.
+//
+// float32 and bfloat16 at D > 2048 (widebody): CUDA cores, float32
+// arithmetic, no tensor cores; correctness first, not speed.  One
 // block
 // of 256 threads per (batch x head, 16-row query tile), the heaviest
 // tiles first.  For each 32-key tile: the scores take the dot over D in
@@ -1620,11 +1649,296 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   return (int)cudaGetLastError();
 }
 
+}  // namespace bf16body
+
+// What the D = 256 bodies add to run as the cluster forward (Fwd<256>,
+// f32wide) and the cluster backward (widebwd, f32widebwd) above D = 256
+// (see the note at the top of the file): the cluster's rank and size, the
+// ticket rank 0 hands to every rank, the exchange of S's (and dP's)
+// partial sums through distributed shared memory, and the launch.
+namespace clusterbwd {
+
+using bf16body::st_shared;
+
+constexpr int MAX_C = 8;        // blocks a cluster: the portable limit
+constexpr int WIDTH = 256;      // columns a block: its body's D
+constexpr int MAX_D = MAX_C * WIDTH;
+constexpr int XWARPS = 8;       // the compute warps that exchange
+constexpr int XUNIT = 512;      // bytes between a lane's 16-byte units
+
+__device__ __forceinline__ int rank() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ int size() {
+  int n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return n;
+}
+// shared address a of this block as the cluster sees it in rank r
+__device__ __forceinline__ uint32_t mapa(uint32_t a, int r) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(a), "r"(r));
+  return out;
+}
+// every thread of the cluster that has not exited arrives, then waits
+// for the others (release and acquire at cluster scope)
+__device__ __forceinline__ void sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+// an arrival on the mbarrier at cluster address bar (any rank's),
+// releasing this thread's earlier writes at cluster scope
+__device__ __forceinline__ void arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
+               ::"r"(bar)
+               : "memory");
+}
+// wait until the phase of this block's bar with this parity has
+// completed, acquiring what its arrivals released at cluster scope
+__device__ __forceinline__ void wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+__device__ __forceinline__ float4 ld4(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+// The cluster's n-th ticket, called by lane 0 of every rank's producer:
+// rank 0 takes it from the counter and writes it into slot n & 1 of every
+// rank (slots: two ints), arriving on that rank's mbarrier n & 1 (bars:
+// two, count 1); every rank waits there and reads its slot.  One counter
+// draw a cluster, so all ranks work on the same item; two slots, because
+// rank 0 can draw ticket n + 1 while a rank still reads ticket n (not n +
+// 2: rank 0 draws that only after its consumers finished item n, whose
+// every step exchanged with every rank).  The forward's producer draws
+// ticket n + 1 before its consumers finish item n, but ticket n + 2 only
+// after it has waited for the Q slot that item n's epilogue releases: by
+// then rank 0's consumers have made item n's exchanges (its first key
+// tile's at least), which no rank's consumers reach before that rank's
+// producer has read ticket n.
+__device__ __forceinline__ int ticket(int* work, uint32_t slots,
+                                      uint32_t bars, int n, int C, int r) {
+  const uint32_t slot = slots + 4 * (n & 1), bar = bars + 8 * (n & 1);
+  if (r == 0) {
+    const int item = atomicAdd(work, 1);
+    for (int p = 0; p < C; ++p) {
+      asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(mapa(slot, p)),
+                   "r"(item)
+                   : "memory");
+      arrive(mapa(bar, p));
+    }
+  }
+  wait(bar, (n >> 1) & 1);
+  int item;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(item) : "r"(slot) : "memory");
+  return item;
+}
+
+// The exchange of one warp's partial sums at step `it`.  Lane l's N
+// partials (N % 4 == 0) go to this block's buffer (it & 1) at a, N / 4
+// 16-byte units XUNIT bytes apart (a warp's lanes side by side, no bank
+// conflict); once the warp's stores are in (__syncwarp), lane 0 arrives on
+// the warp's mbarrier (it & 1) of every other rank (count C - 1), and the
+// warp waits for theirs on its own.  Then each lane reads the same units
+// of every rank, its own included, and adds them in ascending rank order,
+// ((s0 + s1) + s2) + ...: every rank forms the same bits.  Two buffers:
+// a rank writes buffer (it & 1) again at step it + 2, after the arrivals
+// of step it + 1, which every other rank makes after its reads of step
+// it.
+template <int N>
+__device__ __forceinline__ void put(const float (&x)[N], uint32_t a) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+    st_shared(a + j * XUNIT, x[4 * j], x[4 * j + 1], x[4 * j + 2],
+              x[4 * j + 3]);
+}
+__device__ __forceinline__ void signal(uint32_t bar, int C, int r) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0)
+    for (int p = 0; p < C; ++p)
+      if (p != r) arrive(mapa(bar, p));
+}
+__device__ __forceinline__ void gather(uint32_t bar, int it) {
+  wait(bar, (it >> 1) & 1);
+}
+template <int N>
+__device__ __forceinline__ void sum(float (&x)[N], uint32_t a, int C) {
+  float t[N];
+  for (int p = 0; p < C; ++p) {
+    const uint32_t ra = mapa(a, p);
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      const float4 v = ld4(ra + j * XUNIT);
+      t[4 * j] = v.x;
+      t[4 * j + 1] = v.y;
+      t[4 * j + 2] = v.z;
+      t[4 * j + 3] = v.w;
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = p == 0 ? t[i] : x[i] + t[i];
+  }
+}
+// f32widebwd's exchange: a group's S or dP, 8 partials a lane
+__device__ __forceinline__ void exchange(float (&x)[8], uint32_t a,
+                                         uint32_t bar, int it, int C, int r) {
+  put(x, a);
+  signal(bar, C, r);
+  gather(bar, it);
+  sum(x, a, C);
+}
+// widebwd's: a consumer's S^T and dP^T fragments, 16 partials each
+__device__ __forceinline__ void exchange(float (&x)[16], float (&y)[16],
+                                         uint32_t a, uint32_t bar, int it,
+                                         int C, int r) {
+  put(x, a);
+  put(y, a + 4 * XUNIT);
+  signal(bar, C, r);
+  gather(bar, it);
+  sum(x, a, C);
+  sum(y, a + 4 * XUNIT, C);
+}
+
+// The clusters of C blocks of `fn` (its dynamic shared memory set) that
+// the current device holds at once; 0 if it cannot hold one.  Read once a
+// device, kernel and C.
+inline int max_clusters(const void* fn, int C, size_t smem, int threads) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, int>, int> seen;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(dev, fn, C);
+  auto hit = seen.find(key);
+  if (hit != seen.end()) return hit->second;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, fn, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  seen[key] = n;
+  return n;
+}
+
+// The cluster schedule: C = ceil(width / 256) blocks a cluster, one
+// cluster per item up to what the device holds at once, so that every
+// item a dq counter wait points at has been taken by a resident cluster.
+inline int schedule(const void* fn, size_t smem, int threads, int n_items,
+                    int width, int* C, int* clusters) {
+  *C = (width + WIDTH - 1) / WIDTH;
+  if (*C < 2 || *C > MAX_C) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int most = max_clusters(fn, *C, smem, threads);
+  if (most <= 0) return (int)cudaErrorInvalidConfiguration;
+  *clusters = n_items < most ? n_items : most;
+  return 0;
+}
+
+// launch fn on `clusters` clusters of C blocks
+template <typename... Params, typename... Args>
+int launch(void (*fn)(Params...), int C, int clusters, int threads,
+           size_t smem, cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(C * clusters);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, fn, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace clusterbwd
+
+namespace bf16body {
+
+// The wide body's (Fwd<256>'s) shared memory in each instantiation: CL =
+// false, Fwd<256>'s own layout; CL = true, the cluster forward's (a
+// 256-column slice of 256 < D <= 2048 a block; see the note at the top of
+// the file), which has one K and V stage: the second stage's 80 KB hold the
+// exchange of S's partials, two buffers of 8 warps x 10 16-byte units x 32
+// lanes (a tile's 128 x 80 float32 partials, 40 KB each), beside the two
+// ticket slots and 18 more mbarriers (the 16 warps' exchanges, the two
+// tickets): 230,624 bytes.
+template <bool CL>
+struct WideL {
+  using F = Fwd<256>;
+  static constexpr int STAGES = CL ? 1 : F::STAGES;  // K and V tiles
+  // a lane's partial S of a tile, F::BK / 2 floats, in 16-byte units;
+  // above two ranks XSUM of them summed over the ranks at a time
+  // (clusterbwd::sum; 8 or more at a time spill at 232 registers)
+  static constexpr int XUNITS = F::BK / 8;
+  static constexpr int XSUM = 4;
+  static constexpr uint32_t XBUF =
+      clusterbwd::XWARPS * XUNITS * clusterbwd::XUNIT;
+  static constexpr uint32_t K_OFF = F::GQ::TILE;
+  static constexpr uint32_t V_OFF = K_OFF + STAGES * F::GK::TILE;
+  static constexpr uint32_t X_OFF = V_OFF + STAGES * F::GK::TILE;
+  static constexpr uint32_t ITEM_OFF = X_OFF + (CL ? 2 * XBUF : 0);
+  static constexpr uint32_t TICK_OFF = ITEM_OFF + 16;
+  static constexpr uint32_t BAR_OFF = TICK_OFF + (CL ? 16 : 0);
+  static constexpr size_t SMEM =
+      BAR_OFF +
+      8 * (2 + 4 * STAGES + (CL ? 2 * clusterbwd::XWARPS + 2 : 0)) + 1024;
+  static_assert(SMEM <= 232448, "more shared memory than a block may take");
+  static_assert((F::BK / 2) % XSUM == 0 && XSUM % 4 == 0,
+                "the partials summed in whole 16-byte units");
+  static_assert(CL || (V_OFF == F::V_OFF && ITEM_OFF == F::ITEM_OFF &&
+                       BAR_OFF == F::BAR_OFF && SMEM == F::SMEM),
+                "CL = false is Fwd<256>'s own layout");
+};
+
 // The wide body (Fwd<256>; see the note at the top of the file): the
 // bfloat16 body's persistent schedule, work list, ticket counter, turns
 // and arithmetic, with one Q slot.  The maps hold the operands' real
 // width (a multiple of 8, at most 256): they zero-fill the columns past
 // it, and the store map `to` drops them.
+// CL: the cluster forward, block `rank` of a cluster of C on columns 256
+// rank .. 256 rank + 255 of operands 256 < width <= 2048 wide: the maps'
+// coordinates start there (the columns past the width zero-filled, and
+// not stored), rank 0 draws the tickets for the cluster (and leaves the
+// counter at zero), every tile's S is summed over the ranks before the
+// softmax (each warp's partials through distributed shared memory, sent
+// while P V of the tile before runs and summed in rank order after it),
+// and rank 0 writes lse.
+template <bool CL>
 __global__ void __launch_bounds__(Fwd<256>::THREADS, 1)
 flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -1633,25 +1947,37 @@ flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
                            float* __restrict__ lse, int* work, int B, int H,
                            int KV, int S, float scale_log2) {
   using F = Fwd<256>;
+  using L = WideL<CL>;
   using GQ = F::GQ;
   using GK = F::GK;
   constexpr int D = 256, KT = F::BK, NCONS = F::CONSUMERS;
-  constexpr int STAGES = F::STAGES;
+  constexpr int STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   volatile int* item_s = reinterpret_cast<volatile int*>(
-      smem_raw + (base - smem_u32(smem_raw)) + F::ITEM_OFF);
-  const uint32_t bar = base + F::BAR_OFF;
+      smem_raw + (base - smem_u32(smem_raw)) + L::ITEM_OFF);
+  const uint32_t bar = base + L::BAR_OFF;
   // mbarriers: Q full and empty; per stage K full, V full, K empty and V
-  // empty (K is released as soon as S is computed, V after P V)
+  // empty (K is released as soon as S is computed, V after P V); CL: per
+  // exchange buffer and compute warp the other ranks' arrivals, and the
+  // two tickets'
   const uint32_t full_q = bar, empty_q = bar + 8, full_k = bar + 16,
                  full_v = full_k + 8 * STAGES,
                  empty_k = full_v + 8 * STAGES,
                  empty_v = empty_k + 8 * STAGES;
+  const uint32_t xin = empty_v + 8 * STAGES,
+                 tick = xin + 16 * clusterbwd::XWARPS;
 
   const int G = H / KV;
   const int n_qt = (S + F::BQ - 1) / F::BQ;
   const int n_items = B * H * n_qt;
+  int C = 1, rank = 0;
+  if constexpr (CL) {
+    C = clusterbwd::size();
+    rank = clusterbwd::rank();
+    if (rank != 0) lse = nullptr;              // rank 0 writes lse
+  }
+  const int col0 = rank * D;                   // the slice's first column
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
@@ -1663,9 +1989,16 @@ flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
       mbar_init(empty_k + 8 * s, 128 * NCONS);
       mbar_init(empty_v + 8 * s, 128 * NCONS);
     }
+    if constexpr (CL) {
+      for (int i = 0; i < 2 * clusterbwd::XWARPS; ++i)
+        mbar_init(xin + 8 * i, C - 1);
+      mbar_init(tick, 1);
+      mbar_init(tick + 8, 1);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+  if constexpr (CL) clusterbwd::sync();        // every rank's mbarriers set
 
   if (threadIdx.x < 128) {
     // producer warpgroup: one thread takes the items and starts every load
@@ -1675,10 +2008,19 @@ flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == 0) {
       int j = 0;                                 // K, V tiles loaded so far
       for (int n = 0;; ++n) {
-        const int item = atomicAdd(work, 1);
+        const int item =
+            CL ? clusterbwd::ticket(work, base + L::TICK_OFF, tick, n, C,
+                                    rank)
+               : atomicAdd(work, 1);
         if (item >= n_items) {
           // the last ticket of the launch puts the counter back to zero
-          if (item == n_items + (int)gridDim.x - 1) atomicExch(work, 0);
+          // (CL: a cluster draws one ticket a turn, rank 0 for all)
+          if constexpr (CL) {
+            if (rank == 0 && item == n_items + (int)gridDim.x / C - 1)
+              atomicExch(work, 0);
+          } else {
+            if (item == n_items + (int)gridDim.x - 1) atomicExch(work, 0);
+          }
           mbar_wait(empty_q, (n & 1) ^ 1);
           item_s[0] = -1;
           mbar_arrive(full_q);
@@ -1692,18 +2034,18 @@ flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
         auto kv_load = [&](int t) {
           const int s = j % STAGES;
           const uint32_t parity = ((j / STAGES) & 1) ^ 1;
-          const uint32_t ks = base + F::K_OFF + s * GK::TILE;
-          const uint32_t vs = base + F::V_OFF + s * GK::TILE;
+          const uint32_t ks = base + L::K_OFF + s * GK::TILE;
+          const uint32_t vs = base + L::V_OFF + s * GK::TILE;
           mbar_wait(empty_k + 8 * s, parity);
           mbar_expect_tx(full_k + 8 * s, GK::TILE);
           for (int c = 0; c < GK::NC; ++c)
-            tma_load(ks + c * GK::CHUNK, &tk, full_k + 8 * s, c * GK::AW, kvh,
-                     t * KT, b);
+            tma_load(ks + c * GK::CHUNK, &tk, full_k + 8 * s,
+                     col0 + c * GK::AW, kvh, t * KT, b);
           mbar_wait(empty_v + 8 * s, parity);
           mbar_expect_tx(full_v + 8 * s, GK::TILE);
           for (int c = 0; c < GK::NC; ++c)
-            tma_load(vs + c * GK::CHUNK, &tv, full_v + 8 * s, c * GK::AW, kvh,
-                     t * KT, b);
+            tma_load(vs + c * GK::CHUNK, &tv, full_v + 8 * s,
+                     col0 + c * GK::AW, kvh, t * KT, b);
           ++j;
         };
         // the item's first tiles land while the consumers end the last
@@ -1715,7 +2057,8 @@ flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
         item_s[0] = item;
         mbar_expect_tx(full_q, GQ::TILE);
         for (int c = 0; c < GQ::NC; ++c)
-          tma_load(base + c * GQ::CHUNK, &tq, full_q, c * GQ::AW, h, q0, b);
+          tma_load(base + c * GQ::CHUNK, &tq, full_q, col0 + c * GQ::AW, h,
+                   q0, b);
         for (int t = pre; t < n_kv; ++t) kv_load(t);
       }
     }
@@ -1744,7 +2087,7 @@ flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
     // S = Q K^T of the tile in ring slot `slot` into sc (one batch, not
     // committed): 16 k-steps over D
     auto qk = [&](int slot) {
-      const uint32_t ks = base + F::K_OFF + slot * GK::TILE;
+      const uint32_t ks = base + L::K_OFF + slot * GK::TILE;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t col = (kk * 16 % GK::AW) * 2;
@@ -1758,7 +2101,7 @@ flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
     // O += P V of the tile in ring slot `slot` (one batch, not committed):
     // m64n256k16, the largest N wgmma has
     auto pv = [&](int slot) {
-      const uint32_t vs = base + F::V_OFF + slot * GK::TILE;
+      const uint32_t vs = base + L::V_OFF + slot * GK::TILE;
 #pragma unroll
       for (int kk = 0; kk < KT / 16; ++kk) {
         const uint32_t a[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2],
@@ -1824,6 +2167,59 @@ flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
       issue();
       bar_arrive(1 + (w + 1) % NCONS);
     };
+    // CL: the sum of a tile's S over the ranks, outside the turns.  This
+    // warp's partials (its lanes' KT / 2 floats) go to buffer x & 1, the
+    // warp's exchange with the same warp of every rank (clusterbwd::put,
+    // signal: `post`, while P V of the tile before runs); once the others'
+    // are in (gather), the ranks' sums in rank order (`gather_sum`, after
+    // that P V, whose A fragments' registers the sums then have): the
+    // other rank's partial added to this one's in a pair, else XSUM of
+    // them at a time through clusterbwd::sum.  The same bits in every
+    // rank.
+    int x = 0;                                 // exchanges so far
+    auto xaddr = [&]() {
+      const int xw = threadIdx.x / 32 - 4;     // compute warp 0 .. 7
+      return base + L::X_OFF + (x & 1) * L::XBUF +
+             xw * L::XUNITS * clusterbwd::XUNIT + (threadIdx.x & 31) * 16;
+    };
+    auto xbar = [&]() {
+      return xin + 8 * ((x & 1) * clusterbwd::XWARPS + threadIdx.x / 32 - 4);
+    };
+    // (the cluster's size and rank read where they are used: registers
+    // held across the walk are the consumers' scarcest resource)
+    auto post = [&]() {
+      clusterbwd::put(sc, xaddr());
+      clusterbwd::signal(xbar(), clusterbwd::size(), clusterbwd::rank());
+    };
+    auto gather_sum = [&]() {
+      clusterbwd::gather(xbar(), x);
+      const uint32_t a = xaddr();
+      const int C = clusterbwd::size();
+      if (C == 2) {                            // the pair's sum
+        // s0 + s1 == s1 + s0 to the bit: each rank adds the other's
+        // partial to its own, still in sc, a 16-byte unit at a time
+        const uint32_t ra = clusterbwd::mapa(a, clusterbwd::rank() ^ 1);
+#pragma unroll
+        for (int u = 0; u < KT / 8; ++u) {
+          const float4 v = clusterbwd::ld4(ra + u * clusterbwd::XUNIT);
+          sc[4 * u] += v.x;
+          sc[4 * u + 1] += v.y;
+          sc[4 * u + 2] += v.z;
+          sc[4 * u + 3] += v.w;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < KT / 2; i += L::XSUM) {
+          float y[L::XSUM];
+#pragma unroll
+          for (int e = 0; e < L::XSUM; ++e) y[e] = sc[i + e];
+          clusterbwd::sum(y, a + i / 4 * clusterbwd::XUNIT, C);
+#pragma unroll
+          for (int e = 0; e < L::XSUM; ++e) sc[i + e] = y[e];
+        }
+      }
+      ++x;
+    };
     int j = 0;                                 // K, V tiles consumed so far
     auto slot = [&](int t) { return (j + t) % STAGES; };
     auto phase = [&](int t) { return (uint32_t)(((j + t) / STAGES) & 1); };
@@ -1861,7 +2257,9 @@ flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
       named_sync(1 + NCONS + w, 128);
       if (tid == 0) {
         for (int cc = 0; cc < GQ::NC; ++cc)
-          tma_store(&to, qa + cc * GQ::CHUNK, cc * GQ::AW, h, row0, b);
+          tma_store(&to, qa + cc * GQ::CHUNK,
+                    (CL ? clusterbwd::rank() * D : 0) + cc * GQ::AW, h, row0,
+                    b);
         bulk_commit();
         bulk_wait<true>();
         mbar_arrive(empty_q);
@@ -1914,6 +2312,10 @@ flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
       pin(sc);
       mbar_arrive(empty_k + 8 * slot(0));
       if (walks) {
+        if constexpr (CL) {                    // S over all of D
+          post();
+          gather_sum();
+        }
         online(KT - 1 > row0, row0);
         rescale_round();
       } else {                                 // tile 0's V is not read
@@ -1932,10 +2334,19 @@ flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
         wgmma_wait<1>();                       // S of tile t
         pin(sc);
         mbar_arrive(empty_k + 8 * slot(t));
-        online(t * KT + KT - 1 > row0, row0 - t * KT);
-        wgmma_wait<0>();                       // P V of tile t - 1
-        pin(acc);
-        mbar_arrive(empty_v + 8 * slot(t - 1));
+        if constexpr (CL) {                    // S over all of D
+          post();                              // under P V of tile t - 1
+          wgmma_wait<0>();                     // P V of tile t - 1
+          pin(acc);
+          mbar_arrive(empty_v + 8 * slot(t - 1));
+          gather_sum();
+          online(t * KT + KT - 1 > row0, row0 - t * KT);
+        } else {
+          online(t * KT + KT - 1 > row0, row0 - t * KT);
+          wgmma_wait<0>();                     // P V of tile t - 1
+          pin(acc);
+          mbar_arrive(empty_v + 8 * slot(t - 1));
+        }
         rescale_round();
       }
       // P V of the last tile
@@ -1961,6 +2372,47 @@ flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
     }
     if (w == 0) bar_sync(1);                   // the other's last hand-over
   }
+  // no block leaves while another may still read its exchange buffers
+  // (the producer warp's lanes together again first)
+  if constexpr (CL) {
+    __syncwarp();
+    clusterbwd::sync();
+  }
+}
+
+// The cluster forward's schedule for operands `width` > 256 wide: the
+// work items (as schedule<256>'s), C = ceil(width / 256) blocks a cluster
+// and the clusters (one an item, up to what the device holds at once)
+int cluster_schedule(int B, int H, int S, int width, int* items, int* C,
+                     int* clusters) {
+  *items = B * H * ((S + Fwd<256>::BQ - 1) / Fwd<256>::BQ);
+  return clusterbwd::schedule(
+      reinterpret_cast<const void*>(flash_fwd_bf16_kernel_d256<true>),
+      WideL<true>::SMEM, Fwd<256>::THREADS, *items, width, C, clusters);
+}
+
+// The cluster forward at 256 < width <= 2048 (a multiple of 8): maps over
+// the whole width, whose columns past it land as zeros and are not
+// stored; the stream's ticket counter, left at zero by the launch
+int launch_cluster(const void* q, const void* k, const void* v, void* o,
+                   float* lse, const Lay* ly, int B, int H, int KV, int S,
+                   int width, float scale, cudaStream_t stream) {
+  using F = Fwd<256>;
+  CUtensorMap mq, mk, mv, mo;
+  int err = make_map<256>(&mq, q, ly[0], H, S, B, F::BQ, width);
+  if (err == 0) err = make_map<256>(&mk, k, ly[1], KV, S, B, F::BK, width);
+  if (err == 0) err = make_map<256>(&mv, v, ly[2], KV, S, B, F::BK, width);
+  if (err == 0) err = make_map<256>(&mo, o, ly[3], H, S, B, 64, width);
+  if (err != 0) return err;
+  int* work = work_counter(stream);
+  if (work == nullptr) return (int)cudaErrorMemoryAllocation;
+  int n_items = 0, C = 0, clusters = 0;
+  err = cluster_schedule(B, H, S, width, &n_items, &C, &clusters);
+  if (err != 0) return err;
+  return clusterbwd::launch(
+      flash_fwd_bf16_kernel_d256<true>, C, clusters, F::THREADS,
+      WideL<true>::SMEM, stream, mq, mk, mv, mo, lse, work, B, H, KV, S,
+      scale * LOG2E);
 }
 
 // the wide body on operands `width` columns wide (a multiple of 8 up to
@@ -1981,10 +2433,10 @@ int launch_wide(const void* q, const void* k, const void* v, void* o,
   err = schedule<256>(B, H, S, &n_items, &grid);
   if (err != 0) return err;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel_d256,
+      flash_fwd_bf16_kernel_d256<false>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F::SMEM);
   if (e != cudaSuccess) return (int)e;
-  flash_fwd_bf16_kernel_d256<<<grid, F::THREADS, F::SMEM, stream>>>(
+  flash_fwd_bf16_kernel_d256<false><<<grid, F::THREADS, F::SMEM, stream>>>(
       mq, mk, mv, mo, lse, work, B, H, KV, S, scale * LOG2E);
   return (int)cudaGetLastError();
 }
@@ -2789,237 +3241,6 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 }
 
 }  // namespace bf16bwd
-
-// What the D = 256 bodies (widebwd, f32widebwd) add to run as the cluster
-// backward above D = 256 (see the note at the top of the file): the
-// cluster's rank and size, the ticket rank 0 hands to every rank, the
-// exchange of S's and dP's partial sums through distributed shared
-// memory, and the launch.
-namespace clusterbwd {
-
-using bf16body::st_shared;
-
-constexpr int MAX_C = 8;        // blocks a cluster: the portable limit
-constexpr int WIDTH = 256;      // columns a block: its body's D
-constexpr int MAX_D = MAX_C * WIDTH;
-constexpr int XWARPS = 8;       // the compute warps that exchange
-constexpr int XUNIT = 512;      // bytes between a lane's 16-byte units
-
-__device__ __forceinline__ int rank() {
-  int r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ int size() {
-  int n;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
-  return n;
-}
-// shared address a of this block as the cluster sees it in rank r
-__device__ __forceinline__ uint32_t mapa(uint32_t a, int r) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(out)
-               : "r"(a), "r"(r));
-  return out;
-}
-// every thread of the cluster that has not exited arrives, then waits
-// for the others (release and acquire at cluster scope)
-__device__ __forceinline__ void sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-// an arrival on the mbarrier at cluster address bar (any rank's),
-// releasing this thread's earlier writes at cluster scope
-__device__ __forceinline__ void arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
-               ::"r"(bar)
-               : "memory");
-}
-// wait until the phase of this block's bar with this parity has
-// completed, acquiring what its arrivals released at cluster scope
-__device__ __forceinline__ void wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-__device__ __forceinline__ float4 ld4(uint32_t a) {
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(a)
-               : "memory");
-  return v;
-}
-
-// The cluster's n-th ticket, called by lane 0 of every rank's producer:
-// rank 0 takes it from the counter and writes it into slot n & 1 of every
-// rank (slots: two ints), arriving on that rank's mbarrier n & 1 (bars:
-// two, count 1); every rank waits there and reads its slot.  One counter
-// draw a cluster, so all ranks work on the same item; two slots, because
-// rank 0 can draw ticket n + 1 while a rank still reads ticket n (not n +
-// 2: rank 0 draws that only after its consumers finished item n, whose
-// every step exchanged with every rank).
-__device__ __forceinline__ int ticket(int* work, uint32_t slots,
-                                      uint32_t bars, int n, int C, int r) {
-  const uint32_t slot = slots + 4 * (n & 1), bar = bars + 8 * (n & 1);
-  if (r == 0) {
-    const int item = atomicAdd(work, 1);
-    for (int p = 0; p < C; ++p) {
-      asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(mapa(slot, p)),
-                   "r"(item)
-                   : "memory");
-      arrive(mapa(bar, p));
-    }
-  }
-  wait(bar, (n >> 1) & 1);
-  int item;
-  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(item) : "r"(slot) : "memory");
-  return item;
-}
-
-// The exchange of one warp's partial sums at step `it`.  Lane l's N
-// partials (N % 4 == 0) go to this block's buffer (it & 1) at a, N / 4
-// 16-byte units XUNIT bytes apart (a warp's lanes side by side, no bank
-// conflict); once the warp's stores are in (__syncwarp), lane 0 arrives on
-// the warp's mbarrier (it & 1) of every other rank (count C - 1), and the
-// warp waits for theirs on its own.  Then each lane reads the same units
-// of every rank, its own included, and adds them in ascending rank order,
-// ((s0 + s1) + s2) + ...: every rank forms the same bits.  Two buffers:
-// a rank writes buffer (it & 1) again at step it + 2, after the arrivals
-// of step it + 1, which every other rank makes after its reads of step
-// it.
-template <int N>
-__device__ __forceinline__ void put(const float (&x)[N], uint32_t a) {
-#pragma unroll
-  for (int j = 0; j < N / 4; ++j)
-    st_shared(a + j * XUNIT, x[4 * j], x[4 * j + 1], x[4 * j + 2],
-              x[4 * j + 3]);
-}
-__device__ __forceinline__ void signal(uint32_t bar, int C, int r) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0)
-    for (int p = 0; p < C; ++p)
-      if (p != r) arrive(mapa(bar, p));
-}
-__device__ __forceinline__ void gather(uint32_t bar, int it) {
-  wait(bar, (it >> 1) & 1);
-}
-template <int N>
-__device__ __forceinline__ void sum(float (&x)[N], uint32_t a, int C) {
-  float t[N];
-  for (int p = 0; p < C; ++p) {
-    const uint32_t ra = mapa(a, p);
-#pragma unroll
-    for (int j = 0; j < N / 4; ++j) {
-      const float4 v = ld4(ra + j * XUNIT);
-      t[4 * j] = v.x;
-      t[4 * j + 1] = v.y;
-      t[4 * j + 2] = v.z;
-      t[4 * j + 3] = v.w;
-    }
-#pragma unroll
-    for (int i = 0; i < N; ++i) x[i] = p == 0 ? t[i] : x[i] + t[i];
-  }
-}
-// f32widebwd's exchange: a group's S or dP, 8 partials a lane
-__device__ __forceinline__ void exchange(float (&x)[8], uint32_t a,
-                                         uint32_t bar, int it, int C, int r) {
-  put(x, a);
-  signal(bar, C, r);
-  gather(bar, it);
-  sum(x, a, C);
-}
-// widebwd's: a consumer's S^T and dP^T fragments, 16 partials each
-__device__ __forceinline__ void exchange(float (&x)[16], float (&y)[16],
-                                         uint32_t a, uint32_t bar, int it,
-                                         int C, int r) {
-  put(x, a);
-  put(y, a + 4 * XUNIT);
-  signal(bar, C, r);
-  gather(bar, it);
-  sum(x, a, C);
-  sum(y, a + 4 * XUNIT, C);
-}
-
-// The clusters of C blocks of `fn` (its dynamic shared memory set) that
-// the current device holds at once; 0 if it cannot hold one.  Read once a
-// device, kernel and C.
-inline int max_clusters(const void* fn, int C, size_t smem, int threads) {
-  static std::mutex mu;
-  static std::map<std::tuple<int, const void*, int>, int> seen;
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_tuple(dev, fn, C);
-  auto hit = seen.find(key);
-  if (hit != seen.end()) return hit->second;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(C);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, fn, &cfg) != cudaSuccess) {
-    cudaGetLastError();
-    return 0;
-  }
-  seen[key] = n;
-  return n;
-}
-
-// The cluster schedule: C = ceil(width / 256) blocks a cluster, one
-// cluster per item up to what the device holds at once, so that every
-// item a dq counter wait points at has been taken by a resident cluster.
-inline int schedule(const void* fn, size_t smem, int threads, int n_items,
-                    int width, int* C, int* clusters) {
-  *C = (width + WIDTH - 1) / WIDTH;
-  if (*C < 2 || *C > MAX_C) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int most = max_clusters(fn, *C, smem, threads);
-  if (most <= 0) return (int)cudaErrorInvalidConfiguration;
-  *clusters = n_items < most ? n_items : most;
-  return 0;
-}
-
-// launch fn on `clusters` clusters of C blocks
-template <typename... Params, typename... Args>
-int launch(void (*fn)(Params...), int C, int clusters, int threads,
-           size_t smem, cudaStream_t stream, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(C * clusters);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, fn, args...);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
-}  // namespace clusterbwd
 
 namespace widebwd {
 
@@ -4273,7 +4494,19 @@ constexpr uint32_t ITEM_OFF = ROW_OFF + 2 * BQ * 4;
 constexpr uint32_t BAR_OFF = ITEM_OFF + 16;
 constexpr size_t SMEM = BAR_OFF + 8 * (2 + 4 * STAGES) + 1024;
 static_assert(SMEM <= 232448, "more shared memory than a block may take");
+// The cluster forward (CL) adds, after the mbarriers, the exchange of S's
+// partials, two buffers of 8 warps x 2 16-byte units x 32 lanes (a
+// tile's 64 x 32 float32 partials, a lane's row against 8 keys), the two
+// ticket slots and 18 more mbarriers (the 16 warps' exchanges, the two
+// tickets): 224,000 bytes.
+constexpr uint32_t XBUF = clusterbwd::XWARPS * 2 * clusterbwd::XUNIT;
+constexpr uint32_t X_OFF = (BAR_OFF + 8 * (2 + 4 * STAGES) + 15) / 16 * 16;
+constexpr uint32_t TICK_OFF = X_OFF + 2 * XBUF;
+constexpr uint32_t XBAR_OFF = TICK_OFF + 16;
+constexpr size_t CL_SMEM = XBAR_OFF + 8 * (2 * clusterbwd::XWARPS + 2) + 1024;
+static_assert(CL_SMEM <= 232448, "more shared memory than a block may take");
 static_assert(BQ == 8 * WARPS, "a compute warp owns 8 rows of an item");
+static_assert(WARPS == clusterbwd::XWARPS, "every compute warp exchanges");
 static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 32 * WARPS <=
                   65536 / THREADS / 8 * 8 * THREADS,
               "more registers than the block was launched with");
@@ -4297,6 +4530,14 @@ static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 32 * WARPS <=
 // zero.
 // The maps hold the operands' real width (a multiple of 4, at most 256):
 // the columns past it land as zeros, and O is stored below it.
+// CL: the cluster forward, block `rank` of a cluster of C on columns 256
+// rank .. 256 rank + 255 of operands 256 < width <= 2048 wide, as
+// Fwd<256>'s: the maps' coordinates start there, O is stored from there
+// below width, rank 0 draws the tickets (and leaves the counter at zero)
+// and writes lse, and each lane's row against its 8 keys of a tile (the
+// quarters added) is summed over the ranks (clusterbwd::exchange) before
+// the softmax.
+template <bool CL>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -4316,10 +4557,22 @@ flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
                  full_v = full_k + 8 * STAGES,
                  empty_k = full_v + 8 * STAGES,
                  empty_v = empty_k + 8 * STAGES;
+  // CL: per exchange buffer and compute warp the other ranks' arrivals,
+  // and the two tickets'
+  const uint32_t xin = base + XBAR_OFF, tick = xin + 16 * clusterbwd::XWARPS;
 
   const int G = H / KV;
   const int n_qt = (S + BQ - 1) / BQ;
   const int n_items = B * H * n_qt;
+  int C = 1, rank = 0;
+  if constexpr (CL) {
+    C = clusterbwd::size();
+    rank = clusterbwd::rank();
+    o += rank * D;
+    width -= rank * D;                         // the slice's, >= 1
+    if (rank != 0) lse = nullptr;              // rank 0 writes lse
+  }
+  const int col0 = rank * D;                   // the slice's first column
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
@@ -4330,9 +4583,16 @@ flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(empty_k + 8 * s, 32 * WARPS);
       mbar_init(empty_v + 8 * s, 32 * WARPS);
     }
+    if constexpr (CL) {
+      for (int i = 0; i < 2 * clusterbwd::XWARPS; ++i)
+        mbar_init(xin + 8 * i, C - 1);
+      mbar_init(tick, 1);
+      mbar_init(tick + 8, 1);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+  if constexpr (CL) clusterbwd::sync();        // every rank's mbarriers set
 
   if (threadIdx.x >= 32 * WARPS) {
     // the producer warpgroup's first thread takes the items and starts
@@ -4341,13 +4601,30 @@ flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
     // thread the launch allows)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS)
                  : "memory");
-    if (threadIdx.x != 32 * WARPS) return;
+    // CL: the other producer warps wait at the end with the others; the
+    // first one's lanes wait for its first thread (below)
+    if constexpr (CL) {
+      if (threadIdx.x >= 32 * WARPS + 32) {
+        clusterbwd::sync();
+        return;
+      }
+    } else if (threadIdx.x != 32 * WARPS) {
+      return;
+    }
     int j = 0;                                   // K, V tiles loaded so far
-    for (int n = 0;; ++n) {
-      const int item = atomicAdd(work, 1);
+    for (int n = 0; !CL || threadIdx.x == 32 * WARPS; ++n) {
+      const int item = CL ? clusterbwd::ticket(work, base + TICK_OFF, tick,
+                                               n, C, rank)
+                          : atomicAdd(work, 1);
       if (item >= n_items) {
         // the last ticket of the launch puts the counter back to zero
-        if (item == n_items + (int)gridDim.x - 1) atomicExch(work, 0);
+        // (CL: a cluster draws one ticket a turn, rank 0 for all)
+        if constexpr (CL) {
+          if (rank == 0 && item == n_items + (int)gridDim.x / C - 1)
+            atomicExch(work, 0);
+        } else {
+          if (item == n_items + (int)gridDim.x - 1) atomicExch(work, 0);
+        }
         mbar_wait(empty_q, (n & 1) ^ 1);
         *item_s = -1;
         mbar_arrive(full_q);
@@ -4365,12 +4642,12 @@ flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_expect_tx(full_k + 8 * s, TK::BYTES);
         for (int c = 0; c < TK::NC; ++c)
           tma_load(base + K_OFF + s * TK::BYTES + c * TK::CHUNK, &tk,
-                   full_k + 8 * s, c * TK::AW, kvh, t * BK, b);
+                   full_k + 8 * s, col0 + c * TK::AW, kvh, t * BK, b);
         mbar_wait(empty_v + 8 * s, parity);
         mbar_expect_tx(full_v + 8 * s, TK::BYTES);
         for (int c = 0; c < TK::NC; ++c)
           tma_load(base + V_OFF + s * TK::BYTES + c * TK::CHUNK, &tv,
-                   full_v + 8 * s, c * TK::AW, kvh, t * BK, b);
+                   full_v + 8 * s, col0 + c * TK::AW, kvh, t * BK, b);
         ++j;
       };
       // the item's first tiles land while the consumers end the last item
@@ -4382,10 +4659,11 @@ flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
       *item_s = item;
       mbar_expect_tx(full_q, TQ::BYTES);
       for (int c = 0; c < TQ::NC; ++c)
-        tma_load(base + Q_OFF + c * TQ::CHUNK, &tq, full_q, c * TQ::AW, h,
-                 q0, b);
+        tma_load(base + Q_OFF + c * TQ::CHUNK, &tq, full_q, col0 + c * TQ::AW,
+                 h, q0, b);
       for (int t = pre; t < n_kv; ++t) kv_load(t);
     }
+    if constexpr (CL) __syncwarp();
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS)
                  : "memory");
@@ -4462,6 +4740,11 @@ flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
           const float other = pq & 2 ? y[0] : y[1];
           z[c] = mine + __shfl_xor_sync(0xffffffffu, other, 16);
         }
+        if constexpr (CL)                        // the sums over all of D
+          clusterbwd::exchange(
+              z, base + X_OFF + (j & 1) * XBUF + warp * 2 * clusterbwd::XUNIT +
+                     lane * 16,
+              xin + 8 * ((j & 1) * clusterbwd::XWARPS + warp), j, C, rank);
         // the online softmax of the lane's row over the tile's keys (its
         // 8, then its row's 4 lanes); P into the P^T tile
         const int k0 = t * BK, qpos = q0 + ro;
@@ -4550,6 +4833,8 @@ flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
       __syncwarp();                              // l_s read
     }
   }
+  // no block leaves while another may still read its exchange buffers
+  if constexpr (CL) clusterbwd::sync();
 }
 
 // The schedule for B x H heads of S rows: the work items (batch x head,
@@ -4581,13 +4866,46 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   err = schedule(B, H, S, &n_items, &grid);
   if (err != 0) return err;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_f32_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM);
+      flash_fwd_f32_wide_kernel<false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   if (e != cudaSuccess) return (int)e;
-  flash_fwd_f32_wide_kernel<<<grid, THREADS, SMEM, stream>>>(
+  flash_fwd_f32_wide_kernel<false><<<grid, THREADS, SMEM, stream>>>(
       mq, mk, mv, static_cast<float*>(o), lse, ly[3], work, B, H, KV, S,
       width, scale);
   return (int)cudaGetLastError();
+}
+
+// The cluster forward's schedule for operands `width` > 256 wide: the
+// work items (as `schedule`'s), C = ceil(width / 256) blocks a cluster and
+// the clusters (one an item, up to what the device holds at once)
+int cluster_schedule(int B, int H, int S, int width, int* items, int* C,
+                     int* clusters) {
+  *items = B * H * ((S + BQ - 1) / BQ);
+  return clusterbwd::schedule(
+      reinterpret_cast<const void*>(flash_fwd_f32_wide_kernel<true>),
+      CL_SMEM, THREADS, *items, width, C, clusters);
+}
+
+// The cluster forward at 256 < width <= 2048 (a multiple of 4): maps over
+// the whole width, whose columns past it land as zeros and are not
+// stored; the stream's ticket counter, left at zero by the launch
+int launch_cluster(const void* q, const void* k, const void* v, void* o,
+                   float* lse, const Lay* ly, int B, int H, int KV, int S,
+                   int width, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  int err = f32bwd::make_map<D, BQ>(&mq, q, ly[0], H, S, B, width);
+  if (err == 0) err = f32bwd::make_map<D, BK>(&mk, k, ly[1], KV, S, B, width);
+  if (err == 0) err = f32bwd::make_map<D, BK>(&mv, v, ly[2], KV, S, B, width);
+  if (err != 0) return err;
+  int* work = work_counter(stream);
+  if (work == nullptr) return (int)cudaErrorMemoryAllocation;
+  int n_items = 0, C = 0, clusters = 0;
+  err = cluster_schedule(B, H, S, width, &n_items, &C, &clusters);
+  if (err != 0) return err;
+  return clusterbwd::launch(flash_fwd_f32_wide_kernel<true>, C, clusters,
+                            THREADS, CL_SMEM, stream, mq, mk, mv,
+                            static_cast<float*>(o), lse, ly[3], work, B, H,
+                            KV, S, width, scale);
 }
 
 }  // namespace f32wide
@@ -5431,9 +5749,12 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // width <= D may be any multiple of 8, at float32 on the D = 256 body any
 // multiple of 4 (a row of 16-byte units, as TMA needs): the maps
 // zero-fill columns width .. D - 1 and only columns below width are
-// stored.  The caller checks KV | H, D in {16, 32, 64, 128, 256} and, at
+// stored.  At 256 < D <= 2048 (width == D, D % 8 == 0 at bfloat16, D %
+// 4 == 0 at float32) the cluster forward: C = ceil(D / 256) blocks a
+// cluster, each its dtype's D = 256 body on 256 columns.  The caller
+// checks KV | H, D in {16, 32, 64, 128, 256} or 256 < D <= 2048 and, at
 // float32 up to 128, the grid's y dimension: B * H <= 65535 (the other
-// bodies' grid is one persistent block per SM).
+// bodies' grid is one persistent block per SM, or cluster per C SMs).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       const void* strides, int B, int H,
@@ -5444,6 +5765,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const Lay* ly = static_cast<const Lay*>(strides);
+  if (D > clusterbwd::WIDTH && D <= clusterbwd::MAX_D) {
+    if (width != D || D % (is_bf16 ? 8 : 4))
+      return (int)cudaErrorInvalidValue;
+    return is_bf16 ? bf16body::launch_cluster(q, k, v, o, l, ly, B, H, KV, S,
+                                              width, scale, st)
+                   : f32wide::launch_cluster(q, k, v, o, l, ly, B, H, KV, S,
+                                             width, scale, st);
+  }
   const bool tma = is_bf16 || D == 256;
   if (width > D || width < 1 ||
       (width != D && (!tma || width % (is_bf16 ? 8 : 4))))
@@ -5481,35 +5810,59 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 // How a persistent forward body runs B x H heads of S rows on the
 // current device, as flash_attention_launch schedules it: at bfloat16
 // (is_bf16 = 1) the tensor-core body of head dim D (16, 32, 64, 128 or
-// 256), at float32 the D = 256 body (f32wide): out[0] query rows of a
-// work item, out[1] keys of a KV tile, out[2] the work items, out[3] the
-// grid's persistent blocks.
+// 256), at float32 the D = 256 body (f32wide), and in both the cluster
+// forward at 256 < D <= 2048 (D % 8 == 0 at bfloat16, D % 4 == 0 at
+// float32): out[0] query rows of a work item, out[1] keys of a KV tile,
+// out[2] the work items, out[3] the grid's persistent blocks, out[4] its
+// clusters and out[5] the blocks a cluster (C = 1 but for the cluster
+// forward).
 extern "C" int flash_attention_fwd_info(int B, int H, int S, int D,
                                         int is_bf16, int* out) {
+  out[5] = 1;
+  int err = 0;
+  if (D > clusterbwd::WIDTH && D <= clusterbwd::MAX_D) {
+    if (D % (is_bf16 ? 8 : 4)) return (int)cudaErrorInvalidValue;
+    out[0] = is_bf16 ? bf16body::Fwd<256>::BQ : f32wide::BQ;
+    out[1] = is_bf16 ? bf16body::Fwd<256>::BK : f32wide::BK;
+    err = is_bf16 ? bf16body::cluster_schedule(B, H, S, D, out + 2, out + 5,
+                                               out + 4)
+                  : f32wide::cluster_schedule(B, H, S, D, out + 2, out + 5,
+                                              out + 4);
+    out[3] = out[4] * out[5];
+    return err;
+  }
   if (!is_bf16) {
     if (D != 256) return (int)cudaErrorInvalidValue;
     out[0] = f32wide::BQ;
     out[1] = f32wide::BK;
-    return f32wide::schedule(B, H, S, out + 2, out + 3);
+    err = f32wide::schedule(B, H, S, out + 2, out + 3);
+  } else {
+    out[1] = bf16body::BK;
+    switch (D) {
+      case 16: out[0] = bf16body::Fwd<16>::BQ;
+               err = bf16body::schedule<16>(B, H, S, out + 2, out + 3);
+               break;
+      case 32: out[0] = bf16body::Fwd<32>::BQ;
+               err = bf16body::schedule<32>(B, H, S, out + 2, out + 3);
+               break;
+      case 64: out[0] = bf16body::Fwd<64>::BQ;
+               err = bf16body::schedule<64>(B, H, S, out + 2, out + 3);
+               break;
+      case 128: out[0] = bf16body::Fwd<128>::BQ;
+                err = bf16body::schedule<128>(B, H, S, out + 2, out + 3);
+                break;
+      case 256: out[0] = bf16body::Fwd<256>::BQ;
+                out[1] = bf16body::Fwd<256>::BK;
+                err = bf16body::schedule<256>(B, H, S, out + 2, out + 3);
+                break;
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
-  out[1] = bf16body::BK;
-  switch (D) {
-    case 16: out[0] = bf16body::Fwd<16>::BQ;
-             return bf16body::schedule<16>(B, H, S, out + 2, out + 3);
-    case 32: out[0] = bf16body::Fwd<32>::BQ;
-             return bf16body::schedule<32>(B, H, S, out + 2, out + 3);
-    case 64: out[0] = bf16body::Fwd<64>::BQ;
-             return bf16body::schedule<64>(B, H, S, out + 2, out + 3);
-    case 128: out[0] = bf16body::Fwd<128>::BQ;
-              return bf16body::schedule<128>(B, H, S, out + 2, out + 3);
-    case 256: out[0] = bf16body::Fwd<256>::BQ;
-              out[1] = bf16body::Fwd<256>::BK;
-              return bf16body::schedule<256>(B, H, S, out + 2, out + 3);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  out[4] = out[3];
+  return err;
 }
 
-// The body for any D (run above 256, where no other body reaches): q, o
+// The body for any D (run above 2048, where no other body reaches): q, o
 // (B, H, S, D); k, v (B, KV, S, D) with the strides of
 // flash_attention_launch; ws a contiguous float32 workspace of
 // B * H * S * D; lse null or float32 (B, H, S); float32 (is_bf16 = 0) or

@@ -30,11 +30,17 @@ first from a counter, 128 query rows x 128 keys (192 x 128 at D = 64,
 TMA; float32 runs on the CUDA cores, in 64 x 64 tiles up to D = 128
 (`f32body`), and above it on `f32wide`: the same persistent schedule
 over 64-row items, Q resident, 32-key K and V tiles through a TMA ring
-of two, O in registers.  Both dtypes above D = 256 run a simple body
-(``flash_attention_wide_launch``: CUDA cores, float32 arithmetic,
-16-row query tiles, 32-key tiles, D in chunks of 128, the accumulators
-in a float32 workspace the wrapper allocates); it is written for
-correctness, not speed.
+of two, O in registers.  Both dtypes at 256 < D <= `CLUSTER_MAX` (2048)
+run the cluster forward: a cluster of C = ceil(D / 256) blocks takes each
+work item, block r runs its dtype's D = 256 body on columns 256 r .. 256
+r + 255, and the blocks add their partial S through distributed shared
+memory in rank order before the softmax, so that each forms the same P
+and then O for its own columns (in place when D % 8 == 0 at bfloat16, D %
+4 == 0 at float32, else zero-padded to the next such width).  Above 2048
+both dtypes run a simple body (``flash_attention_wide_launch``: CUDA
+cores, float32 arithmetic, 16-row query tiles, 32-key tiles, D in chunks
+of 128, the accumulators in a float32 workspace the wrapper allocates);
+it is written for correctness, not speed.
 `flash_attention_fwd` is the same forward that also returns each row's
 log-sum-exp.
 
@@ -63,7 +69,7 @@ before loading the slot again; of 64 keys at float32 (32 keys and
 and dv and another dP, dS and dk, all 256 the share, which the producer
 warp adds while the next step's Q and dO load (`BWD_TILES`,
 `BWD_F32_TILES`, `BWD_F32_WIDE_TILES`).  Both dtypes at 256 < D <=
-`BWD_CLUSTER_MAX` (2048) run the cluster backward: a cluster of C =
+`CLUSTER_MAX` (2048) run the cluster backward: a cluster of C =
 ceil(D / 256) blocks takes each item, block r runs its dtype's D = 256
 body on columns 256 r .. 256 r + 255, and the blocks add their partial S
 and dP through distributed shared memory in rank order before the
@@ -79,8 +85,9 @@ so two runs give the same bits.  Its launches count under
 Layout: the public functions keep the reference's (B, H, S, D), and on
 the card every body reads its operands in place: the last axis
 contiguous, the start and the other strides multiples of 16 bytes for
-the bfloat16 tensor-core bodies, the float32 backward bodies and the
-float32 forward at D = 256 (TMA), of one element for the others
+the bfloat16 tensor-core bodies, the float32 backward bodies, the
+float32 forward at D = 256 and the cluster forward (TMA), of one element
+for the others
 (the transposed views of the model's (B, S, H, D) tensors are the case
 that matters); any other layout raises, nothing is copied to make it
 fit.  The outputs (o, dq, dk, dv)
@@ -101,7 +108,8 @@ from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 #: {16, 32, 64, 128} (csrc/flash_attention.cu: f32body, bf16body::Fwd<D>),
 #: and each dtype's wide body at 256 (bf16body::Fwd<256> on the tensor
 #: cores, f32wide on the CUDA cores); a narrower head dim runs the body of
-#: the next one (`_pad`), a wider one the simple CUDA-core body
+#: the next one (`_pad`), a wider one the cluster forward up to
+#: CLUSTER_MAX and the simple CUDA-core body above it
 HEAD_DIMS = {torch.float32: (16, 32, 64, 128, 256),
              torch.bfloat16: (16, 32, 64, 128, 256)}
 #: the tensor-core backward's head dims (bfloat16; bf16bwd up to 128,
@@ -115,10 +123,10 @@ BWD_TILES = {d: (64, 64) if d == 256 else (128, 64) for d in BWD_HEAD_DIMS}
 BWD_F32_HEAD_DIMS = (16, 32, 64, 128, 256)
 BWD_F32_TILES = (64, 64)
 BWD_F32_WIDE_TILES = (32, 32)
-#: the cluster backward's head dims: above 256 up to 8 blocks (the
-#: portable cluster size) of BWD_CLUSTER_WIDTH columns each
-BWD_CLUSTER_WIDTH = 256
-BWD_CLUSTER_MAX = 8 * BWD_CLUSTER_WIDTH
+#: the cluster forward's and backward's head dims: above 256 up to 8
+#: blocks (the portable cluster size) of CLUSTER_WIDTH columns each
+CLUSTER_WIDTH = 256
+CLUSTER_MAX = 8 * CLUSTER_WIDTH
 #: (query rows per block or work item, keys per KV tile) of each body, by
 #: dtype and the body's head dim
 TILES = {torch.float32: {d: (64, 32) if d == 256 else (64, 64)
@@ -174,15 +182,26 @@ def _in_place(dtype, D, body):
     return body == 256 and D % 4 == 0
 
 
+def _cluster_width(dtype, D):
+    """The operands' width on the cluster routes (256 < D): D when a row
+    is whole 16-byte units (D % 8 == 0 at bfloat16, D % 4 == 0 at
+    float32), else the next such width, D zero-padded to it."""
+    unit = 8 if dtype == torch.bfloat16 else 4
+    return -(-D // unit) * unit
+
+
 def _forward_route(dtype, D):
     """How the forward runs head dim D at `dtype`: (route, body head
     dim), route "in place" (the operands as they are, the body's columns
     past D zero-filled by TMA when D < body), "padded" (zero-padded copies
-    of q, k, v, and the output sliced back) or "wide" (the simple
-    CUDA-core body above 256)."""
+    of q, k, v, and the output sliced back), "cluster" (256 < D <=
+    CLUSTER_MAX: the cluster forward, clusters of ceil(width / 256) blocks
+    of `Fwd<256>` or `f32wide`, its width `_cluster_width`'s) or "wide"
+    (the simple CUDA-core body `widebody`, above that)."""
     dims = HEAD_DIMS[dtype]
     if D > dims[-1]:
-        return "wide", D
+        width = _cluster_width(dtype, D)
+        return ("cluster", width) if width <= CLUSTER_MAX else ("wide", D)
     body = _pad(D, dims)
     if body == D or _in_place(dtype, D, body):
         return "in place", body
@@ -194,9 +213,9 @@ def _backward_route(dtype, D):
     dim), route "in place" (the operands as they are; at 128 < D < 256
     the D = 256 body's columns past D zero-filled by TMA), "padded"
     (zero-padded copies of q, k, v, o and dO, the gradients sliced back),
-    "cluster" (256 < D <= BWD_CLUSTER_MAX: the cluster backward, its
-    width D when a row is whole 16-byte units, D % 8 == 0 at bfloat16 and
-    D % 4 == 0 at float32, else the next such width, D zero-padded to it)
+    "cluster" (256 < D <= CLUSTER_MAX: the cluster backward, its
+    width `_cluster_width`'s: D when a row is whole 16-byte units, else
+    the next such width, D zero-padded to it)
     or "simple" (the correctness-first CUDA-core body `simplebwd`, above
     that).  The bodies of the first two: bfloat16's `bf16bwd` (D <= 128)
     and `widebwd` (D = 256) on the tensor cores, float32's `f32bwd` (D <=
@@ -205,10 +224,8 @@ def _backward_route(dtype, D):
     `f32widebwd`."""
     dims = BWD_HEAD_DIMS if dtype == torch.bfloat16 else BWD_F32_HEAD_DIMS
     if D > dims[-1]:
-        unit = 8 if dtype == torch.bfloat16 else 4
-        width = -(-D // unit) * unit
-        return ("cluster", width) if width <= BWD_CLUSTER_MAX else \
-            ("simple", D)
+        width = _cluster_width(dtype, D)
+        return ("cluster", width) if width <= CLUSTER_MAX else ("simple", D)
     body = _pad(D, dims)
     if body == D or (body == 256 and _in_place(dtype, D, body)):
         return "in place", body
@@ -219,7 +236,7 @@ def _bwd_schedule(B, KV, S, D, device, dtype=torch.bfloat16) -> dict:
     """How the backward's persistent body schedules B x KV heads of S rows
     at head dim D on `device` (bfloat16 D <= 256 on the tensor cores,
     float32 D <= 256 on `f32bwd` and `f32widebwd`, both dtypes up to
-    BWD_CLUSTER_MAX on the cluster backward), as its launcher decides it
+    CLUSTER_MAX on the cluster backward), as its launcher decides it
     (``flash_attention_bwd_info``): keys of a work item, queries of a
     step, the work items, the grid of persistent blocks, its clusters and
     the blocks a cluster, C (1 but on the cluster route)."""
@@ -252,6 +269,16 @@ def _bwd_acc_columns(dtype, width):
     `width` wide: 256 a slice, the last slice's as wide as its columns
     (rounded up to 64 at bfloat16, whose tiles are 64-column parts)."""
     return -(-width // 64) * 64 if dtype == torch.bfloat16 else width
+
+
+def _fwd_align(q, route, body):
+    """The byte multiple the forward needs of an operand's start and
+    strides on `route` at `body`'s head dim: 16 on the TMA-fed bodies (the
+    bfloat16 tensor-core bodies, float32 at D = 256, the cluster forward),
+    one element on the others (`f32body`, `widebody`)."""
+    if route == "cluster":
+        return 16
+    return _align(q, body, f32_dims=(256,))
 
 
 def _bwd_align(q, route, body):
@@ -306,20 +333,23 @@ def flash_attention_fwd(q, k, v):
 def _fwd_schedule(B, H, S, D, device, dtype=torch.bfloat16) -> dict:
     """How a persistent forward body schedules B x H heads of S rows at
     head dim D on `device` (bfloat16 D <= 256 on the tensor cores,
-    float32 128 < D <= 256 on `f32wide`), as its launcher decides it
+    float32 128 < D <= 256 on `f32wide`, both dtypes up to CLUSTER_MAX on
+    the cluster forward), as its launcher decides it
     (``flash_attention_fwd_info``): query rows and keys of a work item's
-    tiles, the work items, and the grid of persistent blocks."""
+    tiles, the work items, the grid of persistent blocks, its clusters and
+    the blocks a cluster, C (1 but on the cluster route)."""
     route, body = _forward_route(dtype, D)
     if route == "wide" or (dtype == torch.float32 and body <= 128):
         raise ValueError(f"D = {D} at {dtype} runs a body with one block "
                          "a query tile, not a persistent schedule")
-    info = (ctypes.c_int * 4)()
+    info = (ctypes.c_int * 6)()
     with torch.cuda.device(device):
         err = _build.function("flash_attention", "flash_attention_fwd_info",
                               [_build.I] * 5 + [_build.P])(
             B, H, S, body, int(dtype == torch.bfloat16), info)
     _build.check("flash_attention", err)
-    return dict(rows=info[0], keys=info[1], items=info[2], grid=info[3])
+    return dict(rows=info[0], keys=info[1], items=info[2], grid=info[3],
+                clusters=info[4], C=info[5])
 
 
 def _forward(q, k, v, *, with_lse):
@@ -334,10 +364,11 @@ def _forward(q, k, v, *, with_lse):
             and B * H > MAX_GRID_Y):
         raise ValueError(f"{B * H} blocks along the grid's y dimension > "
                          f"{MAX_GRID_Y}")
-    if route == "padded":   # zero columns: exact zeros in every score
+    if Dp > D and route in ("padded", "cluster"):
+        # zero columns: exact zeros in every score
         q, k, v = (torch.nn.functional.pad(x, (0, Dp - D)) for x in (q, k, v))
-    width = Dp if route == "padded" else D      # the operands' last axis
-    align = _align(q, Dp, f32_dims=(256,))
+    width = q.shape[-1]     # the operands' (D in place; the body's padded)
+    align = _fwd_align(q, route, Dp)
     _build.require("q", q, q.dtype, (B, H, S, width), dev, align=align)
     _build.require("k", k, q.dtype, (B, KV, S, width), dev, align=align)
     _build.require("v", v, q.dtype, (B, KV, S, width), dev, align=align)
@@ -441,7 +472,7 @@ def flash_attention_bwd(q, k, v, o, lse, do):
         # tile for each (batch x head, query tile), the last slice's only
         # as wide as its columns, in 64-column parts at bfloat16) and
         # counters; then the work-item counter
-        C = -(-width // BWD_CLUSTER_WIDTH)
+        C = -(-width // CLUSTER_WIDTH)
         qt = BWD_QT if bf16 else BWD_F32_WIDE_TILES[1]
         nq = B * H * -(-S // qt)
         ws = torch.empty((nq * qt * _bwd_acc_columns(q.dtype, width),),

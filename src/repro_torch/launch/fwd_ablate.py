@@ -1,9 +1,10 @@
 """Where the flash forward's time goes: `flash_attention` at the models'
-prefill shapes and at one wide head dim, timed with source variants of
+prefill shapes and at two wide head dims, timed with source variants of
 its tensor-core bodies (``flash_fwd_bf16_kernel``, and
-``flash_fwd_bf16_kernel_d256`` for 128 < D <= 256) and of its float32
-body for 128 < D <= 256 (``flash_fwd_f32_wide_kernel``) that each drop
-or change one piece of work.
+``flash_fwd_bf16_kernel_d256`` for 128 < D <= 256), of its float32 body
+for 128 < D <= 256 (``flash_fwd_f32_wide_kernel``) and of the cluster
+forward above 256 (both D = 256 bodies with CL = true) that each drop or
+change one piece of work.
 
 Each variant is ``csrc/flash_attention.cu`` with a text patch, built
 with nvcc (``-Xptxas -v``) into ``build/repro_torch/fwd_ablate/`` and
@@ -35,6 +36,9 @@ the spill bytes of every forward body.
                    and stored with TMA, the slot released once the store
                    has read it)
     wide_no_turns  the D = 256 body's consumers without turns
+    wide_one_stage the D = 256 body with one K and V stage (two in the
+                   kernel; the cluster forward has one, its second
+                   stage's room holding the exchange)
     f32_body256    float32 at D = 256 on f32body as it stands (one block a
                    64-row query tile, Q and K at pitch D + 1 in shared
                    memory, one K and V tile at a time, plain loads): the
@@ -43,10 +47,16 @@ the spill bytes of every forward body.
     f32w_no_s      f32wide without its S product (the softmax on zeros)
     f32w_no_pv     f32wide without its P V product
     f32w_one_stage f32wide with one K and V stage (two in the kernel)
+    cl_no_xch      the cluster forward (D > 256) without its exchange:
+                   no reads of the other ranks' partials and no arrivals
+                   or waits (namespace clusterbwd, as `bwd_ablate`'s
+                   variant of the same name, and the bfloat16 body's pair
+                   sum): each block's D = 256 body on its slice alone
 
 `legacy` changes the grid rule that both bfloat16 bodies share; the
 `wide_*` variants touch only the bfloat16 D = 256 body, the `f32*`
-variants only float32 at D = 256, the others only the D <= 128 ones.
+variants only float32 at D = 256, `cl_no_xch` only the exchange, the
+others only the D <= 128 ones.
 
 Shapes (--shape, repeatable: a preset or B,H,KV,S,D):
 
@@ -57,9 +67,14 @@ Shapes (--shape, repeatable: a preset or B,H,KV,S,D):
     wide     4, 8, 2, 2048, 256    (yi's batch and GQA group of 4 at a
                                     Gemma-style head dim: the D = 256 body)
     wide_f32 4, 8, 2, 2048, 256    (the same in float32: f32wide)
+    d512     1, 8, 2, 2048, 512    (the wide shape at B 1 and D = 512: the
+                                    cluster forward, two blocks a cluster)
+    d512_f32 1, 8, 2, 2048, 512    (the same in float32 operands)
 
-The presets run bfloat16 operands, except wide_f32, which runs float32;
-a shape written out runs bfloat16.
+The presets run bfloat16 operands, except wide_f32 and d512_f32, which
+run float32; a shape written out runs bfloat16.  Above D = 256 the
+default variants are base and the ``cl_*`` ones, and ``--parent`` is
+refused (a parent before the cluster forward runs widebody there).
 
 Run on a card (CUDA events, the mean of 20 calls, three rounds each, on
 the model's (B, S, H, D) layout and on contiguous (B, H, S, D) tensors;
@@ -90,6 +105,7 @@ import sys
 import time
 
 from repro_torch.kernels import _build
+from repro_torch.launch import bwd_ablate as _bwd_ablate
 
 OUT = _build.BUILD_DIR / "fwd_ablate"
 
@@ -101,11 +117,13 @@ PRESETS = {
     "whisper": (4, 16, 16, 2048, 64),
     "wide": (4, 8, 2, 2048, 256),
     "wide_f32": (4, 8, 2, 2048, 256),
+    "d512": (1, 8, 2, 2048, 512),
+    "d512_f32": (1, 8, 2, 2048, 512),
 }
 #: the model presets (the D <= 128 bodies), the default --shape list
 MODEL_PRESETS = ("yi", "zamba2", "danube", "whisper")
 #: the presets that run float32 operands (the others bfloat16)
-FLOAT32_PRESETS = ("wide_f32",)
+FLOAT32_PRESETS = ("wide_f32", "d512_f32")
 
 _EX2 = "s[4 * j + e] = ex2(fmaf(s[4 * j + e], scale_log2, -m[e >> 1]));"
 
@@ -132,7 +150,9 @@ _WIDE_STAGED = """\
       named_sync(1 + NCONS + w, 128);
       if (tid == 0) {
         for (int cc = 0; cc < GQ::NC; ++cc)
-          tma_store(&to, qa + cc * GQ::CHUNK, cc * GQ::AW, h, row0, b);
+          tma_store(&to, qa + cc * GQ::CHUNK,
+                    (CL ? clusterbwd::rank() * D : 0) + cc * GQ::AW, h, row0,
+                    b);
         bulk_commit();
         bulk_wait<true>();
         mbar_arrive(empty_q);
@@ -193,20 +213,27 @@ PATCHES = {
          "                           int KV, int S, float scale_log2,\n"
          "                           __nv_bfloat16* __restrict__ o, Lay lo,"
          "\n                           int width) {"),
-        ("  flash_fwd_bf16_kernel_d256<<<grid, F::THREADS, F::SMEM, stream>>>"
-         "(\n      mq, mk, mv, mo, lse, work, B, H, KV, S, scale * LOG2E);",
-         "  flash_fwd_bf16_kernel_d256<<<grid, F::THREADS, F::SMEM, stream>>>"
-         "(\n      mq, mk, mv, mo, lse, work, B, H, KV, S, scale * LOG2E,\n"
-         "      static_cast<__nv_bfloat16*>(o), ly[3], width);"),
+        ("  flash_fwd_bf16_kernel_d256<false><<<grid, F::THREADS, F::SMEM, "
+         "stream>>>(\n      mq, mk, mv, mo, lse, work, B, H, KV, S, "
+         "scale * LOG2E);",
+         "  flash_fwd_bf16_kernel_d256<false><<<grid, F::THREADS, F::SMEM, "
+         "stream>>>(\n      mq, mk, mv, mo, lse, work, B, H, KV, S, "
+         "scale * LOG2E,\n      static_cast<__nv_bfloat16*>(o), ly[3], "
+         "width);"),
+        ("      WideL<true>::SMEM, stream, mq, mk, mv, mo, lse, work, B, H, "
+         "KV, S,\n      scale * LOG2E);",
+         "      WideL<true>::SMEM, stream, mq, mk, mv, mo, lse, work, B, H, "
+         "KV, S,\n      scale * LOG2E, static_cast<__nv_bfloat16*>(o), "
+         "ly[3], width);"),
         ("    mbar_init(empty_q, NCONS);", "    mbar_init(empty_q, 128 * NCONS);"),
         ("        if (tid == 0) mbar_arrive(empty_q);\n", ""),
         (_WIDE_STAGED, _WIDE_REGS),
         ("      mbar_arrive(empty_k + 8 * slot(0));\n      if (walks) {\n",
          "      mbar_arrive(empty_k + 8 * slot(0));\n"
          "      if (last == 0) mbar_arrive(empty_q);\n      if (walks) {\n"),
-        ("        mbar_arrive(empty_k + 8 * slot(t));\n        online(",
+        ("        mbar_arrive(empty_k + 8 * slot(t));\n        if constexpr",
          "        mbar_arrive(empty_k + 8 * slot(t));\n"
-         "        if (t == last) mbar_arrive(empty_q);\n        online(")],
+         "        if (t == last) mbar_arrive(empty_q);\n        if constexpr")],
     "wide_no_turns": [
         ("      pin(pk);\n      bar_sync(1 + w);\n      wgmma_fence();\n"
          "      issue();\n      bar_arrive(1 + (w + 1) % NCONS);\n",
@@ -215,6 +242,11 @@ PATCHES = {
          "turn 0\n", ""),
         ("    if (w == 0) bar_sync(1);                   // the other's last "
          "hand-over\n", "")],
+    "wide_one_stage": [
+        ("  static constexpr int STAGES = 2;           // K and V tiles in the "
+         "ring\n",
+         "  static constexpr int STAGES = 1;           // K and V tiles in the "
+         "ring\n")],
     "f32_body256": [
         ("    case 256: return f32wide::launch(q, k, v, o, l, ly, B, H, KV, S, "
          "width,\n                                     scale, st);\n",
@@ -233,6 +265,14 @@ PATCHES = {
         ("constexpr int STAGES = 2;       // K and V tiles in the ring",
          "constexpr int STAGES = 1;       // K and V tiles in the ring")],
 }
+# the cluster forward's exchange, cut in namespace clusterbwd as the
+# backward's ablation cuts it: no reads of the other ranks' partials, no
+# arrivals and no waits
+PATCHES["cl_no_xch"] = [*_bwd_ablate.PATCHES["cl_no_xch"],
+                        ("      if (C == 2) {                            // "
+                         "the pair's sum\n",
+                         "      if (C == 0) {                            // "
+                         "the pair's sum\n")]
 
 
 def variant_source(name: str, parent=None) -> str:
@@ -255,7 +295,8 @@ def forward_notes(log: str) -> list:
     and ``<256>`` for ``flash_fwd_bf16_kernel_d256``), its registers and
     spill bytes; the float32 bodies as ``f32<D>`` (f32body's
     ``flash_fwd_kernel<D>``) and ``f32<256> wide``
-    (``flash_fwd_f32_wide_kernel``)."""
+    (``flash_fwd_f32_wide_kernel``); the cluster forward's instantiations
+    (CL = true) with `` cluster`` after their body's name."""
     out, fn = [], None
     for line in log.splitlines():
         body = re.search(r"flash_fwd_bf16_kernelILi(\d+)ELi(\d+)E", line)
@@ -265,6 +306,8 @@ def forward_notes(log: str) -> list:
                 f"f32<{f32[1]}>" if f32 else
                 "f32<256> wide" if "flash_fwd_f32_wide_kernel" in line
                 else None)
+        if name and re.search(r"(d256|f32_wide_kernel)ILb1E", line):
+            name += " cluster"
         if "C7520" in line:
             if name:
                 out.append(f"C7520 in {name}: "
@@ -403,15 +446,35 @@ def parse_shape(text: str) -> tuple:
     return shape
 
 
+def parent_refusal(shape: str):
+    """Why ``--parent`` cannot run at ``--shape`` `shape`, or None: above
+    D = 256 a parent before the cluster forward runs widebody, through
+    another launcher and a workspace this wrapper does not allocate."""
+    if parse_shape(shape)[4] > 256:
+        return ("--parent runs D <= 256 only: above it a parent before the "
+                "cluster forward runs widebody")
+    return None
+
+
+def default_variants(shapes) -> list:
+    """The variants run when --variants is not given: every one, or base
+    and the ``cl_*`` ones when a shape is above D = 256 (whose other
+    variants change bodies it does not run, or its D = 256 body alone)."""
+    if any(parse_shape(s)[4] > 256 for s in shapes):
+        return ["base", *(n for n in PATCHES if n.startswith("cl_"))]
+    return list(PATCHES)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--shape", action="append",
                     help="a preset (yi, zamba2, danube, whisper, wide, "
-                         "wide_f32) "
+                         "wide_f32, d512, d512_f32) "
                          "or B,H,KV,S,D; repeatable (default: the four "
                          "model presets)")
-    ap.add_argument("--variants", default=",".join(PATCHES),
-                    help="comma-separated variants (default: all)")
+    ap.add_argument("--variants",
+                    help="comma-separated variants (default: all, or base "
+                         "and the cl_* ones above D = 256)")
     ap.add_argument("--parent", help="another flash_attention.cu, timed "
                     "as variant 'parent' first and last")
     ap.add_argument("--variant", help=argparse.SUPPRESS)
@@ -438,7 +501,12 @@ def main(argv=None) -> int:
                          else "not measured")
                       + f"; o and lse bits {r['bits']}", flush=True)
         return 0
-    names = [n for n in args.variants.split(",") if n]
+    if args.parent:
+        for s in shapes:
+            if parent_refusal(s):
+                raise SystemExit(parent_refusal(s))
+    names = ([n for n in args.variants.split(",") if n] if args.variants
+             else default_variants(shapes))
     for n in names:
         if n not in PATCHES:
             raise SystemExit(f"unknown variant {n!r}: {', '.join(PATCHES)}")

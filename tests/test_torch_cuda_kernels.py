@@ -392,7 +392,8 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     # head dims outside the bodies' set, zero-padded to the next one
     (1, 4, 2, 100, 48), (2, 8, 2, 130, 80), (1, 4, 4, 64, 96),
     (1, 8, 1, 257, 120),
-    # head dims above 128: the wide body (D in chunks of 128, ragged S)
+    # head dims above 128: the D = 256 bodies (ragged S), and at 384 the
+    # cluster forward (two blocks a cluster, a ragged last slice)
     (1, 4, 2, 100, 160), (2, 4, 1, 130, 256), (1, 2, 2, 33, 200),
     (1, 8, 8, 1, 384),
     # the bfloat16 body's persistent schedule: D = 64's 192-row items with
@@ -780,7 +781,7 @@ def test_flash_cluster_bwd_body(dev, rng, dtype, D, B, H, KV, S):
     sch = FA._bwd_schedule(B, KV, S, D, dev, dtype)
     kt, qt = (FA.BWD_TILES[256] if dtype == torch.bfloat16
               else FA.BWD_F32_WIDE_TILES)
-    C = -(-D // FA.BWD_CLUSTER_WIDTH)
+    C = -(-D // FA.CLUSTER_WIDTH)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert (sch["keys"], sch["queries"], sch["C"]) == (kt, qt, C)
     assert sch["items"] == B * KV * -(-S // kt)
@@ -803,6 +804,61 @@ def test_flash_cluster_bwd_body(dev, rng, dtype, D, B, H, KV, S):
     old_scratch = 4 * (B * H + 2 * B * KV) * S * D
     assert extra <= ours + (2 << 20), (extra, ours)
     assert extra < outputs + old_scratch, (extra, outputs, old_scratch)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [264, 320, 512, 768, 2048])
+@pytest.mark.parametrize("B,H,KV,S", [(1, 4, 4, 70), (1, 4, 2, 130),
+                                      (2, 4, 1, 1), (2, 8, 2, 385)])
+def test_flash_cluster_fwd_body(dev, rng, dtype, D, B, H, KV, S):
+    """The cluster forward (256 < D <= 2048: clusters of ceil(D / 256)
+    blocks, each its dtype's D = 256 body on a 256-column slice, 264 and
+    320 with a ragged last slice, 768 three blocks, 2048 eight) on the
+    views of the model's (B, S, H, D) tensors, MHA, GQA and MQA, S ragged
+    against the tiles and S = 1: within FLASH_TOL of the plain version,
+    lse within 1e-5 of the dense oracle's, two runs bit-equal and equal to
+    the contiguous copies' run, the output in (B, S, H, D) memory, one
+    launch count a call; the launcher's schedule (the D = 256 body's items
+    and tiles, C blocks a cluster, a grid of C x min(items, the clusters
+    the card holds)); and the stream's ticket counter left at zero: the
+    output after 20 calls is the first's, and a D = 128 launch after them
+    still takes every item."""
+    assert FA._forward_route(dtype, D) == ("cluster", D)
+    q, k, v = (torch.as_tensor(rng.normal(size=(B, S, h, D)).astype(
+        np.float32), device=dev).to(dtype).transpose(1, 2)
+        for h in (H, KV, KV))
+    before = _build.launches["flash_attention"]
+    o = FA.flash_attention(q, k, v)
+    o2 = FA.flash_attention(q, k, v)
+    oc = FA.flash_attention(*(x.contiguous() for x in (q, k, v)))
+    o3, lse = FA.flash_attention_fwd(q, k, v)
+    assert _build.launches["flash_attention"] == before + 4
+    p, plse = FA.flash_attention_plain(q, k, v, return_lse=True)
+    tol = FLASH_TOL[dtype]
+    assert o.dtype == dtype and o.shape == (B, H, S, D)
+    assert _same(o, o2) and _same(o, oc) and _same(o, o3)
+    assert o.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(o.float(), p.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, plse, atol=1e-5, rtol=1e-5)
+    sch = FA._fwd_schedule(B, H, S, D, dev, dtype)
+    rows, keys = FA.TILES[dtype][256]
+    C = -(-D // FA.CLUSTER_WIDTH)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (sch["rows"], sch["keys"], sch["C"]) == (rows, keys, C)
+    assert sch["items"] == B * H * -(-S // rows)
+    assert 1 <= sch["clusters"] <= sch["items"]
+    assert sch["grid"] == C * sch["clusters"] <= sms
+    for _ in range(20):
+        last = FA.flash_attention(q, k, v)
+    assert _same(last, o)
+    # the counter is the stream's, shared with every persistent forward
+    # (bfloat16 D = 128, float32 D = 256)
+    D1 = 128 if dtype == torch.bfloat16 else 256
+    q1, k1, v1 = (torch.as_tensor(rng.normal(size=(B, h, 300, D1)).astype(
+        np.float32), device=dev).to(dtype) for h in (H, KV, KV))
+    torch.testing.assert_close(FA.flash_attention(q1, k1, v1).float(),
+                               FA.flash_attention_plain(q1, k1, v1).float(),
+                               atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("D", [132, 160, 200, 256])

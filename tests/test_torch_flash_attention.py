@@ -223,23 +223,24 @@ def test_wide_body_arithmetic_matches_oracle(rng, S, D, dtype):
     (160, ("in place", 256), ("in place", 256)),
     (192, ("in place", 256), ("in place", 256)),
     (256, ("in place", 256), ("in place", 256)),
-    (512, ("wide", 512), ("wide", 512))])
+    (512, ("cluster", 512), ("cluster", 512))])
 def test_forward_route_by_head_dim(D, bf16, fp32):
     """The forward's route for each head dim: the bodies' own D in place;
     a narrower bfloat16 D whose rows are whole 16-byte units (D % 8 == 0,
     danube's 120; 160 and 192 on the D = 256 body), and a float32 D above
     128 whose rows are whole 16-byte units (D % 4 == 0), in place on the
     next body, TMA zero-filling the rest; other narrower D (every float32
-    D below 128 among them) through zero-padded copies; D above 256 the
-    simple CUDA-core wide body."""
+    D below 128 among them) through zero-padded copies; D above 256 (up
+    to 2048) the cluster forward."""
     assert FA._forward_route(torch.bfloat16, D) == bf16
     assert FA._forward_route(torch.float32, D) == fp32
 
 
 _VARIANTS = ["base", "no_store", "no_exp", "stages3", "two_consumers",
              "no_turns", "legacy", "runtime_width", "wide_bk64",
-             "wide_o_regs", "wide_no_turns", "f32_body256", "f32w_no_exp",
-             "f32w_no_s", "f32w_no_pv", "f32w_one_stage"]
+             "wide_o_regs", "wide_no_turns", "wide_one_stage", "f32_body256",
+             "f32w_no_exp", "f32w_no_s", "f32w_no_pv", "f32w_one_stage",
+             "cl_no_xch"]
 
 
 @pytest.mark.parametrize("name", _VARIANTS)
@@ -316,7 +317,8 @@ def test_fwd_ablate_wide_preset():
     assert FWA.parse_shape("wide_f32") == (4, 8, 2, 2048, 256)
     assert FA._forward_route(torch.bfloat16, 256) == ("in place", 256)
     assert FWA.MODEL_PRESETS == ("yi", "zamba2", "danube", "whisper")
-    assert set(FWA.PRESETS) == {*FWA.MODEL_PRESETS, "wide", "wide_f32"}
-    assert FWA.FLOAT32_PRESETS == ("wide_f32",)
+    assert set(FWA.PRESETS) == {*FWA.MODEL_PRESETS, "wide", "wide_f32",
+                                "d512", "d512_f32"}
+    assert FWA.FLOAT32_PRESETS == ("wide_f32", "d512_f32")
     assert [FWA.dtype_of(s) for s in ("wide", "wide_f32", "yi")] == [
         "bfloat16", "float32", "bfloat16"]

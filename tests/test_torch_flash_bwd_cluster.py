@@ -82,8 +82,8 @@ def test_constants_and_shared_memory():
     float32 the D = 256 layout and two 8 KB buffers), and the source
     asserts it for each."""
     assert (CL["MAX_C"], WIDTH, CL["MAX_D"]) == (8, 256, 2048)
-    assert FA.BWD_CLUSTER_WIDTH == WIDTH
-    assert FA.BWD_CLUSTER_MAX == CL["MAX_D"]
+    assert FA.CLUSTER_WIDTH == WIDTH
+    assert FA.CLUSTER_MAX == CL["MAX_D"]
     assert TILES == {"bf16": FA.BWD_TILES[256],
                      "f32": FA.BWD_F32_WIDE_TILES}
     # a warp's lanes side by side: one 16-byte unit a lane, 32 lanes

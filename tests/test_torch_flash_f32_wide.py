@@ -299,21 +299,21 @@ def test_backward_shared_accesses_are_conflict_free():
     (200, ("in place", 256), ("in place", 256)),
     (255, ("padded", 256), ("padded", 256)),
     (256, ("in place", 256), ("in place", 256)),
-    (257, ("wide", 257), ("cluster", 260)),
-    (512, ("wide", 512), ("cluster", 512))])
+    (257, ("cluster", 260), ("cluster", 260)),
+    (512, ("cluster", 512), ("cluster", 512))])
 def test_float32_routes_above_128(D, fwd, bwd):
     """float32 at 128 < D <= 256 runs the D = 256 bodies: in place when a
     row is whole 16-byte units (D % 4 == 0; TMA zero-fills the columns
-    past D), else zero-padded to 256; above 256 the forward's simple
-    CUDA-core body (widebody) and the cluster backward (f32widebwd on
-    each 256-column slice; 257 zero-padded to 260, the next whole 16-byte
-    row).  The TMA-fed bodies need 16-byte starts and strides, the
-    simple one one element."""
+    past D), else zero-padded to 256; above 256 the cluster forward and
+    the cluster backward (f32wide and f32widebwd on each 256-column
+    slice; 257 zero-padded to 260, the next whole 16-byte row).  The
+    TMA-fed bodies need 16-byte starts and strides, the simple one one
+    element."""
     assert FA._forward_route(torch.float32, D) == fwd
     assert FA._backward_route(torch.float32, D) == bwd
     q = torch.zeros((1, 1, 1, D))
     want = 4 if fwd[0] == "wide" else 16
-    assert FA._align(q, fwd[1], f32_dims=(256,)) == want
+    assert FA._fwd_align(q, *fwd) == want
     assert FA._bwd_align(q, *bwd) == 16
     # the launchers take the same widths
     assert "const bool f32w = !is_bf16 && D > 128 && D <= 256 && D % 4 == 0;" \
@@ -524,7 +524,7 @@ _FWD_PROTOCOL = [
     "mbar_init(full_k + 8 * s, 1);", "mbar_init(full_v + 8 * s, 1);",
     "mbar_init(empty_k + 8 * s, 32 * WARPS);",
     "mbar_init(empty_v + 8 * s, 32 * WARPS);",
-    "const int item = atomicAdd(work, 1);",
+    ": atomicAdd(work, 1);",
     "if (item == n_items + (int)gridDim.x - 1) atomicExch(work, 0);",
     "mbar_wait(empty_q, (n & 1) ^ 1);", "*item_s = -1;",
     "const uint32_t parity = ((j / STAGES) & 1) ^ 1;",
