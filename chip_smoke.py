@@ -14,7 +14,8 @@
    at danube's 120, and the D = 256 body and its cluster forward), in the
    float32 backward's (`f32bwd`, one per D <= 128) and in the float32
    bodies at D = 256 (`f32wide`, `f32widebwd`, each also as its cluster
-   body), and no C7520 (wgmma serialized) in any;
+   body), and no C7520 (wgmma serialized) in any; the four walks'
+   instantiations (above D = 2048) print their spill bytes;
 2. holds each kernel against its plain PyTorch version on the card at
    small shapes (for gee_scatter also K = 256, one row holding 50,000
    contributions and rows whose donors mostly share a class, each
@@ -42,8 +43,9 @@
    1000 at D = 64), `f32widebwd` up to 256 (160 and 192 read in place),
    bfloat16 its D = 256 tensor-core body up to 256 (160 and 192 read in
    place); both dtypes the cluster backward at 320 (a ragged last slice),
-   512 and 768 (three blocks a cluster), and `simplebwd` at 2112, above
-   the cluster route's 2048 (each case's route checked);
+   512 and 768 (three blocks a cluster), and in walks above 2048: 2112
+   (two walks of five blocks) and 4160 (three walks of six) (each case's
+   route checked);
 3. drives the GEE path at the scale of SNAP soc-LiveJournal1 (an SBM
    with n = 4,847,571 nodes, s = 68,993,773 edges, K = 16, 10% labeled):
    `Embedder(backend="cuda").fit`, then two `EmbeddingShard`s
@@ -169,8 +171,10 @@
    F32_BWD_MAX_RATIO (float32) or BF16_CLUSTER_BWD_MAX_RATIO (0.5,
    bfloat16) x SDPA's backward; the same forward and backward timed and
    printed at B = --lm-batch; both dtypes at D = 2304 (B 1, H 2, KV 1),
-   above the cluster routes: `widebody` and `simplebwd` beside SDPA and
-   their bounds (printed); the backward (its
+   the cluster bodies in two walks of five blocks, held to their plain
+   versions (two runs bit-equal) and to at most WALK_MAX_RATIO x SDPA's,
+   beside their bounds and the retired CUDA-core bodies' times from
+   PERF.md; the backward (its
    D = 256 tensor-core body, with the launcher's items and grid) beside
    SDPA's backward, and `FlashAttentionFunction` forward + backward on
    the model's (B, S, H, D) layout beside SDPA's forward + backward, all
@@ -542,6 +546,18 @@ BF16_CLUSTER_BWD_MAX_RATIO = 0.5
 # most: float32 and bfloat16
 F32_CLUSTER_FWD_MAX_RATIO = 0.8
 BF16_CLUSTER_FWD_MAX_RATIO = 0.25
+# the cluster bodies in walks (D = 2304, phase 6) over SDPA's forward or
+# backward in the same run, at most, by kernel and dtype
+WALK_MAX_RATIO = {("flash_attention", "bf16"): 0.5,
+                  ("flash_attention", "f32"): 2.0,
+                  ("flash_attention_bwd", "bf16"): 1.0,
+                  ("flash_attention_bwd", "f32"): 2.5}
+# the CUDA-core bodies the walks replaced, at the same shape on an H100
+# 80GB HBM3 at 700 W (PERF.md's kernel table), printed beside, not re-run
+RETIRED_D2304_MS = {("flash_attention", "f32"): 17.81,
+                    ("flash_attention", "bf16"): 18.77,
+                    ("flash_attention_bwd", "f32"): 154.2,
+                    ("flash_attention_bwd", "bf16"): 151.2}
 RESUME_TOL = 1e-4
 
 
@@ -1070,8 +1086,7 @@ def train_path(torch, dev, args, timer, smi):
         cfg = dataclasses.replace(get_config(arch).reduced(), remat=True)
         route_ = FA._backward_route(torch.float32, cfg.head_dim)
         bwd_bodies.add(f"D = {cfg.head_dim}: "
-                       + ("simplebwd" if route_[0] == "simple" else
-                          f"the cluster backward at {route_[1]}"
+                       + (f"the cluster backward at {route_[1]}"
                           if route_[0] == "cluster" else
                           f"f32bwd<{route_[1]}> {route_[0]}"))
         src = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=64,
@@ -1660,10 +1675,19 @@ def main() -> int:
             print(f"ptxas C7520 (wgmma serialized): {ln}")
         print(f"ptxas: {len(fwd_c7520)} C7520 warnings in the bfloat16 "
               f"forward bodies, {len(c7520) - len(fwd_c7520)} elsewhere")
-        bf16 = {f: n for f, n in ptxas_spills(
-            _build.ptxas_log["flash_attention"]).items()
-            if any(k_ in f for k_ in ("flash_fwd_bf16_kernel",
-                                      "flash_bwd_kernel"))}
+        spills = ptxas_spills(_build.ptxas_log["flash_attention"])
+        # the walks' instantiations (<CL = true, WALKS = true>, mangled
+        # ILb1ELb1E) run above D = 2048 only: their spills are printed
+        walks = {f: n for f, n in spills.items() if "ILb1ELb1E" in f}
+        spills = {f: n for f, n in spills.items() if f not in walks}
+        print(f"ptxas: the walks' instantiations spill "
+              f"{sorted(walks.values())} bytes (stores + loads)")
+        if len(walks) != 4:
+            raise AssertionError(f"ptxas: {len(walks)} walks' "
+                                 f"instantiations, 4 expected: {walks}")
+        bf16 = {f: n for f, n in spills.items()
+                if any(k_ in f for k_ in ("flash_fwd_bf16_kernel",
+                                          "flash_bwd_kernel"))}
         # the forward: per D <= 128 one body at its own width and one at a
         # runtime narrower width, and danube's 120 on D = 128 (its own
         # body: `launch.fwd_ablate` times it against the runtime width's),
@@ -1678,9 +1702,8 @@ def main() -> int:
               "cluster forward, backward 5 and the cluster backward) spill "
               "0 bytes")
         # the float32 backward body, one per D <= 128
-        f32b = {f: n for f, n in ptxas_spills(
-            _build.ptxas_log["flash_attention"]).items()
-            if "flash_bwd_f32_kernel" in f}
+        f32b = {f: n for f, n in spills.items()
+                if "flash_bwd_f32_kernel" in f}
         if len(f32b) != 4 or any(f32b.values()):
             raise AssertionError(f"ptxas spill bytes of the float32 "
                                  f"backward bodies (4 expected, all 0): "
@@ -1689,9 +1712,7 @@ def main() -> int:
               "64, 128) spill 0 bytes")
         # the float32 bodies at D = 256, forward and backward, and their
         # cluster instantiations
-        f32w = {f: n for f, n in ptxas_spills(
-            _build.ptxas_log["flash_attention"]).items()
-            if "f32_wide_kernel" in f}
+        f32w = {f: n for f, n in spills.items() if "f32_wide_kernel" in f}
         if len(f32w) != 4 or any(f32w.values()):
             raise AssertionError(f"ptxas spill bytes of the float32 D = 256 "
                                  f"bodies (4 expected, all 0): {f32w}")
@@ -2006,9 +2027,10 @@ def main() -> int:
         (1, 4, 2, 100, 160), (1, 4, 2, 130, 192), (2, 8, 2, 130, 256),
         (1, 2, 1, 70, 512),
         # above 256 the cluster forward and backward: a ragged last slice
-        # (320) and three blocks a cluster (768); above 2048 widebody and
-        # simplebwd (2112)
-        (1, 4, 2, 100, 320), (1, 4, 1, 130, 768), (1, 2, 1, 70, 2112))
+        # (320) and three blocks a cluster (768); above 2048 in walks: two
+        # of five blocks (2112) and three of six (4160)
+        (1, 4, 2, 100, 320), (1, 4, 1, 130, 768), (1, 2, 1, 70, 2112),
+        (1, 2, 1, 70, 4160))
         for dt in (torch.float32, torch.bfloat16)]
     # float32 only: the float32 backward body (f32bwd) at D = 96, zero-padded
     # to its D = 128, and at a ragged S against its 64-key items
@@ -2019,14 +2041,12 @@ def main() -> int:
                     ((args.lm_batch, lm.n_heads, lm.n_kv_heads,
                       args.lm_prompt - 1, lm.head_dim), torch.bfloat16)]
     for (B_, H_, KV_, S_, D_), dt in flash_cases:
-        want_ = ("cluster" if 256 < D_ <= FA.CLUSTER_MAX else
-                 "simple" if D_ > 256 else None)
+        want_ = "cluster" if D_ > 256 else None
         if want_ and FA._backward_route(dt, D_)[0] != want_:
             raise AssertionError(f"flash_attention_bwd at D = {D_} {dt}: "
                                  f"route {FA._backward_route(dt, D_)}, not "
                                  f"{want_}")
-        want_f = ("cluster" if 256 < D_ <= FA.CLUSTER_MAX else
-                  "wide" if D_ > 256 else None)
+        want_f = "cluster" if D_ > 256 else None
         if want_f and FA._forward_route(dt, D_)[0] != want_f:
             raise AssertionError(f"flash_attention at D = {D_} {dt}: route "
                                  f"{FA._forward_route(dt, D_)}, not "
@@ -3381,13 +3401,17 @@ def main() -> int:
         return out
 
     def d2304_path():
-        """Both dtypes above the cluster routes' 2048 (B 1, H 2, KV 1, S =
-        --lm-prompt, D = 2304): the forward on `widebody` and the backward
-        on `simplebwd`, the correctness-first CUDA-core bodies that only
-        take D > 2048 now, each timed beside SDPA's (in turns) and its
-        bound, with the plain version's time and max|err| from it
-        (printed; the small cases at D = 2112 hold them).  Returns the
-        flash row's `wide_D2304_*` and `wide_bwd_D2304_*` entries."""
+        """Both dtypes above 2048 (B 1, H 2, KV 1, S = --lm-prompt, D =
+        2304: 9 slices, two walks of clusters of five blocks): the cluster
+        forward and backward in walks, each held to its plain version (the
+        forward by check_flash: 2e-5 at float32, 2e-2 at bfloat16, two
+        runs bit-equal; the backward's two runs bit-equal, at float32
+        against the float64 plain version at atol = rtol = 2e-5, at
+        bfloat16 against the plain version at 2e-2), timed beside SDPA's
+        (in turns) and its bound, and held to at most WALK_MAX_RATIO x
+        SDPA's forward or backward; the retired CUDA-core bodies' times
+        at this shape (`PERF.md`, not re-run) printed beside.  Returns
+        the flash row's `wide_D2304_*` and `wide_bwd_D2304_*` entries."""
         B, H, KV, S, D = 1, 2, 1, args.lm_prompt, 2304
         gen_ = torch.Generator(device=dev).manual_seed(args.seed + D)
         flops = 4.0 * D * B * H * S * (S + 1) / 2
@@ -3395,7 +3419,7 @@ def main() -> int:
         out = {}
         for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             if (FA._forward_route(dt, D)[0], FA._backward_route(dt, D)[0]) \
-                    != ("wide", "simple"):
+                    != ("cluster", "cluster"):
                 raise AssertionError(f"flash attention at D = {D} {dt}: "
                                      f"routes {FA._forward_route(dt, D)}, "
                                      f"{FA._backward_route(dt, D)}")
@@ -3405,15 +3429,37 @@ def main() -> int:
                                 dtype=dt) for _ in range(2))
             esz, tc = q.element_size(), dt == torch.bfloat16
             fp, bp = f"wide_D2304_{tag}", f"wide_bwd_D2304_{tag}"
+            fsch_ = FA._fwd_schedule(B, H, S, D, dev, dt)
+            bsch_ = FA._bwd_schedule(B, KV, S, D, dev, dt)
+            if (fsch_["C"], fsch_["G"], bsch_["C"], bsch_["G"]) != \
+                    (5, 2, 5, 2):
+                raise AssertionError(f"flash attention at D = {D} {dt}: "
+                                     f"schedules {fsch_}, {bsch_}")
+            err_f = check_flash(q, k, v, f"D={D} {dt}")  # two runs equal
             o, lse = FA.flash_attention_fwd(q, k, v)
-            po = FA.flash_attention_plain(q, k, v)
-            pg = FA.flash_attention_bwd_plain(q, k, v, o, lse, do)
-            g = FA.flash_attention_bwd(q, k, v, o, lse, do)
-            torch.cuda.synchronize()
-            err_f = (o.float() - po.float()).abs().max().item()
-            err_b = max((x_.float() - z_.float()).abs().max().item()
-                        for x_, z_ in zip(g, pg))
-            del po, pg, g
+            ga = FA.flash_attention_bwd(q, k, v, o, lse, do)
+            gb = FA.flash_attention_bwd(q, k, v, o, lse, do)
+            if not all(same(x_, y_) for x_, y_ in zip(ga, gb)):
+                raise AssertionError(f"flash_attention_bwd at D = {D} {dt}: "
+                                     "two runs differ")
+            if tc:
+                gp = FA.flash_attention_bwd_plain(q, k, v, o, lse, do)
+                tol_, how = 2e-2, "the plain version"
+            else:
+                gp = FA.flash_attention_bwd_plain(
+                    *(x.double() for x in (q, k, v, o, lse, do)))
+                tol_, how = 2e-5, "the float64 plain version"
+            for n_, x_, z_ in zip(("dq", "dk", "dv"), ga, gp):
+                if not torch.allclose(x_.to(z_.dtype), z_, rtol=tol_,
+                                      atol=tol_):
+                    raise AssertionError(
+                        f"flash_attention_bwd at D = {D} {dt}: {n_} "
+                        f"max|err| {(x_.to(z_.dtype) - z_).abs().max().item()}"
+                        f" from {how}, outside atol = rtol = {tol_}")
+            err_b = max((x_.to(z_.dtype) - z_).abs().max().item()
+                        for x_, z_ in zip(ga, gp))
+            del ga, gb, gp
+            torch.cuda.empty_cache()
             lib_in = [x.detach().requires_grad_() for x in (q, k, v)]
             lib_out = sdpa(*lib_in, is_causal=True, enable_gqa=True)
 
@@ -3430,10 +3476,10 @@ def main() -> int:
                 return torch.autograd.grad(lib_out, lib_in, do,
                                            retain_graph=True)
 
-            f1, l1 = timer(fwd, 2), timer(fwd_sdpa, 3)
-            l2, f2 = timer(fwd_sdpa, 3), timer(fwd, 2)
-            b1, bl1 = timer(bwd, 1), timer(bwd_sdpa, 2)
-            bl2, b2 = timer(bwd_sdpa, 2), timer(bwd, 1)
+            f1, l1 = timer(fwd, 10, warm=2), timer(fwd_sdpa, 3)
+            l2, f2 = timer(fwd_sdpa, 3), timer(fwd, 10, warm=2)
+            b1, bl1 = timer(bwd, 3), timer(bwd_sdpa, 2)
+            bl2, b2 = timer(bwd_sdpa, 2), timer(bwd, 3)
             by = "fp32 operations" if not tc else "bf16 tensor-core operations"
             row = {
                 f"{fp}_ms": (f1 + f2) / 2,
@@ -3444,6 +3490,12 @@ def main() -> int:
                     lambda: FA.flash_attention_plain(q, k, v), 1),
                 f"{fp}_library_ms": (l1 + l2) / 2,
                 f"{fp}_max_abs_err": err_f,
+                f"{fp}_body": (f"{'Fwd<256>' if tc else 'f32wide'} x "
+                               f"{fsch_['C']} a cluster in {fsch_['G']} "
+                               "walks"),
+                f"{fp}_C": fsch_["C"], f"{fp}_G": fsch_["G"],
+                f"{fp}_items": fsch_["items"],
+                f"{fp}_clusters": fsch_["clusters"],
                 f"{bp}_ms": (b1 + b2) / 2,
                 f"{bp}_bound_ms": bound_ms(
                     esz * (4 * B * H * S * D + 4 * B * KV * S * D)
@@ -3452,20 +3504,36 @@ def main() -> int:
                     lambda: FA.flash_attention_bwd_plain(q, k, v, o, lse,
                                                          do), 1),
                 f"{bp}_library_ms": (bl1 + bl2) / 2,
-                f"{bp}_max_abs_err": err_b}
-            for what, key, a_, b_, c_, d_ in (
-                    ("flash_attention (widebody)", fp, f1, f2, l1, l2),
-                    ("flash_attention_bwd (simplebwd)", bp, b1, b2, bl1,
-                     bl2)):
+                f"{bp}_max_abs_err": err_b,
+                f"{bp}_body": (f"{'widebwd' if tc else 'f32widebwd'} x "
+                               f"{bsch_['C']} a cluster in {bsch_['G']} "
+                               "walks"),
+                f"{bp}_C": bsch_["C"], f"{bp}_G": bsch_["G"],
+                f"{bp}_items": bsch_["items"],
+                f"{bp}_clusters": bsch_["clusters"]}
+            for what, key, a_, b_, c_, d_, sch_ in (
+                    ("flash_attention", fp, f1, f2, l1, l2, fsch_),
+                    ("flash_attention_bwd", bp, b1, b2, bl1, bl2, bsch_)):
                 ms_ = row[f"{key}_ms"]
-                print(f"{what} at B={B} H={H} KV={KV} S={S} D={D} {dt}: "
-                      f"kernel {a_:.3f} / {b_:.3f} ms, SDPA {c_:.3f} / "
-                      f"{d_:.3f} ms, kernel / library "
-                      f"{ms_ / row[f'{key}_library_ms']:.3f}, bound "
+                ratio_ = ms_ / row[f"{key}_library_ms"]
+                limit_ = WALK_MAX_RATIO[what, tag]
+                print(f"{what} ({row[f'{key}_body']}) at B={B} H={H} KV={KV}"
+                      f" S={S} D={D} {dt}: kernel {a_:.4f} / {b_:.4f} ms, "
+                      f"SDPA {c_:.4f} / {d_:.4f} ms, kernel / library "
+                      f"{ratio_:.3f} (at most {limit_}), bound "
                       f"{row[f'{key}_bound_ms']:.4f} ms ({by}), share of "
                       f"the bound {row[f'{key}_bound_ms'] / ms_:.4f}, plain "
                       f"{row[f'{key}_plain_ms']:.3f} ms, max|err| vs plain "
-                      f"{row[f'{key}_max_abs_err']:.3e} (printed)")
+                      f"{row[f'{key}_max_abs_err']:.3e} (held), two runs "
+                      f"bit-equal; {sch_['items']} items on "
+                      f"{sch_['clusters']} clusters of C = {sch_['C']} "
+                      f"blocks, G = {sch_['G']} walks [the retired CUDA-core "
+                      f"body: {RETIRED_D2304_MS[what, tag]} ms, PERF.md, not "
+                      f"re-run]")
+                if ratio_ > limit_:
+                    raise AssertionError(f"{what} at D = {D} {dt} takes "
+                                         f"{ratio_:.3f} x SDPA's, above "
+                                         f"{limit_}")
             out.update(row)
             del q, k, v, do, o, lse, lib_in, lib_out
         return out

@@ -21,10 +21,9 @@
 // {16, 32, 64, 128} (and at bfloat16 any narrower multiple of 8, read in
 // place), and for 128 < D <= 256 one more a dtype: at bfloat16 the wide
 // tensor-core body, at float32 the wide CUDA-core body f32wide (each
-// reading a narrower width in place, below), and for 256 < D <= 2048 the
-// cluster forward (each dtype's D = 256 body on 256-column slices, below);
-// flash_attention_wide_launch runs a simple body for any D > 2048
-// (widebody, below).
+// reading a narrower width in place, below), and for every D > 256 the
+// cluster forward (each dtype's D = 256 body on 256-column slices, in
+// walks above 2048, below).
 //
 // bfloat16 (bf16body): both products on the tensor cores, in persistent
 // blocks.  The grid is one block per SM (fewer if there are fewer work
@@ -146,46 +145,44 @@
 // memory: 207,456 bytes (f32body's layout, Q and K at pitch D + 1, would
 // take 213,760 at D = 256 for one K and V tile and no ring).
 //
-// float32 and bfloat16 at 256 < D <= 2048 (the cluster forward: Fwd<256>
-// and f32wide with CL = true, a narrower width than C * 256 read in place,
-// D % 8 == 0 at bfloat16 and D % 4 == 0 at float32): no body's layout fits
-// a block at D = 512, but only S = Q K^T needs a sum over all of D; the
-// softmax's m and l come from S, and O += P V is column by column.  So a
-// cluster of C = ceil(D / 256) blocks (8 at most, the portable cluster
-// size) takes one item, and block r runs its dtype's D = 256 body on
-// columns 256 r .. 256 r + 255: its Q, K and V tiles are those columns
-// (the maps over the whole width, their coordinates offset, the columns
-// past D zero-filled), its S sums over them in the body's own order, and
-// then, through distributed shared memory, each compute warp stores its
-// lanes' partials, arrives on an mbarrier of every other rank and waits
-// for theirs (clusterbwd's exchange, as the cluster backward's below),
-// and each lane adds the C ranks' partials in ascending rank order: every
-// block forms the same m, l and P bits, and computes O for its own
-// columns, which it stores (rank 0 also lse).  At bfloat16 a warp's
-// partials go out while P V of the tile before is in flight and are summed
-// once it is done (the sums take its A fragments' registers), outside the
-// turns, and the exchange's two buffers (80 KB) take the second K and V
-// stage's room: one stage.  Rank 0 draws each ticket and writes it into
-// every rank's two slots; the launch's last ticket, n_items + clusters -
-// 1, puts the counter back to zero.  A cluster barrier after the mbarriers
-// are set
-// and another before any block exits; the grid is C x min(items, the
-// clusters the card holds at once) (cudaLaunchKernelEx).  No product is
-// added, and no tile but the exchange buffers.
-//
-// float32 and bfloat16 at D > 2048 (widebody): CUDA cores, float32
-// arithmetic, no tensor cores; correctness first, not speed.  One
-// block
-// of 256 threads per (batch x head, 16-row query tile), the heaviest
-// tiles first.  For each 32-key tile: the scores take the dot over D in
-// chunks of 128 columns staged in shared memory (fmaf in column order,
-// each thread two (row, key) pairs); a warp per two rows runs the online
-// softmax (max and sum over the 32 keys by xor shuffles); then the
-// P.V update runs chunk by chunk over D, each thread owning eight
-// (row, column) accumulators of a chunk, kept in a float32 workspace in
-// device memory (B, H, S, D) that the caller allocates, since a row's D
-// accumulators need not fit in registers.  The last pass writes
-// acc / max(l, 1e-30) in q's type.  No atomics: the same bits every run.
+// float32 and bfloat16 at D > 256 (the cluster forward: Fwd<256> and
+// f32wide with CL = true, a narrower width than a whole number of slices
+// read in place, D % 8 == 0 at bfloat16 and D % 4 == 0 at float32): no
+// body's layout fits a block at D = 512, but only S = Q K^T needs a sum
+// over all of D; the softmax's m and l come from S, and O += P V is
+// column by column.  So D is cut into n = ceil(D / 256) slices of 256
+// columns, and a cluster of C blocks takes each work item
+// (clusterbwd::walks: G = ceil(n / 8) walks, C = ceil(n / G) <= 8, the
+// portable cluster size; G = 1 and C = n up to D = 2048).  Each walk is
+// a launch: in walk g block r runs its dtype's D = 256 body and owns
+// slice r + C g (its V tiles, its output columns; a slice past the width
+// is neither loaded as V nor stored).  Its S sums over its slices r, r +
+// C, r + 2 C, .. below the width, in that order, each slice's Q and K
+// tiles those columns (the maps over the whole width, their coordinates
+// offset, the columns past D zero-filled) summed in the body's own order;
+// at G = 1 that is the one slice and Q stays resident for the item, above
+// it the slices' Q and K take turns (bfloat16: in the Q slot and the K
+// stage; float32: in two Q slots, the second in the V stages' room, and
+// one ring of two stages that carries each tile's K tiles, then its V
+// tile): Q is reloaded for each slice of each key tile, S is recomputed
+// once a walk, and O for two slices does not fit a consumer's registers.  Then,
+// through distributed shared memory, each compute warp stores its lanes'
+// partials, arrives on an mbarrier of every other rank and waits for
+// theirs (clusterbwd's exchange, as the cluster backward's below), and
+// each lane adds the C ranks' partials in ascending rank order: every
+// block forms the same m, l and P bits, and computes O for its owned
+// columns, which it stores (rank 0 of walk 0 also lse).  At bfloat16 a
+// warp's partials go out while P V of the tile before is in flight and
+// are summed once it is done (the sums take its A fragments' registers),
+// outside the turns, and the exchange's two buffers (80 KB) take the
+// second K and V stage's room: one stage.  Rank 0 draws each ticket and
+// writes it into every rank's two slots; the launch's last ticket,
+// n_items + clusters - 1, puts the counter back to zero.  A cluster
+// barrier after the mbarriers are set and another before any block
+// exits; the grid is C x min(items, the clusters the card holds at once)
+// (cudaLaunchKernelEx).  No product is added, and no tile but the
+// exchange buffers.  The walks' instantiations (WALKS = true) hold the
+// loops over a block's slices; at G = 1 (WALKS = false) they fold away.
 //
 // Every body can also write lse = m + ln(l) per row (float32, natural
 // log), the input of the backward; with a null lse pointer (every serving
@@ -334,43 +331,44 @@
 // dots of 4 queries x 8 keys a thread, the quarters added by xor
 // shuffles); dq's share is 8 queries x 4 columns a thread.
 //
-// float32 and bfloat16 at 256 < D <= 2048 (the cluster backward: widebwd
-// and f32widebwd with CL = true, a narrower width than C * 256 read in
-// place, D % 8 == 0 at bfloat16 and D % 4 == 0 at float32): no body's
-// layout fits a block at D = 512, but only S and dP need a sum over all of
-// D; dv, dk and dq are column by column.  So a cluster of C = ceil(D /
-// 256) blocks (8 at most, the portable cluster size) takes one item, and
-// block r runs the D = 256 body on columns 256 r .. 256 r + 255: its K, V,
-// Q and dO tiles are those columns (the maps over the whole width, their
-// coordinates offset, the columns past D zero-filled), its S and dP sums
-// over them in the body's own order, and then, through distributed
-// shared memory, each compute warp stores its lanes' partials, arrives on
-// an mbarrier of every other rank (release, cluster scope) and waits for
-// theirs on its own, and each lane adds the C ranks' partials of its
-// fragment in ascending rank order, so every block forms the same P and
-// dS bits (a warp reads back exactly the units its counterparts wrote: a
-// warp's wait is enough, and the producers, which never exchange, are not
-// held; two buffers, since a rank writes one again only after every other
-// rank's next arrival, made after its reads).  dv, dk and dq's share are
-// then the block's columns', dq's added to the slice's own accumulator
-// under the slice's own counters (a region of each a slice), in key-tile
-// order as at D = 256.  Rank 0 draws each ticket and writes it into every
-// rank's shared memory (two slots), so the blocks of a cluster walk the
-// same items and steps, and the same exchanges, to the end.  A cluster
-// barrier after the mbarriers are set and another before any block
-// exits.  The grid is C x min(items, the clusters the card holds at
-// once) (cudaLaunchKernelEx with the cluster dimension: C is known at
-// run time), so every item a counter wait points at has a resident
-// cluster.  At bfloat16 the exchange's two buffers (64 KB) take the second
-// Q / dO slot's room: one slot.  No product is added, and no tile but the
-// exchange buffers.
-//
-// float32 and bfloat16 at D > 2048 (simplebwd): CUDA cores, float32
-// arithmetic, written for correctness as the wide forward body.
-// 16-query x 32-key tiles, D staged in chunks of 128 columns in shared
-// memory; the accumulators live in float32 rows of a scratch the caller
-// allocates, each element read and written by one thread in a fixed
-// order.  Two launches (dk and dv, then dq), seven products.
+// float32 and bfloat16 at D > 256 (the cluster backward: widebwd and
+// f32widebwd with CL = true, a narrower width than a whole number of
+// slices read in place, D % 8 == 0 at bfloat16 and D % 4 == 0 at
+// float32): no body's layout fits a block at D = 512, but only S and dP
+// need a sum over all of D; dv, dk and dq are column by column.  So D is
+// cut into 256-column slices and a cluster of C blocks takes one item in
+// each of G walks, as the forward (clusterbwd::walks): in walk g block r
+// runs the D = 256 body and owns slice r + C g: its K and V tiles, loaded
+// once an item, and each step's Q and dO tiles are that slice's columns
+// (the maps over the whole width, their coordinates offset, the columns
+// past D zero-filled).  Its S and dP sum first over its other slices r +
+// C j below the width in ascending order (above 2048 only: each slice's K
+// and Q, then V and dO, through the step's Q / dO slot, so S and dP are
+// recomputed once a walk) and then over the owned one, in the body's own
+// order, and then, through distributed shared memory, each compute warp
+// stores its lanes' partials, arrives on an mbarrier of every other rank
+// (release, cluster scope) and waits for theirs on its own, and each lane
+// adds the C ranks' partials of its fragment in ascending rank order, so
+// every block forms the same P and dS bits (a warp reads back exactly the
+// units its counterparts wrote: a warp's wait is enough, and the
+// producers, which never exchange, are not held; two buffers, since a
+// rank writes one again only after every other rank's next arrival, made
+// after its reads).  dv, dk and dq's share are then the owned slice's,
+// dq's added to the slice's own accumulator under the slice's own
+// counters (a region of each a slice, C G of them: a slice past the
+// width adds nothing and stores nothing, and its counters still count),
+// in key-tile order as at D = 256.  Rank 0 draws each ticket and writes
+// it into every rank's shared memory (two slots), so the blocks of a
+// cluster walk the same items and steps, and the same exchanges, to the
+// end; each walk has its own ticket counter, zeroed with the others by
+// the Delta pass, which runs once.  A cluster barrier after the mbarriers
+// are set and another before any block exits.  The grid is C x min(items,
+// the clusters the card holds at once) (cudaLaunchKernelEx with the
+// cluster dimension: C is known at run time), so every item a counter
+// wait points at has a resident cluster: a walk's waits are on its own
+// earlier items.  At bfloat16 the exchange's two buffers (64 KB) take the
+// second Q / dO slot's room: one slot.  No product is added, and no tile
+// but the exchange buffers.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cstdint>
@@ -395,15 +393,11 @@ __device__ __forceinline__ T* at(T* p, const Lay& l, int b, int h) {
   return p + b * l.b + h * l.h;
 }
 
-// element loads and stores in float32 arithmetic, for the CUDA-core bodies
-// that take either dtype
+// element loads in float32 arithmetic, for the Delta pass, which takes
+// either dtype
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
-}
-__device__ __forceinline__ void st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
 }
 
 namespace f32body {
@@ -1662,7 +1656,6 @@ using bf16body::st_shared;
 
 constexpr int MAX_C = 8;        // blocks a cluster: the portable limit
 constexpr int WIDTH = 256;      // columns a block: its body's D
-constexpr int MAX_D = MAX_C * WIDTH;
 constexpr int XWARPS = 8;       // the compute warps that exchange
 constexpr int XUNIT = 512;      // bytes between a lane's 16-byte units
 
@@ -1848,13 +1841,39 @@ inline int max_clusters(const void* fn, int C, size_t smem, int threads) {
   return n;
 }
 
-// The cluster schedule: C = ceil(width / 256) blocks a cluster, one
+// The slices and walks of operands `width` > 256 wide: n = ceil(width /
+// 256) slices of 256 columns, G = ceil(n / MAX_C) walks (launches), C =
+// ceil(n / G) <= MAX_C blocks a cluster; in walk g block r owns slice r +
+// C g (none past the width is stored) and sums S (and dP) over its slices
+// r, r + C, .., those below the width.  G = 1 up to 2048.
+inline int walks(int width, int* C, int* G, int* n) {
+  *n = (width + WIDTH - 1) / WIDTH;
+  if (*n < 2) return (int)cudaErrorInvalidValue;
+  *G = (*n + MAX_C - 1) / MAX_C;
+  *C = (*n + *G - 1) / *G;
+  return 0;
+}
+
+// In a walk, the slices of block `rank` of a cluster of C below the
+// width (`slices` of them): rank + C j for j < ns; and those but the
+// block's own in walk `walk` (the backward's other slices)
+__device__ __forceinline__ int slices_of(int slices, int rank, int C) {
+  return (slices - rank + C - 1) / C;
+}
+__device__ __forceinline__ int others(int slices, int rank, int C, int walk) {
+  const int ns = slices_of(slices, rank, C);
+  return ns - (walk < ns ? 1 : 0);
+}
+
+// The cluster schedule: C blocks a cluster and G walks (`walks`), one
 // cluster per item up to what the device holds at once, so that every
-// item a dq counter wait points at has been taken by a resident cluster.
+// item a dq counter wait points at has been taken by a resident cluster
+// (each walk is a launch of its own, and waits only on its own items).
 inline int schedule(const void* fn, size_t smem, int threads, int n_items,
-                    int width, int* C, int* clusters) {
-  *C = (width + WIDTH - 1) / WIDTH;
-  if (*C < 2 || *C > MAX_C) return (int)cudaErrorInvalidValue;
+                    int width, int* C, int* G, int* clusters) {
+  int n = 0;
+  const int w = walks(width, C, G, &n);
+  if (w != 0) return w;
   const cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -1891,7 +1910,7 @@ namespace bf16body {
 
 // The wide body's (Fwd<256>'s) shared memory in each instantiation: CL =
 // false, Fwd<256>'s own layout; CL = true, the cluster forward's (a
-// 256-column slice of 256 < D <= 2048 a block; see the note at the top of
+// 256-column slice of D > 256 a block; see the note at the top of
 // the file), which has one K and V stage: the second stage's 80 KB hold the
 // exchange of S's partials, two buffers of 8 warps x 10 16-byte units x 32
 // lanes (a tile's 128 x 80 float32 partials, 40 KB each), beside the two
@@ -1931,27 +1950,38 @@ struct WideL {
 // width (a multiple of 8, at most 256): they zero-fill the columns past
 // it, and the store map `to` drops them.
 // CL: the cluster forward, block `rank` of a cluster of C on columns 256
-// rank .. 256 rank + 255 of operands 256 < width <= 2048 wide: the maps'
+// rank .. 256 rank + 255 of operands 256 < width <= 2048 wide (above,
+// the walks, below): the maps'
 // coordinates start there (the columns past the width zero-filled, and
 // not stored), rank 0 draws the tickets for the cluster (and leaves the
 // counter at zero), every tile's S is summed over the ranks before the
 // softmax (each warp's partials through distributed shared memory, sent
 // while P V of the tile before runs and summed in rank order after it),
 // and rank 0 writes lse.
-template <bool CL>
+// WALKS (above 2048: `slices` = ceil(width / 256) > 8): walk `walk` of
+// clusterbwd::walks, block `rank` owning slice rank + C walk: per key tile
+// each of its slices below the width in turn, slice rank + C jj's Q and K
+// through the Q slot and the K stage, S summed over them (one turn each,
+// the first also P V of the tile before), then the exchange and the
+// softmax as above, V of the owned slice; the item's last Q stays for the
+// epilogue.  (WALKS = false is the same kernel at one walk, whose loops
+// over a block's slices fold away.)
+template <bool CL, bool WALKS = false>
 __global__ void __launch_bounds__(Fwd<256>::THREADS, 1)
 flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            const __grid_constant__ CUtensorMap to,
                            float* __restrict__ lse, int* work, int B, int H,
-                           int KV, int S, float scale_log2) {
+                           int KV, int S, float scale_log2, int walk,
+                           int slices) {
   using F = Fwd<256>;
   using L = WideL<CL>;
   using GQ = F::GQ;
   using GK = F::GK;
   constexpr int D = 256, KT = F::BK, NCONS = F::CONSUMERS;
   constexpr int STAGES = L::STAGES;
+  static_assert(!WALKS || (CL && STAGES == 1), "walks: the cluster body");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   volatile int* item_s = reinterpret_cast<volatile int*>(
@@ -1977,12 +2007,16 @@ flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
     rank = clusterbwd::rank();
     if (rank != 0) lse = nullptr;              // rank 0 writes lse
   }
-  const int col0 = rank * D;                   // the slice's first column
+  // the owned slice's first column; WALKS: the block's slices below the
+  // width, rank + C jj for jj < ns
+  const int col0 = (WALKS ? rank + C * walk : rank) * D;
+  const int ns = WALKS ? clusterbwd::slices_of(slices, rank, C) : 1;
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
     // each consumer's storing thread once its store has read the slot
-    mbar_init(empty_q, NCONS);
+    // (WALKS: every consumer thread, once it has read the slot)
+    mbar_init(empty_q, WALKS ? 128 * NCONS : NCONS);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full_k + 8 * s, 1);
       mbar_init(full_v + 8 * s, 1);
@@ -2005,7 +2039,48 @@ flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
                      F::PRODUCER_REGS)
                  : "memory");
-    if (threadIdx.x == 0) {
+    if (WALKS && threadIdx.x == 0) {
+      // per key tile: K and Q of each of the block's slices (loaded in
+      // pairs: one count), then V of the owned one (one stage each)
+      int jq = 0, jv = 0;                        // loads so far
+      for (int n = 0;; ++n) {
+        const int item = clusterbwd::ticket(work, base + L::TICK_OFF, tick,
+                                            n, C, rank);
+        if (item >= n_items) {
+          if (rank == 0 && item == n_items + (int)gridDim.x / C - 1)
+            atomicExch(work, 0);
+          mbar_wait(empty_q, (jq & 1) ^ 1);
+          item_s[0] = -1;
+          mbar_arrive(full_q);
+          break;
+        }
+        int b, h, qt;
+        work_item(item, B, H, n_qt, b, h, qt);
+        const int kvh = h / G, q0 = qt * F::BQ;
+        const int n_kv = (min(S, q0 + F::BQ) + KT - 1) / KT;
+        for (int t = 0; t < n_kv; ++t, ++jv) {
+          for (int jj = 0; jj < ns; ++jj, ++jq) {
+            const int col = (rank + C * jj) * D;
+            mbar_wait(empty_k, (jq & 1) ^ 1);
+            mbar_expect_tx(full_k, GK::TILE);
+            for (int c = 0; c < GK::NC; ++c)
+              tma_load(base + L::K_OFF + c * GK::CHUNK, &tk, full_k,
+                       col + c * GK::AW, kvh, t * KT, b);
+            mbar_wait(empty_q, (jq & 1) ^ 1);
+            if (t == 0 && jj == 0) item_s[0] = item;
+            mbar_expect_tx(full_q, GQ::TILE);
+            for (int c = 0; c < GQ::NC; ++c)
+              tma_load(base + c * GQ::CHUNK, &tq, full_q, col + c * GQ::AW,
+                       h, q0, b);
+          }
+          mbar_wait(empty_v, (jv & 1) ^ 1);
+          mbar_expect_tx(full_v, GK::TILE);
+          for (int c = 0; c < GK::NC; ++c)
+            tma_load(base + L::V_OFF + c * GK::CHUNK, &tv, full_v,
+                     col0 + c * GK::AW, kvh, t * KT, b);
+        }
+      }
+    } else if (threadIdx.x == 0) {
       int j = 0;                                 // K, V tiles loaded so far
       for (int n = 0;; ++n) {
         const int item =
@@ -2096,6 +2171,20 @@ flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
         const uint64_t db = sdesc(ks + (kk * 16 / GK::AW) * GK::CHUNK + col,
                                   16, GK::SBO, GK::LAYOUT);
         wgmma_ss_keys<KT>(sc, da, db, kk > 0);
+      }
+    };
+    // WALKS: S (+)= Q K^T of the block's slice jj, in the Q slot and K
+    // stage: added to the slices before it (one batch, not committed)
+    auto qk_at = [&](int jj) {
+      const uint32_t ks = base + L::K_OFF;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t col = (kk * 16 % GK::AW) * 2;
+        const uint64_t da = sdesc(qa + (kk * 16 / GQ::AW) * GQ::CHUNK + col,
+                                  16, GQ::SBO, GQ::LAYOUT);
+        const uint64_t db = sdesc(ks + (kk * 16 / GK::AW) * GK::CHUNK + col,
+                                  16, GK::SBO, GK::LAYOUT);
+        wgmma_ss_keys<KT>(sc, da, db, jj > 0 || kk > 0);
       }
     };
     // O += P V of the tile in ring slot `slot` (one batch, not committed):
@@ -2228,7 +2317,7 @@ flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
     // dtype, and lse; releases the Q slot, where O is staged
     auto epilogue = [&](int b, int h, int row0) {
       if (row0 >= S) {
-        if (tid == 0) mbar_arrive(empty_q);
+        if (WALKS || tid == 0) mbar_arrive(empty_q);
         return;
       }
       float den[2];
@@ -2256,12 +2345,22 @@ flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
       fence_async_smem();
       named_sync(1 + NCONS + w, 128);
       if (tid == 0) {
-        for (int cc = 0; cc < GQ::NC; ++cc)
-          tma_store(&to, qa + cc * GQ::CHUNK,
-                    (CL ? clusterbwd::rank() * D : 0) + cc * GQ::AW, h, row0,
-                    b);
+        if constexpr (WALKS) {                 // the owned slice, if any
+          const int own = clusterbwd::rank() + clusterbwd::size() * walk;
+          if (own < slices)
+            for (int cc = 0; cc < GQ::NC; ++cc)
+              tma_store(&to, qa + cc * GQ::CHUNK, own * D + cc * GQ::AW, h,
+                        row0, b);
+        } else {
+          for (int cc = 0; cc < GQ::NC; ++cc)
+            tma_store(&to, qa + cc * GQ::CHUNK,
+                      (CL ? clusterbwd::rank() * D : 0) + cc * GQ::AW, h,
+                      row0, b);
+        }
         bulk_commit();
         bulk_wait<true>();
+        mbar_arrive(empty_q);
+      } else if constexpr (WALKS) {
         mbar_arrive(empty_q);
       }
       // m is in the log2 domain: lse = ln(2^m l)
@@ -2284,7 +2383,119 @@ flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
     // the turns past the last tile, which release their tiles unread, and
     // the epilogue.  Every wgmma sits in straight-line code or a loop.
     if (w == NCONS - 1) bar_arrive(1);         // consumer 0 takes turn 0
-    for (int n = 0;; ++n) {
+    // WALKS: the same walk, each tile's S over the block's ns slices in
+    // turn (the Q slot and K stage reloaded for each), every Q load
+    // released once read but the item's last, which the epilogue
+    // releases; waits as above, one turn a slice.  A slice's Q and K are
+    // loaded in pairs: one count for both
+    int nq = 0, nv = 0;                        // Q and K, V loads read
+    auto qk_wait = [&]() {
+      mbar_wait(full_q, nq & 1);
+      mbar_wait(full_k, nq & 1);
+    };
+    auto qk_release = [&](bool keep) {         // keep: the item's last Q
+      mbar_arrive(empty_k);
+      if (!keep) mbar_arrive(empty_q);
+      ++nq;
+    };
+    for (int n = 0; WALKS; ++n) {
+      mbar_wait(full_q, nq & 1);
+      const int item = __shfl_sync(0xffffffffu, item_s[0], 0);
+      if (item < 0) break;
+      int b, h, qt;
+      work_item(item, B, H, n_qt, b, h, qt);
+      const int q0 = qt * F::BQ;
+      const int n_kv = (min(S, q0 + F::BQ) + KT - 1) / KT;
+      const int row0 = q0 + 64 * w;            // this consumer's first row
+      const bool walks = row0 < S;
+      const int last = walks ? min(S - 1, row0 + 63) / KT : 0;
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        m[h2] = NEG;
+        l[h2] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+      // tile 0: S over the slices
+      for (int jj = 0; jj < ns; ++jj) {
+        qk_wait();
+        take_turn([&] {
+          qk_at(jj);
+          wgmma_commit();
+        });
+        wgmma_wait<0>();
+        pin(sc);
+        qk_release(n_kv == 1 && jj == ns - 1);
+      }
+      if (walks) {                             // S over all of D
+        post();
+        gather_sum();
+        online(KT - 1 > row0, row0);
+        rescale_round();
+      } else {                                 // tile 0's V is not read
+        mbar_wait(full_v, nv & 1);
+        mbar_arrive(empty_v);
+        ++nv;
+      }
+      for (int t = 1; t <= last; ++t) {
+        // the first slice's S with P V of tile t - 1, then the others'
+        qk_wait();
+        mbar_wait(full_v, nv & 1);
+        take_turn([&] {
+          qk_at(0);
+          wgmma_commit();
+          pv(0);
+          wgmma_commit();
+        });
+        wgmma_wait<0>();                       // S of slice 0, P V
+        pin(sc);
+        pin(acc);
+        mbar_arrive(empty_v);
+        ++nv;
+        qk_release(t == n_kv - 1 && ns == 1);
+        for (int jj = 1; jj < ns; ++jj) {
+          qk_wait();
+          take_turn([&] {
+            qk_at(jj);
+            wgmma_commit();
+          });
+          wgmma_wait<0>();
+          pin(sc);
+          qk_release(t == n_kv - 1 && jj == ns - 1);
+        }
+        post();                                // S over all of D
+        gather_sum();
+        online(t * KT + KT - 1 > row0, row0 - t * KT);
+        rescale_round();
+      }
+      // P V of the last tile
+      if (walks) mbar_wait(full_v, nv & 1);
+      pin(acc);
+      pin(pk);
+      wgmma_fence();
+      pv(0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(acc);
+      if (walks) {
+        mbar_arrive(empty_v);
+        ++nv;
+      }
+      // the turns past the last tile: its Q, K and V released unread
+      for (int t = last + 1; t < n_kv; ++t) {
+        for (int jj = 0; jj < ns; ++jj) {
+          qk_wait();
+          qk_release(t == n_kv - 1 && jj == ns - 1);
+          take_turn([] {});
+        }
+        mbar_wait(full_v, nv & 1);
+        mbar_arrive(empty_v);
+        ++nv;
+      }
+      epilogue(b, h, row0);
+    }
+    for (int n = 0; !WALKS; ++n) {
       mbar_wait(full_q, n & 1);
       const int item = __shfl_sync(0xffffffffu, item_s[0], 0);
       if (item < 0) break;
@@ -2380,20 +2591,32 @@ flash_fwd_bf16_kernel_d256(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// The cluster forward's schedule for operands `width` > 256 wide: the
-// work items (as schedule<256>'s), C = ceil(width / 256) blocks a cluster
-// and the clusters (one an item, up to what the device holds at once)
-int cluster_schedule(int B, int H, int S, int width, int* items, int* C,
-                     int* clusters) {
-  *items = B * H * ((S + Fwd<256>::BQ - 1) / Fwd<256>::BQ);
-  return clusterbwd::schedule(
-      reinterpret_cast<const void*>(flash_fwd_bf16_kernel_d256<true>),
-      WideL<true>::SMEM, Fwd<256>::THREADS, *items, width, C, clusters);
+// The cluster forward's instantiation at G walks: <true, false> at one
+// (256 < width <= 2048), <true, true> above
+inline auto cluster_kernel(int G) {
+  return G > 1 ? flash_fwd_bf16_kernel_d256<true, true>
+               : flash_fwd_bf16_kernel_d256<true, false>;
 }
 
-// The cluster forward at 256 < width <= 2048 (a multiple of 8): maps over
-// the whole width, whose columns past it land as zeros and are not
-// stored; the stream's ticket counter, left at zero by the launch
+// The cluster forward's schedule for operands `width` > 256 wide: the
+// work items (as schedule<256>'s), C blocks a cluster and G walks
+// (clusterbwd::walks) and the clusters (one an item, up to what the
+// device holds at once)
+int cluster_schedule(int B, int H, int S, int width, int* items, int* C,
+                     int* G, int* clusters) {
+  *items = B * H * ((S + Fwd<256>::BQ - 1) / Fwd<256>::BQ);
+  int n = 0;
+  const int err = clusterbwd::walks(width, C, G, &n);
+  if (err != 0) return err;
+  return clusterbwd::schedule(
+      reinterpret_cast<const void*>(cluster_kernel(*G)), WideL<true>::SMEM,
+      Fwd<256>::THREADS, *items, width, C, G, clusters);
+}
+
+// The cluster forward at width > 256 (a multiple of 8): maps over the
+// whole width, whose columns past it land as zeros and are not stored;
+// G launches, one a walk, each on the stream's ticket counter, left at
+// zero by the launch; lse written by the first
 int launch_cluster(const void* q, const void* k, const void* v, void* o,
                    float* lse, const Lay* ly, int B, int H, int KV, int S,
                    int width, float scale, cudaStream_t stream) {
@@ -2406,13 +2629,16 @@ int launch_cluster(const void* q, const void* k, const void* v, void* o,
   if (err != 0) return err;
   int* work = work_counter(stream);
   if (work == nullptr) return (int)cudaErrorMemoryAllocation;
-  int n_items = 0, C = 0, clusters = 0;
-  err = cluster_schedule(B, H, S, width, &n_items, &C, &clusters);
+  int n_items = 0, C = 0, G = 0, clusters = 0;
+  err = cluster_schedule(B, H, S, width, &n_items, &C, &G, &clusters);
   if (err != 0) return err;
-  return clusterbwd::launch(
-      flash_fwd_bf16_kernel_d256<true>, C, clusters, F::THREADS,
-      WideL<true>::SMEM, stream, mq, mk, mv, mo, lse, work, B, H, KV, S,
-      scale * LOG2E);
+  const int slices = (width + 255) / 256;
+  for (int g = 0; g < G && err == 0; ++g)
+    err = clusterbwd::launch(cluster_kernel(G), C, clusters, F::THREADS,
+                             WideL<true>::SMEM, stream, mq, mk, mv, mo,
+                             g == 0 ? lse : nullptr, work, B, H, KV, S,
+                             scale * LOG2E, g, slices);
+  return err;
 }
 
 // the wide body on operands `width` columns wide (a multiple of 8 up to
@@ -2437,156 +2663,11 @@ int launch_wide(const void* q, const void* k, const void* v, void* o,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F::SMEM);
   if (e != cudaSuccess) return (int)e;
   flash_fwd_bf16_kernel_d256<false><<<grid, F::THREADS, F::SMEM, stream>>>(
-      mq, mk, mv, mo, lse, work, B, H, KV, S, scale * LOG2E);
+      mq, mk, mv, mo, lse, work, B, H, KV, S, scale * LOG2E, 0, 1);
   return (int)cudaGetLastError();
 }
 
 }  // namespace bf16body
-
-namespace widebody {
-
-constexpr int BQ = 16;          // query rows per block
-constexpr int BK = 32;          // keys per KV tile (one per lane)
-constexpr int DC = 128;         // head-dim columns staged at a time
-constexpr int THREADS = 256;
-constexpr float NEG = -1e30f;   // the reference's mask value
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o,
-                      float* __restrict__ acc, float* __restrict__ lse,
-                      Lay lq, Lay lk, Lay lv, Lay lo, int H, int KV, int S,
-                      int D, float scale) {
-  __shared__ float Qs[BQ * DC];
-  __shared__ float KVs[BK * (DC + 1)];    // a K chunk, then a V chunk
-  __shared__ float Ps[BQ * (BK + 1)];     // scores, then probabilities
-  __shared__ float ms[BQ], ls[BQ], as[BQ];
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int kvh = h / (H / KV);
-  const T* qp = at(q, lq, b, h);
-  const T* kp = at(k, lk, b, kvh);
-  const T* vp = at(v, lv, b, kvh);
-  T* op = at(o, lo, b, h);
-  float* ap = acc + (size_t)bh * S * D;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int rows = min(BQ, S - q0);       // query rows of this tile
-
-  if (tid < BQ) {
-    ms[tid] = NEG;
-    ls[tid] = 0.f;
-  }
-  for (size_t e = tid; e < (size_t)rows * D; e += THREADS)
-    ap[(size_t)q0 * D + e] = 0.f;
-
-  const int kv_end = min(S, q0 + BQ);     // causal: later keys never read
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    // scores: two (row, key) pairs a thread, the dot in column order
-    float s[2] = {0.f, 0.f};
-    for (int d0 = 0; d0 < D; d0 += DC) {
-      const int dc = min(DC, D - d0);
-      __syncthreads();                    // Qs, KVs, Ps free
-      for (int e = tid; e < BQ * dc; e += THREADS) {
-        const int r = e / dc, c = e % dc;
-        Qs[r * DC + c] =
-            r < rows ? ld(qp + (q0 + r) * lq.s + d0 + c) : 0.f;
-      }
-      for (int e = tid; e < BK * dc; e += THREADS) {
-        const int r = e / dc, c = e % dc;
-        KVs[r * (DC + 1) + c] =
-            k0 + r < S ? ld(kp + (k0 + r) * lk.s + d0 + c) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int pr = tid + t * THREADS;
-        const int i = pr / BK, j = pr % BK;
-        float x = s[t];
-        for (int c = 0; c < dc; ++c)
-          x = fmaf(Qs[i * DC + c], KVs[j * (DC + 1) + c], x);
-        s[t] = x;
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int pr = tid + t * THREADS;
-      const int i = pr / BK, j = pr % BK;
-      const int kpos = k0 + j;
-      Ps[i * (BK + 1) + j] =
-          (kpos <= q0 + i && kpos < S) ? s[t] * scale : NEG;
-    }
-    __syncthreads();
-    // online softmax: warp w owns rows 2w and 2w + 1, lane j key j
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int i = warp * 2 + rr;
-      const float x = Ps[i * (BK + 1) + lane];
-      float mt = x;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_old = ms[i];
-      const float m_new = fmaxf(m_old, mt);
-      const float p = expf(x - m_new);
-      float rs = p;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      Ps[i * (BK + 1) + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        as[i] = alpha;
-        ls[i] = ls[i] * alpha + rs;
-        ms[i] = m_new;
-      }
-    }
-    // acc = acc * alpha + P V, a chunk of D at a time
-    for (int d0 = 0; d0 < D; d0 += DC) {
-      const int dc = min(DC, D - d0);
-      __syncthreads();                    // Ps, as ready; KVs free
-      for (int e = tid; e < BK * dc; e += THREADS) {
-        const int r = e / dc, c = e % dc;
-        KVs[r * (DC + 1) + c] =
-            k0 + r < S ? ld(vp + (k0 + r) * lv.s + d0 + c) : 0.f;
-      }
-      __syncthreads();
-      for (int e = tid; e < rows * dc; e += THREADS) {
-        const int i = e / dc, c = e % dc;
-        float* a = ap + (size_t)(q0 + i) * D + d0 + c;
-        float x = *a * as[i];
-        for (int j = 0; j < BK; ++j)
-          x = fmaf(Ps[i * (BK + 1) + j], KVs[j * (DC + 1) + c], x);
-        *a = x;
-      }
-    }
-  }
-  __syncthreads();
-  for (size_t e = tid; e < (size_t)rows * D; e += THREADS) {
-    const size_t g = (size_t)q0 * D + e;
-    st(op + (q0 + e / D) * lo.s + e % D, ap[g] / fmaxf(ls[e / D], 1e-30f));
-  }
-  if (lse != nullptr && tid < rows)
-    lse[(size_t)bh * S + q0 + tid] = ms[tid] + logf(fmaxf(ls[tid], 1e-30f));
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o,
-           float* ws, float* lse, const Lay* ly, int B, int H, int KV, int S,
-           int D, float scale, cudaStream_t stream) {
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_wide_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), ws, lse, ly[0], ly[1],
-      ly[2], ly[3], H, KV, S, D, scale);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace widebody
 
 // ---------------------------------------------------------------------------
 // The backward (see the note at the top of the file)
@@ -3285,8 +3366,8 @@ static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 256 <=
 // dO slot (ST = 1): the 64 KB of the second one hold the exchange of S^T
 // and dP^T partials, two buffers of 8 warps x 8 16-byte units x 32 lanes
 // (a step's 64 keys x 64 queries of each, float32), beside the two
-// ticket slots and 18 more mbarriers (the 16 warps' exchanges, the two
-// tickets): 231,136 bytes.
+// ticket slots and 20 more mbarriers (the 16 warps' exchanges, the two
+// tickets, and the walks' sub-loads full and empty): 231,152 bytes.
 template <bool CL>
 struct Smem {
   using G = Geo<D, 64>;                         // K, V, Q or dO
@@ -3307,7 +3388,7 @@ struct Smem {
   static constexpr uint32_t TICK_OFF = ITEM_OFF + 16;
   static constexpr uint32_t BAR_OFF = TICK_OFF + (CL ? 16 : 0);
   static constexpr size_t SMEM =
-      BAR_OFF + 8 * (2 + 2 * ST + (CL ? 2 * clusterbwd::XWARPS + 2 : 0)) +
+      BAR_OFF + 8 * (2 + 2 * ST + (CL ? 2 * clusterbwd::XWARPS + 4 : 0)) +
       1024;
   static_assert(SMEM <= 232448, "more shared memory than a block may take");
 };
@@ -3422,7 +3503,15 @@ __device__ __forceinline__ void wgmma_tt_n128(float (&d)[64], uint64_t da,
 // ticket counter after all of them.  Rank 0 draws the tickets for the
 // cluster, and every step's S^T and dP^T are summed over the ranks
 // (clusterbwd::exchange) before the softmax.
-template <bool CL>
+// WALKS (above 2048: `slices` = ceil(width / 256) > 8): walk `walk` of
+// clusterbwd::walks, block `rank` owning slice rank + C walk (its K and V
+// resident, its dv, dk and dq share, its region of acc and sem): each
+// step first sums S^T and dP^T over the block's other slices below the
+// width in ascending order, each through the step's Q / dO slot (its K
+// and Q, then its V and dO, 64 KB each, one mbarrier pair), and then over
+// the owned slice as above.  (WALKS = false is the same kernel at one
+// walk: no other slices.)
+template <bool CL, bool WALKS = false>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_kernel_d256(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -3434,7 +3523,9 @@ flash_bwd_kernel_d256(const __grid_constant__ CUtensorMap tq,
                       __nv_bfloat16* __restrict__ dk,
                       __nv_bfloat16* __restrict__ dv, Lay ldq, Lay ldk,
                       Lay ldv, int* sem, int* work, int B, int H, int KV,
-                      int S, int width, float scale, float scale_log2) {
+                      int S, int width, float scale, float scale_log2,
+                      int walk, int slices) {
+  static_assert(!WALKS || CL, "walks: the cluster body");
   using L = Smem<CL>;
   using G = typename L::G;
   constexpr int ST = L::ST;
@@ -3454,27 +3545,40 @@ flash_bwd_kernel_d256(const __grid_constant__ CUtensorMap tq,
   const uint32_t full_kv = bar, empty_kv = bar + 8, full = bar + 16,
                  staged = full + 8 * ST;
   const uint32_t xin = staged + 8 * ST, tick = xin + 16 * clusterbwd::XWARPS;
+  // WALKS: the other slices' sub-loads in the slot, full and empty
+  const uint32_t full_x = tick + 16, empty_x = full_x + 8;
 
   const int GS = H / KV, BKV = B * KV;
   const int nQ = (S + QT - 1) / QT;                  // query tiles
   const int n_items = BKV * ((S + KT - 1) / KT);
   int C = 1, rank = 0;
+  // the owned slice; WALKS: the block's slices below the width (rank + C
+  // jj) but the owned one: n_other
+  int own = 0, n_other = 0;
   if constexpr (CL) {
     C = clusterbwd::size();
     rank = clusterbwd::rank();
-    sem += (size_t)rank * B * H * nQ;
-    acc += (size_t)rank * B * H * nQ * QT * D;
-    dq += rank * D;
-    dk += rank * D;
-    dv += rank * D;
-    width -= rank * D;                           // the slice's, >= 1
+    own = rank;
+    if constexpr (WALKS) {
+      own += C * walk;
+      n_other = clusterbwd::others(slices, rank, C, walk);
+    }
+    sem += (size_t)own * B * H * nQ;
+    acc += (size_t)own * B * H * nQ * QT * D;
+    dq += own * D;
+    dk += own * D;
+    dv += own * D;
+    width -= own * D;                            // the slice's, >= 1 (WALKS:
+                                                 // <= 0 past the width)
   }
-  const int col0 = rank * D;                     // the slice's first column
+  const int col0 = own * D;                      // the slice's first column
   // dq's accumulator tile: NP parts of 64 x 64 floats (columns 64 p ..
   // 64 p + 63), 4 but in a last slice narrower than 256 columns, whose
   // parts past its width are neither added nor read (their columns are
-  // zero and never stored)
-  const int NP = CL ? min(4, (width + 63) / 64) : 4;
+  // zero and never stored; WALKS: none in a slice past the width)
+  const int NP = CL ? (WALKS ? max(0, min(4, (width + 63) / 64))
+                             : min(4, (width + 63) / 64))
+                    : 4;
   const size_t TF = (size_t)NP * QT * 64;          // floats a tile
 
   if (threadIdx.x == 0) {
@@ -3489,6 +3593,10 @@ flash_bwd_kernel_d256(const __grid_constant__ CUtensorMap tq,
         mbar_init(xin + 8 * i, C - 1);
       mbar_init(tick, 1);
       mbar_init(tick + 8, 1);
+    }
+    if constexpr (WALKS) {
+      mbar_init(full_x, 1);
+      mbar_init(empty_x, 256);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -3571,6 +3679,30 @@ flash_bwd_kernel_d256(const __grid_constant__ CUtensorMap tq,
             __syncwarp();
           }
           if (lane == 0) {
+            if constexpr (WALKS) {
+              // the other slices in ascending order: K and Q, then V and
+              // dO, into the slot (K or V in the Q tile, Q or dO in the
+              // dO tile), each once the one before is read (a step has an
+              // even number of them: K and Q the even phases of full_x)
+              const int no = clusterbwd::others(slices, clusterbwd::rank(),
+                                                clusterbwd::size(), walk);
+              for (int i = 0; i < no; ++i) {
+                const int col = (clusterbwd::rank() + clusterbwd::size() *
+                                 (i + (i >= walk))) * D;
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  mbar_wait(empty_x, e ^ 1);
+                  mbar_expect_tx(full_x, 2 * G::TILE);
+                  for (int c = 0; c < G::NC; ++c) {
+                    tma_load(base + L::Q_OFF + c * G::CHUNK, e ? &tv : &tk,
+                             full_x, col + c * G::AW, kvh, k0, b);
+                    tma_load(base + L::DO_OFF + c * G::CHUNK, e ? &tdo : &tq,
+                             full_x, col + c * G::AW, h, q0, b);
+                  }
+                }
+              }
+              mbar_wait(empty_x, 1);                 // the last one read
+            }
             mbar_expect_tx(full + 8 * slot, 2 * G::TILE);
             for (int c = 0; c < G::NC; ++c) {
               tma_load(base + L::Q_OFF + slot * G::TILE + c * G::CHUNK,
@@ -3610,15 +3742,16 @@ flash_bwd_kernel_d256(const __grid_constant__ CUtensorMap tq,
     float dq_acc[64];                // dq's share: 64 queries x 128 columns
 
     // S^T (a = K) or dP^T (a = V) of this consumer's 32 queries of the
-    // Q or dO tile at b: 16 k-steps over D (one batch, not committed)
-    auto scores = [&](float (&s)[16], uint32_t a, uint32_t b) {
+    // Q or dO tile at b: 16 k-steps over D (one batch, not committed),
+    // added to s's sum so far if `add`
+    auto scores = [&](float (&s)[16], uint32_t a, uint32_t b, bool add) {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk * 16 / G::AW) * G::CHUNK +
                              (kk * 16 % G::AW) * 2;
         wgmma_ss_n32(s, sdesc(a + off, 16, G::SBO, G::LAYOUT),
                      sdesc(b + 32 * w * G::ROW + off, 16, G::SBO, G::LAYOUT),
-                     kk > 0);
+                     add || kk > 0);
       }
     };
     // d += A T over the step's 64 queries: A the P^T or dS^T tile at a
@@ -3706,12 +3839,39 @@ flash_bwd_kernel_d256(const __grid_constant__ CUtensorMap tq,
         const uint32_t dos = base + L::DO_OFF + slot * G::TILE;
         const uint32_t pt = base + L::P_OFF + (it & 1) * L::PT_TILE;
         const uint32_t dst = base + L::DS_OFF + (it & 1) * L::PT_TILE;
+        if constexpr (WALKS) {
+          // the other slices' S^T and dP^T, from the slot: each slice two
+          // phases of full_x (a step has an even number), K and Q the
+          // even one, V and dO the odd one
+          for (int i = n_other; i > 0; --i) {
+            const bool add = i != n_other;
+            mbar_wait(full_x, 0);                // K and Q
+            pin(dk_acc);
+            pin(dv_acc);
+            wgmma_fence();
+            scores(st, qs, dos, add);
+            wgmma_commit();
+            wgmma_wait<0>();
+            pin(st);
+            mbar_arrive(empty_x);
+            mbar_wait(full_x, 1);                // V and dO
+            pin(dk_acc);
+            pin(dv_acc);
+            wgmma_fence();
+            scores(dp, qs, dos, add);
+            wgmma_commit();
+            wgmma_wait<0>();
+            pin(dp);
+            mbar_arrive(empty_x);
+          }
+        }
         mbar_wait(full + 8 * slot, (it / ST) & 1);
         pin(dk_acc);
         pin(dv_acc);
         wgmma_fence();
-        scores(st, ks, qs);                      // S^T = K Q^T
-        scores(dp, vs, dos);                     // dP^T = V dO^T
+        // S^T = K Q^T, dP^T = V dO^T (WALKS: added to the other slices')
+        scores(st, ks, qs, WALKS && n_other > 0);
+        scores(dp, vs, dos, WALKS && n_other > 0);
         wgmma_commit();
         wgmma_wait<0>();
         pin(st);
@@ -3859,26 +4019,38 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
       mq, mk, mv, mdo, lse, delta, acc, static_cast<__nv_bfloat16*>(dq),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
       ly[5], ly[6], ly[7], sem, sem + (size_t)B * H * nQ, B, H, KV, S,
-      width, scale, scale * LOG2E);
+      width, scale, scale * LOG2E, 0, 1);
   return (int)cudaGetLastError();
 }
 
-// The cluster body's schedule for operands `width` > 256 wide: the work
-// items (as above), C = ceil(width / 256) blocks a cluster and the
-// clusters (one an item, up to what the device holds at once)
-int cluster_schedule(int B, int KV, int S, int width, int* items, int* C,
-                     int* clusters) {
-  *items = B * KV * ((S + KT - 1) / KT);
-  return clusterbwd::schedule(
-      reinterpret_cast<const void*>(flash_bwd_kernel_d256<true>),
-      Smem<true>::SMEM, NTHREADS, *items, width, C, clusters);
+// The cluster body's instantiation at G walks: <true, false> at one (256
+// < width <= 2048), <true, true> above
+inline auto cluster_kernel(int G) {
+  return G > 1 ? flash_bwd_kernel_d256<true, true>
+               : flash_bwd_kernel_d256<true, false>;
 }
 
-// The cluster body at 256 < width <= 2048 (a multiple of 8): acc a
-// float32 scratch of B * H * ceil(S / 64) * 64 * W, W the width rounded
-// up to 64 (a region of 256-column tiles a slice, the last slice's tiles
-// as wide as its 64-column parts), and sem C * B * H * ceil(S / 64) + 1
-// ints, zeroed (the Delta pass), one region a slice
+// The cluster body's schedule for operands `width` > 256 wide: the work
+// items (as above), C blocks a cluster and G walks (clusterbwd::walks)
+// and the clusters (one an item, up to what the device holds at once)
+int cluster_schedule(int B, int KV, int S, int width, int* items, int* C,
+                     int* G, int* clusters) {
+  *items = B * KV * ((S + KT - 1) / KT);
+  int n = 0;
+  const int err = clusterbwd::walks(width, C, G, &n);
+  if (err != 0) return err;
+  return clusterbwd::schedule(reinterpret_cast<const void*>(cluster_kernel(*G)),
+                              Smem<true>::SMEM, NTHREADS, *items, width, C, G,
+                              clusters);
+}
+
+// The cluster body at width > 256 (a multiple of 8): acc a float32
+// scratch of B * H * ceil(S / 64) * 64 * W, W the width rounded up to 64
+// (a region of 256-column tiles a slice, the last slice's tiles as wide
+// as its 64-column parts), and sem C * G * B * H * ceil(S / 64) + G ints,
+// zeroed (the Delta pass): one region of counters a slice of the C G the
+// walks own (those past the width counted, never added), then each
+// walk's ticket counter; G launches, one a walk
 int launch_cluster(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, void* dk, void* dv, float* acc, int* sem,
@@ -3890,17 +4062,19 @@ int launch_cluster(const void* q, const void* k, const void* v,
   if (err == 0) err = make_map<D>(&mk, k, ly[1], KV, S, B, KT, width);
   if (err == 0) err = make_map<D>(&mv, v, ly[2], KV, S, B, KT, width);
   if (err != 0) return err;
-  int n_items = 0, C = 0, clusters = 0;
-  err = cluster_schedule(B, KV, S, width, &n_items, &C, &clusters);
+  int n_items = 0, C = 0, G = 0, clusters = 0;
+  err = cluster_schedule(B, KV, S, width, &n_items, &C, &G, &clusters);
   if (err != 0) return err;
   const int nQ = (S + QT - 1) / QT;
-  return clusterbwd::launch(
-      flash_bwd_kernel_d256<true>, C, clusters, NTHREADS, Smem<true>::SMEM,
-      stream, mq, mk, mv, mdo, lse, delta, acc,
-      static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), ly[5], ly[6], ly[7], sem,
-      sem + (size_t)C * B * H * nQ, B, H, KV, S, width, scale,
-      scale * LOG2E);
+  const int slices = (width + D - 1) / D;
+  for (int g = 0; g < G && err == 0; ++g)
+    err = clusterbwd::launch(
+        cluster_kernel(G), C, clusters, NTHREADS, Smem<true>::SMEM, stream,
+        mq, mk, mv, mdo, lse, delta, acc, static_cast<__nv_bfloat16*>(dq),
+        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+        ly[5], ly[6], ly[7], sem, sem + (size_t)C * G * B * H * nQ + g, B, H,
+        KV, S, width, scale, scale * LOG2E, g, slices);
+  return err;
 }
 
 }  // namespace widebwd
@@ -4531,20 +4705,32 @@ static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 32 * WARPS <=
 // The maps hold the operands' real width (a multiple of 4, at most 256):
 // the columns past it land as zeros, and O is stored below it.
 // CL: the cluster forward, block `rank` of a cluster of C on columns 256
-// rank .. 256 rank + 255 of operands 256 < width <= 2048 wide, as
+// rank .. 256 rank + 255 of operands 256 < width <= 2048 wide (above,
+// the walks, below), as
 // Fwd<256>'s: the maps' coordinates start there, O is stored from there
 // below width, rank 0 draws the tickets (and leaves the counter at zero)
 // and writes lse, and each lane's row against its 8 keys of a tile (the
 // quarters added) is summed over the ranks (clusterbwd::exchange) before
 // the softmax.
-template <bool CL>
+// WALKS (above 2048), as Fwd<256>'s: walk `walk`, block `rank` owning
+// slice rank + C walk; per key tile its slices below the width in turn,
+// each slice's Q and K, every lane's quarter of the dots summed over them
+// in slice order, then the quarters, the exchange, the softmax, and V of
+// the owned slice.  The same bytes laid out for the walks: two Q slots
+// (the second in the V stages' room, its mbarriers V stage 0's) and one
+// ring of two stages (the K stages) that carries each tile's K tiles and
+// then its V tile in load order, so that no slice waits for the one
+// before it to be read: the next slice's Q and K land under its dots.
+// Each Q slot has its own item word.
+template <bool CL, bool WALKS = false>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           float* __restrict__ o, float* __restrict__ lse,
                           Lay lo, int* work, int B, int H, int KV, int S,
-                          int width, float scale) {
+                          int width, float scale, int walk) {
+  static_assert(!WALKS || CL, "walks: the cluster body");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* gb = smem_raw + (base - smem_u32(smem_raw));
@@ -4565,14 +4751,23 @@ flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
   const int n_qt = (S + BQ - 1) / BQ;
   const int n_items = B * H * n_qt;
   int C = 1, rank = 0;
+  int own = 0;                                 // the owned slice
   if constexpr (CL) {
     C = clusterbwd::size();
     rank = clusterbwd::rank();
-    o += rank * D;
-    width -= rank * D;                         // the slice's, >= 1
-    if (rank != 0) lse = nullptr;              // rank 0 writes lse
+    own = rank;
+    if constexpr (WALKS) own += C * walk;
+    o += own * D;
+    width -= own * D;                          // the slice's, >= 1 (WALKS:
+                                               // <= 0 past the width)
+    if (own != 0) lse = nullptr;               // rank 0 writes lse
   }
-  const int col0 = rank * D;                   // the slice's first column
+  const int col0 = own * D;                    // the slice's first column
+  // WALKS: the block's slices below the width, rank + C jj for jj <
+  // ns_(), read where it is used (registers are scarce in both roles)
+  auto ns_ = [&]() {
+    return clusterbwd::slices_of((width + own * D + D - 1) / D, rank, C);
+  };
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
@@ -4612,6 +4807,8 @@ flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
       return;
     }
     int j = 0;                                   // K, V tiles loaded so far
+    // WALKS: tile j (of all items so far) is Q loads j ns + jj and ring
+    // loads j (ns + 1) + jj, its V the ring's next
     for (int n = 0; !CL || threadIdx.x == 32 * WARPS; ++n) {
       const int item = CL ? clusterbwd::ticket(work, base + TICK_OFF, tick,
                                                n, C, rank)
@@ -4625,15 +4822,51 @@ flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
         } else {
           if (item == n_items + (int)gridDim.x - 1) atomicExch(work, 0);
         }
-        mbar_wait(empty_q, (n & 1) ^ 1);
-        *item_s = -1;
-        mbar_arrive(full_q);
+        if constexpr (WALKS) {
+          const int jq = j * ns_(), i = jq & 1;
+          mbar_wait(i ? empty_v : empty_q, ((jq >> 1) & 1) ^ 1);
+          item_s[i] = -1;
+          mbar_arrive(i ? full_v : full_q);
+        } else {
+          mbar_wait(empty_q, (n & 1) ^ 1);
+          *item_s = -1;
+          mbar_arrive(full_q);
+        }
         break;
       }
       int b, h, qt;
       work_item(item, B, H, n_qt, b, h, qt);
       const int kvh = h / G, q0 = qt * BQ;
       const int n_kv = (min(S, q0 + BQ) + BK - 1) / BK;
+      if constexpr (WALKS) {
+        // per key tile: each of the block's slices' Q (slot jq & 1) and K
+        // (the ring), then the owned slice's V (the ring)
+        auto ring_load = [&](const CUtensorMap* map, int col, int t,
+                             int jr) {
+          const int s = jr & 1;
+          mbar_wait(empty_k + 8 * s, ((jr >> 1) & 1) ^ 1);
+          mbar_expect_tx(full_k + 8 * s, TK::BYTES);
+          for (int c = 0; c < TK::NC; ++c)
+            tma_load(base + K_OFF + s * TK::BYTES + c * TK::CHUNK, map,
+                     full_k + 8 * s, col + c * TK::AW, kvh, t * BK, b);
+        };
+        for (int t = 0; t < n_kv; ++t, ++j) {
+          for (int jj = 0; jj < ns_(); ++jj) {
+            const int col = (rank + C * jj) * D, jq = j * ns_() + jj;
+            const int i = jq & 1;
+            const uint32_t fq = i ? full_v : full_q;
+            mbar_wait(i ? empty_v : empty_q, ((jq >> 1) & 1) ^ 1);
+            if (t == 0 && jj == 0) item_s[i] = item;
+            mbar_expect_tx(fq, TQ::BYTES);
+            for (int c = 0; c < TQ::NC; ++c)
+              tma_load(base + (i ? V_OFF : Q_OFF) + c * TQ::CHUNK, &tq, fq,
+                       col + c * TQ::AW, h, q0, b);
+            ring_load(&tk, col, t, j * (ns_() + 1) + jj);
+          }
+          ring_load(&tv, col0, t, (j + 1) * (ns_() + 1) - 1);
+        }
+        continue;
+      }
       // K and V of key tile t into the next ring slot
       auto kv_load = [&](int t) {
         const int s = j % STAGES;
@@ -4676,9 +4909,19 @@ flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
     float* alpha_s = reinterpret_cast<float*>(gb + ROW_OFF);
     float* l_s = alpha_s + BQ;
     int j = 0;                                   // K, V tiles read so far
+    // WALKS: tile t of an item is Q loads (j + t) ns + jj (slot: the
+    // load's parity) and ring loads (j + t) (ns + 1) + jj, its V the
+    // ring's next
     for (int n = 0;; ++n) {
-      mbar_wait(full_q, n & 1);
-      const int item = *item_s;
+      int item;
+      if constexpr (WALKS) {
+        const int jq = j * ns_();
+        mbar_wait(jq & 1 ? full_v : full_q, (jq >> 1) & 1);
+        item = item_s[jq & 1];
+      } else {
+        mbar_wait(full_q, n & 1);
+        item = *item_s;
+      }
       if (item < 0) break;
       int b, h, qt;
       work_item(item, B, H, n_qt, b, h, qt);
@@ -4695,35 +4938,79 @@ flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
       for (int t = 0; t < n_kv; ++t, ++j) {
         const int s = j % STAGES;
         const uint32_t parity = (j / STAGES) & 1;
-        const uint32_t ks = K_OFF + s * TK::BYTES, vs = V_OFF + s * TK::BYTES;
+        // WALKS: the tile's V is the ring's load after its ns K tiles
+        const int jv = (j + 1) * (ns_() + 1) - 1;
+        const uint32_t ks = K_OFF + s * TK::BYTES;
+        const uint32_t vs = WALKS ? K_OFF + (jv & 1) * TK::BYTES
+                                  : V_OFF + s * TK::BYTES;
+        const uint32_t full_vt = WALKS ? full_k + 8 * (jv & 1)
+                                       : full_v + 8 * s;
+        const uint32_t empty_vt = WALKS ? empty_k + 8 * (jv & 1)
+                                        : empty_v + 8 * s;
+        const uint32_t vpar = WALKS ? (jv >> 1) & 1 : parity;
         // S = Q K^T: each quarter of a dot over D in column order
         float x[4][8];
 #pragma unroll
         for (int r = 0; r < 4; ++r)
 #pragma unroll
           for (int c = 0; c < 8; ++c) x[r][c] = 0.f;
-        mbar_wait(full_k + 8 * s, parity);
+        if constexpr (WALKS) {
+          // the block's slices in order, each quarter's chain carried on
+          // (Q in slot jq & 1, K in the ring)
+          for (int jj = 0; jj < ns_(); ++jj) {
+            const int jq = j * ns_() + jj, jr = j * (ns_() + 1) + jj;
+            const int i = jq & 1, sr = jr & 1;
+            const uint32_t qb = i ? V_OFF : Q_OFF;
+            const uint32_t kb = K_OFF + sr * TK::BYTES;
+            if (t > 0 || jj > 0)
+              mbar_wait(i ? full_v : full_q, (jq >> 1) & 1);
+            mbar_wait(full_k + 8 * sr, (jr >> 1) & 1);
 #pragma unroll 2
-        for (int tt = 0; tt < D / 4 / PARTS; ++tt) {
-          const int u = D / 4 / PARTS * pq + tt;
-          float4 qf[4];
+            for (int tt = 0; tt < D / 4 / PARTS; ++tt) {
+              const int u = D / 4 / PARTS * pq + tt;
+              float4 qf[4];
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
-            qf[r] = lds4(gb, Q_OFF + TQ::at(r4 + r, u));
+              for (int r = 0; r < 4; ++r)
+                qf[r] = lds4(gb, qb + TQ::at(r4 + r, u));
 #pragma unroll
-          for (int c = 0; c < 8; ++c) {
-            const float4 kf = lds4(gb, ks + TK::at(kq + 4 * c, u));
+              for (int c = 0; c < 8; ++c) {
+                const float4 kf = lds4(gb, kb + TK::at(kq + 4 * c, u));
 #pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              x[r][c] = fmaf(qf[r].x, kf.x, x[r][c]);
-              x[r][c] = fmaf(qf[r].y, kf.y, x[r][c]);
-              x[r][c] = fmaf(qf[r].z, kf.z, x[r][c]);
-              x[r][c] = fmaf(qf[r].w, kf.w, x[r][c]);
+                for (int r = 0; r < 4; ++r) {
+                  x[r][c] = fmaf(qf[r].x, kf.x, x[r][c]);
+                  x[r][c] = fmaf(qf[r].y, kf.y, x[r][c]);
+                  x[r][c] = fmaf(qf[r].z, kf.z, x[r][c]);
+                  x[r][c] = fmaf(qf[r].w, kf.w, x[r][c]);
+                }
+              }
+            }
+            mbar_arrive(empty_k + 8 * sr);       // K read
+            mbar_arrive(i ? empty_v : empty_q);  // Q read
+          }
+        } else {
+          mbar_wait(full_k + 8 * s, parity);
+#pragma unroll 2
+          for (int tt = 0; tt < D / 4 / PARTS; ++tt) {
+            const int u = D / 4 / PARTS * pq + tt;
+            float4 qf[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              qf[r] = lds4(gb, Q_OFF + TQ::at(r4 + r, u));
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+              const float4 kf = lds4(gb, ks + TK::at(kq + 4 * c, u));
+#pragma unroll
+              for (int r = 0; r < 4; ++r) {
+                x[r][c] = fmaf(qf[r].x, kf.x, x[r][c]);
+                x[r][c] = fmaf(qf[r].y, kf.y, x[r][c]);
+                x[r][c] = fmaf(qf[r].z, kf.z, x[r][c]);
+                x[r][c] = fmaf(qf[r].w, kf.w, x[r][c]);
+              }
             }
           }
+          mbar_arrive(empty_k + 8 * s);            // K read
+          if (t == n_kv - 1) mbar_arrive(empty_q);   // Q read
         }
-        mbar_arrive(empty_k + 8 * s);            // K read
-        if (t == n_kv - 1) mbar_arrive(empty_q);   // Q read
         // the quarters: p and p ^ 1 (lanes 8 apart) keep rows 0, 1 where
         // p is even and 2, 3 where it is odd, then p and p ^ 2 (16 apart)
         float z[8];
@@ -4780,7 +5067,7 @@ flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
         for (int r8 = 0; r8 < 8; ++r8)
 #pragma unroll
           for (int e = 0; e < 8; ++e) acc[r8][e] *= al[r8];
-        mbar_wait(full_v + 8 * s, parity);
+        mbar_wait(full_vt, vpar);
         // O += P V: the tile's keys in order, the warp's 8 rows of P^T and
         // the lane's two column units of V
 #pragma unroll 4
@@ -4801,7 +5088,7 @@ flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
           }
         }
         __syncwarp();                            // P read before it is rewritten
-        mbar_arrive(empty_v + 8 * s);            // V read
+        mbar_arrive(empty_vt);                   // V read
       }
       // O / l from registers, rows below S and columns below the width;
       // lse from the rows' own lanes
@@ -4871,24 +5158,35 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   if (e != cudaSuccess) return (int)e;
   flash_fwd_f32_wide_kernel<false><<<grid, THREADS, SMEM, stream>>>(
       mq, mk, mv, static_cast<float*>(o), lse, ly[3], work, B, H, KV, S,
-      width, scale);
+      width, scale, 0);
   return (int)cudaGetLastError();
 }
 
-// The cluster forward's schedule for operands `width` > 256 wide: the
-// work items (as `schedule`'s), C = ceil(width / 256) blocks a cluster and
-// the clusters (one an item, up to what the device holds at once)
-int cluster_schedule(int B, int H, int S, int width, int* items, int* C,
-                     int* clusters) {
-  *items = B * H * ((S + BQ - 1) / BQ);
-  return clusterbwd::schedule(
-      reinterpret_cast<const void*>(flash_fwd_f32_wide_kernel<true>),
-      CL_SMEM, THREADS, *items, width, C, clusters);
+// The cluster forward's instantiation at G walks (as Fwd<256>'s)
+inline auto cluster_kernel(int G) {
+  return G > 1 ? flash_fwd_f32_wide_kernel<true, true>
+               : flash_fwd_f32_wide_kernel<true, false>;
 }
 
-// The cluster forward at 256 < width <= 2048 (a multiple of 4): maps over
-// the whole width, whose columns past it land as zeros and are not
-// stored; the stream's ticket counter, left at zero by the launch
+// The cluster forward's schedule for operands `width` > 256 wide: the
+// work items (as `schedule`'s), C blocks a cluster and G walks
+// (clusterbwd::walks) and the clusters (one an item, up to what the
+// device holds at once)
+int cluster_schedule(int B, int H, int S, int width, int* items, int* C,
+                     int* G, int* clusters) {
+  *items = B * H * ((S + BQ - 1) / BQ);
+  int n = 0;
+  const int err = clusterbwd::walks(width, C, G, &n);
+  if (err != 0) return err;
+  return clusterbwd::schedule(reinterpret_cast<const void*>(cluster_kernel(*G)),
+                              CL_SMEM, THREADS, *items, width, C, G,
+                              clusters);
+}
+
+// The cluster forward at width > 256 (a multiple of 4): maps over the
+// whole width, whose columns past it land as zeros and are not stored;
+// G launches, one a walk, each on the stream's ticket counter, left at
+// zero by the launch; lse written by the first
 int launch_cluster(const void* q, const void* k, const void* v, void* o,
                    float* lse, const Lay* ly, int B, int H, int KV, int S,
                    int width, float scale, cudaStream_t stream) {
@@ -4899,13 +5197,15 @@ int launch_cluster(const void* q, const void* k, const void* v, void* o,
   if (err != 0) return err;
   int* work = work_counter(stream);
   if (work == nullptr) return (int)cudaErrorMemoryAllocation;
-  int n_items = 0, C = 0, clusters = 0;
-  err = cluster_schedule(B, H, S, width, &n_items, &C, &clusters);
+  int n_items = 0, C = 0, G = 0, clusters = 0;
+  err = cluster_schedule(B, H, S, width, &n_items, &C, &G, &clusters);
   if (err != 0) return err;
-  return clusterbwd::launch(flash_fwd_f32_wide_kernel<true>, C, clusters,
-                            THREADS, CL_SMEM, stream, mq, mk, mv,
-                            static_cast<float*>(o), lse, ly[3], work, B, H,
-                            KV, S, width, scale);
+  for (int g = 0; g < G && err == 0; ++g)
+    err = clusterbwd::launch(cluster_kernel(G), C, clusters, THREADS,
+                             CL_SMEM, stream, mq, mk, mv,
+                             static_cast<float*>(o), g == 0 ? lse : nullptr,
+                             ly[3], work, B, H, KV, S, width, scale, g);
+  return err;
 }
 
 }  // namespace f32wide
@@ -4978,13 +5278,14 @@ constexpr size_t SMEM = BAR_OFF + 8 * 6 + 1024;
 static_assert(SMEM <= 232448, "more shared memory than a block may take");
 // The cluster body (CL) adds, after the mbarriers, the exchange of S and
 // dP partials, two buffers of 8 warps x 2 16-byte units x 32 lanes (a
-// step's 32 x 32 of each, float32), the two ticket slots and 18 more
-// mbarriers (the 16 warps' exchanges, the two tickets): 195,552 bytes.
+// step's 32 x 32 of each, float32), the two ticket slots and 22 more
+// mbarriers (the 16 warps' exchanges, the two tickets, the walks'
+// sub-loads of S and of dP full and empty): 195,584 bytes.
 constexpr uint32_t XBUF = clusterbwd::XWARPS * 2 * clusterbwd::XUNIT;
 constexpr uint32_t X_OFF = (BAR_OFF + 8 * 6 + 15) / 16 * 16;
 constexpr uint32_t TICK_OFF = X_OFF + 2 * XBUF;
 constexpr uint32_t XBAR_OFF = TICK_OFF + 16;
-constexpr size_t CL_SMEM = XBAR_OFF + 8 * (2 * clusterbwd::XWARPS + 2) + 1024;
+constexpr size_t CL_SMEM = XBAR_OFF + 8 * (2 * clusterbwd::XWARPS + 6) + 1024;
 static_assert(CL_SMEM <= 232448, "more shared memory than a block may take");
 
 // The main pass (float32, 128 < D <= 256): f32bwd's roles, list order,
@@ -5012,7 +5313,13 @@ static_assert(CL_SMEM <= 232448, "more shared memory than a block may take");
 // below width, acc and sem are the slice's own regions, `work` the ticket
 // counter after all of them; rank 0 draws the tickets, and each group's S
 // or dP is summed over the ranks (clusterbwd::exchange) before P and dS.
-template <bool CL>
+// WALKS (above 2048), as widebwd's: walk `walk`, block `rank` owning
+// slice rank + C walk; each step first carries each lane's quarter chain
+// of S (group 0) and dP (group 1) over the block's other slices below the
+// width in ascending order, through the step's Q / dO slot (a slice's K
+// and Q for group 0, then its V and dO for group 1: an mbarrier pair
+// each), and then over the owned slice as above.
+template <bool CL, bool WALKS = false>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -5023,7 +5330,8 @@ flash_bwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
                           float* __restrict__ dq, float* __restrict__ dk,
                           float* __restrict__ dv, Lay ldq, Lay ldk, Lay ldv,
                           int* sem, int* work, int B, int H, int KV, int S,
-                          int width, float scale) {
+                          int width, float scale, int walk) {
+  static_assert(!WALKS || CL, "walks: the cluster body");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* gb = smem_raw + (base - smem_u32(smem_raw));
@@ -5035,29 +5343,44 @@ flash_bwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t full_kv = bar, empty_kv = bar + 8, full = bar + 16,
                  empty = bar + 24, staged = bar + 32, freed = bar + 40;
   // CL: per exchange buffer and compute warp the other ranks' arrivals,
-  // and the two tickets'
+  // and the two tickets'; WALKS: the sub-loads of S (a) and of dP (b),
+  // full and empty
   const uint32_t xin = base + XBAR_OFF, tick = xin + 16 * clusterbwd::XWARPS;
+  const uint32_t full_a = tick + 16, empty_a = full_a + 8,
+                 full_b = full_a + 16, empty_b = full_a + 24;
 
   const int G = H / KV, BKV = B * KV;
   const int nQ = (S + QT - 1) / QT;          // query tiles = key tiles
   const int n_items = BKV * nQ;
   int C = 1, rank = 0;
+  // the owned slice; WALKS: the block's slices below the width (rank + C
+  // jj) but the owned one: n_other
+  int own = 0, n_other = 0;
   if constexpr (CL) {
     C = clusterbwd::size();
     rank = clusterbwd::rank();
-    sem += (size_t)rank * B * H * nQ;
-    acc += (size_t)rank * B * H * nQ * QT * D;
-    dq += rank * D;
-    dk += rank * D;
-    dv += rank * D;
-    width -= rank * D;                       // the slice's, >= 1
+    own = rank;
+    if constexpr (WALKS) {
+      own += C * walk;
+      n_other = clusterbwd::others((width + D - 1) / D, rank, C, walk);
+    }
+    sem += (size_t)own * B * H * nQ;
+    acc += (size_t)own * B * H * nQ * QT * D;
+    dq += own * D;
+    dk += own * D;
+    dv += own * D;
+    width -= own * D;                        // the slice's, >= 1 (WALKS:
+                                             // <= 0 past the width)
   }
-  const int col0 = rank * D;                 // the slice's first column
+  const int col0 = own * D;                  // the slice's first column
   // dq's accumulator tile and share: QT queries x U column units (4
   // floats), U = DCG but in a last slice narrower than 256 columns, whose
-  // units past its width are neither staged nor read; in the dq threads'
-  // order, [r][query group tid / DCG][unit] for query iq + r
-  const int U = CL ? min(DCG, (width + 3) / 4) : DCG;
+  // units past its width are neither staged nor read (WALKS: none in a
+  // slice past the width); in the dq threads' order, [r][query group tid /
+  // DCG][unit] for query iq + r
+  const int U = CL ? (WALKS ? max(0, min(DCG, (width + 3) / 4))
+                            : min(DCG, (width + 3) / 4))
+                   : DCG;
   const size_t TF = (size_t)QT * 4 * U;      // floats a tile
 
   if (threadIdx.x == 0) {
@@ -5072,6 +5395,12 @@ flash_bwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_init(xin + 8 * i, C - 1);
       mbar_init(tick, 1);
       mbar_init(tick + 8, 1);
+    }
+    if constexpr (WALKS) {
+      mbar_init(full_a, 1);
+      mbar_init(empty_a, 128);               // group 0
+      mbar_init(full_b, 1);
+      mbar_init(empty_b, 128);               // group 1
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -5102,8 +5431,8 @@ flash_bwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
       if (p_kt > 0) {
         wait_count(cnt, p_kt);
         fence_async_global();
-        bulk_add(dst, base + SH_OFF, TF * 4);
-      } else {
+        if (!WALKS || TF > 0) bulk_add(dst, base + SH_OFF, TF * 4);
+      } else if (!WALKS || TF > 0) {
         bulk_store(dst, base + SH_OFF, TF * 4);
       }
       bulk_commit_wait();
@@ -5146,6 +5475,33 @@ flash_bwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
         const int h = kvh * G + s % G;
         mbar_wait(empty, (it & 1) ^ 1);          // the step before read
         if (lane == 0) {
+          if constexpr (WALKS) {
+            // the other slices in ascending order through the slot: K
+            // (Q tile) and Q (dO tile) for group 0's S, then V and dO for
+            // group 1's dP, each once the one before is read (step it's
+            // i-th is the pairs' phase it n_other + i)
+            for (int i = 0; i < n_other; ++i) {
+              const int col = (rank + C * (i + (i >= walk))) * D;
+              const int nx = it * n_other + i;
+              mbar_wait(empty_b, (nx & 1) ^ 1);
+              mbar_expect_tx(full_a, 2 * T::BYTES);
+              for (int c = 0; c < T::NC; ++c) {
+                tma_load(base + Q_OFF + c * T::CHUNK, &tk, full_a,
+                         col + c * T::AW, kvh, k0, b);
+                tma_load(base + DO_OFF + c * T::CHUNK, &tq, full_a,
+                         col + c * T::AW, h, q0, b);
+              }
+              mbar_wait(empty_a, nx & 1);
+              mbar_expect_tx(full_b, 2 * T::BYTES);
+              for (int c = 0; c < T::NC; ++c) {
+                tma_load(base + Q_OFF + c * T::CHUNK, &tv, full_b,
+                         col + c * T::AW, kvh, k0, b);
+                tma_load(base + DO_OFF + c * T::CHUNK, &tdo, full_b,
+                         col + c * T::AW, h, q0, b);
+              }
+            }
+            mbar_wait(empty_b, ((it + 1) * n_other & 1) ^ 1);  // the last read
+          }
           mbar_expect_tx(full, 2 * T::BYTES);
           for (int c = 0; c < T::NC; ++c) {
             tma_load(base + Q_OFF + c * T::CHUNK, &tq, full,
@@ -5220,32 +5576,53 @@ flash_bwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
       for (int s = 0; s < steps; ++s, ++it) {
         const int qi = nQ - 1 - s / G, q0 = qi * QT;
         const int h = kvh * G + s % G, bh = b * H + h;
-        mbar_wait(full, it & 1);
         // S = Q K^T (group 0) or dP = dO V^T (group 1): each quarter of
-        // a dot over D in column order, then the quarters added
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) x[r][c] = 0.f;
+        // a dot over D in column order, then the quarters added (WALKS:
+        // each quarter's chain over the other slices first, from the
+        // slot: Q or dO in its dO tile, K or V in its Q tile)
+        auto dots = [&](uint32_t ta, uint32_t tb) {
 #pragma unroll 2
-        for (int t = 0; t < D / 4 / PARTS; ++t) {
-          const int u = D / 4 / PARTS * pq + t;
-          float4 qf[4];
+          for (int t = 0; t < D / 4 / PARTS; ++t) {
+            const int u = D / 4 / PARTS * pq + t;
+            float4 qf[4];
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
-            qf[r] = lds4(gb, ta + T::at(rg + 8 * r, u));
+            for (int r = 0; r < 4; ++r)
+              qf[r] = lds4(gb, ta + T::at(rg + 8 * r, u));
 #pragma unroll
-          for (int c = 0; c < 8; ++c) {
-            const float4 kf = lds4(gb, tb + T::at(k8 + c, u));
+            for (int c = 0; c < 8; ++c) {
+              const float4 kf = lds4(gb, tb + T::at(k8 + c, u));
 #pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              x[r][c] = fmaf(qf[r].x, kf.x, x[r][c]);
-              x[r][c] = fmaf(qf[r].y, kf.y, x[r][c]);
-              x[r][c] = fmaf(qf[r].z, kf.z, x[r][c]);
-              x[r][c] = fmaf(qf[r].w, kf.w, x[r][c]);
+              for (int r = 0; r < 4; ++r) {
+                x[r][c] = fmaf(qf[r].x, kf.x, x[r][c]);
+                x[r][c] = fmaf(qf[r].y, kf.y, x[r][c]);
+                x[r][c] = fmaf(qf[r].z, kf.z, x[r][c]);
+                x[r][c] = fmaf(qf[r].w, kf.w, x[r][c]);
+              }
             }
           }
+        };
+        if constexpr (WALKS) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 8; ++c) x[r][c] = 0.f;
+          // group 0 reads each other slice's K and Q (full_a, empty_a),
+          // group 1 its V and dO (full_b, empty_b): step it's i-th is
+          // the pair's phase it n_other + i
+          for (int i = 0; i < n_other; ++i) {
+            mbar_wait(full_a + 16 * grp, (it * n_other + i) & 1);
+            dots(DO_OFF, Q_OFF);
+            mbar_arrive(empty_a + 16 * grp);
+          }
+          mbar_wait(full, it & 1);
+        } else {
+          mbar_wait(full, it & 1);
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 8; ++c) x[r][c] = 0.f;
         }
+        dots(ta, tb);
         // quarters p and p ^ 1 (lanes 8 apart): rows 0, 1 stay where p is
         // even, rows 2, 3 where it is odd; then p and p ^ 2 (16 apart)
 #pragma unroll
@@ -5454,25 +5831,36 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   flash_bwd_f32_wide_kernel<false><<<grid, NTHREADS, SMEM, stream>>>(
       mq, mk, mv, mdo, lse, delta, acc, static_cast<float*>(dq),
       static_cast<float*>(dk), static_cast<float*>(dv), ly[5], ly[6], ly[7],
-      sem, sem + (size_t)B * H * nQ, B, H, KV, S, width, scale);
+      sem, sem + (size_t)B * H * nQ, B, H, KV, S, width, scale, 0);
   return (int)cudaGetLastError();
 }
 
-// The cluster body's schedule for operands `width` > 256 wide: the work
-// items, C = ceil(width / 256) blocks a cluster and the clusters
-int cluster_schedule(int B, int KV, int S, int width, int* items, int* C,
-                     int* clusters) {
-  *items = B * KV * ((S + KT - 1) / KT);
-  return clusterbwd::schedule(
-      reinterpret_cast<const void*>(flash_bwd_f32_wide_kernel<true>),
-      CL_SMEM, NTHREADS, *items, width, C, clusters);
+// The cluster body's instantiation at G walks (as widebwd's)
+inline auto cluster_kernel(int G) {
+  return G > 1 ? flash_bwd_f32_wide_kernel<true, true>
+               : flash_bwd_f32_wide_kernel<true, false>;
 }
 
-// The cluster body at 256 < width <= 2048 (a multiple of 4): acc a
-// float32 scratch of B * H * ceil(S / 32) * 32 * width (a region of
-// 256-column tiles a slice, the last slice's tiles as wide as its
-// columns) and sem C * B * H * ceil(S / 32) + 1 ints, zeroed (the Delta
-// pass), one region a slice
+// The cluster body's schedule for operands `width` > 256 wide: the work
+// items, C blocks a cluster and G walks (clusterbwd::walks) and the
+// clusters
+int cluster_schedule(int B, int KV, int S, int width, int* items, int* C,
+                     int* G, int* clusters) {
+  *items = B * KV * ((S + KT - 1) / KT);
+  int n = 0;
+  const int err = clusterbwd::walks(width, C, G, &n);
+  if (err != 0) return err;
+  return clusterbwd::schedule(reinterpret_cast<const void*>(cluster_kernel(*G)),
+                              CL_SMEM, NTHREADS, *items, width, C, G,
+                              clusters);
+}
+
+// The cluster body at width > 256 (a multiple of 4): acc a float32
+// scratch of B * H * ceil(S / 32) * 32 * width (a region of 256-column
+// tiles a slice, the last slice's tiles as wide as its columns) and sem
+// C * G * B * H * ceil(S / 32) + G ints, zeroed (the Delta pass), one
+// region of counters a slice of the C G the walks own, then each walk's
+// ticket counter; G launches, one a walk
 int launch_cluster(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, void* dk, void* dv, float* acc, int* sem,
@@ -5485,258 +5873,21 @@ int launch_cluster(const void* q, const void* k, const void* v,
   if (err == 0) err = f32bwd::make_map<D, KT>(&mk, k, ly[1], KV, S, B, width);
   if (err == 0) err = f32bwd::make_map<D, KT>(&mv, v, ly[2], KV, S, B, width);
   if (err != 0) return err;
-  int n_items = 0, C = 0, clusters = 0;
-  err = cluster_schedule(B, KV, S, width, &n_items, &C, &clusters);
+  int n_items = 0, C = 0, G = 0, clusters = 0;
+  err = cluster_schedule(B, KV, S, width, &n_items, &C, &G, &clusters);
   if (err != 0) return err;
   const int nQ = (S + QT - 1) / QT;
-  return clusterbwd::launch(
-      flash_bwd_f32_wide_kernel<true>, C, clusters, NTHREADS, CL_SMEM,
-      stream, mq, mk, mv, mdo, lse, delta, acc, static_cast<float*>(dq),
-      static_cast<float*>(dk), static_cast<float*>(dv), ly[5], ly[6], ly[7],
-      sem, sem + (size_t)C * B * H * nQ, B, H, KV, S, width, scale);
+  for (int g = 0; g < G && err == 0; ++g)
+    err = clusterbwd::launch(
+        cluster_kernel(G), C, clusters, NTHREADS, CL_SMEM, stream, mq, mk,
+        mv, mdo, lse, delta, acc, static_cast<float*>(dq),
+        static_cast<float*>(dk), static_cast<float*>(dv), ly[5], ly[6],
+        ly[7], sem, sem + (size_t)C * G * B * H * nQ + g, B, H, KV, S, width,
+        scale, g);
+  return err;
 }
 
 }  // namespace f32widebwd
-
-namespace simplebwd {
-
-constexpr int BQ = 16;          // query rows per tile
-constexpr int BK = 32;          // keys per tile
-constexpr int DC = 128;         // head-dim columns staged at a time
-constexpr int PS = BK + 1;      // row stride of the P and dS tiles
-constexpr int THREADS = 256;    // each thread two (query, key) pairs
-
-struct Smem {
-  float Qs[BQ * DC];            // a Q or dO chunk
-  float KVs[BK * (DC + 1)];     // a K or V chunk
-  float Ps[BQ * PS], dSs[BQ * PS];
-  float lse[BQ], dl[BQ];
-};
-
-// x[t] += a-row . b-row over all of D for this thread's two pairs (query
-// pr / BK, key pr % BK), the dot in column order; rows past S read zeros;
-// sa, sb the rows' strides
-template <typename T>
-__device__ void dots(const T* a, long long sa, const T* bm, long long sb,
-                     int q0, int k0, int S, int D, Smem& sm, float (&x)[2]) {
-  const int tid = threadIdx.x;
-  for (int d0 = 0; d0 < D; d0 += DC) {
-    const int dc = min(DC, D - d0);
-    __syncthreads();                    // Qs, KVs free
-    for (int e = tid; e < BQ * dc; e += THREADS) {
-      const int r = e / dc, c = e % dc;
-      sm.Qs[r * DC + c] = q0 + r < S ? ld(a + (q0 + r) * sa + d0 + c) : 0.f;
-    }
-    for (int e = tid; e < BK * dc; e += THREADS) {
-      const int r = e / dc, c = e % dc;
-      sm.KVs[r * (DC + 1) + c] =
-          k0 + r < S ? ld(bm + (k0 + r) * sb + d0 + c) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int pr = tid + t * THREADS;
-      const int i = pr / BK, j = pr % BK;
-      float y = x[t];
-      for (int c = 0; c < dc; ++c)
-        y = fmaf(sm.Qs[i * DC + c], sm.KVs[j * (DC + 1) + c], y);
-      x[t] = y;
-    }
-  }
-}
-
-// P and dS of queries q0 .. q0 + 15 against keys k0 .. k0 + 31 into
-// sm.Ps, sm.dSs (sm.lse, sm.dl hold the rows' lse and Delta); keys above
-// the query and rows past S get 0.  qp, dop, kp, vp: the heads' starts,
-// their rows at the strides of lq, ldo, lk, lv.
-template <typename T>
-__device__ void p_ds(const T* qp, const T* dop, const T* kp, const T* vp,
-                     const Lay& lq, const Lay& ldo, const Lay& lk,
-                     const Lay& lv, int q0, int k0, int S, int D, float scale,
-                     Smem& sm) {
-  float s[2] = {0.f, 0.f}, dp[2] = {0.f, 0.f};
-  dots(qp, lq.s, kp, lk.s, q0, k0, S, D, sm, s);
-  dots(dop, ldo.s, vp, lv.s, q0, k0, S, D, sm, dp);
-#pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    const int pr = threadIdx.x + t * THREADS;
-    const int i = pr / BK, j = pr % BK;
-    const int qpos = q0 + i, kpos = k0 + j;
-    const float p = (qpos < S && kpos <= qpos)
-                        ? expf(s[t] * scale - sm.lse[i]) : 0.f;
-    sm.Ps[i * PS + j] = p;
-    sm.dSs[i * PS + j] = p * (dp[t] - sm.dl[i]);
-  }
-  __syncthreads();
-}
-
-// stage rows r0 .. r0 + n - 1 (zeros past S; `ss` apart in src) of
-// columns d0 .. d0 + dc - 1 into dst with row stride `ld_`
-template <typename T>
-__device__ void stage(float* dst, int ld_, const T* src, long long ss, int r0,
-                      int n, int S, int d0, int dc) {
-  for (int e = threadIdx.x; e < n * dc; e += THREADS) {
-    const int r = e / dc, c = e % dc;
-    dst[r * ld_ + c] = r0 + r < S ? ld(src + (r0 + r) * ss + d0 + c) : 0.f;
-  }
-}
-
-// dk, dv: one block per (batch x KV head, 32-key tile), key tile 0 first;
-// the accumulators are float32 rows of dk_acc, dv_acc (B, KV, S, D),
-// each element owned by one thread
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_kv_simple(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* dk, T* dv,
-                    float* dk_acc, float* dv_acc, Lay lq, Lay lk, Lay lv,
-                    Lay ldo, Lay ldk, Lay ldv, int H, int KV, int S, int D,
-                    float scale) {
-  __shared__ Smem sm;
-  const int bkv = blockIdx.x;
-  const int b = bkv / KV, kvh = bkv % KV, G = H / KV;
-  const int k0 = blockIdx.y * BK;
-  const int keys = min(BK, S - k0);
-  const int tid = threadIdx.x;
-  const size_t off = (size_t)bkv * S * D;
-  float* akp = dk_acc + off;
-  float* avp = dv_acc + off;
-  const T* kp = at(k, lk, b, kvh);
-  const T* vp = at(v, lv, b, kvh);
-  for (size_t e = tid; e < (size_t)keys * D; e += THREADS) {
-    akp[(size_t)k0 * D + e] = 0.f;
-    avp[(size_t)k0 * D + e] = 0.f;
-  }
-  for (int g = 0; g < G; ++g) {
-    const int bh = b * H + kvh * G + g;
-    const T* qp = at(q, lq, b, kvh * G + g);
-    const T* dop = at(dout, ldo, b, kvh * G + g);
-    for (int q0 = k0 / BQ * BQ; q0 < S; q0 += BQ) {
-      if (tid < BQ) {
-        const bool in = q0 + tid < S;
-        sm.lse[tid] = in ? lse[(size_t)bh * S + q0 + tid] : 0.f;
-        sm.dl[tid] = in ? delta[(size_t)bh * S + q0 + tid] : 0.f;
-      }
-      p_ds(qp, dop, kp, vp, lq, ldo, lk, lv, q0, k0, S, D, scale, sm);
-      for (int d0 = 0; d0 < D; d0 += DC) {
-        const int dc = min(DC, D - d0);
-        // dv += P^T dO, then dk += dS^T Q
-        for (int pass = 0; pass < 2; ++pass) {
-          __syncthreads();              // Qs free
-          stage(sm.Qs, DC, pass ? qp : dop, pass ? lq.s : ldo.s, q0, BQ, S,
-                d0, dc);
-          __syncthreads();
-          const float* w = pass ? sm.dSs : sm.Ps;
-          float* acc = pass ? akp : avp;
-          for (int e = tid; e < keys * dc; e += THREADS) {
-            const int j = e / dc, c = e % dc;
-            float* a = acc + (size_t)(k0 + j) * D + d0 + c;
-            float x = *a;
-            for (int i = 0; i < BQ; ++i)
-              x = fmaf(w[i * PS + j], sm.Qs[i * DC + c], x);
-            *a = x;
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
-  T* dkp = at(dk, ldk, b, kvh);
-  T* dvp = at(dv, ldv, b, kvh);
-  for (size_t e = tid; e < (size_t)keys * D; e += THREADS) {
-    const size_t g = off + (size_t)k0 * D + e;
-    const long long key = k0 + (long long)(e / D), c = e % D;
-    st(dkp + key * ldk.s + c, dk_acc[g] * scale);
-    st(dvp + key * ldv.s + c, dv_acc[g]);
-  }
-}
-
-// dq: one block per (batch x head, 16-query tile), the heaviest first;
-// the accumulators are float32 rows of dq_acc (B, H, S, D)
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_q_simple(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* dq, float* dq_acc,
-                   Lay lq, Lay lk, Lay lv, Lay ldo, Lay ldq, int H, int KV,
-                   int S, int D, float scale) {
-  __shared__ Smem sm;
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const int kvh = h / (H / KV);
-  const int rows = min(BQ, S - q0);
-  const int tid = threadIdx.x;
-  const size_t off = (size_t)bh * S * D;
-  const T* kp = at(k, lk, b, kvh);
-  const T* vp = at(v, lv, b, kvh);
-  float* ap = dq_acc + off;
-  for (size_t e = tid; e < (size_t)rows * D; e += THREADS)
-    ap[(size_t)q0 * D + e] = 0.f;
-  if (tid < BQ) {
-    const bool in = tid < rows;
-    sm.lse[tid] = in ? lse[(size_t)bh * S + q0 + tid] : 0.f;
-    sm.dl[tid] = in ? delta[(size_t)bh * S + q0 + tid] : 0.f;
-  }
-  const int kv_end = min(S, q0 + BQ);   // causal: later keys never read
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    p_ds(at(q, lq, b, h), at(dout, ldo, b, h), kp, vp, lq, ldo, lk, lv, q0,
-         k0, S, D, scale, sm);
-    for (int d0 = 0; d0 < D; d0 += DC) {
-      const int dc = min(DC, D - d0);
-      __syncthreads();                  // KVs free
-      stage(sm.KVs, DC + 1, kp, lk.s, k0, BK, S, d0, dc);
-      __syncthreads();
-      for (int e = tid; e < rows * dc; e += THREADS) {
-        const int i = e / dc, c = e % dc;
-        float* a = ap + (size_t)(q0 + i) * D + d0 + c;
-        float x = *a;
-        for (int j = 0; j < BK; ++j)
-          x = fmaf(sm.dSs[i * PS + j], sm.KVs[j * (DC + 1) + c], x);
-        *a = x;
-      }
-    }
-  }
-  __syncthreads();
-  T* dqp = at(dq, ldq, b, h);
-  for (size_t e = tid; e < (size_t)rows * D; e += THREADS) {
-    const size_t g = off + (size_t)q0 * D + e;
-    st(dqp + (q0 + (long long)(e / D)) * ldq.s + (long long)(e % D),
-       dq_acc[g] * scale);
-  }
-}
-
-// ly: the strides of q, k, v, o, dO, dq, dk, dv; ws the float32
-// accumulators (dq, then dk, then dv, contiguous)
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* dout,
-           const float* lse, const float* delta, void* dq, void* dk,
-           void* dv, float* ws, const Lay* ly, int B, int H, int KV, int S,
-           int D, float scale, cudaStream_t stream) {
-  float* dq_acc = ws;
-  float* dk_acc = ws + (size_t)B * H * S * D;
-  float* dv_acc = dk_acc + (size_t)B * KV * S * D;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
-  flash_bwd_kv_simple<T><<<dim3(B * KV, (S + BK - 1) / BK), THREADS, 0,
-                           stream>>>(qt, kt, vt, dot, lse, delta,
-                                     static_cast<T*>(dk), static_cast<T*>(dv),
-                                     dk_acc, dv_acc, ly[0], ly[1], ly[2],
-                                     ly[4], ly[6], ly[7], H, KV, S, D, scale);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  flash_bwd_q_simple<T><<<dim3(B * H, (S + BQ - 1) / BQ), THREADS, 0,
-                          stream>>>(qt, kt, vt, dot, lse, delta,
-                                    static_cast<T*>(dq), dq_acc, ly[0], ly[1],
-                                    ly[2], ly[4], ly[5], H, KV, S, D, scale);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace simplebwd
 
 }  // namespace
 
@@ -5749,12 +5900,13 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // width <= D may be any multiple of 8, at float32 on the D = 256 body any
 // multiple of 4 (a row of 16-byte units, as TMA needs): the maps
 // zero-fill columns width .. D - 1 and only columns below width are
-// stored.  At 256 < D <= 2048 (width == D, D % 8 == 0 at bfloat16, D %
-// 4 == 0 at float32) the cluster forward: C = ceil(D / 256) blocks a
-// cluster, each its dtype's D = 256 body on 256 columns.  The caller
-// checks KV | H, D in {16, 32, 64, 128, 256} or 256 < D <= 2048 and, at
-// float32 up to 128, the grid's y dimension: B * H <= 65535 (the other
-// bodies' grid is one persistent block per SM, or cluster per C SMs).
+// stored.  At D > 256 (width == D, D % 8 == 0 at bfloat16, D % 4 == 0 at
+// float32) the cluster forward: clusters of C blocks, each its dtype's
+// D = 256 body on 256-column slices, in G walks (clusterbwd::walks; one
+// up to 2048).  The caller checks KV | H, D in {16, 32, 64, 128, 256} or
+// D > 256 and, at float32 up to 128, the grid's y dimension: B * H <=
+// 65535 (the other bodies' grid is one persistent block per SM, or
+// cluster per C SMs).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       const void* strides, int B, int H,
@@ -5765,7 +5917,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const Lay* ly = static_cast<const Lay*>(strides);
-  if (D > clusterbwd::WIDTH && D <= clusterbwd::MAX_D) {
+  if (D > clusterbwd::WIDTH) {
     if (width != D || D % (is_bf16 ? 8 : 4))
       return (int)cudaErrorInvalidValue;
     return is_bf16 ? bf16body::launch_cluster(q, k, v, o, l, ly, B, H, KV, S,
@@ -5811,23 +5963,24 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 // current device, as flash_attention_launch schedules it: at bfloat16
 // (is_bf16 = 1) the tensor-core body of head dim D (16, 32, 64, 128 or
 // 256), at float32 the D = 256 body (f32wide), and in both the cluster
-// forward at 256 < D <= 2048 (D % 8 == 0 at bfloat16, D % 4 == 0 at
-// float32): out[0] query rows of a work item, out[1] keys of a KV tile,
-// out[2] the work items, out[3] the grid's persistent blocks, out[4] its
-// clusters and out[5] the blocks a cluster (C = 1 but for the cluster
-// forward).
+// forward at D > 256 (D % 8 == 0 at bfloat16, D % 4 == 0 at float32):
+// out[0] query rows of a work item, out[1] keys of a KV tile, out[2] the
+// work items, out[3] the grid's persistent blocks, out[4] its clusters,
+// out[5] the blocks a cluster (C = 1 but for the cluster forward) and
+// out[6] the walks, launches of that grid (G = 1 but above 2048).
 extern "C" int flash_attention_fwd_info(int B, int H, int S, int D,
                                         int is_bf16, int* out) {
   out[5] = 1;
+  out[6] = 1;
   int err = 0;
-  if (D > clusterbwd::WIDTH && D <= clusterbwd::MAX_D) {
+  if (D > clusterbwd::WIDTH) {
     if (D % (is_bf16 ? 8 : 4)) return (int)cudaErrorInvalidValue;
     out[0] = is_bf16 ? bf16body::Fwd<256>::BQ : f32wide::BQ;
     out[1] = is_bf16 ? bf16body::Fwd<256>::BK : f32wide::BK;
     err = is_bf16 ? bf16body::cluster_schedule(B, H, S, D, out + 2, out + 5,
-                                               out + 4)
+                                               out + 6, out + 4)
                   : f32wide::cluster_schedule(B, H, S, D, out + 2, out + 5,
-                                              out + 4);
+                                              out + 6, out + 4);
     out[3] = out[4] * out[5];
     return err;
   }
@@ -5862,29 +6015,6 @@ extern "C" int flash_attention_fwd_info(int B, int H, int S, int D,
   return err;
 }
 
-// The body for any D (run above 2048, where no other body reaches): q, o
-// (B, H, S, D); k, v (B, KV, S, D) with the strides of
-// flash_attention_launch; ws a contiguous float32 workspace of
-// B * H * S * D; lse null or float32 (B, H, S); float32 (is_bf16 = 0) or
-// bfloat16 (is_bf16 = 1).  The caller checks KV | H and B * H <= 65535.
-extern "C" int flash_attention_wide_launch(const void* q, const void* k,
-                                           const void* v, void* o,
-                                           void* ws, void* lse,
-                                           const void* strides, int B, int H,
-                                           int KV, int S, int D, int is_bf16,
-                                           float scale, void* stream) {
-  if (B == 0 || H == 0 || S == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* acc = static_cast<float*>(ws);
-  float* l = static_cast<float*>(lse);
-  const Lay* ly = static_cast<const Lay*>(strides);
-  if (is_bf16)
-    return widebody::launch<__nv_bfloat16>(q, k, v, o, acc, l, ly, B, H, KV,
-                                           S, D, scale, st);
-  return widebody::launch<float>(q, k, v, o, acc, l, ly, B, H, KV, S, D,
-                                 scale, st);
-}
-
 // The backward: dq, dk, dv of causal GQA attention from q, o, dout (B, H,
 // S, D), k, v (B, KV, S, D), lse (B, H, S) float32 (the forward's), float32
 // (is_bf16 = 0) or bfloat16 (is_bf16 = 1); dq (B, H, S, D), dk, dv (B, KV,
@@ -5898,16 +6028,14 @@ extern "C" int flash_attention_wide_launch(const void* q, const void* k,
 // ws B * H * ceil(S / 64) * 64 * 256 floats, sem as at D <= 128; float32
 // at 128 < D <= 256 with D % 4 == 0 (f32widebwd, read in place the same
 // way): ws B * H * ceil(S / 32) * 32 * 256 floats, sem B * H *
-// ceil(S / 32) + 1 ints; at 256 < D <= 2048 with D % 8 == 0 (bfloat16)
-// or D % 4 == 0 (float32) the cluster body of C = ceil(D / 256) blocks a
-// cluster: ws B * H * ceil(S / QT) * QT * W floats (W = D rounded up to
-// 64 at bfloat16, D at float32: each slice's dq tiles as wide as its
-// columns), sem C * B * H * ceil(S / QT) + 1 ints (QT = 64 at bfloat16
-// and 32 at float32); otherwise (above 2048:
-// simplebwd) ws a float32 scratch of (B H + 2 B KV) S D and sem unused.
-// Launches the Delta pass, then the main pass, and returns the first
-// launch error.  The caller checks KV | H and, for simplebwd, ceil(S /
-// 16) <= 65535.
+// ceil(S / 32) + 1 ints; at D > 256 with D % 8 == 0 (bfloat16) or
+// D % 4 == 0 (float32) the cluster body, C blocks a cluster in G walks
+// (clusterbwd::walks): ws B * H * ceil(S / QT) * QT * W floats (W = D
+// rounded up to 64 at bfloat16, D at float32: each slice's dq tiles as
+// wide as its columns), sem C * G * B * H * ceil(S / QT) + G ints (QT =
+// 64 at bfloat16 and 32 at float32).  Launches the Delta pass, then the
+// main pass (G of them on the cluster body), and returns the first
+// launch error.  The caller checks KV | H.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
@@ -5925,17 +6053,18 @@ extern "C" int flash_attention_bwd_launch(
   const bool wide = is_bf16 && D > 128 && D <= 256 && D % 8 == 0;
   const bool f32 = !is_bf16 && narrow;
   const bool f32w = !is_bf16 && D > 128 && D <= 256 && D % 4 == 0;
-  const bool cl = D > 256 && D <= clusterbwd::MAX_D &&
-                  D % (is_bf16 ? 8 : 4) == 0;
+  const bool cl = D > 256 && D % (is_bf16 ? 8 : 4) == 0;
+  if (!tc && !wide && !f32 && !f32w && !cl) return (int)cudaErrorInvalidValue;
   const int qt = is_bf16 ? widebwd::QT : f32widebwd::QT;   // cl's
+  int C = 0, G = 0, n = 0;
+  if (cl && clusterbwd::walks(D, &C, &G, &n) != 0)
+    return (int)cudaErrorInvalidValue;
   const int n_zero =
       tc ? B * H * ((S + bf16bwd::QT - 1) / bf16bwd::QT) + 1
       : wide ? B * H * ((S + widebwd::QT - 1) / widebwd::QT) + 1
       : f32 ? B * H * ((S + f32bwd::QT - 1) / f32bwd::QT) + 1
       : f32w ? B * H * ((S + f32widebwd::QT - 1) / f32widebwd::QT) + 1
-      : cl ? (D + clusterbwd::WIDTH - 1) / clusterbwd::WIDTH * B * H *
-                     ((S + qt - 1) / qt) + 1
-      : 0;
+      : C * G * B * H * ((S + qt - 1) / qt) + G;
   int err = is_bf16
                 ? launch_delta<__nv_bfloat16>(o, dout, dl, ly[3], ly[4], B,
                                               H, S, D, cnt, n_zero, st)
@@ -5960,11 +6089,8 @@ extern "C" int flash_attention_bwd_launch(
       case 128: return f32bwd::launch<128>(q, k, v, dout, l, dl, dq, dk, dv,
                                            w, cnt, ly, B, H, KV, S, scale, st);
       default:
-        if (f32w)
-          return f32widebwd::launch(q, k, v, dout, l, dl, dq, dk, dv, w, cnt,
-                                    ly, B, H, KV, S, D, scale, st);
-        return simplebwd::launch<float>(q, k, v, dout, l, dl, dq, dk, dv, w,
-                                        ly, B, H, KV, S, D, scale, st);
+        return f32widebwd::launch(q, k, v, dout, l, dl, dq, dk, dv, w, cnt,
+                                  ly, B, H, KV, S, D, scale, st);
     }
   }
   if (wide)
@@ -5977,12 +6103,8 @@ extern "C" int flash_attention_bwd_launch(
                                         cnt, ly, B, H, KV, S, scale, st);
     case 64: return bf16bwd::launch<64>(q, k, v, dout, l, dl, dq, dk, dv, w,
                                         cnt, ly, B, H, KV, S, scale, st);
-    case 128: return bf16bwd::launch<128>(q, k, v, dout, l, dl, dq, dk, dv,
-                                          w, cnt, ly, B, H, KV, S, scale, st);
-    default:
-      return simplebwd::launch<__nv_bfloat16>(q, k, v, dout, l, dl, dq, dk,
-                                              dv, w, ly, B, H, KV, S, D,
-                                              scale, st);
+    default: return bf16bwd::launch<128>(q, k, v, dout, l, dl, dq, dk, dv,
+                                         w, cnt, ly, B, H, KV, S, scale, st);
   }
 }
 
@@ -5991,22 +6113,24 @@ extern "C" int flash_attention_bwd_launch(
 // it: at bfloat16 (is_bf16 = 1) the tensor-core bodies (16, 32, 64, 128,
 // or the D = 256 body's 128 < D <= 256 with D % 8 == 0), at float32 the
 // CUDA-core bodies f32bwd (16, 32, 64, 128) and f32widebwd (128 < D <=
-// 256 with D % 4 == 0), and in both the cluster body above 256 (up to
-// 2048, D % 8 == 0 at bfloat16, D % 4 == 0 at float32): out[0] keys of a
-// work item, out[1] queries of a step, out[2] the work items, out[3] the
-// grid's persistent blocks, out[4] its clusters and out[5] the blocks a
-// cluster (C = 1 but for the cluster body).
+// 256 with D % 4 == 0), and in both the cluster body above 256 (D % 8 ==
+// 0 at bfloat16, D % 4 == 0 at float32): out[0] keys of a work item,
+// out[1] queries of a step, out[2] the work items, out[3] the grid's
+// persistent blocks, out[4] its clusters, out[5] the blocks a cluster (C
+// = 1 but for the cluster body) and out[6] the walks, launches of that
+// grid (G = 1 but above 2048).
 extern "C" int flash_attention_bwd_info(int B, int KV, int S, int D,
                                         int is_bf16, int* out) {
   out[5] = 1;
+  out[6] = 1;
   int err = 0;
-  if (D > 256 && D <= clusterbwd::MAX_D && D % (is_bf16 ? 8 : 4) == 0) {
+  if (D > 256 && D % (is_bf16 ? 8 : 4) == 0) {
     out[0] = is_bf16 ? widebwd::KT : f32widebwd::KT;
     out[1] = is_bf16 ? widebwd::QT : f32widebwd::QT;
     err = is_bf16 ? widebwd::cluster_schedule(B, KV, S, D, out + 2, out + 5,
-                                              out + 4)
+                                              out + 6, out + 4)
                   : f32widebwd::cluster_schedule(B, KV, S, D, out + 2,
-                                                 out + 5, out + 4);
+                                                 out + 5, out + 6, out + 4);
     out[3] = out[4] * out[5];
     return err;
   }

@@ -30,17 +30,17 @@ first from a counter, 128 query rows x 128 keys (192 x 128 at D = 64,
 TMA; float32 runs on the CUDA cores, in 64 x 64 tiles up to D = 128
 (`f32body`), and above it on `f32wide`: the same persistent schedule
 over 64-row items, Q resident, 32-key K and V tiles through a TMA ring
-of two, O in registers.  Both dtypes at 256 < D <= `CLUSTER_MAX` (2048)
-run the cluster forward: a cluster of C = ceil(D / 256) blocks takes each
-work item, block r runs its dtype's D = 256 body on columns 256 r .. 256
-r + 255, and the blocks add their partial S through distributed shared
-memory in rank order before the softmax, so that each forms the same P
-and then O for its own columns (in place when D % 8 == 0 at bfloat16, D %
-4 == 0 at float32, else zero-padded to the next such width).  Above 2048
-both dtypes run a simple body (``flash_attention_wide_launch``: CUDA
-cores, float32 arithmetic, 16-row query tiles, 32-key tiles, D in chunks
-of 128, the accumulators in a float32 workspace the wrapper allocates);
-it is written for correctness, not speed.
+of two, O in registers.  Both dtypes at every D > 256 run the cluster
+forward: D is cut into 256-column slices, a cluster of C blocks takes
+each work item in each of G walks (`cluster_walks`: G = ceil(slices /
+8), C = ceil(slices / G); one walk up to D = 2048), block r of walk g
+runs its dtype's D = 256 body and owns slice r + C g, its S sums over its
+slices r, r + C, .. below D, and the blocks add their partial S through
+distributed shared memory in rank order before the softmax, so that each
+forms the same P and then O for its owned columns (in place when D % 8
+== 0 at bfloat16, D % 4 == 0 at float32, else zero-padded to the next
+such width).  A walk is a launch of its own; above 2048 S is recomputed
+once a walk.
 `flash_attention_fwd` is the same forward that also returns each row's
 log-sum-exp.
 
@@ -68,18 +68,18 @@ before loading the slot again; of 64 keys at float32 (32 keys and
 32-query steps at D = 256), where one group of 128 threads computes S, P
 and dv and another dP, dS and dk, all 256 the share, which the producer
 warp adds while the next step's Q and dO load (`BWD_TILES`,
-`BWD_F32_TILES`, `BWD_F32_WIDE_TILES`).  Both dtypes at 256 < D <=
-`CLUSTER_MAX` (2048) run the cluster backward: a cluster of C =
-ceil(D / 256) blocks takes each item, block r runs its dtype's D = 256
-body on columns 256 r .. 256 r + 255, and the blocks add their partial S
-and dP through distributed shared memory in rank order before the
-softmax, so that each forms the same P and dS and then its columns' dv,
-dk and dq share (in place when D % 8 == 0 at bfloat16, D % 4 == 0 at
-float32, else zero-padded to the next such width; the accumulator and
-its counters C times the D = 256 body's, one region a slice).  Above
-2048 both dtypes run a simple CUDA-core body (`simplebwd`), written for
-correctness.  Every gradient is summed in an order fixed by the shape,
-so two runs give the same bits.  Its launches count under
+`BWD_F32_TILES`, `BWD_F32_WIDE_TILES`).  Both dtypes at every D > 256
+run the cluster backward, in the forward's slices, clusters and walks
+(`cluster_walks`): block r of walk g runs its dtype's D = 256 body and
+owns slice r + C g, its S and dP sum over its other slices below D
+first (above 2048 only: recomputed once a walk) and then the owned one,
+and the blocks add their partial S and dP through distributed shared
+memory in rank order before the softmax, so that each forms the same P
+and dS and then its owned columns' dv, dk and dq share (in place when D
+% 8 == 0 at bfloat16, D % 4 == 0 at float32, else zero-padded to the
+next such width; the accumulator and its counters the D = 256 body's
+once a slice, one region each).  Every gradient is summed in an order
+fixed by the shape, so two runs give the same bits.  Its launches count under
 ``flash_attention_bwd``.
 
 Layout: the public functions keep the reference's (B, H, S, D), and on
@@ -108,8 +108,7 @@ from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 #: {16, 32, 64, 128} (csrc/flash_attention.cu: f32body, bf16body::Fwd<D>),
 #: and each dtype's wide body at 256 (bf16body::Fwd<256> on the tensor
 #: cores, f32wide on the CUDA cores); a narrower head dim runs the body of
-#: the next one (`_pad`), a wider one the cluster forward up to
-#: CLUSTER_MAX and the simple CUDA-core body above it
+#: the next one (`_pad`), a wider one the cluster forward
 HEAD_DIMS = {torch.float32: (16, 32, 64, 128, 256),
              torch.bfloat16: (16, 32, 64, 128, 256)}
 #: the tensor-core backward's head dims (bfloat16; bf16bwd up to 128,
@@ -123,10 +122,11 @@ BWD_TILES = {d: (64, 64) if d == 256 else (128, 64) for d in BWD_HEAD_DIMS}
 BWD_F32_HEAD_DIMS = (16, 32, 64, 128, 256)
 BWD_F32_TILES = (64, 64)
 BWD_F32_WIDE_TILES = (32, 32)
-#: the cluster forward's and backward's head dims: above 256 up to 8
-#: blocks (the portable cluster size) of CLUSTER_WIDTH columns each
+#: the cluster forward's and backward's slices (every head dim above 256):
+#: CLUSTER_WIDTH columns each, at most CLUSTER_BLOCKS blocks (the portable
+#: cluster size) a cluster, in as many walks as that needs
 CLUSTER_WIDTH = 256
-CLUSTER_MAX = 8 * CLUSTER_WIDTH
+CLUSTER_BLOCKS = 8
 #: (query rows per block or work item, keys per KV tile) of each body, by
 #: dtype and the body's head dim
 TILES = {torch.float32: {d: (64, 32) if d == 256 else (64, 64)
@@ -134,12 +134,9 @@ TILES = {torch.float32: {d: (64, 32) if d == 256 else (64, 64)
          torch.bfloat16: {d: (192 if d == 64 else 128, 80 if d == 256
                               else 128)
                           for d in HEAD_DIMS[torch.bfloat16]}}
-MAX_GRID_Y = 65_535      # blocks along a grid's y dimension
+MAX_GRID_Y = 65_535      # blocks along a grid's y dimension (f32body's)
 BWD_QT = 64              # queries per step (and per dq counter) of the
                          # persistent backward bodies (32 on f32widebwd)
-BWD_ROWS = 16            # query rows per block of simplebwd's dq pass (the
-                         # other backward bodies' grid is one persistent
-                         # block per SM)
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention_bwd_plain", "TILES"]
@@ -182,6 +179,18 @@ def _in_place(dtype, D, body):
     return body == 256 and D % 4 == 0
 
 
+def cluster_walks(width):
+    """(C, G) of the cluster routes for operands `width` > 256 wide, as
+    ``clusterbwd::walks`` takes them: n = ceil(width / 256) slices, G =
+    ceil(n / CLUSTER_BLOCKS) walks, C = ceil(n / G) blocks a cluster; in
+    walk g block r owns slice r + C g."""
+    n = -(-width // CLUSTER_WIDTH)
+    if n < 2:
+        raise ValueError(f"width {width} <= {CLUSTER_WIDTH}: no cluster")
+    G = -(-n // CLUSTER_BLOCKS)
+    return -(-n // G), G
+
+
 def _cluster_width(dtype, D):
     """The operands' width on the cluster routes (256 < D): D when a row
     is whole 16-byte units (D % 8 == 0 at bfloat16, D % 4 == 0 at
@@ -194,14 +203,12 @@ def _forward_route(dtype, D):
     """How the forward runs head dim D at `dtype`: (route, body head
     dim), route "in place" (the operands as they are, the body's columns
     past D zero-filled by TMA when D < body), "padded" (zero-padded copies
-    of q, k, v, and the output sliced back), "cluster" (256 < D <=
-    CLUSTER_MAX: the cluster forward, clusters of ceil(width / 256) blocks
-    of `Fwd<256>` or `f32wide`, its width `_cluster_width`'s) or "wide"
-    (the simple CUDA-core body `widebody`, above that)."""
+    of q, k, v, and the output sliced back) or "cluster" (every D > 256:
+    the cluster forward, clusters of `Fwd<256>` or `f32wide` blocks in
+    `cluster_walks`, its width `_cluster_width`'s)."""
     dims = HEAD_DIMS[dtype]
     if D > dims[-1]:
-        width = _cluster_width(dtype, D)
-        return ("cluster", width) if width <= CLUSTER_MAX else ("wide", D)
+        return "cluster", _cluster_width(dtype, D)
     body = _pad(D, dims)
     if body == D or _in_place(dtype, D, body):
         return "in place", body
@@ -212,20 +219,17 @@ def _backward_route(dtype, D):
     """How the backward runs head dim D at `dtype`: (route, body head
     dim), route "in place" (the operands as they are; at 128 < D < 256
     the D = 256 body's columns past D zero-filled by TMA), "padded"
-    (zero-padded copies of q, k, v, o and dO, the gradients sliced back),
-    "cluster" (256 < D <= CLUSTER_MAX: the cluster backward, its
-    width `_cluster_width`'s: D when a row is whole 16-byte units, else
-    the next such width, D zero-padded to it)
-    or "simple" (the correctness-first CUDA-core body `simplebwd`, above
-    that).  The bodies of the first two: bfloat16's `bf16bwd` (D <= 128)
-    and `widebwd` (D = 256) on the tensor cores, float32's `f32bwd` (D <=
-    128) and `f32widebwd` (D = 256) on the CUDA cores; of the cluster
-    route, clusters of ceil(width / 256) blocks of `widebwd` or
-    `f32widebwd`."""
+    (zero-padded copies of q, k, v, o and dO, the gradients sliced back)
+    or "cluster" (every D > 256: the cluster backward, its width
+    `_cluster_width`'s: D when a row is whole 16-byte units, else the next
+    such width, D zero-padded to it).  The bodies of the first two:
+    bfloat16's `bf16bwd` (D <= 128) and `widebwd` (D = 256) on the tensor
+    cores, float32's `f32bwd` (D <= 128) and `f32widebwd` (D = 256) on the
+    CUDA cores; of the cluster route, clusters of `widebwd` or
+    `f32widebwd` blocks in `cluster_walks`."""
     dims = BWD_HEAD_DIMS if dtype == torch.bfloat16 else BWD_F32_HEAD_DIMS
     if D > dims[-1]:
-        width = _cluster_width(dtype, D)
-        return ("cluster", width) if width <= CLUSTER_MAX else ("simple", D)
+        return "cluster", _cluster_width(dtype, D)
     body = _pad(D, dims)
     if body == D or (body == 256 and _in_place(dtype, D, body)):
         return "in place", body
@@ -235,16 +239,14 @@ def _backward_route(dtype, D):
 def _bwd_schedule(B, KV, S, D, device, dtype=torch.bfloat16) -> dict:
     """How the backward's persistent body schedules B x KV heads of S rows
     at head dim D on `device` (bfloat16 D <= 256 on the tensor cores,
-    float32 D <= 256 on `f32bwd` and `f32widebwd`, both dtypes up to
-    CLUSTER_MAX on the cluster backward), as its launcher decides it
+    float32 D <= 256 on `f32bwd` and `f32widebwd`, both dtypes above on
+    the cluster backward), as its launcher decides it
     (``flash_attention_bwd_info``): keys of a work item, queries of a
-    step, the work items, the grid of persistent blocks, its clusters and
-    the blocks a cluster, C (1 but on the cluster route)."""
+    step, the work items, the grid of persistent blocks, its clusters, the
+    blocks a cluster, C (1 but on the cluster route), and the walks, G
+    (launches of that grid: 1 but above 2048)."""
     route, body = _backward_route(dtype, D)
-    if route == "simple":
-        raise ValueError(f"D = {D} at {dtype} runs simplebwd, which has no "
-                         "persistent schedule")
-    info = (ctypes.c_int * 6)()
+    info = (ctypes.c_int * 7)()
     with torch.cuda.device(device):
         err = _build.function("flash_attention", "flash_attention_bwd_info",
                               [_build.I] * 5 + [_build.P])(
@@ -252,7 +254,7 @@ def _bwd_schedule(B, KV, S, D, device, dtype=torch.bfloat16) -> dict:
             int(dtype == torch.bfloat16), info)
     _build.check("flash_attention", err)
     return dict(keys=info[0], queries=info[1], items=info[2], grid=info[3],
-                clusters=info[4], C=info[5])
+                clusters=info[4], C=info[5], G=info[6])
 
 
 def _align(q, D, dims=HEAD_DIMS[torch.bfloat16], f32_dims=()):
@@ -275,7 +277,7 @@ def _fwd_align(q, route, body):
     """The byte multiple the forward needs of an operand's start and
     strides on `route` at `body`'s head dim: 16 on the TMA-fed bodies (the
     bfloat16 tensor-core bodies, float32 at D = 256, the cluster forward),
-    one element on the others (`f32body`, `widebody`)."""
+    one element on `f32body`."""
     if route == "cluster":
         return 16
     return _align(q, body, f32_dims=(256,))
@@ -283,8 +285,7 @@ def _fwd_align(q, route, body):
 
 def _bwd_align(q, route, body):
     """The byte multiple the backward needs of an operand's start and
-    strides on `route` at `body`'s head dim: 16 on the TMA-fed bodies
-    (every route but "simple"), one element on simplebwd."""
+    strides: 16, every backward body being TMA-fed."""
     if route == "cluster":
         return 16
     return _align(q, body, BWD_HEAD_DIMS, BWD_F32_HEAD_DIMS)
@@ -333,23 +334,24 @@ def flash_attention_fwd(q, k, v):
 def _fwd_schedule(B, H, S, D, device, dtype=torch.bfloat16) -> dict:
     """How a persistent forward body schedules B x H heads of S rows at
     head dim D on `device` (bfloat16 D <= 256 on the tensor cores,
-    float32 128 < D <= 256 on `f32wide`, both dtypes up to CLUSTER_MAX on
-    the cluster forward), as its launcher decides it
-    (``flash_attention_fwd_info``): query rows and keys of a work item's
-    tiles, the work items, the grid of persistent blocks, its clusters and
-    the blocks a cluster, C (1 but on the cluster route)."""
+    float32 128 < D <= 256 on `f32wide`, both dtypes above on the cluster
+    forward), as its launcher decides it (``flash_attention_fwd_info``):
+    query rows and keys of a work item's tiles, the work items, the grid
+    of persistent blocks, its clusters, the blocks a cluster, C (1 but on
+    the cluster route), and the walks, G (launches of that grid: 1 but
+    above 2048)."""
     route, body = _forward_route(dtype, D)
-    if route == "wide" or (dtype == torch.float32 and body <= 128):
+    if dtype == torch.float32 and body <= 128:
         raise ValueError(f"D = {D} at {dtype} runs a body with one block "
                          "a query tile, not a persistent schedule")
-    info = (ctypes.c_int * 6)()
+    info = (ctypes.c_int * 7)()
     with torch.cuda.device(device):
         err = _build.function("flash_attention", "flash_attention_fwd_info",
                               [_build.I] * 5 + [_build.P])(
             B, H, S, body, int(dtype == torch.bfloat16), info)
     _build.check("flash_attention", err)
     return dict(rows=info[0], keys=info[1], items=info[2], grid=info[3],
-                clusters=info[4], C=info[5])
+                clusters=info[4], C=info[5], G=info[6])
 
 
 def _forward(q, k, v, *, with_lse):
@@ -357,11 +359,9 @@ def _forward(q, k, v, *, with_lse):
     B, H, KV, S, D = _shapes(q, k, v)
     dev = q.device
     route, Dp = _forward_route(q.dtype, D)
-    # the grid of f32body (float32 up to 128) and of the simple wide body
-    # has B * H blocks along y; the other bodies' is one persistent block
-    # per SM
-    if ((route == "wide" or (q.dtype == torch.float32 and Dp <= 128))
-            and B * H > MAX_GRID_Y):
+    # the grid of f32body (float32 up to 128) has B * H blocks along y;
+    # the other bodies' is one persistent block per SM (or cluster)
+    if q.dtype == torch.float32 and Dp <= 128 and B * H > MAX_GRID_Y:
         raise ValueError(f"{B * H} blocks along the grid's y dimension > "
                          f"{MAX_GRID_Y}")
     if Dp > D and route in ("padded", "cluster"):
@@ -378,18 +378,6 @@ def _forward(q, k, v, *, with_lse):
     bf16 = int(q.dtype == torch.bfloat16)
     o = torch.empty_like(q)         # q's layout: the model's, read in place
     strides = _strides(q, k, v, o)
-    if route == "wide":
-        ws = torch.empty((B, H, S, D), dtype=torch.float32, device=dev)
-        fn = _build.function("flash_attention", "flash_attention_wide_launch",
-                             [_build.P] * 7 + [_build.I] * 6
-                             + [_build.F, _build.P])
-        with torch.cuda.device(dev):
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     ws.data_ptr(), lse_ptr, strides, B, H, KV, S, D, bf16,
-                     D ** -0.5, _build.stream_of(dev))
-        _build.check("flash_attention", err)
-        _build.launches["flash_attention"] += 1
-        return o, lse
     fn = _build.function("flash_attention", "flash_attention_launch",
                          [_build.P] * 6 + [_build.I] * 7
                          + [_build.F, _build.P])
@@ -447,11 +435,6 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     dev = q.device
     bf16 = q.dtype == torch.bfloat16
     route, Dp = _backward_route(q.dtype, D)
-    # simplebwd's dq pass has a grid y of ceil(S / BWD_ROWS); the other
-    # bodies' grid is one persistent block (or cluster) per SM (or C SMs)
-    if route == "simple" and -(-S // BWD_ROWS) > MAX_GRID_Y:
-        raise ValueError(f"S = {S}: {-(-S // BWD_ROWS)} blocks along the "
-                         f"grid's y dimension > {MAX_GRID_Y}")
     _build.require("lse", lse, torch.float32, (B, H, S), dev)
     if Dp > D and route in ("padded", "cluster"):
         # zero columns: no score changes, zero gradient columns
@@ -471,24 +454,21 @@ def flash_attention_bwd(q, k, v, o, lse, do):
         # per 256-column slice, the D = 256 body's accumulator (a qt x 256
         # tile for each (batch x head, query tile), the last slice's only
         # as wide as its columns, in 64-column parts at bfloat16) and
-        # counters; then the work-item counter
-        C = -(-width // CLUSTER_WIDTH)
+        # counters (C G regions: the walks' slices past the width count
+        # too); then each walk's work-item counter
+        C, G = cluster_walks(width)
         qt = BWD_QT if bf16 else BWD_F32_WIDE_TILES[1]
         nq = B * H * -(-S // qt)
         ws = torch.empty((nq * qt * _bwd_acc_columns(q.dtype, width),),
                          dtype=torch.float32, device=dev)
-        sem = torch.empty((C * nq + 1,), dtype=torch.int32, device=dev)
-    elif route != "simple":
+        sem = torch.empty((C * G * nq + G,), dtype=torch.int32, device=dev)
+    else:
         # dq's float32 accumulator (a qt x Dp tile for each (batch x head,
         # query tile)), its counters and the work-item counter
         qt = BWD_F32_WIDE_TILES[1] if not bf16 and Dp == 256 else BWD_QT
         nq = B * H * -(-S // qt)
         ws = torch.empty((nq * qt * Dp,), dtype=torch.float32, device=dev)
         sem = torch.empty((nq + 1,), dtype=torch.int32, device=dev)
-    else:       # simplebwd's float32 accumulators
-        ws = torch.empty(((B * H + 2 * B * KV) * S * Dp,),
-                         dtype=torch.float32, device=dev)
-        sem = None
     fn = _build.function("flash_attention", "flash_attention_bwd_launch",
                          [_build.P] * 13 + [_build.I] * 6
                          + [_build.F, _build.P])
@@ -496,7 +476,7 @@ def flash_attention_bwd(q, k, v, o, lse, do):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), delta.data_ptr(), ws.data_ptr(),
-                 None if sem is None else sem.data_ptr(),
+                 sem.data_ptr(),
                  _strides(q, k, v, o, do, dq, dk, dv), B, H, KV, S, width,
                  int(bf16), D ** -0.5, _build.stream_of(dev))
     _build.check("flash_attention", err)

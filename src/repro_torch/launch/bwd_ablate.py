@@ -52,6 +52,10 @@ C7520 warnings (wgmma serialized).
                    and waits (the reads and sums as they are, racing)
     cl_no_xch      the cluster backward with neither: the D = 256 bodies
                    on their slices alone
+    cl_one_slice   the cluster backward's walks (above D = 2048) without
+                   their other slices: S and dP over the owned slice
+                   alone, as at one walk (no other slice loaded or
+                   multiplied): what the recomputed S and dP cost
 
 Shapes (--shape, a preset or B,H,KV,S,D):
 
@@ -65,10 +69,13 @@ Shapes (--shape, a preset or B,H,KV,S,D):
     d512  1, 8, 2, 2048, 512    (the wide shape at B 1 and D = 512: the
                                  cluster backward, two blocks a cluster)
     d512_f32  1, 8, 2, 2048, 512   (the same in float32 operands)
+    d2304 1, 2, 1, 2048, 2304   (a head dim above 2048: 9 slices, clusters
+                                 of 5 blocks in two walks)
+    d2304_f32  1, 2, 1, 2048, 2304  (the same in float32 operands)
 
-The presets run bfloat16 operands, except f32, wide_f32 and d512_f32,
-which run float32; a shape written out runs bfloat16.  A shape above
-D = 256 runs the ``cl_*`` variants by default.
+The presets run bfloat16 operands, except f32, wide_f32, d512_f32 and
+d2304_f32, which run float32; a shape written out runs bfloat16.  A shape
+above D = 256 runs the ``cl_*`` variants by default.
 
 Run on a card (CUDA events, the mean of 20 calls, three rounds each, on
 the (B, H, S, D) views of (B, S, H, D) tensors from a seeded generator;
@@ -84,10 +91,9 @@ bits):
 commit's, unpacked with ``git archive``), run first and last (parent,
 base, the variants, base, parent); equal digests show equal bits.  Its
 ``flash_attention_bwd_launch`` must take the arguments this wrapper
-passes, with the scratch this wrapper allocates: so D <= 256 only (above
-it a parent before the cluster backward runs simplebwd, whose scratch is
-another).  The float32 presets at D <= 256 qualify: their bodies, f32bwd
-and f32widebwd, take the scratch this wrapper allocates.
+passes, with the scratch this wrapper allocates: so D <= 2048 only (one
+walk; above it a parent before the walks runs simplebwd, whose scratch is
+another).  The float32 presets up to 2048 qualify too.
 """
 from __future__ import annotations
 
@@ -106,9 +112,13 @@ OUT = _build.BUILD_DIR / "ablate"
 #: (B, H, KV, S, D) of the presets
 PRESETS = {"yi": (4, 32, 4, 2048, 128), "wide": (4, 8, 2, 2048, 256),
            "f32": (4, 32, 4, 2048, 128), "wide_f32": (4, 8, 2, 2048, 256),
-           "d512": (1, 8, 2, 2048, 512), "d512_f32": (1, 8, 2, 2048, 512)}
+           "d512": (1, 8, 2, 2048, 512), "d512_f32": (1, 8, 2, 2048, 512),
+           "d2304": (1, 2, 1, 2048, 2304), "d2304_f32": (1, 2, 1, 2048, 2304)}
 #: the presets that run float32 operands (the others bfloat16)
-FLOAT32_PRESETS = ("f32", "wide_f32", "d512_f32")
+FLOAT32_PRESETS = ("f32", "wide_f32", "d512_f32", "d2304_f32")
+#: the widest head dim of one walk: a parent's cluster bodies run it with
+#: this wrapper's scratch
+ONE_WALK = 2048
 
 #: the namespace each body's source lives in (the cluster backward's
 #: exchange: the helpers both D = 256 bodies call above D = 256)
@@ -171,8 +181,12 @@ _CL_SUM = ("  for (int p = 0; p < C; ++p) {\n    const uint32_t ra = mapa(a, p);
            "  for (int p = 0; p < 0; ++p) {\n    const uint32_t ra = mapa(a, p);")
 _CL_SYNC = [("      if (p != r) arrive(mapa(bar, p));\n", "      ;\n"),
             ("  wait(bar, (it >> 1) & 1);\n", "")]
+# the walks' other slices (above D = 2048): none
+_CL_ONE_SLICE = [("  return (slices - rank + C - 1) / C;\n", "  return 1;\n"),
+                 ("  return ns - (walk < ns ? 1 : 0);\n", "  return 0;\n")]
 PATCHES.update({"cl_no_sum": [_CL_SUM], "cl_no_sync": _CL_SYNC,
-                "cl_no_xch": [_CL_SUM, *_CL_SYNC]})
+                "cl_no_xch": [_CL_SUM, *_CL_SYNC],
+                "cl_one_slice": _CL_ONE_SLICE})
 # the float32 D = 256 body: the same five cuts (its S and dP split D)
 PATCHES.update({
     "f32w_no_dq": PATCHES["f32_no_dq"],
@@ -224,14 +238,19 @@ def backward_notes(log: str) -> list:
     ``flash_bwd_kernel_d256``, ``f32<D>`` for ``flash_bwd_f32_kernel<D>``),
     its registers and spill bytes; ``f32<256>`` for
     ``flash_bwd_f32_wide_kernel``, and ``<256 cluster>`` and ``f32<256
-    cluster>`` for the two with CL = true (the cluster backward)."""
+    cluster>`` for the two with CL = true (the cluster backward), with
+    `` walks`` after the walks' instantiations."""
     out, fn = [], None
     for line in log.splitlines():
         body = re.search(r"flash_bwd_kernelILi(\d+)E", line)
         f32 = re.search(r"flash_bwd_f32_kernelILi(\d+)E", line)
         name = (f"<{body[1]}>" if body else f"f32<{f32[1]}>" if f32 else
+                "<256 cluster walks>"
+                if "flash_bwd_kernel_d256ILb1ELb1E" in line else
                 "<256 cluster>" if "flash_bwd_kernel_d256ILb1E" in line else
                 "<256>" if "flash_bwd_kernel_d256" in line else
+                "f32<256 cluster walks>"
+                if "flash_bwd_f32_wide_kernelILb1ELb1E" in line else
                 "f32<256 cluster>" if "flash_bwd_f32_wide_kernelILb1E" in line
                 else "f32<256>" if "flash_bwd_f32_wide_kernel" in line
                 else None)
@@ -253,16 +272,20 @@ def build(names, parent=None) -> dict:
     """One nvcc per variant, all started together; {variant: the backward
     bodies' ptxas notes}."""
     OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs, notes = {}, {}
     for name in names:
         cu = OUT / f"{name}.cu"
-        cu.write_text(variant_source(name, parent))
+        text = variant_source(name, parent)
+        if (OUT / f"{name}.so").exists() and cu.exists() and \
+                cu.read_text() == text:        # built by an earlier run
+            notes[name] = ["built before, from the same source"]
+            continue
+        cu.write_text(text)
         cmd = [_build._nvcc(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS,
                "-I", str(_build.CSRC), "-o", str(OUT / f"{name}.so"),
                str(cu)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
-    notes = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
@@ -335,12 +358,13 @@ def parse_shape(text: str) -> tuple:
 
 def parent_refusal(shape: str):
     """Why ``--parent`` cannot run at ``--shape`` `shape`, or None: above
-    D = 256 a parent before the cluster backward runs simplebwd, whose
-    scratch is not the one this wrapper allocates.  (Every body at
-    D <= 256, the float32 ones included, takes this wrapper's.)"""
-    if parse_shape(shape)[4] > 256:
-        return ("--parent runs D <= 256 only: above it a parent before the "
-                "cluster backward takes another scratch")
+    D = 2048 (more than one walk) a parent before the walks runs
+    simplebwd, whose scratch is not the one this wrapper allocates.
+    (Every body up to 2048, the float32 ones included, takes this
+    wrapper's.)"""
+    if parse_shape(shape)[4] > ONE_WALK:
+        return ("--parent runs D <= 2048 only: above it a parent before the "
+                "walks takes another scratch")
     return None
 
 
@@ -348,7 +372,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--shape", default="yi",
                     help="a preset (yi, wide, f32, wide_f32, d512, "
-                         "d512_f32) or B,H,KV,S,D (default: "
+                         "d512_f32, d2304, d2304_f32) or B,H,KV,S,D "
+                         "(default: "
                          "yi, yi-6b's training shape)")
     ap.add_argument("--variants", help="comma-separated variants (default: "
                     "those of the shape's body)")

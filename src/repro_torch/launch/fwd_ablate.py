@@ -52,11 +52,17 @@ the spill bytes of every forward body.
                    or waits (namespace clusterbwd, as `bwd_ablate`'s
                    variant of the same name, and the bfloat16 body's pair
                    sum): each block's D = 256 body on its slice alone
+    cl_one_slice   the cluster forward's walks (above D = 2048) with S
+                   over each block's first slice alone (the other slices'
+                   Q and K neither loaded nor multiplied): what the
+                   recomputed S costs (namespace clusterbwd, as
+                   `bwd_ablate`'s variant of the same name)
 
 `legacy` changes the grid rule that both bfloat16 bodies share; the
-`wide_*` variants touch only the bfloat16 D = 256 body, the `f32*`
-variants only float32 at D = 256, `cl_no_xch` only the exchange, the
-others only the D <= 128 ones.
+`wide_*` variants touch only the bfloat16 D = 256 body (`wide_o_regs`
+is meant for it alone), the `f32*` variants only float32 at D = 256,
+`cl_no_xch` only the exchange, `cl_one_slice` only the walks' slice
+count, the others only the D <= 128 ones.
 
 Shapes (--shape, repeatable: a preset or B,H,KV,S,D):
 
@@ -70,11 +76,15 @@ Shapes (--shape, repeatable: a preset or B,H,KV,S,D):
     d512     1, 8, 2, 2048, 512    (the wide shape at B 1 and D = 512: the
                                     cluster forward, two blocks a cluster)
     d512_f32 1, 8, 2, 2048, 512    (the same in float32 operands)
+    d2304    1, 2, 1, 2048, 2304   (a head dim above 2048: 9 slices,
+                                    clusters of 5 blocks in two walks)
+    d2304_f32 1, 2, 1, 2048, 2304  (the same in float32 operands)
 
-The presets run bfloat16 operands, except wide_f32 and d512_f32, which
-run float32; a shape written out runs bfloat16.  Above D = 256 the
-default variants are base and the ``cl_*`` ones, and ``--parent`` is
-refused (a parent before the cluster forward runs widebody there).
+The presets run bfloat16 operands, except wide_f32, d512_f32 and
+d2304_f32, which run float32; a shape written out runs bfloat16.  Above
+D = 256 the default variants are base and the ``cl_*`` ones, and above
+2048 ``--parent`` is refused (a parent before the walks runs widebody
+there).
 
 Run on a card (CUDA events, the mean of 20 calls, three rounds each, on
 the model's (B, S, H, D) layout and on contiguous (B, H, S, D) tensors;
@@ -119,11 +129,13 @@ PRESETS = {
     "wide_f32": (4, 8, 2, 2048, 256),
     "d512": (1, 8, 2, 2048, 512),
     "d512_f32": (1, 8, 2, 2048, 512),
+    "d2304": (1, 2, 1, 2048, 2304),
+    "d2304_f32": (1, 2, 1, 2048, 2304),
 }
 #: the model presets (the D <= 128 bodies), the default --shape list
 MODEL_PRESETS = ("yi", "zamba2", "danube", "whisper")
 #: the presets that run float32 operands (the others bfloat16)
-FLOAT32_PRESETS = ("wide_f32", "d512_f32")
+FLOAT32_PRESETS = ("wide_f32", "d512_f32", "d2304_f32")
 
 _EX2 = "s[4 * j + e] = ex2(fmaf(s[4 * j + e], scale_log2, -m[e >> 1]));"
 
@@ -149,12 +161,22 @@ _WIDE_STAGED = """\
       fence_async_smem();
       named_sync(1 + NCONS + w, 128);
       if (tid == 0) {
-        for (int cc = 0; cc < GQ::NC; ++cc)
-          tma_store(&to, qa + cc * GQ::CHUNK,
-                    (CL ? clusterbwd::rank() * D : 0) + cc * GQ::AW, h, row0,
-                    b);
+        if constexpr (WALKS) {                 // the owned slice, if any
+          const int own = clusterbwd::rank() + clusterbwd::size() * walk;
+          if (own < slices)
+            for (int cc = 0; cc < GQ::NC; ++cc)
+              tma_store(&to, qa + cc * GQ::CHUNK, own * D + cc * GQ::AW, h,
+                        row0, b);
+        } else {
+          for (int cc = 0; cc < GQ::NC; ++cc)
+            tma_store(&to, qa + cc * GQ::CHUNK,
+                      (CL ? clusterbwd::rank() * D : 0) + cc * GQ::AW, h,
+                      row0, b);
+        }
         bulk_commit();
         bulk_wait<true>();
+        mbar_arrive(empty_q);
+      } else if constexpr (WALKS) {
         mbar_arrive(empty_q);
       }
 """
@@ -174,6 +196,7 @@ _WIDE_REGS = """\
                                       acc[4 * jj + 2 * h2 + 1] / den[h2]);
         }
       }
+      if constexpr (WALKS) mbar_arrive(empty_q);   // the walks' last Q
 """
 
 PATCHES = {
@@ -209,24 +232,25 @@ PATCHES = {
          "  static constexpr int BK = 64;              // keys per K and V "
          "tile\n")],
     "wide_o_regs": [
-        ("                           int KV, int S, float scale_log2) {",
-         "                           int KV, int S, float scale_log2,\n"
+        ("                           int slices) {",
+         "                           int slices,\n"
          "                           __nv_bfloat16* __restrict__ o, Lay lo,"
          "\n                           int width) {"),
         ("  flash_fwd_bf16_kernel_d256<false><<<grid, F::THREADS, F::SMEM, "
          "stream>>>(\n      mq, mk, mv, mo, lse, work, B, H, KV, S, "
-         "scale * LOG2E);",
+         "scale * LOG2E, 0, 1);",
          "  flash_fwd_bf16_kernel_d256<false><<<grid, F::THREADS, F::SMEM, "
          "stream>>>(\n      mq, mk, mv, mo, lse, work, B, H, KV, S, "
-         "scale * LOG2E,\n      static_cast<__nv_bfloat16*>(o), ly[3], "
-         "width);"),
-        ("      WideL<true>::SMEM, stream, mq, mk, mv, mo, lse, work, B, H, "
-         "KV, S,\n      scale * LOG2E);",
-         "      WideL<true>::SMEM, stream, mq, mk, mv, mo, lse, work, B, H, "
-         "KV, S,\n      scale * LOG2E, static_cast<__nv_bfloat16*>(o), "
+         "scale * LOG2E, 0, 1,\n      static_cast<__nv_bfloat16*>(o), "
          "ly[3], width);"),
-        ("    mbar_init(empty_q, NCONS);", "    mbar_init(empty_q, 128 * NCONS);"),
-        ("        if (tid == 0) mbar_arrive(empty_q);\n", ""),
+        ("                             scale * LOG2E, g, slices);",
+         "                             scale * LOG2E, g, slices,\n"
+         "                             static_cast<__nv_bfloat16*>(o), "
+         "ly[3], width);"),
+        ("    mbar_init(empty_q, WALKS ? 128 * NCONS : NCONS);",
+         "    mbar_init(empty_q, 128 * NCONS);"),
+        ("        if (WALKS || tid == 0) mbar_arrive(empty_q);\n",
+         "        if (WALKS) mbar_arrive(empty_q);\n"),
         (_WIDE_STAGED, _WIDE_REGS),
         ("      mbar_arrive(empty_k + 8 * slot(0));\n      if (walks) {\n",
          "      mbar_arrive(empty_k + 8 * slot(0));\n"
@@ -257,8 +281,27 @@ PATCHES = {
          "        const float alpha = 1.f;\n"),
         ("          const float p = expf(z[c] - m_new);\n",
          "          const float p = z[c] - m_new;\n")],
-    "f32w_no_s": [("        for (int tt = 0; tt < D / 4 / PARTS; ++tt) {",
-                   "        for (int tt = 0; tt < 0; ++tt) {")],
+    "f32w_no_s": [
+        ("          for (int tt = 0; tt < D / 4 / PARTS; ++tt) {\n"
+         "            const int u = D / 4 / PARTS * pq + tt;\n"
+         "            float4 qf[4];\n#pragma unroll\n"
+         "            for (int r = 0; r < 4; ++r)\n"
+         "              qf[r] = lds4(gb, Q_OFF",
+         "          for (int tt = 0; tt < 0; ++tt) {\n"
+         "            const int u = D / 4 / PARTS * pq + tt;\n"
+         "            float4 qf[4];\n#pragma unroll\n"
+         "            for (int r = 0; r < 4; ++r)\n"
+         "              qf[r] = lds4(gb, Q_OFF"),
+        ("            for (int tt = 0; tt < D / 4 / PARTS; ++tt) {\n"
+         "              const int u = D / 4 / PARTS * pq + tt;\n"
+         "              float4 qf[4];\n#pragma unroll\n"
+         "              for (int r = 0; r < 4; ++r)\n"
+         "                qf[r] = lds4(gb, qb",
+         "            for (int tt = 0; tt < 0; ++tt) {\n"
+         "              const int u = D / 4 / PARTS * pq + tt;\n"
+         "              float4 qf[4];\n#pragma unroll\n"
+         "              for (int r = 0; r < 4; ++r)\n"
+         "                qf[r] = lds4(gb, qb")],
     "f32w_no_pv": [("        for (int key = 0; key < BK; ++key) {",
                     "        for (int key = 0; key < 0; ++key) {")],
     "f32w_one_stage": [
@@ -273,6 +316,8 @@ PATCHES["cl_no_xch"] = [*_bwd_ablate.PATCHES["cl_no_xch"],
                          "the pair's sum\n",
                          "      if (C == 0) {                            // "
                          "the pair's sum\n")]
+# the walks' S over one slice (namespace clusterbwd, as the backward's)
+PATCHES["cl_one_slice"] = _bwd_ablate.PATCHES["cl_one_slice"]
 
 
 def variant_source(name: str, parent=None) -> str:
@@ -296,7 +341,8 @@ def forward_notes(log: str) -> list:
     spill bytes; the float32 bodies as ``f32<D>`` (f32body's
     ``flash_fwd_kernel<D>``) and ``f32<256> wide``
     (``flash_fwd_f32_wide_kernel``); the cluster forward's instantiations
-    (CL = true) with `` cluster`` after their body's name."""
+    (CL = true) with `` cluster`` after their body's name, and
+    `` cluster walks`` for the walks' (above 2048)."""
     out, fn = [], None
     for line in log.splitlines():
         body = re.search(r"flash_fwd_bf16_kernelILi(\d+)ELi(\d+)E", line)
@@ -308,6 +354,8 @@ def forward_notes(log: str) -> list:
                 else None)
         if name and re.search(r"(d256|f32_wide_kernel)ILb1E", line):
             name += " cluster"
+        if name and re.search(r"(d256|f32_wide_kernel)ILb1ELb1E", line):
+            name += " walks"
         if "C7520" in line:
             if name:
                 out.append(f"C7520 in {name}: "
@@ -330,16 +378,20 @@ def build(names, parent=None) -> dict:
     """One nvcc per variant, all started together; {variant: the forward
     bodies' ptxas notes}."""
     OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs, notes = {}, {}
     for name in names:
         cu = OUT / f"{name}.cu"
-        cu.write_text(variant_source(name, parent))
+        text = variant_source(name, parent)
+        if (OUT / f"{name}.so").exists() and cu.exists() and \
+                cu.read_text() == text:        # built by an earlier run
+            notes[name] = ["built before, from the same source"]
+            continue
+        cu.write_text(text)
         cmd = [_build._nvcc(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS,
                "-I", str(_build.CSRC), "-o", str(OUT / f"{name}.so"),
                str(cu)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
-    notes = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
@@ -448,11 +500,12 @@ def parse_shape(text: str) -> tuple:
 
 def parent_refusal(shape: str):
     """Why ``--parent`` cannot run at ``--shape`` `shape`, or None: above
-    D = 256 a parent before the cluster forward runs widebody, through
-    another launcher and a workspace this wrapper does not allocate."""
-    if parse_shape(shape)[4] > 256:
-        return ("--parent runs D <= 256 only: above it a parent before the "
-                "cluster forward runs widebody")
+    D = 2048 (more than one walk) a parent before the walks runs
+    widebody, through another launcher and a workspace this wrapper does
+    not allocate."""
+    if parse_shape(shape)[4] > _bwd_ablate.ONE_WALK:
+        return ("--parent runs D <= 2048 only: above it a parent before the "
+                "walks runs widebody")
     return None
 
 
@@ -469,7 +522,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--shape", action="append",
                     help="a preset (yi, zamba2, danube, whisper, wide, "
-                         "wide_f32, d512, d512_f32) "
+                         "wide_f32, d512, d512_f32, d2304, d2304_f32) "
                          "or B,H,KV,S,D; repeatable (default: the four "
                          "model presets)")
     ap.add_argument("--variants",

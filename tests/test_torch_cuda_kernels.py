@@ -745,12 +745,13 @@ def test_flash_f32_bwd_body(dev, rng, D, B, H, KV, S):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [264, 320, 512, 768, 2048])
+@pytest.mark.parametrize("D", [264, 320, 512, 768, 2048, 2304, 4160])
 @pytest.mark.parametrize("B,H,KV,S", [(1, 4, 2, 100), (2, 8, 2, 385)])
 def test_flash_cluster_bwd_body(dev, rng, dtype, D, B, H, KV, S):
-    """The cluster backward (256 < D <= 2048: clusters of ceil(D / 256)
-    blocks, each on a 256-column slice, 264 and 320 with a ragged last
-    slice, 768 three blocks, 2048 eight) on the views of the model's (B,
+    """The cluster backward (every D > 256: clusters of C blocks, each on
+    256-column slices, in G walks, `cluster_walks`; 264 and 320 with a
+    ragged last slice, 768 three blocks, 2048 eight, 2304 two walks of
+    five, 4160 three walks of six) on the views of the model's (B,
     S, H, D) tensors, S ragged against the tiles: within FLASH_TOL of the
     plain version, two runs bit-equal and equal to the contiguous copies'
     run, the gradients in (B, S, H, D) memory, one launch count a call;
@@ -781,9 +782,9 @@ def test_flash_cluster_bwd_body(dev, rng, dtype, D, B, H, KV, S):
     sch = FA._bwd_schedule(B, KV, S, D, dev, dtype)
     kt, qt = (FA.BWD_TILES[256] if dtype == torch.bfloat16
               else FA.BWD_F32_WIDE_TILES)
-    C = -(-D // FA.CLUSTER_WIDTH)
+    C, G = FA.cluster_walks(D)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert (sch["keys"], sch["queries"], sch["C"]) == (kt, qt, C)
+    assert (sch["keys"], sch["queries"], sch["C"], sch["G"]) == (kt, qt, C, G)
     assert sch["items"] == B * KV * -(-S // kt)
     assert 1 <= sch["clusters"] <= sch["items"]
     assert sch["grid"] == C * sch["clusters"] <= sms
@@ -800,20 +801,22 @@ def test_flash_cluster_bwd_body(dev, rng, dtype, D, B, H, KV, S):
     nq = B * H * -(-S // qt)
     acc_cols = FA._bwd_acc_columns(dtype, D)    # each slice's dq tiles
     assert acc_cols == (-(-D // 64) * 64 if dtype == torch.bfloat16 else D)
-    ours = outputs + 4 * B * H * S + 4 * nq * qt * acc_cols + 4 * (C * nq + 1)
+    ours = (outputs + 4 * B * H * S + 4 * nq * qt * acc_cols
+            + 4 * (C * G * nq + G))
     old_scratch = 4 * (B * H + 2 * B * KV) * S * D
     assert extra <= ours + (2 << 20), (extra, ours)
     assert extra < outputs + old_scratch, (extra, outputs, old_scratch)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [264, 320, 512, 768, 2048])
+@pytest.mark.parametrize("D", [264, 320, 512, 768, 2048, 2304, 4160])
 @pytest.mark.parametrize("B,H,KV,S", [(1, 4, 4, 70), (1, 4, 2, 130),
                                       (2, 4, 1, 1), (2, 8, 2, 385)])
 def test_flash_cluster_fwd_body(dev, rng, dtype, D, B, H, KV, S):
-    """The cluster forward (256 < D <= 2048: clusters of ceil(D / 256)
-    blocks, each its dtype's D = 256 body on a 256-column slice, 264 and
-    320 with a ragged last slice, 768 three blocks, 2048 eight) on the
+    """The cluster forward (every D > 256: clusters of C blocks, each its
+    dtype's D = 256 body on 256-column slices, in G walks,
+    `cluster_walks`; 264 and 320 with a ragged last slice, 768 three
+    blocks, 2048 eight, 2304 two walks of five, 4160 three of six) on the
     views of the model's (B, S, H, D) tensors, MHA, GQA and MQA, S ragged
     against the tiles and S = 1: within FLASH_TOL of the plain version,
     lse within 1e-5 of the dense oracle's, two runs bit-equal and equal to
@@ -842,9 +845,10 @@ def test_flash_cluster_fwd_body(dev, rng, dtype, D, B, H, KV, S):
     torch.testing.assert_close(lse, plse, atol=1e-5, rtol=1e-5)
     sch = FA._fwd_schedule(B, H, S, D, dev, dtype)
     rows, keys = FA.TILES[dtype][256]
-    C = -(-D // FA.CLUSTER_WIDTH)
+    C, G = FA.cluster_walks(D)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert (sch["rows"], sch["keys"], sch["C"]) == (rows, keys, C)
+    assert (sch["rows"], sch["keys"], sch["C"], sch["G"]) == (rows, keys, C,
+                                                              G)
     assert sch["items"] == B * H * -(-S // rows)
     assert 1 <= sch["clusters"] <= sch["items"]
     assert sch["grid"] == C * sch["clusters"] <= sms

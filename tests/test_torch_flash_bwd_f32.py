@@ -135,12 +135,11 @@ def test_float32_backward_route(D, route):
     other D <= 128 zero-padded to the next of those, 160 and 256 the
     f32widebwd body in place (tests/test_torch_flash_f32_wide.py holds
     its routes); the operands of both bodies need 16-byte starts and
-    strides (TMA), simplebwd's one element."""
+    strides (TMA), as every backward body's."""
     assert FA._backward_route(torch.float32, D) == route
     q = torch.zeros((1, 1, 1, D))
-    want = 4 if route[0] == "simple" else 16
     assert FA._align(q, route[1], FA.BWD_HEAD_DIMS,
-                     FA.BWD_F32_HEAD_DIMS) == want
+                     FA.BWD_F32_HEAD_DIMS) == 16
 
 
 # ---------------------------------------------------------------------------
@@ -611,16 +610,17 @@ def test_f32_ablate_patches_touch_the_body_alone(name):
 def test_f32_preset_runs_float32():
     """`--shape f32` is yi's shape in float32 operands, and its default
     variants are the float32 body's; `--shape wide_f32` (the wide shape
-    in float32) and `d512_f32` (D = 512 in float32) run float32 too.
-    `--parent` takes the float32 presets at D <= 256, whose bodies
-    (f32bwd, f32widebwd) take the scratch this wrapper allocates, and
-    refuses D = 512, where a parent before the cluster backward runs
+    in float32), `d512_f32` (D = 512 in float32) and `d2304_f32` (D =
+    2304, two walks, in float32) run float32 too.  `--parent` takes the
+    float32 presets up to D = 2048, whose bodies (f32bwd, f32widebwd, the
+    cluster backward at one walk) take the scratch this wrapper
+    allocates, and refuses D = 2304, where a parent before the walks runs
     simplebwd on another scratch."""
     assert BA.PRESETS["f32"] == (4, 32, 4, 2048, 128)
-    assert BA.FLOAT32_PRESETS == ("f32", "wide_f32", "d512_f32")
+    assert BA.FLOAT32_PRESETS == ("f32", "wide_f32", "d512_f32", "d2304_f32")
     assert BA.NAMESPACES["f32"] == "f32bwd"
     assert {"f32_no_dq", "f32_no_exp"} <= set(BA.PATCHES)
-    assert BA.parent_refusal("f32") is None
-    assert BA.parent_refusal("wide_f32") is None
-    with pytest.raises(SystemExit, match="D <= 256"):
-        BA.main(["--shape", "d512_f32", "--parent", "x.cu"])
+    for shape in ("f32", "wide_f32", "d512_f32"):
+        assert BA.parent_refusal(shape) is None
+    with pytest.raises(SystemExit, match="D <= 2048"):
+        BA.main(["--shape", "d2304_f32", "--parent", "x.cu"])

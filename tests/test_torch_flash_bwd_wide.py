@@ -98,9 +98,8 @@ def test_backward_route(D, bf16, f32):
     the bf16bwd bodies; float32 at D <= 128 the f32bwd bodies (other
     widths zero-padded to 16, 32, 64 or 128), at 128 < D <= 256 the
     f32widebwd body (in place when D % 4 == 0, else zero-padded to 256);
-    both dtypes above 256 (up to 2048) the cluster backward, clusters of
-    ceil(D / 256) blocks of the D = 256 bodies, here in place (the
-    correctness-first CUDA-core body simplebwd only above 2048)."""
+    both dtypes above 256 the cluster backward, clusters of the D = 256
+    bodies on 256-column slices (in walks above 2048), here in place."""
     assert FA._backward_route(torch.bfloat16, D) == bf16
     assert FA._backward_route(torch.float32, D) == f32
     assert FA.BWD_HEAD_DIMS == (16, 32, 64, 128, 256)
@@ -531,14 +530,16 @@ def test_wide_ablate_patches_touch_the_body_alone(name):
 def test_ablate_presets_and_parent():
     """The presets name the D <= 128 body's shape, the wide one, the
     float32 bodies' (yi's shape and the wide one in float32) and the
-    cluster backward's (D = 512 in both dtypes), and `--parent` reads the
-    other file as it is."""
+    cluster backward's (D = 512 in both dtypes, and D = 2304 in walks),
+    and `--parent` reads the other file as it is."""
     assert BA.PRESETS == {"yi": (4, 32, 4, 2048, 128),
                           "wide": (4, 8, 2, 2048, 256),
                           "f32": (4, 32, 4, 2048, 128),
                           "wide_f32": (4, 8, 2, 2048, 256),
                           "d512": (1, 8, 2, 2048, 512),
-                          "d512_f32": (1, 8, 2, 2048, 512)}
+                          "d512_f32": (1, 8, 2, 2048, 512),
+                          "d2304": (1, 2, 1, 2048, 2304),
+                          "d2304_f32": (1, 2, 1, 2048, 2304)}
     assert BA.parse_shape("wide") == (4, 8, 2, 2048, 256)
     assert BA.parse_shape("1,2,1,64,160") == (1, 2, 1, 64, 160)
     with pytest.raises(ValueError):

@@ -241,7 +241,8 @@ def test_backward_shared_accesses_are_conflict_free():
                  "lds4(gb, K_OFF + T::at(j, cu));",
                  "st_shared(base + SH_OFF + (r * 4 * U + so) * 16, dqa[r][0],",
                  "const int so = CL ? tid / DCG * U + cu : tid;",
-                 "const int U = CL ? min(DCG, (width + 3) / 4) : DCG;"):
+                 "const int U = CL ? (WALKS ? max(0, min(DCG, (width + 3) / 4))",
+                 "                            : min(DCG, (width + 3) / 4))"):
         assert stmt in body, stmt
     PS, TS, CG, KJ, DCG, QI = (BWD[n] for n in ("PS", "TS", "CG", "KJ",
                                                 "DCG", "QI"))
@@ -307,13 +308,11 @@ def test_float32_routes_above_128(D, fwd, bwd):
     past D), else zero-padded to 256; above 256 the cluster forward and
     the cluster backward (f32wide and f32widebwd on each 256-column
     slice; 257 zero-padded to 260, the next whole 16-byte row).  The
-    TMA-fed bodies need 16-byte starts and strides, the simple one one
-    element."""
+    TMA-fed bodies need 16-byte starts and strides."""
     assert FA._forward_route(torch.float32, D) == fwd
     assert FA._backward_route(torch.float32, D) == bwd
     q = torch.zeros((1, 1, 1, D))
-    want = 4 if fwd[0] == "wide" else 16
-    assert FA._fwd_align(q, *fwd) == want
+    assert FA._fwd_align(q, *fwd) == 16
     assert FA._bwd_align(q, *bwd) == 16
     # the launchers take the same widths
     assert "const bool f32w = !is_bf16 && D > 128 && D <= 256 && D % 4 == 0;" \
@@ -538,8 +537,10 @@ _FWD_PROTOCOL = [
     "mbar_wait(full_k + 8 * s, parity);",
     "mbar_arrive(empty_k + 8 * s);            // K read",
     "if (t == n_kv - 1) mbar_arrive(empty_q);   // Q read",
-    "mbar_wait(full_v + 8 * s, parity);",
-    "mbar_arrive(empty_v + 8 * s);            // V read"]
+    ": full_v + 8 * s;", ": empty_v + 8 * s;",
+    "const uint32_t vpar = WALKS ? (jv >> 1) & 1 : parity;",
+    "mbar_wait(full_vt, vpar);",
+    "mbar_arrive(empty_vt);                   // V read"]
 
 
 def _simulate_fwd(B, H, S, blocks, rng, *, stages=2, fault=None):

@@ -495,7 +495,9 @@ def test_wide_constants_match_the_wrapper():
     assert "err = schedule<256>(B, H, S, &n_items, &grid);" in _SRC
     body = _SRC[_SRC.index("flash_fwd_bf16_kernel_d256(const"):
                 _SRC.index("int launch_wide(")]
-    assert body.count("work_item(item, B, H, n_qt, b, h, qt);") == 2
+    # the producer's and the consumers', in the walks' loops and in the
+    # one-walk loops
+    assert body.count("work_item(item, B, H, n_qt, b, h, qt);") == 4
     assert "if (item == n_items + (int)gridDim.x - 1) atomicExch(work, 0);" \
         in body
     # 64 KB of Q, two 80-key (64-key) K and V tiles of 256 bf16 columns
